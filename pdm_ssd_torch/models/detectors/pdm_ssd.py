@@ -1,0 +1,121 @@
+"""PDM-SSD detector (counterpart of `pdm_ssd_tpu/models/detectors/pdm_ssd.py`):
+point backbone -> vote head -> PDM neck -> BEV convs -> heatmap head, then
+hybrid post-processing with fixed-size outputs."""
+from __future__ import annotations
+
+import copy
+
+import torch
+from torch import nn
+
+from ...ops.selection import topk
+from ...utils.config import as_cfg
+from .. import model_nms
+from ..backbones_2d.base_bev_backbone import BaseBEVBackbone
+from ..backbones_2d.pdm_neck import PDMNeck
+from ..backbones_3d.pointnet2_backbone import PointNet2MSG
+from ..dense_heads.center_head import CenterHead
+from ..dense_heads.point_head_box import PointHeadBox
+from ..model_nms import take_rows
+
+
+class PDMSSD(nn.Module):
+    def __init__(self, model_cfg, num_class: int, dataset_cfg, class_names=None, device=None):
+        super().__init__()
+        cfg = as_cfg(copy.deepcopy(model_cfg))
+        ds_cfg = as_cfg(dataset_cfg)
+        self.model_cfg = cfg
+        self.num_class = num_class
+        pc_range = list(ds_cfg.POINT_CLOUD_RANGE)
+        n_feat = ds_cfg.get('NUM_POINT_FEATURES', 4)
+        bb_name = cfg.BACKBONE_3D.get('NAME', 'PointNet2MSG')
+        if bb_name != 'PointNet2MSG':
+            raise NotImplementedError(f'{bb_name} is not ported yet (ROADMAP Queue 1 item 11)')
+        self.backbone_3d = PointNet2MSG(cfg.BACKBONE_3D, n_feat, pc_range, device=device)
+        self.point_head = None
+        if cfg.get('POINT_HEAD') is not None:
+            if cfg.POINT_HEAD.NAME != 'PointHeadBox':
+                raise NotImplementedError(f'{cfg.POINT_HEAD.NAME} is not ported yet '
+                                          '(ROADMAP Queue 1 item 11)')
+            n_cls = 1 if cfg.POINT_HEAD.get('CLASS_AGNOSTIC', False) else num_class
+            self.point_head = PointHeadBox(cfg.POINT_HEAD, self.backbone_3d.num_point_features,
+                                           n_cls, device=device)
+        self.pdm_neck = self.backbone_2d = self.dense_head = None
+        if cfg.get('PDM_NECK') is not None:
+            neck_cfg = cfg.PDM_NECK
+            if neck_cfg.get('NAME', 'PDMNeck') != 'PDMNeck':
+                raise NotImplementedError(f'{neck_cfg.NAME} is not ported yet '
+                                          '(ROADMAP Queue 1 item 11)')
+            if 'POINT_CLOUD_RANGE' not in neck_cfg:
+                neck_cfg['POINT_CLOUD_RANGE'] = pc_range
+            self.pdm_neck = PDMNeck(neck_cfg, self.backbone_3d.num_point_features, device=device)
+            self.backbone_2d = BaseBEVBackbone(cfg.BACKBONE_2D, self.pdm_neck.num_bev_features,
+                                               device=device)
+            self.dense_head = CenterHead(
+                cfg.DENSE_HEAD, self.backbone_2d.num_bev_features, num_class,
+                grid_size=tuple(neck_cfg.BEV_SIZE), point_cloud_range=tuple(pc_range),
+                voxel_size=tuple(neck_cfg.VOXEL_SIZE[:2]),
+                class_names=tuple(class_names) if class_names else None, device=device)
+        if cfg.POST_PROCESSING.get('TTA_FLIP'):
+            raise NotImplementedError('TTA_FLIP is not ported yet (ROADMAP Queue 1 item 8)')
+
+    def forward(self, batch: dict) -> dict:
+        batch = dict(batch)
+        batch = self.backbone_3d(batch)
+        if self.point_head is not None:
+            batch = self.point_head(batch)
+        if self.pdm_neck is not None:
+            batch = self.pdm_neck(batch)
+            batch = self.backbone_2d(batch)
+            batch = self.dense_head(batch)
+        return batch
+
+    @torch.inference_mode()
+    def predict(self, batch: dict) -> dict:
+        """Forward + hybrid post-processing. The model must be in eval mode."""
+        if self.training:
+            raise RuntimeError('predict needs eval mode (call model.eval())')
+        return self.post_process(self(batch))
+
+    def post_process(self, batch: dict) -> dict:
+        """Heatmap boxes with scores calibrated by the best vote score within
+        CALIBRATION_RADIUS, plus the top VOTE_TOPK vote boxes, through one
+        class-agnostic rotated NMS. Returns (B, P, 7) boxes and (B, P)
+        scores, labels (1-based) and mask."""
+        pp = self.model_cfg.POST_PROCESSING
+        cands = []
+        if self.dense_head is not None:
+            hm = self.dense_head.generate_predicted_boxes(batch)
+            hm_boxes, hm_scores = hm['pred_boxes'], hm['pred_scores']
+            hm_labels, hm_mask = hm['pred_labels'] + 1, hm['pred_mask']
+            if self.point_head is not None and pp.get('SCORE_CALIBRATION', True):
+                pts = batch['point_coords']                     # (B, N, 3)
+                vote_scores = batch['point_cls_scores']         # (B, N)
+                d2 = ((hm_boxes[:, :, None, :2] - pts[:, None, :, :2]) ** 2).sum(dim=-1)
+                radius = pp.get('CALIBRATION_RADIUS', 1.0)
+                near = d2 < radius * radius
+                best_vote = torch.where(near, vote_scores[:, None, :], 0.0).amax(dim=-1)
+                alpha = pp.get('CALIBRATION_ALPHA', 0.5)
+                hm_scores = hm_scores ** (1 - alpha) * torch.maximum(best_vote, hm_scores) ** alpha
+            cands.append((hm_boxes, hm_scores, hm_labels, hm_mask))
+
+        if self.point_head is not None and pp.get('USE_VOTE_BOXES', True) \
+                and 'point_box_preds' in batch:
+            cls_preds, boxes = self.point_head.generate_predicted_boxes(
+                batch['point_coords'], batch['point_cls_preds'], batch['point_box_preds'])
+            scores = torch.sigmoid(cls_preds.amax(dim=-1))
+            labels = torch.argmax(cls_preds, dim=-1) + 1
+            K = min(pp.get('VOTE_TOPK', 256), scores.shape[1])
+            top_scores, top_idx = topk(scores, K)
+            cands.append((take_rows(boxes, top_idx), top_scores, take_rows(labels, top_idx),
+                          torch.ones_like(top_scores, dtype=torch.bool)))
+
+        boxes = torch.cat([c[0][..., :7] for c in cands], dim=1)
+        scores = torch.cat([c[1] for c in cands], dim=1)
+        labels = torch.cat([c[2] for c in cands], dim=1)
+        valid = torch.cat([c[3] for c in cands], dim=1)
+        thresh = pp.get('SCORE_THRESH', 0.1)
+        valid = valid & (scores > thresh)
+        fb, fs, fl, fm = model_nms.dispatch_nms(boxes, scores, labels, valid, pp.NMS_CONFIG,
+                                                self.num_class)
+        return {'pred_boxes': fb, 'pred_scores': fs, 'pred_labels': fl, 'pred_mask': fm}

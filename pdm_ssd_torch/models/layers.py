@@ -1,0 +1,87 @@
+"""Shared building blocks (counterpart of `pdm_ssd_tpu/models/layers.py`).
+
+Channels-last like the JAX package. Submodule names follow flax's automatic
+names (`Dense_0`, `BatchNorm_0`, ...) so that `utils/weights.from_flax` maps
+the parameter tree one to one. flax BatchNorm momentum 0.9 is torch 0.1.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+from torch import nn
+
+
+class BatchNormLast(nn.BatchNorm1d):
+    """BatchNorm over the last axis of a (..., C) tensor."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.reshape(-1, x.shape[-1])).reshape(x.shape)
+
+
+class SharedMLP(nn.Module):
+    """Stack of Linear(bias=False) + BatchNorm(eps 1e-5) + ReLU over the last axis."""
+
+    def __init__(self, in_channels: int, channels: Sequence[int], device=None):
+        super().__init__()
+        self.n = len(channels)
+        c_in = in_channels
+        for j, c in enumerate(channels):
+            self.add_module(f'Dense_{j}', nn.Linear(c_in, c, bias=False, device=device))
+            self.add_module(f'BatchNorm_{j}', BatchNormLast(c, eps=1e-5, momentum=0.1,
+                                                            device=device))
+            c_in = c
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for j in range(self.n):
+            x = getattr(self, f'Dense_{j}')(x)
+            x = torch.relu(getattr(self, f'BatchNorm_{j}')(x))
+        return x
+
+
+class FCStack(nn.Module):
+    """Hidden Linear(bias=False) + BatchNorm(eps 1e-5) + ReLU blocks, then a
+    final biased Linear (`make_fc_layers` analog)."""
+
+    def __init__(self, in_channels: int, hidden: Sequence[int], out_channels: int,
+                 final_bias_init: float = 0.0, device=None):
+        super().__init__()
+        self.n = len(hidden)
+        c_in = in_channels
+        for j, c in enumerate(hidden):
+            self.add_module(f'Dense_{j}', nn.Linear(c_in, c, bias=False, device=device))
+            self.add_module(f'BatchNorm_{j}', BatchNormLast(c, eps=1e-5, momentum=0.1,
+                                                            device=device))
+            c_in = c
+        final = nn.Linear(c_in, out_channels, device=device)
+        final.bias_init = final_bias_init
+        self.add_module(f'Dense_{self.n}', final)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for j in range(self.n):
+            x = getattr(self, f'Dense_{j}')(x)
+            x = torch.relu(getattr(self, f'BatchNorm_{j}')(x))
+        return getattr(self, f'Dense_{self.n}')(x)
+
+
+@torch.no_grad()
+def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Initialise every parameter and buffer from `generator`, in module order:
+    weights uniform in +-1/sqrt(fan_in), biases at the module's `bias_init`
+    (0 by default), BatchNorm at identity. The values do not depend on the
+    model's device."""
+    for mod in model.modules():
+        if isinstance(mod, nn.modules.batchnorm._BatchNorm):
+            mod.weight.fill_(1.0)
+            mod.bias.fill_(0.0)
+            mod.running_mean.fill_(0.0)
+            mod.running_var.fill_(1.0)
+            mod.num_batches_tracked.fill_(0)
+        elif isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+            w = mod.weight
+            bound = 1.0 / w[0].numel() ** 0.5     # torch's fan_in for all three
+            vals = (torch.rand(w.shape, generator=generator) * 2 - 1) * bound
+            w.copy_(vals)
+            if mod.bias is not None:
+                mod.bias.fill_(getattr(mod, 'bias_init', 0.0))
+    return model

@@ -1,0 +1,48 @@
+"""Box coders (counterpart of `pdm_ssd_tpu/ops/coders.py`); the slice needs
+the decode of `PointResidualCoder` only."""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class PointResidualCoder:
+    """Per-point residual coder with class mean sizes (1-indexed by class id);
+    the heading is encoded as cos/sin."""
+    code_size: int = 8
+    mean_size: tuple = ()
+
+    def _anchor_sizes(self, classes: torch.Tensor) -> torch.Tensor:
+        ms = torch.tensor(self.mean_size, dtype=torch.float32, device=classes.device)
+        return ms[torch.clamp(classes.long() - 1, 0, ms.shape[0] - 1)]
+
+    def decode(self, box_encodings: torch.Tensor, points: torch.Tensor,
+               pred_classes: torch.Tensor | None = None) -> torch.Tensor:
+        xt, yt, zt, dxt, dyt, dzt, cost, sint = torch.unbind(box_encodings[..., :8], dim=-1)
+        xa, ya, za = torch.unbind(points[..., :3], dim=-1)
+        dxa, dya, dza = torch.unbind(self._anchor_sizes(pred_classes), dim=-1)
+        diagonal = torch.sqrt(dxa ** 2 + dya ** 2)
+        xg = xt * diagonal + xa
+        yg = yt * diagonal + ya
+        zg = zt * dza + za
+        dxg = torch.exp(dxt) * dxa
+        dyg = torch.exp(dyt) * dya
+        dzg = torch.exp(dzt) * dza
+        rg = torch.atan2(sint, cost)
+        extras = [box_encodings[..., 8 + i] for i in range(box_encodings.shape[-1] - 8)]
+        return torch.stack([xg, yg, zg, dxg, dyg, dzg, rg, *extras], dim=-1)
+
+
+def build_box_coder(name: str, **kwargs):
+    if name != 'PointResidualCoder':
+        raise NotImplementedError(f'box coder {name} is not ported yet '
+                                  '(ROADMAP Queue 1 item 2: ResidualCoder)')
+    if not kwargs.get('use_mean_size', True):
+        raise NotImplementedError('PointResidualCoder without mean sizes is not ported yet '
+                                  '(ROADMAP Queue 1 item 2)')
+    if 'mean_size' in kwargs:
+        kwargs['mean_size'] = tuple(tuple(s) for s in kwargs['mean_size'])
+    fields = {f.name for f in dataclasses.fields(PointResidualCoder)}
+    return PointResidualCoder(**{k: v for k, v in kwargs.items() if k in fields})
