@@ -10,10 +10,11 @@ import torch
 from torch import nn
 
 from ...utils.config import as_cfg
+from ..layers import BatchNorm2d
 
 
 def _bn(c, device):
-    return nn.BatchNorm2d(c, eps=1e-3, momentum=0.01, device=device)
+    return BatchNorm2d(c, eps=1e-3, momentum=0.01, device=device)
 
 
 class BaseBEVBackbone(nn.Module):

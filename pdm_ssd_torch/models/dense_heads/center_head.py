@@ -1,14 +1,15 @@
 """CenterPoint-style heatmap head, the scene-heatmap branch of the hybrid
 head (counterpart of `pdm_ssd_tpu/models/dense_heads/center_head.py`):
-forward and fixed-K decode. Maps are NHWC at the boundaries. Target
-assignment and losses are training work, not ported yet."""
+forward, target assignment and losses for one head group, and fixed-K
+decode. Maps are NHWC at the boundaries."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from ...ops import centernet
+from ...ops import centernet, losses
 from ...utils.config import as_cfg
+from ..layers import BatchNorm2d
 
 
 class SeparateHead(nn.Module):
@@ -22,7 +23,7 @@ class SeparateHead(nn.Module):
             for k in range(spec['num_conv'] - 1):
                 self.add_module(f'{name}_conv{k}', nn.Conv2d(
                     in_channels, in_channels, 3, padding=1, bias=False, device=device))
-                self.add_module(f'{name}_bn{k}', nn.BatchNorm2d(
+                self.add_module(f'{name}_bn{k}', BatchNorm2d(
                     in_channels, eps=1e-5, momentum=0.1, device=device))
             out = nn.Conv2d(in_channels, spec['out_channels'], 3, padding=1, device=device)
             out.bias_init = init_bias if name == 'hm' else 0.0
@@ -52,7 +53,7 @@ class CenterHead(nn.Module):
         self.voxel_size = tuple(voxel_size)
         self.shared_conv = nn.Conv2d(input_channels, cfg.SHARED_CONV_CHANNEL, 3, padding=1,
                                      bias=False, device=device)
-        self.shared_bn = nn.BatchNorm2d(cfg.SHARED_CONV_CHANNEL, eps=1e-5, momentum=0.1,
+        self.shared_bn = BatchNorm2d(cfg.SHARED_CONV_CHANNEL, eps=1e-5, momentum=0.1,
                                         device=device)
         groups = self.groups()
         if len(groups) != 1:
@@ -62,6 +63,8 @@ class CenterHead(nn.Module):
         if any(k in head_dict for k in ('vel', 'iou')):
             raise NotImplementedError("'vel'/'iou' branches are not ported yet "
                                       '(ROADMAP Queue 1 item 7)')
+        if cfg.get('IOU_REG_LOSS', False):
+            raise NotImplementedError('IOU_REG_LOSS is not ported yet (ROADMAP Queue 1 item 7)')
         head_dict['hm'] = dict(out_channels=len(groups[0]), num_conv=cfg.get('NUM_HM_CONV', 2))
         self.head = SeparateHead(cfg.SHARED_CONV_CHANNEL, head_dict, device=device)
 
@@ -78,6 +81,48 @@ class CenterHead(nn.Module):
         shared = torch.relu(self.shared_bn(self.shared_conv(x)))
         batch['center_head_preds'] = [self.head(shared)]
         return batch
+
+    def assign_targets(self, gt_boxes: torch.Tensor, gt_mask: torch.Tensor,
+                       feature_map_size) -> list:
+        """Gaussian heatmap targets of the head group. gt_boxes (B, M, 8) with
+        the global class (1-based) last, gt_mask (B, M) bool,
+        feature_map_size (H, W). Returns a one-element list of target dicts."""
+        cfg = self.cfg.TARGET_ASSIGNER_CONFIG
+        H, W = feature_map_size
+        group = self.groups()[0]
+        gids = torch.tensor(group, dtype=torch.int32, device=gt_boxes.device)
+        cls_g = gt_boxes[..., -1].to(torch.int32)
+        match = cls_g[..., None] == gids
+        in_group = match.any(dim=-1)
+        # the class becomes its 1-based position in the group
+        local = torch.argmax(match.to(torch.int32), dim=-1) + 1
+        gts = torch.cat([gt_boxes[..., :-1],
+                         torch.where(in_group, local, 0).to(gt_boxes.dtype)[..., None]], dim=-1)
+        heatmaps, ret_boxes, inds, masks, src = centernet.assign_center_targets(
+            gts, gt_mask & in_group, num_classes=len(group), feature_map_size=(W, H),
+            feature_map_stride=cfg.FEATURE_MAP_STRIDE, voxel_size=self.voxel_size,
+            point_cloud_range=self.point_cloud_range,
+            gaussian_overlap=cfg.GAUSSIAN_OVERLAP, min_radius=cfg.MIN_RADIUS)
+        return [{'heatmaps': heatmaps, 'target_boxes': ret_boxes, 'inds': inds,
+                 'masks': masks, 'target_boxes_src': src}]
+
+    def get_loss(self, batch: dict, targets) -> tuple:
+        """Heatmap focal loss plus masked L1 on the regression maps gathered at
+        the objects' cells. Returns (loss, {'hm_loss', 'loc_loss'})."""
+        lw = self.cfg.LOSS_CONFIG.LOSS_WEIGHTS
+        order = self.cfg.SEPARATE_HEAD_CFG.HEAD_ORDER
+        preds = batch['center_head_preds'][0]
+        tgt = targets[0] if isinstance(targets, (list, tuple)) else targets
+        hm = torch.sigmoid(preds['hm']).clamp(1e-4, 1 - 1e-4)
+        hm_loss = losses.centernet_focal_loss(hm.permute(0, 3, 1, 2),
+                                              tgt['heatmaps']) * lw['cls_weight']
+        pred_boxes = torch.cat([preds[k] for k in order], dim=-1)
+        B, H, W, D = pred_boxes.shape
+        gathered = losses.gather_feat(pred_boxes.reshape(B, H * W, D), tgt['inds'])
+        reg = losses.centernet_reg_loss(gathered, tgt['masks'], tgt['target_boxes'])
+        code_weights = torch.tensor(lw['code_weights'], dtype=reg.dtype, device=reg.device)
+        loc_loss = (reg * code_weights).sum() * lw['loc_weight']
+        return hm_loss + loc_loss, {'hm_loss': hm_loss, 'loc_loss': loc_loss}
 
     def generate_predicted_boxes(self, batch: dict) -> dict:
         """Fixed-K decode; labels are 0-based global class ids."""

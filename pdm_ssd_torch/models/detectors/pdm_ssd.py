@@ -70,6 +70,28 @@ class PDMSSD(nn.Module):
             batch = self.dense_head(batch)
         return batch
 
+    def get_training_loss(self, batch: dict) -> tuple:
+        """Targets and losses of both heads on a forward's output. Returns
+        (loss, tb) with every head's entries and 'loss' in `tb`."""
+        tb = {}
+        loss = torch.zeros((), dtype=torch.float32, device=batch['points'].device)
+        if self.point_head is not None:
+            head_loss, head_tb = self.point_head.get_loss(
+                batch, self.point_head.assign_targets(batch))
+            loss, tb = loss + head_loss, {**tb, **head_tb}
+        if self.dense_head is not None:
+            H, W = batch['spatial_features_2d'].shape[1:3]
+            targets = self.dense_head.assign_targets(batch['gt_boxes'], batch['gt_mask'], (H, W))
+            head_loss, head_tb = self.dense_head.get_loss(batch, targets)
+            loss, tb = loss + head_loss, {**tb, **head_tb}
+        tb['loss'] = loss
+        return loss, tb
+
+    def forward_with_loss(self, batch: dict) -> tuple:
+        """Forward, target assignment and losses: (loss, tb). BatchNorm uses
+        batch statistics when the model is in training mode."""
+        return self.get_training_loss(self(batch))
+
     @torch.inference_mode()
     def predict(self, batch: dict) -> dict:
         """Forward + hybrid post-processing. The model must be in eval mode."""

@@ -3,6 +3,10 @@
 Channels-last like the JAX package. Submodule names follow flax's automatic
 names (`Dense_0`, `BatchNorm_0`, ...) so that `utils/weights.from_flax` maps
 the parameter tree one to one. flax BatchNorm momentum 0.9 is torch 0.1.
+
+In training mode the BatchNorm layers here update the running variance with
+the biased batch variance, as flax does; torch's own update uses the
+unbiased one (larger by n / (n - 1) for n values per channel).
 """
 from __future__ import annotations
 
@@ -10,9 +14,35 @@ from typing import Sequence
 
 import torch
 from torch import nn
+from torch.nn import functional as F
 
 
-class BatchNormLast(nn.BatchNorm1d):
+class _BiasedVarianceUpdate:
+    """Mixin for torch BatchNorm classes: in training mode it normalises as
+    torch does, lets torch write its running-variance update into a scratch
+    copy, and rescales the batch term of that update from the unbiased to
+    the biased variance (no second pass over the activations)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not (self.training and self.track_running_stats):
+            return super().forward(x)
+        keep = 1.0 - self.momentum
+        old = self.running_var * keep
+        scratch = self.running_var.clone()      # autograd keeps this one
+        y = F.batch_norm(x, self.running_mean, scratch, self.weight, self.bias, True,
+                         self.momentum, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            self.running_var.copy_(old + (scratch - old) * ((n - 1) / n))
+            self.num_batches_tracked.add_(1)
+        return y
+
+
+class BatchNorm2d(_BiasedVarianceUpdate, nn.BatchNorm2d):
+    """BatchNorm over the channels of an NCHW map."""
+
+
+class BatchNormLast(_BiasedVarianceUpdate, nn.BatchNorm1d):
     """BatchNorm over the last axis of a (..., C) tensor."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

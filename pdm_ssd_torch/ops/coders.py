@@ -1,5 +1,5 @@
-"""Box coders (counterpart of `pdm_ssd_tpu/ops/coders.py`); the slice needs
-the decode of `PointResidualCoder` only."""
+"""Box coders (counterpart of `pdm_ssd_tpu/ops/coders.py`):
+`PointResidualCoder` with class mean sizes, encode and decode."""
 from __future__ import annotations
 
 import dataclasses
@@ -17,6 +17,23 @@ class PointResidualCoder:
     def _anchor_sizes(self, classes: torch.Tensor) -> torch.Tensor:
         ms = torch.tensor(self.mean_size, dtype=torch.float32, device=classes.device)
         return ms[torch.clamp(classes.long() - 1, 0, ms.shape[0] - 1)]
+
+    def encode(self, gt_boxes: torch.Tensor, points: torch.Tensor,
+               gt_classes: torch.Tensor) -> torch.Tensor:
+        """gt_boxes (..., 7 + E), points (..., 3), gt_classes (...) 1-indexed ->
+        (..., 8 + E): offsets over the mean size's diagonal and height, log
+        size ratios, cos and sin of the heading, then the extras."""
+        sizes = gt_boxes[..., 3:6].clamp(min=1e-5)
+        xg, yg, zg = torch.unbind(gt_boxes[..., :3], dim=-1)
+        dxg, dyg, dzg = torch.unbind(sizes, dim=-1)
+        rg = gt_boxes[..., 6]
+        xa, ya, za = torch.unbind(points[..., :3], dim=-1)
+        dxa, dya, dza = torch.unbind(self._anchor_sizes(gt_classes), dim=-1)
+        diagonal = torch.sqrt(dxa ** 2 + dya ** 2)
+        extras = [gt_boxes[..., 7 + i] for i in range(gt_boxes.shape[-1] - 7)]
+        return torch.stack([(xg - xa) / diagonal, (yg - ya) / diagonal, (zg - za) / dza,
+                            torch.log(dxg / dxa), torch.log(dyg / dya), torch.log(dzg / dza),
+                            torch.cos(rg), torch.sin(rg), *extras], dim=-1)
 
     def decode(self, box_encodings: torch.Tensor, points: torch.Tensor,
                pred_classes: torch.Tensor | None = None) -> torch.Tensor:

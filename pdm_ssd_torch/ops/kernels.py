@@ -1,10 +1,11 @@
 """Build and load the hand-written CUDA kernels of the port.
 
 The sources in `pdm_ssd_torch/csrc/` have a plain C interface. At first use
-they are compiled with `nvcc` for `sm_90a` into one shared library under
+each is compiled with `nvcc` for `sm_90a` into its own shared library under
 `build/torch_kernels/` (listed in `.gitignore`), named by a hash of the
-sources and flags, and loaded with `ctypes`. A missing compiler or a failed
-build raises: there is no fallback for CUDA tensors.
+source and the flags; the compilers of all sources run side by side. The
+libraries are loaded with `ctypes`. A missing compiler or a failed build
+raises: there is no fallback for CUDA tensors.
 """
 from __future__ import annotations
 
@@ -14,16 +15,33 @@ import os
 import shutil
 import subprocess
 import threading
+import types
 from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parents[1] / 'csrc'
 _BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'torch_kernels'
-SOURCES = ('fps.cu',)
+SOURCES = ('fps.cu', 'group.cu')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
+_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# entry points of each source: name -> argument types (every one returns int)
+_ENTRY_POINTS = {
+    'fps.cu': {
+        'fps_launch': [_P, _P, _I, _I, _I, _P],
+        'fps_max_points': [],
+    },
+    'group.cu': {
+        'window_select_max_branches': [],
+        'window_select_launch': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                 _P, _P, _P, _P, _P, _P],
+        'gather_rows_launch': [_P, _P, _P, _I, _I, _I, _I, _L, _P],
+        'scatter_add_rows_launch': [_P, _P, _P, _I, _I, _I, _I, _P],
+    },
+}
+
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
+_lib: types.SimpleNamespace | None = None
 build_log = ''
 
 
@@ -39,40 +57,58 @@ def _nvcc() -> str:
     return found
 
 
-def library_path() -> Path:
+def library_path(source: str) -> Path:
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update((_CSRC / name).read_bytes())
-    return _BUILD_DIR / f'pdm_ssd_torch_kernels_{h.hexdigest()[:16]}.so'
+    h.update((_CSRC / source).read_bytes())
+    return _BUILD_DIR / f'{Path(source).stem}_{h.hexdigest()[:16]}.so'
 
 
-def build() -> Path:
-    """Compile the sources if the library for their hash is missing."""
+def build() -> dict:
+    """Compile every source whose library is missing, all at once.
+    Returns {source: library path}."""
     global build_log
-    so = library_path()
-    if so.exists():
-        return so
+    paths = {s: library_path(s) for s in SOURCES}
+    missing = [s for s, so in paths.items() if not so.exists()]
+    if not missing:
+        return paths
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_suffix(f'.{os.getpid()}.tmp')
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), *(str(_CSRC / s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    build_log = res.stdout + res.stderr
-    if res.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({res.returncode}):\n{build_log}')
-    os.replace(tmp, so)
-    return so
+    nvcc = _nvcc()
+    procs = {}
+    for s in missing:
+        tmp = paths[s].with_suffix(f'.{os.getpid()}.tmp')
+        procs[s] = (tmp, subprocess.Popen([nvcc, *NVCC_FLAGS, '-o', str(tmp), str(_CSRC / s)],
+                                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                          text=True))
+    failed = []
+    for s, (tmp, proc) in procs.items():
+        try:
+            out, _ = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+            out += '\nnvcc timed out'
+        build_log += f'--- {s}\n{out}'
+        if proc.returncode != 0:
+            failed.append(s)
+        else:
+            os.replace(tmp, paths[s])
+    if failed:
+        raise RuntimeError(f'nvcc failed for {failed}:\n{build_log}')
+    return paths
 
 
-def load() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+def load() -> types.SimpleNamespace:
+    """The kernels' C entry points, built on first call."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            lib.fps_launch.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                                       ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            lib.fps_launch.restype = ctypes.c_int
-            lib.fps_max_points.argtypes = []
-            lib.fps_max_points.restype = ctypes.c_int
-            _lib = lib
+            fns = types.SimpleNamespace()
+            for source, so in build().items():
+                cdll = ctypes.CDLL(str(so))
+                for name, argtypes in _ENTRY_POINTS[source].items():
+                    fn = getattr(cdll, name)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                    setattr(fns, name, fn)
+            _lib = fns
         return _lib

@@ -17,8 +17,11 @@ The contract is the JAX package's:
 
 The port's table holds point indices, and every payload is row-gathered
 after selection by those indices (the JAX package's path for wide
-payloads). Ranks are an exclusive `cumsum` over the candidate axis, and the
-selection is a scatter by rank. Coordinates stay float32 (the JAX package
+payloads). The table is built here in PyTorch (a sort, a running maximum and
+an index scatter), as the JAX package builds its table outside its kernels.
+Selection, gather and the gather's backward go through `ops/dispatch.py`:
+the Hopper kernels of `csrc/group.cu` on CUDA tensors, their plain versions
+in `ops/group.py` on CPU tensors. Coordinates stay float32 (the JAX package
 extracts them in bf16).
 """
 from __future__ import annotations
@@ -26,6 +29,8 @@ from __future__ import annotations
 from typing import Sequence
 
 import torch
+
+from . import dispatch
 
 
 def cell_ids(xy: torch.Tensor, cell_size: float, grid_wh: tuple, pc_min) -> torch.Tensor:
@@ -47,7 +52,7 @@ def grid_dims(pc_range, cell_size: float) -> tuple:
 
 def build_slot_table(xyz: torch.Tensor, cell_size: float, grid_wh: tuple, cap: int,
                      pc_min) -> torch.Tensor:
-    """(B, N, 3) -> (B, n_cells + 1, cap) int64 point index per slot, -1 where
+    """(B, N, 3) -> (B, n_cells + 1, cap) int32 point index per slot, -1 where
     empty. Slots are ranked by original point index within each cell."""
     B, N, _ = xyz.shape
     W, H = grid_wh
@@ -65,69 +70,33 @@ def build_slot_table(xyz: torch.Tensor, cell_size: float, grid_wh: tuple, cap: i
     boff = (torch.arange(B, device=dev) * (n_cells + 1))[:, None]
     dump = B * (n_cells + 1) * cap
     flat = torch.where(keep, (boff + cell_sorted) * cap + rank, dump)
-    table = torch.full((dump + 1,), -1, dtype=torch.long, device=dev)
-    table[flat.reshape(-1)] = order.reshape(-1)
+    table = torch.full((dump + 1,), -1, dtype=torch.int32, device=dev)
+    table[flat.reshape(-1)] = order.reshape(-1).to(torch.int32)
     return table[:dump].view(B, n_cells + 1, cap)
 
 
-def window_candidates(table: torch.Tensor, new_xyz: torch.Tensor, cell_size: float,
-                      grid_wh: tuple, pc_min) -> torch.Tensor:
-    """Point indices of each center's 3x3 cell window: (B, M, 9*cap), -1 where
-    empty. Out-of-range centers read the empty dump row."""
-    B, n_rows, cap = table.shape
-    W, _ = grid_wh
-    n_cells = n_rows - 1
-    M = new_xyz.shape[1]
-    cc = cell_ids(new_xyz, cell_size, grid_wh, pc_min)            # (B, M)
-    rows = []
-    for dy in (-1, 0, 1):
-        for dx in (-1, 0, 1):
-            rows.append(torch.where(cc == n_cells, cc,
-                                    (cc + dy * W + dx).clamp(0, n_cells)))
-    rows = torch.stack(rows, dim=-1)                              # (B, M, 9)
-    boff = (torch.arange(B, device=table.device) * n_rows)[:, None, None]
-    cand = table.reshape(B * n_rows, cap)[(rows + boff).reshape(-1)]
-    return cand.reshape(B, M, 9 * cap)
+class GatherRows(torch.autograd.Function):
+    """Row gather whose backward is the row scatter-add.
 
+    features (B, N, C), idx (B, R) -> (B, R, C); an index outside [0, N)
+    reads a zero row and receives no gradient. On CUDA tensors the forward
+    launches `gather_rows` and the backward `scatter_add_rows`
+    (`csrc/group.cu`); on CPU tensors both run their plain versions. The
+    backward launches nothing when `features` needs no gradient. Unlike the
+    JAX package's `gather_rows_mm`, the gradient is not rounded to bf16."""
 
-def flat_gather(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """features (B, N, C), idx (B, ...) -> (B, ..., C)."""
-    B, N, C = features.shape
-    boff = (torch.arange(B, device=idx.device) * N).reshape((B,) + (1,) * (idx.dim() - 1))
-    return features.reshape(B * N, C)[(idx + boff).reshape(-1)].reshape(*idx.shape, C)
+    @staticmethod
+    def forward(ctx, features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(idx)
+        ctx.n_rows = features.shape[1]
+        return dispatch.gather_rows(features, idx)
 
-
-def window_group(cand: torch.Tensor, xyz: torch.Tensor, new_xyz: torch.Tensor,
-                 radii: Sequence[float], nsamples: Sequence[int]):
-    """Per-branch selection over the candidate window.
-
-    Returns a list over branches of (grouped_rel_xyz (B, M, K, 3),
-    grouped_idx (B, M, K) int64, hit (B, M) bool)."""
-    valid = cand >= 0
-    cand0 = cand.clamp(min=0)
-    rel = flat_gather(xyz, cand0) - new_xyz[:, :, None, :]        # (B, M, 9c, 3)
-    rx, ry, rz = rel[..., 0], rel[..., 1], rel[..., 2]
-    d2 = rx * rx + ry * ry + rz * rz
-    B, M, NC = cand.shape
-    cand_pos = torch.arange(NC, device=cand.device).expand(B, M, NC)
-    outs = []
-    for radius, K in zip(radii, nsamples):
-        within = (d2 < radius * radius) & valid
-        w = within.long()
-        rank = torch.cumsum(w, dim=-1) - w                        # exclusive
-        hits = w.sum(dim=-1, keepdim=True)                        # (B, M, 1)
-        slot = torch.where(within & (rank < K), rank, K)
-        sel = torch.zeros((B, M, K + 1), dtype=torch.long, device=cand.device)
-        sel.scatter_(2, slot, cand_pos)
-        sel = sel[..., :K]
-        k_iota = torch.arange(K, device=cand.device)
-        sel = torch.where(k_iota < hits, sel, sel[..., :1])       # first-hit backfill
-        hit = hits[..., 0] > 0
-        g_idx = torch.where(hit[..., None], cand0.gather(2, sel), 0)
-        g_rel = rel.gather(2, sel[..., None].expand(-1, -1, -1, 3))
-        g_rel = torch.where(hit[..., None, None], g_rel, 0.0)
-        outs.append((g_rel, g_idx, hit))
-    return outs
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        if not ctx.needs_input_grad[0]:
+            return None, None
+        (idx,) = ctx.saved_tensors
+        return dispatch.scatter_add_rows(grad, idx, ctx.n_rows), None
 
 
 def fused_query_group(radii: Sequence[float], nsamples: Sequence[int],
@@ -143,15 +112,20 @@ def fused_query_group(radii: Sequence[float], nsamples: Sequence[int],
     gw = grid_dims(pc_range, cs)
     pc_min = (float(pc_range[0]) - cs, float(pc_range[1]) - cs)
     table = build_slot_table(xyz, cs, gw, cap, pc_min)
-    cand = window_candidates(table, new_xyz, cs, gw, pc_min)
+    # the centers are bucketed by the code that bucketed the points
+    center_cells = cell_ids(new_xyz, cs, gw, pc_min)
+    selected = dispatch.window_select(table, center_cells, gw[0], xyz, new_xyz, radii, nsamples)
+    B, M = new_xyz.shape[:2]
     outs = []
-    for bi, (rel, idx, hit) in enumerate(window_group(cand, xyz, new_xyz, radii, nsamples)):
+    for bi, (rel, idx, hit) in enumerate(selected):
         gf = None
         if features is not None:
             f = features
             if feat_slices is not None and feat_slices[bi] is not None:
                 s0, s1 = feat_slices[bi]
                 f = features[..., s0:s1]
-            gf = torch.where(hit[..., None, None], flat_gather(f, idx), 0.0)
+            # an empty ball reads index -1: a zero row that takes no gradient
+            rows = torch.where(hit[..., None], idx, -1).reshape(B, -1)
+            gf = GatherRows.apply(f, rows).reshape(B, M, -1, f.shape[-1])
         outs.append((rel, gf, idx, hit))
     return outs

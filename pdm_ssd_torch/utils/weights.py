@@ -1,4 +1,4 @@
-"""flax -> torch weights.
+"""flax <-> torch weights.
 
 The port's module and parameter names mirror the JAX package's flax tree
 (`backbone_3d.sa_0.agg.pre_feat_0`, `dense_head.head.hm_out`, ...), so one
@@ -11,6 +11,9 @@ generic rule set maps every leaf. The layout rules are those of
   (in, out, kh, kw), spatially flipped
 - BatchNorm scale / bias / mean / var -> weight / bias / running_mean /
   running_var
+
+`to_flax` applies the same rules the other way, for a model's tensors or for
+any tensors keyed like its state dict (gradients, for one).
 
 Epsilon and momentum are properties of the torch modules, which the port
 builds with the JAX package's values.
@@ -83,4 +86,43 @@ def from_flax(variables: Mapping, model: nn.Module) -> dict:
     for k in target:
         if k not in out:
             out[k] = target[k].clone()
+    return out
+
+
+def _to_flax_leaf(mod: nn.Module, name: str, arr: np.ndarray):
+    if isinstance(mod, nn.modules.batchnorm._BatchNorm):
+        inv = {v: k for k, v in {**_BN_PARAM, **_BN_STAT}.items()}
+        if name in inv:
+            return inv[name], arr
+    elif name == 'bias':
+        return 'bias', arr
+    elif name == 'weight':
+        if isinstance(mod, nn.Linear):
+            return 'kernel', arr.T
+        if isinstance(mod, nn.ConvTranspose2d):
+            return 'kernel', arr.transpose(2, 3, 0, 1)[::-1, ::-1]
+        if isinstance(mod, nn.Conv2d):
+            return 'kernel', arr.transpose(2, 3, 1, 0)
+    raise KeyError(f'no rule for tensor {name!r} of {type(mod).__name__}')
+
+
+def to_flax(model: nn.Module, tensors: Mapping | None = None) -> dict:
+    """The inverse of `from_flax`: `{'params', 'batch_stats'}` as nested dicts
+    of numpy arrays in the JAX package's layout. `tensors` maps state-dict
+    keys to the tensors to convert (default: the model's own state dict);
+    pass `{name: p.grad}` for a gradient tree. `num_batches_tracked`
+    counters have no flax leaf and are skipped."""
+    modules = dict(model.named_modules())
+    if tensors is None:
+        tensors = model.state_dict()
+    out = {'params': {}, 'batch_stats': {}}
+    for key, t in tensors.items():
+        path, _, name = key.rpartition('.')
+        if name == 'num_batches_tracked':
+            continue
+        leaf, arr = _to_flax_leaf(modules[path], name, t.detach().cpu().numpy())
+        node = out['batch_stats' if leaf in _BN_STAT else 'params']
+        for part in path.split('.'):
+            node = node.setdefault(part, {})
+        node[leaf] = np.array(arr, order='C', copy=True)
     return out

@@ -8,6 +8,7 @@ JAX runs jitted.
 """
 from __future__ import annotations
 
+import contextlib
 from collections.abc import Mapping
 
 import jax
@@ -51,6 +52,36 @@ def randomize_variables(variables: Mapping, seed: int) -> dict:
             'batch_stats': walk(variables['batch_stats'], True)}
 
 
+@contextlib.contextmanager
+def jax_bf16_extraction():
+    """Make the port round what the JAX package's selection extracts in bf16
+    (pdm_ssd_tpu/ops/sa_fused.py:212-238): the grouped relative xyz at every
+    SA level, and the payload of a level that carries it in the table
+    (8 channels or fewer: the raw intensity at level 1). With it the two
+    forwards differ by float32 rounding only, so a test can hold the port's
+    algorithm tightly; without it they differ by that extraction."""
+    from pdm_ssd_torch.ops import dispatch, sa_fused
+
+    def bf16(x):
+        return x.to(torch.bfloat16).to(torch.float32)
+
+    select, group = dispatch.window_select, sa_fused.fused_query_group
+
+    def rounded_select(*args, **kwargs):
+        return [(bf16(rel), idx, hit) for rel, idx, hit in select(*args, **kwargs)]
+
+    def rounded_group(radii, nsamples, xyz, features, *args, **kwargs):
+        if features is not None and features.shape[-1] <= 8:
+            features = bf16(features)
+        return group(radii, nsamples, xyz, features, *args, **kwargs)
+
+    dispatch.window_select, sa_fused.fused_query_group = rounded_select, rounded_group
+    try:
+        yield
+    finally:
+        dispatch.window_select, sa_fused.fused_query_group = select, group
+
+
 def to_numpy(tree):
     """jax / torch arrays (nested in dicts and lists) -> numpy."""
     if isinstance(tree, Mapping):
@@ -76,11 +107,13 @@ def to_torch(tree):
 
 class FlagshipPair:
     """The tiny flagship in both packages with the same weights, plus the
-    JAX forward of one batch (all intermediates) as numpy."""
+    JAX forward of one batch (all intermediates) as numpy. `batch` also
+    holds the batch's `gt_boxes` and `gt_mask` for the training path."""
 
     def __init__(self, B: int = 2, N: int = 512, seed: int = 0):
         self.jax_model, self.cfg = graft._flagship(tiny=True)
-        self.points = make_points(B, N, seed)
+        self.batch = graft._make_batch(B, N, seed=seed)
+        self.points = self.batch['points']
         init = jax.jit(lambda p: self.jax_model.init(
             {'params': jax.random.PRNGKey(seed)}, {'points': p}, training=False))
         self.variables = randomize_variables(init(self.points), seed + 1)
@@ -93,3 +126,29 @@ class FlagshipPair:
     def jax_method(self, method, *args):
         fn = jax.jit(lambda v, *a: self.jax_model.apply(v, *a, method=method))
         return to_numpy(fn(self.variables, *args))
+
+    def jax_loss_and_grads(self, variables=None, batch=None):
+        """Training-mode `forward_with_loss` and its gradient in the JAX
+        package: (loss, tb, grads, new batch_stats) as numpy."""
+        variables = self.variables if variables is None else variables
+        batch = self.batch if batch is None else batch
+
+        def loss_fn(params, stats, b):
+            (loss, tb), mutated = self.jax_model.apply(
+                {'params': params, 'batch_stats': stats}, b, training=True,
+                mutable=['batch_stats'], method=self.jax_model.forward_with_loss)
+            return loss, (tb, mutated['batch_stats'])
+
+        fn = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+        (loss, (tb, stats)), grads = fn(variables['params'], variables['batch_stats'], batch)
+        return to_numpy(loss), to_numpy(tb), to_numpy(grads), to_numpy(stats)
+
+    def jax_train_forward(self):
+        """The JAX forward in training mode (batch statistics), as numpy,
+        with the batch's ground truth carried through."""
+        fn = jax.jit(lambda v, b: self.jax_model.apply(v, b, training=True,
+                                                       mutable=['batch_stats'])[0])
+        return to_numpy(fn(self.variables, self.batch))
+
+    def torch_batch(self) -> dict:
+        return {k: torch.from_numpy(v) for k, v in self.batch.items()}
