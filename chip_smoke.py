@@ -9,8 +9,11 @@ non-zero exit):
    side by side);
 3. FPS kernel against the plain PyTorch FPS on the card, exact index
    equality, at the flagship shape (8, 16384) -> 4096, on a tie-heavy cloud
-   (duplicated grid points and a zero-padded tail) and at an odd N; times
-   both (median of 5, CUDA events);
+   (duplicated grid points and a zero-padded tail), at an odd N and at the
+   three shapes of a PointRCNN predict ((4, 4096) -> 1024 in the backbone;
+   400 clouds of 512 points -> 128, some of them 512 copies of the origin,
+   and the 128 picked -> 32 in the ROI stack); times both (median of 5, CUDA
+   events);
 4. the flagship (`configs/kitti_models/pdm_ssd_point.yaml`, seeded random
    weights and BatchNorm statistics) at B=2, N=4096: forward on CUDA against
    the same model on the CPU, TF32 off;
@@ -31,7 +34,27 @@ non-zero exit):
 8. five training steps of the unmodified flagship at B=8, N=16384 with 8
    boxes per cloud through `make_train_step`: finite losses, the last below
    the first, parameters changed, the kernels' launches per step, ms per
-   step and the peak of allocated device memory.
+   step and the peak of allocated device memory;
+9. the ball-query kernel against its plain version on the card, exact index
+   equality, at the shapes PointRCNN gives it (`configs/kitti_models/
+   pointrcnn.yaml`: the backbone's three SA levels at B=4, the ROI head's two
+   at 400 clouds), with a mask, at a ragged shape (odd N and M, three radii,
+   K = 5/70/3, centers far outside the cloud, duplicated points) and on
+   clouds of 512 origins; at each shape the row gather by the selected
+   indices, kernel against plain version, exact, of xyz and of features in
+   the widths and layouts the model gathers (channel slices of the (B, N, 4)
+   cloud and of the 5-channel pooled block, 96, 256 and 128 channels); times
+   kernel and plain version over the backbone's levels, and on a denser cloud
+   that fills the balls; the bound is the bytes or the distance tests in a 3x3
+   window of radius-sized cells, counted from the run's data, and the tests of
+   the kernel's own walk stand beside it;
+10. PointRCNN with its FP list made whole (`synthetic.pointrcnn_fp3`) at B=2,
+   N=4096, `NPOINTS` cut to [1024, 256, 64]: forward on CUDA against the CPU,
+   TF32 off, the same number of proposals kept per cloud, the per-ROI
+   outputs compared ROI by ROI after matching the proposals by box;
+11. the same model's `predict` at full width, B=4, N=16384: shapes, finite
+   values, kernel launches counted in that run, frames/s and peak memory;
+   then one `predict` of the file as shipped: shapes and finite values.
 
 The line before the last is the card's name and power limit; before it, one
 JSON line describing each kernel. The last line is
@@ -72,9 +95,17 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 # launches of one full-width training step and of one predict
 TRAIN_LAUNCHES = {'farthest_point_sample': 1, 'window_select': 3, 'gather_rows': 6,
-                  'scatter_add_rows': 4}
+                  'scatter_add_rows': 4, 'ball_query': 0}
 PREDICT_LAUNCHES = {'farthest_point_sample': 1, 'window_select': 3, 'gather_rows': 6,
-                    'scatter_add_rows': 0}
+                    'scatter_add_rows': 0, 'ball_query': 0}
+# one PointRCNN predict. FPS: backbone level 1 is 'random' without a generator
+# (a prefix), level 2 runs FPS 4096 -> 1024, level 3 is its prefix; the ROI
+# stack runs FPS 512 -> 128 and 128 -> 32. Ball query: one launch per SA level,
+# 3 in the backbone and 2 in the ROI stack. Row gather: xyz and features per
+# radius, 3 levels x 2 radii and 2 levels x 1 radius.
+POINTRCNN_CFG = 'configs/kitti_models/pointrcnn.yaml'
+POINTRCNN_PREDICT_LAUNCHES = {'farthest_point_sample': 3, 'window_select': 0, 'gather_rows': 16,
+                              'scatter_add_rows': 0, 'ball_query': 5}
 
 
 def log(phase: str, msg: str) -> None:
@@ -122,12 +153,36 @@ def tie_heavy_xyz(B: int, N: int, seed: int) -> np.ndarray:
     return out
 
 
+def roi_clouds(n_clouds: int, n_points: int, seed: int) -> np.ndarray:
+    """Canonical ROI clouds as PointRCNN's head pools them: points of a
+    car-sized box around the origin, cyclic repeats where the box held fewer
+    points than slots, and every seventh cloud an empty ROI: all origin."""
+    rng = np.random.RandomState(seed)
+    out = rng.uniform([-2.0, -0.8, -0.8], [2.0, 0.8, 0.8],
+                      (n_clouds, n_points, 3)).astype(np.float32)
+    for c in range(n_clouds):
+        held = int(rng.randint(1, 2 * n_points))
+        if held < n_points:
+            out[c] = out[c, np.arange(n_points) % held]
+    out[::7] = 0.0
+    return out
+
+
 def fps_phase(fps_mod, plain, kitti_points) -> dict:
+    # PointRCNN launches FPS three times in a predict: backbone level 2 on the
+    # 4096-point prefix of a 16384-point cloud, and the ROI stack on 400
+    # canonical clouds of 512 points, then on the 128 points picked there
     cases = [('flagship', torch.from_numpy(kitti_points(8, 16384, 1)[..., :3].copy()), 4096),
              ('tie-heavy', torch.from_numpy(tie_heavy_xyz(8, 16384, 2)), 4096),
-             ('odd N', torch.from_numpy(kitti_points(3, 10007, 3)[..., :3].copy()), 2000)]
+             ('odd N', torch.from_numpy(kitti_points(3, 10007, 3)[..., :3].copy()), 2000),
+             ('PointRCNN SA level 2',
+              torch.from_numpy(kitti_points(4, 16384, 12)[:, :4096, :3].copy()), 1024),
+             ('ROI stack level 1', torch.from_numpy(roi_clouds(400, 512, 4)), 128),
+             ('ROI stack level 2', None, 32)]
     max_err = 0
     for name, xyz, npoint in cases:
+        if xyz is None:     # the points the previous case picked, in pick order
+            xyz = torch.gather(x, 1, got.long()[..., None].expand(-1, -1, 3)).cpu()
         x = xyz.cuda().contiguous()
         got = fps_mod.farthest_point_sample_cuda(x, npoint)
         torch.cuda.synchronize()
@@ -166,33 +221,98 @@ def flatten(out: dict) -> dict:
     return flat
 
 
-def cuda_vs_cpu_phase(cfg, dispatch, synthetic) -> None:
+ROI_KEYS = ('rois', 'roi_scores', 'roi_labels', 'roi_mask', 'rcnn_cls_preds', 'rcnn_reg_preds')
+# a proposal of one run is the other's when every box parameter agrees to this
+# (metres, radians); the first stage's boxes agree to about 1e-5
+ROI_MATCH_ATOL = 1e-3
+# share of the CPU run's proposals that must have a twin in the CUDA run, and
+# the most proposals of one cloud that may lack one (measured on an H100: 199
+# of 200 have a twin)
+ROI_MATCH_SHARE = 0.98
+ROI_UNMATCHED_PER_CLOUD = 2
+
+
+def match_rois(got: dict, want: dict, phase: str) -> tuple[dict, dict, str]:
+    """Bring the per-ROI outputs of two runs into one slot order.
+
+    The proposal layer sorts thousands of near-tied scores, so float32
+    rounding permutes slots between the runs and moves a few proposals across
+    the cut. Both runs must keep the same number of proposals in every cloud.
+    Each valid ROI of `want` is paired with the valid ROI of `got` whose box is
+    nearest; pairs further apart than ROI_MATCH_ATOL are dropped, at most
+    ROI_UNMATCHED_PER_CLOUD of a cloud. Returns both dicts with the ROI keys
+    cut to the pairs (clouds side by side along the first axis), and a note
+    for the log."""
+    n_want = n_pairs = 0
+    g_rows, w_rows = {k: [] for k in ROI_KEYS}, {k: [] for k in ROI_KEYS}
+    kept_g, kept_w = got['roi_mask'].sum(dim=1), want['roi_mask'].sum(dim=1)
+    if not torch.equal(kept_g, kept_w):
+        raise SystemExit(f'[{phase}] FAILED: proposals kept per cloud {kept_g.tolist()} on CUDA, '
+                         f'{kept_w.tolist()} on the CPU')
+    for b in range(want['rois'].shape[0]):
+        w_slots = want['roi_mask'][b].nonzero()[:, 0]
+        g_slots = got['roi_mask'][b].nonzero()[:, 0]
+        dist = (want['rois'][b][w_slots][:, None] - got['rois'][b][g_slots][None]).abs().amax(-1)
+        near, twin = dist.min(dim=1)
+        paired = near <= ROI_MATCH_ATOL
+        if len(set(twin[paired].tolist())) != int(paired.sum()):
+            raise SystemExit(f'[{phase}] FAILED: two proposals of the CPU run match one of the '
+                             'CUDA run')
+        if len(w_slots) - int(paired.sum()) > ROI_UNMATCHED_PER_CLOUD:
+            raise SystemExit(f'[{phase}] FAILED: cloud {b}: {len(w_slots) - int(paired.sum())} of '
+                             f'{len(w_slots)} proposals of the CPU run have no twin in the CUDA '
+                             f'run (at most {ROI_UNMATCHED_PER_CLOUD})')
+        n_want += len(w_slots)
+        n_pairs += int(paired.sum())
+        for k in ROI_KEYS:
+            w_rows[k].append(want[k][b][w_slots[paired]])
+            g_rows[k].append(got[k][b][g_slots[twin[paired]]])
+    if n_pairs < ROI_MATCH_SHARE * n_want:
+        raise SystemExit(f'[{phase}] FAILED: {n_pairs} of {n_want} proposals of the CPU run have '
+                         f'a twin among the {int(got["roi_mask"].sum())} of the CUDA run')
+    got = {**got, **{k: torch.cat(v) for k, v in g_rows.items()}}
+    want = {**want, **{k: torch.cat(v) for k, v in w_rows.items()}}
+    return got, want, (f'; {kept_w.tolist()} proposals kept per cloud in both runs; ROIs matched '
+                       f'by box, {n_pairs} of {n_want} have a twin (near-tied proposal scores '
+                       'permute slots and move the cut)')
+
+
+def cuda_vs_cpu_phase(cfg, dispatch, synthetic, phase: str = '4 cuda-vs-cpu',
+                      fps_npoint: int = 4096) -> None:
+    """Forward of one model on CUDA against the same model on the CPU at B=2,
+    N=4096: float outputs within FWD_RTOL of each output's scale, integer
+    and bool outputs (indices, labels, masks) equal. The per-ROI outputs of a
+    two-stage model are compared ROI by ROI after `match_rois`."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     pts = torch.from_numpy(synthetic.kitti_points(2, 4096, 4))
-    want_idx = dispatch.farthest_point_sample(pts[..., :3].contiguous(), 4096)
-    got_idx = dispatch.farthest_point_sample(pts[..., :3].contiguous().cuda(), 4096).cpu()
+    want_idx = dispatch.farthest_point_sample(pts[..., :3].contiguous(), fps_npoint)
+    got_idx = dispatch.farthest_point_sample(pts[..., :3].contiguous().cuda(), fps_npoint).cpu()
     if not torch.equal(want_idx, got_idx):
-        raise SystemExit('[4 cuda-vs-cpu] FAILED: FPS indices differ between CUDA and CPU')
+        raise SystemExit(f'[{phase}] FAILED: FPS indices differ between CUDA and CPU')
     cpu_net = synthetic.random_model(cfg, 'cpu')
     gpu_net = synthetic.random_model(cfg, 'cuda')
     gpu_net.load_state_dict(cpu_net.state_dict())
     with torch.inference_mode():
         want = flatten(cpu_net({'points': pts}))
-        got = flatten(gpu_net({'points': pts.cuda()}))
+        got = {k: v.cpu() for k, v in flatten(gpu_net({'points': pts.cuda()})).items()}
+    note = ''
+    if 'rois' in want:
+        got, want, note = match_rois(got, want, phase)
     worst = 0.0
     for k, w in want.items():
-        g = got[k].cpu()
+        g = got[k]
         if g.dtype.is_floating_point:
             scale = max(float(w.abs().max()), 1e-6)
             rel = float((g - w).abs().max()) / scale
             worst = max(worst, rel)
             if not rel <= FWD_RTOL:
-                raise SystemExit(f'[4 cuda-vs-cpu] FAILED {k}: max |diff| / max |cpu| = {rel:.3e}')
+                raise SystemExit(f'[{phase}] FAILED {k}: max |diff| / max |cpu| = {rel:.3e}')
         elif not torch.equal(g, w):
-            raise SystemExit(f'[4 cuda-vs-cpu] FAILED {k}: integer outputs differ')
-    log('4 cuda-vs-cpu', f'B=2 N=4096 forward: {len(want)} outputs agree, worst '
-        f'max|diff|/max|cpu| = {worst:.3e} (bound {FWD_RTOL:g}); FPS indices equal')
+            raise SystemExit(f'[{phase}] FAILED {k}: integer outputs differ')
+    log(phase, f'{cfg.MODEL.NAME} B=2 N=4096 forward: {len(want)} outputs agree, worst '
+        f'max|diff|/max|cpu| = {worst:.3e} (bound {FWD_RTOL:g}), integer and bool outputs '
+        f'equal; FPS indices equal{note}')
 
 
 def reset_launches(wrappers: dict) -> None:
@@ -204,26 +324,35 @@ def read_launches(wrappers: dict) -> dict:
     return {name: fn.launches for name, fn in wrappers.items()}
 
 
-def predict_phase(cfg, wrappers, synthetic, card: str) -> dict:
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    net = synthetic.random_model(cfg, 'cuda', seed=7)
-    B, N = 8, 16384
-    pts = torch.from_numpy(synthetic.kitti_points(B, N, 5)).cuda()
-    reset_launches(wrappers)
-    det = net.predict({'points': pts})
-    torch.cuda.synchronize()
-    launches = read_launches(wrappers)
+def check_detections(phase: str, det: dict, B: int) -> None:
     want = {'pred_boxes': (B, 100, 7), 'pred_scores': (B, 100), 'pred_labels': (B, 100),
             'pred_mask': (B, 100)}
     for k, shape in want.items():
         if tuple(det[k].shape) != shape:
-            raise SystemExit(f'[5 predict] FAILED {k}: shape {tuple(det[k].shape)} != {shape}')
+            raise SystemExit(f'[{phase}] FAILED {k}: shape {tuple(det[k].shape)} != {shape}')
         if det[k].dtype.is_floating_point and not bool(torch.isfinite(det[k]).all()):
-            raise SystemExit(f'[5 predict] FAILED {k}: non-finite values')
-    if launches != PREDICT_LAUNCHES:
-        raise SystemExit(f'[5 predict] FAILED: kernel launches {launches}, expected '
-                         f'{PREDICT_LAUNCHES}')
+            raise SystemExit(f'[{phase}] FAILED {k}: non-finite values')
+
+
+def predict_phase(cfg, wrappers, synthetic, card: str, phase: str = '5 predict', B: int = 8,
+                  expected: dict = PREDICT_LAUNCHES) -> dict:
+    """One model's `predict` at full width: shapes, finite values, the
+    kernels' launches in the first run, then frames/s and peak memory."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    net = synthetic.random_model(cfg, 'cuda', seed=7)
+    N = 16384
+    pts = torch.from_numpy(synthetic.kitti_points(B, N, 5)).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(wrappers)
+    det = net.predict({'points': pts})
+    torch.cuda.synchronize()
+    launches = read_launches(wrappers)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_detections(phase, det, B)
+    if launches != expected:
+        raise SystemExit(f'[{phase}] FAILED: kernel launches {launches}, expected {expected}')
     for _ in range(3):
         net.predict({'points': pts})
     torch.cuda.synchronize()
@@ -234,10 +363,24 @@ def predict_phase(cfg, wrappers, synthetic, card: str) -> dict:
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     med = statistics.median(times)
-    log('5 predict', f'B={B} N={N}: shapes ok, finite, {int(det["pred_mask"].sum())} kept boxes, '
-        f'launches {launches}; median {med * 1e3:.3f} ms/batch = {B / med:.2f} frames/s '
-        f'(5 runs) on {card}')
+    log(phase, f'{cfg.MODEL.NAME} B={B} N={N}: shapes ok, finite, '
+        f'{int(det["pred_mask"].sum())} kept boxes, launches {launches}; median '
+        f'{med * 1e3:.3f} ms/batch = {B / med:.2f} frames/s (5 runs), peak allocated '
+        f'{peak:.3f} GiB on {card}')
     return launches
+
+
+def shipped_predict_phase(cfg, synthetic, B: int = 4) -> None:
+    """`pointrcnn.yaml` as shipped: its two FP modules stop one level short,
+    so the heads read the raw 1-channel input features. One predict: shapes
+    and finite values."""
+    net = synthetic.random_model(cfg, 'cuda', seed=7)
+    width = net.backbone_3d.num_point_features
+    det = net.predict({'points': torch.from_numpy(synthetic.kitti_points(B, 16384, 5)).cuda()})
+    torch.cuda.synchronize()
+    check_detections('11 pointrcnn predict', det, B)
+    log('11 pointrcnn predict', f'the file as shipped (heads on {width}-channel features) '
+        f'B={B} N=16384: shapes ok, finite, {int(det["pred_mask"].sum())} kept boxes')
 
 
 def sa_level_specs(cfg) -> list:
@@ -398,6 +541,164 @@ def group_phase(cfg, fps_mod, group, sa_fused, synthetic) -> dict:
     return total
 
 
+def window_tests(xyz: torch.Tensor, new_xyz: torch.Tensor, cell: float) -> int:
+    """The distance tests a ball query of radius at most `cell` needs on this
+    data: for each center, the points in the 3x3 window of BEV cells of side
+    `cell` around the center's own cell (the window the TPU kernel reads)."""
+    B = xyz.shape[0]
+    lo = torch.minimum(xyz[..., :2].amin((0, 1)), new_xyz[..., :2].amin((0, 1)))
+    pc = ((xyz[..., :2] - lo) / cell).floor().long()
+    cc = ((new_xyz[..., :2] - lo) / cell).floor().long()
+    W = int(max(pc[..., 0].max(), cc[..., 0].max())) + 1
+    H = int(max(pc[..., 1].max(), cc[..., 1].max())) + 1
+    hist = torch.zeros((B, H * W), dtype=torch.long, device=xyz.device)
+    hist.scatter_add_(1, pc[..., 1] * W + pc[..., 0], torch.ones_like(pc[..., 0]))
+    pad = torch.nn.functional.pad(hist.view(B, H, W), (1, 1, 1, 1))
+    window = sum(pad[:, dy:dy + H, dx:dx + W] for dy in range(3) for dx in range(3))
+    return int(window.reshape(B, -1).gather(1, cc[..., 1] * W + cc[..., 0]).sum())
+
+
+def ball_query_case(name, xyz, new_xyz, radii, nsamples, bq, plain, feats=None, mask=None,
+                    time_it=False):
+    """One shape through the ball-query kernel and its plain version: exact
+    equality of the indices, then of the rows gathered by them from `xyz` and
+    from `feats`, each in the layout the model hands to
+    `dispatch.grouping_operation` (a contiguous tensor or a channel slice of a
+    wider one), against the plain gather. With `time_it` the times and the
+    terms of the bound."""
+    from pdm_ssd_torch.ops import dispatch
+    xyz_c, new_xyz = xyz.contiguous(), new_xyz.contiguous()
+    got = bq.ball_query_cuda(radii, nsamples, xyz_c, new_xyz, mask)
+    torch.cuda.synchronize()
+    want = [plain.ball_query(r, k, xyz_c, new_xyz, mask=mask) for r, k in zip(radii, nsamples)]
+    torch.cuda.synchronize()
+    B, N, _ = xyz.shape
+    M = new_xyz.shape[1]
+    empty = 0
+    sources = [('xyz', xyz)] + ([] if feats is None else [('features', feats)])
+    for r, g, w in zip(radii, got, want):
+        if not torch.equal(g, w):
+            raise SystemExit(f'[9 ball query] FAILED {name} r={r}: {int((g != w).sum())} of '
+                             f'{g.numel()} indices differ')
+        for label, src in sources:
+            rows = dispatch.grouping_operation(src, g)
+            torch.cuda.synchronize()
+            if not torch.equal(rows, plain.grouping_operation(src, w)):
+                raise SystemExit(f'[9 ball query] FAILED {name} r={r}: {label} '
+                                 f'{tuple(src.shape)} strides {src.stride()} gathered by the '
+                                 'kernel differs from the plain gather')
+        first_d2 = (torch.gather(xyz_c, 1, w[..., :1].long().expand(-1, -1, 3)) - new_xyz) ** 2
+        empty += int((first_d2.sum(-1) >= r * r).sum())      # slot 0 outside the ball: no hit
+    layouts = ', '.join(f'{label} C={src.shape[2]} row stride {src.stride(1)}'
+                        for label, src in sources)
+    log('9 ball query', f'{name} B={B} N={N} M={M} r={list(radii)} K={list(nsamples)}'
+        f'{" masked" if mask is not None else ""}: kernel == plain (exact), gathered rows exact '
+        f'({layouts}), {empty} empty balls')
+    if not time_it:
+        return None
+    # the walk of a center ends at the K-th hit of its slowest radius, or at
+    # the cloud's end where a ball stays underfull (its last slot then repeats
+    # its first)
+    walk = torch.zeros((B, M), dtype=torch.long, device=xyz.device)
+    full = torch.ones((B, M), dtype=torch.bool, device=xyz.device)
+    for w in want:
+        filled = w[..., -1] != w[..., 0]
+        walk = torch.maximum(walk, torch.where(filled, w[..., -1].long() + 1, N))
+        full &= filled
+    return {'ms': median_ms(lambda: bq.ball_query_cuda(radii, nsamples, xyz_c, new_xyz, mask), 5),
+            'plain_ms': median_ms(lambda: [plain.ball_query(r, k, xyz_c, new_xyz, mask=mask)
+                                           for r, k in zip(radii, nsamples)], 5),
+            'bytes': xyz.numel() * 4 + new_xyz.numel() * 4 + sum(B * M * K * 4 for K in nsamples),
+            'window_tests': window_tests(xyz_c, new_xyz, float(max(radii))),
+            'walk_tests': int(walk.sum()), 'full': int(full.sum()), 'balls': B * M}
+
+
+def ball_query_phase(cfg, bq, fps_mod, plain, synthetic) -> dict:
+    """Returns the kernel's totals over the backbone's three SA levels at B=4
+    (the launches of one backbone forward)."""
+    sa = cfg.MODEL.BACKBONE_3D.SA_CONFIG
+    gen = torch.Generator().manual_seed(10)
+
+    def features(B, N, C):
+        return torch.randn((B, N, C), generator=gen).cuda()
+
+    def fps_centers(x, npoint):
+        order = fps_mod.farthest_point_sample_cuda(x.contiguous(), npoint).long()
+        return torch.gather(x, 1, order[..., None].expand(-1, -1, 3))
+
+    # the levels' inputs as the backbone makes them. Level 1 groups channel
+    # slices of the (B, N, 4) cloud around its prefix; level 2 the prefix
+    # around FPS picks of it; level 3 those picks around their prefix
+    cloud = torch.from_numpy(synthetic.kitti_points(4, 16384, 8)).cuda()
+    pts = cloud[..., :3]
+    l1 = pts[:, :sa.NPOINTS[0]]
+    l2 = fps_centers(l1, sa.NPOINTS[1])
+    clouds = [pts, l1, l2, l2[:, :sa.NPOINTS[2]]]
+    widths = [sum(mlp[-1] for mlp in level) for level in sa.MLPS]
+    feats = [cloud[..., 3:], features(4, sa.NPOINTS[0], widths[0]),
+             features(4, sa.NPOINTS[1], widths[1])]
+    total = {'ms': 0.0, 'plain_ms': 0.0, 'bytes': 0, 'window_tests': 0, 'walk_tests': 0,
+             'full': 0, 'balls': 0}
+    for k in range(3):
+        r = ball_query_case(f'backbone SA level {k + 1}', clouds[k], clouds[k + 1],
+                            list(sa.RADIUS[k]), list(sa.NSAMPLE[k]), bq, plain, feats=feats[k],
+                            time_it=True)
+        for key in total:
+            total[key] += r[key]
+    # the ROI stack's input: 400 canonical clouds, xyz the first 3 of the 5
+    # channels of the pooled block, features of the width `merge_down` gives
+    roi = cfg.MODEL.ROI_HEAD
+    width = roi.XYZ_UP_LAYER[-1]
+    canon = torch.cat([torch.from_numpy(roi_clouds(400, 512, 9)).cuda(),
+                       features(400, 512, 2)], dim=-1)[..., :3]
+    for k in range(2):
+        centers = fps_centers(canon, roi.SA_CONFIG.NPOINTS[k])
+        ball_query_case(f'ROI stack level {k + 1}', canon, centers, [roi.SA_CONFIG.RADIUS[k]],
+                        [roi.SA_CONFIG.NSAMPLE[k]], bq, plain,
+                        feats=features(400, canon.shape[1], width))
+        canon, width = centers, roi.SA_CONFIG.MLPS[k][-1]
+    ball_query_case('backbone SA level 3', clouds[2], clouds[3], list(sa.RADIUS[2]),
+                    list(sa.NSAMPLE[2]), bq, plain,
+                    mask=(torch.rand(clouds[2].shape[:2], generator=gen) < 0.7).cuda())
+    rng = np.random.RandomState(11)
+    xyz = rng.uniform(0, 20, (3, 3001, 3)).astype(np.float32)
+    xyz[:, 1500:2100] = xyz[:, :600]                               # duplicated points
+    new_xyz = xyz[:, :333].copy()
+    new_xyz[:, :9] += 500.0                                        # centers far outside
+    ball_query_case('ragged', torch.from_numpy(xyz).cuda(), torch.from_numpy(new_xyz).cuda(),
+                    [0.5, 1.3, 0.9], [5, 70, 3], bq, plain, feats=features(3, 3001, 37)[..., 3:22])
+    zeros = torch.zeros((8, 512, 3), device='cuda')
+    ball_query_case('512 origins', zeros, zeros[:, :128], [roi.SA_CONFIG.RADIUS[0]],
+                    [roi.SA_CONFIG.NSAMPLE[0]], bq, plain)
+    # the uniform cloud fills no ball of the smaller radius, so every walk runs
+    # to the cloud's end; the same points drawn into a box of 2.1 x 2.4 x 2 m
+    # fill the balls and time the early exit
+    dense = pts * torch.tensor([0.03, 0.03, 0.5], device='cuda')
+    d = ball_query_case('backbone SA level 1, dense box', dense, dense[:, :sa.NPOINTS[0]],
+                        list(sa.RADIUS[0]), list(sa.NSAMPLE[0]), bq, plain, time_it=True)
+    log('9 ball query', f'dense box, level 1: kernel {d["ms"]:.3f} ms, plain torch '
+        f'{d["plain_ms"]:.3f} ms, {d["full"]} of {d["balls"]} balls full at both radii, walk '
+        f'{d["walk_tests"]} tests, 3x3 windows {d["window_tests"]}')
+    # bound: bytes (xyz and centers read once, indices written once), or the
+    # distance tests the function needs on this data, 8 operations each: those
+    # of the 3x3 window of radius-sized cells around each center. The tests of
+    # this kernel's walk over the whole cloud are reported beside it
+    t_bytes = total['bytes'] / HBM_BYTES_PER_S * 1e3
+    t_ops = total['window_tests'] * 8 / FP32_FLOP_PER_S * 1e3
+    stats = {'max_abs_err': 0, 'ms': total['ms'], 'plain_ms': total['plain_ms'],
+             'bound_ms': max(t_bytes, t_ops),
+             'bound_by': 'bytes' if t_bytes >= t_ops else 'operations', 'library_ms': None,
+             'walk_ms': total['walk_tests'] * 8 / FP32_FLOP_PER_S * 1e3,
+             'window_tests': total['window_tests'], 'walk_tests': total['walk_tests']}
+    log('9 ball query', f'backbone levels at B=4: kernel {stats["ms"]:.3f} ms, plain torch '
+        f'{stats["plain_ms"]:.3f} ms (median of 5), bound {stats["bound_ms"]:.4f} ms by '
+        f'{stats["bound_by"]} (bytes {t_bytes:.4f} ms; {total["window_tests"]} tests in the 3x3 '
+        f'windows {t_ops:.5f} ms); this kernel walks {total["walk_tests"]} tests, '
+        f'{stats["walk_ms"]:.4f} ms at the peak rate; {total["full"]} of {total["balls"]} balls '
+        'full at both radii')
+    return stats
+
+
 def to_device(batch: dict, device) -> dict:
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
@@ -492,12 +793,15 @@ KERNEL_TABLE = (
      'pdm_ssd_tpu/ops/pallas/retired/onehot_gather.py:146'),
     ('scatter_add_rows', 'pdm_ssd_torch/csrc/group.cu',
      'pdm_ssd_tpu/ops/pallas/retired/onehot_gather.py:226'),
+    ('ball_query', 'pdm_ssd_torch/csrc/ball_query.cu',
+     'pdm_ssd_tpu/ops/pallas/retired/grid_query.py:112'),
 )
 
 
 def main() -> None:
     name, smi = device_check()
     sys.path.insert(0, str(REPO))
+    from pdm_ssd_torch.ops import ball_query as bq
     from pdm_ssd_torch.ops import dispatch, fps, group, kernels, sa_fused
     from pdm_ssd_torch.ops import pointnet2 as plain
     from pdm_ssd_torch.utils import synthetic
@@ -514,7 +818,8 @@ def main() -> None:
     wrappers = {'farthest_point_sample': fps.farthest_point_sample_cuda,
                 'window_select': group.window_select_cuda,
                 'gather_rows': group.gather_rows_cuda,
-                'scatter_add_rows': group.scatter_add_rows_cuda}
+                'scatter_add_rows': group.scatter_add_rows_cuda,
+                'ball_query': bq.ball_query_cuda}
 
     stats = {'farthest_point_sample': fps_phase(fps, plain, synthetic.kitti_points)}
     fps_stats = stats['farthest_point_sample']
@@ -533,13 +838,31 @@ def main() -> None:
     grads_cuda_vs_cpu_phase(cfg, synthetic)
     train_launches = train_phase(cfg, wrappers, synthetic, smi)
 
-    # `launches` counts the five training steps of phase 8. The grouping
-    # kernels' times, bounds and library times are sums over the three SA
-    # levels (the launches of one forward, and of one backward for the
-    # scatter-add); `max_abs_err` is kernel against plain version
+    shipped = cfg_from_yaml_file(str(REPO / POINTRCNN_CFG), CfgNode())
+    rcnn = synthetic.pointrcnn_fp3(cfg_from_yaml_file(str(REPO / POINTRCNN_CFG), CfgNode()))
+    stats['ball_query'] = ball_query_phase(rcnn, bq, fps, plain, synthetic)
+    small = synthetic.pointrcnn_fp3(cfg_from_yaml_file(str(REPO / POINTRCNN_CFG), CfgNode()))
+    small.MODEL.BACKBONE_3D.SA_CONFIG.NPOINTS = [1024, 256, 64]
+    cuda_vs_cpu_phase(small, dispatch, synthetic, phase='10 pointrcnn cuda-vs-cpu',
+                      fps_npoint=256)
+    rcnn_launches = predict_phase(rcnn, wrappers, synthetic, smi, phase='11 pointrcnn predict',
+                                  B=rcnn.OPTIMIZATION.BATCH_SIZE_PER_GPU,
+                                  expected=POINTRCNN_PREDICT_LAUNCHES)
+    shipped_predict_phase(shipped, synthetic)
+
+    # `launches` is the count from the run of a main path: the flagship's five
+    # training steps of phase 8 for its four kernels, PointRCNN's predict of
+    # phase 11 for the ball query. The grouping kernels' times, bounds and
+    # library times are sums over the flagship's three SA levels (the launches
+    # of one forward, and of one backward for the scatter-add), the ball
+    # query's over PointRCNN's three backbone levels, where `walk_ms` is the
+    # time of the tests its walk makes, at the peak rate, beside the bound of
+    # the tests the function needs; `max_abs_err` is kernel against plain version
     print(json.dumps({'kernels': [{
         'name': kern, 'route': 'cuda', 'source': source, 'replaces': replaces,
-        'launches': train_launches[kern], 'launches_per_predict': predict_launches[kern],
+        'launches': (rcnn_launches if kern == 'ball_query' else train_launches)[kern],
+        'launches_per_predict': predict_launches[kern],
+        'launches_per_pointrcnn_predict': rcnn_launches[kern],
         **stats[kern]} for kern, source, replaces in KERNEL_TABLE]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,

@@ -94,6 +94,16 @@ class FCStack(nn.Module):
         return getattr(self, f'Dense_{self.n}')(x)
 
 
+def masked_max(x: torch.Tensor, mask: torch.Tensor | None, dim: int) -> torch.Tensor:
+    """Max over `dim` of x (..., C) that ignores the slots where `mask`
+    (x's shape without the channels) is false; a group with no valid slot
+    gives zeros."""
+    if mask is None:
+        return x.amax(dim=dim)
+    out = torch.where(mask[..., None], x, torch.finfo(x.dtype).min).amax(dim=dim)
+    return torch.where(mask.any(dim=dim)[..., None], out, 0.0)
+
+
 @torch.no_grad()
 def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Initialise every parameter and buffer from `generator`, in module order:

@@ -1,10 +1,56 @@
-"""Box coders (counterpart of `pdm_ssd_tpu/ops/coders.py`):
-`PointResidualCoder` with class mean sizes, encode and decode."""
+"""Box coders (counterpart of `pdm_ssd_tpu/ops/coders.py`): `ResidualCoder`
+(anchor-relative) and `PointResidualCoder` with class mean sizes, encode and
+decode."""
 from __future__ import annotations
 
 import dataclasses
 
 import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ResidualCoder:
+    """Residuals against an anchor box: offsets over the anchor's BEV
+    diagonal and height, log size ratios, and the heading's difference (or,
+    with `encode_angle_by_sincos`, the differences of its cosine and sine)."""
+    code_size: int = 7
+    encode_angle_by_sincos: bool = False
+
+    @property
+    def full_code_size(self) -> int:
+        return self.code_size + (1 if self.encode_angle_by_sincos else 0)
+
+    def encode(self, boxes: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
+        """boxes and anchors (..., 7 + E) -> (..., full_code_size + E)."""
+        xa, ya, za = torch.unbind(anchors[..., :3], dim=-1)
+        dxa, dya, dza = torch.unbind(anchors[..., 3:6].clamp(min=1e-5), dim=-1)
+        xg, yg, zg = torch.unbind(boxes[..., :3], dim=-1)
+        dxg, dyg, dzg = torch.unbind(boxes[..., 3:6].clamp(min=1e-5), dim=-1)
+        ra, rg = anchors[..., 6], boxes[..., 6]
+        diagonal = torch.sqrt(dxa ** 2 + dya ** 2)
+        if self.encode_angle_by_sincos:
+            rts = [torch.cos(rg) - torch.cos(ra), torch.sin(rg) - torch.sin(ra)]
+        else:
+            rts = [rg - ra]
+        extras = [boxes[..., 7 + i] - anchors[..., 7 + i] for i in range(boxes.shape[-1] - 7)]
+        return torch.stack([(xg - xa) / diagonal, (yg - ya) / diagonal, (zg - za) / dza,
+                            torch.log(dxg / dxa), torch.log(dyg / dya), torch.log(dzg / dza),
+                            *rts, *extras], dim=-1)
+
+    def decode(self, box_encodings: torch.Tensor, anchors: torch.Tensor) -> torch.Tensor:
+        xa, ya, za, dxa, dya, dza, ra = torch.unbind(anchors[..., :7], dim=-1)
+        n_used = 8 if self.encode_angle_by_sincos else 7
+        xt, yt, zt, dxt, dyt, dzt, *rt = torch.unbind(box_encodings[..., :n_used], dim=-1)
+        diagonal = torch.sqrt(dxa ** 2 + dya ** 2)
+        if self.encode_angle_by_sincos:
+            rg = torch.atan2(rt[1] + torch.sin(ra), rt[0] + torch.cos(ra))
+        else:
+            rg = rt[0] + ra
+        extras = [box_encodings[..., n_used + i] + anchors[..., 7 + i]
+                  for i in range(anchors.shape[-1] - 7)]
+        return torch.stack([xt * diagonal + xa, yt * diagonal + ya, zt * dza + za,
+                            torch.exp(dxt) * dxa, torch.exp(dyt) * dya, torch.exp(dzt) * dza,
+                            rg, *extras], dim=-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,13 +99,14 @@ class PointResidualCoder:
 
 
 def build_box_coder(name: str, **kwargs):
-    if name != 'PointResidualCoder':
-        raise NotImplementedError(f'box coder {name} is not ported yet '
-                                  '(ROADMAP Queue 1 item 2: ResidualCoder)')
-    if not kwargs.get('use_mean_size', True):
-        raise NotImplementedError('PointResidualCoder without mean sizes is not ported yet '
-                                  '(ROADMAP Queue 1 item 2)')
-    if 'mean_size' in kwargs:
-        kwargs['mean_size'] = tuple(tuple(s) for s in kwargs['mean_size'])
-    fields = {f.name for f in dataclasses.fields(PointResidualCoder)}
-    return PointResidualCoder(**{k: v for k, v in kwargs.items() if k in fields})
+    registry = {'ResidualCoder': ResidualCoder, 'PointResidualCoder': PointResidualCoder}
+    if name not in registry:
+        raise NotImplementedError(f'box coder {name} is not ported')
+    if name == 'PointResidualCoder':
+        if not kwargs.get('use_mean_size', True):
+            raise NotImplementedError('PointResidualCoder without mean sizes is not ported yet '
+                                      '(ROADMAP Queue 1 item 2)')
+        if 'mean_size' in kwargs:
+            kwargs['mean_size'] = tuple(tuple(s) for s in kwargs['mean_size'])
+    fields = {f.name for f in dataclasses.fields(registry[name])}
+    return registry[name](**{k: v for k, v in kwargs.items() if k in fields})

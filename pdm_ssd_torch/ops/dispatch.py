@@ -9,6 +9,7 @@ from __future__ import annotations
 
 import torch
 
+from . import ball_query as bq
 from . import fps, group
 from . import pointnet2 as plain
 
@@ -20,6 +21,42 @@ def farthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     if kind == 'cuda':
         return fps.farthest_point_sample_cuda(xyz.contiguous(), npoint)
     raise NotImplementedError(f'no FPS for device {xyz.device}')
+
+
+def ball_query_level(radii, nsamples, xyz: torch.Tensor, new_xyz: torch.Tensor,
+                     mask: torch.Tensor | None = None) -> list:
+    """Exact first-K ball query for all radii of one SA level: a list over
+    radii of (B, M, K) int32 (one kernel launch on CUDA tensors)."""
+    kind = xyz.device.type
+    if kind == 'cpu':
+        return [plain.ball_query(r, k, xyz, new_xyz, mask=mask) for r, k in zip(radii, nsamples)]
+    if kind == 'cuda':
+        return bq.ball_query_cuda(radii, nsamples, xyz.contiguous(), new_xyz.contiguous(),
+                                  None if mask is None else mask.contiguous())
+    raise NotImplementedError(f'no ball query for device {xyz.device}')
+
+
+def ball_query(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor,
+               pc_range=None, mask: torch.Tensor | None = None) -> torch.Tensor:
+    """One radius. `pc_range` is taken and ignored, as in the JAX package's
+    signature: the exact query needs no grid."""
+    return ball_query_level([radius], [nsample], xyz, new_xyz, mask=mask)[0]
+
+
+def grouping_operation(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """features (B, N, C), idx (B, M, K) in [0, N) -> (B, M, K, C). On CUDA
+    tensors the `gather_rows` kernel, with `scatter_add_rows` as its backward."""
+    kind = features.device.type
+    if kind == 'cpu':
+        return plain.grouping_operation(features, idx)
+    if kind == 'cuda':
+        from .sa_fused import GatherRows      # sa_fused imports this module
+        B, M, K = idx.shape
+        N, ld = features.shape[1], features.stride(1)
+        if features.stride(2) != 1 or features.stride(0) != N * ld:
+            features = features.contiguous()  # the kernel reads dense rows at one stride
+        return GatherRows.apply(features, idx.reshape(B, M * K)).reshape(B, M, K, -1)
+    raise NotImplementedError(f'no grouping for device {features.device}')
 
 
 def window_select(table: torch.Tensor, center_cells: torch.Tensor, grid_w: int,

@@ -20,7 +20,7 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parents[1] / 'csrc'
 _BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'torch_kernels'
-SOURCES = ('fps.cu', 'group.cu')
+SOURCES = ('fps.cu', 'group.cu', 'ball_query.cu')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -37,6 +37,10 @@ _ENTRY_POINTS = {
                                  _P, _P, _P, _P, _P, _P],
         'gather_rows_launch': [_P, _P, _P, _I, _I, _I, _I, _L, _P],
         'scatter_add_rows_launch': [_P, _P, _P, _I, _I, _I, _I, _P],
+    },
+    'ball_query.cu': {
+        'ball_query_max_branches': [],
+        'ball_query_launch': [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
     },
 }
 

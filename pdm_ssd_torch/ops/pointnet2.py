@@ -5,12 +5,28 @@
 BIG, first index of the maximum. The distance is written as separate
 elementwise ops, (dx*dx + dy*dy) + dz*dz, so that it rounds exactly like the
 kernel.
+
+`ball_query` is the plain version of the ball-query kernel
+(`ops/ball_query.py`) and its contract: for each center the first `nsample`
+points in point order with `d2 < r*r` (strict), an underfull ball repeats its
+first hit, an empty ball is all zeros. Its distance is written out in the
+same way, for the same reason. `three_nn` returns squared distances, and
+`three_interpolate_weights` takes the square root itself.
+
+`ball_query` and `three_nn` walk the dense (centers x points) distance matrix
+in chunks of `CHUNK_ELEMS` elements, so their peak memory does not grow with
+the product of the two clouds' sizes.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from .group import flat_gather
+
 BIG = 1e10
+# elements of one chunk of a dense (batch, rows, points) distance matrix
+CHUNK_ELEMS = 1 << 25
 
 
 def farthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -40,3 +56,105 @@ def gather_operation(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """features (B, N, C), idx (B, M) -> (B, M, C)."""
     C = features.shape[-1]
     return torch.gather(features, 1, idx.long()[..., None].expand(-1, -1, C))
+
+
+def _pair_d2(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a (B, R, 3), b (B, N, 3) -> (B, R, N) squared distances, each
+    (dx*dx + dy*dy) + dz*dz from separate elementwise ops: the same rounding
+    on the CPU, on CUDA and in the kernels, whatever order a reduction over
+    the last axis would take."""
+    dx = a[:, :, None, 0] - b[:, None, :, 0]
+    dy = a[:, :, None, 1] - b[:, None, :, 1]
+    dz = a[:, :, None, 2] - b[:, None, :, 2]
+    return (dx * dx + dy * dy) + dz * dz
+
+
+def _row_chunks(B: int, rows: int, N: int):
+    step = max(1, CHUNK_ELEMS // max(B * N, 1))
+    return [(r0, min(r0 + step, rows)) for r0 in range(0, rows, step)]
+
+
+def ball_query(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor,
+               mask: torch.Tensor | None = None) -> torch.Tensor:
+    """xyz (B, N, 3), new_xyz (B, M, 3), mask (B, N) bool or None (a masked
+    point is in no ball) -> (B, M, nsample) int32."""
+    B, N, _ = xyz.shape
+    M, K = new_xyz.shape[1], int(nsample)
+    dev = xyz.device
+    # a float32 tensor compared with a Python double compares in float32
+    r2 = float(np.float32(float(radius) * float(radius)))
+    pos = torch.arange(N, device=dev)
+    k_iota = torch.arange(K, device=dev)
+    out = torch.empty((B, M, K), dtype=torch.int32, device=dev)
+    for m0, m1 in _row_chunks(B, M, N):
+        within = _pair_d2(new_xyz[:, m0:m1].float(), xyz.float()) < r2
+        if mask is not None:
+            within = within & mask[:, None, :]
+        w = within.long()
+        rank = torch.cumsum(w, dim=-1) - w                            # exclusive
+        hits = w.sum(dim=-1, keepdim=True)                            # (B, m, 1)
+        slot = torch.where(within & (rank < K), rank, K)
+        sel = torch.zeros((B, m1 - m0, K + 1), dtype=torch.long, device=dev)
+        sel.scatter_(2, slot, pos.expand_as(slot))
+        sel = sel[..., :K]
+        # slots past the hit count repeat the first hit (0 in an empty ball)
+        out[:, m0:m1] = torch.where(k_iota < hits, sel, sel[..., :1]).to(torch.int32)
+    return out
+
+
+def grouping_operation(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """features (B, N, C), idx (B, M, K) -> (B, M, K, C)."""
+    return flat_gather(features, idx.long())
+
+
+def query_and_group(radius: float, nsample: int, xyz: torch.Tensor, new_xyz: torch.Tensor,
+                    features: torch.Tensor | None, use_xyz: bool = True,
+                    mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Ball query, neighbor xyz relative to the center, neighbor features
+    behind them: (B, M, K, 3 + C) with `use_xyz` and features."""
+    idx = ball_query(radius, nsample, xyz, new_xyz, mask=mask)
+    grouped_xyz = grouping_operation(xyz, idx) - new_xyz[:, :, None, :]
+    if features is None:
+        if not use_xyz:
+            raise ValueError('neither features nor xyz to group')
+        return grouped_xyz
+    grouped = grouping_operation(features, idx)
+    return torch.cat([grouped_xyz, grouped], dim=-1) if use_xyz else grouped
+
+
+def three_nn(unknown: torch.Tensor, known: torch.Tensor,
+             known_mask: torch.Tensor | None = None):
+    """The 3 nearest known points of each unknown point: squared distances
+    (B, n, 3), ascending, and indices (B, n, 3) int32. Equal distances go to
+    the lower index (three passes of a first-index minimum, not `topk`,
+    whose order among ties is not fixed)."""
+    B, n, _ = unknown.shape
+    m = known.shape[1]
+    if m < 3:
+        raise ValueError(f'three_nn needs at least 3 known points, got {m}')
+    dev = unknown.device
+    dist = torch.empty((B, n, 3), dtype=torch.float32, device=dev)
+    idx = torch.empty((B, n, 3), dtype=torch.int32, device=dev)
+    for n0, n1 in _row_chunks(B, n, m):
+        d2 = _pair_d2(unknown[:, n0:n1].float(), known.float())
+        if known_mask is not None:
+            d2 = torch.where(known_mask[:, None, :], d2, BIG)
+        for j in range(3):
+            val, arg = torch.min(d2, dim=-1, keepdim=True)            # first index of the minimum
+            dist[:, n0:n1, j] = val[..., 0]
+            idx[:, n0:n1, j] = arg[..., 0].to(torch.int32)
+            d2.scatter_(2, arg, float('inf'))
+    return dist, idx
+
+
+def three_interpolate(features: torch.Tensor, idx: torch.Tensor,
+                      weight: torch.Tensor) -> torch.Tensor:
+    """features (B, m, C), idx and weight (B, n, 3) -> (B, n, C)."""
+    return (grouping_operation(features, idx) * weight[..., None]).sum(dim=2)
+
+
+def three_interpolate_weights(dist2: torch.Tensor) -> torch.Tensor:
+    """Inverse-distance weights from squared distances: 1 / (sqrt(d2) + 1e-8),
+    normalised over the three neighbors."""
+    recip = 1.0 / (torch.sqrt(dist2) + 1e-8)
+    return recip / recip.sum(dim=-1, keepdim=True)

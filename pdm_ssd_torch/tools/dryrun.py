@@ -4,8 +4,12 @@ Builds the tiny point-exact flagship (the shrink of
 `configs/kitti_models/pdm_ssd_point.yaml` in `utils/synthetic.tiny_flagship_cfg`),
 takes one train step on a seeded synthetic batch and one predict, checks that
 the loss is finite and the detections have the batch's size, and prints
-`... OK, loss=...`. Runs on the card unless `--device cpu` is given.
-The counterpart of `__graft_entry__.dryrun_multichip` on one device.
+`... OK, loss=...`. With `--cfg_file configs/kitti_models/pointrcnn.yaml` it
+builds the tiny PointRCNN (`utils/synthetic.tiny_pointrcnn_cfg`). A model
+whose training path is not ported yet raises `NotImplementedError` from its
+train step; the dry run then checks its predict only. Runs on the card
+unless `--device cpu` is given. The counterpart of
+`__graft_entry__.dryrun_multichip` on one device.
 """
 from __future__ import annotations
 
@@ -25,13 +29,19 @@ REPO = Path(__file__).resolve().parents[2]
 CFG = 'configs/kitti_models/pdm_ssd_point.yaml'
 
 
-def dryrun(device: str | None = None, B: int = 2, N: int = 512, seed: int = 0) -> float:
+def dryrun(device: str | None = None, B: int = 2, N: int = 512, seed: int = 0,
+           cfg_file: str = CFG) -> float | None:
+    """Returns the train step's loss, or None for a model that only predicts."""
     cwd = os.getcwd()
     os.chdir(REPO)   # the config names its base config relative to the repo
     try:
-        cfg = synthetic.tiny_flagship_cfg(cfg_from_yaml_file(str(REPO / CFG), CfgNode()))
+        cfg = cfg_from_yaml_file(str(REPO / cfg_file), CfgNode())
     finally:
         os.chdir(cwd)
+    name = cfg.MODEL.NAME
+    if name not in synthetic.TINY_CFGS:
+        raise SystemExit(f'dryrun: no tiny version of {name}')
+    cfg = synthetic.TINY_CFGS[name](cfg)
     model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG, device=device,
                           seed=seed)
     dev = next(model.parameters()).device
@@ -39,14 +49,19 @@ def dryrun(device: str | None = None, B: int = 2, N: int = 512, seed: int = 0) -
              for k, v in synthetic.kitti_batch(B, N, seed=seed).items()}
     optimizer, _ = create_train_state(model, cfg.OPTIMIZATION, total_iters_each_epoch=10,
                                       total_epochs=2)
-    metrics = make_train_step(model, optimizer)(batch)
-    loss = float(metrics['loss'])
-    if not math.isfinite(loss):
+    try:
+        loss = float(make_train_step(model, optimizer)(batch)['loss'])
+    except NotImplementedError:     # the detector says its training path is not ported
+        loss = None
+    if loss is not None and not math.isfinite(loss):
         raise SystemExit(f'dryrun: loss is not finite: {loss}')
     dets = make_predict_step(model)({'points': batch['points']})
-    if dets['pred_boxes'].shape[0] != B:
-        raise SystemExit(f'dryrun: detections for {dets["pred_boxes"].shape[0]} clouds, not {B}')
-    print(f'dryrun({dev}): point-exact flagship train step + predict OK, loss={loss:.4f}')
+    if dets['pred_boxes'].shape[0] != B or not bool(torch.isfinite(dets['pred_boxes']).all()):
+        raise SystemExit(f'dryrun: {name} detections are not finite boxes for {B} clouds')
+    if loss is None:
+        print(f'dryrun({dev}): {name} predict OK, {int(dets["pred_mask"].sum())} boxes kept')
+    else:
+        print(f'dryrun({dev}): {name} train step + predict OK, loss={loss:.4f}')
     return loss
 
 
@@ -56,8 +71,10 @@ def main() -> None:
                     '(default: the card; fails where CUDA is unavailable)')
     ap.add_argument('--batch', type=int, default=2)
     ap.add_argument('--points', type=int, default=512)
+    ap.add_argument('--cfg_file', default=CFG, help='the flagship (default) or '
+                    'configs/kitti_models/pointrcnn.yaml')
     args = ap.parse_args()
-    dryrun(args.device, args.batch, args.points)
+    dryrun(args.device, args.batch, args.points, cfg_file=args.cfg_file)
 
 
 if __name__ == '__main__':

@@ -49,6 +49,53 @@ def tiny_flagship_cfg(cfg):
     return cfg
 
 
+def tiny_pointrcnn_cfg(cfg):
+    """Shrink `configs/kitti_models/pointrcnn.yaml` in place to the dry run's
+    size: the same path (non-fused SA with three sampling methods, FP modules,
+    point head, proposal NMS, canonical ROI head), narrow and with few points.
+    The FP list keeps its length."""
+    bb = cfg.MODEL.BACKBONE_3D
+    bb.SA_CONFIG.NPOINTS = [128, 48, 16]
+    bb.SA_CONFIG.NSAMPLE = [[6, 8], [6, 8], [6, 8]]
+    bb.SA_CONFIG.RADIUS = [[2.0, 4.0], [4.0, 8.0], [8.0, 16.0]]
+    bb.SA_CONFIG.MLPS = [[[8, 8], [8, 12]], [[12, 16], [12, 16]], [[16, 24], [16, 24]]]
+    bb.FP_MLPS = [[12, 12], [16, 16], [16, 16]][:len(bb.FP_MLPS)]
+    cfg.MODEL.POINT_HEAD.CLS_FC = [16]
+    cfg.MODEL.POINT_HEAD.REG_FC = [16]
+    roi = cfg.MODEL.ROI_HEAD
+    roi.ROI_POINT_POOL.NUM_SAMPLED_POINTS = 32
+    roi.XYZ_UP_LAYER = [16, 8]
+    roi.SA_CONFIG.NPOINTS = [16, 8, -1]
+    roi.SA_CONFIG.RADIUS = [0.5, 1.0, 100]
+    roi.SA_CONFIG.NSAMPLE = [8, 8, 8]
+    roi.SA_CONFIG.MLPS = [[16, 16], [16, 16], [16, 32]]
+    roi.CLS_FC = [16]
+    roi.REG_FC = [16]
+    for mode in ('TRAIN', 'TEST'):
+        roi.NMS_CONFIG[mode].NMS_PRE_MAXSIZE = 64
+        roi.NMS_CONFIG[mode].NMS_POST_MAXSIZE = 16
+    nms = cfg.MODEL.POST_PROCESSING.NMS_CONFIG
+    nms.NMS_PRE_MAXSIZE = 16
+    nms.NMS_POST_MAXSIZE = 16
+    return cfg
+
+
+# the dry run's shrink of each model that has one, by `MODEL.NAME`
+TINY_CFGS = {'PDMSSD': tiny_flagship_cfg, 'PointRCNN': tiny_pointrcnn_cfg}
+
+
+def pointrcnn_fp3(cfg):
+    """Make the FP list of `configs/kitti_models/pointrcnn.yaml` whole, in
+    place: the file has three SA levels and two `FP_MLPS`, so its backbone
+    never propagates to the densest level and hands the heads the raw
+    1-channel input features. With a third entry the 128-channel features
+    reach every input point, as `num_point_features` of the JAX package's
+    backbone assumes. All other widths stay the file's."""
+    from .config import cfg_from_list
+    cfg_from_list(['MODEL.BACKBONE_3D.FP_MLPS', '[[128, 128], [256, 256], [256, 256]]'], cfg)
+    return cfg
+
+
 def randomize_bn(model: torch.nn.Module, gen: torch.Generator) -> None:
     """Draw every BatchNorm's scale, shift and running statistics (fresh
     statistics of mean 0 and variance 1 would hide eps and layout errors)."""

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from pdm_ssd_torch.ops import ball_query as bq
 from pdm_ssd_torch.ops import dispatch, fps, group, sa_fused
 from pdm_ssd_torch.ops import pointnet2 as plain
 
@@ -31,8 +32,16 @@ SLICE_MODULES = [
     'pdm_ssd_torch.tools.profile_predict', 'pdm_ssd_torch.tools.profile_train',
     'pdm_ssd_torch.tools.dryrun', 'pdm_ssd_torch.ops.group', 'pdm_ssd_torch.ops.box_ops',
     'pdm_ssd_torch.ops.losses', 'pdm_ssd_torch.runtime.optimization',
-    'pdm_ssd_torch.runtime.trainer',
+    'pdm_ssd_torch.runtime.trainer', 'pdm_ssd_torch.ops.ball_query',
+    'pdm_ssd_torch.models.roi_heads.roi_head_template',
+    'pdm_ssd_torch.models.roi_heads.pointrcnn_head', 'pdm_ssd_torch.models.detectors.point_rcnn',
 ]
+
+
+def test_guard_list_names_every_module_of_the_port():
+    found = {'.'.join(p.relative_to(REPO).with_suffix('').parts)
+             for p in (REPO / 'pdm_ssd_torch').rglob('*.py') if p.name != '__init__.py'}
+    assert found <= set(SLICE_MODULES), sorted(found - set(SLICE_MODULES))
 
 
 def chip_smoke_imports() -> list:
@@ -134,6 +143,32 @@ def test_grouping_dispatch_runs_plain_on_cpu_and_kernel_wrappers_refuse_cpu():
         dispatch.scatter_add_rows(rows.to('meta'), idx.to('meta'), 300)
 
 
+def test_ball_query_dispatch_runs_plain_on_cpu_and_kernel_wrapper_refuses_cpu():
+    """CPU tensors take the plain ball query and the plain grouping and launch
+    nothing; the kernel's wrapper takes CUDA tensors only; any other device
+    raises. `pc_range` is taken and ignored."""
+    rng = np.random.RandomState(5)
+    xyz = torch.from_numpy(rng.uniform(0, 6, (2, 300, 3)).astype(np.float32))
+    new_xyz = xyz[:, :40].contiguous()
+    mask = torch.from_numpy(rng.rand(2, 300) < 0.7)
+    feats = torch.from_numpy(rng.randn(2, 300, 5).astype(np.float32))
+    bq.ball_query_cuda.launches = group.gather_rows_cuda.launches = 0
+    got = dispatch.ball_query(1.0, 8, xyz, new_xyz, pc_range=(0.0, 0.0, 6.0, 6.0))
+    assert torch.equal(got, plain.ball_query(1.0, 8, xyz, new_xyz))
+    level = dispatch.ball_query_level([1.0, 2.0], [8, 4], xyz, new_xyz, mask=mask)
+    assert [tuple(i.shape) for i in level] == [(2, 40, 8), (2, 40, 4)]
+    assert torch.equal(level[1], plain.ball_query(2.0, 4, xyz, new_xyz, mask=mask))
+    grouped = dispatch.grouping_operation(feats, got)
+    assert torch.equal(grouped, plain.grouping_operation(feats, got))
+    with pytest.raises(ValueError, match='CUDA'):
+        bq.ball_query_cuda([1.0], [8], xyz, new_xyz)
+    assert bq.ball_query_cuda.launches == 0 and group.gather_rows_cuda.launches == 0
+    with pytest.raises(NotImplementedError):
+        dispatch.ball_query(1.0, 8, xyz.to('meta'), new_xyz.to('meta'))
+    with pytest.raises(NotImplementedError):
+        dispatch.grouping_operation(feats.to('meta'), got.to('meta'))
+
+
 def test_entry_points_default_to_the_card(monkeypatch):
     """`build_network` and the dry run with no device named need CUDA: where
     it is absent they raise instead of building on the CPU."""
@@ -141,12 +176,14 @@ def test_entry_points_default_to_the_card(monkeypatch):
     from pdm_ssd_torch.tools import dryrun
     from pdm_ssd_torch.utils import config as t_config
     monkeypatch.chdir(REPO)
-    cfg = t_config.cfg_from_yaml_file('configs/kitti_models/pdm_ssd_point.yaml')
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        build_network(cfg.MODEL, 3, cfg.DATA_CONFIG)
-    with pytest.raises(RuntimeError, match="device='cpu'"):
-        dryrun.dryrun()
+    for cfg_file in ('configs/kitti_models/pdm_ssd_point.yaml',
+                     'configs/kitti_models/pointrcnn.yaml'):
+        cfg = t_config.cfg_from_yaml_file(cfg_file)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_network(cfg.MODEL, 3, cfg.DATA_CONFIG)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            dryrun.dryrun(cfg_file=cfg_file)
 
 
 @pytest.mark.parametrize('where', ['repo', 'alone'])
@@ -234,3 +271,51 @@ def test_gather_and_scatter_kernels_match_plain_on_the_card(C, s0, s1):
     # float32 atomic sums of ~R/N = 6 terms of unit scale in any order, held
     # against a float64 sum: a few ulp of the largest partial sum
     torch.testing.assert_close(back.cpu().double(), want, rtol=0, atol=1e-5)
+
+
+def _ball_query_inputs(rng, B, N, M):
+    """Duplicated points, centers far outside the cloud (empty balls) and a
+    mask: CPU tensors (xyz, new_xyz, mask)."""
+    xyz = rng.uniform(0, 8, (B, N, 3)).astype(np.float32)
+    xyz[:, N // 2: N // 2 + N // 5] = xyz[:, :N // 5]
+    new_xyz = xyz[:, :M].copy()
+    new_xyz[:, :5] += 100.0
+    return torch.from_numpy(xyz), torch.from_numpy(new_xyz), torch.from_numpy(rng.rand(B, N) < 0.8)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('B,N,M,radii,nsamples', [
+    (3, 3001, 333, (0.5, 1.3, 0.9), (5, 70, 3)), (2, 16384, 4096, (0.2, 0.8), (16, 32)),
+    (50, 512, 128, (0.2,), (16,)), (7, 20, 9, (3.0, 50.0), (4, 33))])
+def test_ball_query_kernel_matches_plain_on_the_card(B, N, M, radii, nsamples):
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
+    xyz, new_xyz, mask = _ball_query_inputs(np.random.RandomState(6), B, N, M)
+    for m in (None, mask):
+        got = dispatch.ball_query_level(radii, nsamples, xyz.cuda(), new_xyz.cuda(),
+                                        None if m is None else m.cuda())
+        torch.cuda.synchronize()
+        for r, k, g in zip(radii, nsamples, got):
+            want = plain.ball_query(r, k, xyz, new_xyz, mask=m)
+            assert (want[:, :5] == 0).all()
+            assert torch.equal(g.cpu(), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('width,c0,c1,n0', [(4, 0, 3, 0), (4, 3, 4, 0), (5, 0, 3, 0),
+                                            (128, 0, 128, 0), (4, 0, 3, 77)])
+def test_grouping_operation_kernel_matches_plain_on_strided_views(width, c0, c1, n0):
+    """`dispatch.grouping_operation` on a channel slice of a wider tensor (the
+    kernel reads at the row stride) and on a slice of the points (a dense
+    copy first) equals the plain gather, exactly."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
+    rng = np.random.RandomState(8)
+    B, N, M, K = 3, 501, 40, 7
+    wide = torch.from_numpy(rng.randn(B, N, width).astype(np.float32))
+    idx = torch.from_numpy(rng.randint(0, N - n0, (B, M, K)).astype(np.int32))
+    group.gather_rows_cuda.launches = 0
+    got = dispatch.grouping_operation(wide.cuda()[:, n0:, c0:c1], idx.cuda())
+    torch.cuda.synchronize()
+    assert group.gather_rows_cuda.launches == 1
+    assert torch.equal(got.cpu(), plain.grouping_operation(wide[:, n0:, c0:c1], idx))

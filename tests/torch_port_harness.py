@@ -1,4 +1,4 @@
-"""Builds the JAX flagship and its PyTorch twin with the same weights.
+"""Builds a model of the JAX package and its PyTorch twin with the same weights.
 
 Inputs come from numpy seeds; BatchNorm statistics and affine parameters are
 randomized on the flax side (a fresh init leaves mean 0 / var 1 / scale 1,
@@ -19,14 +19,17 @@ import __graft_entry__ as graft
 from pdm_ssd_torch.models import build_network
 from pdm_ssd_torch.utils.weights import from_flax
 
+REPO = graft.REPO
+
 
 def make_points(B: int, N: int, seed: int = 0) -> np.ndarray:
     """Synthetic KITTI-range clouds (B, N, 4), as `__graft_entry__._make_batch`."""
     return graft._make_batch(B, N, seed=seed)['points']
 
 
-def randomize_variables(variables: Mapping, seed: int) -> dict:
-    """Random BatchNorm statistics, scales and biases (numpy, seeded)."""
+def randomize_variables(variables: Mapping, seed: int, bias_scale: float = 0.0) -> dict:
+    """Random BatchNorm statistics, scales and biases (numpy, seeded); with
+    `bias_scale`, the biases of the other layers too (flax starts them at 0)."""
     rng = np.random.RandomState(seed)
 
     def walk(tree, stats):
@@ -45,6 +48,8 @@ def randomize_variables(variables: Mapping, seed: int) -> dict:
                 a = rng.uniform(0.5, 1.5, a.shape).astype(np.float32)
             elif is_bn and k == 'bias':
                 a = rng.normal(0.0, 0.2, a.shape).astype(np.float32)
+            elif k == 'bias' and bias_scale:
+                a = rng.normal(0.0, bias_scale, a.shape).astype(np.float32)
             out[k] = a
         return out
 
@@ -90,7 +95,7 @@ def to_numpy(tree):
         return [to_numpy(v) for v in tree]
     if isinstance(tree, torch.Tensor):
         return tree.detach().contiguous().numpy()
-    if isinstance(tree, (int, float)):
+    if tree is None or isinstance(tree, (int, float)):
         return tree
     return np.array(tree)
 
@@ -105,18 +110,30 @@ def to_torch(tree):
     return torch.from_numpy(np.array(tree))
 
 
-class FlagshipPair:
-    """The tiny flagship in both packages with the same weights, plus the
-    JAX forward of one batch (all intermediates) as numpy. `batch` also
-    holds the batch's `gt_boxes` and `gt_mask` for the training path."""
+class ModelPair:
+    """One config built in both packages with the same weights, plus the JAX
+    forward of one batch (all intermediates) as numpy. `cfg` is a whole
+    config (`MODEL`, `CLASS_NAMES`, `DATA_CONFIG`) of either package's
+    CfgNode. `batch` also holds the batch's `gt_boxes` and `gt_mask` for a
+    training path."""
 
-    def __init__(self, B: int = 2, N: int = 512, seed: int = 0):
-        self.jax_model, self.cfg = graft._flagship(tiny=True)
+    def __init__(self, cfg, B: int = 2, N: int = 512, seed: int = 0, jax_model=None,
+                 points: np.ndarray | None = None, bias_scale: float = 0.0):
+        from pdm_ssd_tpu.models import build_network as j_build_network
+        from pdm_ssd_tpu.utils.config import CfgNode as JCfgNode
+        self.cfg = cfg
+        if jax_model is None:
+            jcfg = JCfgNode(cfg.to_dict())
+            jax_model = j_build_network(jcfg.MODEL, num_class=len(jcfg.CLASS_NAMES),
+                                        dataset_cfg=jcfg.DATA_CONFIG)
+        self.jax_model = jax_model
         self.batch = graft._make_batch(B, N, seed=seed)
+        if points is not None:
+            self.batch['points'] = points
         self.points = self.batch['points']
         init = jax.jit(lambda p: self.jax_model.init(
             {'params': jax.random.PRNGKey(seed)}, {'points': p}, training=False))
-        self.variables = randomize_variables(init(self.points), seed + 1)
+        self.variables = randomize_variables(init(self.points), seed + 1, bias_scale)
         self.net = build_network(self.cfg.MODEL, len(self.cfg.CLASS_NAMES),
                                  self.cfg.DATA_CONFIG, device='cpu')
         self.net.load_state_dict(from_flax(self.variables, self.net))
@@ -152,3 +169,11 @@ class FlagshipPair:
 
     def torch_batch(self) -> dict:
         return {k: torch.from_numpy(v) for k, v in self.batch.items()}
+
+
+class FlagshipPair(ModelPair):
+    """The tiny flagship (`__graft_entry__._flagship(tiny=True)`) as a `ModelPair`."""
+
+    def __init__(self, B: int = 2, N: int = 512, seed: int = 0):
+        jax_model, cfg = graft._flagship(tiny=True)
+        super().__init__(cfg, B=B, N=N, seed=seed, jax_model=jax_model)
