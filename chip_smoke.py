@@ -54,7 +54,31 @@ non-zero exit):
    outputs compared ROI by ROI after matching the proposals by box;
 11. the same model's `predict` at full width, B=4, N=16384: shapes, finite
    values, kernel launches counted in that run, frames/s and peak memory;
-   then one `predict` of the file as shipped: shapes and finite values.
+   then one `predict` of the file as shipped: shapes and finite values;
+12. the sparse-conv kernel against its plain version and against a float64
+   evaluation (each within float32 rounding of the sum of magnitudes), two
+   runs bit-equal, at the twelve layers of SECOND's ladder
+   (`configs/kitti_models/second_sparse.yaml`, B=4, 40000 voxel slots) with
+   the maps and the layer inputs of a forward over the full-width synthetic
+   batch, at the TPU microbench's shape (V = 52224, C = 64, K = 27, its
+   `make_maps`), at a ragged row count and with rows whose taps are all
+   absent; times kernel, plain version and the gather + `torch.matmul` pair
+   (median of 5, CUDA events); the bound is the bytes (table, map and weights
+   read once, output written once) or the multiply-adds of the taps present
+   in this run's maps, and the bytes the kernel really gathers stand beside it;
+13. the row gather's bfloat16 entry point at (52000, 96) with repeated
+   indices, and its float32 use in the model, the reorder of (4, 40000, 4)
+   voxel features by `sp_perm1`: exact; kernel, plain version,
+   `torch.index_select`, bound;
+14. the tiny SECOND (`synthetic.tiny_second_cfg`) on CUDA against the CPU:
+   voxelizer and kernel maps equal exactly, head outputs within FWD_RTOL of
+   scale, the same number of boxes kept per cloud, detections matched by box
+   and label as phase 10 matches its ROIs;
+15. SECOND's `predict` as shipped at B=4 on LiDAR-like clouds of 50000
+   points: shapes, finite values, the active and dropped sites of every
+   stage, kernel launches counted in that run (12 sparse convs, 1 row
+   gather), ms per batch and frames/s with and without voxelizer and map
+   build, peak memory.
 
 The line before the last is the card's name and power limit; before it, one
 JSON line describing each kernel. The last line is
@@ -95,9 +119,11 @@ HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
 # launches of one full-width training step and of one predict
 TRAIN_LAUNCHES = {'farthest_point_sample': 1, 'window_select': 3, 'gather_rows': 6,
-                  'scatter_add_rows': 4, 'ball_query': 0}
+                  'scatter_add_rows': 4, 'ball_query': 0, 'sparse_conv': 0,
+                  'gather_rows_bf16': 0}
 PREDICT_LAUNCHES = {'farthest_point_sample': 1, 'window_select': 3, 'gather_rows': 6,
-                    'scatter_add_rows': 0, 'ball_query': 0}
+                    'scatter_add_rows': 0, 'ball_query': 0, 'sparse_conv': 0,
+                    'gather_rows_bf16': 0}
 # one PointRCNN predict. FPS: backbone level 1 is 'random' without a generator
 # (a prefix), level 2 runs FPS 4096 -> 1024, level 3 is its prefix; the ROI
 # stack runs FPS 512 -> 128 and 128 -> 32. Ball query: one launch per SA level,
@@ -105,7 +131,20 @@ PREDICT_LAUNCHES = {'farthest_point_sample': 1, 'window_select': 3, 'gather_rows
 # radius, 3 levels x 2 radii and 2 levels x 1 radius.
 POINTRCNN_CFG = 'configs/kitti_models/pointrcnn.yaml'
 POINTRCNN_PREDICT_LAUNCHES = {'farthest_point_sample': 3, 'window_select': 0, 'gather_rows': 16,
-                              'scatter_add_rows': 0, 'ball_query': 5}
+                              'scatter_add_rows': 0, 'ball_query': 5, 'sparse_conv': 0,
+                              'gather_rows_bf16': 0}
+# one SECOND predict: the reorder of the voxel features into slot order, then
+# conv_input, conv1, three stages of one strided and two submanifold convs,
+# conv_out
+SECOND_CFG = 'configs/kitti_models/second_sparse.yaml'
+SECOND_PREDICT_LAUNCHES = {'farthest_point_sample': 0, 'window_select': 0, 'gather_rows': 1,
+                           'scatter_add_rows': 0, 'ball_query': 0, 'sparse_conv': 12,
+                           'gather_rows_bf16': 0}
+SECOND_POINTS = 50000
+# share of a ladder stage's sites that may fall to its capacity, and the
+# least active input voxels per cloud of 40000 slots
+SECOND_MAX_DROP = 0.01
+SECOND_MIN_VOXELS = 30000
 
 
 def log(phase: str, msg: str) -> None:
@@ -316,12 +355,13 @@ def cuda_vs_cpu_phase(cfg, dispatch, synthetic, phase: str = '4 cuda-vs-cpu',
 
 
 def reset_launches(wrappers: dict) -> None:
-    for fn in wrappers.values():
-        fn.launches = 0
+    """wrappers: kernel entry point -> (wrapper, the name of its counter)."""
+    for fn, counter in wrappers.values():
+        setattr(fn, counter, 0)
 
 
 def read_launches(wrappers: dict) -> dict:
-    return {name: fn.launches for name, fn in wrappers.items()}
+    return {name: getattr(fn, counter) for name, (fn, counter) in wrappers.items()}
 
 
 def check_detections(phase: str, det: dict, B: int) -> None:
@@ -785,6 +825,306 @@ def train_phase(cfg, wrappers, synthetic, card: str) -> dict:
     return launches
 
 
+def second_inputs(cfg, synthetic, B: int, N: int, seed: int, device='cuda') -> dict:
+    """A voxelized, map-prepared serving batch of a SECOND config."""
+    from pdm_ssd_torch.models import get_host_prepare
+    return get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG)(
+        synthetic.voxel_batch(B, N, cfg, seed=seed, device=device))
+
+
+def sparse_conv_check(name, sc, feats, nbr, w) -> dict:
+    """Kernel and plain version each against float64, within the rounding of
+    a float32 sum of K * Cin products (each at most 2^-24 of the sum of
+    magnitudes); two kernel runs bit-equal; rows with no present tap exactly
+    zero. Returns the taps present and the largest kernel-plain difference."""
+    B, Vin, Cin = feats.shape
+    K = nbr.shape[2]
+    got = sc.sparse_conv_cuda(feats, nbr, w)
+    torch.cuda.synchronize()
+    again = sc.sparse_conv_cuda(feats, nbr, w)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise SystemExit(f'[12 sparse conv] FAILED {name}: two runs of the kernel differ')
+    want = sc.sparse_conv_plain(feats, nbr, w)
+    exact = sc.sparse_conv_plain(feats.double(), nbr, w.double())
+    mass = sc.sparse_conv_plain(feats.double().abs(), nbr, w.double().abs())
+    tol = K * Cin * 2.0 ** -24 * mass + 1e-30
+    worst = {}
+    for label, t in (('kernel', got), ('plain', want)):
+        ratio = (t.double() - exact).abs() / tol
+        worst[label] = float(ratio.max())
+        if not bool((ratio <= 1.0).all()):
+            raise SystemExit(f'[12 sparse conv] FAILED {name}: {label} differs from the float64 '
+                             f'evaluation by {worst[label]:.3f} of the rounding bound')
+    present = (nbr >= 0) & (nbr < Vin)
+    empty = ~present.any(dim=2)
+    if bool(got[empty].any()):
+        raise SystemExit(f'[12 sparse conv] FAILED {name}: a row with no present tap is not 0')
+    return {'present': int(present.sum()), 'empty_rows': int(empty.sum()),
+            'err': float((got - want).abs().max()), 'worst': worst}
+
+
+def sparse_conv_phase(net, inputs, sc, smi: str) -> dict:
+    """Returns the kernel's totals over the ladder's twelve layers (the
+    launches of one predict)."""
+    from pdm_ssd_torch.models.backbones_3d.sparse_backbone import SparseConvBNReLU
+    bb = net.backbone_3d
+    calls = {}
+    hooks = [m.register_forward_pre_hook(lambda mod, args, name=name: calls.setdefault(name, args))
+             for name, m in bb.named_modules() if isinstance(m, SparseConvBNReLU)]
+    with torch.inference_mode():
+        bb(net.vfe(dict(inputs)))
+    for h in hooks:
+        h.remove()
+    modules = dict(bb.named_modules())
+    if len(calls) != 12:
+        raise SystemExit(f'[12 sparse conv] FAILED: the ladder has {len(calls)} layers, not 12')
+    total = {'err': 0.0, 'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0, 'bytes': 0, 'flops': 0,
+             'walk_bytes': 0}
+    with torch.inference_mode():
+        for name, (feats, nbr, _) in calls.items():
+            w = modules[name].kernel.detach()
+            feats, nbr = feats.contiguous(), nbr.contiguous()
+            B, Vin, Cin = feats.shape
+            Vout, K = nbr.shape[1], nbr.shape[2]
+            Cout = w.shape[1]
+            r = sparse_conv_check(name, sc, feats, nbr, w)
+            ms = median_ms(lambda: sc.sparse_conv_cuda(feats, nbr, w), 5)
+            plain_ms = median_ms(lambda: sc.sparse_conv_plain(feats, nbr, w), 5)
+            pair_ms = median_ms(lambda: torch.matmul(sc.gather_taps(feats, nbr), w), 5)
+            byts = (feats.numel() + nbr.numel() + w.numel() + B * Vout * Cout) * 4
+            flops = 2 * r['present'] * Cin * Cout
+            walk = (r['present'] * Cin + nbr.numel() + B * Vout * Cout
+                    + -(-Vout // 64) * B * w.numel()) * 4
+            total['err'] = max(total['err'], r['err'])
+            for key, v in (('ms', ms), ('plain_ms', plain_ms), ('library_ms', pair_ms),
+                           ('bytes', byts), ('flops', flops), ('walk_bytes', walk)):
+                total[key] += v
+            log('12 sparse conv', f'{name} {Cin}->{Cout} K={K} Vin={Vin} Vout={Vout} B={B}: '
+                f'{r["present"] / nbr.numel():.3f} of taps present, {r["empty_rows"]} rows with '
+                f'none; kernel {r["worst"]["kernel"]:.3f} and plain {r["worst"]["plain"]:.3f} of '
+                f'the rounding bound from float64, kernel vs plain max |diff| {r["err"]:.2e}, two '
+                f'runs bit-equal; ms kernel/plain/gather+matmul {ms:.3f}/{plain_ms:.3f}/'
+                f'{pair_ms:.3f}; bound bytes {byts / HBM_BYTES_PER_S * 1e3:.4f} ms, operations '
+                f'{flops / FP32_FLOP_PER_S * 1e3:.4f} ms')
+        # the TPU microbench's layer: V = 52224, C = 64, K = 27, its make_maps
+        rng = np.random.default_rng(0)
+        V, C, K = 52224, 64, 27
+        idx = np.clip(np.arange(V)[:, None] + rng.integers(-40, 40, size=(1, K))
+                      + rng.integers(-8, 8, size=(V, K)), 0, V - 1)
+        idx[rng.random((V, K)) < 0.10] = V
+        feats = torch.from_numpy(rng.standard_normal((1, V, C)).astype(np.float32)).cuda()
+        nbr = torch.from_numpy(idx.astype(np.int32))[None].cuda()
+        w = torch.from_numpy((rng.standard_normal((K * C, C)) * 0.02).astype(np.float32)).cuda()
+        r = sparse_conv_check('microbench shape', sc, feats, nbr, w)
+        ms = median_ms(lambda: sc.sparse_conv_cuda(feats, nbr, w), 5)
+        plain_ms = median_ms(lambda: sc.sparse_conv_plain(feats, nbr, w), 5)
+        log('12 sparse conv', f'microbench shape V={V} C={C} K={K}: kernel {r["worst"]["kernel"]:.3f} '
+            f'and plain {r["worst"]["plain"]:.3f} of the rounding bound; kernel {ms:.3f} ms, plain '
+            f'{plain_ms:.3f} ms, {2 * r["present"] * C * C / ms / 1e9:.2f} TFLOP/s on {smi}')
+        # ragged: a row count that is no multiple of the tile, odd widths,
+        # entries on both sides of [0, Vin), whole rows absent
+        for B, Vin, Vout, K, Cin, Cout in ((3, 1000, 1001, 27, 7, 100), (2, 301, 1, 3, 5, 3),
+                                          (2, 5000, 4999, 27, 4, 16)):
+            idx = rng.integers(0, Vin, size=(B, Vout, K))
+            idx[rng.random((B, Vout, K)) < 0.5] = Vin
+            idx[:, ::5] = Vin
+            idx[:, -1, 0] = -1
+            r = sparse_conv_check(
+                'ragged', sc,
+                torch.from_numpy(rng.standard_normal((B, Vin, Cin)).astype(np.float32)).cuda(),
+                torch.from_numpy(idx.astype(np.int32)).cuda(),
+                torch.from_numpy(rng.standard_normal((K * Cin, Cout)).astype(np.float32)).cuda())
+            log('12 sparse conv', f'ragged B={B} Vin={Vin} Vout={Vout} K={K} {Cin}->{Cout}: within '
+                f'the rounding bound ({r["worst"]["kernel"]:.3f}), {r["empty_rows"]} rows with no '
+                'present tap exactly 0, two runs bit-equal')
+    t_bytes = total['bytes'] / HBM_BYTES_PER_S * 1e3
+    t_ops = total['flops'] / FP32_FLOP_PER_S * 1e3
+    stats = {'max_abs_err': total['err'], 'ms': total['ms'], 'plain_ms': total['plain_ms'],
+             'bound_ms': max(t_bytes, t_ops),
+             'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
+             'library_ms': total['library_ms'],
+             'walk_ms': total['walk_bytes'] / HBM_BYTES_PER_S * 1e3}
+    log('12 sparse conv', f'twelve layers at B=4: kernel {stats["ms"]:.3f} ms, plain torch '
+        f'{stats["plain_ms"]:.3f} ms, gather + torch.matmul (two calls, no single PyTorch call '
+        f'computes the function) {stats["library_ms"]:.3f} ms (median of 5 each), bound '
+        f'{stats["bound_ms"]:.4f} ms by {stats["bound_by"]} (bytes {t_bytes:.4f} ms, '
+        f'{total["flops"] / 1e9:.2f} GFLOP of present taps {t_ops:.4f} ms); the rows the kernel '
+        f'gathers, its maps, outputs and per-tile weights are {stats["walk_ms"]:.4f} ms of bytes')
+    return stats
+
+
+def gather_bf16_phase(inputs, group, smi: str) -> dict:
+    rng = np.random.default_rng(1)
+    table = torch.from_numpy(rng.standard_normal((1, 52000, 96)).astype(np.float32)).cuda() \
+        .to(torch.bfloat16)
+    idx = torch.from_numpy(rng.integers(0, 52000, size=(1, 52000)).astype(np.int32)).cuda()
+    got = group.gather_rows_cuda(table, idx)
+    torch.cuda.synchronize()
+    want = group.gather_rows_plain(table, idx)
+    err = float((got.float() - want.float()).abs().max())
+    if not torch.equal(got, want):
+        raise SystemExit('[13 bf16 gather] FAILED: (52000, 96) bf16 rows differ from the plain '
+                         'gather')
+    repeats = 52000 - int(torch.unique(idx).numel())
+    feats = inputs['voxels'][:, :, 0, :].contiguous()            # (4, 40000, 4) float32
+    perm = inputs['sp_perm1']
+    if not torch.equal(group.gather_rows_cuda(feats, perm), group.gather_rows_plain(feats, perm)):
+        raise SystemExit('[13 bf16 gather] FAILED: the sp_perm1 reorder differs from the plain '
+                         'gather')
+    long_idx = idx[0].long()
+    stats = {'max_abs_err': err,
+             'ms': median_ms(lambda: group.gather_rows_cuda(table, idx), 5),
+             'plain_ms': median_ms(lambda: group.gather_rows_plain(table, idx), 5),
+             'library_ms': median_ms(lambda: torch.index_select(table[0], 0, long_idx), 5),
+             'bound_ms': (2 * table.numel() * 2 + idx.numel() * 4) / HBM_BYTES_PER_S * 1e3,
+             'bound_by': 'bytes'}
+    perm_ms = median_ms(lambda: group.gather_rows_cuda(feats, perm), 5)
+    log('13 bf16 gather', f'(52000, 96) bf16, {repeats} repeated indices: kernel == plain '
+        f'(exact, max |diff| {err:g}); kernel {stats["ms"]:.4f} ms, plain torch '
+        f'{stats["plain_ms"]:.4f} ms, '
+        f'torch.index_select {stats["library_ms"]:.4f} ms, bound {stats["bound_ms"]:.5f} ms by '
+        f'bytes; the sp_perm1 reorder {tuple(feats.shape)} float32: exact, {perm_ms:.4f} ms on '
+        f'{smi}')
+    return stats
+
+
+def match_detections(got: dict, want: dict, phase: str) -> str:
+    """Kept boxes of two runs, matched by box and label, held as the ROIs of
+    phase 10 are: near-tied scores permute slots, so both runs must keep the
+    same number of boxes in every cloud, each box of the CPU run is paired
+    with the nearest of the CUDA run, at least ROI_MATCH_SHARE of them must
+    have a twin within ROI_MATCH_ATOL with the same label, and at most
+    ROI_UNMATCHED_PER_CLOUD of a cloud may lack one."""
+    kept_g, kept_w = got['pred_mask'].sum(dim=1), want['pred_mask'].sum(dim=1)
+    if not torch.equal(kept_g, kept_w):
+        raise SystemExit(f'[{phase}] FAILED: boxes kept per cloud {kept_g.tolist()} on CUDA, '
+                         f'{kept_w.tolist()} on the CPU')
+    n_want = n_pairs = 0
+    for b in range(want['pred_boxes'].shape[0]):
+        w_slots, g_slots = want['pred_mask'][b], got['pred_mask'][b]
+        w, g = want['pred_boxes'][b][w_slots], got['pred_boxes'][b][g_slots]
+        if len(w) == 0:
+            continue
+        near, twin = (w[:, None] - g[None]).abs().amax(-1).min(dim=1)
+        same = want['pred_labels'][b][w_slots] == got['pred_labels'][b][g_slots][twin]
+        paired = (near <= ROI_MATCH_ATOL) & same
+        if len(set(twin[paired].tolist())) != int(paired.sum()):
+            raise SystemExit(f'[{phase}] FAILED: two boxes of the CPU run match one of the CUDA '
+                             'run')
+        if len(w) - int(paired.sum()) > ROI_UNMATCHED_PER_CLOUD:
+            raise SystemExit(f'[{phase}] FAILED: cloud {b}: {len(w) - int(paired.sum())} of '
+                             f'{len(w)} boxes of the CPU run have no twin in the CUDA run (at '
+                             f'most {ROI_UNMATCHED_PER_CLOUD})')
+        n_want += len(w)
+        n_pairs += int(paired.sum())
+    if n_want == 0 or n_pairs < ROI_MATCH_SHARE * n_want:
+        raise SystemExit(f'[{phase}] FAILED: {n_pairs} of {n_want} boxes of the CPU run have a '
+                         'twin in the CUDA run')
+    return (f'{kept_w.tolist()} boxes kept per cloud in both runs, {n_pairs} of {n_want} have a '
+            'twin by box and label')
+
+
+def second_cuda_vs_cpu_phase(cfg, synthetic) -> None:
+    from pdm_ssd_torch.ops.sparse_maps import LADDER_KEYS
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase = '14 second cuda-vs-cpu'
+    cpu_in = second_inputs(cfg, synthetic, 2, 600, seed=4, device='cpu')
+    gpu_in = second_inputs(cfg, synthetic, 2, 600, seed=4, device='cuda')
+    for k in ('voxels', 'voxel_coords', 'voxel_num_points', 'voxel_mask', *LADDER_KEYS):
+        if not torch.equal(gpu_in[k].cpu(), cpu_in[k]):
+            raise SystemExit(f'[{phase}] FAILED: {k} built on CUDA differs from the CPU\'s')
+    cpu_net = synthetic.open_score_gate(synthetic.random_model(cfg, 'cpu'))
+    gpu_net = synthetic.random_model(cfg, 'cuda')
+    gpu_net.load_state_dict(cpu_net.state_dict())
+    with torch.inference_mode():
+        want = cpu_net(cpu_in)
+        got = gpu_net(gpu_in)
+    worst = 0.0
+    keys = ('voxel_features', 'spatial_features', 'spatial_features_2d', 'anchor_cls_preds',
+            'anchor_box_preds', 'anchor_dir_preds')
+    for k in keys:
+        w, g = want[k], got[k].cpu()
+        rel = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-6)
+        worst = max(worst, rel)
+        if not rel <= FWD_RTOL:
+            raise SystemExit(f'[{phase}] FAILED {k}: max |diff| / max |cpu| = {rel:.3e}')
+    note = match_detections({k: v.cpu() for k, v in gpu_net.predict(gpu_in).items()},
+                            cpu_net.predict(cpu_in), phase)
+    log(phase, f'tiny SECOND B=2: voxelizer and {len(LADDER_KEYS)} map tensors equal, '
+        f'{len(keys)} outputs agree, worst max|diff|/max|cpu| = {worst:.3e} (bound {FWD_RTOL:g}); '
+        f'{note}')
+
+
+def second_predict_phase(cfg, net, inputs, wrappers, synthetic, card: str) -> dict:
+    from pdm_ssd_torch.models import get_host_prepare
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase = '15 second predict'
+    B = inputs['voxels'].shape[0]
+    caps = [inputs[k].shape[1] for k in ('sp_mask1', 'sp_mask2', 'sp_mask3', 'sp_mask4',
+                                         'sp_mask_out')]
+    sites = inputs['sp_sites']                                    # (B, 5), on the CPU
+    dropped = (sites - torch.tensor(caps)).clamp(min=0)
+    log(phase, f'caps {caps}; sites per stage and cloud {sites.tolist()}; dropped '
+        f'{dropped.tolist()}')
+    if int(sites[:, 0].min()) < SECOND_MIN_VOXELS:
+        raise SystemExit(f'[{phase}] FAILED: a cloud fills {int(sites[:, 0].min())} of the '
+                         f'{caps[0]} voxel slots, fewer than {SECOND_MIN_VOXELS}')
+    if bool((dropped.float() > SECOND_MAX_DROP * sites.float()).any()):
+        raise SystemExit(f'[{phase}] FAILED: a stage drops more than {SECOND_MAX_DROP:.0%} of '
+                         'its sites')
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(wrappers)
+    det = net.predict(inputs)
+    torch.cuda.synchronize()
+    launches = read_launches(wrappers)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_detections(phase, det, B)
+    if launches != SECOND_PREDICT_LAUNCHES:
+        raise SystemExit(f'[{phase}] FAILED: kernel launches {launches}, expected '
+                         f'{SECOND_PREDICT_LAUNCHES}')
+    width = net.backbone_3d.num_bev_features
+    if width != 256 or tuple(net.backbone_3d.shapes[4]) != (2, 200, 176):
+        raise SystemExit(f'[{phase}] FAILED: BEV width {width}, shape {net.backbone_3d.shapes[4]}')
+    prepare = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG)
+    pts = inputs['points']
+    proc = synthetic.voxel_processor(cfg)
+    from pdm_ssd_torch.ops.voxelize import voxelize_batch
+
+    def from_points() -> tuple[float, float]:
+        """Seconds of voxelizer + map build, then of predict, in one pass."""
+        t0 = time.perf_counter()
+        batch = prepare(voxelize_batch(pts, cfg.DATA_CONFIG.POINT_CLOUD_RANGE,
+                                       list(proc.VOXEL_SIZE), int(proc.MAX_POINTS_PER_VOXEL),
+                                       int(proc.MAX_NUMBER_OF_VOXELS['test'])))
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        net.predict(batch)
+        torch.cuda.synchronize()
+        return t1 - t0, time.perf_counter() - t1
+
+    # both parts are timed inside each repetition, so their sum and their
+    # difference are of one pass and not of two medians taken apart
+    for _ in range(2):
+        from_points()
+    reps = [from_points() for _ in range(5)]
+    prep = statistics.median(r[0] for r in reps)
+    prepared = statistics.median(r[1] for r in reps)
+    whole = statistics.median(sum(r) for r in reps)
+    spread = [min(r[1] for r in reps), max(r[1] for r in reps)]
+    log(phase, f'{cfg.MODEL.NAME} as shipped B={B} V={caps[0]} ({SECOND_POINTS} points per '
+        f'cloud, BEV input width {width}): shapes ok, finite, {int(det["pred_mask"].sum())} kept '
+        f'boxes, launches {launches}; 5 passes, each timed in two parts: voxelizer + map build '
+        f'median {prep * 1e3:.3f} ms, predict on the prepared batch median {prepared * 1e3:.3f} '
+        f'ms/batch = {B / prepared:.2f} frames/s (least {spread[0] * 1e3:.3f}, most '
+        f'{spread[1] * 1e3:.3f} ms), from points (both) median {whole * 1e3:.3f} ms/batch = '
+        f'{B / whole:.2f} frames/s; peak allocated {peak:.3f} GiB on {card}')
+    return launches
+
+
 KERNEL_TABLE = (
     ('farthest_point_sample', 'pdm_ssd_torch/csrc/fps.cu', 'pdm_ssd_tpu/ops/pallas/fps.py:60'),
     ('window_select', 'pdm_ssd_torch/csrc/group.cu',
@@ -795,6 +1135,10 @@ KERNEL_TABLE = (
      'pdm_ssd_tpu/ops/pallas/retired/onehot_gather.py:226'),
     ('ball_query', 'pdm_ssd_torch/csrc/ball_query.cu',
      'pdm_ssd_tpu/ops/pallas/retired/grid_query.py:112'),
+    ('sparse_conv', 'pdm_ssd_torch/csrc/sparse_conv.cu',
+     'tools/microbench_sparse_gather.py:175, tools/microbench_sparse_gather2.py:94 and :182, '
+     'tools/microbench_sparse_gather3.py:156'),
+    ('gather_rows_bf16', 'pdm_ssd_torch/csrc/group.cu', 'tools/microbench_pallas_gather.py:66'),
 )
 
 
@@ -804,6 +1148,7 @@ def main() -> None:
     from pdm_ssd_torch.ops import ball_query as bq
     from pdm_ssd_torch.ops import dispatch, fps, group, kernels, sa_fused
     from pdm_ssd_torch.ops import pointnet2 as plain
+    from pdm_ssd_torch.ops import sparse_conv as sc
     from pdm_ssd_torch.utils import synthetic
     from pdm_ssd_torch.utils.config import CfgNode, cfg_from_yaml_file
 
@@ -815,11 +1160,15 @@ def main() -> None:
     for line in kernels.build_log.splitlines():
         if 'registers' in line or 'spill' in line or 'Compiling entry' in line:
             print(f'    {line.strip()}')
-    wrappers = {'farthest_point_sample': fps.farthest_point_sample_cuda,
-                'window_select': group.window_select_cuda,
-                'gather_rows': group.gather_rows_cuda,
-                'scatter_add_rows': group.scatter_add_rows_cuda,
-                'ball_query': bq.ball_query_cuda}
+    # the row gather has two entry points, float32 and bfloat16, each with
+    # its own counter on the one wrapper
+    wrappers = {'farthest_point_sample': (fps.farthest_point_sample_cuda, 'launches'),
+                'window_select': (group.window_select_cuda, 'launches'),
+                'gather_rows': (group.gather_rows_cuda, 'launches'),
+                'scatter_add_rows': (group.scatter_add_rows_cuda, 'launches'),
+                'ball_query': (bq.ball_query_cuda, 'launches'),
+                'sparse_conv': (sc.sparse_conv_cuda, 'launches'),
+                'gather_rows_bf16': (group.gather_rows_cuda, 'launches_bf16')}
 
     stats = {'farthest_point_sample': fps_phase(fps, plain, synthetic.kitti_points)}
     fps_stats = stats['farthest_point_sample']
@@ -850,19 +1199,44 @@ def main() -> None:
                                   expected=POINTRCNN_PREDICT_LAUNCHES)
     shipped_predict_phase(shipped, synthetic)
 
+    second = cfg_from_yaml_file(str(REPO / SECOND_CFG), CfgNode())
+    second_net = synthetic.open_score_gate(synthetic.random_model(second, 'cuda', seed=7))
+    second_in = second_inputs(second, synthetic, second.OPTIMIZATION.BATCH_SIZE_PER_GPU,
+                              SECOND_POINTS, seed=5)
+    stats['sparse_conv'] = sparse_conv_phase(second_net, second_in, sc, smi)
+    stats['gather_rows_bf16'] = gather_bf16_phase(second_in, group, smi)
+    second_cuda_vs_cpu_phase(synthetic.tiny_second_cfg(
+        cfg_from_yaml_file(str(REPO / SECOND_CFG), CfgNode())), synthetic)
+    second_launches = second_predict_phase(second, second_net, second_in, wrappers, synthetic,
+                                           smi)
+
     # `launches` is the count from the run of a main path: the flagship's five
     # training steps of phase 8 for its four kernels, PointRCNN's predict of
-    # phase 11 for the ball query. The grouping kernels' times, bounds and
-    # library times are sums over the flagship's three SA levels (the launches
-    # of one forward, and of one backward for the scatter-add), the ball
-    # query's over PointRCNN's three backbone levels, where `walk_ms` is the
-    # time of the tests its walk makes, at the peak rate, beside the bound of
-    # the tests the function needs; `max_abs_err` is kernel against plain version
+    # phase 11 for the ball query, SECOND's predict of phase 15 for the sparse
+    # conv and for the row gather's bfloat16 entry point. Every count is of the
+    # entry point it stands under: no model of the port keeps bfloat16 tables,
+    # so the bfloat16 entry is launched by phase 13 alone and every path counts
+    # 0 for it, while SECOND's predict launches the float32 entry once. The
+    # grouping kernels' times, bounds and library times are sums over the
+    # flagship's three SA levels (the launches of one forward, and of one
+    # backward for the scatter-add), the ball query's over PointRCNN's three
+    # backbone levels, the sparse conv's over SECOND's twelve layers; `walk_ms`
+    # is the time of what a kernel's own walk does, at the peak rate, beside
+    # the bound of what the function needs; the sparse conv's `library_ms` is
+    # a pair of PyTorch calls (gather, `torch.matmul`), since no single call
+    # computes it; `max_abs_err` is kernel against plain version
+    main_path = {kern: train_launches for kern, _, _ in KERNEL_TABLE}
+    main_path.update(ball_query=rcnn_launches, sparse_conv=second_launches,
+                     gather_rows_bf16=second_launches)
+    for kern in main_path:
+        if kern != 'gather_rows_bf16' and main_path[kern][kern] < 1:
+            raise SystemExit(f'[kernels] FAILED: {kern} was not launched on its main path')
     print(json.dumps({'kernels': [{
         'name': kern, 'route': 'cuda', 'source': source, 'replaces': replaces,
-        'launches': (rcnn_launches if kern == 'ball_query' else train_launches)[kern],
+        'launches': main_path[kern][kern],
         'launches_per_predict': predict_launches[kern],
         'launches_per_pointrcnn_predict': rcnn_launches[kern],
+        'launches_per_second_predict': second_launches[kern],
         **stats[kern]} for kern, source, replaces in KERNEL_TABLE]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,

@@ -28,11 +28,13 @@
 // radius; table rows are read 128 B per warp, the points are the scattered part.
 //
 // gather_rows: out[b, r, :] = feat[b, idx[b, r], :], a zero row for an index
-// outside [0, N). The feature rows may be a channel slice of a wider payload:
-// `ld` is the distance between rows in floats and `feat` already points at
-// the slice's first channel, so no branch copies its slice first. One thread
-// moves 16 B where the slice, the row stride and the output are 16-byte
-// aligned, else 4 B. Bound by bytes: every output byte is written once and
+// outside [0, N), for float32 or bfloat16 rows (the second entry point is
+// the counterpart of the TPU's same-shape row gather,
+// tools/microbench_pallas_gather.py `pallas_dynamic_gather`). The feature rows
+// may be a channel slice of a wider payload: `ld` is the distance between rows
+// in elements and `feat` already points at the slice's first channel, so no
+// branch copies its slice first. One thread moves 16 B where the slice, the
+// row stride and the output are 16-byte aligned, else one element. Bound by bytes: every output byte is written once and
 // read once from a row that mostly sits in L2.
 //
 // scatter_add_rows: out[b, idx[b, r], :] += vals[b, r, :] with float32
@@ -165,15 +167,20 @@ __device__ __forceinline__ float zero_value<float>() {
   return 0.f;
 }
 template <>
+__device__ __forceinline__ unsigned short zero_value<unsigned short>() {
+  return 0;
+}
+template <>
 __device__ __forceinline__ float4 zero_value<float4>() {
   return make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
-// cv: channels per row in units of V; ld: floats between feature rows.
+// V is what one thread moves: one element (float, or the 16 bits of a bf16)
+// or 16 bytes. cv: V per gathered row; ld: bytes between feature rows.
 template <typename V>
 __global__ void __launch_bounds__(kRowThreads)
-    gather_rows_kernel(const float* __restrict__ feat, const int* __restrict__ idx,
-                       float* __restrict__ out, long long total, int N, int R, int cv,
+    gather_rows_kernel(const char* __restrict__ feat, const int* __restrict__ idx,
+                       V* __restrict__ out, long long total, int N, int R, int cv,
                        long long ld) {
   const long long t = static_cast<long long>(blockIdx.x) * kRowThreads + threadIdx.x;
   if (t >= total) return;
@@ -183,7 +190,7 @@ __global__ void __launch_bounds__(kRowThreads)
   const int i = idx[row];
   V val = zero_value<V>();
   if (i >= 0 && i < N) val = reinterpret_cast<const V*>(feat + (b * N + i) * ld)[v];
-  reinterpret_cast<V*>(out)[t] = val;
+  out[t] = val;
 }
 
 __global__ void __launch_bounds__(kRowThreads)
@@ -247,26 +254,46 @@ extern "C" int window_select_launch(const int* table, const int* cells, const fl
   return static_cast<int>(cudaGetLastError());
 }
 
-// feat: first channel of the (B, N, C) rows to read, `ld` floats from one row
-// to the next and N * ld from one cloud to the next; idx: (B, R) int32;
-// out: (B, R, C) float32 contiguous.
-extern "C" int gather_rows_launch(const float* feat, const int* idx, float* out, int B, int N,
-                                  int R, int C, long long ld, cudaStream_t stream) {
+namespace {
+
+// Rows of C elements of type E; 16 bytes per thread where the row,
+// the row stride, the slice's start and the output are 16-byte aligned.
+template <typename E>
+int launch_gather_rows(const void* feat, const int* idx, void* out, int B, int N, int R, int C,
+                       long long ld, cudaStream_t stream) {
   if (B < 1 || N < 1 || R < 1 || C < 1 || ld < C) return static_cast<int>(cudaErrorInvalidValue);
-  const bool vec = C % 4 == 0 && ld % 4 == 0 && aligned16(feat) && aligned16(out);
-  const int cv = vec ? C / 4 : C;
+  constexpr int per16 = 16 / static_cast<int>(sizeof(E));
+  const bool vec = C % per16 == 0 && ld % per16 == 0 && aligned16(feat) && aligned16(out);
+  const int cv = vec ? C / per16 : C;
   const long long total = static_cast<long long>(B) * R * cv;
+  const long long ld_bytes = ld * static_cast<long long>(sizeof(E));
   unsigned blocks = 0;
   const int bad = blocks_for(total, kRowThreads, &blocks);
   if (bad != 0) return bad;
   if (vec) {
-    gather_rows_kernel<float4><<<blocks, kRowThreads, 0, stream>>>(feat, idx, out, total, N, R,
-                                                                   cv, ld);
+    gather_rows_kernel<float4><<<blocks, kRowThreads, 0, stream>>>(
+        static_cast<const char*>(feat), idx, static_cast<float4*>(out), total, N, R, cv, ld_bytes);
   } else {
-    gather_rows_kernel<float><<<blocks, kRowThreads, 0, stream>>>(feat, idx, out, total, N, R,
-                                                                  cv, ld);
+    gather_rows_kernel<E><<<blocks, kRowThreads, 0, stream>>>(
+        static_cast<const char*>(feat), idx, static_cast<E*>(out), total, N, R, cv, ld_bytes);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// feat: first channel of the (B, N, C) rows to read, `ld` elements from one
+// row to the next and N * ld from one cloud to the next; idx: (B, R) int32;
+// out: (B, R, C) contiguous. float32 rows.
+extern "C" int gather_rows_launch(const float* feat, const int* idx, float* out, int B, int N,
+                                  int R, int C, long long ld, cudaStream_t stream) {
+  return launch_gather_rows<float>(feat, idx, out, B, N, R, C, ld, stream);
+}
+
+// The same for bfloat16 rows: the kernel moves their 16 bits unread.
+extern "C" int gather_rows_bf16_launch(const void* feat, const int* idx, void* out, int B, int N,
+                                       int R, int C, long long ld, cudaStream_t stream) {
+  return launch_gather_rows<unsigned short>(feat, idx, out, B, N, R, C, ld, stream);
 }
 
 // vals: (B, R, C) float32 contiguous; idx: (B, R) int32; out: (B, n_rows, C)

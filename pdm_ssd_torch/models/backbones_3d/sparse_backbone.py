@@ -1,0 +1,178 @@
+"""Sparse voxel backbone (counterpart of
+`pdm_ssd_tpu/models/backbones_3d/sparse_backbone.py`, `SparseVoxelBackBone8x`
+and its residual form).
+
+Each layer is a gather-matmul sparse convolution over a fixed-capacity slot
+table (`ops/dispatch.sparse_conv`: the Hopper kernel on CUDA tensors, the
+plain gather + matmul on the CPU), then a BatchNorm over the active slots and
+a ReLU. The neighbour tables come with the batch, built from the voxel
+coordinates by `ops/sparse_maps.py` (`models.get_host_prepare`). Padding
+slots are exactly zero after every layer, so they feed zero rows to the next.
+
+The JAX package's gather strategies `XWIN`, `QWIN`, `PWIN` and
+`LAYER_BARRIER` are ways to fetch the same rows with fewer TPU gathers and do
+not change the result (`XWIN` is bitwise the plain gather): the port reads
+those keys, builds no window plans and runs the one kernel. `TABLE_DTYPE:
+bf16` does change the numbers in the JAX package (it gathers, multiplies and
+normalises in bf16); the port stays in float32, a known deviation with a
+stated tolerance in `tests/test_torch_port_sparse.py`. `TABLE_DTYPE: int8`
+raises. The training backward through the transposed maps is not ported:
+`SparseConvBNReLU` takes no `bwd_nbr`.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from ...ops import dispatch
+from ...ops.sparse_maps import ladder_shapes
+from ...utils.config import as_cfg
+
+
+class MaskedBatchNorm(nn.BatchNorm1d):
+    """BatchNorm over the active rows of a padded slot table (B, V, C) with
+    mask (B, V): eps 1e-3, flax momentum 0.99 (torch 0.01). In training mode
+    the statistics are the masked mean and the biased variance of the active
+    rows, and the running values move towards them. Masked rows come out zero."""
+
+    def __init__(self, num_features: int, device=None):
+        super().__init__(num_features, eps=1e-3, momentum=0.01, device=device)
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        if self.training:
+            m = mask[..., None].to(x.dtype)
+            cnt = m.sum().clamp(min=1.0)
+            mean = (x * m).sum(dim=(0, 1)) / cnt
+            var = ((x - mean) ** 2 * m).sum(dim=(0, 1)) / cnt
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+                self.num_batches_tracked.add_(1)
+        else:
+            mean, var = self.running_mean, self.running_var
+        y = (x - mean) * torch.rsqrt(var + self.eps) * self.weight + self.bias
+        return torch.where(mask[..., None], y, 0.0)
+
+
+class SparseConvBNReLU(nn.Module):
+    """One sparse conv layer: submanifold when `nbr` maps a stage onto itself,
+    strided when it maps onto the previous stage's slots. `kernel` is
+    (K * Cin, Cout), taps outer, as flax stores it."""
+
+    def __init__(self, in_features: int, features: int, taps: int, use_relu: bool = True,
+                 device=None):
+        super().__init__()
+        self.use_relu = use_relu
+        self.kernel = nn.Parameter(torch.empty((taps * in_features, features), device=device))
+        self.MaskedBatchNorm_0 = MaskedBatchNorm(features, device=device)
+
+    def forward(self, feats: torch.Tensor, nbr: torch.Tensor, out_mask: torch.Tensor):
+        x = dispatch.sparse_conv(feats, nbr, self.kernel)
+        x = self.MaskedBatchNorm_0(x, out_mask)
+        if self.use_relu:
+            x = torch.relu(x)
+        return torch.where(out_mask[..., None], x, 0.0)
+
+
+class SparseBasicBlock(nn.Module):
+    """Residual block of two submanifold convs: conv-bn-relu, conv-bn,
+    + identity, relu."""
+
+    def __init__(self, features: int, device=None):
+        super().__init__()
+        self.SparseConvBNReLU_0 = SparseConvBNReLU(features, features, 27, device=device)
+        self.SparseConvBNReLU_1 = SparseConvBNReLU(features, features, 27, use_relu=False,
+                                                   device=device)
+
+    def forward(self, feats: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor):
+        x = self.SparseConvBNReLU_0(feats, nbr, mask)
+        x = self.SparseConvBNReLU_1(x, nbr, mask)
+        return torch.where(mask[..., None], torch.relu(x + feats), 0.0)
+
+
+class SparseVoxelBackBone8x(nn.Module):
+    """Config: NUM_FILTERS (default [16, 32, 64, 64]), OUT_FEATURES (128),
+    RESIDUAL (False: plain blocks; True: `SparseVoxelResBackBone8x`).
+
+    Consumes 'voxel_features' (B, cap1, Cin) and the ladder tables
+    (`ops/sparse_maps.LADDER_KEYS`). Adds 'spatial_features' (B, Hy, Wx,
+    Dz * OUT_FEATURES): the stride-8 BEV map with z folded into the channels,
+    z outer, in the JAX package's channels-last layout, which the 2D backbone
+    takes; 'multi_scale_3d_features_sparse' {x_conv1..4: (feats, coords,
+    mask, stride)}; 'encoded_sparse_out' (feats, coords, mask);
+    'spatial_features_stride' 8."""
+
+    def __init__(self, model_cfg, input_channels: int, grid_size, residual: bool = False,
+                 device=None):
+        super().__init__()
+        cfg = as_cfg(model_cfg)
+        filters = list(cfg.get('NUM_FILTERS', [16, 32, 64, 64]))
+        self.out_features = cfg.get('OUT_FEATURES', 128)
+        self.residual = cfg.get('RESIDUAL', residual)
+        dtype = str(cfg.get('TABLE_DTYPE', '')).lower()
+        if dtype == 'int8':
+            raise NotImplementedError('TABLE_DTYPE int8 is not ported (ROADMAP Queue 1 item 13)')
+        self.shapes = ladder_shapes(grid_size)
+        self.num_bev_features = self.out_features * self.shapes[4][0]
+
+        self.stage_layers = {}      # stage name -> names of its submanifold layers
+
+        def blocks(name, ch, n):
+            kind = 'block' if self.residual else 'subm'
+            self.stage_layers[name] = [f'{name}_{kind}{i}' for i in range(n)]
+            for layer in self.stage_layers[name]:
+                self.add_module(layer, SparseBasicBlock(ch, device=device) if self.residual
+                                else SparseConvBNReLU(ch, ch, 27, device=device))
+
+        self.conv_input = SparseConvBNReLU(input_channels, filters[0], 27, device=device)
+        blocks('conv1', filters[0], 2 if self.residual else 1)
+        for s, c_in, ch in zip((2, 3, 4), filters[:3], filters[1:]):
+            self.add_module(f'down{s}', SparseConvBNReLU(c_in, ch, 27, device=device))
+            blocks(f'conv{s}', ch, 2)
+        self.conv_out = SparseConvBNReLU(filters[3], self.out_features, 3, device=device)
+
+    def _stage(self, name: str, x, nbr, mask):
+        for layer in self.stage_layers[name]:
+            x = getattr(self, layer)(x, nbr, mask)
+        return x
+
+    def scatter_to_bev(self, x: torch.Tensor, coords: torch.Tensor, mask: torch.Tensor):
+        """The final actives x (B, Vo, C) at coords (B, Vo, 3) zyx onto the dense
+        stride-8 canvas, z folded into the channels: (B, Hy, Wx, Dz * C). An
+        index assignment, since a cloud's active out-sites are distinct cells;
+        the padding slots all write their zero rows to one spare cell, which
+        is dropped."""
+        Dz, Hy, Wx = self.shapes[4]
+        co = coords.long()
+        ncell = Dz * Hy * Wx
+        flat = torch.where(mask, (co[..., 0] * Hy + co[..., 1]) * Wx + co[..., 2], ncell)
+        B, C = flat.shape[0], x.shape[-1]
+        flat = flat + (torch.arange(B, device=flat.device) * (ncell + 1))[:, None]
+        canvas = x.new_zeros((B * (ncell + 1), C))
+        canvas[flat.reshape(-1)] = x.reshape(-1, C)
+        dense = canvas.view(B, ncell + 1, C)[:, :ncell].reshape(B, Dz, Hy, Wx, C)
+        return dense.permute(0, 2, 3, 1, 4).reshape(B, Hy, Wx, Dz * C)
+
+    def forward(self, batch: dict) -> dict:
+        if 'sp_submap1' not in batch:
+            raise KeyError('the batch holds no kernel maps: pass it through '
+                           'models.get_host_prepare(model_cfg, dataset_cfg) first')
+        # the voxel features in sorted-slot order
+        feats = dispatch.gather_rows(batch['voxel_features'], batch['sp_perm1'])
+        ms = {}
+        m1, n1 = batch['sp_mask1'], batch['sp_submap1']
+        x = self.conv_input(torch.where(m1[..., None], feats, 0.0), n1, m1)
+        x = self._stage('conv1', x, n1, m1)
+        ms['x_conv1'] = (x, batch['sp_coords1'], m1, 1)
+        for s in (2, 3, 4):
+            mask = batch[f'sp_mask{s}']
+            x = getattr(self, f'down{s}')(x, batch[f'sp_downmap{s}'], mask)
+            x = self._stage(f'conv{s}', x, batch[f'sp_submap{s}'], mask)
+            ms[f'x_conv{s}'] = (x, batch[f'sp_coords{s}'], mask, 2 ** (s - 1))
+        mo = batch['sp_mask_out']
+        x = self.conv_out(x, batch['sp_outmap'], mo)
+        batch['spatial_features'] = self.scatter_to_bev(x, batch['sp_coords_out'], mo)
+        batch['multi_scale_3d_features_sparse'] = ms
+        batch['encoded_sparse_out'] = (x, batch['sp_coords_out'], mo)
+        batch['spatial_features_stride'] = 8
+        return batch

@@ -1,8 +1,9 @@
 """Detector registry (counterpart of `pdm_ssd_tpu/models/detectors/__init__.py`)."""
+from .detector3d import Detector3D
 from .pdm_ssd import PDMSSD
 from .point_rcnn import PointRCNN
 
-_DETECTORS = {'PDMSSD': PDMSSD, 'PointRCNN': PointRCNN}
+_DETECTORS = {'PDMSSD': PDMSSD, 'PointRCNN': PointRCNN, 'SECONDNet': Detector3D}
 
 
 def build_detector(model_cfg, num_class, dataset_cfg, class_names=None, device=None):

@@ -124,4 +124,8 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
             w.copy_(vals)
             if mod.bias is not None:
                 mod.bias.fill_(getattr(mod, 'bias_init', 0.0))
+        elif isinstance(getattr(mod, 'kernel', None), nn.Parameter):
+            # a sparse conv's (taps * in, out) kernel: fan_in is its first axis
+            w = mod.kernel
+            w.copy_((torch.rand(w.shape, generator=generator) * 2 - 1) / w.shape[0] ** 0.5)
     return model

@@ -12,6 +12,7 @@ import torch
 from . import ball_query as bq
 from . import fps, group
 from . import pointnet2 as plain
+from . import sparse_conv as sc
 
 
 def farthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
@@ -76,6 +77,9 @@ def window_select(table: torch.Tensor, center_cells: torch.Tensor, grid_w: int,
 
 
 def gather_rows(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """features (B, N, C), idx (B, R) -> (B, R, C); an index outside [0, N)
+    gives a zero row. On CUDA tensors the kernel's float32 or bfloat16 entry
+    point, by the rows' type; any other type raises there."""
     kind = features.device.type
     if kind == 'cpu':
         return group.gather_rows_plain(features, idx)
@@ -92,3 +96,16 @@ def scatter_add_rows(vals: torch.Tensor, idx: torch.Tensor, n_rows: int) -> torc
         return group.scatter_add_rows_cuda(vals.contiguous(), idx.to(torch.int32).contiguous(),
                                            n_rows)
     raise NotImplementedError(f'no row scatter-add for device {vals.device}')
+
+
+def sparse_conv(feats: torch.Tensor, nbr: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """feats (B, Vin, Cin), nbr (B, Vout, K) with entries outside [0, Vin)
+    absent, weight (K*Cin, Cout) -> (B, Vout, Cout): the gather-matmul of one
+    sparse conv layer."""
+    kind = feats.device.type
+    if kind == 'cpu':
+        return sc.sparse_conv_plain(feats, nbr, weight)
+    if kind == 'cuda':
+        return sc.sparse_conv_cuda(feats.contiguous(), nbr.to(torch.int32).contiguous(),
+                                   weight.contiguous())
+    raise NotImplementedError(f'no sparse conv for device {feats.device}')

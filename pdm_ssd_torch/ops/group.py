@@ -14,7 +14,8 @@ All three are bound by bytes on an H100, not by arithmetic: the selection
 reads 9 table rows and the points they name per center, the gather and the
 scatter move each output or input row once. `csrc/group.cu` says what each
 kernel's design does about it. Each wrapper counts its launches in
-`<wrapper>.launches`.
+`<wrapper>.launches`; the row gather counts those of its bfloat16 entry point
+apart, in `gather_rows_cuda.launches_bf16`.
 
 The relative xyz that the selection returns is not differentiated: the
 coordinates are raw input on every model of the port and no parameter lies
@@ -203,11 +204,15 @@ def scatter_add_rows_plain(vals: torch.Tensor, idx: torch.Tensor, n_rows: int) -
 
 
 def gather_rows_cuda(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """One launch of `gather_rows_kernel`. features (B, N, C) float32 on CUDA:
-    contiguous, or a channel slice `payload[..., c0:c1]` of a contiguous
-    payload (rows stay where they are; the kernel gets the row stride).
-    idx (B, R) int32 contiguous. Returns (B, R, C) float32."""
-    _need(features, 'features', torch.float32, 3)
+    """One launch of `gather_rows_kernel`. features (B, N, C) float32 or
+    bfloat16 on CUDA: contiguous, or a channel slice `payload[..., c0:c1]` of
+    a contiguous payload (rows stay where they are; the kernel gets the row
+    stride). idx (B, R) int32 contiguous. Returns (B, R, C) of features'
+    type."""
+    if features.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError('features: the kernel moves float32 or bfloat16 rows, got '
+                         f'{features.dtype}')
+    _need(features, 'features', features.dtype, 3)
     _need(idx, 'idx', torch.int32, 2)
     _need_contiguous(idx, 'idx')
     B, N, C = features.shape
@@ -218,18 +223,26 @@ def gather_rows_cuda(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
                          f'strides {features.stride()} for shape {tuple(features.shape)}')
     if idx.shape[0] != B or idx.device != features.device or min(B, N, C, R) < 1:
         raise ValueError(f'features {tuple(features.shape)} and idx {tuple(idx.shape)} disagree')
-    out = torch.empty((B, R, C), dtype=torch.float32, device=features.device)
+    out = torch.empty((B, R, C), dtype=features.dtype, device=features.device)
+    lib = kernels.load()
+    f32 = features.dtype == torch.float32
+    launch = lib.gather_rows_launch if f32 else lib.gather_rows_bf16_launch
     with torch.cuda.device(features.device):
-        err = kernels.load().gather_rows_launch(features.data_ptr(), idx.data_ptr(),
-                                                out.data_ptr(), B, N, R, C, ld,
-                                                _stream(features))
+        err = launch(features.data_ptr(), idx.data_ptr(), out.data_ptr(), B, N, R, C, ld,
+                     _stream(features))
     if err != 0:
         raise RuntimeError(f'gather_rows_launch failed with CUDA error {err}')
-    gather_rows_cuda.launches += 1
+    if f32:
+        gather_rows_cuda.launches += 1
+    else:
+        gather_rows_cuda.launches_bf16 += 1
     return out
 
 
+# one count per entry point: `launches` of the float32 kernel, `launches_bf16`
+# of the bfloat16 one
 gather_rows_cuda.launches = 0
+gather_rows_cuda.launches_bf16 = 0
 
 
 def scatter_add_rows_cuda(vals: torch.Tensor, idx: torch.Tensor, n_rows: int) -> torch.Tensor:

@@ -20,7 +20,7 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parents[1] / 'csrc'
 _BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'torch_kernels'
-SOURCES = ('fps.cu', 'group.cu', 'ball_query.cu')
+SOURCES = ('fps.cu', 'group.cu', 'ball_query.cu', 'sparse_conv.cu')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -36,11 +36,17 @@ _ENTRY_POINTS = {
         'window_select_launch': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                  _P, _P, _P, _P, _P, _P],
         'gather_rows_launch': [_P, _P, _P, _I, _I, _I, _I, _L, _P],
+        'gather_rows_bf16_launch': [_P, _P, _P, _I, _I, _I, _I, _L, _P],
         'scatter_add_rows_launch': [_P, _P, _P, _I, _I, _I, _I, _P],
     },
     'ball_query.cu': {
         'ball_query_max_branches': [],
         'ball_query_launch': [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    },
+    'sparse_conv.cu': {
+        'sparse_conv_max_taps': [],
+        'sparse_conv_max_cout': [],
+        'sparse_conv_launch': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     },
 }
 

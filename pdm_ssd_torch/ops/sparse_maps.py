@@ -1,0 +1,198 @@
+"""Kernel maps of the sparse voxel ladder (counterpart of
+`pdm_ssd_tpu/ops/sparse_maps.py`, the plain 8x ladder).
+
+The neighbour tables of every sparse conv depend on the voxel coordinates
+only, so they are built once per batch, before the backbone runs, and every
+layer of a stage shares its table. The JAX package builds them in numpy (or
+C) on the host; here they are built with tensor ops (`torch.sort`,
+`torch.searchsorted`, `torch.unique`) on the device of the coordinates, and
+equal its output integer for integer.
+
+Conventions (the JAX package's):
+- coords are (V, 3) int32 **zyx**; a stage's slots are its active cells
+  sorted by the flat key `(z*H + y)*W + x`, padding at the end;
+- a map entry is a slot of the producing stage's table; the one-past-the-end
+  slot `cap` of that table means "absent neighbour";
+- SubMConv3d k3 p1: outputs at the input sites, tap (kz, ky, kx) reads the
+  neighbour at coord + (kz-1, ky-1, kx-1);
+- SparseConv3d k s p: output site `o` is active iff an input lies in its
+  receptive field `o*s - p + k`; a stage that would hold more than its cap
+  keeps the first `cap` keys;
+- the input z extent is `D + 1` (the reference's `sparse_shape`).
+
+Not ported (ROADMAP Queue 1 item 13): the inverse maps of the training
+backward and the UNet, the packed-window correction buckets, the focal
+ladder and the BEV maps of VoxelNeXt.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ['build_backbone8x_maps', 'batch_build_backbone8x', 'ladder_shapes', 'LADDER_KEYS',
+           'default_caps']
+
+
+def _flat(coords: torch.Tensor, dims) -> torch.Tensor:
+    """(..., 3) zyx -> int64 flat key under dims (D, H, W)."""
+    _, H, W = dims
+    c = coords.long()
+    return (c[..., 0] * H + c[..., 1]) * W + c[..., 2]
+
+
+def _lookup(sorted_keys: torch.Tensor, n_valid: int, queries: torch.Tensor) -> torch.Tensor:
+    """Slot of each query in the sorted key array, or `len(sorted_keys)` (the
+    pad slot) when absent. `sorted_keys[n_valid:]` is padding."""
+    cap = sorted_keys.numel()
+    if n_valid <= 0:
+        return torch.full(queries.shape, cap, dtype=torch.int32, device=queries.device)
+    keys = sorted_keys[:n_valid].contiguous()
+    pos = torch.searchsorted(keys, queries.contiguous()).clamp(max=n_valid - 1)
+    return torch.where(keys[pos] == queries, pos, cap).int()
+
+
+def _taps(ranges, device) -> torch.Tensor:
+    return torch.stack(torch.meshgrid(*ranges, indexing='ij'), -1).reshape(-1, 3).to(device)
+
+
+def _in_bounds(cells: torch.Tensor, dims) -> torch.Tensor:
+    return ((cells >= 0) & (cells < torch.tensor(dims, device=cells.device))).all(dim=-1)
+
+
+def _subm_map(coords: torch.Tensor, n_valid: int, dims, ksize) -> torch.Tensor:
+    """(cap, K) neighbour slots of a submanifold conv at the given sites."""
+    cap = coords.shape[0]
+    offs = _taps([torch.arange(k) - k // 2 for k in ksize], coords.device)
+    nbr = coords.long()[:, None, :] + offs[None, :, :]            # (cap, K, 3)
+    ok = _in_bounds(nbr, dims)
+    ok[n_valid:] = False
+    out = _lookup(_flat(coords, dims), n_valid, _flat(nbr, dims).reshape(-1))
+    return torch.where(ok, out.reshape(cap, -1), cap).int()
+
+
+def _down_sites(coords: torch.Tensor, n_valid: int, dims, ksize, stride, pad, cap_out: int):
+    """Active output sites of a strided sparse conv: the union over inputs of
+    the output cells whose receptive field covers them. Returns (coords_out
+    (cap_out, 3) sorted by flat key, n_out, dims_out, n_sites): `n_sites` is
+    the size of the union, `n_out = min(n_sites, cap_out)` of it are kept."""
+    dev = coords.device
+    dims_out = tuple((d + 2 * p - k) // s + 1 for d, k, s, p in zip(dims, ksize, stride, pad))
+    c = coords[:n_valid].long()
+    per_axis = []
+    for ax, (k, s, p) in enumerate(zip(ksize, stride, pad)):
+        num = c[:, ax:ax + 1] + p - torch.arange(k, device=dev)[None, :]     # (n, k)
+        ok = (num >= 0) & (num % s == 0)
+        o = torch.div(num, s, rounding_mode='floor')
+        per_axis.append((o, ok & (o < dims_out[ax])))
+    (oz, okz), (oy, oky), (ox, okx) = per_axis
+    ok = okz[:, :, None, None] & oky[:, None, :, None] & okx[:, None, None, :]
+    flat = (oz[:, :, None, None] * dims_out[1] + oy[:, None, :, None]) * dims_out[2] \
+        + ox[:, None, None, :]
+    uniq = torch.unique(flat[ok])                                            # sorted
+    n_sites = int(uniq.numel())
+    n_out = min(n_sites, cap_out)
+    u = uniq[:n_out]
+    out = torch.zeros((cap_out, 3), dtype=torch.int32, device=dev)
+    out[:n_out] = torch.stack([u // (dims_out[2] * dims_out[1]),
+                               (u // dims_out[2]) % dims_out[1], u % dims_out[2]], -1).int()
+    return out, n_out, dims_out, n_sites
+
+
+def _down_map(coords_in, n_in: int, dims_in, coords_out, n_out: int, ksize, stride, pad):
+    """(cap_out, K) input slots read by each output site of a strided conv."""
+    cap_out, cap_in = coords_out.shape[0], coords_in.shape[0]
+    dev = coords_out.device
+    taps = _taps([torch.arange(k) for k in ksize], dev)
+    s = torch.tensor(stride, device=dev)
+    p = torch.tensor(pad, device=dev)
+    src = coords_out.long()[:, None, :] * s - p + taps[None, :, :]            # (cap_out, K, 3)
+    ok = _in_bounds(src, dims_in)
+    ok[n_out:] = False
+    out = _lookup(_flat(coords_in, dims_in), n_in, _flat(src, dims_in).reshape(-1))
+    return torch.where(ok, out.reshape(cap_out, -1), cap_in).int()
+
+
+# (ksize, stride, pad) of each downsample of VoxelBackBone8x
+_DOWN_SPECS = [
+    ((3, 3, 3), (2, 2, 2), (1, 1, 1)),   # conv2
+    ((3, 3, 3), (2, 2, 2), (1, 1, 1)),   # conv3
+    ((3, 3, 3), (2, 2, 2), (0, 1, 1)),   # conv4, z-pad 0
+    ((3, 1, 1), (2, 1, 1), (0, 0, 0)),   # conv_out
+]
+
+LADDER_KEYS = (
+    ['sp_perm1', 'sp_coords1', 'sp_mask1', 'sp_submap1']
+    + sum([[f'sp_coords{s}', f'sp_mask{s}', f'sp_downmap{s}', f'sp_submap{s}']
+           for s in (2, 3, 4)], [])
+    + ['sp_coords_out', 'sp_mask_out', 'sp_outmap']
+)
+
+
+def ladder_shapes(grid_size_whd) -> list:
+    """(D, H, W) of stages 1 to 4 and of the output, the input z extended by 1."""
+    W, H, D = (int(v) for v in grid_size_whd)
+    dims = [(D + 1, H, W)]
+    for ks, st, pd in _DOWN_SPECS:
+        dims.append(tuple((dd + 2 * p - k) // s + 1 for dd, k, s, p in zip(dims[-1], ks, st, pd)))
+    return dims
+
+
+def build_backbone8x_maps(coords: torch.Tensor, n_valid: int, grid_size_whd, caps) -> dict:
+    """One cloud. coords (cap1, 3) int32 zyx, the first `n_valid` valid, in any
+    order (`sp_perm1` brings the voxel features into sorted-slot order).
+    caps: slot capacities [cap1, cap2, cap3, cap4, cap_out]. Returns the
+    LADDER_KEYS tensors and 'sites': the sites each stage would hold without
+    its cap (a list of 5 ints; a stage dropped `max(0, sites - cap)`)."""
+    dev = coords.device
+    dims = ladder_shapes(grid_size_whd)
+    cap1 = caps[0]
+    n1 = min(int(n_valid), cap1)
+    order = torch.sort(_flat(coords[:n1], dims[0]), stable=True)[1]
+    c1 = torch.zeros((cap1, 3), dtype=torch.int32, device=dev)
+    c1[:n1] = coords[:n1].int()[order]
+    perm = torch.zeros((cap1,), dtype=torch.int32, device=dev)
+    perm[:n1] = order.int()
+
+    def mask(cap, n):
+        return torch.arange(cap, device=dev) < n
+
+    out = {'sp_perm1': perm, 'sp_coords1': c1, 'sp_mask1': mask(cap1, n1),
+           'sp_submap1': _subm_map(c1, n1, dims[0], (3, 3, 3))}
+    sites = [int(n_valid)]
+    prev_c, prev_n, prev_dims = c1, n1, dims[0]
+    for s, (ks, st, pd), cap in zip((2, 3, 4), _DOWN_SPECS[:3], caps[1:4]):
+        c, n, d, n_sites = _down_sites(prev_c, prev_n, prev_dims, ks, st, pd, cap)
+        sites.append(n_sites)
+        out[f'sp_coords{s}'] = c
+        out[f'sp_mask{s}'] = mask(cap, n)
+        out[f'sp_downmap{s}'] = _down_map(prev_c, prev_n, prev_dims, c, n, ks, st, pd)
+        out[f'sp_submap{s}'] = _subm_map(c, n, d, (3, 3, 3))
+        prev_c, prev_n, prev_dims = c, n, d
+    ks, st, pd = _DOWN_SPECS[3]
+    co, no, _, n_sites = _down_sites(prev_c, prev_n, prev_dims, ks, st, pd, caps[4])
+    sites.append(n_sites)
+    out['sp_coords_out'] = co
+    out['sp_mask_out'] = mask(caps[4], no)
+    out['sp_outmap'] = _down_map(prev_c, prev_n, prev_dims, co, no, ks, st, pd)
+    out['sites'] = sites
+    return out
+
+
+def batch_build_backbone8x(voxel_coords: torch.Tensor, voxel_mask: torch.Tensor,
+                           grid_size_whd, caps) -> dict:
+    """`build_backbone8x_maps` stacked over the batch. voxel_coords (B, V, 3)
+    zyx, voxel_mask (B, V) bool with the valid voxels first. Returns the
+    LADDER_KEYS tensors, each with a leading batch axis, and 'sp_sites'
+    (B, 5) int64 on the CPU."""
+    counts = voxel_mask.sum(dim=1).tolist()
+    per = [build_backbone8x_maps(voxel_coords[b], counts[b], grid_size_whd, caps)
+           for b in range(voxel_coords.shape[0])]
+    out = {k: torch.stack([p[k] for p in per]) for k in LADDER_KEYS}
+    out['sp_sites'] = torch.tensor([p['sites'] for p in per])
+    return out
+
+
+def default_caps(max_voxels: int) -> list:
+    """Slot capacities where the config names none: strided sparse convs
+    dilate the active set before later stages shrink it."""
+    v = int(max_voxels)
+    return [v, v, (3 * v) // 4, v // 2, v // 2]

@@ -5,7 +5,10 @@ Builds the tiny point-exact flagship (the shrink of
 takes one train step on a seeded synthetic batch and one predict, checks that
 the loss is finite and the detections have the batch's size, and prints
 `... OK, loss=...`. With `--cfg_file configs/kitti_models/pointrcnn.yaml` it
-builds the tiny PointRCNN (`utils/synthetic.tiny_pointrcnn_cfg`). A model
+builds the tiny PointRCNN (`utils/synthetic.tiny_pointrcnn_cfg`), with
+`configs/kitti_models/second_sparse.yaml` the tiny SECOND on the sparse voxel
+ladder (`utils/synthetic.tiny_second_cfg`; its batch is voxelized and given
+its kernel maps on the device). A model
 whose training path is not ported yet raises `NotImplementedError` from its
 train step; the dry run then checks its predict only. Runs on the card
 unless `--device cpu` is given. The counterpart of
@@ -20,7 +23,7 @@ from pathlib import Path
 
 import torch
 
-from ..models import build_network
+from ..models import build_network, get_host_prepare
 from ..runtime.trainer import create_train_state, make_predict_step, make_train_step
 from ..utils import synthetic
 from ..utils.config import CfgNode, cfg_from_yaml_file
@@ -45,8 +48,13 @@ def dryrun(device: str | None = None, B: int = 2, N: int = 512, seed: int = 0,
     model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG, device=device,
                           seed=seed)
     dev = next(model.parameters()).device
-    batch = {k: torch.from_numpy(v).to(dev)
-             for k, v in synthetic.kitti_batch(B, N, seed=seed).items()}
+    prepare = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG)
+    if prepare is None:
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in synthetic.kitti_batch(B, N, seed=seed).items()}
+        inputs = {'points': batch['points']}
+    else:           # a voxel model: voxelize on the device, then its kernel maps
+        batch = inputs = prepare(synthetic.voxel_batch(B, N, cfg, seed=seed, device=dev))
     optimizer, _ = create_train_state(model, cfg.OPTIMIZATION, total_iters_each_epoch=10,
                                       total_epochs=2)
     try:
@@ -55,7 +63,7 @@ def dryrun(device: str | None = None, B: int = 2, N: int = 512, seed: int = 0,
         loss = None
     if loss is not None and not math.isfinite(loss):
         raise SystemExit(f'dryrun: loss is not finite: {loss}')
-    dets = make_predict_step(model)({'points': batch['points']})
+    dets = make_predict_step(model)(inputs)
     if dets['pred_boxes'].shape[0] != B or not bool(torch.isfinite(dets['pred_boxes']).all()):
         raise SystemExit(f'dryrun: {name} detections are not finite boxes for {B} clouds')
     if loss is None:
@@ -71,8 +79,8 @@ def main() -> None:
                     '(default: the card; fails where CUDA is unavailable)')
     ap.add_argument('--batch', type=int, default=2)
     ap.add_argument('--points', type=int, default=512)
-    ap.add_argument('--cfg_file', default=CFG, help='the flagship (default) or '
-                    'configs/kitti_models/pointrcnn.yaml')
+    ap.add_argument('--cfg_file', default=CFG, help='the flagship (default), '
+                    'configs/kitti_models/pointrcnn.yaml or second_sparse.yaml')
     args = ap.parse_args()
     dryrun(args.device, args.batch, args.points, cfg_file=args.cfg_file)
 

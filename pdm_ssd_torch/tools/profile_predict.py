@@ -1,7 +1,7 @@
 """Where the time of a model's `predict` goes, on one GPU.
 
     python3 -m pdm_ssd_torch.tools.profile_predict [--cfg_file CFG] [--batch B]
-        [--points 16384] [--reps 7] [--out build/profile_predict.json]
+        [--points N] [--reps 7] [--out build/profile_predict.json]
 
 Builds the config (default `configs/kitti_models/pdm_ssd_point.yaml`,
 unmodified, at batch 8) with seeded random weights and BatchNorm statistics,
@@ -12,7 +12,15 @@ group on their own. With `--cfg_file configs/kitti_models/pointrcnn.yaml`
 the model is PointRCNN with the FP list made whole
 (`utils/synthetic.pointrcnn_fp3`), at the file's batch of 4, and the stages
 are the backbone's SA levels, its FP modules, the point head, the proposal
-layer, ROI pooling, the ROI SA stack and the final NMS. Then `torch.profiler` traces
+layer, ROI pooling, the ROI SA stack and the final NMS. With `--cfg_file
+configs/kitti_models/second_sparse.yaml` the model is SECOND on the sparse
+voxel ladder as shipped, at the file's batch of 4 on LiDAR-like clouds of
+50000 points (`utils/synthetic.lidar_points`), and the stages are the
+voxelizer, the kernel-map build, the VFE with the reorder, each of the 12
+sparse layers (the whole layer, and its `sparse_conv` kernel alone), the
+canvas scatter, the BEV backbone, the head, top-K + decode and the NMS; the
+classification bias is set to 0 so that the candidates pass the score
+threshold and the NMS does its full work. Then `torch.profiler` traces
 three `predict` calls: device time per predict, device activities per
 predict, the busy share (device time over the unprofiled wall time of one
 predict) and the ten kernels with the most device time. Prints one line per
@@ -30,8 +38,11 @@ from pathlib import Path
 
 import torch
 
+from ..models import get_host_prepare
+from ..models.backbones_3d.sparse_backbone import SparseConvBNReLU
 from ..ops import dispatch, sa_fused
 from ..ops.pointnet2 import gather_operation
+from ..ops.voxelize import voxelize_batch
 from ..utils import synthetic
 from ..utils.config import cfg_from_yaml_file
 
@@ -56,8 +67,9 @@ def median_ms(fn, reps: int) -> float:
 STAGES = ('backbone_3d', 'point_head', 'pdm_neck', 'backbone_2d', 'dense_head')
 
 
-def stage_times(net, pts: torch.Tensor, reps: int) -> dict:
+def stage_times(net, cfg, predict_inputs: dict, reps: int) -> dict:
     """Median ms of each stage of `predict`, each on its own input."""
+    pts = predict_inputs['points']
     inputs, batch = {}, {'points': pts}
     for name in STAGES:
         inputs[name] = batch
@@ -83,9 +95,10 @@ def stage_times(net, pts: torch.Tensor, reps: int) -> dict:
     return t
 
 
-def pointrcnn_stage_times(net, pts: torch.Tensor, reps: int) -> dict:
+def pointrcnn_stage_times(net, cfg, predict_inputs: dict, reps: int) -> dict:
     """Median ms of each stage of PointRCNN's `predict`, each on its own input."""
     from ..models.roi_heads.pointrcnn_head import pool_roi_points_ref
+    pts = predict_inputs['points']
     bb, head = net.backbone_3d, net.roi_head
     t = {}
 
@@ -136,21 +149,86 @@ def pointrcnn_stage_times(net, pts: torch.Tensor, reps: int) -> dict:
     return t
 
 
-# per `MODEL.NAME`: what makes the config full width, the default batch, and
-# the function that times the model's stages
-PROFILES = {'PDMSSD': (lambda cfg: cfg, 8, stage_times),
-            'PointRCNN': (synthetic.pointrcnn_fp3, 4, pointrcnn_stage_times)}
+def second_stage_times(net, cfg, predict_inputs: dict, reps: int) -> dict:
+    """Median ms of each stage of SECOND's `predict`, each on its own input;
+    `sp_<layer>` is a whole sparse layer (kernel, BatchNorm, ReLU, masks),
+    `sp_<layer>_kernel` its `sparse_conv` launch alone."""
+    proc = synthetic.voxel_processor(cfg)
+    pc_range = cfg.DATA_CONFIG.POINT_CLOUD_RANGE
+    pts = predict_inputs['points']
+    raw = {k: v for k, v in predict_inputs.items() if not k.startswith('sp_')}
+    prepare = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG)
+    bb = net.backbone_3d
+    t = {'voxelize': median_ms(lambda: voxelize_batch(
+             pts, pc_range, list(proc.VOXEL_SIZE), int(proc.MAX_POINTS_PER_VOXEL),
+             int(proc.MAX_NUMBER_OF_VOXELS['test'])), reps),
+         'map_build': median_ms(lambda: prepare(raw), reps)}
+    batch = net.vfe(dict(predict_inputs))
+    t['vfe_reorder'] = median_ms(lambda: dispatch.gather_rows(
+        net.vfe(dict(predict_inputs))['voxel_features'], predict_inputs['sp_perm1']), reps)
+    calls = {}          # layer name -> the arguments of its one call in a forward
+    hooks = [m.register_forward_pre_hook(lambda mod, args, name=name: calls.setdefault(name, args))
+             for name, m in bb.named_modules() if isinstance(m, SparseConvBNReLU)]
+    try:
+        batch = bb(batch)
+    finally:
+        for h in hooks:
+            h.remove()
+    modules = dict(bb.named_modules())
+    for name, args in calls.items():
+        key = name.replace('.SparseConvBNReLU_', '_')
+        t[f'sp_{key}'] = median_ms(lambda: modules[name](*args), reps)
+        t[f'sp_{key}_kernel'] = median_ms(
+            lambda: dispatch.sparse_conv(args[0], args[1], modules[name].kernel), reps)
+    t['sparse_layers'] = sum(v for k, v in t.items() if k.startswith('sp_')
+                             and not k.endswith('_kernel'))
+    t['sparse_conv_kernels'] = sum(v for k, v in t.items() if k.endswith('_kernel'))
+    x, coords, mask = batch['encoded_sparse_out']
+    t['canvas_scatter'] = median_ms(lambda: bb.scatter_to_bev(x, coords, mask), reps)
+    t['backbone_3d'] = median_ms(lambda: bb(net.vfe(dict(predict_inputs))), reps)
+    t['backbone_2d'] = median_ms(lambda: net.backbone_2d(dict(batch)), reps)
+    batch = net.backbone_2d(batch)
+    t['dense_head'] = median_ms(lambda: net.dense_head(dict(batch)), reps)
+    batch = net.dense_head(batch)
+    t['topk_decode'] = median_ms(lambda: net.select_candidates(batch), reps)
+    t['post_process'] = median_ms(lambda: net.post_process(batch), reps)
+    t['nms'] = t['post_process'] - t['topk_decode']
+    t['predict'] = median_ms(lambda: net.predict(predict_inputs), reps)
+    t['predict_with_voxelize_and_maps'] = t['predict'] + t['voxelize'] + t['map_build']
+    sites = predict_inputs['sp_sites']
+    for i, stage in enumerate(('stage1', 'stage2', 'stage3', 'stage4', 'out')):
+        t[f'sites_{stage}_mean'] = float(sites[:, i].float().mean())
+    return t
 
 
-def trace(net, pts: torch.Tensor, n: int = 3) -> dict:
+def point_inputs(cfg, B: int, N: int) -> dict:
+    return {'points': torch.from_numpy(synthetic.kitti_points(B, N, 5)).cuda()}
+
+
+def second_inputs(cfg, B: int, N: int) -> dict:
+    return get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG)(
+        synthetic.voxel_batch(B, N, cfg, seed=5, device='cuda'))
+
+
+# per `MODEL.NAME`: what makes the config full width, the default batch and
+# points per cloud, what makes the input of `predict`, the function that times
+# the model's stages, and what is done to the seeded model before it is timed
+PROFILES = {'PDMSSD': (lambda cfg: cfg, 8, 16384, point_inputs, stage_times, None),
+            'PointRCNN': (synthetic.pointrcnn_fp3, 4, 16384, point_inputs, pointrcnn_stage_times,
+                          None),
+            'SECONDNet': (lambda cfg: cfg, 4, 50000, second_inputs, second_stage_times,
+                          synthetic.open_score_gate)}
+
+
+def trace(net, predict_inputs: dict, n: int = 3) -> dict:
     """torch.profiler over `n` predicts: device time and activities per predict."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    net.predict({'points': pts})
+    net.predict(predict_inputs)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
-            net.predict({'points': pts})
+            net.predict(predict_inputs)
         torch.cuda.synchronize()
     # kernels, copies and memsets only: an operator's own row repeats the
     # device time of the kernels it launched
@@ -170,8 +248,9 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--cfg_file', default=CFG)
     ap.add_argument('--batch', type=int, default=None,
-                    help='default: 8 for the flagship, 4 for PointRCNN')
-    ap.add_argument('--points', type=int, default=16384)
+                    help='default: 8 for the flagship, 4 for PointRCNN and SECOND')
+    ap.add_argument('--points', type=int, default=None,
+                    help='points per cloud (default: 16384; 50000 for SECOND)')
     ap.add_argument('--reps', type=int, default=7)
     ap.add_argument('--out', default='build/profile_predict.json')
     args = ap.parse_args()
@@ -185,22 +264,26 @@ def main() -> None:
     cfg = cfg_from_yaml_file(args.cfg_file)
     if cfg.MODEL.NAME not in PROFILES:
         raise SystemExit(f'no stage timing for {cfg.MODEL.NAME}')
-    full_width, batch, time_stages = PROFILES[cfg.MODEL.NAME]
+    full_width, batch, points, make_inputs, time_stages, adjust = PROFILES[cfg.MODEL.NAME]
     cfg = full_width(cfg)
     if args.batch is None:
         args.batch = batch
+    if args.points is None:
+        args.points = points
     net = synthetic.random_model(cfg, 'cuda', seed=7)
-    pts = torch.from_numpy(synthetic.kitti_points(args.batch, args.points, 5)).cuda()
+    if adjust is not None:
+        adjust(net)
+    inputs = make_inputs(cfg, args.batch, args.points)
     with torch.inference_mode():
-        stages = time_stages(net, pts, args.reps)
+        stages = time_stages(net, cfg, inputs, args.reps)
     walls = []
     for _ in range(args.reps):
         t0 = time.perf_counter()
-        net.predict({'points': pts})
+        net.predict(inputs)
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t0)
     wall_ms = statistics.median(walls) * 1e3
-    prof = trace(net, pts)
+    prof = trace(net, inputs)
     prof['busy_share'] = prof['device_ms_per_predict'] / wall_ms
     for k, v in stages.items():
         print(f'{k:26s} {v:9.3f} ms')

@@ -9,6 +9,7 @@ generic rule set maps every leaf. The layout rules are those of
 - Conv kernel (kh, kw, in, out)      -> Conv2d weight (out, in, kh, kw)
 - ConvTranspose kernel (kh, kw, in, out) -> ConvTranspose2d weight
   (in, out, kh, kw), spatially flipped
+- sparse conv kernel (taps * in, out)   -> the same `kernel`
 - BatchNorm scale / bias / mean / var -> weight / bias / running_mean /
   running_var
 
@@ -44,6 +45,8 @@ def _convert_param(mod: nn.Module, leaf: str, arr: np.ndarray):
     if leaf == 'bias' and isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
         return 'bias', arr
     if leaf == 'kernel':
+        if isinstance(getattr(mod, 'kernel', None), nn.Parameter):
+            return 'kernel', arr            # a sparse conv keeps flax's (taps * in, out)
         if isinstance(mod, nn.Linear):
             return 'weight', arr.T
         if isinstance(mod, nn.ConvTranspose2d):
@@ -94,8 +97,8 @@ def _to_flax_leaf(mod: nn.Module, name: str, arr: np.ndarray):
         inv = {v: k for k, v in {**_BN_PARAM, **_BN_STAT}.items()}
         if name in inv:
             return inv[name], arr
-    elif name == 'bias':
-        return 'bias', arr
+    elif name in ('bias', 'kernel'):
+        return name, arr
     elif name == 'weight':
         if isinstance(mod, nn.Linear):
             return 'kernel', arr.T

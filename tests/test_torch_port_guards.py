@@ -12,8 +12,9 @@ import pytest
 import torch
 
 from pdm_ssd_torch.ops import ball_query as bq
-from pdm_ssd_torch.ops import dispatch, fps, group, sa_fused
+from pdm_ssd_torch.ops import dispatch, fps, group, kernels, sa_fused
 from pdm_ssd_torch.ops import pointnet2 as plain
+from pdm_ssd_torch.ops import sparse_conv as sc
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -35,6 +36,9 @@ SLICE_MODULES = [
     'pdm_ssd_torch.runtime.trainer', 'pdm_ssd_torch.ops.ball_query',
     'pdm_ssd_torch.models.roi_heads.roi_head_template',
     'pdm_ssd_torch.models.roi_heads.pointrcnn_head', 'pdm_ssd_torch.models.detectors.point_rcnn',
+    'pdm_ssd_torch.ops.voxelize', 'pdm_ssd_torch.ops.sparse_maps', 'pdm_ssd_torch.ops.sparse_conv',
+    'pdm_ssd_torch.models.backbones_3d.vfe', 'pdm_ssd_torch.models.backbones_3d.sparse_backbone',
+    'pdm_ssd_torch.models.dense_heads.anchor_head', 'pdm_ssd_torch.models.detectors.detector3d',
 ]
 
 
@@ -132,6 +136,10 @@ def test_grouping_dispatch_runs_plain_on_cpu_and_kernel_wrappers_refuse_cpu():
     with pytest.raises(ValueError, match='CUDA'):
         group.gather_rows_cuda(feats, idx.to(torch.int32))
     with pytest.raises(ValueError, match='CUDA'):
+        group.gather_rows_cuda(feats.to(torch.bfloat16), idx.to(torch.int32))
+    with pytest.raises(ValueError, match='float32 or bfloat16'):
+        group.gather_rows_cuda(feats.to(torch.float16), idx.to(torch.int32))
+    with pytest.raises(ValueError, match='CUDA'):
         group.scatter_add_rows_cuda(rows, idx.to(torch.int32), 300)
     assert all(w.launches == 0 for w in wrappers)
     with pytest.raises(NotImplementedError):
@@ -178,7 +186,8 @@ def test_entry_points_default_to_the_card(monkeypatch):
     monkeypatch.chdir(REPO)
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     for cfg_file in ('configs/kitti_models/pdm_ssd_point.yaml',
-                     'configs/kitti_models/pointrcnn.yaml'):
+                     'configs/kitti_models/pointrcnn.yaml',
+                     'configs/kitti_models/second_sparse.yaml'):
         cfg = t_config.cfg_from_yaml_file(cfg_file)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_network(cfg.MODEL, 3, cfg.DATA_CONFIG)
@@ -202,6 +211,171 @@ def test_chip_smoke_fails_without_a_card(where, tmp_path):
                          text=True, timeout=300)
     assert res.returncode != 0
     assert '"ok": true' not in res.stdout
+
+
+def _sparse_conv_inputs(rng, B=2, Vin=300, Vout=77, K=27, Cin=8, Cout=8):
+    """CPU tensors (feats, nbr, weight): about 10% of the taps absent, one row
+    with none present, and entries on both sides of [0, Vin)."""
+    feats = torch.from_numpy(rng.randn(B, Vin, Cin).astype(np.float32))
+    nbr = rng.randint(0, Vin, (B, Vout, K)).astype(np.int32)
+    nbr[rng.rand(B, Vout, K) < 0.1] = Vin
+    nbr[:, Vout // 2] = Vin
+    nbr[:, 0, 0] = -1
+    weight = torch.from_numpy((rng.randn(K * Cin, Cout) * 0.1).astype(np.float32))
+    return feats, torch.from_numpy(nbr), weight
+
+
+class _OnCard(torch.Tensor):
+    """A CPU tensor that says it lies on the card: it takes `dispatch` down its
+    CUDA branch where there is no card."""
+    device = property(lambda self: torch.device('cuda', 0))
+
+
+def test_sparse_conv_dispatch_has_no_quiet_plain_version(monkeypatch):
+    """CPU tensors take the plain version and launch nothing. A tensor on the
+    card whose kernel cannot be had raises: the plain version is not tried.
+    The kernel's wrapper takes CUDA tensors only and refuses an input that
+    requires a gradient; any other device raises."""
+    feats, nbr, weight = _sparse_conv_inputs(np.random.RandomState(12))
+    sc.sparse_conv_cuda.launches = 0
+    got = dispatch.sparse_conv(feats, nbr, weight)
+    assert torch.equal(got, sc.sparse_conv_plain(feats, nbr, weight))
+    assert not got[:, 77 // 2].any()
+    with pytest.raises(ValueError, match='CUDA'):
+        sc.sparse_conv_cuda(feats, nbr, weight)
+    with pytest.raises(NotImplementedError, match='backward'):
+        sc.sparse_conv_cuda(feats.clone().requires_grad_(), nbr, weight)
+    with pytest.raises(NotImplementedError, match='backward'):
+        sc.sparse_conv_cuda(feats, nbr, torch.nn.Parameter(weight))
+    with pytest.raises(NotImplementedError):
+        dispatch.sparse_conv(feats.to('meta'), nbr.to('meta'), weight.to('meta'))
+
+    def no_kernel():
+        raise RuntimeError('nvcc not found')
+
+    def no_plain(*args):
+        raise AssertionError('the plain version ran for a tensor on the card')
+
+    monkeypatch.setattr(kernels, 'load', no_kernel)
+    monkeypatch.setattr(sc, 'sparse_conv_plain', no_plain)
+    on_card = [t.as_subclass(_OnCard) for t in (feats, nbr, weight)]
+    assert on_card[0].device.type == 'cuda'
+    with pytest.raises(RuntimeError, match='nvcc not found'):
+        dispatch.sparse_conv(*on_card)
+    assert sc.sparse_conv_cuda.launches == 0
+
+
+@pytest.mark.parametrize('what', ['TABLE_DTYPE int8', 'training maps', 'QWIN', 'SparseUNetV2',
+                                  'focal ladder', 'VoxelNeXt', 'TTA_FLIP', 'PillarVFE',
+                                  'dense backbone', 'MAP_TO_BEV', 'BaseBEVResBackbone',
+                                  'AnchorHeadMulti', 'multi_classes_nms', 'training'])
+def test_unported_parts_of_the_voxel_family_raise(what, monkeypatch):
+    """Every option and module name of the voxel family that the port does not
+    have raises `NotImplementedError` naming its ROADMAP item, at build time
+    or where it is first used."""
+    from pdm_ssd_torch.models import build_network, get_host_prepare
+    from pdm_ssd_torch.utils import config as t_config
+    from pdm_ssd_torch.utils import synthetic
+    monkeypatch.chdir(REPO)
+    cfg = synthetic.tiny_second_cfg(
+        t_config.cfg_from_yaml_file('configs/kitti_models/second_sparse.yaml'))
+    model, ds = cfg.MODEL, cfg.DATA_CONFIG
+
+    def build():
+        return build_network(model, 3, ds, device='cpu')
+
+    def prepare(training=False):
+        return get_host_prepare(model, ds, training=training)
+
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        if what == 'TABLE_DTYPE int8':
+            model.BACKBONE_3D.TABLE_DTYPE = 'int8'
+            build()
+        elif what == 'training maps':
+            prepare(training=True)
+        elif what == 'QWIN':
+            model.BACKBONE_3D.QWIN = True
+            prepare()
+        elif what == 'SparseUNetV2':
+            model.BACKBONE_3D.NAME = 'SparseUNetV2'
+            prepare()
+        elif what == 'focal ladder':
+            model.BACKBONE_3D.NAME = 'VoxelBackBone8xFocal'
+            prepare()
+        elif what == 'VoxelNeXt':
+            model.DENSE_HEAD.NAME = 'VoxelNeXtHead'
+            prepare()
+        elif what == 'TTA_FLIP':
+            model.POST_PROCESSING.TTA_FLIP = ['x']
+            build()
+        elif what == 'PillarVFE':
+            model.VFE.NAME = 'PillarVFE'
+            build()
+        elif what == 'dense backbone':
+            model.BACKBONE_3D.NAME = 'VoxelBackBone8x'
+            build()
+        elif what == 'MAP_TO_BEV':
+            model.MAP_TO_BEV = {'NAME': 'HeightCompression'}
+            build()
+        elif what == 'BaseBEVResBackbone':
+            model.BACKBONE_2D.NAME = 'BaseBEVResBackbone'
+            build()
+        elif what == 'AnchorHeadMulti':
+            model.DENSE_HEAD.NAME = 'AnchorHeadMulti'
+            build()
+        elif what == 'multi_classes_nms':
+            model.POST_PROCESSING.NMS_CONFIG.NMS_TYPE = 'multi_classes_nms'
+            net = build()
+            net.predict(prepare()(synthetic.voxel_batch(1, 300, cfg, seed=1)))
+        else:
+            build().forward_with_loss({})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('B,Vin,Vout,K,Cin,Cout', [
+    (2, 300, 77, 27, 8, 8), (1, 5000, 5000, 27, 64, 64), (3, 1000, 1001, 27, 4, 16),
+    (2, 900, 700, 3, 64, 128), (2, 301, 1, 3, 5, 3), (2, 640, 640, 27, 7, 100)])
+def test_sparse_conv_kernel_matches_plain_on_the_card(B, Vin, Vout, K, Cin, Cout):
+    """Kernel and plain version each within float32 rounding of a float64
+    evaluation (at most K * Cin roundings of the sum of magnitudes), two runs
+    of the kernel bit-equal, a row with no present tap exactly zero."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
+    feats, nbr, weight = _sparse_conv_inputs(np.random.RandomState(13), B, Vin, Vout, K, Cin, Cout)
+    sc.sparse_conv_cuda.launches = 0
+    with torch.no_grad():
+        got = dispatch.sparse_conv(feats.cuda(), nbr.cuda(), weight.cuda())
+        again = dispatch.sparse_conv(feats.cuda(), nbr.cuda(), weight.cuda())
+    torch.cuda.synchronize()
+    assert sc.sparse_conv_cuda.launches == 2
+    assert torch.equal(got, again)
+    assert not got[:, Vout // 2].any()
+    exact = sc.sparse_conv_plain(feats.double(), nbr, weight.double())
+    mass = sc.sparse_conv_plain(feats.double().abs(), nbr, weight.double().abs())
+    tol = K * Cin * 2.0 ** -24 * mass + 1e-30
+    assert bool(((got.cpu().double() - exact).abs() <= tol).all())
+    assert bool(((sc.sparse_conv_plain(feats, nbr, weight).double() - exact).abs() <= tol).all())
+    with pytest.raises(NotImplementedError, match='backward'):
+        dispatch.sparse_conv(feats.cuda().requires_grad_(), nbr.cuda(), weight.cuda())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('C,s0,s1', [(96, 0, 96), (37, 3, 22), (40, 8, 24), (37, 36, 37)])
+def test_gather_rows_bf16_kernel_matches_plain_on_the_card(C, s0, s1):
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
+    rng = np.random.RandomState(14)
+    feats = torch.from_numpy(rng.randn(3, 501, C).astype(np.float32)).to(torch.bfloat16)
+    idx = torch.from_numpy(rng.randint(-3, 504, (3, 2777)))
+    group.gather_rows_cuda.launches = group.gather_rows_cuda.launches_bf16 = 0
+    got = dispatch.gather_rows(feats.cuda()[..., s0:s1], idx.cuda())
+    torch.cuda.synchronize()
+    # each entry point has its own count
+    assert (group.gather_rows_cuda.launches, group.gather_rows_cuda.launches_bf16) == (0, 1)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got.cpu(), group.gather_rows_plain(feats[..., s0:s1], idx))
+    with pytest.raises(ValueError, match='float32 or bfloat16'):
+        dispatch.gather_rows(feats.cuda().to(torch.float16), idx.cuda())
 
 
 @pytest.mark.gpu

@@ -115,30 +115,50 @@ class ModelPair:
     forward of one batch (all intermediates) as numpy. `cfg` is a whole
     config (`MODEL`, `CLASS_NAMES`, `DATA_CONFIG`) of either package's
     CfgNode. `batch` also holds the batch's `gt_boxes` and `gt_mask` for a
-    training path."""
+    training path. With `voxels`, the batch is a seeded LiDAR-like cloud
+    voxelized by the port (`synthetic.voxel_batch`) and prepared by each
+    package's own `get_host_prepare`: `inputs` is what the JAX forward takes,
+    `torch_inputs()` what the port's takes."""
 
     def __init__(self, cfg, B: int = 2, N: int = 512, seed: int = 0, jax_model=None,
-                 points: np.ndarray | None = None, bias_scale: float = 0.0):
+                 points: np.ndarray | None = None, bias_scale: float = 0.0,
+                 voxels: bool = False):
         from pdm_ssd_tpu.models import build_network as j_build_network
+        from pdm_ssd_tpu.models import get_host_prepare as j_get_host_prepare
         from pdm_ssd_tpu.utils.config import CfgNode as JCfgNode
         self.cfg = cfg
+        jcfg = JCfgNode(cfg.to_dict())
         if jax_model is None:
-            jcfg = JCfgNode(cfg.to_dict())
             jax_model = j_build_network(jcfg.MODEL, num_class=len(jcfg.CLASS_NAMES),
                                         dataset_cfg=jcfg.DATA_CONFIG)
         self.jax_model = jax_model
-        self.batch = graft._make_batch(B, N, seed=seed)
-        if points is not None:
-            self.batch['points'] = points
+        if voxels:
+            from pdm_ssd_torch.models import get_host_prepare
+            from pdm_ssd_torch.utils import synthetic
+            raw = synthetic.voxel_batch(B, N, cfg, seed)
+            self.batch = j_get_host_prepare(jcfg.MODEL, jcfg.DATA_CONFIG)(
+                {k: v.numpy() for k, v in raw.items()})
+            self.inputs = {k: np.asarray(v) for k, v in self.batch.items()}
+            self._torch_inputs = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG)(raw)
+        else:
+            self.batch = graft._make_batch(B, N, seed=seed)
+            if points is not None:
+                self.batch['points'] = points
+            self.inputs = {'points': self.batch['points']}
+            self._torch_inputs = to_torch(self.inputs)
         self.points = self.batch['points']
-        init = jax.jit(lambda p: self.jax_model.init(
-            {'params': jax.random.PRNGKey(seed)}, {'points': p}, training=False))
-        self.variables = randomize_variables(init(self.points), seed + 1, bias_scale)
+        init = jax.jit(lambda b: self.jax_model.init(
+            {'params': jax.random.PRNGKey(seed)}, b, training=False))
+        self.variables = randomize_variables(init(self.inputs), seed + 1, bias_scale)
         self.net = build_network(self.cfg.MODEL, len(self.cfg.CLASS_NAMES),
                                  self.cfg.DATA_CONFIG, device='cpu')
         self.net.load_state_dict(from_flax(self.variables, self.net))
-        fwd = jax.jit(lambda v, p: self.jax_model.apply(v, {'points': p}, training=False))
-        self.jax_out = to_numpy(fwd(self.variables, self.points))
+        fwd = jax.jit(lambda v, b: self.jax_model.apply(v, b, training=False))
+        self.jax_out = to_numpy(fwd(self.variables, self.inputs))
+
+    def torch_inputs(self) -> dict:
+        """The port's forward input of the same batch (a fresh dict)."""
+        return dict(self._torch_inputs)
 
     def jax_method(self, method, *args):
         fn = jax.jit(lambda v, *a: self.jax_model.apply(v, *a, method=method))
