@@ -117,29 +117,33 @@ GRAD_COSINE = 0.999
 # tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
-# launches of one full-width training step and of one predict
+# launches of one full-width training step and of one predict; FPS's are
+# also counted by path (the flagship's 8 clouds of 16384 points take a
+# cluster per cloud)
 TRAIN_LAUNCHES = {'farthest_point_sample': 1, 'window_select': 3, 'gather_rows': 6,
                   'scatter_add_rows': 4, 'ball_query': 0, 'sparse_conv': 0,
-                  'gather_rows_bf16': 0}
+                  'gather_rows_bf16': 0, 'fps cluster path': 1, 'fps block path': 0}
 PREDICT_LAUNCHES = {'farthest_point_sample': 1, 'window_select': 3, 'gather_rows': 6,
                     'scatter_add_rows': 0, 'ball_query': 0, 'sparse_conv': 0,
-                    'gather_rows_bf16': 0}
+                    'gather_rows_bf16': 0, 'fps cluster path': 1, 'fps block path': 0}
 # one PointRCNN predict. FPS: backbone level 1 is 'random' without a generator
 # (a prefix), level 2 runs FPS 4096 -> 1024, level 3 is its prefix; the ROI
-# stack runs FPS 512 -> 128 and 128 -> 32. Ball query: one launch per SA level,
+# stack runs FPS 512 -> 128 and 128 -> 32, all three on the block path (clouds
+# under 8192 points; 400 clouds). Ball query: one launch per SA level,
 # 3 in the backbone and 2 in the ROI stack. Row gather: xyz and features per
 # radius, 3 levels x 2 radii and 2 levels x 1 radius.
 POINTRCNN_CFG = 'configs/kitti_models/pointrcnn.yaml'
 POINTRCNN_PREDICT_LAUNCHES = {'farthest_point_sample': 3, 'window_select': 0, 'gather_rows': 16,
                               'scatter_add_rows': 0, 'ball_query': 5, 'sparse_conv': 0,
-                              'gather_rows_bf16': 0}
+                              'gather_rows_bf16': 0, 'fps cluster path': 0,
+                              'fps block path': 3}
 # one SECOND predict: the reorder of the voxel features into slot order, then
 # conv_input, conv1, three stages of one strided and two submanifold convs,
 # conv_out
 SECOND_CFG = 'configs/kitti_models/second_sparse.yaml'
 SECOND_PREDICT_LAUNCHES = {'farthest_point_sample': 0, 'window_select': 0, 'gather_rows': 1,
                            'scatter_add_rows': 0, 'ball_query': 0, 'sparse_conv': 12,
-                           'gather_rows_bf16': 0}
+                           'gather_rows_bf16': 0, 'fps cluster path': 0, 'fps block path': 0}
 SECOND_POINTS = 50000
 # share of a ladder stage's sites that may fall to its capacity, and the
 # least active input voxels per cloud of 40000 slots
@@ -164,6 +168,9 @@ def device_check() -> tuple[str, str]:
 
 
 def median_ms(fn, reps: int) -> float:
+    """One call between two events after a synchronize, median over `reps`:
+    the device idles while the call's Python runs, so the reading is host
+    and device time together (the plain versions' and the `call_ms` reading)."""
     fn()                                        # warm-up
     torch.cuda.synchronize()
     times = []
@@ -176,6 +183,72 @@ def median_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+# back-to-back launches per timed run: at least 20 and a run of at least
+# 1 ms, at most 500 (CUDA queues about a thousand launches before the host
+# blocks, and a call here launches at most two kernels)
+RUN_MIN, RUN_MAX, RUN_MIN_MS = 20, 500, 1.0
+_sleep_cycles_per_ms = None
+
+
+def sleep_cycles_per_ms() -> float:
+    """Clock cycles of `torch.cuda._sleep` per ms on this card, measured once."""
+    global _sleep_cycles_per_ms
+    if _sleep_cycles_per_ms is None:
+        torch.cuda._sleep(1000)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(20_000_000)
+        end.record()
+        torch.cuda.synchronize()
+        _sleep_cycles_per_ms = 20_000_000 / start.elapsed_time(end)
+    return _sleep_cycles_per_ms
+
+
+def device_time(fn, runs: int = 5) -> dict:
+    """`ms`: device time per launch of `fn`, median over `runs` runs of n
+    back-to-back calls timed by events. A sleep kernel queued first keeps the
+    device busy until every call of the run is queued, so the events see the
+    launches end to end and none of the host time between them; `ahead` is
+    False where a run's sleep ended before its last call was queued (then
+    host gaps are in the reading). `host_us`: wall time of one call's
+    enqueue on an idle device, median of 11. `call_ms`: `median_ms`, one
+    call with host and device time together. The inputs stay in L2 between
+    launches, as the model's do (each is made just before its kernel)."""
+    fn()
+    torch.cuda.synchronize()
+    host = []
+    for _ in range(11):
+        t0 = time.perf_counter()
+        fn()
+        host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+    host_us = statistics.median(host) * 1e6
+    per_ms = sleep_cycles_per_ms()
+
+    def run(n: int) -> tuple[float, bool]:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int(per_ms * (1.0 + 3e-3 * n * host_us)))
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        ahead = not start.query()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / n, ahead
+
+    first, _ = run(RUN_MIN)
+    n = min(RUN_MAX, max(RUN_MIN, int(np.ceil(RUN_MIN_MS / max(first, 1e-4)))))
+    reads = [run(n) for _ in range(runs)]
+    return {'ms': statistics.median(t for t, _ in reads), 'host_us': host_us,
+            'call_ms': median_ms(fn, runs), 'n': n, 'ahead': all(a for _, a in reads)}
+
+
+def timing_note(t: dict) -> str:
+    return (f'{t["ms"]:.4f} ms device ({t["n"]} launches a run'
+            f'{"" if t["ahead"] else ", HOST GAPS"}), {t["host_us"]:.1f} us host, '
+            f'{t["call_ms"]:.4f} ms one call')
 
 
 def tie_heavy_xyz(B: int, N: int, seed: int) -> np.ndarray:
@@ -207,33 +280,101 @@ def roi_clouds(n_clouds: int, n_points: int, seed: int) -> np.ndarray:
     return out
 
 
+def fps_paths(fps_mod, B: int, N: int, npoint: int) -> dict:
+    """The layouts phase 3 holds against the plain version at one shape: the
+    plan's own choice, the block path, and a cluster of 16 blocks per cloud
+    (launched even where the plan would not take it: where not every cluster
+    is resident at once the rest wait, and the result is the same)."""
+    S = fps_mod.CLUSTER_SIZES[0]
+    return {'plan': fps_mod.plan_for(torch.cuda.current_device(), B, N, npoint),
+            'block': fps_mod.fps_plan(B, N, npoint, 1, lambda *a: 0, path='block'),
+            'cluster': fps_mod.FpsPlan('cluster', S, *fps_mod.cluster_layout(N, S))}
+
+
 def fps_phase(fps_mod, plain, kitti_points) -> dict:
     # PointRCNN launches FPS three times in a predict: backbone level 2 on the
     # 4096-point prefix of a 16384-point cloud, and the ROI stack on 400
-    # canonical clouds of 512 points, then on the 128 points picked there
+    # canonical clouds of 512 points, then on the 128 points picked there;
+    # the last two cases pick more points than a cloud holds
+    rng = np.random.RandomState(13)
     cases = [('flagship', torch.from_numpy(kitti_points(8, 16384, 1)[..., :3].copy()), 4096),
              ('tie-heavy', torch.from_numpy(tie_heavy_xyz(8, 16384, 2)), 4096),
              ('odd N', torch.from_numpy(kitti_points(3, 10007, 3)[..., :3].copy()), 2000),
              ('PointRCNN SA level 2',
               torch.from_numpy(kitti_points(4, 16384, 12)[:, :4096, :3].copy()), 1024),
              ('ROI stack level 1', torch.from_numpy(roi_clouds(400, 512, 4)), 128),
-             ('ROI stack level 2', None, 32)]
-    max_err = 0
+             ('ROI stack level 2', None, 32),
+             ('npoint > N', torch.from_numpy(rng.rand(2, 300, 3).astype(np.float32) * 9), 500),
+             ('npoint > N, large', torch.from_numpy(rng.rand(2, 2500, 3).astype(np.float32) * 9),
+              3000)]
+    sm = torch.cuda.get_device_properties(0).multi_processor_count
+    occupancy = {S: fps_mod._max_active_clusters(0, S, *fps_mod.cluster_layout(16384, S))
+                 for S in fps_mod.CLUSTER_SIZES if fps_mod.cluster_layout(16384, S)}
+    log('3 fps', f'{sm} SMs; clusters resident at once, at the flagship cloud\'s layout of each '
+        f'size: {occupancy}')
     for name, xyz, npoint in cases:
         if xyz is None:     # the points the previous case picked, in pick order
             xyz = torch.gather(x, 1, got.long()[..., None].expand(-1, -1, 3)).cpu()
         x = xyz.cuda().contiguous()
-        got = fps_mod.farthest_point_sample_cuda(x, npoint)
-        torch.cuda.synchronize()
         want = plain.farthest_point_sample(x, npoint)
         torch.cuda.synchronize()
-        err = int((got.long() - want.long()).abs().max())
-        max_err = max(max_err, err)
-        if err != 0:
-            raise SystemExit(f'[3 fps] FAILED {name}: {int((got != want).sum())} indices differ')
-        log('3 fps', f'{name} {tuple(xyz.shape)} -> {npoint}: kernel == plain (exact)')
+        paths = fps_paths(fps_mod, x.shape[0], x.shape[1], npoint)
+        for label, plan in paths.items():
+            got = fps_mod.farthest_point_sample_cuda(x, npoint, plan)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise SystemExit(f'[3 fps] FAILED {name}, {label} {plan}: '
+                                 f'{int((got != want).sum())} indices differ')
+        log('3 fps', f'{name} {tuple(xyz.shape)} -> {npoint}: ' + ', '.join(
+            f'{label} {tuple(plan)}' for label, plan in paths.items())
+            + ': each == plain (exact)')
+        got = fps_mod.farthest_point_sample_cuda(x, npoint)   # the plan's, for the next case
+    # both paths at the flagship shape and at PointRCNN's level 2, in turns
+    # (block, cluster, cluster, block), the cluster path as the plan would
+    # take it (every cloud's cluster resident at once); then each path's chain
+    # floor: its layout with one point a thread, so a step is the reduction alone
     x = cases[0][1].cuda().contiguous()
-    ms = median_ms(lambda: fps_mod.farthest_point_sample_cuda(x, 4096), 5)
+    res = {}
+    for name, xyz, npoint in (cases[0], cases[3]):
+        xyz = xyz.cuda().contiguous()
+        B, N = xyz.shape[:2]
+        paths = {'plan': fps_mod.plan_for(torch.cuda.current_device(), B, N, npoint),
+                 'block': fps_mod.fps_plan(B, N, npoint, 1, lambda *a: 0, path='block'),
+                 'cluster': fps_mod.plan_for(torch.cuda.current_device(), B, N, npoint,
+                                             'cluster')}
+        turns = {'block': [], 'cluster': []}
+        for label in ('block', 'cluster', 'cluster', 'block'):
+            turns[label].append(device_time(
+                lambda: fps_mod.farthest_point_sample_cuda(xyz, npoint, paths[label])))
+        res[name] = {label: min(t, key=lambda r: r['ms']) for label, t in turns.items()}
+        log('3 fps', f'{name} {tuple(xyz.shape)} -> {npoint}, in turns block, cluster, cluster, '
+            'block: ' + '; '.join(
+                f'{label} {tuple(paths[label])} ' + ' / '.join(f'{r["ms"]:.4f}' for r in t)
+                + f' ms device, {t[0]["host_us"]:.1f} us host' for label, t in turns.items())
+            + f'; the plan takes {paths["plan"].path}')
+    flag = fps_paths(fps_mod, 8, 16384, 4096)
+    floors = {}
+    for label, plan in (('block', fps_mod.FpsPlan('block', 1, 1024, 1)),
+                        ('cluster', flag['plan']._replace(ppt=1))):
+        n = plan.S * plan.threads
+        cloud = x[:, :n].contiguous()
+        floors[label] = device_time(
+            lambda: fps_mod.farthest_point_sample_cuda(cloud, 4096, plan))['ms'] / 4095
+        log('3 fps', f'chain floor of the {label} path, {tuple(plan)} on clouds of {n} points, '
+            f'4096 picks: {floors[label] * 1e3:.4f} us a step, {floors[label] * 4095:.4f} ms for '
+            '4095 steps')
+    # the barrier's share: one warp a block, 4 clouds (resident at every S)
+    by_size = {}
+    for S in fps_mod.CLUSTER_SIZES:
+        plan = fps_mod.FpsPlan('cluster', S, 32, 1)
+        cloud = x[:4, :S * 32].contiguous()
+        by_size[S] = device_time(
+            lambda: fps_mod.farthest_point_sample_cuda(cloud, 4096, plan))['ms'] / 4095 * 1e3
+    log('3 fps', 'a cluster step with one warp a block, 4 clouds of 32 points a block, us by '
+        'cluster size: ' + ', '.join(f'S={S} {v:.4f}' for S, v in by_size.items()))
+    if flag['plan'].path != 'cluster':
+        raise SystemExit(f'[3 fps] FAILED: the flagship shape plans {flag["plan"]}, not a cluster')
+    t = device_time(lambda: fps_mod.farthest_point_sample_cuda(x, 4096))
     plain_ms = median_ms(lambda: plain.farthest_point_sample(x, 4096), 5)
     # bound: the card-wide least time. Bytes: the cloud read once, the
     # indices written once. Operations: every step updates every point's
@@ -241,9 +382,16 @@ def fps_phase(fps_mod, plain, kitti_points) -> dict:
     B, N, npoint = 8, 16384, 4096
     t_bytes = (B * N * 12 + B * npoint * 4) / HBM_BYTES_PER_S * 1e3
     t_ops = B * N * (npoint - 1) * 10 / FP32_FLOP_PER_S * 1e3
-    return {'max_abs_err': max_err, 'ms': ms, 'plain_ms': plain_ms,
-            'bound_ms': max(t_bytes, t_ops),
-            'bound_by': 'bytes' if t_bytes >= t_ops else 'operations', 'library_ms': None}
+    block = res['flagship']['block']
+    return {'max_abs_err': 0, 'ms': t['ms'], 'host_us': t['host_us'],
+            'call_ms': t['call_ms'], 'plain_ms': plain_ms, 'bound_ms': max(t_bytes, t_ops),
+            'bound_by': 'bytes' if t_bytes >= t_ops else 'operations', 'library_ms': None,
+            'library_host_us': None, 'block_ms': block['ms'],
+            'chain_floor_ms': floors['cluster'] * 4095,
+            'block_chain_floor_ms': floors['block'] * 4095,
+            'note': f'{timing_note(t)} ({flag["plan"].path} path); block path {block["ms"]:.4f} ms; '
+                    f'chain floor {floors["cluster"] * 4095:.4f} ms (block path '
+                    f'{floors["block"] * 4095:.4f} ms)'}
 
 
 def flatten(out: dict) -> dict:
@@ -471,18 +619,25 @@ def group_case(name, xyz, new_xyz, radii, nsamples, width, slices, cap, pc_range
                              f'{int((g_hit != w_hit).sum())} hits, '
                              f'{int((g_rel != w_rel).sum())} rel values differ')
         empty += int((~g_hit).sum())
+    sel_t = device_time(lambda: group.window_select_cuda(*sel_args), reps)
     res = {'window_select': {
-        'err': 0.0,
-        'ms': median_ms(lambda: group.window_select_cuda(*sel_args), reps),
+        'err': 0.0, 'ms': sel_t['ms'], 'host_us': sel_t['host_us'], 'call_ms': sel_t['call_ms'],
         'plain_ms': median_ms(lambda: group.window_select_plain(*sel_args), reps),
-        'library_ms': None,
+        'library_ms': None, 'library_host_us': None,
         'bytes': (table.numel() * 4 + cells.numel() * 4 + xyz.numel() * 4 + new_xyz.numel() * 4
                   + sum(B * M * K * 16 + B * M for K in nsamples))}}
 
     gen = torch.Generator(device='cpu').manual_seed(seed)
     payload = torch.randn((B, N, width), generator=gen).to(dev)
-    gather = {'err': 0.0, 'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0, 'bytes': 0}
-    scatter = {'err': 0.0, 'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0, 'bytes': 0}
+    zero = {'err': 0.0, 'ms': 0.0, 'host_us': 0.0, 'call_ms': 0.0, 'plain_ms': 0.0,
+            'library_ms': 0.0, 'library_host_us': 0.0, 'bytes': 0}
+    gather, scatter = dict(zero), dict(zero)
+
+    def add(acc: dict, kern: dict, lib: dict) -> None:
+        for key in ('ms', 'host_us', 'call_ms'):
+            acc[key] += kern[key]
+        acc['library_ms'] += lib['ms']
+        acc['library_host_us'] += lib['host_us']
     for (rel, idx, hit), (s0, s1), K in zip(got, slices, nsamples):
         C = s1 - s0
         rows = torch.where(hit[..., None], idx, -1).reshape(B, M * K)
@@ -499,10 +654,15 @@ def group_case(name, xyz, new_xyz, radii, nsamples, width, slices, cap, pc_range
             raise SystemExit(f'[6 group] FAILED {name} gather_rows C={C}: '
                              f'{int((out != want_rows).sum())} values differ')
         safe = rows.clamp(0, N - 1).long()[..., None].expand(-1, -1, C)
-        gather['ms'] += median_ms(lambda: group.gather_rows_cuda(feats, rows), reps)
+        g_t = device_time(lambda: group.gather_rows_cuda(feats, rows), reps)
+        lib_t = device_time(lambda: torch.gather(feats, 1, safe), reps)
+        add(gather, g_t, lib_t)
         gather['plain_ms'] += median_ms(lambda: group.gather_rows_plain(feats, rows), reps)
-        gather['library_ms'] += median_ms(lambda: torch.gather(feats, 1, safe), reps)
-        gather['bytes'] += B * N * C * 4 + rows.numel() * 4 + out.numel() * 4
+        g_bytes = B * N * C * 4 + rows.numel() * 4 + out.numel() * 4
+        gather['bytes'] += g_bytes
+        log('6 group', f'{name} gather_rows (B={B}, R={M * K}, C={C}, row stride {width}, slice '
+            f'start {s0}): kernel {timing_note(g_t)}; torch.gather {timing_note(lib_t)}; bound '
+            f'{g_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms')
 
         vals = torch.randn((B, M * K, C), generator=gen).to(dev)
         back = group.scatter_add_rows_cuda(vals, rows, N)
@@ -527,20 +687,23 @@ def group_case(name, xyz, new_xyz, radii, nsamples, width, slices, cap, pc_range
                            rows.long() + torch.arange(B, device=dev)[:, None] * N, B * N)
         flat = flat.reshape(-1)
         v2 = vals.reshape(-1, C)
-        scatter['ms'] += median_ms(lambda: group.scatter_add_rows_cuda(vals, rows, N), reps)
+        add(scatter, device_time(lambda: group.scatter_add_rows_cuda(vals, rows, N), reps),
+            device_time(lambda: torch.zeros((B * N + 1, C), device=dev).index_add_(0, flat, v2),
+                        reps))
         scatter['plain_ms'] += median_ms(lambda: group.scatter_add_rows_plain(vals, rows, N), reps)
-        scatter['library_ms'] += median_ms(
-            lambda: torch.zeros((B * N + 1, C), device=dev).index_add_(0, flat, v2), reps)
         scatter['bytes'] += vals.numel() * 4 + rows.numel() * 4 + B * N * C * 4
     res['gather_rows'], res['scatter_add_rows'] = gather, scatter
     for r in res.values():
         r['bound_ms'] = r.pop('bytes') / HBM_BYTES_PER_S * 1e3
     log('6 group', f'{name} N={N} M={M} K={list(nsamples)} C={[b - a for a, b in slices]}: '
         f'selection and gather exact ({empty} empty balls), scatter-add within rounding '
-        f'(kernel vs plain max |diff| {scatter["err"]:.2e}); ms kernel/plain/library/bound: '
-        + '; '.join(f'{k} {r["ms"]:.3f}/{r["plain_ms"]:.3f}/'
-                    + ('-' if r['library_ms'] is None else f'{r["library_ms"]:.3f}')
-                    + f'/{r["bound_ms"]:.4f}' for k, r in res.items()))
+        f'(kernel vs plain max |diff| {scatter["err"]:.2e}); kernel device ms / host us / one '
+        'call ms, plain ms (one call), library device ms / host us, bound ms: '
+        + '; '.join(f'{k} {r["ms"]:.4f}/{r["host_us"]:.1f}/{r["call_ms"]:.4f}, '
+                    f'{r["plain_ms"]:.3f}, '
+                    + ('-' if r['library_ms'] is None
+                       else f'{r["library_ms"]:.4f}/{r["library_host_us"]:.1f}')
+                    + f', {r["bound_ms"]:.4f}' for k, r in res.items()))
     return res
 
 
@@ -559,13 +722,16 @@ def group_phase(cfg, fps_mod, group, sa_fused, synthetic) -> dict:
         res = group_case(name, xyz, new_xyz, radii, nsamples, width, slices, cap, bev, 20 + k,
                          group, sa_fused)
         for kern, r in res.items():
-            t = total.setdefault(kern, {'err': 0.0, 'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0,
-                                        'library_ms': None if r['library_ms'] is None else 0.0})
+            lib = None if r['library_ms'] is None else 0.0
+            t = total.setdefault(kern, {'err': 0.0, 'ms': 0.0, 'host_us': 0.0, 'call_ms': 0.0,
+                                        'plain_ms': 0.0, 'bound_ms': 0.0, 'library_ms': lib,
+                                        'library_host_us': lib})
             t['err'] = max(t['err'], r['err'])
-            for key in ('ms', 'plain_ms', 'bound_ms'):
+            for key in ('ms', 'host_us', 'call_ms', 'plain_ms', 'bound_ms'):
                 t[key] += r[key]
-            if r['library_ms'] is not None:
+            if lib is not None:
                 t['library_ms'] += r['library_ms']
+                t['library_host_us'] += r['library_host_us']
     # ragged: odd sizes, a slice of 37 channels that starts off a 16-byte
     # boundary, three radii, cap 20, points and centers outside the range
     rng = np.random.RandomState(9)
@@ -579,6 +745,44 @@ def group_phase(cfg, fps_mod, group, sa_fused, synthetic) -> dict:
                [0.5, 1.3, 0.9], [5, 70, 3], 37, [(3, 22), (0, 37), (36, 37)], 20, bev, 30,
                group, sa_fused, spoil_idx=True)
     return total
+
+
+def host_breakdown(group, kernels) -> dict:
+    """Host microseconds a call of the parts of `gather_rows_cuda` at SA
+    level 1's shape (B=8, R=65536, C=1): mean over 300 calls in a row, the
+    device left to run behind (each launch is shorter than its enqueue)."""
+    feats = torch.randn((8, 16384, 1), device='cuda')
+    rows = torch.randint(0, 16384, (8, 65536), dtype=torch.int32, device='cuda')
+    out = torch.empty((8, 65536, 1), device='cuda')
+    safe = rows.long()[..., None]
+    lib = kernels.load()
+    ptr = feats.data_ptr()
+    plan = group._gather_plan_on(0, 8, 16384, 65536, 1, 4, 1, ptr % 16)
+    args = (ptr, rows.data_ptr(), out.data_ptr(), 8, 16384, 65536, 1, 1, plan.lanes, plan.passes,
+            plan.unit, int(plan.wide_index), plan.blocks, kernels.stream(0))
+
+    def enter_exit():
+        with kernels.on_device(0):
+            pass
+
+    parts = {'wrapper': lambda: group.gather_rows_cuda(feats, rows),
+             'torch.gather': lambda: torch.gather(feats, 1, safe),
+             'torch.empty': lambda: torch.empty((8, 65536, 1), device=feats.device),
+             'plan lookup': lambda: group._gather_plan_on(0, 8, 16384, 65536, 1, 4, 1, ptr % 16),
+             'device context': enter_exit, 'stream': lambda: kernels.stream(0),
+             'C launch': lambda: lib.gather_rows_launch(*args)}
+    res = {}
+    for name, fn in parts.items():
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(300):
+            fn()
+        res[name] = (time.perf_counter() - t0) / 300 * 1e6
+        torch.cuda.synchronize()
+    log('6 group', 'host us per call at SA level 1, mean of 300 in a row: '
+        + ', '.join(f'{k} {v:.2f}' for k, v in res.items()))
+    return res
 
 
 def window_tests(xyz: torch.Tensor, new_xyz: torch.Tensor, cell: float) -> int:
@@ -636,6 +840,19 @@ def ball_query_case(name, xyz, new_xyz, radii, nsamples, bq, plain, feats=None, 
         f'({layouts}), {empty} empty balls')
     if not time_it:
         return None
+    from pdm_ssd_torch.ops import group
+    for label, src in sources:        # the row gather at this shape, largest K
+        if src.stride(2) != 1 or src.stride(0) != src.shape[1] * src.stride(1):
+            src = src.contiguous()    # as `dispatch.grouping_operation` hands it on
+        rows = got[-1].reshape(B, -1).contiguous()
+        C = src.shape[2]
+        safe = rows.long()[..., None].expand(-1, -1, C)
+        g_t = device_time(lambda: group.gather_rows_cuda(src, rows))
+        lib_t = device_time(lambda: torch.gather(src, 1, safe))
+        log('9 ball query', f'{name} gather_rows of {label} (B={B}, R={rows.shape[1]}, C={C}, row '
+            f'stride {src.stride(1)}): kernel {timing_note(g_t)}; torch.gather '
+            f'{timing_note(lib_t)}; bound '
+            f'{(B * N * C + rows.numel() * (C + 1)) * 4 / HBM_BYTES_PER_S * 1e3:.5f} ms')
     # the walk of a center ends at the K-th hit of its slowest radius, or at
     # the cloud's end where a ball stays underfull (its last slot then repeats
     # its first)
@@ -645,7 +862,8 @@ def ball_query_case(name, xyz, new_xyz, radii, nsamples, bq, plain, feats=None, 
         filled = w[..., -1] != w[..., 0]
         walk = torch.maximum(walk, torch.where(filled, w[..., -1].long() + 1, N))
         full &= filled
-    return {'ms': median_ms(lambda: bq.ball_query_cuda(radii, nsamples, xyz_c, new_xyz, mask), 5),
+    t = device_time(lambda: bq.ball_query_cuda(radii, nsamples, xyz_c, new_xyz, mask))
+    return {'ms': t['ms'], 'host_us': t['host_us'], 'call_ms': t['call_ms'],
             'plain_ms': median_ms(lambda: [plain.ball_query(r, k, xyz_c, new_xyz, mask=mask)
                                            for r, k in zip(radii, nsamples)], 5),
             'bytes': xyz.numel() * 4 + new_xyz.numel() * 4 + sum(B * M * K * 4 for K in nsamples),
@@ -677,8 +895,8 @@ def ball_query_phase(cfg, bq, fps_mod, plain, synthetic) -> dict:
     widths = [sum(mlp[-1] for mlp in level) for level in sa.MLPS]
     feats = [cloud[..., 3:], features(4, sa.NPOINTS[0], widths[0]),
              features(4, sa.NPOINTS[1], widths[1])]
-    total = {'ms': 0.0, 'plain_ms': 0.0, 'bytes': 0, 'window_tests': 0, 'walk_tests': 0,
-             'full': 0, 'balls': 0}
+    total = {'ms': 0.0, 'host_us': 0.0, 'call_ms': 0.0, 'plain_ms': 0.0, 'bytes': 0,
+             'window_tests': 0, 'walk_tests': 0, 'full': 0, 'balls': 0}
     for k in range(3):
         r = ball_query_case(f'backbone SA level {k + 1}', clouds[k], clouds[k + 1],
                             list(sa.RADIUS[k]), list(sa.NSAMPLE[k]), bq, plain, feats=feats[k],
@@ -716,7 +934,7 @@ def ball_query_phase(cfg, bq, fps_mod, plain, synthetic) -> dict:
     dense = pts * torch.tensor([0.03, 0.03, 0.5], device='cuda')
     d = ball_query_case('backbone SA level 1, dense box', dense, dense[:, :sa.NPOINTS[0]],
                         list(sa.RADIUS[0]), list(sa.NSAMPLE[0]), bq, plain, time_it=True)
-    log('9 ball query', f'dense box, level 1: kernel {d["ms"]:.3f} ms, plain torch '
+    log('9 ball query', f'dense box, level 1: kernel {d["ms"]:.4f} ms device, plain torch '
         f'{d["plain_ms"]:.3f} ms, {d["full"]} of {d["balls"]} balls full at both radii, walk '
         f'{d["walk_tests"]} tests, 3x3 windows {d["window_tests"]}')
     # bound: bytes (xyz and centers read once, indices written once), or the
@@ -725,13 +943,16 @@ def ball_query_phase(cfg, bq, fps_mod, plain, synthetic) -> dict:
     # this kernel's walk over the whole cloud are reported beside it
     t_bytes = total['bytes'] / HBM_BYTES_PER_S * 1e3
     t_ops = total['window_tests'] * 8 / FP32_FLOP_PER_S * 1e3
-    stats = {'max_abs_err': 0, 'ms': total['ms'], 'plain_ms': total['plain_ms'],
+    stats = {'max_abs_err': 0, 'ms': total['ms'], 'host_us': total['host_us'],
+             'call_ms': total['call_ms'], 'plain_ms': total['plain_ms'],
              'bound_ms': max(t_bytes, t_ops),
              'bound_by': 'bytes' if t_bytes >= t_ops else 'operations', 'library_ms': None,
+             'library_host_us': None,
              'walk_ms': total['walk_tests'] * 8 / FP32_FLOP_PER_S * 1e3,
              'window_tests': total['window_tests'], 'walk_tests': total['walk_tests']}
-    log('9 ball query', f'backbone levels at B=4: kernel {stats["ms"]:.3f} ms, plain torch '
-        f'{stats["plain_ms"]:.3f} ms (median of 5), bound {stats["bound_ms"]:.4f} ms by '
+    log('9 ball query', f'backbone levels at B=4: kernel {stats["ms"]:.4f} ms device, '
+        f'{stats["host_us"]:.1f} us host, {stats["call_ms"]:.4f} ms one call; plain torch '
+        f'{stats["plain_ms"]:.3f} ms (one call, median of 5), bound {stats["bound_ms"]:.4f} ms by '
         f'{stats["bound_by"]} (bytes {t_bytes:.4f} ms; {total["window_tests"]} tests in the 3x3 '
         f'windows {t_ops:.5f} ms); this kernel walks {total["walk_tests"]} tests, '
         f'{stats["walk_ms"]:.4f} ms at the peak rate; {total["full"]} of {total["balls"]} balls '
@@ -879,8 +1100,8 @@ def sparse_conv_phase(net, inputs, sc, smi: str) -> dict:
     modules = dict(bb.named_modules())
     if len(calls) != 12:
         raise SystemExit(f'[12 sparse conv] FAILED: the ladder has {len(calls)} layers, not 12')
-    total = {'err': 0.0, 'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0, 'bytes': 0, 'flops': 0,
-             'walk_bytes': 0}
+    total = {'err': 0.0, 'ms': 0.0, 'host_us': 0.0, 'call_ms': 0.0, 'plain_ms': 0.0,
+             'library_ms': 0.0, 'library_host_us': 0.0, 'bytes': 0, 'flops': 0, 'walk_bytes': 0}
     with torch.inference_mode():
         for name, (feats, nbr, _) in calls.items():
             w = modules[name].kernel.detach()
@@ -889,16 +1110,20 @@ def sparse_conv_phase(net, inputs, sc, smi: str) -> dict:
             Vout, K = nbr.shape[1], nbr.shape[2]
             Cout = w.shape[1]
             r = sparse_conv_check(name, sc, feats, nbr, w)
-            ms = median_ms(lambda: sc.sparse_conv_cuda(feats, nbr, w), 5)
+            k_t = device_time(lambda: sc.sparse_conv_cuda(feats, nbr, w))
+            ms = k_t['ms']
             plain_ms = median_ms(lambda: sc.sparse_conv_plain(feats, nbr, w), 5)
-            pair_ms = median_ms(lambda: torch.matmul(sc.gather_taps(feats, nbr), w), 5)
+            pair_t = device_time(lambda: torch.matmul(sc.gather_taps(feats, nbr), w))
+            pair_ms = pair_t['ms']
             byts = (feats.numel() + nbr.numel() + w.numel() + B * Vout * Cout) * 4
             flops = 2 * r['present'] * Cin * Cout
             walk = (r['present'] * Cin + nbr.numel() + B * Vout * Cout
                     + -(-Vout // 64) * B * w.numel()) * 4
             total['err'] = max(total['err'], r['err'])
-            for key, v in (('ms', ms), ('plain_ms', plain_ms), ('library_ms', pair_ms),
-                           ('bytes', byts), ('flops', flops), ('walk_bytes', walk)):
+            for key, v in (('ms', ms), ('host_us', k_t['host_us']), ('call_ms', k_t['call_ms']),
+                           ('plain_ms', plain_ms), ('library_ms', pair_ms),
+                           ('library_host_us', pair_t['host_us']), ('bytes', byts),
+                           ('flops', flops), ('walk_bytes', walk)):
                 total[key] += v
             log('12 sparse conv', f'{name} {Cin}->{Cout} K={K} Vin={Vin} Vout={Vout} B={B}: '
                 f'{r["present"] / nbr.numel():.3f} of taps present, {r["empty_rows"]} rows with '
@@ -917,7 +1142,7 @@ def sparse_conv_phase(net, inputs, sc, smi: str) -> dict:
         nbr = torch.from_numpy(idx.astype(np.int32))[None].cuda()
         w = torch.from_numpy((rng.standard_normal((K * C, C)) * 0.02).astype(np.float32)).cuda()
         r = sparse_conv_check('microbench shape', sc, feats, nbr, w)
-        ms = median_ms(lambda: sc.sparse_conv_cuda(feats, nbr, w), 5)
+        ms = device_time(lambda: sc.sparse_conv_cuda(feats, nbr, w))['ms']
         plain_ms = median_ms(lambda: sc.sparse_conv_plain(feats, nbr, w), 5)
         log('12 sparse conv', f'microbench shape V={V} C={C} K={K}: kernel {r["worst"]["kernel"]:.3f} '
             f'and plain {r["worst"]["plain"]:.3f} of the rounding bound; kernel {ms:.3f} ms, plain '
@@ -940,14 +1165,16 @@ def sparse_conv_phase(net, inputs, sc, smi: str) -> dict:
                 'present tap exactly 0, two runs bit-equal')
     t_bytes = total['bytes'] / HBM_BYTES_PER_S * 1e3
     t_ops = total['flops'] / FP32_FLOP_PER_S * 1e3
-    stats = {'max_abs_err': total['err'], 'ms': total['ms'], 'plain_ms': total['plain_ms'],
+    stats = {'max_abs_err': total['err'], 'ms': total['ms'], 'host_us': total['host_us'],
+             'call_ms': total['call_ms'], 'plain_ms': total['plain_ms'],
              'bound_ms': max(t_bytes, t_ops),
              'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
-             'library_ms': total['library_ms'],
+             'library_ms': total['library_ms'], 'library_host_us': total['library_host_us'],
              'walk_ms': total['walk_bytes'] / HBM_BYTES_PER_S * 1e3}
-    log('12 sparse conv', f'twelve layers at B=4: kernel {stats["ms"]:.3f} ms, plain torch '
-        f'{stats["plain_ms"]:.3f} ms, gather + torch.matmul (two calls, no single PyTorch call '
-        f'computes the function) {stats["library_ms"]:.3f} ms (median of 5 each), bound '
+    log('12 sparse conv', f'twelve layers at B=4: kernel {stats["ms"]:.3f} ms device, '
+        f'{stats["host_us"]:.1f} us host, {stats["call_ms"]:.3f} ms one call each; plain torch '
+        f'{stats["plain_ms"]:.3f} ms (one call), gather + torch.matmul (two calls, no single '
+        f'PyTorch call computes the function) {stats["library_ms"]:.3f} ms device, bound '
         f'{stats["bound_ms"]:.4f} ms by {stats["bound_by"]} (bytes {t_bytes:.4f} ms, '
         f'{total["flops"] / 1e9:.2f} GFLOP of present taps {t_ops:.4f} ms); the rows the kernel '
         f'gathers, its maps, outputs and per-tile weights are {stats["walk_ms"]:.4f} ms of bytes')
@@ -973,19 +1200,22 @@ def gather_bf16_phase(inputs, group, smi: str) -> dict:
         raise SystemExit('[13 bf16 gather] FAILED: the sp_perm1 reorder differs from the plain '
                          'gather')
     long_idx = idx[0].long()
-    stats = {'max_abs_err': err,
-             'ms': median_ms(lambda: group.gather_rows_cuda(table, idx), 5),
+    k_t = device_time(lambda: group.gather_rows_cuda(table, idx))
+    lib_t = device_time(lambda: torch.index_select(table[0], 0, long_idx))
+    stats = {'max_abs_err': err, 'ms': k_t['ms'], 'host_us': k_t['host_us'],
+             'call_ms': k_t['call_ms'],
              'plain_ms': median_ms(lambda: group.gather_rows_plain(table, idx), 5),
-             'library_ms': median_ms(lambda: torch.index_select(table[0], 0, long_idx), 5),
+             'library_ms': lib_t['ms'], 'library_host_us': lib_t['host_us'],
              'bound_ms': (2 * table.numel() * 2 + idx.numel() * 4) / HBM_BYTES_PER_S * 1e3,
              'bound_by': 'bytes'}
-    perm_ms = median_ms(lambda: group.gather_rows_cuda(feats, perm), 5)
+    perm_t = device_time(lambda: group.gather_rows_cuda(feats, perm))
+    perm_lib = device_time(lambda: torch.gather(
+        feats, 1, perm.long().clamp(0, feats.shape[1] - 1)[..., None].expand(-1, -1, 4)))
     log('13 bf16 gather', f'(52000, 96) bf16, {repeats} repeated indices: kernel == plain '
-        f'(exact, max |diff| {err:g}); kernel {stats["ms"]:.4f} ms, plain torch '
-        f'{stats["plain_ms"]:.4f} ms, '
-        f'torch.index_select {stats["library_ms"]:.4f} ms, bound {stats["bound_ms"]:.5f} ms by '
-        f'bytes; the sp_perm1 reorder {tuple(feats.shape)} float32: exact, {perm_ms:.4f} ms on '
-        f'{smi}')
+        f'(exact, max |diff| {err:g}); kernel {timing_note(k_t)}; torch.index_select '
+        f'{timing_note(lib_t)}; plain torch {stats["plain_ms"]:.4f} ms (one call); bound '
+        f'{stats["bound_ms"]:.5f} ms by bytes; the sp_perm1 reorder {tuple(feats.shape)} float32: '
+        f'exact, kernel {timing_note(perm_t)}; torch.gather {timing_note(perm_lib)} on {smi}')
     return stats
 
 
@@ -1161,29 +1391,30 @@ def main() -> None:
         if 'registers' in line or 'spill' in line or 'Compiling entry' in line:
             print(f'    {line.strip()}')
     # the row gather has two entry points, float32 and bfloat16, each with
-    # its own counter on the one wrapper
+    # its own counter on the one wrapper; FPS counts its launches by path too
     wrappers = {'farthest_point_sample': (fps.farthest_point_sample_cuda, 'launches'),
                 'window_select': (group.window_select_cuda, 'launches'),
                 'gather_rows': (group.gather_rows_cuda, 'launches'),
                 'scatter_add_rows': (group.scatter_add_rows_cuda, 'launches'),
                 'ball_query': (bq.ball_query_cuda, 'launches'),
                 'sparse_conv': (sc.sparse_conv_cuda, 'launches'),
-                'gather_rows_bf16': (group.gather_rows_cuda, 'launches_bf16')}
+                'gather_rows_bf16': (group.gather_rows_cuda, 'launches_bf16'),
+                'fps cluster path': (fps.farthest_point_sample_cuda, 'launches_cluster'),
+                'fps block path': (fps.farthest_point_sample_cuda, 'launches_block')}
 
     stats = {'farthest_point_sample': fps_phase(fps, plain, synthetic.kitti_points)}
     fps_stats = stats['farthest_point_sample']
-    log('3 fps', f'(8, 16384) -> 4096: kernel {fps_stats["ms"]:.3f} ms, plain torch '
-        f'{fps_stats["plain_ms"]:.3f} ms (median of 5), bound {fps_stats["bound_ms"]:.4f} ms '
-        f'by {fps_stats["bound_by"]} on {smi}')
+    log('3 fps', f'(8, 16384) -> 4096: kernel {fps_stats.pop("note")}; plain torch '
+        f'{fps_stats["plain_ms"]:.3f} ms (one call, median of 5), bound '
+        f'{fps_stats["bound_ms"]:.4f} ms by {fps_stats["bound_by"]} on {smi}')
 
     os.chdir(REPO)   # the config names its base config relative to the repo
     cfg = cfg_from_yaml_file(str(REPO / CFG), CfgNode())
     cuda_vs_cpu_phase(cfg, dispatch, synthetic)
     predict_launches = predict_phase(cfg, wrappers, synthetic, smi)
     for kern, r in group_phase(cfg, fps, group, sa_fused, synthetic).items():
-        stats[kern] = {'max_abs_err': r['err'], 'ms': r['ms'], 'plain_ms': r['plain_ms'],
-                       'bound_ms': r['bound_ms'], 'bound_by': 'bytes',
-                       'library_ms': r['library_ms']}
+        stats[kern] = {'max_abs_err': r.pop('err'), **r, 'bound_by': 'bytes'}
+    host_breakdown(group, kernels)
     grads_cuda_vs_cpu_phase(cfg, synthetic)
     train_launches = train_phase(cfg, wrappers, synthetic, smi)
 

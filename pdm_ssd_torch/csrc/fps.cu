@@ -1,65 +1,118 @@
-// Farthest point sampling for Hopper (sm_90a).
+// Farthest point sampling for Hopper (sm_90a): a thread-block cluster per
+// cloud, and one block per cloud where a cluster does not fit or pay.
 //
 // Replaces the TPU kernel `farthest_point_sample_pallas`
 // (pdm_ssd_tpu/ops/pallas/fps.py). Semantics are those of the plain
 // version in pdm_ssd_torch/ops/pointnet2.py: the first pick is index 0, every
 // point keeps the running minimum of its squared distance to the picks
-// (starting from 1e10), and each step picks the first index of the maximum.
+// (starting from 1e10), and each step picks the first index of the maximum;
+// npoint > N keeps picking (index 0 once every minimum is 0).
 //
 // What bounds it: FPS is a chain of npoint - 1 dependent arg-max reductions
-// over one cloud, so the time is the latency of one block-wide reduction per
-// step, not bytes or FLOPs.
+// over one cloud, so the time is the latency of one cloud-wide reduction per
+// step, not bytes or FLOPs. One block per cloud leaves B of 132 SMs busy and
+// every step updates the whole cloud on one SM.
 //
-// Design: one block of up to 1024 threads per cloud. Thread t owns points
-// t, t + T, t + 2T, ... (PPT of them). Their coordinates stay in registers for
-// the whole run; the running minima live in shared memory (PPT * T floats),
-// because coordinates plus minima of a 16384-point cloud (256 KB) exceed
-// both the register file and the shared memory of one SM. Each step:
-//   1. every thread reads the last pick's xyz from shared memory,
-//   2. updates its points' minima and keeps a local (max, lowest index)
-//      together with the winner's coordinates,
-//   3. a warp arg-max with __shfl_xor_sync, then warp 0 reduces the per-warp
-//      winners from shared memory,
-//   4. lane 0 of warp 0 writes out[b, i] and the new pick's xyz.
-// The distance is (dx*dx + dy*dy) + dz*dz with round-to-nearest intrinsics,
-// so no FMA contraction changes the rounding against the plain version.
-// Only B blocks run (B SMs of 132); a cluster per cloud is later work.
+// Exactness. The distance is (dx*dx + dy*dy) + dz*dz with round-to-nearest
+// intrinsics, so no FMA contraction changes the rounding against the plain
+// version. The winner is the largest minimum, ties to the lowest index: a
+// lexicographic maximum of (d, -i). That order is total, so the maximum is
+// associative and commutative, and any split of the cloud over threads,
+// warps and blocks, reduced in any order, picks the index the plain
+// version's first-arg-max picks. Minima are >= +0, so their float bits
+// order as unsigned integers, and the key is (bits of d, ~i) compared as
+// unsigned pairs.
+//
+// Cluster path (`fps_cluster_kernel`): a cluster of S blocks (S <= 16) per
+// cloud, one block per SM (the dynamic shared memory each block reserves
+// leaves no room for a second). Block r owns points [r*T*PPT, (r+1)*T*PPT),
+// thread t of it points t, t + T, ...; coordinates and running minima stay in
+// registers. Slots past the cloud's end hold copies of point 0 under their
+// own index >= N: they track point 0's minimum exactly and lose every tie to
+// it, so they never win. One step:
+//   1. each thread updates its minima and keeps its best key, with the
+//      winner's coordinates; two `redux.sync` maxima give the warp's key, and
+//      the lane that holds it writes (key, xyz) to its warp's record;
+//   2. `__syncthreads`, then warp 0 reduces the warps' records to the block's
+//      and writes it into the half of a double buffer the step's parity names;
+//   3. one cluster barrier (arrive with release, wait with acquire);
+//   4. warp 0 of every block reads the S block records of that parity
+//      through distributed shared memory, one a lane, reduces them to the
+//      same key and hands the pick, with its coordinates, to its block
+//      through shared memory and a `__syncthreads`: no second cluster
+//      barrier.
+// The parity buffers make one cluster barrier a step enough: step it + 2
+// rewrites the records that step it reads, and no block passes barrier it + 1
+// before every block has finished its reads of step it. Two variants of this
+// kernel, timed in turns with it at the flagship shape on an H100 at 700 W,
+// were slower: every warp reading the warps' records of all blocks (8 times
+// the bytes between SMs; 7.727 ms against 5.707 for an earlier form of the
+// kernel here), and every warp reading the S block records (5.611 ms against
+// 4.918 for warp 0 alone, which is the kernel here). Block rank 0 keeps the picks in shared memory and
+// writes them out at the end: a store to device memory in the loop would hold
+// up the barrier's release. A last barrier keeps each block's shared memory
+// alive until the others have read it.
+//
+// Block path (`fps_block_kernel`): one block of up to 1024 threads per cloud
+// (PointRCNN's ROI stack: 400 clouds of 512 and of 128 points fill the card
+// with blocks alone). Coordinates in registers, minima in shared memory;
+// per step a warp arg-max of (d, index) with shuffles, the winning lane
+// publishes its point, then warp 0 reduces the warps' winners. A thread
+// keeps its best slot, not its coordinates, and with several points a thread
+// the block size is a compile-time constant, so `__launch_bounds__(1024, 1)`'s
+// 64 registers hold 16 points a thread without spilling (ptxas spilled 144
+// bytes when the thread tracked coordinates at a runtime block size, and 512
+// threads of 32 points spilled too, at 128 registers).
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 #include <climits>
 
+namespace cg = cooperative_groups;
+
 namespace {
 
-constexpr int kMaxThreads = 1024;
 constexpr float kBig = 1e10f;
+constexpr unsigned kFull = 0xffffffffu;
 
-__device__ __forceinline__ void warp_argmax(float& d, int& i, float& x, float& y, float& z) {
+// Kernel attributes belong to a device: each layout sets its own once per
+// card (cudaFuncSetAttribute costs host time on every call). Setting one
+// twice, as two threads racing here may, is harmless.
+struct OncePerDevice {
+  bool done[64] = {};
+  bool* slot() {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 64) return nullptr;
+    return &done[dev];
+  }
+};
+
+// ---- block path ----------------------------------------------------------
+
+// the lexicographic maximum of (d, -i) over a warp, in every lane
+__device__ __forceinline__ void warp_argmax(float& d, int& i) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) {
-    const float od = __shfl_xor_sync(0xffffffffu, d, off);
-    const int oi = __shfl_xor_sync(0xffffffffu, i, off);
-    const float ox = __shfl_xor_sync(0xffffffffu, x, off);
-    const float oy = __shfl_xor_sync(0xffffffffu, y, off);
-    const float oz = __shfl_xor_sync(0xffffffffu, z, off);
+    const float od = __shfl_xor_sync(kFull, d, off);
+    const int oi = __shfl_xor_sync(kFull, i, off);
     if (od > d || (od == d && oi < i)) {
       d = od;
       i = oi;
-      x = ox;
-      y = oy;
-      z = oz;
     }
   }
 }
 
-template <int PPT>
-__global__ void __launch_bounds__(kMaxThreads, 1)
-    fps_kernel(const float* __restrict__ xyz, int* __restrict__ out, int n, int npoint) {
+template <int PPT, int TMAX>
+__global__ void __launch_bounds__(TMAX, 1)
+    fps_block_kernel(const float* __restrict__ xyz, int* __restrict__ out, int n, int npoint) {
   extern __shared__ float s_dist[];  // (PPT, T): point t + k*T at s_dist[k*T + t]
   __shared__ float s_wd[32], s_wx[32], s_wy[32], s_wz[32];
   __shared__ int s_wi[32];
   __shared__ float s_last[3];
 
-  const int T = blockDim.x;
+  // with several points a thread the block is TMAX threads, so k * T is a
+  // constant offset and no register holds a slot's address
+  const int T = PPT == 1 ? static_cast<int>(blockDim.x) : TMAX;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -92,8 +145,10 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 
   for (int it = 1; it < npoint; ++it) {
     const float lx = s_last[0], ly = s_last[1], lz = s_last[2];
-    float bd = -2.f, bx = 0.f, by = 0.f, bz = 0.f;
-    int bi = INT_MAX;
+    // the thread's best as (d, slot): the coordinates are fetched once, by
+    // the lane that wins its warp, which keeps registers for the points
+    float bd = -2.f;
+    int bk = 0;
 #pragma unroll
     for (int k = 0; k < PPT; ++k) {
       const float dx = __fsub_rn(px[k], lx);
@@ -104,14 +159,22 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       s_dist[k * T + tid] = m;
       if (m > bd) {  // strict: the lowest index wins within the thread
         bd = m;
-        bi = tid + k * T;
-        bx = px[k];
-        by = py[k];
-        bz = pz[k];
+        bk = k;
       }
     }
-    warp_argmax(bd, bi, bx, by, bz);
-    if (lane == 0) {
+    const int mine = tid + bk * T;
+    int bi = mine;
+    warp_argmax(bd, bi);
+    if (bi == mine) {  // one lane: the warp's winner is its point
+      float bx = 0.f, by = 0.f, bz = 0.f;
+#pragma unroll
+      for (int k = 0; k < PPT; ++k) {
+        if (k == bk) {
+          bx = px[k];
+          by = py[k];
+          bz = pz[k];
+        }
+      }
       s_wd[warp] = bd;
       s_wi[warp] = bi;
       s_wx[warp] = bx;
@@ -120,54 +183,301 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     }
     __syncthreads();
     if (warp == 0) {
-      if (lane < nwarps) {
-        bd = s_wd[lane];
-        bi = s_wi[lane];
-        bx = s_wx[lane];
-        by = s_wy[lane];
-        bz = s_wz[lane];
-      } else {
-        bd = -2.f;
-        bi = INT_MAX;
-      }
-      warp_argmax(bd, bi, bx, by, bz);
-      if (lane == 0) {
+      bd = lane < nwarps ? s_wd[lane] : -2.f;
+      bi = lane < nwarps ? s_wi[lane] : INT_MAX;
+      const int own = bi;
+      warp_argmax(bd, bi);
+      if (bi == own) {
         o[it] = bi;
-        s_last[0] = bx;
-        s_last[1] = by;
-        s_last[2] = bz;
+        s_last[0] = s_wx[lane];
+        s_last[1] = s_wy[lane];
+        s_last[2] = s_wz[lane];
       }
     }
     __syncthreads();
   }
 }
 
-template <int PPT>
-int launch(const float* xyz, int* out, int B, int N, int npoint, int threads, cudaStream_t stream) {
+template <int PPT, int TMAX>
+int launch_block(const float* xyz, int* out, int B, int N, int npoint, int threads,
+                 cudaStream_t stream) {
+  if (threads < 32 || threads > TMAX || threads % 32 != 0 || threads * PPT < N ||
+      (PPT > 1 && threads != TMAX))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int smem = static_cast<int>(sizeof(float)) * PPT * threads;
-  cudaError_t err = cudaFuncSetAttribute(fps_kernel<PPT>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static OncePerDevice once;  // for the largest block of this layout
+  bool* done = once.slot();
+  if (done == nullptr || !*done) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fps_block_kernel<PPT, TMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(sizeof(float)) * PPT * TMAX);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (done != nullptr) *done = true;
+  }
+  fps_block_kernel<PPT, TMAX><<<B, threads, smem, stream>>>(xyz, out, N, npoint);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---- cluster path --------------------------------------------------------
+
+constexpr int kClusterThreads = 256;    // most threads a cluster block runs
+constexpr int kMaxCluster = 16;
+// Dynamic shared memory every cluster block reserves: more than half of an
+// SM's 228 KB, so no SM holds two blocks and a cluster of S blocks spreads
+// over S SMs. The records and block rank 0's picks use the front of it.
+constexpr int kClusterSmem = 120 * 1024;
+
+// A winner: key (bits of d, ~index) and coordinates, 32 bytes.
+struct __align__(16) Record {
+  uint4 key_xy;   // d bits, ~index, x bits, y bits
+  uint4 z;        // z bits, unused
+};
+
+// shared memory of a cluster block: the warps' records, the block's record
+// by step parity, then the picks
+constexpr int kPickOffset = (kClusterThreads / 32 + 4) * static_cast<int>(sizeof(Record));
+
+__device__ __forceinline__ bool better(unsigned d, unsigned ni, unsigned bd, unsigned bni) {
+  return d > bd || (d == bd && ni > bni);
+}
+
+__device__ __forceinline__ void put(Record* r, unsigned d, unsigned ni, float x, float y, float z) {
+  r->key_xy = make_uint4(d, ni, __float_as_uint(x), __float_as_uint(y));
+  r->z = make_uint4(__float_as_uint(z), 0u, 0u, 0u);
+}
+
+// The lexicographic maximum, over a warp, of the records the lanes hold;
+// returns the key in every lane and the winner's coordinates.
+__device__ __forceinline__ void warp_pick(unsigned d, unsigned ni, unsigned x, unsigned y,
+                                          unsigned z, unsigned& wd, unsigned& wni, float& wx,
+                                          float& wy, float& wz) {
+  wd = __reduce_max_sync(kFull, d);
+  wni = __reduce_max_sync(kFull, d == wd ? ni : 0u);
+  const int src = __ffs(__ballot_sync(kFull, d == wd && ni == wni)) - 1;
+  wx = __uint_as_float(__shfl_sync(kFull, x, src));
+  wy = __uint_as_float(__shfl_sync(kFull, y, src));
+  wz = __uint_as_float(__shfl_sync(kFull, z, src));
+}
+
+template <int PPT>
+__global__ void __launch_bounds__(kClusterThreads, 1)
+    fps_cluster_kernel(const float* __restrict__ xyz, int* __restrict__ out, int n, int npoint) {
+  extern __shared__ __align__(16) unsigned char s_raw[];
+  Record* s_warp = reinterpret_cast<Record*>(s_raw);             // [T/32]
+  Record* s_block = s_warp + kClusterThreads / 32;                // [2], by parity
+  Record* s_pick_rec = s_block + 2;                               // [2]: the pick, by parity
+  int* s_pick = reinterpret_cast<int*>(s_raw + kPickOffset);      // [npoint], rank 0
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int cloud = blockIdx.x / S;
+  const int T = blockDim.x;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nwarps = T >> 5;
+  const float* p = xyz + static_cast<size_t>(cloud) * n * 3;
+  int* o = out + static_cast<size_t>(cloud) * npoint;
+  const int first = rank * T * PPT + tid;
+  // picks wait in shared memory while they fit: a store to device memory
+  // inside the loop would hold up every release of the cluster barrier
+  const bool keep = kPickOffset + 4 * npoint <= kClusterSmem;
+
+  float px[PPT], py[PPT], pz[PPT], md[PPT];
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int j = first + k * T;
+    const int src = j < n ? j : 0;  // past the end: a copy of point 0
+    px[k] = p[3 * src];
+    py[k] = p[3 * src + 1];
+    pz[k] = p[3 * src + 2];
+    md[k] = kBig;
+  }
+  // lane l < S reads block l's record
+  const Record* remote = cluster.map_shared_rank(s_block, min(lane, S - 1));
+  float lx = p[0], ly = p[1], lz = p[2];
+  if (rank == 0 && tid == 0) {
+    if (keep) s_pick[0] = 0;
+    else o[0] = 0;
+  }
+
+  for (int it = 1; it < npoint; ++it) {
+    // 1. minima and the thread's best: the first slot unconditionally, so
+    //    every thread holds a candidate; strict > keeps the lowest index
+    unsigned bd = 0, bni = 0;
+    float bx = 0.f, by = 0.f, bz = 0.f;
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      const float dx = __fsub_rn(px[k], lx);
+      const float dy = __fsub_rn(py[k], ly);
+      const float dz = __fsub_rn(pz[k], lz);
+      const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
+      md[k] = fminf(md[k], d);
+      const unsigned db = __float_as_uint(md[k]);
+      if (k == 0 || db > bd) {
+        bd = db;
+        bni = ~static_cast<unsigned>(first + k * T);
+        bx = px[k];
+        by = py[k];
+        bz = pz[k];
+      }
+    }
+    // 2. the warp's winner, published by the lane that holds it
+    unsigned wd = __reduce_max_sync(kFull, bd);
+    unsigned wni = __reduce_max_sync(kFull, bd == wd ? bni : 0u);
+    if (bd == wd && bni == wni) put(s_warp + warp, wd, wni, bx, by, bz);
+    __syncthreads();
+    // 3. warp 0 reduces the warps' records to the block's, into the half of
+    //    the double buffer this step's parity names
+    const int parity = it & 1;
+    if (warp == 0) {
+      unsigned d = 0, ni = 0, x = 0, y = 0, z = 0;
+      if (lane < nwarps) {
+        const uint4 a = s_warp[lane].key_xy;
+        d = a.x;
+        ni = a.y;
+        x = a.z;
+        y = a.w;
+        z = s_warp[lane].z.x;
+      }
+      float fx, fy, fz;
+      warp_pick(d, ni, x, y, z, wd, wni, fx, fy, fz);
+      if (lane == 0) put(s_block + parity, wd, wni, fx, fy, fz);
+    }
+    // 4. one barrier across the cluster, then warp 0 reads the S block
+    //    records of this parity, one a lane, reduces them and hands the pick
+    //    to the block through shared memory
+    cluster.sync();
+    if (warp == 0) {
+      unsigned d = 0, ni = 0, x = 0, y = 0, z = 0;
+      if (lane < S) {
+        const uint4 a = remote[parity].key_xy;
+        d = a.x;
+        ni = a.y;
+        x = a.z;
+        y = a.w;
+        z = remote[parity].z.x;
+      }
+      float fx, fy, fz;
+      warp_pick(d, ni, x, y, z, wd, wni, fx, fy, fz);
+      if (lane == 0) put(s_pick_rec + parity, wd, wni, fx, fy, fz);
+    }
+    __syncthreads();
+    const uint4 pick = s_pick_rec[parity].key_xy;
+    wni = pick.y;
+    lx = __uint_as_float(pick.z);
+    ly = __uint_as_float(pick.w);
+    lz = __uint_as_float(s_pick_rec[parity].z.x);
+    if (rank == 0 && tid == 0) {
+      if (keep) s_pick[it] = static_cast<int>(~wni);
+      else o[it] = static_cast<int>(~wni);
+    }
+  }
+  cluster.sync();  // no block leaves while another may still read its records
+  if (rank == 0 && keep) {
+    for (int i = tid; i < npoint; i += T) o[i] = s_pick[i];
+  }
+}
+
+template <int PPT>
+cudaError_t cluster_config(int S, int threads, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  static OncePerDevice once;
+  bool* done = once.slot();
+  if (done == nullptr || !*done) {
+    const void* fn = reinterpret_cast<const void*>(fps_cluster_kernel<PPT>);
+    cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           kClusterSmem);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(fn, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return err;
+    if (done != nullptr) *done = true;
+  }
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = static_cast<unsigned>(S);
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->blockDim = dim3(static_cast<unsigned>(threads));
+  cfg->dynamicSmemBytes = kClusterSmem;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return cudaSuccess;
+}
+
+template <int PPT>
+int cluster_occupancy(int S, int threads) {
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config<PPT>(S, threads, &cfg, &attr);
+  if (err != cudaSuccess) return -static_cast<int>(err);
+  cfg.gridDim = dim3(static_cast<unsigned>(S));
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, fps_cluster_kernel<PPT>, &cfg);
+  return err == cudaSuccess ? clusters : -static_cast<int>(err);
+}
+
+template <int PPT>
+int launch_cluster(const float* xyz, int* out, int B, int N, int npoint, int S, int threads,
+                   cudaStream_t stream) {
+  if (S < 1 || S > kMaxCluster || threads < 32 || threads > kClusterThreads ||
+      (threads & (threads - 1)) != 0 || static_cast<long long>(S) * threads * PPT < N)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr;
+  cudaError_t err = cluster_config<PPT>(S, threads, &cfg, &attr);
   if (err != cudaSuccess) return static_cast<int>(err);
-  fps_kernel<PPT><<<B, threads, smem, stream>>>(xyz, out, N, npoint);
+  cfg.gridDim = dim3(static_cast<unsigned>(B) * static_cast<unsigned>(S));
+  cfg.stream = stream;
+  err = cudaLaunchKernelEx(&cfg, fps_cluster_kernel<PPT>, xyz, out, N, npoint);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// Largest cloud the kernel takes (points per thread 32, 1024 threads).
-extern "C" int fps_max_points() { return 32 * kMaxThreads; }
+// The layouts the library holds; `ops/fps.py:fps_plan` picks among them.
+// Block path: points per thread 1 to 16 at up to 1024 threads.
+// Cluster path: points per thread 1 to 16 at up to 256 threads, S <= 16.
+
+// Clusters of S blocks of `threads` threads and `ppt` points a thread that
+// can be resident at once (cudaOccupancyMaxActiveClusters), or minus a CUDA
+// error.
+extern "C" int fps_max_active_clusters(int S, int threads, int ppt) {
+  if (S < 1 || S > kMaxCluster || threads < 32 || threads > kClusterThreads)
+    return -static_cast<int>(cudaErrorInvalidValue);
+  switch (ppt) {
+    case 1: return cluster_occupancy<1>(S, threads);
+    case 2: return cluster_occupancy<2>(S, threads);
+    case 4: return cluster_occupancy<4>(S, threads);
+    case 8: return cluster_occupancy<8>(S, threads);
+    case 16: return cluster_occupancy<16>(S, threads);
+    default: return -static_cast<int>(cudaErrorInvalidValue);
+  }
+}
 
 // xyz: (B, N, 3) float32 contiguous on the device; out: (B, npoint) int32.
-// Returns 0 or the CUDA error of the launch; does not synchronize.
-extern "C" int fps_launch(const float* xyz, int* out, int B, int N, int npoint, cudaStream_t stream) {
-  if (B < 1 || N < 1 || npoint < 1 || N > fps_max_points()) return static_cast<int>(cudaErrorInvalidValue);
-  const int per_thread = (N + kMaxThreads - 1) / kMaxThreads;
-  if (per_thread == 1) {
-    const int threads = (N + 31) / 32 * 32;
-    return launch<1>(xyz, out, B, N, npoint, threads, stream);
+// cluster 0: the block path (`threads` threads, `ppt` points each; S unused);
+// cluster 1: a cluster of S blocks per cloud. Returns 0 or the CUDA error of
+// the launch, cudaErrorInvalidValue for a layout the library does not hold;
+// does not synchronize.
+extern "C" int fps_launch(const float* xyz, int* out, int B, int N, int npoint, int cluster,
+                          int S, int threads, int ppt, cudaStream_t stream) {
+  if (B < 1 || N < 1 || npoint < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (cluster) {
+    switch (ppt) {
+      case 1: return launch_cluster<1>(xyz, out, B, N, npoint, S, threads, stream);
+      case 2: return launch_cluster<2>(xyz, out, B, N, npoint, S, threads, stream);
+      case 4: return launch_cluster<4>(xyz, out, B, N, npoint, S, threads, stream);
+      case 8: return launch_cluster<8>(xyz, out, B, N, npoint, S, threads, stream);
+      case 16: return launch_cluster<16>(xyz, out, B, N, npoint, S, threads, stream);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
   }
-  if (per_thread <= 2) return launch<2>(xyz, out, B, N, npoint, kMaxThreads, stream);
-  if (per_thread <= 4) return launch<4>(xyz, out, B, N, npoint, kMaxThreads, stream);
-  if (per_thread <= 8) return launch<8>(xyz, out, B, N, npoint, kMaxThreads, stream);
-  if (per_thread <= 16) return launch<16>(xyz, out, B, N, npoint, kMaxThreads, stream);
-  return launch<32>(xyz, out, B, N, npoint, kMaxThreads, stream);
+  switch (ppt) {
+    case 1: return launch_block<1, 1024>(xyz, out, B, N, npoint, threads, stream);
+    case 2: return launch_block<2, 1024>(xyz, out, B, N, npoint, threads, stream);
+    case 4: return launch_block<4, 1024>(xyz, out, B, N, npoint, threads, stream);
+    case 8: return launch_block<8, 1024>(xyz, out, B, N, npoint, threads, stream);
+    case 16: return launch_block<16, 1024>(xyz, out, B, N, npoint, threads, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

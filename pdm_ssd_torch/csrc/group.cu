@@ -33,9 +33,21 @@
 // tools/microbench_pallas_gather.py `pallas_dynamic_gather`). The feature rows
 // may be a channel slice of a wider payload: `ld` is the distance between rows
 // in elements and `feat` already points at the slice's first channel, so no
-// branch copies its slice first. One thread moves 16 B where the slice, the
-// row stride and the output are 16-byte aligned, else one element. Bound by bytes: every output byte is written once and
-// read once from a row that mostly sits in L2.
+// branch copies its slice first. Bound by bytes: every output byte is written
+// once and read once from a row that mostly sits in L2; the index is read
+// once per row. Two kernels, chosen by `ops/group.py:gather_plan`:
+// `gather_rows_kernel` gives a row to a group of lanes (32 for rows of 512 B
+// or more, fewer for narrower rows) that sweeps it in the widest unit that
+// the slice start, the row stride, the row and the output all allow (16 B
+// where the payload's channels line up); `gather_narrow_kernel` gives a
+// thread several rows of 16 B or less, so that the output goes out in 16-byte
+// stores (SA level 1 gathers one float a row). An output row r starts at
+// r * C * size, so a slice whose start or stride is off 16 bytes cannot meet
+// the output at one phase in every row: splitting head and tail around an
+// aligned middle pays only where both line up, and then the plan already
+// takes 16-byte units. Offsets are 32-bit where every byte the launch
+// touches is within 2^31, chosen at launch; the grid strides over clouds
+// (y) and rows (x), so no thread divides per element.
 //
 // scatter_add_rows: out[b, idx[b, r], :] += vals[b, r, :] with float32
 // atomicAdd into a buffer the caller has zeroed; an index outside
@@ -45,6 +57,7 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -160,37 +173,116 @@ __global__ void __launch_bounds__(kSelectThreads)
   }
 }
 
-template <typename V>
-__device__ __forceinline__ V zero_value();
-template <>
-__device__ __forceinline__ float zero_value<float>() {
-  return 0.f;
-}
-template <>
-__device__ __forceinline__ unsigned short zero_value<unsigned short>() {
-  return 0;
-}
-template <>
-__device__ __forceinline__ float4 zero_value<float4>() {
-  return make_float4(0.f, 0.f, 0.f, 0.f);
-}
+template <bool WIDE>
+using Offset = typename std::conditional<WIDE, long long, int>::type;
 
-// V is what one thread moves: one element (float, or the 16 bits of a bf16)
-// or 16 bytes. cv: V per gathered row; ld: bytes between feature rows.
-template <typename V>
+// Row path: a group of `lanes` lanes (a power of two) per row, U the unit
+// every load and store moves (16, 8, 4 or 2 bytes: the common alignment of
+// the slice start, the row stride, the row and the output), `units` of them
+// per row, `ld` bytes from one feature row to the next. A warp takes a tile
+// of `passes` * 32 / lanes rows (passes <= lanes, so a tile is at most 32
+// rows): lane l loads the index of row l once, and in each pass a group takes
+// its row's index from that lane with a shuffle. The plan shortens the tile
+// where long tiles would leave too few warps to keep loads in flight. Clouds
+// run along the grid's y axis, rows along x, both strided, so no thread
+// divides.
+template <typename U, bool WIDE>
 __global__ void __launch_bounds__(kRowThreads)
     gather_rows_kernel(const char* __restrict__ feat, const int* __restrict__ idx,
-                       V* __restrict__ out, long long total, int N, int R, int cv,
-                       long long ld) {
-  const long long t = static_cast<long long>(blockIdx.x) * kRowThreads + threadIdx.x;
-  if (t >= total) return;
-  const long long row = t / cv;
-  const int v = static_cast<int>(t - row * cv);
-  const long long b = row / R;
-  const int i = idx[row];
-  V val = zero_value<V>();
-  if (i >= 0 && i < N) val = reinterpret_cast<const V*>(feat + (b * N + i) * ld)[v];
-  out[t] = val;
+                       U* __restrict__ out, int B, int N, int R, int units, long long ld,
+                       int lanes, int passes) {
+  using I = Offset<WIDE>;
+  const int lane = threadIdx.x & 31;
+  const int rows_per_pass = 32 / lanes;
+  const int tile_rows = rows_per_pass * passes;
+  const int group = lane / lanes;
+  const int sub = lane & (lanes - 1);
+  const int warps = gridDim.x * (kRowThreads / 32);
+  const int first_tile = (blockIdx.x * (kRowThreads / 32) + (threadIdx.x >> 5)) * tile_rows;
+  const U zero = {};
+  for (int b = blockIdx.y; b < B; b += gridDim.y) {
+    const int* ib = idx + static_cast<I>(b) * R;
+    const char* fb = feat + static_cast<I>(b) * N * static_cast<I>(ld);
+    U* ob = out + static_cast<I>(b) * R * units;
+    for (int tile = first_tile; tile < R; tile += warps * tile_rows) {
+      const int mine = lane < tile_rows && tile + lane < R ? __ldg(ib + tile + lane) : -1;
+#pragma unroll 4
+      for (int pass = 0; pass < passes; ++pass) {
+        const int slot = pass * rows_per_pass + group;
+        const int i = __shfl_sync(kFull, mine, slot);
+        const int r = tile + slot;
+        if (r < R) {
+          U* dst = ob + static_cast<I>(r) * units;
+          if (i >= 0 && i < N) {
+            const U* src = reinterpret_cast<const U*>(fb + static_cast<I>(i) * static_cast<I>(ld));
+            for (int u = sub; u < units; u += lanes) dst[u] = __ldg(src + u);
+          } else {
+            for (int u = sub; u < units; u += lanes) dst[u] = zero;
+          }
+        }
+      }
+    }
+  }
+}
+
+__host__ __device__ constexpr int gcd16(int a) { return a % 16 == 0 ? 16 : a % 8 == 0 ? 8 : a % 4 == 0 ? 4 : a % 2 == 0 ? 2 : 1; }
+
+// Narrow path, for rows of C elements of E that are at most 16 bytes: one
+// thread takes kRows consecutive rows (of the flattened (B, R) grid), so
+// that their output, kRows * C * sizeof(E) bytes, is a whole number of
+// 16-byte stores. The reads are scattered by nature. One division a thread
+// and pass finds the first row's cloud; the rest step through. `ld` in
+// elements. Rows past the last whole chunk go one a thread.
+template <typename E, int C, bool WIDE>
+__global__ void __launch_bounds__(kRowThreads)
+    gather_narrow_kernel(const E* __restrict__ feat, const int* __restrict__ idx,
+                         E* __restrict__ out, int B, int N, int R, long long ld) {
+  using I = Offset<WIDE>;
+  constexpr int kRows = 16 / gcd16(C * static_cast<int>(sizeof(E)));
+  constexpr int kVec = kRows * C * static_cast<int>(sizeof(E)) / 16;
+  const I total = static_cast<I>(B) * R;
+  const I chunks = total / kRows;
+  const I stride = static_cast<I>(gridDim.x) * kRowThreads;
+  const I start = static_cast<I>(blockIdx.x) * kRowThreads + threadIdx.x;
+  for (I c = start; c < chunks; c += stride) {
+    const I f0 = c * kRows;
+    I b = f0 / R;
+    int r = static_cast<int>(f0 - b * R);
+    int ids[kRows];
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) ids[j] = __ldg(idx + f0 + j);
+    union {
+      uint4 v[kVec];
+      E e[kRows * C];
+    } buf;
+#pragma unroll
+    for (int j = 0; j < kRows; ++j) {
+      const int i = ids[j];
+      if (i >= 0 && i < N) {
+        const E* src = feat + (b * N + i) * static_cast<I>(ld);
+#pragma unroll
+        for (int k = 0; k < C; ++k) buf.e[j * C + k] = __ldg(src + k);
+      } else {
+#pragma unroll
+        for (int k = 0; k < C; ++k) buf.e[j * C + k] = E(0);
+      }
+      if (++r == R) {
+        r = 0;
+        ++b;
+      }
+    }
+    uint4* dst = reinterpret_cast<uint4*>(out + f0 * C);
+#pragma unroll
+    for (int v = 0; v < kVec; ++v) dst[v] = buf.v[v];
+  }
+  for (I f = chunks * kRows + start; f < total; f += stride) {
+    const I b = f / R;
+    const int i = __ldg(idx + f);
+    const bool ok = i >= 0 && i < N;
+    const E* src = feat + (b * N + (ok ? i : 0)) * static_cast<I>(ld);
+#pragma unroll
+    for (int k = 0; k < C; ++k) out[f * C + k] = ok ? __ldg(src + k) : E(0);
+  }
 }
 
 __global__ void __launch_bounds__(kRowThreads)
@@ -256,44 +348,118 @@ extern "C" int window_select_launch(const int* table, const int* cells, const fl
 
 namespace {
 
-// Rows of C elements of type E; 16 bytes per thread where the row,
-// the row stride, the slice's start and the output are 16-byte aligned.
-template <typename E>
-int launch_gather_rows(const void* feat, const int* idx, void* out, int B, int N, int R, int C,
-                       long long ld, cudaStream_t stream) {
-  if (B < 1 || N < 1 || R < 1 || C < 1 || ld < C) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int per16 = 16 / static_cast<int>(sizeof(E));
-  const bool vec = C % per16 == 0 && ld % per16 == 0 && aligned16(feat) && aligned16(out);
-  const int cv = vec ? C / per16 : C;
-  const long long total = static_cast<long long>(B) * R * cv;
-  const long long ld_bytes = ld * static_cast<long long>(sizeof(E));
-  unsigned blocks = 0;
-  const int bad = blocks_for(total, kRowThreads, &blocks);
-  if (bad != 0) return bad;
-  if (vec) {
-    gather_rows_kernel<float4><<<blocks, kRowThreads, 0, stream>>>(
-        static_cast<const char*>(feat), idx, static_cast<float4*>(out), total, N, R, cv, ld_bytes);
-  } else {
-    gather_rows_kernel<E><<<blocks, kRowThreads, 0, stream>>>(
-        static_cast<const char*>(feat), idx, static_cast<E*>(out), total, N, R, cv, ld_bytes);
+template <bool WIDE>
+int launch_rows(const void* feat, const int* idx, void* out, int B, int N, int R, int units,
+                long long ld_bytes, int unit, int lanes, int passes, dim3 grid,
+                cudaStream_t stream) {
+  const char* f = static_cast<const char*>(feat);
+  switch (unit) {
+    case 16:
+      gather_rows_kernel<uint4, WIDE><<<grid, kRowThreads, 0, stream>>>(
+          f, idx, static_cast<uint4*>(out), B, N, R, units, ld_bytes, lanes, passes);
+      break;
+    case 8:
+      gather_rows_kernel<uint2, WIDE><<<grid, kRowThreads, 0, stream>>>(
+          f, idx, static_cast<uint2*>(out), B, N, R, units, ld_bytes, lanes, passes);
+      break;
+    case 4:
+      gather_rows_kernel<unsigned, WIDE><<<grid, kRowThreads, 0, stream>>>(
+          f, idx, static_cast<unsigned*>(out), B, N, R, units, ld_bytes, lanes, passes);
+      break;
+    case 2:
+      gather_rows_kernel<unsigned short, WIDE><<<grid, kRowThreads, 0, stream>>>(
+          f, idx, static_cast<unsigned short*>(out), B, N, R, units, ld_bytes, lanes, passes);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename E, int C>
+int launch_narrow_c(const void* feat, const int* idx, void* out, int B, int N, int R,
+                    long long ld, bool wide, unsigned blocks, cudaStream_t stream) {
+  const E* f = static_cast<const E*>(feat);
+  E* o = static_cast<E*>(out);
+  if (wide) {
+    gather_narrow_kernel<E, C, true><<<blocks, kRowThreads, 0, stream>>>(f, idx, o, B, N, R, ld);
+  } else {
+    gather_narrow_kernel<E, C, false><<<blocks, kRowThreads, 0, stream>>>(f, idx, o, B, N, R, ld);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename E>
+int launch_narrow(const void* feat, const int* idx, void* out, int B, int N, int R, int C,
+                  long long ld, bool wide, unsigned blocks, cudaStream_t stream) {
+  switch (C) {
+    case 1: return launch_narrow_c<E, 1>(feat, idx, out, B, N, R, ld, wide, blocks, stream);
+    case 2: return launch_narrow_c<E, 2>(feat, idx, out, B, N, R, ld, wide, blocks, stream);
+    case 3: return launch_narrow_c<E, 3>(feat, idx, out, B, N, R, ld, wide, blocks, stream);
+    case 4: return launch_narrow_c<E, 4>(feat, idx, out, B, N, R, ld, wide, blocks, stream);
+  }
+  if constexpr (sizeof(E) == 2) {
+    switch (C) {
+      case 5: return launch_narrow_c<E, 5>(feat, idx, out, B, N, R, ld, wide, blocks, stream);
+      case 6: return launch_narrow_c<E, 6>(feat, idx, out, B, N, R, ld, wide, blocks, stream);
+      case 7: return launch_narrow_c<E, 7>(feat, idx, out, B, N, R, ld, wide, blocks, stream);
+      case 8: return launch_narrow_c<E, 8>(feat, idx, out, B, N, R, ld, wide, blocks, stream);
+    }
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The plan comes from `ops/group.py:gather_plan`; this side refuses one the
+// pointers or sizes do not allow. lanes 0: the narrow path; else the row path
+// with `unit`-byte accesses and `passes` passes a tile. wide: 64-bit offsets.
+template <typename E>
+int launch_gather_rows(const void* feat, const int* idx, void* out, int B, int N, int R, int C,
+                       long long ld, int lanes, int passes, int unit, int wide, int blocks,
+                       cudaStream_t stream) {
+  constexpr long long es = static_cast<long long>(sizeof(E));
+  if (B < 1 || N < 1 || R < 1 || C < 1 || ld < C || blocks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long most = static_cast<long long>(B) * (static_cast<long long>(N) * ld +
+                                                       static_cast<long long>(R) * C) * es;
+  if (!wide && most >= (1LL << 31)) return static_cast<int>(cudaErrorInvalidValue);
+  if (lanes == 0) {
+    if (C * es > 16 || !aligned16(out)) return static_cast<int>(cudaErrorInvalidValue);
+    return launch_narrow<E>(feat, idx, out, B, N, R, C, ld, wide != 0,
+                            static_cast<unsigned>(blocks), stream);
+  }
+  const long long row = C * es;
+  const std::uintptr_t at = reinterpret_cast<std::uintptr_t>(feat) |
+                            reinterpret_cast<std::uintptr_t>(out);
+  if (lanes > 32 || (lanes & (lanes - 1)) != 0 || passes < 1 || passes > lanes || unit < es ||
+      unit > 16 || row % unit != 0 || (ld * es) % unit != 0 || at % unit != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(B < 65535 ? B : 65535));
+  const int units = static_cast<int>(row / unit);
+  return wide ? launch_rows<true>(feat, idx, out, B, N, R, units, ld * es, unit, lanes, passes,
+                                  grid, stream)
+              : launch_rows<false>(feat, idx, out, B, N, R, units, ld * es, unit, lanes, passes,
+                                   grid, stream);
 }
 
 }  // namespace
 
 // feat: first channel of the (B, N, C) rows to read, `ld` elements from one
 // row to the next and N * ld from one cloud to the next; idx: (B, R) int32;
-// out: (B, R, C) contiguous. float32 rows.
+// out: (B, R, C) contiguous. float32 rows. lanes, passes, unit, wide, blocks: the
+// launch plan (`ops/group.py:gather_plan`).
 extern "C" int gather_rows_launch(const float* feat, const int* idx, float* out, int B, int N,
-                                  int R, int C, long long ld, cudaStream_t stream) {
-  return launch_gather_rows<float>(feat, idx, out, B, N, R, C, ld, stream);
+                                  int R, int C, long long ld, int lanes, int passes, int unit,
+                                  int wide, int blocks, cudaStream_t stream) {
+  return launch_gather_rows<float>(feat, idx, out, B, N, R, C, ld, lanes, passes, unit, wide,
+                                   blocks, stream);
 }
 
 // The same for bfloat16 rows: the kernel moves their 16 bits unread.
 extern "C" int gather_rows_bf16_launch(const void* feat, const int* idx, void* out, int B, int N,
-                                       int R, int C, long long ld, cudaStream_t stream) {
-  return launch_gather_rows<unsigned short>(feat, idx, out, B, N, R, C, ld, stream);
+                                       int R, int C, long long ld, int lanes, int passes,
+                                       int unit, int wide, int blocks, cudaStream_t stream) {
+  return launch_gather_rows<unsigned short>(feat, idx, out, B, N, R, C, ld, lanes, passes, unit,
+                                            wide, blocks, stream);
 }
 
 // vals: (B, R, C) float32 contiguous; idx: (B, R) int32; out: (B, n_rows, C)

@@ -53,11 +53,11 @@ def ball_query_cuda(radii: Sequence[float], nsamples: Sequence[int], xyz: torch.
     r2 = (ctypes.c_float * nb)(*[float(np.float32(float(r) * float(r))) for r in radii])
     ks = (ctypes.c_int * nb)(*[int(K) for K in nsamples])
     ptrs = (ctypes.c_void_p * nb)(*[o.data_ptr() for o in outs])
-    with torch.cuda.device(xyz.device):
+    index = xyz.device.index
+    with kernels.on_device(index):
         err = lib.ball_query_launch(xyz.data_ptr(), new_xyz.data_ptr(),
                                     None if mask is None else mask.data_ptr(), B, N, M, nb,
-                                    r2, ks, ptrs,
-                                    torch.cuda.current_stream(xyz.device).cuda_stream)
+                                    r2, ks, ptrs, kernels.stream(index))
     if err != 0:
         raise RuntimeError(f'ball_query_launch failed with CUDA error {err}')
     ball_query_cuda.launches += 1

@@ -24,7 +24,9 @@ upstream of them.
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence
+import functools
+import math
+from typing import NamedTuple, Sequence
 
 import numpy as np
 import torch
@@ -119,10 +121,6 @@ def _need_contiguous(t: torch.Tensor, name: str) -> None:
         raise ValueError(f'{name}: the kernel needs a contiguous tensor')
 
 
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
 def window_select_cuda(table: torch.Tensor, center_cells: torch.Tensor, grid_w: int,
                        xyz: torch.Tensor, new_xyz: torch.Tensor,
                        radii: Sequence[float], nsamples: Sequence[int]):
@@ -165,10 +163,11 @@ def window_select_cuda(table: torch.Tensor, center_cells: torch.Tensor, grid_w: 
     r2 = (ctypes.c_float * nb)(*[float(np.float32(float(r) * float(r))) for r in radii])
     ks = (ctypes.c_int * nb)(*[int(K) for K in nsamples])
     ptrs = [(ctypes.c_void_p * nb)(*[o[j].data_ptr() for o in outs]) for j in (1, 0, 2)]
-    with torch.cuda.device(dev):
+    with kernels.on_device(dev.index):
         err = lib.window_select_launch(table.data_ptr(), center_cells.data_ptr(),
                                        xyz.data_ptr(), new_xyz.data_ptr(), B, N, M, n_cells,
-                                       int(grid_w), cap, nb, r2, ks, *ptrs, _stream(xyz))
+                                       int(grid_w), cap, nb, r2, ks, *ptrs,
+                                       kernels.stream(dev.index))
     if err != 0:
         raise RuntimeError(f'window_select_launch failed with CUDA error {err}')
     window_select_cuda.launches += 1
@@ -203,35 +202,108 @@ def scatter_add_rows_plain(vals: torch.Tensor, idx: torch.Tensor, n_rows: int) -
     return out[:B * n_rows].view(B, n_rows, C)
 
 
+# threads of a gather block, blocks per SM the grid aims at (the stride loops
+# take the rest), and the warps per SM below which the row path shortens its
+# tiles to keep enough loads in flight
+ROW_THREADS = 256
+BLOCKS_PER_SM = 8
+WARPS_PER_SM = 32
+_INDEX_LIMIT = 2 ** 31
+
+
+class GatherPlan(NamedTuple):
+    lanes: int            # lanes per row on the row path; 0: the narrow path
+    passes: int           # row path: passes a warp makes over a tile of
+                          # passes * 32 / lanes rows; narrow path: 1
+    unit: int             # bytes of each load and store on the row path; 16 (the
+                          # stores) on the narrow path
+    rows_per_thread: int  # narrow path: consecutive rows a thread takes; else 1
+    wide_index: bool      # 64-bit offsets
+    blocks: int           # blocks along the grid's x axis
+
+
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(0, (x - 1).bit_length())
+
+
+def _align(*values: int) -> int:
+    """Largest of 16, 8, 4, 2, 1 that divides every value."""
+    return math.gcd(16, *values)
+
+
+def gather_plan(B: int, N: int, R: int, C: int, elem_bytes: int, ld: int, start: int,
+                sm_count: int) -> GatherPlan:
+    """The launch of `gather_rows_cuda` for (B, N, C) rows of `elem_bytes`
+    at row stride `ld` elements, whose first channel lies `start` bytes past
+    a 16-byte boundary, gathered R times per cloud into a contiguous
+    (B, R, C) output (16-byte aligned). Mirrors `csrc/group.cu`."""
+    row = C * elem_bytes
+    wide = B * (N * ld + R * C) * elem_bytes >= _INDEX_LIMIT
+    target = sm_count * BLOCKS_PER_SM
+    unit = _align(start, ld * elem_bytes, row)
+    if row < 16 or (row == 16 and unit < 16):
+        rows = 16 // math.gcd(row, 16)
+        threads = -(-B * R // rows)
+        return GatherPlan(0, 1, 16, rows, wide,
+                          max(1, min(target, -(-threads // ROW_THREADS))))
+    lanes = min(32, _pow2_at_least(row // unit))
+    per_pass = 32 // lanes
+    passes = lanes
+    while passes > 1 and B * R < sm_count * WARPS_PER_SM * per_pass * passes:
+        passes //= 2
+    tiles = -(-R // (per_pass * passes))                 # a warp's tiles per cloud
+    blocks = min(-(-tiles // (ROW_THREADS // 32)), -(-target // min(B, 65535)))
+    return GatherPlan(lanes, passes, unit, 1, wide, max(1, blocks))
+
+
+@functools.lru_cache(maxsize=1024)
+def _gather_plan_on(index: int, B: int, N: int, R: int, C: int, elem_bytes: int, ld: int,
+                    start: int) -> GatherPlan:
+    return gather_plan(B, N, R, C, elem_bytes, ld, start, _sm_count(index))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def gather_rows_cuda(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """One launch of `gather_rows_kernel`. features (B, N, C) float32 or
-    bfloat16 on CUDA: contiguous, or a channel slice `payload[..., c0:c1]` of
-    a contiguous payload (rows stay where they are; the kernel gets the row
-    stride). idx (B, R) int32 contiguous. Returns (B, R, C) of features'
-    type."""
-    if features.dtype not in (torch.float32, torch.bfloat16):
-        raise ValueError('features: the kernel moves float32 or bfloat16 rows, got '
-                         f'{features.dtype}')
-    _need(features, 'features', features.dtype, 3)
-    _need(idx, 'idx', torch.int32, 2)
-    _need_contiguous(idx, 'idx')
+    """One launch of `gather_rows_kernel` or `gather_narrow_kernel`, as
+    `gather_plan` says. features (B, N, C) float32 or bfloat16 on CUDA:
+    contiguous, or a channel slice `payload[..., c0:c1]` of a contiguous
+    payload (rows stay where they are; the kernel gets the row stride).
+    idx (B, R) int32 contiguous. Returns (B, R, C) of features' type."""
+    dtype = features.dtype
+    if dtype is not torch.float32 and dtype is not torch.bfloat16:
+        raise ValueError(f'features: the kernel moves float32 or bfloat16 rows, got {dtype}')
+    # one test for the common case (host time per call is part of the cost),
+    # the checks that name the fault where it fails
+    if not (features.is_cuda and idx.is_cuda and idx.dtype is torch.int32
+            and features.dim() == 3 and idx.dim() == 2 and idx.is_contiguous()):
+        _need(features, 'features', dtype, 3)
+        _need(idx, 'idx', torch.int32, 2)
+        _need_contiguous(idx, 'idx')
     B, N, C = features.shape
     R = idx.shape[1]
     ld = features.stride(1)
     if features.stride(2) != 1 or features.stride(0) != N * ld or ld < C:
         raise ValueError('features: the kernel needs dense rows at one row stride, got '
                          f'strides {features.stride()} for shape {tuple(features.shape)}')
-    if idx.shape[0] != B or idx.device != features.device or min(B, N, C, R) < 1:
+    dev = features.device
+    if idx.shape[0] != B or idx.device != dev or min(B, N, C, R) < 1:
         raise ValueError(f'features {tuple(features.shape)} and idx {tuple(idx.shape)} disagree')
-    out = torch.empty((B, R, C), dtype=features.dtype, device=features.device)
+    f32 = dtype is torch.float32
+    ptr = features.data_ptr()
+    plan = _gather_plan_on(dev.index, B, N, R, C, 4 if f32 else 2, ld, ptr % 16)
+    out = torch.empty((B, R, C), dtype=dtype, device=dev)
     lib = kernels.load()
-    f32 = features.dtype == torch.float32
     launch = lib.gather_rows_launch if f32 else lib.gather_rows_bf16_launch
-    with torch.cuda.device(features.device):
-        err = launch(features.data_ptr(), idx.data_ptr(), out.data_ptr(), B, N, R, C, ld,
-                     _stream(features))
+    with kernels.on_device(dev.index):
+        err = launch(ptr, idx.data_ptr(), out.data_ptr(), B, N, R, C, ld, plan.lanes,
+                     plan.passes, plan.unit, int(plan.wide_index), plan.blocks,
+                     kernels.stream(dev.index))
     if err != 0:
-        raise RuntimeError(f'gather_rows_launch failed with CUDA error {err}')
+        raise RuntimeError(f'gather_rows_launch {plan} failed with CUDA error {err}')
     if f32:
         gather_rows_cuda.launches += 1
     else:
@@ -259,10 +331,11 @@ def scatter_add_rows_cuda(vals: torch.Tensor, idx: torch.Tensor, n_rows: int) ->
         raise ValueError(f'vals {tuple(vals.shape)}, idx {tuple(idx.shape)} and '
                          f'n_rows {n_rows} disagree')
     out = torch.zeros((B, n_rows, C), dtype=torch.float32, device=vals.device)
-    with torch.cuda.device(vals.device):
+    index = vals.device.index
+    with kernels.on_device(index):
         err = kernels.load().scatter_add_rows_launch(vals.data_ptr(), idx.data_ptr(),
                                                      out.data_ptr(), B, R, C, int(n_rows),
-                                                     _stream(vals))
+                                                     kernels.stream(index))
     if err != 0:
         raise RuntimeError(f'scatter_add_rows_launch failed with CUDA error {err}')
     scatter_add_rows_cuda.launches += 1

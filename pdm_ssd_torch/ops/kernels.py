@@ -9,6 +9,7 @@ raises: there is no fallback for CUDA tensors.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -17,6 +18,8 @@ import subprocess
 import threading
 import types
 from pathlib import Path
+
+import torch
 
 _CSRC = Path(__file__).resolve().parents[1] / 'csrc'
 _BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'torch_kernels'
@@ -28,15 +31,15 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # entry points of each source: name -> argument types (every one returns int)
 _ENTRY_POINTS = {
     'fps.cu': {
-        'fps_launch': [_P, _P, _I, _I, _I, _P],
-        'fps_max_points': [],
+        'fps_launch': [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        'fps_max_active_clusters': [_I, _I, _I],
     },
     'group.cu': {
         'window_select_max_branches': [],
         'window_select_launch': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                  _P, _P, _P, _P, _P, _P],
-        'gather_rows_launch': [_P, _P, _P, _I, _I, _I, _I, _L, _P],
-        'gather_rows_bf16_launch': [_P, _P, _P, _I, _I, _I, _I, _L, _P],
+        'gather_rows_launch': [_P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _I, _I, _P],
+        'gather_rows_bf16_launch': [_P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _I, _I, _P],
         'scatter_add_rows_launch': [_P, _P, _P, _I, _I, _I, _I, _P],
     },
     'ball_query.cu': {
@@ -108,8 +111,12 @@ def build() -> dict:
 
 
 def load() -> types.SimpleNamespace:
-    """The kernels' C entry points, built on first call."""
+    """The kernels' C entry points, built on first call. Once they are
+    loaded a call returns them without taking the lock."""
     global _lib
+    lib = _lib
+    if lib is not None:
+        return lib
     with _lock:
         if _lib is None:
             fns = types.SimpleNamespace()
@@ -122,3 +129,16 @@ def load() -> types.SimpleNamespace:
                     setattr(fns, name, fn)
             _lib = fns
         return _lib
+
+
+def on_device(index: int):
+    """A context that makes card `index` current for a launch: none where it
+    already is (the common case, and `torch.cuda.device` costs host time)."""
+    if torch.cuda.current_device() == index:
+        return contextlib.nullcontext()
+    return torch.cuda.device(index)
+
+
+def stream(index: int) -> int:
+    """The raw `cudaStream_t` of card `index`'s current stream, as an int."""
+    return torch._C._cuda_getCurrentRawStream(index)

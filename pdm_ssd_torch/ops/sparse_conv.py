@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from . import kernels
-from .group import _need, _need_contiguous, _stream
+from .group import _need, _need_contiguous
 
 # rows of the gathered (rows, K * Cin) block that the plain version holds at once
 PLAIN_CHUNK_ROWS = 32768
@@ -88,9 +88,11 @@ def sparse_conv_cuda(feats: torch.Tensor, nbr: torch.Tensor, weight: torch.Tenso
         raise ValueError(f'the kernel takes up to {lib.sparse_conv_max_taps()} taps and '
                          f'{lib.sparse_conv_max_cout()} output channels, got K={K}, Cout={Cout}')
     out = torch.empty((B, Vout, Cout), dtype=torch.float32, device=feats.device)
-    with torch.cuda.device(feats.device):
+    index = feats.device.index
+    with kernels.on_device(index):
         err = lib.sparse_conv_launch(feats.data_ptr(), nbr.data_ptr(), weight.data_ptr(),
-                                     out.data_ptr(), B, Vin, Vout, K, Cin, Cout, _stream(feats))
+                                     out.data_ptr(), B, Vin, Vout, K, Cin, Cout,
+                                     kernels.stream(index))
     if err != 0:
         raise RuntimeError(f'sparse_conv_launch failed with CUDA error {err}')
     sparse_conv_cuda.launches += 1

@@ -360,7 +360,8 @@ def test_sparse_conv_kernel_matches_plain_on_the_card(B, Vin, Vout, K, Cin, Cout
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize('C,s0,s1', [(96, 0, 96), (37, 3, 22), (40, 8, 24), (37, 36, 37)])
+@pytest.mark.parametrize('C,s0,s1', [(96, 0, 96), (37, 3, 22), (40, 8, 24), (37, 36, 37),
+                                     (8, 0, 3), (16, 8, 16), (12, 1, 8)])
 def test_gather_rows_bf16_kernel_matches_plain_on_the_card(C, s0, s1):
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
@@ -380,14 +381,38 @@ def test_gather_rows_bf16_kernel_matches_plain_on_the_card(C, s0, s1):
 
 @pytest.mark.gpu
 def test_fps_kernel_matches_plain_on_the_card():
+    """Both paths (a cluster of blocks per cloud and one block per cloud),
+    and the plan's own choice, equal the plain version index for index: odd
+    N, the flagship shape, picks beyond the cloud's size, a cloud of one
+    repeated point and one with duplicated grid points."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
     rng = np.random.RandomState(1)
-    for B, N, npoint in [(2, 1000, 300), (3, 10007, 2000), (8, 16384, 4096)]:
-        x = torch.from_numpy(rng.rand(B, N, 3).astype(np.float32) * 50).cuda()
-        got = fps.farthest_point_sample_cuda(x, npoint)
-        torch.cuda.synchronize()
-        assert torch.equal(got, plain.farthest_point_sample(x, npoint))
+    ties = np.round(rng.rand(2, 3000, 3) * 4).astype(np.float32)
+    clouds = [rng.rand(B, N, 3).astype(np.float32) * 50
+              for B, N in [(2, 1000), (3, 10007), (8, 16384), (2, 300), (2, 2500)]]
+    cases = list(zip(clouds + [np.zeros((3, 512, 3), np.float32), ties],
+                     [300, 2000, 4096, 500, 3000, 128, 1000]))
+    wrapper = fps.farthest_point_sample_cuda
+    launches, cluster, block = wrapper.launches, wrapper.launches_cluster, wrapper.launches_block
+    for xyz, npoint in cases:
+        x = torch.from_numpy(xyz).cuda()
+        B, N, _ = x.shape
+        want = plain.farthest_point_sample(x, npoint)
+        plans = [None, fps.FpsPlan('block', 1, *fps.block_layout(N)),
+                 fps.FpsPlan('cluster', 16, *fps.cluster_layout(N, 16)),
+                 fps.FpsPlan('cluster', 4, *fps.cluster_layout(N, 4))]
+        for plan in plans:
+            got = fps.farthest_point_sample_cuda(x, npoint, plan)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (N, npoint, plan)
+    assert wrapper.launches == launches + 4 * len(cases)
+    # by path: the block plan once a case, the two cluster plans twice, the
+    # plan's own choice on either
+    assert wrapper.launches_cluster - cluster >= 2 * len(cases)
+    assert wrapper.launches_block - block >= len(cases)
+    assert wrapper.launches_cluster - cluster + wrapper.launches_block - block == 4 * len(cases)
+    assert fps.plan_for(torch.cuda.current_device(), 8, 16384, 4096).path == 'cluster'
 
 
 def _select_inputs(rng, B, N, M, cap, radii, pc_range=(0.0, -8.0, 12.0, 8.0)):
@@ -426,7 +451,9 @@ def test_window_select_kernel_matches_plain_on_the_card(cap, nsamples):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize('C,s0,s1', [(1, 0, 1), (64, 0, 64), (128, 64, 128), (37, 3, 22)])
+@pytest.mark.parametrize('C,s0,s1', [(1, 0, 1), (64, 0, 64), (128, 64, 128), (37, 3, 22),
+                                     (4, 0, 3), (5, 3, 5), (8, 1, 5), (96, 0, 96),
+                                     (300, 0, 256), (37, 36, 37)])
 def test_gather_and_scatter_kernels_match_plain_on_the_card(C, s0, s1):
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device (the kernels have no CPU mode)')
