@@ -35,37 +35,45 @@ non-zero exit):
    boxes per cloud through `make_train_step`: finite losses, the last below
    the first, parameters changed, the kernels' launches per step, ms per
    step and the peak of allocated device memory;
-9. the ball-query kernel against its plain version on the card, exact index
-   equality, at the shapes PointRCNN gives it (`configs/kitti_models/
-   pointrcnn.yaml`: the backbone's three SA levels at B=4, the ROI head's two
-   at 400 clouds), with a mask, at a ragged shape (odd N and M, three radii,
-   K = 5/70/3, centers far outside the cloud, duplicated points) and on
-   clouds of 512 origins; at each shape the row gather by the selected
-   indices, kernel against plain version, exact, of xyz and of features in
-   the widths and layouts the model gathers (channel slices of the (B, N, 4)
-   cloud and of the 5-channel pooled block, 96, 256 and 128 channels); times
-   kernel and plain version over the backbone's levels, and on a denser cloud
-   that fills the balls; the bound is the bytes or the distance tests in a 3x3
-   window of radius-sized cells, counted from the run's data, and the tests of
-   the kernel's own walk stand beside it;
+9. both ball-query kernel paths (`ops/ball_query.ball_query_plan`: the grid
+   path walks a sorted cell grid built on the device, the walk path every
+   point) against the plain version on the card, exact index equality, at the
+   shapes PointRCNN gives it (`configs/kitti_models/pointrcnn.yaml`: the
+   backbone's three SA levels at B=4, which the plan sends to the grid, the
+   ROI head's two at 400 clouds, which it sends to the walk), with a mask, at
+   a ragged shape (odd N and M, three radii, K = 5/70/3, centers far outside
+   the cloud, duplicated points) and on clouds of 512 origins; at each shape
+   the row gather by the selected indices, kernel against plain version,
+   exact, of xyz and of features in the widths and layouts the model gathers
+   (channel slices of the (B, N, 4) cloud and of the 5-channel pooled block,
+   96, 256 and 128 channels); times both paths, the grid's build and walk
+   apart, and the plain version over the backbone's levels, and on a denser
+   cloud that fills the balls; the bound is the bytes or the distance tests
+   in a 3x3 window of radius-sized cells, counted from the run's data, and
+   the tests each path walks stand beside it (the grid's from the plain
+   emulation of its walk, which must equal the plain version too);
 10. PointRCNN with its FP list made whole (`synthetic.pointrcnn_fp3`) at B=2,
    N=4096, `NPOINTS` cut to [1024, 256, 64]: forward on CUDA against the CPU,
    TF32 off, the same number of proposals kept per cloud, the per-ROI
    outputs compared ROI by ROI after matching the proposals by box;
 11. the same model's `predict` at full width, B=4, N=16384: shapes, finite
-   values, kernel launches counted in that run, frames/s and peak memory;
+   values, kernel launches counted in that run (the ball query's by path: 3
+   grid, 2 walk), frames/s and peak memory;
    then one `predict` of the file as shipped: shapes and finite values;
 12. the sparse-conv kernel against its plain version and against a float64
    evaluation (each within float32 rounding of the sum of magnitudes), two
-   runs bit-equal, at the twelve layers of SECOND's ladder
-   (`configs/kitti_models/second_sparse.yaml`, B=4, 40000 voxel slots) with
-   the maps and the layer inputs of a forward over the full-width synthetic
-   batch, at the TPU microbench's shape (V = 52224, C = 64, K = 27, its
-   `make_maps`), at a ragged row count and with rows whose taps are all
-   absent; times kernel, plain version and the gather + `torch.matmul` pair
-   (median of 5, CUDA events); the bound is the bytes (table, map and weights
-   read once, output written once) or the multiply-adds of the taps present
-   in this run's maps, and the bytes the kernel really gathers stand beside it;
+   runs bit-equal, rows without taps exactly 0, at the twelve layers of
+   SECOND's ladder (`configs/kitti_models/second_sparse.yaml`, B=4, 40000
+   voxel slots) with the maps, the layer inputs and the plans of a forward
+   over the full-width synthetic batch, at the TPU microbench's shape (V =
+   52224, C = 64, K = 27, its `make_maps`), at a ragged row count and with
+   rows whose taps are all absent; per layer and in total the taps the plan
+   makes the kernel compute over the taps present (at most 1.6 over the
+   twelve layers, each weighted by Cin * Cout) and each plan's build time;
+   times kernel, plain version and the gather + `torch.matmul` pair (median
+   of 5, CUDA events); the bound is the bytes (table, map and weights read
+   once, output written once) or the multiply-adds of the taps present in
+   this run's maps, and the bytes the kernel really moves stand beside it;
 13. the row gather's bfloat16 entry point at (52000, 96) with repeated
    indices, and its float32 use in the model, the reorder of (4, 40000, 4)
    voxel features by `sp_perm1`: exact; kernel, plain version,
@@ -120,30 +128,36 @@ FP32_FLOP_PER_S = 67e12
 # launches of one full-width training step and of one predict; FPS's are
 # also counted by path (the flagship's 8 clouds of 16384 points take a
 # cluster per cloud)
+NO_BALL_QUERY = {'ball query grid path': 0, 'ball query walk path': 0}
 TRAIN_LAUNCHES = {'farthest_point_sample': 1, 'window_select': 3, 'gather_rows': 6,
                   'scatter_add_rows': 4, 'ball_query': 0, 'sparse_conv': 0,
-                  'gather_rows_bf16': 0, 'fps cluster path': 1, 'fps block path': 0}
+                  'gather_rows_bf16': 0, 'fps cluster path': 1, 'fps block path': 0,
+                  **NO_BALL_QUERY}
 PREDICT_LAUNCHES = {'farthest_point_sample': 1, 'window_select': 3, 'gather_rows': 6,
                     'scatter_add_rows': 0, 'ball_query': 0, 'sparse_conv': 0,
-                    'gather_rows_bf16': 0, 'fps cluster path': 1, 'fps block path': 0}
+                    'gather_rows_bf16': 0, 'fps cluster path': 1, 'fps block path': 0,
+                    **NO_BALL_QUERY}
 # one PointRCNN predict. FPS: backbone level 1 is 'random' without a generator
 # (a prefix), level 2 runs FPS 4096 -> 1024, level 3 is its prefix; the ROI
 # stack runs FPS 512 -> 128 and 128 -> 32, all three on the block path (clouds
 # under 8192 points; 400 clouds). Ball query: one launch per SA level,
-# 3 in the backbone and 2 in the ROI stack. Row gather: xyz and features per
+# 3 in the backbone on the grid path (clouds of 16384, 4096 and 1024 points)
+# and 2 in the ROI stack on the walk path (512 and 128). Row gather: xyz and features per
 # radius, 3 levels x 2 radii and 2 levels x 1 radius.
 POINTRCNN_CFG = 'configs/kitti_models/pointrcnn.yaml'
 POINTRCNN_PREDICT_LAUNCHES = {'farthest_point_sample': 3, 'window_select': 0, 'gather_rows': 16,
                               'scatter_add_rows': 0, 'ball_query': 5, 'sparse_conv': 0,
                               'gather_rows_bf16': 0, 'fps cluster path': 0,
-                              'fps block path': 3}
+                              'fps block path': 3, 'ball query grid path': 3,
+                              'ball query walk path': 2}
 # one SECOND predict: the reorder of the voxel features into slot order, then
 # conv_input, conv1, three stages of one strided and two submanifold convs,
 # conv_out
 SECOND_CFG = 'configs/kitti_models/second_sparse.yaml'
 SECOND_PREDICT_LAUNCHES = {'farthest_point_sample': 0, 'window_select': 0, 'gather_rows': 1,
                            'scatter_add_rows': 0, 'ball_query': 0, 'sparse_conv': 12,
-                           'gather_rows_bf16': 0, 'fps cluster path': 0, 'fps block path': 0}
+                           'gather_rows_bf16': 0, 'fps cluster path': 0, 'fps block path': 0,
+                           **NO_BALL_QUERY}
 SECOND_POINTS = 50000
 # share of a ladder stage's sites that may fall to its capacity, and the
 # least active input voxels per cloud of 40000 slots
@@ -804,26 +818,33 @@ def window_tests(xyz: torch.Tensor, new_xyz: torch.Tensor, cell: float) -> int:
 
 def ball_query_case(name, xyz, new_xyz, radii, nsamples, bq, plain, feats=None, mask=None,
                     time_it=False):
-    """One shape through the ball-query kernel and its plain version: exact
-    equality of the indices, then of the rows gathered by them from `xyz` and
-    from `feats`, each in the layout the model hands to
-    `dispatch.grouping_operation` (a contiguous tensor or a channel slice of a
-    wider one), against the plain gather. With `time_it` the times and the
-    terms of the bound."""
+    """One shape through both ball-query kernel paths, the grid and the walk,
+    and the plain version: exact equality of the indices, then of the rows
+    gathered by them from `xyz` and from `feats`, each in the layout the model
+    hands to `dispatch.grouping_operation` (a contiguous tensor or a channel
+    slice of a wider one), against the plain gather. With `time_it` the times
+    of both paths (the grid's build and walk apart too) and the terms of the
+    bound."""
     from pdm_ssd_torch.ops import dispatch
     xyz_c, new_xyz = xyz.contiguous(), new_xyz.contiguous()
-    got = bq.ball_query_cuda(radii, nsamples, xyz_c, new_xyz, mask)
+    B, N, _ = xyz.shape
+    M = new_xyz.shape[1]
+    plans = {path: bq.ball_query_plan(N, radii, path=path) for path in ('grid', 'walk')}
+    chosen = bq.ball_query_plan(N, radii).path
+    got = {path: bq.ball_query_cuda(radii, nsamples, xyz_c, new_xyz, mask, plan=plan)
+           for path, plan in plans.items()}
     torch.cuda.synchronize()
     want = [plain.ball_query(r, k, xyz_c, new_xyz, mask=mask) for r, k in zip(radii, nsamples)]
     torch.cuda.synchronize()
-    B, N, _ = xyz.shape
-    M = new_xyz.shape[1]
     empty = 0
     sources = [('xyz', xyz)] + ([] if feats is None else [('features', feats)])
-    for r, g, w in zip(radii, got, want):
-        if not torch.equal(g, w):
-            raise SystemExit(f'[9 ball query] FAILED {name} r={r}: {int((g != w).sum())} of '
-                             f'{g.numel()} indices differ')
+    for i, (r, w) in enumerate(zip(radii, want)):
+        for path in plans:
+            g = got[path][i]
+            if not torch.equal(g, w):
+                raise SystemExit(f'[9 ball query] FAILED {name} r={r}: {path} path: '
+                                 f'{int((g != w).sum())} of {g.numel()} indices differ')
+        g = got[chosen][i]
         for label, src in sources:
             rows = dispatch.grouping_operation(src, g)
             torch.cuda.synchronize()
@@ -836,15 +857,15 @@ def ball_query_case(name, xyz, new_xyz, radii, nsamples, bq, plain, feats=None, 
     layouts = ', '.join(f'{label} C={src.shape[2]} row stride {src.stride(1)}'
                         for label, src in sources)
     log('9 ball query', f'{name} B={B} N={N} M={M} r={list(radii)} K={list(nsamples)}'
-        f'{" masked" if mask is not None else ""}: kernel == plain (exact), gathered rows exact '
-        f'({layouts}), {empty} empty balls')
+        f'{" masked" if mask is not None else ""}: grid and walk paths == plain (exact; the '
+        f'plan takes the {chosen} path), gathered rows exact ({layouts}), {empty} empty balls')
     if not time_it:
         return None
     from pdm_ssd_torch.ops import group
     for label, src in sources:        # the row gather at this shape, largest K
         if src.stride(2) != 1 or src.stride(0) != src.shape[1] * src.stride(1):
             src = src.contiguous()    # as `dispatch.grouping_operation` hands it on
-        rows = got[-1].reshape(B, -1).contiguous()
+        rows = got[chosen][-1].reshape(B, -1).contiguous()
         C = src.shape[2]
         safe = rows.long()[..., None].expand(-1, -1, C)
         g_t = device_time(lambda: group.gather_rows_cuda(src, rows))
@@ -853,22 +874,39 @@ def ball_query_case(name, xyz, new_xyz, radii, nsamples, bq, plain, feats=None, 
             f'stride {src.stride(1)}): kernel {timing_note(g_t)}; torch.gather '
             f'{timing_note(lib_t)}; bound '
             f'{(B * N * C + rows.numel() * (C + 1)) * 4 / HBM_BYTES_PER_S * 1e3:.5f} ms')
-    # the walk of a center ends at the K-th hit of its slowest radius, or at
-    # the cloud's end where a ball stays underfull (its last slot then repeats
-    # its first)
+    # the walk path's test count: a center's walk ends at the K-th hit of its
+    # slowest radius, or at the cloud's end where a ball stays underfull (its
+    # last slot then repeats its first). The grid path's: the window's points
+    # in point order up to the same hit, from the plain emulation of its walk
     walk = torch.zeros((B, M), dtype=torch.long, device=xyz.device)
     full = torch.ones((B, M), dtype=torch.bool, device=xyz.device)
     for w in want:
         filled = w[..., -1] != w[..., 0]
         walk = torch.maximum(walk, torch.where(filled, w[..., -1].long() + 1, N))
         full &= filled
-    t = device_time(lambda: bq.ball_query_cuda(radii, nsamples, xyz_c, new_xyz, mask))
-    return {'ms': t['ms'], 'host_us': t['host_us'], 'call_ms': t['call_ms'],
+    emulated, grid_tests = bq.ball_query_grid_plain(radii, nsamples, xyz_c, new_xyz, mask,
+                                                    cell=plans['grid'].cell, count_tests=True)
+    if not all(torch.equal(e, w) for e, w in zip(emulated, want)):
+        raise SystemExit(f'[9 ball query] FAILED {name}: the plain emulation of the grid walk '
+                         'differs from the plain version')
+    cell = plans['grid'].cell
+    grid = bq.build_grid(xyz_c, cell, mask)
+    build_t = device_time(lambda: bq.build_grid(xyz_c, cell, mask))
+    walk_only_t = device_time(lambda: bq.ball_query_cuda(radii, nsamples, xyz_c, new_xyz, mask,
+                                                         plan=plans['grid'], grid=grid))
+    t = {path: device_time(lambda: bq.ball_query_cuda(radii, nsamples, xyz_c, new_xyz, mask,
+                                                      plan=plan))
+         for path, plan in plans.items()}
+    c = t[chosen]
+    return {'ms': c['ms'], 'host_us': c['host_us'], 'call_ms': c['call_ms'],
+            'grid_ms': t['grid']['ms'], 'walk_path_ms': t['walk']['ms'],
+            'grid_build_ms': build_t['ms'], 'grid_walk_ms': walk_only_t['ms'],
             'plain_ms': median_ms(lambda: [plain.ball_query(r, k, xyz_c, new_xyz, mask=mask)
                                            for r, k in zip(radii, nsamples)], 5),
             'bytes': xyz.numel() * 4 + new_xyz.numel() * 4 + sum(B * M * K * 4 for K in nsamples),
             'window_tests': window_tests(xyz_c, new_xyz, float(max(radii))),
-            'walk_tests': int(walk.sum()), 'full': int(full.sum()), 'balls': B * M}
+            'walk_tests': int(walk.sum()), 'grid_tests': int(grid_tests.sum()),
+            'full': int(full.sum()), 'balls': B * M}
 
 
 def ball_query_phase(cfg, bq, fps_mod, plain, synthetic) -> dict:
@@ -895,12 +933,20 @@ def ball_query_phase(cfg, bq, fps_mod, plain, synthetic) -> dict:
     widths = [sum(mlp[-1] for mlp in level) for level in sa.MLPS]
     feats = [cloud[..., 3:], features(4, sa.NPOINTS[0], widths[0]),
              features(4, sa.NPOINTS[1], widths[1])]
-    total = {'ms': 0.0, 'host_us': 0.0, 'call_ms': 0.0, 'plain_ms': 0.0, 'bytes': 0,
-             'window_tests': 0, 'walk_tests': 0, 'full': 0, 'balls': 0}
+    total = {'ms': 0.0, 'host_us': 0.0, 'call_ms': 0.0, 'plain_ms': 0.0, 'grid_ms': 0.0,
+             'walk_path_ms': 0.0, 'grid_build_ms': 0.0, 'grid_walk_ms': 0.0, 'bytes': 0,
+             'window_tests': 0, 'walk_tests': 0, 'grid_tests': 0, 'full': 0, 'balls': 0}
     for k in range(3):
         r = ball_query_case(f'backbone SA level {k + 1}', clouds[k], clouds[k + 1],
                             list(sa.RADIUS[k]), list(sa.NSAMPLE[k]), bq, plain, feats=feats[k],
                             time_it=True)
+        if bq.ball_query_plan(clouds[k].shape[1], sa.RADIUS[k]).path != 'grid':
+            raise SystemExit(f'[9 ball query] FAILED: backbone SA level {k + 1} does not take '
+                             'the grid path')
+        log('9 ball query', f'backbone SA level {k + 1}: grid path {r["grid_ms"]:.4f} ms device '
+            f'(build {r["grid_build_ms"]:.4f}, walk {r["grid_walk_ms"]:.4f}; {r["grid_tests"]} '
+            f'tests walked), walk path {r["walk_path_ms"]:.4f} ms ({r["walk_tests"]} tests); '
+            f'{r["window_tests"]} tests in the 3x3 BEV windows')
         for key in total:
             total[key] += r[key]
     # the ROI stack's input: 400 canonical clouds, xyz the first 3 of the 5
@@ -934,13 +980,16 @@ def ball_query_phase(cfg, bq, fps_mod, plain, synthetic) -> dict:
     dense = pts * torch.tensor([0.03, 0.03, 0.5], device='cuda')
     d = ball_query_case('backbone SA level 1, dense box', dense, dense[:, :sa.NPOINTS[0]],
                         list(sa.RADIUS[0]), list(sa.NSAMPLE[0]), bq, plain, time_it=True)
-    log('9 ball query', f'dense box, level 1: kernel {d["ms"]:.4f} ms device, plain torch '
-        f'{d["plain_ms"]:.3f} ms, {d["full"]} of {d["balls"]} balls full at both radii, walk '
-        f'{d["walk_tests"]} tests, 3x3 windows {d["window_tests"]}')
+    log('9 ball query', f'dense box, level 1: grid path {d["grid_ms"]:.4f} ms device (build '
+        f'{d["grid_build_ms"]:.4f}, walk {d["grid_walk_ms"]:.4f}; {d["grid_tests"]} tests '
+        f'walked), walk path {d["walk_path_ms"]:.4f} ms ({d["walk_tests"]} tests), plain torch '
+        f'{d["plain_ms"]:.3f} ms, {d["full"]} of {d["balls"]} balls full at both radii, 3x3 '
+        f'windows {d["window_tests"]}')
     # bound: bytes (xyz and centers read once, indices written once), or the
     # distance tests the function needs on this data, 8 operations each: those
-    # of the 3x3 window of radius-sized cells around each center. The tests of
-    # this kernel's walk over the whole cloud are reported beside it
+    # of the 3x3 window of radius-sized cells around each center. The tests
+    # the grid path walks, and the walk path's over the whole cloud, are
+    # reported beside it
     t_bytes = total['bytes'] / HBM_BYTES_PER_S * 1e3
     t_ops = total['window_tests'] * 8 / FP32_FLOP_PER_S * 1e3
     stats = {'max_abs_err': 0, 'ms': total['ms'], 'host_us': total['host_us'],
@@ -948,15 +997,19 @@ def ball_query_phase(cfg, bq, fps_mod, plain, synthetic) -> dict:
              'bound_ms': max(t_bytes, t_ops),
              'bound_by': 'bytes' if t_bytes >= t_ops else 'operations', 'library_ms': None,
              'library_host_us': None,
-             'walk_ms': total['walk_tests'] * 8 / FP32_FLOP_PER_S * 1e3,
-             'window_tests': total['window_tests'], 'walk_tests': total['walk_tests']}
-    log('9 ball query', f'backbone levels at B=4: kernel {stats["ms"]:.4f} ms device, '
-        f'{stats["host_us"]:.1f} us host, {stats["call_ms"]:.4f} ms one call; plain torch '
-        f'{stats["plain_ms"]:.3f} ms (one call, median of 5), bound {stats["bound_ms"]:.4f} ms by '
-        f'{stats["bound_by"]} (bytes {t_bytes:.4f} ms; {total["window_tests"]} tests in the 3x3 '
-        f'windows {t_ops:.5f} ms); this kernel walks {total["walk_tests"]} tests, '
-        f'{stats["walk_ms"]:.4f} ms at the peak rate; {total["full"]} of {total["balls"]} balls '
-        'full at both radii')
+             'walk_ms': total['grid_tests'] * 8 / FP32_FLOP_PER_S * 1e3,
+             'grid_build_ms': total['grid_build_ms'], 'grid_walk_ms': total['grid_walk_ms'],
+             'walk_path_ms': total['walk_path_ms'], 'window_tests': total['window_tests'],
+             'grid_tests': total['grid_tests'], 'walk_tests': total['walk_tests']}
+    log('9 ball query', f'backbone levels at B=4, as the plan takes them (grid): kernel '
+        f'{stats["ms"]:.4f} ms device with the grid build ({total["grid_build_ms"]:.4f} build, '
+        f'{total["grid_walk_ms"]:.4f} walk), {stats["host_us"]:.1f} us host, '
+        f'{stats["call_ms"]:.4f} ms one call; the walk path {total["walk_path_ms"]:.4f} ms; plain '
+        f'torch {stats["plain_ms"]:.3f} ms (one call, median of 5), bound {stats["bound_ms"]:.4f} '
+        f'ms by {stats["bound_by"]} (bytes {t_bytes:.4f} ms; {total["window_tests"]} tests in the '
+        f'3x3 windows {t_ops:.5f} ms); the grid path walks {total["grid_tests"]} tests, '
+        f'{stats["walk_ms"]:.5f} ms at the peak rate, the walk path {total["walk_tests"]}; '
+        f'{total["full"]} of {total["balls"]} balls full at both radii')
     return stats
 
 
@@ -1053,16 +1106,17 @@ def second_inputs(cfg, synthetic, B: int, N: int, seed: int, device='cuda') -> d
         synthetic.voxel_batch(B, N, cfg, seed=seed, device=device))
 
 
-def sparse_conv_check(name, sc, feats, nbr, w) -> dict:
-    """Kernel and plain version each against float64, within the rounding of
-    a float32 sum of K * Cin products (each at most 2^-24 of the sum of
-    magnitudes); two kernel runs bit-equal; rows with no present tap exactly
-    zero. Returns the taps present and the largest kernel-plain difference."""
+def sparse_conv_check(name, sc, feats, nbr, w, plan=None) -> dict:
+    """Kernel (through `plan`, or the plan it builds) and plain version each
+    against float64, within the rounding of a float32 sum of K * Cin products
+    (each at most 2^-24 of the sum of magnitudes); two kernel runs bit-equal;
+    rows with no present tap exactly zero. Returns the taps present and the
+    largest kernel-plain difference."""
     B, Vin, Cin = feats.shape
     K = nbr.shape[2]
-    got = sc.sparse_conv_cuda(feats, nbr, w)
+    got = sc.sparse_conv_cuda(feats, nbr, w, plan)
     torch.cuda.synchronize()
-    again = sc.sparse_conv_cuda(feats, nbr, w)
+    again = sc.sparse_conv_cuda(feats, nbr, w, plan)
     torch.cuda.synchronize()
     if not torch.equal(got, again):
         raise SystemExit(f'[12 sparse conv] FAILED {name}: two runs of the kernel differ')
@@ -1085,9 +1139,14 @@ def sparse_conv_check(name, sc, feats, nbr, w) -> dict:
             'err': float((got - want).abs().max()), 'worst': worst}
 
 
+# most operations the kernel may compute over those of the present taps,
+# over the ladder's twelve layers (each weighted by its Cin * Cout)
+SPARSE_WORK_LIMIT = 1.6
+
+
 def sparse_conv_phase(net, inputs, sc, smi: str) -> dict:
     """Returns the kernel's totals over the ladder's twelve layers (the
-    launches of one predict)."""
+    launches of one predict), each through the plan its forward built."""
     from pdm_ssd_torch.models.backbones_3d.sparse_backbone import SparseConvBNReLU
     bb = net.backbone_3d
     calls = {}
@@ -1101,37 +1160,60 @@ def sparse_conv_phase(net, inputs, sc, smi: str) -> dict:
     if len(calls) != 12:
         raise SystemExit(f'[12 sparse conv] FAILED: the ladder has {len(calls)} layers, not 12')
     total = {'err': 0.0, 'ms': 0.0, 'host_us': 0.0, 'call_ms': 0.0, 'plain_ms': 0.0,
-             'library_ms': 0.0, 'library_host_us': 0.0, 'bytes': 0, 'flops': 0, 'walk_bytes': 0}
+             'library_ms': 0.0, 'library_host_us': 0.0, 'bytes': 0, 'flops': 0, 'walk_bytes': 0,
+             'computed_flops': 0, 'plan_ms': 0.0}
+    planned = set()        # maps whose plan build is timed: each once, as a forward builds it
     with torch.inference_mode():
-        for name, (feats, nbr, _) in calls.items():
+        for name, (feats, nbr, _, plan) in calls.items():
             w = modules[name].kernel.detach()
             feats, nbr = feats.contiguous(), nbr.contiguous()
             B, Vin, Cin = feats.shape
             Vout, K = nbr.shape[1], nbr.shape[2]
             Cout = w.shape[1]
-            r = sparse_conv_check(name, sc, feats, nbr, w)
-            k_t = device_time(lambda: sc.sparse_conv_cuda(feats, nbr, w))
+            if not isinstance(plan, sc.SparseConvPlan) or plan.vin != Vin:
+                raise SystemExit(f'[12 sparse conv] FAILED {name}: the forward handed it no plan '
+                                 'of its map')
+            r = sparse_conv_check(name, sc, feats, nbr, w, plan)
+            computed, present = (int(x) for x in sc.plan_work(plan, nbr))
+            if id(plan) not in planned:
+                planned.add(id(plan))
+                plan_t = device_time(lambda: sc.sparse_conv_plan(nbr, Vin))
+                total['plan_ms'] += plan_t['ms']
+                plan_note = (f'plan built {plan_t["ms"]:.4f} ms device, '
+                             f'{plan_t["host_us"]:.1f} us host')
+            else:
+                plan_note = 'plan shared with the layer before'
+            k_t = device_time(lambda: sc.sparse_conv_cuda(feats, nbr, w, plan))
             ms = k_t['ms']
             plain_ms = median_ms(lambda: sc.sparse_conv_plain(feats, nbr, w), 5)
             pair_t = device_time(lambda: torch.matmul(sc.gather_taps(feats, nbr), w))
             pair_ms = pair_t['ms']
             byts = (feats.numel() + nbr.numel() + w.numel() + B * Vout * Cout) * 4
             flops = 2 * r['present'] * Cin * Cout
+            # what the kernel moves: the rows it gathers, its map, its outputs
+            # and, per tile, the rows of W of the tile's taps
             walk = (r['present'] * Cin + nbr.numel() + B * Vout * Cout
-                    + -(-Vout // 64) * B * w.numel()) * 4
+                    + computed // sc.TILE_ROWS * Cin * Cout) * 4
             total['err'] = max(total['err'], r['err'])
             for key, v in (('ms', ms), ('host_us', k_t['host_us']), ('call_ms', k_t['call_ms']),
                            ('plain_ms', plain_ms), ('library_ms', pair_ms),
                            ('library_host_us', pair_t['host_us']), ('bytes', byts),
-                           ('flops', flops), ('walk_bytes', walk)):
+                           ('flops', flops), ('walk_bytes', walk),
+                           ('computed_flops', 2 * computed * Cin * Cout)):
                 total[key] += v
             log('12 sparse conv', f'{name} {Cin}->{Cout} K={K} Vin={Vin} Vout={Vout} B={B}: '
                 f'{r["present"] / nbr.numel():.3f} of taps present, {r["empty_rows"]} rows with '
-                f'none; kernel {r["worst"]["kernel"]:.3f} and plain {r["worst"]["plain"]:.3f} of '
-                f'the rounding bound from float64, kernel vs plain max |diff| {r["err"]:.2e}, two '
+                f'none; taps computed / present {computed / max(present, 1):.3f} ({plan_note}); '
+                f'kernel {r["worst"]["kernel"]:.3f} and plain {r["worst"]["plain"]:.3f} of the '
+                f'rounding bound from float64, kernel vs plain max |diff| {r["err"]:.2e}, two '
                 f'runs bit-equal; ms kernel/plain/gather+matmul {ms:.3f}/{plain_ms:.3f}/'
-                f'{pair_ms:.3f}; bound bytes {byts / HBM_BYTES_PER_S * 1e3:.4f} ms, operations '
+                f'{pair_ms:.3f}, {2 * computed * Cin * Cout / ms / 1e9:.2f} TFLOP/s computed; '
+                f'bound bytes {byts / HBM_BYTES_PER_S * 1e3:.4f} ms, operations '
                 f'{flops / FP32_FLOP_PER_S * 1e3:.4f} ms')
+        work = total['computed_flops'] / total['flops']
+        if work > SPARSE_WORK_LIMIT:
+            raise SystemExit(f'[12 sparse conv] FAILED: the kernel computes {work:.3f} times the '
+                             f'operations of the present taps, more than {SPARSE_WORK_LIMIT}')
         # the TPU microbench's layer: V = 52224, C = 64, K = 27, its make_maps
         rng = np.random.default_rng(0)
         V, C, K = 52224, 64, 27
@@ -1141,8 +1223,9 @@ def sparse_conv_phase(net, inputs, sc, smi: str) -> dict:
         feats = torch.from_numpy(rng.standard_normal((1, V, C)).astype(np.float32)).cuda()
         nbr = torch.from_numpy(idx.astype(np.int32))[None].cuda()
         w = torch.from_numpy((rng.standard_normal((K * C, C)) * 0.02).astype(np.float32)).cuda()
-        r = sparse_conv_check('microbench shape', sc, feats, nbr, w)
-        ms = device_time(lambda: sc.sparse_conv_cuda(feats, nbr, w))['ms']
+        plan = sc.sparse_conv_plan(nbr, V)
+        r = sparse_conv_check('microbench shape', sc, feats, nbr, w, plan)
+        ms = device_time(lambda: sc.sparse_conv_cuda(feats, nbr, w, plan))['ms']
         plain_ms = median_ms(lambda: sc.sparse_conv_plain(feats, nbr, w), 5)
         log('12 sparse conv', f'microbench shape V={V} C={C} K={K}: kernel {r["worst"]["kernel"]:.3f} '
             f'and plain {r["worst"]["plain"]:.3f} of the rounding bound; kernel {ms:.3f} ms, plain '
@@ -1170,9 +1253,14 @@ def sparse_conv_phase(net, inputs, sc, smi: str) -> dict:
              'bound_ms': max(t_bytes, t_ops),
              'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
              'library_ms': total['library_ms'], 'library_host_us': total['library_host_us'],
-             'walk_ms': total['walk_bytes'] / HBM_BYTES_PER_S * 1e3}
+             'walk_ms': total['walk_bytes'] / HBM_BYTES_PER_S * 1e3, 'plan_ms': total['plan_ms'],
+             'work_ratio': total['computed_flops'] / total['flops']}
     log('12 sparse conv', f'twelve layers at B=4: kernel {stats["ms"]:.3f} ms device, '
-        f'{stats["host_us"]:.1f} us host, {stats["call_ms"]:.3f} ms one call each; plain torch '
+        f'{stats["host_us"]:.1f} us host, {stats["call_ms"]:.3f} ms one call each; the 8 plans '
+        f'{stats["plan_ms"]:.4f} ms device; operations computed / present '
+        f'{stats["work_ratio"]:.3f} ({total["computed_flops"] / 1e9:.2f} of '
+        f'{total["flops"] / 1e9:.2f} GFLOP, {total["computed_flops"] / stats["ms"] / 1e9:.2f} '
+        f'TFLOP/s computed); plain torch '
         f'{stats["plain_ms"]:.3f} ms (one call), gather + torch.matmul (two calls, no single '
         f'PyTorch call computes the function) {stats["library_ms"]:.3f} ms device, bound '
         f'{stats["bound_ms"]:.4f} ms by {stats["bound_by"]} (bytes {t_bytes:.4f} ms, '
@@ -1391,7 +1479,8 @@ def main() -> None:
         if 'registers' in line or 'spill' in line or 'Compiling entry' in line:
             print(f'    {line.strip()}')
     # the row gather has two entry points, float32 and bfloat16, each with
-    # its own counter on the one wrapper; FPS counts its launches by path too
+    # its own counter on the one wrapper; FPS and the ball query count their
+    # launches by path too
     wrappers = {'farthest_point_sample': (fps.farthest_point_sample_cuda, 'launches'),
                 'window_select': (group.window_select_cuda, 'launches'),
                 'gather_rows': (group.gather_rows_cuda, 'launches'),
@@ -1400,7 +1489,9 @@ def main() -> None:
                 'sparse_conv': (sc.sparse_conv_cuda, 'launches'),
                 'gather_rows_bf16': (group.gather_rows_cuda, 'launches_bf16'),
                 'fps cluster path': (fps.farthest_point_sample_cuda, 'launches_cluster'),
-                'fps block path': (fps.farthest_point_sample_cuda, 'launches_block')}
+                'fps block path': (fps.farthest_point_sample_cuda, 'launches_block'),
+                'ball query grid path': (bq.ball_query_cuda, 'launches_grid'),
+                'ball query walk path': (bq.ball_query_cuda, 'launches_walk')}
 
     stats = {'farthest_point_sample': fps_phase(fps, plain, synthetic.kitti_points)}
     fps_stats = stats['farthest_point_sample']

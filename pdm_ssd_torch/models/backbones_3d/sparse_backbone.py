@@ -5,9 +5,12 @@ and its residual form).
 Each layer is a gather-matmul sparse convolution over a fixed-capacity slot
 table (`ops/dispatch.sparse_conv`: the Hopper kernel on CUDA tensors, the
 plain gather + matmul on the CPU), then a BatchNorm over the active slots and
-a ReLU. The neighbour tables come with the batch, built from the voxel
-coordinates by `ops/sparse_maps.py` (`models.get_host_prepare`). Padding
-slots are exactly zero after every layer, so they feed zero rows to the next.
+a ReLU. A forward builds the kernel's plan
+(`ops/sparse_conv.sparse_conv_plan`) once per map and hands it to every layer
+of that map: 12 layers, 8 maps. The neighbour tables come with the batch,
+built from the voxel coordinates by `ops/sparse_maps.py`
+(`models.get_host_prepare`). Padding slots are exactly zero after every
+layer, so they feed zero rows to the next.
 
 The JAX package's gather strategies `XWIN`, `QWIN`, `PWIN` and
 `LAYER_BARRIER` are ways to fetch the same rows with fewer TPU gathers and do
@@ -25,6 +28,7 @@ import torch
 from torch import nn
 
 from ...ops import dispatch
+from ...ops.sparse_conv import sparse_conv_plan
 from ...ops.sparse_maps import ladder_shapes
 from ...utils.config import as_cfg
 
@@ -66,8 +70,9 @@ class SparseConvBNReLU(nn.Module):
         self.kernel = nn.Parameter(torch.empty((taps * in_features, features), device=device))
         self.MaskedBatchNorm_0 = MaskedBatchNorm(features, device=device)
 
-    def forward(self, feats: torch.Tensor, nbr: torch.Tensor, out_mask: torch.Tensor):
-        x = dispatch.sparse_conv(feats, nbr, self.kernel)
+    def forward(self, feats: torch.Tensor, nbr: torch.Tensor, out_mask: torch.Tensor,
+                plan=None):
+        x = dispatch.sparse_conv(feats, nbr, self.kernel, plan)
         x = self.MaskedBatchNorm_0(x, out_mask)
         if self.use_relu:
             x = torch.relu(x)
@@ -84,9 +89,9 @@ class SparseBasicBlock(nn.Module):
         self.SparseConvBNReLU_1 = SparseConvBNReLU(features, features, 27, use_relu=False,
                                                    device=device)
 
-    def forward(self, feats: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor):
-        x = self.SparseConvBNReLU_0(feats, nbr, mask)
-        x = self.SparseConvBNReLU_1(x, nbr, mask)
+    def forward(self, feats: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor, plan=None):
+        x = self.SparseConvBNReLU_0(feats, nbr, mask, plan)
+        x = self.SparseConvBNReLU_1(x, nbr, mask, plan)
         return torch.where(mask[..., None], torch.relu(x + feats), 0.0)
 
 
@@ -131,9 +136,9 @@ class SparseVoxelBackBone8x(nn.Module):
             blocks(f'conv{s}', ch, 2)
         self.conv_out = SparseConvBNReLU(filters[3], self.out_features, 3, device=device)
 
-    def _stage(self, name: str, x, nbr, mask):
+    def _stage(self, name: str, x, nbr, mask, plan):
         for layer in self.stage_layers[name]:
-            x = getattr(self, layer)(x, nbr, mask)
+            x = getattr(self, layer)(x, nbr, mask, plan)
         return x
 
     def scatter_to_bev(self, x: torch.Tensor, coords: torch.Tensor, mask: torch.Tensor):
@@ -161,16 +166,17 @@ class SparseVoxelBackBone8x(nn.Module):
         feats = dispatch.gather_rows(batch['voxel_features'], batch['sp_perm1'])
         ms = {}
         m1, n1 = batch['sp_mask1'], batch['sp_submap1']
-        x = self.conv_input(torch.where(m1[..., None], feats, 0.0), n1, m1)
-        x = self._stage('conv1', x, n1, m1)
+        p1 = sparse_conv_plan(n1, n1.shape[1])
+        x = self.conv_input(torch.where(m1[..., None], feats, 0.0), n1, m1, p1)
+        x = self._stage('conv1', x, n1, m1, p1)
         ms['x_conv1'] = (x, batch['sp_coords1'], m1, 1)
         for s in (2, 3, 4):
-            mask = batch[f'sp_mask{s}']
-            x = getattr(self, f'down{s}')(x, batch[f'sp_downmap{s}'], mask)
-            x = self._stage(f'conv{s}', x, batch[f'sp_submap{s}'], mask)
+            mask, down, sub = batch[f'sp_mask{s}'], batch[f'sp_downmap{s}'], batch[f'sp_submap{s}']
+            x = getattr(self, f'down{s}')(x, down, mask, sparse_conv_plan(down, x.shape[1]))
+            x = self._stage(f'conv{s}', x, sub, mask, sparse_conv_plan(sub, sub.shape[1]))
             ms[f'x_conv{s}'] = (x, batch[f'sp_coords{s}'], mask, 2 ** (s - 1))
-        mo = batch['sp_mask_out']
-        x = self.conv_out(x, batch['sp_outmap'], mo)
+        mo, no = batch['sp_mask_out'], batch['sp_outmap']
+        x = self.conv_out(x, no, mo, sparse_conv_plan(no, x.shape[1]))
         batch['spatial_features'] = self.scatter_to_bev(x, batch['sp_coords_out'], mo)
         batch['multi_scale_3d_features_sparse'] = ms
         batch['encoded_sparse_out'] = (x, batch['sp_coords_out'], mo)

@@ -98,14 +98,16 @@ def scatter_add_rows(vals: torch.Tensor, idx: torch.Tensor, n_rows: int) -> torc
     raise NotImplementedError(f'no row scatter-add for device {vals.device}')
 
 
-def sparse_conv(feats: torch.Tensor, nbr: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+def sparse_conv(feats: torch.Tensor, nbr: torch.Tensor, weight: torch.Tensor,
+                plan: sc.SparseConvPlan | None = None) -> torch.Tensor:
     """feats (B, Vin, Cin), nbr (B, Vout, K) with entries outside [0, Vin)
     absent, weight (K*Cin, Cout) -> (B, Vout, Cout): the gather-matmul of one
-    sparse conv layer."""
+    sparse conv layer. `plan` (`sc.sparse_conv_plan(nbr, Vin)`) is the
+    kernel's; the plain version ignores it."""
     kind = feats.device.type
     if kind == 'cpu':
         return sc.sparse_conv_plain(feats, nbr, weight)
     if kind == 'cuda':
         return sc.sparse_conv_cuda(feats.contiguous(), nbr.to(torch.int32).contiguous(),
-                                   weight.contiguous())
+                                   weight.contiguous(), plan)
     raise NotImplementedError(f'no sparse conv for device {feats.device}')

@@ -44,12 +44,16 @@ _ENTRY_POINTS = {
     },
     'ball_query.cu': {
         'ball_query_max_branches': [],
+        'ball_query_cell_bits': [],
         'ball_query_launch': [_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+        'ball_query_grid_launch': [_P, _P, _P, _P, _P, _I, _I, _I, ctypes.c_double, _I, _P, _P,
+                                   _P, _P],
     },
     'sparse_conv.cu': {
         'sparse_conv_max_taps': [],
         'sparse_conv_max_cout': [],
-        'sparse_conv_launch': [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+        'sparse_conv_tile_rows': [],
+        'sparse_conv_launch': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     },
 }
 

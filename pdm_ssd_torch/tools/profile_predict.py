@@ -11,13 +11,15 @@ alone on its own precomputed input and is timed with CUDA events (median of
 group on their own. With `--cfg_file configs/kitti_models/pointrcnn.yaml`
 the model is PointRCNN with the FP list made whole
 (`utils/synthetic.pointrcnn_fp3`), at the file's batch of 4, and the stages
-are the backbone's SA levels, its FP modules, the point head, the proposal
+are the backbone's SA levels (each level's ball query, and the grid build
+of those on the grid path, apart too), its FP modules, the point head, the proposal
 layer, ROI pooling, the ROI SA stack and the final NMS. With `--cfg_file
 configs/kitti_models/second_sparse.yaml` the model is SECOND on the sparse
 voxel ladder as shipped, at the file's batch of 4 on LiDAR-like clouds of
 50000 points (`utils/synthetic.lidar_points`), and the stages are the
 voxelizer, the kernel-map build, the VFE with the reorder, each of the 12
-sparse layers (the whole layer, and its `sparse_conv` kernel alone), the
+sparse layers (the whole layer, and its `sparse_conv` kernel alone through
+the plan its forward built), the 8 plans of a forward (`sp_plans`), the
 canvas scatter, the BEV backbone, the head, top-K + decode and the NMS; the
 classification bias is set to 0 so that the candidates pass the score
 threshold and the NMS does its full work. Then `torch.profiler` traces
@@ -41,7 +43,9 @@ import torch
 from ..models import get_host_prepare
 from ..models.backbones_3d.sparse_backbone import SparseConvBNReLU
 from ..ops import dispatch, sa_fused
+from ..ops.ball_query import ball_query_plan, build_grid
 from ..ops.pointnet2 import gather_operation
+from ..ops.sparse_conv import sparse_conv_plan
 from ..ops.voxelize import voxelize_batch
 from ..utils import synthetic
 from ..utils.config import cfg_from_yaml_file
@@ -121,6 +125,10 @@ def pointrcnn_stage_times(net, cfg, predict_inputs: dict, reps: int) -> dict:
         new_xyz = l_xyz[k + 1]
         t[f'sa{k + 1}_ball_query'] = median_ms(lambda: dispatch.ball_query_level(
             sa.radii, sa.nsamples, l_xyz[k], new_xyz), reps)
+        plan = ball_query_plan(l_xyz[k].shape[1], sa.radii)
+        if plan.path == 'grid':
+            t[f'sa{k + 1}_grid_build'] = median_ms(lambda: build_grid(
+                l_xyz[k].contiguous(), plan.cell), reps)
     t['sa2_fps'] = median_ms(lambda: dispatch.farthest_point_sample(
         l_xyz[1].contiguous(), bb.npoints[1]), reps)
     t['backbone_fp'] = median_ms(lambda: fp_modules(l_xyz, l_feat), reps)
@@ -179,10 +187,14 @@ def second_stage_times(net, cfg, predict_inputs: dict, reps: int) -> dict:
         key = name.replace('.SparseConvBNReLU_', '_')
         t[f'sp_{key}'] = median_ms(lambda: modules[name](*args), reps)
         t[f'sp_{key}_kernel'] = median_ms(
-            lambda: dispatch.sparse_conv(args[0], args[1], modules[name].kernel), reps)
+            lambda: dispatch.sparse_conv(args[0], args[1], modules[name].kernel, args[3]), reps)
+    plans = {id(args[3]): (args[1], args[3].vin) for args in calls.values()}
+    t['sp_plans'] = median_ms(lambda: [sparse_conv_plan(nbr, vin) for nbr, vin in plans.values()],
+                              reps)
     t['sparse_layers'] = sum(v for k, v in t.items() if k.startswith('sp_')
-                             and not k.endswith('_kernel'))
+                             and not k.endswith('_kernel') and k != 'sp_plans')
     t['sparse_conv_kernels'] = sum(v for k, v in t.items() if k.endswith('_kernel'))
+    t['sparse_conv_plans_and_kernels'] = t['sparse_conv_kernels'] + t['sp_plans']
     x, coords, mask = batch['encoded_sparse_out']
     t['canvas_scatter'] = median_ms(lambda: bb.scatter_to_bev(x, coords, mask), reps)
     t['backbone_3d'] = median_ms(lambda: bb(net.vfe(dict(predict_inputs))), reps)

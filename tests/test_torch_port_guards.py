@@ -31,7 +31,8 @@ SLICE_MODULES = [
     'pdm_ssd_torch.models.dense_heads.center_head',
     'pdm_ssd_torch.models.detectors.pdm_ssd', 'pdm_ssd_torch.utils.synthetic',
     'pdm_ssd_torch.tools.profile_predict', 'pdm_ssd_torch.tools.profile_train',
-    'pdm_ssd_torch.tools.dryrun', 'pdm_ssd_torch.ops.group', 'pdm_ssd_torch.ops.box_ops',
+    'pdm_ssd_torch.tools.dryrun', 'pdm_ssd_torch.tools.time_kernels',
+    'pdm_ssd_torch.ops.group', 'pdm_ssd_torch.ops.box_ops',
     'pdm_ssd_torch.ops.losses', 'pdm_ssd_torch.runtime.optimization',
     'pdm_ssd_torch.runtime.trainer', 'pdm_ssd_torch.ops.ball_query',
     'pdm_ssd_torch.models.roi_heads.roi_head_template',

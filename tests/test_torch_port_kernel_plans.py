@@ -1,13 +1,22 @@
-"""Launch plans of the FPS and row-gather kernels, and the kernel loader, on
-the CPU: `ops/fps.fps_plan` and `ops/group.gather_plan` are plain Python,
-so the choices the card's launches follow are tested here with the card's
-counts mocked. The kernels themselves run in the `gpu`-marked tests of
-`test_torch_port_guards.py`."""
+"""Launch plans of the port's kernels, and the kernel loader, on the CPU:
+`ops/fps.fps_plan` and `ops/group.gather_plan` are plain Python, so the
+choices the card's launches follow are tested here with the card's counts
+mocked; `ops/sparse_conv.sparse_conv_plan` and the ball query's grid
+(`ops/ball_query.build_grid`, `ball_query_plan`, and the plain emulation of
+the grid walk) are torch ops that run here as on the card. The kernels
+themselves run in the `gpu`-marked tests here and in
+`test_torch_port_guards.py`, which skip without a card."""
 import math
+from itertools import product
 
+import numpy as np
 import pytest
+import torch
 
-from pdm_ssd_torch.ops import fps, group, kernels
+from pdm_ssd_torch.ops import ball_query as bq
+from pdm_ssd_torch.ops import dispatch, fps, group, kernels
+from pdm_ssd_torch.ops import pointnet2 as plain
+from pdm_ssd_torch.ops import sparse_conv as sc
 
 SM = 132
 
@@ -215,3 +224,359 @@ def test_kernel_loader_raises_without_nvcc(monkeypatch, tmp_path):
     assert kernels._lib is None
     with pytest.raises(RuntimeError, match='nvcc not found'):   # and again: nothing was cached
         kernels.load()
+
+
+# ---- sparse conv plan ---------------------------------------------------------
+
+@pytest.fixture(scope='module')
+def tiny_second():
+    """The tiny SECOND (`synthetic.tiny_second_cfg`) on the CPU with seeded
+    weights, and a prepared batch of two LiDAR-like clouds: its ladder maps."""
+    import os
+
+    from pdm_ssd_torch.models import build_network, get_host_prepare
+    from pdm_ssd_torch.utils import synthetic
+    from pdm_ssd_torch.utils.config import CfgNode, cfg_from_yaml_file
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    cwd = os.getcwd()
+    os.chdir(repo)   # the config names its base config relative to the repo
+    try:
+        cfg = synthetic.tiny_second_cfg(
+            cfg_from_yaml_file('configs/kitti_models/second_sparse.yaml', CfgNode()))
+    finally:
+        os.chdir(cwd)
+    torch.manual_seed(0)
+    net = build_network(cfg.MODEL, 3, cfg.DATA_CONFIG, device='cpu').eval()
+    batch = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG)(synthetic.voxel_batch(2, 600, cfg, seed=3))
+    return net, batch
+
+
+# map -> the stage whose slot table it reads (its Vin)
+LADDER_MAPS = {'sp_submap1': 'sp_mask1', 'sp_downmap2': 'sp_mask1', 'sp_submap2': 'sp_mask2',
+               'sp_downmap3': 'sp_mask2', 'sp_submap3': 'sp_mask3', 'sp_downmap4': 'sp_mask3',
+               'sp_submap4': 'sp_mask4', 'sp_outmap': 'sp_mask4'}
+
+
+def _row_masks(nbr: np.ndarray, Vin: int) -> np.ndarray:
+    present = (nbr >= 0) & (nbr < Vin)
+    return (present * (1 << np.arange(nbr.shape[2]))).sum(-1)
+
+
+@pytest.mark.parametrize('key', list(LADDER_MAPS))
+def test_sparse_conv_plan_sorts_rows_and_ors_tile_masks(tiny_second, key):
+    """Each cloud's order is a permutation of its rows in ascending tap-mask
+    order (equal masks keep slot order), and each tile's mask is the OR of
+    its rows' masks."""
+    _, batch = tiny_second
+    nbr = batch[key]
+    Vin = batch[LADDER_MAPS[key]].shape[1]
+    plan = sc.sparse_conv_plan(nbr, Vin)
+    B, V, K = nbr.shape
+    tiles = -(-V // sc.TILE_ROWS)
+    assert plan.order.dtype == plan.tile_mask.dtype == torch.int32 and plan.vin == Vin
+    assert tuple(plan.order.shape) == (B, V) and tuple(plan.tile_mask.shape) == (B, tiles)
+    masks = _row_masks(nbr.numpy(), Vin)
+    assert torch.equal(sc.tap_masks(nbr, Vin), torch.from_numpy(masks).to(torch.int32))
+    order = plan.order.numpy()
+    for b in range(B):
+        assert sorted(order[b].tolist()) == list(range(V))
+        ranked = masks[b][order[b]]
+        assert (np.diff(ranked) >= 0).all()
+        same = np.diff(ranked) == 0
+        assert (np.diff(order[b])[same] > 0).all()               # a stable sort
+        for t in range(tiles):
+            want = np.bitwise_or.reduce(ranked[t * sc.TILE_ROWS:(t + 1) * sc.TILE_ROWS])
+            assert int(plan.tile_mask[b, t]) == int(want)
+    assert masks.any()
+
+
+@pytest.mark.parametrize('key', list(LADDER_MAPS))
+def test_sparse_conv_plan_work_is_what_its_tiles_compute(tiny_second, key):
+    """`plan_work`: a tile computes TILE_ROWS rows of every tap in its mask,
+    never fewer taps than are present."""
+    _, batch = tiny_second
+    nbr = batch[key]
+    Vin = batch[LADDER_MAPS[key]].shape[1]
+    plan = sc.sparse_conv_plan(nbr, Vin)
+    computed, present = sc.plan_work(plan, nbr)
+    masks = _row_masks(nbr.numpy(), Vin)
+    popc = np.vectorize(lambda x: bin(int(x)).count('1'))
+    assert int(present) == int(popc(masks).sum())
+    assert int(computed) == int(popc(plan.tile_mask.numpy()).sum()) * sc.TILE_ROWS
+    assert 0 < int(present) <= int(computed)
+
+
+def test_sparse_conv_plan_of_a_hand_made_map():
+    """Rows with no tap sort first and their tiles have mask 0; a ragged last
+    tile ORs only the rows it has; entries on both sides of [0, Vin) are
+    absent."""
+    Vin, K = 10, 3
+    nbr = torch.full((1, 70, K), Vin, dtype=torch.int32)
+    nbr[0, 5, 2] = 4          # mask 0b100
+    nbr[0, 69, 0] = 9         # mask 0b001
+    nbr[0, 69, 1] = -1        # absent
+    nbr[0, 30, 1] = 0         # mask 0b010
+    plan = sc.sparse_conv_plan(nbr, Vin)
+    assert plan.order[0, -3:].tolist() == [69, 30, 5]
+    assert plan.order[0, :67].tolist() == [v for v in range(70) if v not in (5, 30, 69)]
+    assert plan.tile_mask.tolist() == [[0, 0b111]]
+    computed, present = sc.plan_work(plan, nbr)
+    assert (int(computed), int(present)) == (3 * sc.TILE_ROWS, 3)
+
+
+def test_layers_that_share_a_map_share_one_plan(tiny_second, monkeypatch):
+    """A forward of the ladder builds one plan per map (8 maps, 12 layers)
+    and hands each layer its map's plan; on the CPU the plain version runs
+    and ignores it."""
+    net, batch = tiny_second
+    calls = []
+    real = dispatch.sparse_conv
+
+    def recording(feats, nbr, weight, plan=None):
+        calls.append((nbr, plan))
+        return real(feats, nbr, weight, plan)
+
+    monkeypatch.setattr(dispatch, 'sparse_conv', recording)
+    with torch.inference_mode():
+        net.backbone_3d(net.vfe(dict(batch)))
+    assert len(calls) == 12
+    maps = {id(batch[k]): k for k in LADDER_MAPS}
+    by_map = {}
+    for nbr, plan in calls:
+        assert isinstance(plan, sc.SparseConvPlan)
+        by_map.setdefault(maps[id(nbr)], set()).add(id(plan))
+    assert {k: len(v) for k, v in by_map.items()} == {k: 1 for k in LADDER_MAPS}
+    assert sorted(sum(1 for n, _ in calls if maps[id(n)] == k) for k in LADDER_MAPS) == \
+        [1, 1, 1, 1, 2, 2, 2, 2]
+    for nbr, plan in calls:
+        key = maps[id(nbr)]
+        want = sc.sparse_conv_plan(nbr, batch[LADDER_MAPS[key]].shape[1])
+        assert torch.equal(plan.order, want.order) and torch.equal(plan.tile_mask, want.tile_mask)
+
+
+# ---- ball query: path and grid -------------------------------------------------------
+
+@pytest.mark.parametrize('N,radii,want', [
+    (16384, (0.1, 0.5), 'grid'), (4096, (0.5, 1.0), 'grid'), (1024, (1.0, 2.0), 'grid'),
+    (512, (0.2,), 'walk'), (128, (0.4,), 'walk'),                # PointRCNN's ROI stack
+    (16384, (0.0,), 'walk'), (16384, (float('inf'),), 'walk')])
+def test_ball_query_plan_by_shape(N, radii, want):
+    """PointRCNN's backbone levels take the grid, its ROI stack the walk; a
+    radius that is no positive finite number leaves no grid."""
+    plan = bq.ball_query_plan(N, radii)
+    assert plan.path == want
+    if want == 'grid':
+        assert plan.cell > max(radii) and plan.cell == max(radii) * (1 + bq.CELL_MARGIN)
+
+
+def test_ball_query_plan_forced_paths():
+    assert bq.ball_query_plan(128, (0.4,), path='grid').path == 'grid'
+    assert bq.ball_query_plan(16384, (0.4,), path='walk') == ('walk', 0.0)
+    with pytest.raises(ValueError, match='no grid'):
+        bq.ball_query_plan(16384, (0.0,), path='grid')
+    with pytest.raises(ValueError, match='unknown ball-query path'):
+        bq.ball_query_plan(16384, (0.4,), path='hash')
+
+
+def test_build_grid_keeps_point_order_in_each_cell():
+    """Keys sorted; within one key the points in ascending index; a masked
+    point last with the sentinel key; the packed index and xyz are the
+    point's own."""
+    rng = np.random.RandomState(30)
+    xyz = torch.from_numpy(rng.uniform(-3, 3, (2, 400, 3)).astype(np.float32))
+    xyz[:, 200:260] = xyz[:, :60]                                    # duplicates
+    mask = torch.from_numpy(rng.rand(2, 400) < 0.8)
+    grid = bq.build_grid(xyz, 1.0, mask)
+    idx = grid.points[..., 3].contiguous().view(torch.int32).long()
+    for b in range(2):
+        keys = grid.keys[b]
+        assert bool((keys[1:] >= keys[:-1]).all())
+        same = keys[1:] == keys[:-1]
+        assert bool((idx[b, 1:] > idx[b, :-1])[same].all())
+        assert sorted(idx[b].tolist()) == list(range(400))
+        assert torch.equal(grid.points[b, :, :3], xyz[b, idx[b]])
+        n_in = int(mask[b].sum())
+        assert bool((keys[n_in:] == bq.KEY_SENTINEL).all())
+        assert bool((keys[:n_in] < bq.KEY_SENTINEL).all())
+    assert torch.equal(grid.keys[0, :5], bq.cell_keys(bq.cell_coords(xyz[0, idx[0, :5]], 1.0)))
+
+
+def test_cell_coords_keep_every_hit_in_the_window():
+    """A pair that passes the float32 test d2 < r*r lies within one cell per
+    axis, with cells of edge r (1 + CELL_MARGIN): points on and just inside
+    the sphere, at cell edges, far from the origin (float32 spacing near
+    1e4), and beyond the clamp at 2^20 cells."""
+    rng = np.random.RandomState(31)
+    r = 0.1
+    cell = r * (1 + bq.CELL_MARGIN)
+    cases = []
+    for base in (0.0, 1e4, -3.3e4, 2.0 ** 21 * cell, -(2.0 ** 21) * cell):
+        c = (base + rng.randint(-50, 50, (4000, 3)) * cell).astype(np.float32)
+        d = rng.normal(size=(4000, 3))
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        p = (c + d * r * rng.uniform(0.999, 1.0, (4000, 1))).astype(np.float32)
+        cases.append((c, p))
+    c = np.concatenate([x for x, _ in cases])
+    p = np.concatenate([y for _, y in cases])
+    diff = c - p
+    d2 = (diff[:, 0] * diff[:, 0] + diff[:, 1] * diff[:, 1]) + diff[:, 2] * diff[:, 2]
+    hit = d2 < np.float32(r * r)
+    assert hit.sum() > 5000
+    cc = bq.cell_coords(torch.from_numpy(c), cell)
+    pc = bq.cell_coords(torch.from_numpy(p), cell)
+    assert int((cc - pc).abs()[torch.from_numpy(hit)].max()) <= 1
+
+
+def _grid_case(kind: str):
+    """(xyz, new_xyz, mask, radii, nsamples) as numpy: a small input of one
+    kind of edge case."""
+    rng = np.random.RandomState(32)
+    if kind == 'radius_and_cell_edges':
+        # centers on a grid of cell corners; points exactly r away along each
+        # axis and at r in float32 on a diagonal, and points on cell edges
+        r = 0.5
+        cell = r * (1 + bq.CELL_MARGIN)
+        centers = (np.stack(np.meshgrid(*[np.arange(-2, 3)] * 3), -1).reshape(-1, 3) * cell)
+        offs = np.concatenate([np.eye(3) * r, -np.eye(3) * r, np.eye(3) * np.float32(r) * 0.999,
+                               np.full((1, 3), r / np.sqrt(3)), np.eye(3) * cell])
+        pts = (centers[:, None] + offs[None]).reshape(-1, 3)
+        pts = np.concatenate([pts, centers]).astype(np.float32)[None]
+        return pts, centers.astype(np.float32)[None], None, (r, r / 2), (16, 4)
+    if kind == 'duplicates':
+        pts = rng.uniform(0, 2, (2, 300, 3)).astype(np.float32)
+        pts[:, 100:250] = pts[:, :150]
+        pts[:, 250:] = pts[:, 7:8]
+        return pts, pts[:, ::5].copy(), None, (0.3,), (40,)
+    if kind == 'masked':
+        pts = rng.uniform(0, 3, (3, 500, 3)).astype(np.float32)
+        return pts, pts[:, :50].copy(), rng.rand(3, 500) < 0.5, (0.4, 0.8), (8, 24)
+    if kind == 'empty_balls':
+        pts = rng.uniform(0, 3, (2, 200, 3)).astype(np.float32)
+        centers = pts[:, :30].copy()
+        centers[:, :10] += 100.0
+        centers[:, 10:20] -= 1e6
+        return pts, centers, None, (0.2,), (5,)
+    if kind == 'several_radii':
+        pts = rng.uniform(-4, 4, (2, 800, 3)).astype(np.float32)
+        return pts, pts[:, :64].copy(), None, (0.3, 0.9, 1.5, 2.5), (4, 16, 32, 64)
+    if kind == 'far_from_origin':
+        pts = (rng.uniform(0, 4, (2, 400, 3)) + np.array([3e4, -5e3, 1e3])).astype(np.float32)
+        return pts, pts[:, :40].copy(), None, (0.5, 1.0), (8, 16)
+    if kind == 'beyond_the_clamp':
+        # points and centers far past 2^20 cells on every axis share the
+        # largest cell with masked points, whose key lies past every cell's
+        pts = rng.uniform(0, 1, (1, 60, 3)).astype(np.float32)
+        pts[:, 30:] = 3e30
+        mask = np.ones((1, 60), bool)
+        mask[:, 40:] = False
+        return pts, pts[:, 25:35].copy(), mask, (0.5,), (8,)
+    if kind == 'all_masked':
+        pts = rng.uniform(0, 1, (1, 50, 3)).astype(np.float32)
+        return pts, pts[:, :5].copy(), np.zeros((1, 50), bool), (0.5,), (3,)
+    raise ValueError(kind)
+
+
+GRID_CASES = ['radius_and_cell_edges', 'duplicates', 'masked', 'empty_balls', 'several_radii',
+              'far_from_origin', 'beyond_the_clamp', 'all_masked']
+
+
+@pytest.mark.parametrize('kind', GRID_CASES)
+def test_grid_walk_emulation_equals_the_plain_ball_query(kind):
+    """The grid path's walk, emulated with torch ops on the grid the kernel
+    reads (window runs by search, merged in point order), equals
+    `ops/pointnet2.ball_query` exactly, and tests at most the window's points."""
+    xyz, new_xyz, mask, radii, nsamples = _grid_case(kind)
+    xyz, new_xyz = torch.from_numpy(xyz), torch.from_numpy(new_xyz)
+    mask = None if mask is None else torch.from_numpy(mask)
+    got, tests = bq.ball_query_grid_plain(radii, nsamples, xyz, new_xyz, mask, count_tests=True)
+    for r, k, g in zip(radii, nsamples, got):
+        want = plain.ball_query(r, k, xyz, new_xyz, mask=mask)
+        assert g.dtype == torch.int32 and torch.equal(g, want), (kind, r)
+    assert tuple(tests.shape) == tuple(new_xyz.shape[:2])
+    assert int(tests.max()) <= xyz.shape[1]
+
+
+def test_grid_walk_stops_at_the_last_radius_to_fill():
+    """The tests the grid kernel makes: merging the window in point order, up
+    to the K-th hit of the radius that fills last, or to the window's end
+    where a ball stays underfull; where the window holds more than
+    N // DENSE_SHARE points, walking the cloud in point order up to the same
+    hit, or to the cloud's end."""
+    near = torch.tensor([[[0.0, 0, 0], [0.1, 0, 0], [5.0, 0, 0], [0.2, 0, 0], [0.3, 0, 0],
+                          [0.05, 0, 0]]])
+    far = torch.arange(94, dtype=torch.float32)[None, :, None] * torch.tensor([0.0, 0, 9.0]) + 20
+    for xyz, window_walk in ((torch.cat([near, far], 1), False), (near, True)):
+        N = xyz.shape[1]
+        assert (5 > N // bq.DENSE_SHARE) == window_walk
+        _, tests = bq.ball_query_grid_plain([0.25, 0.35], [2, 3], xyz, xyz[:, :1],
+                                            count_tests=True)
+        # r=0.35 fills last, with points 0, 1, 3: the 3rd candidate of the
+        # window, the 4th point of the cloud
+        assert tests.tolist() == [[4 if window_walk else 3]]
+        _, tests = bq.ball_query_grid_plain([0.25], [9], xyz, xyz[:, :1], count_tests=True)
+        assert tests.tolist() == [[N if window_walk else 5]]
+
+
+# ---- the kernels on the card ---------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kind', GRID_CASES + ['level_1'])
+def test_ball_query_grid_and_walk_paths_match_plain_on_the_card(kind):
+    """Both kernel paths, forced, equal the plain version bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernels have no CPU mode)')
+    if kind == 'level_1':
+        rng = np.random.RandomState(33)
+        xyz = rng.uniform(0, 40, (2, 16384, 3)).astype(np.float32)
+        xyz[..., 2] *= 0.05
+        xyz, new_xyz, mask, radii, nsamples = xyz, xyz[:, :4096].copy(), None, (0.1, 0.5), (16, 32)
+    else:
+        xyz, new_xyz, mask, radii, nsamples = _grid_case(kind)
+    xyz, new_xyz = torch.from_numpy(xyz).cuda(), torch.from_numpy(new_xyz).cuda()
+    mask = None if mask is None else torch.from_numpy(mask).cuda()
+    want = [plain.ball_query(r, k, xyz, new_xyz, mask=mask) for r, k in zip(radii, nsamples)]
+    for path in ('grid', 'walk'):
+        plan = bq.ball_query_plan(xyz.shape[1], radii, path=path)
+        got = bq.ball_query_cuda(radii, nsamples, xyz, new_xyz, mask, plan=plan)
+        torch.cuda.synchronize()
+        for r, g, w in zip(radii, got, want):
+            assert torch.equal(g, w), (kind, path, r)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('B,Vin,Vout,K,Cin,Cout', [
+    (2, 3000, 2900, 27, 64, 64), (3, 1000, 1001, 27, 4, 16), (2, 900, 700, 3, 64, 128),
+    (2, 640, 640, 27, 7, 100), (2, 500, 520, 27, 32, 32)])
+def test_sparse_conv_kernel_result_does_not_depend_on_the_plan(B, Vin, Vout, K, Cin, Cout):
+    """The kernel through its sorted plan, through rows in slot order with
+    their tiles' OR-masks, and through a plan whose tiles claim every tap,
+    gives the same bits: a row's result is one chain of multiply-adds over
+    its own present taps in order."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
+    rng = np.random.RandomState(34)
+    feats = torch.from_numpy(rng.randn(B, Vin, Cin).astype(np.float32)).cuda()
+    nbr = rng.randint(0, Vin, (B, Vout, K)).astype(np.int32)
+    nbr[rng.rand(B, Vout, K) < 0.7] = Vin
+    nbr[:, ::7] = Vin
+    nbr = torch.from_numpy(nbr).cuda()
+    w = torch.from_numpy((rng.randn(K * Cin, Cout) * 0.1).astype(np.float32)).cuda()
+    sorted_plan = sc.sparse_conv_plan(nbr, Vin)
+    tiles = sorted_plan.tile_mask.shape[1]
+    ident = torch.arange(Vout, dtype=torch.int32, device='cuda').expand(B, -1).contiguous()
+    masks = sc.tap_masks(nbr, Vin)
+    pad = torch.nn.functional.pad(masks, (0, tiles * sc.TILE_ROWS - Vout))
+    bits = (pad.view(B, tiles, sc.TILE_ROWS, 1) >> torch.arange(K, device='cuda',
+                                                                dtype=torch.int32)) & 1
+    slot_plan = sc.SparseConvPlan(ident, (bits.amax(2) << torch.arange(
+        K, device='cuda', dtype=torch.int32)).sum(-1, dtype=torch.int32), Vin)
+    full_plan = sc.SparseConvPlan(ident, torch.full((B, tiles), (1 << K) - 1, dtype=torch.int32,
+                                                    device='cuda'), Vin)
+    with torch.no_grad():
+        outs = [sc.sparse_conv_cuda(feats, nbr, w, p) for p in (sorted_plan, slot_plan, full_plan)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1]) and torch.equal(outs[0], outs[2])
+    assert not outs[0][:, ::7].any()
+    exact = sc.sparse_conv_plain(feats.double(), nbr, w.double())
+    mass = sc.sparse_conv_plain(feats.double().abs(), nbr, w.double().abs())
+    assert bool(((outs[0].double() - exact).abs() <= K * Cin * 2.0 ** -24 * mass + 1e-30).all())

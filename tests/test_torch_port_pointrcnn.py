@@ -485,6 +485,54 @@ def test_sampler_substitutions_warning_and_errors():
         _backbone(['fps'], [30], fp=[[8], [8]])
 
 
+def test_random_level_with_a_generator_keeps_the_fps_order_as_the_jax_package(monkeypatch):
+    """Pins a latent behaviour copied from the JAX package (ROADMAP Queue 3,
+    `pdm_ssd_tpu/models/backbones_3d/pointnet2_backbone.py:303-304`): after an
+    'fps' level, a 'random' level drawn with a generator (in JAX, with a
+    'sampling' rng) leaves its output marked FPS-ordered, so a following
+    'fps' level takes the 'prefix' of the random subset and runs no FPS. The
+    JAX side draws the port's permutation here, so both packages take the
+    same subset: every level's centers agree exactly, the features within
+    MODULE_RTOL."""
+    pts = dense_cloud(np.random.RandomState(25), 2, 200)
+    npoints = [80, 40, 20]
+    cfg = CfgNode({'SA_CONFIG': {
+        'NPOINTS': npoints, 'SAMPLE_METHOD': ['fps', 'random', 'fps'],
+        'RADIUS': [[1.0, 2.0]] * 3, 'NSAMPLE': [[4, 6]] * 3, 'MLPS': [[[8], [8]]] * 3},
+        'FP_MLPS': []})
+    perm = torch.randperm(npoints[0], generator=torch.Generator().manual_seed(3))
+    monkeypatch.setattr(jax.random, 'permutation', lambda key, n: jnp.asarray(perm.numpy()))
+    j_net = j_bb.PointNet2MSG(model_cfg=cfg, input_channels=4)
+    j_batch = {'points': jnp.asarray(pts)}
+    variables = randomize_variables(
+        j_net.init({'params': jax.random.PRNGKey(0), 'sampling': jax.random.PRNGKey(1)}, j_batch),
+        1, bias_scale=0.1)
+    j_out = j_net.apply(variables, j_batch, rngs={'sampling': jax.random.PRNGKey(2)})
+    t_net = t_bb.PointNet2MSG(cfg, 4, pc_range=None).eval()
+    t_net.load_state_dict(from_flax(variables, t_net))
+    calls = []
+    real = t_bb.dispatch.farthest_point_sample
+
+    def counting(xyz, npoint):
+        calls.append((xyz.shape[1], npoint))
+        return real(xyz, npoint)
+
+    monkeypatch.setattr(t_bb.dispatch, 'farthest_point_sample', counting)
+    with torch.no_grad(), warnings.catch_warnings():
+        warnings.simplefilter('error')               # a generator: no degeneracy warning
+        t_out = t_net({'points': torch.from_numpy(pts)}, torch.Generator().manual_seed(3))
+    assert calls == [(200, 80)]                      # level 2 ran no FPS
+    t_xyz, j_xyz = t_out['sa_xyz'], [np.asarray(x) for x in j_out['sa_xyz']]
+    assert torch.equal(t_xyz[2], t_xyz[1][:, perm[:40]])          # the random subset
+    assert torch.equal(t_xyz[3], t_xyz[2][:, :20])                # 'fps' became 'prefix'
+    np.testing.assert_array_equal(j_xyz[3], j_xyz[2][:, :20])
+    for k in range(4):
+        np.testing.assert_array_equal(t_xyz[k].numpy(), j_xyz[k])
+    for k in range(1, 4):
+        assert_close_to_scale(t_out['sa_features'][k].numpy(), np.asarray(j_out['sa_features'][k]),
+                              MODULE_RTOL, f'sa_features[{k}]')
+
+
 def test_num_point_features_is_the_width_of_the_returned_level():
     pts = torch.from_numpy(dense_cloud(np.random.RandomState(24), 2, 200))
     for fp, width in (((), 16), ([[12], [10]], 12), ([[10]], 1)):
