@@ -24,11 +24,15 @@ non-zero exit):
    against their plain versions on the card, at the shapes of the flagship's
    three SA levels (B=8) and at one ragged shape (odd M, 37 channels of
    which a slice is read, three radii, cap 20, indices out of range, empty
-   balls, centers out of range): selection and gather exact, scatter-add
+   balls, centers out of range): selection and gather exact (the plain
+   emulation of the selection's compacted walk exact too), scatter-add
    within the rounding of float32 sums in any order; times kernel, plain
-   version and the one PyTorch call that computes the same function
-   (median of 5, CUDA events), and reckons each kernel's bound from the bytes
-   it must move;
+   version and the one PyTorch call that computes the same function (median
+   of 5, CUDA events), and reckons each kernel's bound from the bytes it
+   must move; prints per SA level and in total, from the plain emulations,
+   the selection's occupied slots and walk steps per center against the
+   ceil(9 * cap / 32) of a walk over the uncompacted window, and the
+   scatter-add's rows, runs, sums sent and atomics;
 7. the flagship's training loss and every parameter's gradient at B=2,
    N=4096 on CUDA against the CPU, TF32 off;
 8. five training steps of the unmodified flagship at B=8, N=16384 with 8
@@ -606,11 +610,12 @@ def sa_level_specs(cfg) -> list:
 
 
 def group_case(name, xyz, new_xyz, radii, nsamples, width, slices, cap, pc_range, seed,
-               group, sa_fused, spoil_idx=False, reps=5) -> dict:
+               group, sa_fused, spoil_idx=False, reps=5) -> tuple[dict, dict]:
     """One shape through the three grouping kernels and their plain
     versions. Returns per-kernel dicts of err, ms, plain_ms, library_ms,
     bound_ms summed over the shape's launches (one selection, one gather and
-    one scatter-add per branch)."""
+    one scatter-add per branch), and the counts of the plain emulations: the
+    selection's walk ('walk') and the scatter-add's runs ('runs')."""
     dev = xyz.device
     B, N, _ = xyz.shape
     M = new_xyz.shape[1]
@@ -633,6 +638,12 @@ def group_case(name, xyz, new_xyz, radii, nsamples, width, slices, cap, pc_range
                              f'{int((g_hit != w_hit).sum())} hits, '
                              f'{int((g_rel != w_rel).sum())} rel values differ')
         empty += int((~g_hit).sum())
+    # the plain emulation of the compacted walk, which counts its steps
+    walk, occupied, steps = group.window_select_walk_plain(*sel_args)
+    for g, w in zip(walk, want):
+        if not all(torch.equal(a, b) for a, b in zip(g, w)):
+            raise SystemExit(f'[6 group] FAILED {name} window_select: the walk emulation '
+                             'differs from plain')
     sel_t = device_time(lambda: group.window_select_cuda(*sel_args), reps)
     res = {'window_select': {
         'err': 0.0, 'ms': sel_t['ms'], 'host_us': sel_t['host_us'], 'call_ms': sel_t['call_ms'],
@@ -640,12 +651,22 @@ def group_case(name, xyz, new_xyz, radii, nsamples, width, slices, cap, pc_range
         'library_ms': None, 'library_host_us': None,
         'bytes': (table.numel() * 4 + cells.numel() * 4 + xyz.numel() * 4 + new_xyz.numel() * 4
                   + sum(B * M * K * 16 + B * M for K in nsamples))}}
+    walked = {'centers': B * M, 'occupied': int(occupied.sum()),
+              'occupied_max': int(occupied.max()), 'steps': int(steps.sum()),
+              'steps_max': int(steps.max()), 'uncompacted_steps': B * M * -(-9 * cap // 32)}
+    counts = {'walk': walked, 'runs': {'rows': 0, 'runs': 0, 'sums': 0, 'atomics': 0}}
+    log('6 group', f'{name} window_select: {sel_t["ms"]:.4f} ms device; plain emulation of the '
+        f'walk: occupied slots per center {walked["occupied"] / (B * M):.2f} mean, '
+        f'{walked["occupied_max"]} max; steps per center {walked["steps"] / (B * M):.3f} mean, '
+        f'{walked["steps_max"]} max, against the {-(-9 * cap // 32)} of a walk over the '
+        'uncompacted window')
 
     gen = torch.Generator(device='cpu').manual_seed(seed)
     payload = torch.randn((B, N, width), generator=gen).to(dev)
     zero = {'err': 0.0, 'ms': 0.0, 'host_us': 0.0, 'call_ms': 0.0, 'plain_ms': 0.0,
             'library_ms': 0.0, 'library_host_us': 0.0, 'bytes': 0}
     gather, scatter = dict(zero), dict(zero)
+    sm_count = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def add(acc: dict, kern: dict, lib: dict) -> None:
         for key in ('ms', 'host_us', 'call_ms'):
@@ -701,11 +722,25 @@ def group_case(name, xyz, new_xyz, radii, nsamples, width, slices, cap, pc_range
                            rows.long() + torch.arange(B, device=dev)[:, None] * N, B * N)
         flat = flat.reshape(-1)
         v2 = vals.reshape(-1, C)
-        add(scatter, device_time(lambda: group.scatter_add_rows_cuda(vals, rows, N), reps),
+        s_t = device_time(lambda: group.scatter_add_rows_cuda(vals, rows, N), reps)
+        add(scatter, s_t,
             device_time(lambda: torch.zeros((B * N + 1, C), device=dev).index_add_(0, flat, v2),
                         reps))
         scatter['plain_ms'] += median_ms(lambda: group.scatter_add_rows_plain(vals, rows, N), reps)
-        scatter['bytes'] += vals.numel() * 4 + rows.numel() * 4 + B * N * C * 4
+        s_bytes = vals.numel() * 4 + rows.numel() * 4 + B * N * C * 4
+        scatter['bytes'] += s_bytes
+        # rows added, runs of equal indices, sums sent and the atomics they
+        # take (one per unit of the row), counted by the plain emulation
+        s_plan = group.scatter_plan(B, M * K, C, N, sm_count, vals.data_ptr() % 16)
+        n_rows, n_runs, n_sums = group.scatter_runs(rows, N, s_plan.span)
+        ran = {'rows': n_rows, 'runs': n_runs, 'sums': n_sums,
+               'atomics': n_sums * C * 4 // s_plan.unit}
+        for key, v in ran.items():
+            counts['runs'][key] += v
+        log('6 group', f'{name} scatter_add_rows (B={B}, R={M * K}, C={C}, {s_plan}): plain '
+            f'emulation: rows {n_rows}, runs {n_runs}, sums sent {n_sums}, atomics '
+            f'{ran["atomics"]} of {s_plan.unit // 4} floats; kernel {timing_note(s_t)}; bound '
+            f'{s_bytes / HBM_BYTES_PER_S * 1e3:.5f} ms')
     res['gather_rows'], res['scatter_add_rows'] = gather, scatter
     for r in res.values():
         r['bound_ms'] = r.pop('bytes') / HBM_BYTES_PER_S * 1e3
@@ -718,7 +753,7 @@ def group_case(name, xyz, new_xyz, radii, nsamples, width, slices, cap, pc_range
                     + ('-' if r['library_ms'] is None
                        else f'{r["library_ms"]:.4f}/{r["library_host_us"]:.1f}')
                     + f', {r["bound_ms"]:.4f}' for k, r in res.items()))
-    return res
+    return res, counts
 
 
 def group_phase(cfg, fps_mod, group, sa_fused, synthetic) -> dict:
@@ -729,12 +764,12 @@ def group_phase(cfg, fps_mod, group, sa_fused, synthetic) -> dict:
     pts = torch.from_numpy(synthetic.kitti_points(8, 16384, 6)[..., :3].copy()).cuda()
     order = fps_mod.farthest_point_sample_cuda(pts, 4096).long()
     sampled = torch.gather(pts, 1, order[..., None].expand(-1, -1, 3))    # FPS order
-    total = {}
+    total, emulated = {}, {}
     for k, (name, n_in, m, radii, nsamples, width, slices, cap) in enumerate(sa_level_specs(cfg)):
         xyz = (pts if k == 0 else sampled[:, :n_in]).contiguous()
         new_xyz = sampled[:, :m].contiguous()
-        res = group_case(name, xyz, new_xyz, radii, nsamples, width, slices, cap, bev, 20 + k,
-                         group, sa_fused)
+        res, counts = group_case(name, xyz, new_xyz, radii, nsamples, width, slices, cap, bev,
+                                 20 + k, group, sa_fused)
         for kern, r in res.items():
             lib = None if r['library_ms'] is None else 0.0
             t = total.setdefault(kern, {'err': 0.0, 'ms': 0.0, 'host_us': 0.0, 'call_ms': 0.0,
@@ -746,6 +781,24 @@ def group_phase(cfg, fps_mod, group, sa_fused, synthetic) -> dict:
             if lib is not None:
                 t['library_ms'] += r['library_ms']
                 t['library_host_us'] += r['library_host_us']
+            t.setdefault('level_ms', []).append(r['ms'])
+        for key, r in counts.items():    # the selection's walk, the scatter's runs
+            acc = emulated.setdefault(key, dict.fromkeys(r, 0))
+            for c, v in r.items():
+                acc[c] = max(acc[c], v) if c.endswith('_max') else acc[c] + v
+    walk, runs = emulated['walk'], emulated['runs']
+    sc_ms = total['scatter_add_rows']['level_ms']
+    log('6 group', f'flagship levels in total: window_select {total["window_select"]["ms"]:.4f} '
+        f'ms device ({total["window_select"]["level_ms"]}), plain emulation of its walk: '
+        f'occupied slots per center {walk["occupied"] / walk["centers"]:.2f} mean, '
+        f'{walk["occupied_max"]} max, steps per center {walk["steps"] / walk["centers"]:.3f} '
+        f'mean, {walk["steps_max"]} max, against the '
+        f'{walk["uncompacted_steps"] / walk["centers"]:.0f} of a walk over the uncompacted window; '
+        f'scatter_add_rows {total["scatter_add_rows"]["ms"]:.4f} ms device ({sc_ms}; the train '
+        f'step\'s 4 launches, levels 2 and 3: {sum(sc_ms[1:]):.4f}), bound '
+        f'{total["scatter_add_rows"]["bound_ms"]:.4f}, plain emulation of its runs: rows '
+        f'{runs["rows"]}, runs {runs["runs"]}, sums sent {runs["sums"]}, atomics '
+        f'{runs["atomics"]}')
     # ragged: odd sizes, a slice of 37 channels that starts off a 16-byte
     # boundary, three radii, cap 20, points and centers outside the range
     rng = np.random.RandomState(9)

@@ -107,6 +107,51 @@ def window_select_plain(table: torch.Tensor, center_cells: torch.Tensor, grid_w:
                         radii, nsamples)
 
 
+# parts (32 slots of one cell each) of the window that a warp of
+# `window_select_cuda` loads in one pass: kMaxLoads in `csrc/group.cu`
+SELECT_PASS_PARTS = 9
+
+
+def window_select_walk_plain(table: torch.Tensor, center_cells: torch.Tensor, grid_w: int,
+                             xyz: torch.Tensor, new_xyz: torch.Tensor,
+                             radii: Sequence[float], nsamples: Sequence[int]):
+    """Plain emulation of the kernel's walk: each pass of `SELECT_PASS_PARTS`
+    parts of the window (32 slots of one cell each) compacted to its occupied
+    slots in candidate order, walked 32 at a time, stopping once every radius
+    has its K hits. Returns (the list over radii of (rel_xyz, idx, hit) that
+    the candidates walked select, the occupied slots of each center's window
+    (B, M), the walk's steps per center (B, M)). The selection equals
+    `window_select_plain` where the walk stops no earlier than it may."""
+    cap = table.shape[2]
+    cand = window_candidates(table, center_cells, grid_w).long()
+    B, M, L = cand.shape
+    dev = cand.device
+    valid = cand >= 0
+    d2 = (flat_gather(xyz, cand.clamp(min=0)) - new_xyz[:, :, None, :]).square()
+    d2 = (d2[..., 0] + d2[..., 1]) + d2[..., 2]
+    within = torch.stack([valid & (d2 < r * r) for r in radii], -1)         # (B, M, L, nb)
+    need = torch.tensor([int(k) for k in nsamples], device=dev)
+    hits = torch.zeros((B, M, len(radii)), dtype=torch.long, device=dev)
+    steps = torch.zeros((B, M), dtype=torch.long, device=dev)
+    walked = torch.zeros_like(valid)
+    pos = torch.arange(L, device=dev)
+    pass_of = (pos // cap * -(-cap // 32) + pos % cap // 32) // SELECT_PASS_PARTS
+    for p in range(int(pass_of.max()) + 1):
+        lo, hi = int((pass_of < p).sum()), int((pass_of <= p).sum())
+        v = valid[..., lo:hi]
+        place = torch.cumsum(v.long(), -1) - v.long()                      # in the compact list
+        n = v.sum(-1)
+        step_of = torch.where(v, place // 32, -1)
+        for s in range(-(-v.shape[-1] // 32)):
+            on = (32 * s < n) & ~(hits >= need).all(-1)
+            mine = (step_of == s) & on[..., None]
+            steps += on.long()
+            walked[..., lo:hi] |= mine
+            hits += (within[..., lo:hi, :] & mine[..., None]).sum(2)
+    outs = window_group(torch.where(walked, cand, -1), xyz, new_xyz, radii, nsamples)
+    return outs, valid.sum(-1), steps
+
+
 def _need(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
     if t.device.type != 'cuda':
         raise ValueError(f'{name}: the kernel needs a CUDA tensor, got {t.device}')
@@ -317,11 +362,106 @@ gather_rows_cuda.launches = 0
 gather_rows_cuda.launches_bf16 = 0
 
 
+# threads of a scatter-add block, the most rows of a warp's tile, the rows a
+# lane group walks at most, and the warps per SM below which the plan
+# shortens the walks to keep loads in flight
+SCATTER_THREADS = 256
+SCATTER_MAX_TILE = 256
+SCATTER_SPAN = 32
+SCATTER_WARPS_PER_SM = 4
+
+
+class ScatterPlan(NamedTuple):
+    unit: int          # bytes of each load and atomic: 16, 8 or 4
+    lanes: int         # lanes per row (a power of two)
+    span: int          # consecutive rows a lane group walks, summing runs
+    tile_rows: int     # rows of a warp's tile: span * 32 / lanes
+    wide_index: bool   # 64-bit offsets
+    blocks: int        # blocks along the grid's x axis
+
+
+def scatter_plan(B: int, R: int, C: int, n_rows: int, sm_count: int,
+                 start: int = 0) -> ScatterPlan:
+    """The launch of `scatter_add_rows_cuda` for (B, R, C) float32 rows whose
+    first lies `start` bytes past a 16-byte boundary, added into
+    (B, n_rows, C). Mirrors `csrc/group.cu`."""
+    row = 4 * C
+    unit = _align(start, row)
+    lanes = min(32, _pow2_at_least(row // unit))
+    groups = 32 // lanes
+    span = min(SCATTER_SPAN, SCATTER_MAX_TILE // groups)
+    while span > 4 and -(-B * R // (span * groups)) < sm_count * SCATTER_WARPS_PER_SM:
+        span //= 2
+    tile = span * groups
+    wide = B * (R + n_rows) * row >= _INDEX_LIMIT
+    tiles = -(-R // tile)                                 # a warp's tiles per cloud
+    blocks = min(-(-tiles // (SCATTER_THREADS // 32)),
+                 -(-sm_count * BLOCKS_PER_SM // min(B, 65535)))
+    return ScatterPlan(unit, lanes, span, tile, wide, max(1, blocks))
+
+
+@functools.lru_cache(maxsize=1024)
+def _scatter_plan_on(index: int, B: int, R: int, C: int, n_rows: int,
+                     start: int) -> ScatterPlan:
+    return scatter_plan(B, R, C, n_rows, _sm_count(index), start)
+
+
+def _run_ends(idx: torch.Tensor, span: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rows where a run of equal indices begins, and rows where a lane group
+    sends a sum: the last row of a run or of the group's `span` rows."""
+    R = idx.shape[1]
+    change = idx[:, 1:] != idx[:, :-1]
+    head = torch.ones_like(idx, dtype=torch.bool)
+    head[:, 1:] = change
+    end = torch.ones_like(head)
+    end[:, :-1] = change
+    end |= (torch.arange(R, device=idx.device) % span == span - 1)
+    return head, end
+
+
+def scatter_runs(idx: torch.Tensor, n_rows: int, span: int) -> tuple[int, int, int]:
+    """(rows, runs, sums sent) of the kernel over idx (B, R) with lane groups
+    of `span` rows, counting only indices in [0, n_rows): rows added, runs of
+    equal consecutive indices, and the sums a group sends (each one atomic
+    per unit of the row)."""
+    ok = (idx >= 0) & (idx < n_rows)
+    head, end = _run_ends(idx, span)
+    return int(ok.sum()), int((head & ok).sum()), int((end & ok).sum())
+
+
+def scatter_add_runs_plain(vals: torch.Tensor, idx: torch.Tensor, n_rows: int,
+                           span: int) -> torch.Tensor:
+    """Plain emulation of the kernel's arithmetic: each lane group's `span`
+    consecutive rows summed run by run in row order in the type of `vals`,
+    each sum then added to its output row (in row order here; in any order
+    on the card). An index outside [0, n_rows) is dropped."""
+    B, R, C = vals.shape
+    idx = idx.long()
+    pad = -R % span
+    v = torch.nn.functional.pad(vals, (0, 0, 0, pad)).view(B, -1, span, C)
+    real = torch.nn.functional.pad(torch.ones((B, R), dtype=torch.bool, device=idx.device),
+                                   (0, pad)).view(B, -1, span)
+    _, end = _run_ends(idx, span)
+    end = torch.nn.functional.pad(end, (0, pad)).view(B, -1, span)
+    at = torch.nn.functional.pad(idx, (0, pad), value=-1).view(B, -1, span)
+    out = torch.zeros((B, n_rows + 1, C), dtype=vals.dtype, device=vals.device)
+    acc = torch.zeros_like(v[:, :, 0])
+    bi = torch.arange(B, device=vals.device)[:, None].expand(-1, at.shape[1])
+    for j in range(span):
+        acc = acc + torch.where(real[:, :, j, None], v[:, :, j], 0.0)
+        send = end[:, :, j] & real[:, :, j]
+        row = torch.where(send & (at[:, :, j] >= 0) & (at[:, :, j] < n_rows), at[:, :, j],
+                          n_rows)                             # the last row: dropped
+        out.index_put_((bi[send], row[send]), acc[send], accumulate=True)
+        acc = torch.where(send[..., None], 0.0, acc)
+    return out[:, :n_rows]
+
+
 def scatter_add_rows_cuda(vals: torch.Tensor, idx: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """One launch of `scatter_add_rows_kernel` into a zeroed buffer.
-    vals (B, R, C) float32 and idx (B, R) int32, contiguous CUDA tensors.
-    Returns (B, n_rows, C) float32. The additions are atomic, so their order
-    changes from run to run."""
+    """One launch of `scatter_add_runs_kernel` into a zeroed buffer, as
+    `scatter_plan` says. vals (B, R, C) float32 and idx (B, R) int32,
+    contiguous CUDA tensors. Returns (B, n_rows, C) float32. The sums of
+    runs are added by atomics, so their order changes from run to run."""
     _need(vals, 'vals', torch.float32, 3)
     _need(idx, 'idx', torch.int32, 2)
     _need_contiguous(vals, 'vals')
@@ -330,14 +470,15 @@ def scatter_add_rows_cuda(vals: torch.Tensor, idx: torch.Tensor, n_rows: int) ->
     if tuple(idx.shape) != (B, R) or idx.device != vals.device or min(B, R, C, n_rows) < 1:
         raise ValueError(f'vals {tuple(vals.shape)}, idx {tuple(idx.shape)} and '
                          f'n_rows {n_rows} disagree')
-    out = torch.zeros((B, n_rows, C), dtype=torch.float32, device=vals.device)
     index = vals.device.index
+    plan = _scatter_plan_on(index, B, R, C, int(n_rows), vals.data_ptr() % 16)
+    out = torch.zeros((B, n_rows, C), dtype=torch.float32, device=vals.device)
     with kernels.on_device(index):
-        err = kernels.load().scatter_add_rows_launch(vals.data_ptr(), idx.data_ptr(),
-                                                     out.data_ptr(), B, R, C, int(n_rows),
-                                                     kernels.stream(index))
+        err = kernels.load().scatter_add_rows_launch(
+            vals.data_ptr(), idx.data_ptr(), out.data_ptr(), B, R, C, int(n_rows), plan.unit,
+            plan.lanes, plan.span, int(plan.wide_index), plan.blocks, kernels.stream(index))
     if err != 0:
-        raise RuntimeError(f'scatter_add_rows_launch failed with CUDA error {err}')
+        raise RuntimeError(f'scatter_add_rows_launch {plan} failed with CUDA error {err}')
     scatter_add_rows_cuda.launches += 1
     return out
 

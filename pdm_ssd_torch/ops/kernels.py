@@ -40,7 +40,7 @@ _ENTRY_POINTS = {
                                  _P, _P, _P, _P, _P, _P],
         'gather_rows_launch': [_P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _I, _I, _P],
         'gather_rows_bf16_launch': [_P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _I, _I, _P],
-        'scatter_add_rows_launch': [_P, _P, _P, _I, _I, _I, _I, _P],
+        'scatter_add_rows_launch': [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     },
     'ball_query.cu': {
         'ball_query_max_branches': [],

@@ -1,6 +1,6 @@
-"""Device time of two kernels as a model call makes them, on one GPU: the
-sparse conv over SECOND's 12 layers and the ball query over PointRCNN's three
-backbone levels.
+"""Device time of four kernels as a model call makes them, on one GPU: the
+sparse conv over SECOND's 12 layers, the ball query over PointRCNN's three
+backbone levels, and the flagship's in-ball selection and row scatter-add.
 
     python3 pdm_ssd_torch/tools/time_kernels.py [--tree DIR] [--out FILE]
 
@@ -8,13 +8,19 @@ Run it by path from the repository root. `--tree` names a checkout of this
 repository whose `pdm_ssd_torch` is timed (default: the one this script lies
 in), so two commits are compared in turns on one card: parent, change,
 change, parent, each its own process. The inputs are the full-width ones of
-`chip_smoke.py` phases 9, 12 and 15: `second_sparse.yaml` as shipped at B=4
-on `synthetic.voxel_batch(4, 50000, seed=5)` with seeded weights, and
+`chip_smoke.py` phases 6, 9, 12 and 15: `second_sparse.yaml` as shipped at
+B=4 on `synthetic.voxel_batch(4, 50000, seed=5)` with seeded weights,
 `pointrcnn.yaml` with the FP list made whole at B=4 on
-`synthetic.kitti_points(4, 16384, 5)`. Each sparse layer's call is the one
-its forward makes (with its map's plan where the tree has plans; the plans'
-build is timed on its own), each ball query the level's
-`dispatch.ball_query_level` (with the grid build where the tree builds one).
+`synthetic.kitti_points(4, 16384, 5)`, and `pdm_ssd_point.yaml`'s three SA
+levels at B=8 on `synthetic.kitti_points(8, 16384, 6)` with FPS centers.
+Each sparse layer's call is the one its forward makes (with its map's plan
+where the tree has plans; the plans' build is timed on its own), each ball
+query the level's `dispatch.ball_query_level` (with the grid build where the
+tree builds one), each selection one `group.window_select_cuda` call of an
+SA level on its slot table (built outside the timed call), and the
+scatter-add the 4 launches of a flagship train step's backward (levels 2
+and 3, one a radius) on the indices that level's selection gives, an empty
+ball's slots at -1, as `sa_fused.fused_query_group` passes them.
 A reading is device time per call: a sleep kernel long enough to cover the
 enqueue queued first, then n back-to-back calls between two CUDA events (a
 run of at least 1 ms), median of 5 runs. Prints one JSON line, with the
@@ -63,6 +69,47 @@ def device_ms(fn, runs: int = 5) -> float:
 
     n = min(500, max(20, int(1.0 / max(run(20), 1e-4)) + 1))
     return statistics.median(run(n) for _ in range(runs))
+
+
+def grouping_ms(cfg, synthetic) -> dict:
+    """The flagship's selection per SA level and its train step's scatter-adds
+    per level and radius, device ms per call."""
+    import torch
+
+    from pdm_ssd_torch.ops import fps, group, sa_fused
+    sa = cfg.MODEL.BACKBONE_3D.SA_CONFIG
+    cap = int(sa.get('BUCKET_CAP', 32))
+    pcr = cfg.DATA_CONFIG.POINT_CLOUD_RANGE
+    pc_range = (pcr[0], pcr[1], pcr[3], pcr[4])
+    pts = torch.from_numpy(synthetic.kitti_points(8, 16384, 6)[..., :3].copy()).cuda()
+    order = fps.farthest_point_sample_cuda(pts, int(sa.NPOINTS[0])).long()
+    sampled = torch.gather(pts, 1, order[..., None].expand(-1, -1, 3))    # FPS order
+    gen = torch.Generator(device='cpu').manual_seed(20)
+    select, scatter = {}, {}
+    n_in = pts.shape[1]
+    for k, m in enumerate(sa.NPOINTS):
+        xyz = (pts if k == 0 else sampled[:, :n_in]).contiguous()
+        new_xyz = sampled[:, :m].contiguous()
+        radii, nsamples = list(sa.RADIUS[k]), list(sa.NSAMPLE[k])
+        cs = float(max(radii))
+        gw = sa_fused.grid_dims(pc_range, cs)
+        pc_min = (float(pc_range[0]) - cs, float(pc_range[1]) - cs)
+        table = sa_fused.build_slot_table(xyz, cs, gw, cap, pc_min)
+        cells = sa_fused.cell_ids(new_xyz, cs, gw, pc_min).to(torch.int32)
+        args = (table, cells, gw[0], xyz, new_xyz, radii, nsamples)
+        select[f'sa{k + 1}'] = device_ms(lambda: group.window_select_cuda(*args))
+        if k > 0:   # level 1 gathers raw input, which takes no gradient
+            for (_, idx, hit), K, mlp in zip(group.window_select_cuda(*args), nsamples,
+                                             sa.MLPS[k]):
+                rows = torch.where(hit[..., None], idx, -1).reshape(idx.shape[0], -1)
+                rows = rows.contiguous()
+                vals = torch.randn((*rows.shape, int(mlp[0])), generator=gen).cuda()
+                scatter[f'sa{k + 1}_k{K}'] = device_ms(
+                    lambda: group.scatter_add_rows_cuda(vals, rows, n_in))
+        n_in = m
+    return {'window_select_ms': select, 'window_select_total_ms': sum(select.values()),
+            'scatter_add_rows_ms': scatter,
+            'scatter_add_rows_total_ms': sum(scatter.values())}
 
 
 def main() -> None:
@@ -132,6 +179,10 @@ def main() -> None:
                 sa.radii, sa.nsamples, l_xyz[k], l_xyz[k + 1]))
         out['ball_query_ms'] = levels
         out['ball_query_total_ms'] = sum(levels.values())
+        del net, bb, l_xyz
+
+        out.update(grouping_ms(cfg_from_yaml_file('configs/kitti_models/pdm_ssd_point.yaml'),
+                               synthetic))
     line = json.dumps(out)
     print(line)
     if out_path is not None:

@@ -433,7 +433,9 @@ def _select_inputs(rng, B, N, M, cap, radii, pc_range=(0.0, -8.0, 12.0, 8.0)):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize('cap,nsamples', [(32, (16, 32)), (4, (8, 16)), (20, (5, 70, 3))])
+@pytest.mark.parametrize('cap,nsamples', [(32, (16, 32)), (4, (8, 16)), (20, (5, 70, 3)),
+                                          (64, (40, 64)), (32, (128, 128, 1)),
+                                          (32, (256, 320, 128))])
 def test_window_select_kernel_matches_plain_on_the_card(cap, nsamples):
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
@@ -454,7 +456,7 @@ def test_window_select_kernel_matches_plain_on_the_card(cap, nsamples):
 @pytest.mark.gpu
 @pytest.mark.parametrize('C,s0,s1', [(1, 0, 1), (64, 0, 64), (128, 64, 128), (37, 3, 22),
                                      (4, 0, 3), (5, 3, 5), (8, 1, 5), (96, 0, 96),
-                                     (300, 0, 256), (37, 36, 37)])
+                                     (300, 0, 256), (37, 36, 37), (37, 0, 37), (128, 0, 128)])
 def test_gather_and_scatter_kernels_match_plain_on_the_card(C, s0, s1):
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device (the kernels have no CPU mode)')
@@ -467,12 +469,17 @@ def test_gather_and_scatter_kernels_match_plain_on_the_card(C, s0, s1):
     torch.cuda.synchronize()
     assert torch.equal(got.cpu(), group.gather_rows_plain(feats[..., s0:s1], idx))
     vals = torch.from_numpy(rng.randn(B, R, s1 - s0).astype(np.float32))
-    back = dispatch.scatter_add_rows(vals.cuda(), idx.cuda(), N)
-    torch.cuda.synchronize()
-    want = group.scatter_add_rows_plain(vals.double(), idx, N)
-    # float32 atomic sums of ~R/N = 6 terms of unit scale in any order, held
-    # against a float64 sum: a few ulp of the largest partial sum
-    torch.testing.assert_close(back.cpu().double(), want, rtol=0, atol=1e-5)
+    # random indices, then runs as the selection lays them out: 16 slots a
+    # center, a few hits each, the first hit repeated
+    runs = np.repeat(rng.randint(-1, N, (B, R // 16 + 1)), 16, -1)[:, :R]
+    runs[:, 5::16] = rng.randint(0, N, (B, runs[:, 5::16].shape[1]))
+    for rows in (idx, torch.from_numpy(runs.astype(np.int64))):
+        back = dispatch.scatter_add_rows(vals.cuda(), rows.cuda(), N)
+        torch.cuda.synchronize()
+        want = group.scatter_add_rows_plain(vals.double(), rows, N)
+        # float32 sums of ~R/N = 6 terms of unit scale in any order, held
+        # against a float64 sum: a few ulp of the largest partial sum
+        torch.testing.assert_close(back.cpu().double(), want, rtol=0, atol=1e-5)
 
 
 def _ball_query_inputs(rng, B, N, M):

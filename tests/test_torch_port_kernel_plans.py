@@ -1,10 +1,12 @@
 """Launch plans of the port's kernels, and the kernel loader, on the CPU:
-`ops/fps.fps_plan` and `ops/group.gather_plan` are plain Python, so the
-choices the card's launches follow are tested here with the card's counts
-mocked; `ops/sparse_conv.sparse_conv_plan` and the ball query's grid
+`ops/fps.fps_plan`, `ops/group.gather_plan` and `scatter_plan` are plain
+Python, so the choices the card's launches
+follow are tested here with the card's counts mocked;
+`ops/sparse_conv.sparse_conv_plan`, the ball query's grid
 (`ops/ball_query.build_grid`, `ball_query_plan`, and the plain emulation of
-the grid walk) are torch ops that run here as on the card. The kernels
-themselves run in the `gpu`-marked tests here and in
+the grid walk) and the plain emulations of the compacted window walk and of
+the run-merged scatter-add are torch ops that run here as on the card. The
+kernels themselves run in the `gpu`-marked tests here and in
 `test_torch_port_guards.py`, which skip without a card."""
 import math
 from itertools import product
@@ -14,7 +16,7 @@ import pytest
 import torch
 
 from pdm_ssd_torch.ops import ball_query as bq
-from pdm_ssd_torch.ops import dispatch, fps, group, kernels
+from pdm_ssd_torch.ops import dispatch, fps, group, kernels, sa_fused
 from pdm_ssd_torch.ops import pointnet2 as plain
 from pdm_ssd_torch.ops import sparse_conv as sc
 
@@ -195,6 +197,255 @@ def test_gather_plan_blocks_fill_the_card_once():
     assert plan.blocks == math.ceil(8 * 65536 / 4 / group.ROW_THREADS)
     plan = group.gather_plan(8, 4096, 1 << 20, 64, 4, 64, 0, SM)
     assert plan.blocks * 8 == SM * group.BLOCKS_PER_SM        # grid-stride beyond that
+
+
+# ---- row scatter-add ----------------------------------------------------------
+
+@pytest.mark.parametrize('C,start,want', [
+    (1, 0, (4, 1, 8, 256)),            # a float a row: 32 groups of one lane, 8 rows each
+    (19, 0, (4, 32, 32, 32)),          # the ragged case's slice: 76 bytes, 4-byte units
+    (37, 0, (4, 32, 32, 32)),          # 37 units: two a lane for the first 5 lanes
+    (64, 0, (16, 16, 32, 64)),         # SA level 2: 16 float4 a row, two groups a warp
+    (128, 0, (16, 32, 32, 32)),        # SA level 3: 32 float4 a row
+    (64, 8, (8, 32, 32, 32)),          # rows 8 bytes off a 16-byte boundary
+    (6, 0, (8, 4, 32, 256)),
+])
+def test_scatter_plan_by_shape(C, start, want):
+    """(unit bytes, lanes per row, rows a group walks, tile rows) by row width
+    and alignment, with rows enough that no walk is shortened."""
+    plan = group.scatter_plan(8, 32768, C, 4096, SM, start)
+    assert (plan.unit, plan.lanes, plan.span, plan.tile_rows) == want
+    # what csrc/group.cu checks before it launches
+    assert (4 * C) % plan.unit == 0 and start % plan.unit == 0
+    assert plan.lanes & (plan.lanes - 1) == 0 and plan.tile_rows <= group.SCATTER_MAX_TILE
+    assert plan.tile_rows == plan.span * 32 // plan.lanes
+    assert plan.lanes >= min(32, 4 * C // plan.unit) > plan.lanes // 2
+    assert not plan.wide_index
+
+
+def test_scatter_plan_shortens_walks_for_few_rows_and_widens_offsets():
+    assert group.scatter_plan(1, 100, 64, 50, SM).span == 4
+    assert group.scatter_plan(1, 8192, 128, 4096, SM).span == 8        # 1024 walks
+    assert group.scatter_plan(2, 16384, 128, 4096, SM).span == 32
+    assert group.scatter_plan(2, 1 << 21, 128, 8, SM).wide_index
+    assert not group.scatter_plan(1, 1 << 20, 128, 8, SM).wide_index
+    assert group.scatter_plan(2, 1 << 21, 1, 1 << 22, SM).blocks * 2 == SM * group.BLOCKS_PER_SM
+
+
+@pytest.mark.parametrize('B,R,C', [(3, 23310, 37), (2, 777, 64), (5, 33, 1), (8, 4096, 128)])
+def test_scatter_grid_visits_every_row_once(B, R, C):
+    """Rows the kernel's grid gives to lane groups, as csrc/group.cu walks
+    them: every row of every cloud once, each group's rows consecutive."""
+    plan = group.scatter_plan(B, R, C, 100, 4)
+    warps_per_block = group.SCATTER_THREADS // 32
+    gy = min(B, 65535)
+    seen = []
+    for by, bx, w in product(range(gy), range(plan.blocks), range(warps_per_block)):
+        for b in range(by, B, gy):
+            tile = (bx * warps_per_block + w) * plan.tile_rows
+            while tile < R:
+                for g in range(32 // plan.lanes):
+                    r0 = tile + g * plan.span
+                    seen += [(b, r) for r in range(r0, min(r0 + plan.span, R))]
+                tile += plan.blocks * warps_per_block * plan.tile_rows
+    assert sorted(seen) == [(b, r) for b in range(B) for r in range(R)]
+
+
+def _selection_rows(rng, B, M, K, N):
+    """Indices laid out as the selection's: a center's K slots hold its hits,
+    then repeat the first hit; an empty ball reads -1."""
+    hits = rng.randint(0, 5, (B, M))
+    idx = rng.randint(0, N, (B, M, K))
+    first = np.repeat(idx[..., :1], K, -1)
+    idx = np.where(np.arange(K) < hits[..., None], idx, first)
+    idx[hits == 0] = -1
+    return idx.reshape(B, M * K).astype(np.int32)
+
+
+def _scatter_case(kind: str):
+    """(vals, idx, n_rows, span) of one kind of edge case, as torch tensors."""
+    rng = np.random.RandomState(40)
+    B, R, C, N, span = 3, 1000, 5, 60, 32
+    if kind == 'selection':
+        idx = _selection_rows(rng, B, 40, 25, N)
+        R = idx.shape[1]
+    elif kind == 'out_of_range':
+        idx = rng.randint(-3, N + 3, (B, R))
+        idx[:, 100:180] = -1
+        idx[:, 200:290] = N
+        idx[:, 300:310] = N + 7
+    elif kind == 'runs_cross_tiles':
+        # runs of 50 and 70 equal indices, cut by every group's end
+        idx = np.repeat(rng.randint(0, N, (B, 20)), 50, -1)
+        idx[:, 500:570] = 7
+    elif kind == 'all_equal':
+        idx = np.full((B, R), 11)
+    elif kind == 'all_distinct':
+        N = R + 10
+        idx = np.stack([rng.permutation(R) for _ in range(B)])
+    elif kind == 'short_spans':
+        idx, span = np.repeat(rng.randint(-1, N, (B, R // 3 + 1)), 3, -1)[:, :R], 4
+    else:
+        raise ValueError(kind)
+    vals = rng.randn(B, idx.shape[1], C) * np.exp(rng.randn(B, idx.shape[1], 1))
+    vals, idx = torch.from_numpy(vals.astype(np.float32)), torch.from_numpy(idx.astype(np.int32))
+    return vals, idx, N, span
+
+
+SCATTER_CASES = ['selection', 'out_of_range', 'runs_cross_tiles', 'all_equal', 'all_distinct',
+                 'short_spans']
+
+
+def _scatter_bound(vals, idx, n_rows):
+    """The float64 sum and the rounding bound phase 6 of chip_smoke.py holds
+    the kernel to: 2^-23 * count * sum |v| per output value."""
+    exact = group.scatter_add_rows_plain(vals.double(), idx, n_rows)
+    mass = group.scatter_add_rows_plain(vals.double().abs(), idx, n_rows)
+    count = group.scatter_add_rows_plain(torch.ones(idx.shape + (1,), dtype=torch.float64),
+                                         idx, n_rows)
+    return exact, 2.0 ** -23 * count * mass + 1e-30
+
+
+@pytest.mark.parametrize('kind', SCATTER_CASES)
+def test_run_merged_scatter_emulation_is_within_the_float64_bound(kind):
+    """Runs summed in row order in float32 within each group's rows, then
+    added to the output: within the float64 bound; with one sum sent per
+    output row, equal to that sum bit for bit whatever the order of the
+    atomics; indices outside [0, n_rows) dropped."""
+    vals, idx, n_rows, span = _scatter_case(kind)
+    got = group.scatter_add_runs_plain(vals, idx, n_rows, span)
+    exact, tol = _scatter_bound(vals, idx, n_rows)
+    assert got.dtype == torch.float32 and tuple(got.shape) == tuple(exact.shape)
+    assert bool(((got.double() - exact).abs() <= tol).all()), kind
+    rows, runs, sent = group.scatter_runs(idx, n_rows, span)
+    ok = (idx >= 0) & (idx < n_rows)
+    assert rows == int(ok.sum()) and runs <= sent <= rows
+    if kind == 'all_equal':
+        B, R = idx.shape
+        assert runs == B and sent == B * -(-R // span)
+    if kind == 'all_distinct':
+        assert runs == sent == rows
+        assert torch.equal(got, group.scatter_add_rows_plain(vals, idx, n_rows))
+
+
+def test_scatter_runs_counts_the_selection_layout():
+    """K = 16 slots that all repeat one hit: one run and one sum a center;
+    a run of 48 equal rows over groups of 32: two sums."""
+    idx = torch.arange(8, dtype=torch.int32).repeat_interleave(16)[None]
+    assert group.scatter_runs(idx, 8, 32) == (128, 8, 8)
+    idx = torch.tensor([[5] * 48 + [2] * 16 + [-1] * 8 + [9] * 8], dtype=torch.int32)
+    assert group.scatter_runs(idx, 8, 32) == (64, 2, 3)
+
+
+# ---- in-ball selection -------------------------------------------------------
+
+def _window_case(kind: str):
+    """(table, center_cells, grid_w, xyz, new_xyz, radii, nsamples, cap) as
+    CPU tensors: a small input of one kind."""
+    rng = np.random.RandomState(41)
+    B, N, M, cap = 2, 3001, 300, 32
+    radii, nsamples = (0.8, 1.6), (16, 32)
+    pc_range = (0.0, -10.0, 20.0, 10.0)
+    xyz = np.stack([rng.uniform(-1, 21, (B, N)), rng.uniform(-11, 11, (B, N)),
+                    rng.uniform(-2, 1, (B, N))], -1).astype(np.float32)
+    if kind == 'cap_20':
+        cap, radii, nsamples = 20, (0.5, 1.3, 0.9), (5, 70, 3)
+    elif kind == 'full_cells':
+        # a dense patch inside one cell: that cell full to the cap, both balls
+        # full within the first step
+        xyz[:, :1500] = xyz[:, :1500] * 0.01 + np.float32([6.1, 0.1, 0.0])
+        radii, nsamples = (0.4, 0.8), (4, 8)
+    elif kind == 'k_above_32':
+        xyz[:, :2000, :2] = xyz[:, :2000, :2] * 0.1 + 5.0
+        cap, radii, nsamples = 64, (0.5, 1.0), (40, 64)
+    elif kind == 'cap_40':     # parts of 32 and 8 slots a cell, two passes
+        xyz[:, :2000, :2] = xyz[:, :2000, :2] * 0.1 + 5.0
+        cap, radii, nsamples = 40, (0.5, 1.0), (16, 48)
+    elif kind == 'cap_100':    # four parts a cell, four passes
+        xyz[:, :2000, :2] = xyz[:, :2000, :2] * 0.1 + 5.0
+        cap, nsamples = 100, (16, 48)
+    elif kind == 'large_k':
+        # four radii whose stages pass a block's default 48 KB of shared memory
+        xyz[:, :2000, :2] = xyz[:, :2000, :2] * 0.1 + 5.0
+        radii, nsamples = (0.5, 1.0, 0.7, 1.6), (200, 200, 200, 204)
+    elif kind == 'small_cap':
+        cap, nsamples = 4, (8, 16)
+    elif kind != 'cap_32':
+        raise ValueError(kind)
+    new_xyz = xyz[:, :M].copy()
+    new_xyz[:, :6, 0] = 90.0                   # out of range: the dump cell
+    new_xyz[:, 6:12, 2] = 40.0                 # in range, empty balls
+    xyz, new_xyz = torch.from_numpy(xyz), torch.from_numpy(new_xyz)
+    cs = float(max(radii))
+    gw = sa_fused.grid_dims(pc_range, cs)
+    pc_min = (pc_range[0] - cs, pc_range[1] - cs)
+    table = sa_fused.build_slot_table(xyz, cs, gw, cap, pc_min)
+    cells = sa_fused.cell_ids(new_xyz, cs, gw, pc_min)
+    return table, cells, gw[0], xyz, new_xyz, radii, nsamples, cap
+
+
+WINDOW_CASES = ['cap_32', 'cap_20', 'full_cells', 'k_above_32', 'cap_40', 'cap_100', 'large_k',
+                'small_cap']
+
+
+def _passes(cap: int) -> list:
+    """[start, end) in window slots of each pass of the kernel's parts, a
+    part being 32 slots of one cell (fewer at a cell's end)."""
+    starts = [w * cap + c for w in range(9) for c in range(0, cap, 32)]
+    edges = starts[::group.SELECT_PASS_PARTS] + [9 * cap]
+    return list(zip(edges[:-1], edges[1:]))
+
+
+@pytest.mark.parametrize('kind', WINDOW_CASES)
+def test_compacted_window_walk_equals_plain_selection(kind):
+    """The walk over each pass's occupied slots, compacted in candidate
+    order and stopped once every radius is full, selects exactly what
+    `window_select_plain` selects; out-of-range centers walk nothing, and
+    no center walks more steps than its occupied slots need."""
+    table, cells, gw, xyz, new_xyz, radii, nsamples, cap = _window_case(kind)
+    args = (table, cells, gw, xyz, new_xyz, radii, nsamples)
+    got, occupied, steps = group.window_select_walk_plain(*args)
+    want = group.window_select_plain(*args)
+    for (g_rel, g_idx, g_hit), (w_rel, w_idx, w_hit) in zip(got, want):
+        assert torch.equal(g_hit, w_hit) and torch.equal(g_idx, w_idx)
+        assert torch.equal(g_rel, w_rel)
+        assert not w_hit[:, :12].any() and w_hit.any()
+    assert not occupied[:, :6].any() and not steps[:, :6].any()
+    passes = _passes(cap)
+    assert len(passes) == -(-cap // 32)
+    most = sum(-(-(hi - lo) // 32) for lo, hi in passes)
+    assert bool((steps <= most).all()) and bool((steps * 32 >= occupied.clamp(max=32)).all())
+    # empty balls walk every occupied slot of every pass: nothing fills them
+    cand = group.window_candidates(table, cells, gw)[:, 6:12]
+    assert torch.equal(steps[:, 6:12], sum(-(-(cand[..., lo:hi] >= 0).sum(-1) // 32)
+                                           for lo, hi in passes))
+    if kind == 'full_cells':  # more than a step of slots, both balls full in the first
+        assert bool((occupied[:, 12:] > 32).all()) and bool((steps[:, 12:] == 1).all())
+
+
+def test_window_walk_stops_when_the_last_radius_fills():
+    """At cap 64 the window takes two passes of 288 slots. The first
+    compacts 17 + 32 occupied slots into two steps, and its first step fills
+    the small ball; the second pass starts at point 32, and its first step
+    fills the large ball with points 40 to 42: three steps, where the
+    window's 145 occupied slots would take five."""
+    table = torch.full((1, 10, 64), -1, dtype=torch.int32)
+    xyz = torch.zeros((1, 200, 3))
+    xyz[0, :, 0] = 5.0                                          # far: no hit
+    table[0, 4, :64] = torch.arange(64, dtype=torch.int32)      # the center's cell
+    table[0, 5, :64] = torch.arange(64, 128, dtype=torch.int32)
+    table[0, 1, 3:20] = torch.arange(128, 145, dtype=torch.int32)   # a cell not full from 0
+    xyz[0, :2, 0] = 0.1                                         # both balls, first step
+    xyz[0, 40:43, 0] = 0.3                                      # the larger ball, second step
+    center = torch.zeros((1, 1, 3))
+    cells = torch.tensor([[4]])
+    args = (table, cells, 3, xyz, center, (0.2, 0.5), (2, 4))
+    got, occupied, steps = group.window_select_walk_plain(*args)
+    assert occupied.tolist() == [[145]] and steps.tolist() == [[3]]
+    want = group.window_select_plain(*args)
+    for g, w in zip(got, want):
+        assert all(torch.equal(a, b) for a, b in zip(g, w))
+    assert want[1][1].tolist() == [[[0, 1, 40, 41]]]
 
 
 # ---- loader ------------------------------------------------------------------
@@ -580,3 +831,51 @@ def test_sparse_conv_kernel_result_does_not_depend_on_the_plan(B, Vin, Vout, K, 
     exact = sc.sparse_conv_plain(feats.double(), nbr, w.double())
     mass = sc.sparse_conv_plain(feats.double().abs(), nbr, w.double().abs())
     assert bool(((outs[0].double() - exact).abs() <= K * Cin * 2.0 ** -24 * mass + 1e-30).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kind,C', [(k, 5) for k in SCATTER_CASES]
+                         + [('selection', c) for c in (1, 19, 37, 64, 128)])
+def test_scatter_kernel_matches_the_run_merged_emulation_on_the_card(kind, C):
+    """The kernel within the float64 bound; an output row that takes one sum
+    equal bit for bit to the emulation's (the order of atomics cannot
+    matter there)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
+    vals, idx, n_rows, _ = _scatter_case(kind)
+    if C != vals.shape[2]:
+        vals = torch.from_numpy(np.random.RandomState(42).randn(*idx.shape, C).astype(np.float32))
+    B, R, _ = vals.shape
+    plan = group.scatter_plan(B, R, C, n_rows, torch.cuda.get_device_properties(0)
+                              .multi_processor_count)
+    got = group.scatter_add_rows_cuda(vals.cuda(), idx.cuda(), n_rows).cpu()
+    torch.cuda.synchronize()
+    exact, tol = _scatter_bound(vals, idx, n_rows)
+    assert bool(((got.double() - exact).abs() <= tol).all()), (kind, C)
+    want = group.scatter_add_runs_plain(vals, idx, n_rows, plan.span)
+    ok = (idx >= 0) & (idx < n_rows)
+    end = torch.ones_like(ok)
+    end[:, :-1] = idx[:, 1:] != idx[:, :-1]
+    end |= torch.arange(R) % plan.span == plan.span - 1
+    sums = group.scatter_add_rows_plain(torch.ones((B, R, 1)), torch.where(end & ok, idx, -1),
+                                        n_rows)[..., 0]
+    once = sums == 1
+    assert torch.equal(got[once], want[once]), (kind, C)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('kind', WINDOW_CASES)
+def test_window_select_kernel_matches_plain_at_the_walk_cases_on_the_card(kind):
+    """The kernel equals the plain version bit for bit at every case of the
+    walk emulation, stages past 48 KB of a block included."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
+    table, cells, gw, xyz, new_xyz, radii, nsamples, cap = _window_case(kind)
+    want = group.window_select_plain(table, cells, gw, xyz, new_xyz, radii, nsamples)
+    got = group.window_select_cuda(table.cuda().int(), cells.cuda().int(), gw, xyz.cuda(),
+                                   new_xyz.cuda(), radii, nsamples)
+    torch.cuda.synchronize()
+    for (g_rel, g_idx, g_hit), (w_rel, w_idx, w_hit) in zip(got, want):
+        assert torch.equal(g_hit.cpu(), w_hit), kind
+        assert torch.equal(g_idx.cpu().long(), w_idx), kind
+        assert torch.equal(g_rel.cpu(), w_rel), kind
