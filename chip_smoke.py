@@ -90,7 +90,28 @@ non-zero exit):
    points: shapes, finite values, the active and dropped sites of every
    stage, kernel launches counted in that run (12 sparse convs, 1 row
    gather), ms per batch and frames/s with and without voxelizer and map
-   build, peak memory.
+   build, peak memory;
+16. the mini-KITTI set (64 frames, 3 classes) generated by the port's own
+   generator under `build/chip_smoke_kitti/` (a checkout holds no `data/`),
+   then the flagship as shipped (seeded weights and BatchNorm
+   statistics, N=16384) through `runtime/eval_utils.eval_one_epoch` at B=8
+   over the val split: kernel launches counted over the loop, one predict's
+   worth a batch; recall and KITTI AP R40 finite, printed; frames/s of
+   `predict` alone and of the loop with loading; then the same loop at B=2
+   with `NUM_POINTS` 4096 over 8 frames on CUDA against the CPU: the same
+   number of detections in every frame, matched by box and label as phase 10
+   matches its ROIs;
+17. `runtime/trainer.train_model` on the mini train split at B=8, full
+   width, augmentation and GT sampling on: one epoch, a checkpoint, a resume
+   into a fresh model and optimizer (epoch, the schedule's iteration, the
+   optimizer's moments and the weights restored exactly), a second epoch,
+   the rotation down to `max_ckpt_save_num=1`; finite losses and the
+   kernels' launches over both epochs (the scatter-add's 4 a step); a model
+   loaded from the last checkpoint predicts bit for bit what the trained one
+   does (deterministic algorithms on for that comparison); then
+   `eval_one_epoch` of that checkpoint, AP printed, no threshold;
+18. `bench_torch.py` as a subprocess: exactly one JSON line with the four
+   keys and a positive value, printed with the card's name and power limit.
 
 The line before the last is the card's name and power limit; before it, one
 JSON line describing each kernel. The last line is
@@ -100,6 +121,7 @@ from __future__ import annotations
 
 import json
 import os
+import pickle
 import statistics
 import subprocess
 import sys
@@ -1496,6 +1518,223 @@ def second_predict_phase(cfg, net, inputs, wrappers, synthetic, card: str) -> di
     return launches
 
 
+# the mini-KITTI set of phases 16 and 17: the port's generator's defaults
+KITTI_FRAMES = 64
+KITTI_DIR = REPO / 'build' / 'chip_smoke_kitti'
+# frames of the CUDA-vs-CPU eval loop of phase 16
+EVAL_CPU_FRAMES = 8
+
+
+def kitti_cfg(root: Path, num_points: int = 16384):
+    """The flagship as shipped, reading the mini set at `root` with
+    `num_points` points a cloud."""
+    from pdm_ssd_torch.utils.config import cfg_from_yaml_file
+    cfg = cfg_from_yaml_file(str(REPO / CFG))
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    for proc in cfg.DATA_CONFIG.DATA_PROCESSOR:
+        if proc.NAME == 'sample_points':
+            proc.NUM_POINTS = {'train': num_points, 'test': num_points}
+    return cfg
+
+
+def r40_note(ret: dict) -> str:
+    return ', '.join(f'{c} 3d/bev R40 mod {ret[f"{c}_3d/moderate_R40"]:.4f}/'
+                     f'{ret[f"{c}_bev/moderate_R40"]:.4f}'
+                     for c in ('Car', 'Pedestrian', 'Cyclist'))
+
+
+def check_eval(phase: str, ret: dict) -> None:
+    """Recall and every AP R40 entry present and finite."""
+    keys = [k for k in ret if k.startswith('recall/') or k.endswith('_R40')]
+    if len(keys) < 3 + 3 * 9 or not all(np.isfinite(float(ret[k])) for k in keys):
+        raise SystemExit(f'[{phase}] FAILED: recall / AP R40 missing or not finite: '
+                         f'{ {k: ret[k] for k in keys} }')
+
+
+def annos_as_detections(annos: list, class_names: list) -> dict:
+    """KITTI det annos of a loop -> the padded layout `match_detections` reads."""
+    P = max([len(a['name']) for a in annos] + [1])
+    F = len(annos)
+    out = {'pred_boxes': torch.zeros(F, P, 7), 'pred_labels': torch.zeros(F, P, dtype=torch.long),
+           'pred_mask': torch.zeros(F, P, dtype=torch.bool)}
+    for f, a in enumerate(annos):
+        n = len(a['name'])
+        out['pred_boxes'][f, :n] = torch.from_numpy(np.asarray(a['boxes_lidar'], np.float32))
+        out['pred_labels'][f, :n] = torch.tensor([class_names.index(c) + 1 for c in a['name']],
+                                                 dtype=torch.long)
+        out['pred_mask'][f, :n] = True
+    return out
+
+
+def kitti_eval_phase(wrappers, synthetic, card: str) -> dict:
+    """Phase 16. Returns the launches of the B=8 eval loop."""
+    from pdm_ssd_torch.datasets import build_dataloader
+    from pdm_ssd_torch.runtime.eval_utils import eval_one_epoch
+    from pdm_ssd_torch.tools.make_mini_kitti import make
+    phase = '16 kitti eval'
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    root = make(KITTI_DIR, frames=KITTI_FRAMES)
+    log(phase, f'mini-KITTI: {KITTI_FRAMES} frames, 3 classes, generated with its infos and GT '
+        f'database in {time.perf_counter() - t0:.1f} s')
+    cfg = kitti_cfg(root)
+    B = 8
+    ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, B, root_path=root,
+                                     workers=0, training=False)
+    net = synthetic.random_model(cfg, 'cuda', seed=7)
+    np.random.seed(0)
+    reset_launches(wrappers)
+    ret = eval_one_epoch(net, loader, ds, cfg.CLASS_NAMES, device='cuda',
+                         result_dir=root / 'eval_b8')
+    launches = read_launches(wrappers)
+    want = {k: v * len(loader) for k, v in PREDICT_LAUNCHES.items()}
+    if launches != want:
+        raise SystemExit(f'[{phase}] FAILED: kernel launches {launches} over {len(loader)} '
+                         f'batches, expected {want}')
+    check_eval(phase, ret)
+    annos = pickle.loads((root / 'eval_b8' / 'result.pkl').read_bytes())
+    n_det = sum(len(a['name']) for a in annos)
+    log(phase, f'flagship as shipped, seeded weights, B={B} N=16384 over {len(ds)} val frames '
+        f'({len(loader)} batches): {n_det} detections; recall@0.3/0.5/0.7 '
+        f'{ret["recall/rcnn_0.3"]:.4f}/{ret["recall/rcnn_0.5"]:.4f}/{ret["recall/rcnn_0.7"]:.4f}; '
+        f'{r40_note(ret)}; predict alone {ret["infer_fps"]:.2f} frames/s, the loop with loading '
+        f'{ret["loop_fps"]:.2f} frames/s; launches {launches} on {card}')
+
+    small = kitti_cfg(root, 4096)
+    ds, loader, _ = build_dataloader(small.DATA_CONFIG, small.CLASS_NAMES, 2, root_path=root,
+                                     workers=0, training=False)
+    ds.kitti_infos = ds.kitti_infos[:EVAL_CPU_FRAMES]
+    cpu_net = synthetic.random_model(small, 'cpu', seed=7)
+    gpu_net = synthetic.random_model(small, 'cuda', seed=7)
+    gpu_net.load_state_dict(cpu_net.state_dict())
+    annos, rets = {}, {}
+    for dev, model in (('cpu', cpu_net), ('cuda', gpu_net)):
+        np.random.seed(1)
+        rets[dev] = eval_one_epoch(model, loader, ds, small.CLASS_NAMES, device=dev,
+                                   result_dir=root / f'eval_{dev}')
+        annos[dev] = pickle.loads((root / f'eval_{dev}' / 'result.pkl').read_bytes())
+    note = match_detections(annos_as_detections(annos['cuda'], small.CLASS_NAMES),
+                            annos_as_detections(annos['cpu'], small.CLASS_NAMES), phase)
+    log(phase, f'B=2 N=4096 over {EVAL_CPU_FRAMES} frames, CUDA vs CPU: {note}; Car 3d R40 mod '
+        f'{rets["cuda"]["Car_3d/moderate_R40"]:.4f} on CUDA, '
+        f'{rets["cpu"]["Car_3d/moderate_R40"]:.4f} on the CPU')
+    return launches
+
+
+def train_loop_phase(wrappers, synthetic, card: str) -> dict:
+    """Phase 17. Returns the launches of the two training epochs."""
+    from pdm_ssd_torch.datasets import build_dataloader
+    from pdm_ssd_torch.runtime import trainer
+    from pdm_ssd_torch.runtime.eval_utils import eval_one_epoch
+    phase = '17 train loop'
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = kitti_cfg(KITTI_DIR)
+    B, epochs = 8, 2
+    ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, B, root_path=KITTI_DIR,
+                                     workers=0, training=True, seed=0)
+    ckpt_dir = KITTI_DIR / 'ckpt'
+    net = synthetic.random_model(cfg, 'cuda', seed=7)
+    optimizer, sched = trainer.create_train_state(net, cfg.OPTIMIZATION, len(loader), epochs)
+    np.random.seed(0)
+    torch.manual_seed(0)
+    torch.cuda.synchronize()
+    reset_launches(wrappers)
+    t0 = time.perf_counter()
+    losses = trainer.train_model(net, optimizer, sched, loader, 1, ckpt_dir=ckpt_dir,
+                                 max_ckpt_save_num=1)
+    names = [c.name for c in trainer.list_checkpoints(ckpt_dir)]
+    if names != ['checkpoint_epoch_1.pth']:
+        raise SystemExit(f'[{phase}] FAILED: checkpoints after epoch 1: {names}')
+    fresh = synthetic.random_model(cfg, 'cuda', seed=11)
+    fresh_opt, _ = trainer.create_train_state(fresh, cfg.OPTIMIZATION, len(loader), epochs)
+    start = trainer.resume(ckpt_dir, fresh, fresh_opt)
+    same = all(torch.equal(p, q) for p, q in zip(net.parameters(), fresh.parameters())) and all(
+        torch.equal(b, c) for b, c in zip(net.buffers(), fresh.buffers())) and all(
+        torch.equal(optimizer.optimizer.state[p][m], fresh_opt.optimizer.state[q][m])
+        for p, q in zip(net.parameters(), fresh.parameters()) for m in ('exp_avg', 'exp_avg_sq'))
+    if start != 1 or fresh_opt.count != optimizer.count or not same:
+        raise SystemExit(f'[{phase}] FAILED: resume gave epoch {start}, iteration '
+                         f'{fresh_opt.count} (want {optimizer.count}), state equal: {same}')
+    losses += trainer.train_model(fresh, fresh_opt, sched, loader, epochs, ckpt_dir=ckpt_dir,
+                                  max_ckpt_save_num=1, start_epoch=start)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches(wrappers)
+    steps = epochs * len(loader)
+    want = {k: v * steps for k, v in TRAIN_LAUNCHES.items()}
+    names = [c.name for c in trainer.list_checkpoints(ckpt_dir)]
+    if not all(np.isfinite(losses)) or names != [f'checkpoint_epoch_{epochs}.pth']:
+        raise SystemExit(f'[{phase}] FAILED: losses {losses}, checkpoints {names}')
+    if launches != want:
+        raise SystemExit(f'[{phase}] FAILED: kernel launches {launches} over {steps} steps, '
+                         f'expected {want}')
+    log(phase, f'B={B} N=16384 over {len(ds)} train frames, {epochs} epochs of {len(loader)} '
+        f'steps (the second after a resume at epoch {start}, iteration '
+        f'{fresh_opt.count - len(loader)}, moments and weights equal): mean losses '
+        f'{" ".join(f"{x:.4f}" for x in losses)}; {seconds:.1f} s with loading; checkpoints '
+        f'left {names}; launches {launches} on {card}')
+
+    reloaded = synthetic.random_model(cfg, 'cuda', seed=13)
+    trainer.load_checkpoint(ckpt_dir / names[-1], reloaded)
+    vds, vloader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, B, root_path=KITTI_DIR,
+                                       workers=0, training=False)
+    np.random.seed(0)
+    points = {'points': torch.from_numpy(next(iter(vloader))['points']).cuda()}
+    # the PDM neck's index_add_ sums with atomics unless deterministic
+    # algorithms are asked for
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        fresh.eval()
+        with torch.inference_mode():
+            want_fwd, got_fwd = flatten(fresh(points)), flatten(reloaded(points))
+        want_det = fresh.predict(points)
+        again = fresh.predict(points)
+        got_det = reloaded.predict(points)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    repeat = all(torch.equal(again[k], want_det[k]) for k in want_det)
+    differ = [k for k in want_fwd if not torch.equal(got_fwd[k], want_fwd[k])] + [
+        k for k in want_det if not torch.equal(got_det[k], want_det[k])]
+    if differ:
+        raise SystemExit(f'[{phase}] FAILED: the reloaded model differs from the trained one in '
+                         f'{differ} (the trained model repeats its predict bit for bit: {repeat})')
+    np.random.seed(0)
+    ret = eval_one_epoch(reloaded, vloader, vds, cfg.CLASS_NAMES, device='cuda',
+                         result_dir=KITTI_DIR / 'eval_trained')
+    check_eval(phase, ret)
+    log(phase, f'the checkpoint of epoch {epochs} reloaded, on the first val batch: its '
+        f'{len(want_fwd)} forward outputs and its predict bit-equal to the trained model\'s '
+        f'({int(want_det["pred_mask"].sum())} kept boxes; the trained model repeats its predict '
+        f'bit for bit: {repeat}); its eval over {len(vds)} val frames: recall@0.3/0.5/0.7 '
+        f'{ret["recall/rcnn_0.3"]:.4f}/{ret["recall/rcnn_0.5"]:.4f}/{ret["recall/rcnn_0.7"]:.4f}; '
+        f'{r40_note(ret)} (no threshold); predict alone '
+        f'{ret["infer_fps"]:.2f} frames/s, with loading {ret["loop_fps"]:.2f} frames/s')
+    return launches
+
+
+BENCH_KEYS = {'metric', 'value', 'unit', 'vs_baseline'}
+
+
+def bench_phase(smi: str) -> None:
+    """Phase 18: bench_torch.py as a subprocess, its one JSON line."""
+    phase = '18 bench'
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, str(REPO / 'bench_torch.py')], cwd=REPO,
+                         capture_output=True, text=True, timeout=600)
+    lines = res.stdout.strip().splitlines()
+    if res.returncode != 0 or len(lines) != 1:
+        raise SystemExit(f'[{phase}] FAILED: rc {res.returncode}, stdout {res.stdout!r}, '
+                         f'stderr {res.stderr[-2000:]!r}')
+    out = json.loads(lines[0])
+    if set(out) != BENCH_KEYS or not float(out['value']) > 0:
+        raise SystemExit(f'[{phase}] FAILED: {lines[0]}')
+    note = res.stderr.strip().splitlines()[-1] if res.stderr.strip() else ''
+    log(phase, f'{lines[0]} on {smi} ({time.perf_counter() - t0:.1f} s with start-up; {note})')
+
+
 KERNEL_TABLE = (
     ('farthest_point_sample', 'pdm_ssd_torch/csrc/fps.cu', 'pdm_ssd_tpu/ops/pallas/fps.py:60'),
     ('window_select', 'pdm_ssd_torch/csrc/group.cu',
@@ -1584,6 +1823,10 @@ def main() -> None:
         cfg_from_yaml_file(str(REPO / SECOND_CFG), CfgNode())), synthetic)
     second_launches = second_predict_phase(second, second_net, second_in, wrappers, synthetic,
                                            smi)
+    del second_net, second_in
+    eval_launches = kitti_eval_phase(wrappers, synthetic, smi)
+    train_loop_launches = train_loop_phase(wrappers, synthetic, smi)
+    bench_phase(smi)
 
     # `launches` is the count from the run of a main path: the flagship's five
     # training steps of phase 8 for its four kernels, PointRCNN's predict of
@@ -1597,7 +1840,9 @@ def main() -> None:
     # backward for the scatter-add), the ball query's over PointRCNN's three
     # backbone levels, the sparse conv's over SECOND's twelve layers; `walk_ms`
     # is the time of what a kernel's own walk does, at the peak rate, beside
-    # the bound of what the function needs; the sparse conv's `library_ms` is
+    # the bound of what the function needs; `launches_eval_loop` and
+    # `launches_train_loop` are the counts of phases 16 and 17, each set to 0
+    # just before its loop; the sparse conv's `library_ms` is
     # a pair of PyTorch calls (gather, `torch.matmul`), since no single call
     # computes it; `max_abs_err` is kernel against plain version
     main_path = {kern: train_launches for kern, _, _ in KERNEL_TABLE}
@@ -1612,6 +1857,8 @@ def main() -> None:
         'launches_per_predict': predict_launches[kern],
         'launches_per_pointrcnn_predict': rcnn_launches[kern],
         'launches_per_second_predict': second_launches[kern],
+        'launches_eval_loop': eval_launches[kern],
+        'launches_train_loop': train_loop_launches[kern],
         **stats[kern]} for kern, source, replaces in KERNEL_TABLE]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,

@@ -1,0 +1,111 @@
+"""Config-driven augmentation queue (host-side numpy): copy of the LiDAR
+part of `pdm_ssd_tpu/datasets/augmentor/data_augmentor.py`.
+
+gt_sampling and the world flip / rotation / scaling / translation, with
+DISABLE_AUG_LIST, the `disable_augmentation` hook and the heading normalized
+to [-pi, pi) at the end (reference `data_augmentor.py:290-317`). The other
+augmentations of the JAX package raise `NotImplementedError`, naming the
+ROADMAP item of those a config of the repo uses.
+"""
+from __future__ import annotations
+
+from functools import partial
+
+import numpy as np
+
+from . import augmentor_utils
+from .database_sampler import DataBaseSampler
+
+# augmentations of the JAX package's queue that a config of the repo uses and
+# the port does not have yet, with the ROADMAP item that brings each
+_UNPORTED = {
+    'random_image_flip': 'ROADMAP Queue 1 item 12, camera and temporal models',
+    'imgaug': 'ROADMAP Queue 1 item 12, camera and temporal models',
+}
+_PORTED = ('gt_sampling', 'random_world_flip', 'random_world_rotation',
+           'random_world_scaling', 'random_world_translation')
+
+
+class DataAugmentor(object):
+    def __init__(self, root_path, augmentor_configs, class_names, logger=None):
+        self.root_path = root_path
+        self.class_names = class_names
+        self.logger = logger
+        self.augmentor_configs = augmentor_configs
+        self.aug_config_list = augmentor_configs if isinstance(augmentor_configs, list) \
+            else augmentor_configs.AUG_CONFIG_LIST
+        self.data_augmentor_queue = self._build_queue(augmentor_configs)
+
+    def _build_queue(self, augmentor_configs):
+        aug_config_list = augmentor_configs if isinstance(augmentor_configs, list) \
+            else augmentor_configs.AUG_CONFIG_LIST
+        queue = []
+        for cur_cfg in aug_config_list:
+            if not isinstance(augmentor_configs, list):
+                if cur_cfg.NAME in augmentor_configs.DISABLE_AUG_LIST:
+                    continue
+            if cur_cfg.NAME not in _PORTED:
+                why = _UNPORTED.get(cur_cfg.NAME, 'no config of the repo uses it')
+                raise NotImplementedError(f'the augmentation {cur_cfg.NAME} is not ported ({why})')
+            queue.append(getattr(self, cur_cfg.NAME)(config=cur_cfg))
+        return queue
+
+    def disable_augmentation(self, augmentor_configs):
+        """Rebuild the queue without listed augs (`disable_augmentation_hook`)."""
+        self.data_augmentor_queue = self._build_queue(augmentor_configs)
+
+    def gt_sampling(self, config=None):
+        return DataBaseSampler(root_path=self.root_path, sampler_cfg=config,
+                               class_names=self.class_names, logger=self.logger)
+
+    def random_world_flip(self, data_dict=None, config=None):
+        if data_dict is None:
+            return partial(self.random_world_flip, config=config)
+        gt_boxes, points = data_dict['gt_boxes'], data_dict['points']
+        for cur_axis in config.ALONG_AXIS_LIST:
+            assert cur_axis in ['x', 'y']
+            gt_boxes, points, enable = getattr(
+                augmentor_utils, f'random_flip_along_{cur_axis}')(gt_boxes, points)
+            data_dict[f'flip_{cur_axis}'] = enable
+        data_dict['gt_boxes'], data_dict['points'] = gt_boxes, points
+        return data_dict
+
+    def random_world_rotation(self, data_dict=None, config=None):
+        if data_dict is None:
+            return partial(self.random_world_rotation, config=config)
+        rot_range = config.WORLD_ROT_ANGLE
+        if not isinstance(rot_range, (list, tuple)):
+            rot_range = [-rot_range, rot_range]
+        gt_boxes, points, noise_rot = augmentor_utils.global_rotation(
+            data_dict['gt_boxes'], data_dict['points'], rot_range=rot_range)
+        data_dict['gt_boxes'], data_dict['points'] = gt_boxes, points
+        data_dict['noise_rot'] = noise_rot
+        return data_dict
+
+    def random_world_scaling(self, data_dict=None, config=None):
+        if data_dict is None:
+            return partial(self.random_world_scaling, config=config)
+        gt_boxes, points, noise_scale = augmentor_utils.global_scaling(
+            data_dict['gt_boxes'], data_dict['points'], config.WORLD_SCALE_RANGE)
+        data_dict['gt_boxes'], data_dict['points'] = gt_boxes, points
+        data_dict['noise_scale'] = noise_scale
+        return data_dict
+
+    def random_world_translation(self, data_dict=None, config=None):
+        if data_dict is None:
+            return partial(self.random_world_translation, config=config)
+        gt_boxes, points, noise = augmentor_utils.global_translation(
+            data_dict['gt_boxes'], data_dict['points'], config.NOISE_TRANSLATE_STD)
+        data_dict['gt_boxes'], data_dict['points'] = gt_boxes, points
+        data_dict['noise_translate'] = noise
+        return data_dict
+
+    def forward(self, data_dict):
+        for cur_augmentor in self.data_augmentor_queue:
+            data_dict = cur_augmentor(data_dict=data_dict)
+        data_dict['gt_boxes'][:, 6] = self._limit_heading(data_dict['gt_boxes'][:, 6])
+        return data_dict
+
+    @staticmethod
+    def _limit_heading(val, offset=0.5, period=2 * np.pi):
+        return val - np.floor(val / period + offset) * period

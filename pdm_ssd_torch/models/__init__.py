@@ -37,22 +37,23 @@ def get_host_prepare(model_cfg, dataset_cfg, training: bool = False):
         return None
     name = bb.get('NAME')
     if name == 'VoxelBackBone8xFocal':
-        raise NotImplementedError('the focal ladder is not ported yet (ROADMAP Queue 1 item 13)')
+        raise NotImplementedError('the focal ladder is not ported yet (ROADMAP Queue 1 item 10, '
+                                  'the rest of the sparse voxel ladder)')
     if name not in _SPARSE_BB_NAMES:
         return None
     if name == 'SparseUNetV2':
         raise NotImplementedError('SparseUNetV2 and its inverse maps are not ported yet '
-                                  '(ROADMAP Queue 1 item 13)')
+                                  '(ROADMAP Queue 1 item 10, the rest of the sparse voxel ladder)')
     if training:
         raise NotImplementedError('the inverse maps of the ladder\'s training backward are not '
-                                  'ported yet (ROADMAP Queue 1 item 13)')
+                                  'ported yet (ROADMAP Queue 1 item 6, SECOND training)')
     if bb.get('QWIN', False) or bb.get('PWIN', False):
         raise NotImplementedError('QWIN / PWIN correction lists have no counterpart in the port: '
                                   'the sparse-conv kernel needs no window plans (ROADMAP Queue 1 '
-                                  'item 13)')
+                                  'item 10, the rest of the sparse voxel ladder)')
     if model_cfg.get('DENSE_HEAD', {}).get('NAME') == 'VoxelNeXtHead':
         raise NotImplementedError('the BEV maps of VoxelNeXt are not ported yet (ROADMAP Queue 1 '
-                                  'item 13)')
+                                  'item 10, the rest of the sparse voxel ladder)')
     from ..ops.sparse_maps import batch_build_backbone8x, default_caps
     from .detectors.detector3d import _grid_info
     grid, _ = _grid_info(dataset_cfg)

@@ -116,7 +116,8 @@ class SparseVoxelBackBone8x(nn.Module):
         self.residual = cfg.get('RESIDUAL', residual)
         dtype = str(cfg.get('TABLE_DTYPE', '')).lower()
         if dtype == 'int8':
-            raise NotImplementedError('TABLE_DTYPE int8 is not ported (ROADMAP Queue 1 item 13)')
+            raise NotImplementedError('TABLE_DTYPE int8 is not ported (ROADMAP Queue 1 item 10, '
+                                      'the rest of the sparse voxel ladder)')
         self.shapes = ladder_shapes(grid_size)
         self.num_bev_features = self.out_features * self.shapes[4][0]
 

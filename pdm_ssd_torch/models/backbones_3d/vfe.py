@@ -29,5 +29,6 @@ class MeanVFE(nn.Module):
 def build_vfe(vfe_cfg, num_point_features: int) -> nn.Module:
     name = vfe_cfg.NAME
     if name != 'MeanVFE':
-        raise NotImplementedError(f'VFE {name} is not ported yet (ROADMAP Queue 1 item 12)')
+        raise NotImplementedError(f'VFE {name} is not ported yet '
+                                  '(ROADMAP Queue 1 item 9, the pillar family)')
     return MeanVFE(vfe_cfg, num_point_features)

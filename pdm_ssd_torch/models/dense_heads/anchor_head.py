@@ -120,11 +120,11 @@ class AnchorHeadSingle(nn.Module):
 
     def assign_targets(self, batch: dict):
         raise NotImplementedError('AnchorHeadSingle.assign_targets is not ported yet '
-                                  '(ROADMAP Queue 1 item 13: SECOND training)')
+                                  '(ROADMAP Queue 1 item 6, SECOND training)')
 
     def get_loss(self, batch: dict, targets: dict):
         raise NotImplementedError('AnchorHeadSingle.get_loss is not ported yet '
-                                  '(ROADMAP Queue 1 item 13: SECOND training)')
+                                  '(ROADMAP Queue 1 item 6, SECOND training)')
 
     def generate_predicted_boxes(self, batch: dict):
         """(cls_preds (B, A, nc), boxes (B, A, 7)): the residuals decoded

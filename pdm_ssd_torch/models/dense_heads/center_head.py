@@ -57,14 +57,15 @@ class CenterHead(nn.Module):
                                         device=device)
         groups = self.groups()
         if len(groups) != 1:
-            raise NotImplementedError('one head group only (ROADMAP Queue 1 item 7: '
-                                      'multi-head CenterHead)')
+            raise NotImplementedError('one head group only (multi-head CenterHead, ROADMAP Queue 1 '
+                                      'item 8, the rest of the PDM family)')
         head_dict = {k: dict(v) for k, v in cfg.SEPARATE_HEAD_CFG.HEAD_DICT.items()}
         if any(k in head_dict for k in ('vel', 'iou')):
             raise NotImplementedError("'vel'/'iou' branches are not ported yet "
-                                      '(ROADMAP Queue 1 item 7)')
+                                      '(ROADMAP Queue 1 item 8, the rest of the PDM family)')
         if cfg.get('IOU_REG_LOSS', False):
-            raise NotImplementedError('IOU_REG_LOSS is not ported yet (ROADMAP Queue 1 item 7)')
+            raise NotImplementedError('IOU_REG_LOSS is not ported yet (ROADMAP Queue 1 item 8, the '
+                                      'rest of the PDM family)')
         head_dict['hm'] = dict(out_channels=len(groups[0]), num_conv=cfg.get('NUM_HM_CONV', 2))
         self.head = SeparateHead(cfg.SHARED_CONV_CHANNEL, head_dict, device=device)
 

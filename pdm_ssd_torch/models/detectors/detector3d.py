@@ -50,7 +50,8 @@ def build_voxel_backbone_3d(bb_cfg, input_channels: int, grid_size, device=None)
     if name in ('SparseVoxelBackBone8x', 'SparseVoxelResBackBone8x'):
         return SparseVoxelBackBone8x(bb_cfg, input_channels, grid_size,
                                      residual=(name == 'SparseVoxelResBackBone8x'), device=device)
-    raise NotImplementedError(f'BACKBONE_3D {name} is not ported yet (ROADMAP Queue 1 item 13)')
+    raise NotImplementedError(f'BACKBONE_3D {name} is not ported yet (ROADMAP Queue 1 item 10, '
+                              'the rest of the sparse voxel ladder)')
 
 
 class Detector3D(nn.Module):
@@ -64,7 +65,8 @@ class Detector3D(nn.Module):
         num_pf = ds.get('NUM_POINT_FEATURES', 4)
         (gw, gh, gd), _ = _grid_info(ds)
         if cfg.POST_PROCESSING.get('TTA_FLIP'):
-            raise NotImplementedError('TTA_FLIP is not ported yet (ROADMAP Queue 1 item 8)')
+            raise NotImplementedError('TTA_FLIP is not ported yet (ROADMAP Queue 1 item 8, '
+                                      'the rest of the PDM family)')
 
         self.slots = {}         # slot name -> flax name of its module
         width = num_pf
@@ -82,18 +84,21 @@ class Detector3D(nn.Module):
                 cfg.BACKBONE_3D, width, (gw, gh, gd), device=device)).num_bev_features
         if cfg.get('MAP_TO_BEV') is not None:
             raise NotImplementedError(f'MAP_TO_BEV {cfg.MAP_TO_BEV.NAME} is not ported yet '
-                                      '(ROADMAP Queue 1 item 12)')
+                                      '(ROADMAP Queue 1 items 9 and 10, the pillar family and the '
+                                      'rest of the sparse voxel ladder)')
         if cfg.get('BACKBONE_2D') is not None:
             name2d = cfg.BACKBONE_2D.get('NAME', 'BaseBEVBackbone')
             if name2d != 'BaseBEVBackbone':
                 raise NotImplementedError(f'BACKBONE_2D {name2d} is not ported yet '
-                                          '(ROADMAP Queue 1 items 6 and 15)')
+                                          '(ROADMAP Queue 1 item 9, the pillar family)')
             width = add('backbone_2d', BaseBEVBackbone(cfg.BACKBONE_2D, width,
                                                        device=device)).num_bev_features
         head_cfg = cfg.DENSE_HEAD
         if head_cfg.NAME != 'AnchorHeadSingle':
             raise NotImplementedError(f'DENSE_HEAD {head_cfg.NAME} is not ported in Detector3D '
-                                      'yet (ROADMAP Queue 1 items 12 and 13)')
+                                      'yet (ROADMAP Queue 1 items 9 to 11: the pillar family, '
+                                      'the rest of the sparse voxel ladder, the other '
+                                      'two-stage heads)')
         stride = head_cfg.TARGET_ASSIGNER_CONFIG.get('FEATURE_MAP_STRIDE', 2) \
             if 'TARGET_ASSIGNER_CONFIG' in head_cfg else 2
         self.dense_head = AnchorHeadSingle(head_cfg, width, num_class, class_names,
@@ -117,11 +122,11 @@ class Detector3D(nn.Module):
 
     def get_training_loss(self, batch: dict):
         raise NotImplementedError('Detector3D training is not ported yet '
-                                  '(ROADMAP Queue 1 item 13: SECOND training)')
+                                  '(ROADMAP Queue 1 item 6, SECOND training)')
 
     def forward_with_loss(self, batch: dict):
         raise NotImplementedError('Detector3D training is not ported yet '
-                                  '(ROADMAP Queue 1 item 13: SECOND training)')
+                                  '(ROADMAP Queue 1 item 6, SECOND training)')
 
     @torch.inference_mode()
     def predict(self, batch: dict) -> dict:

@@ -30,13 +30,14 @@ class PDMSSD(nn.Module):
         n_feat = ds_cfg.get('NUM_POINT_FEATURES', 4)
         bb_name = cfg.BACKBONE_3D.get('NAME', 'PointNet2MSG')
         if bb_name != 'PointNet2MSG':
-            raise NotImplementedError(f'{bb_name} is not ported yet (ROADMAP Queue 1 item 11)')
+            raise NotImplementedError(f'{bb_name} is not ported yet (ROADMAP Queue 1 item 8, '
+                                      'the rest of the PDM family)')
         self.backbone_3d = PointNet2MSG(cfg.BACKBONE_3D, n_feat, pc_range, device=device)
         self.point_head = None
         if cfg.get('POINT_HEAD') is not None:
             if cfg.POINT_HEAD.NAME != 'PointHeadBox':
                 raise NotImplementedError(f'{cfg.POINT_HEAD.NAME} is not ported yet '
-                                          '(ROADMAP Queue 1 item 11)')
+                                          '(ROADMAP Queue 1 item 8, the rest of the PDM family)')
             n_cls = 1 if cfg.POINT_HEAD.get('CLASS_AGNOSTIC', False) else num_class
             self.point_head = PointHeadBox(cfg.POINT_HEAD, self.backbone_3d.num_point_features,
                                            n_cls, device=device)
@@ -45,7 +46,7 @@ class PDMSSD(nn.Module):
             neck_cfg = cfg.PDM_NECK
             if neck_cfg.get('NAME', 'PDMNeck') != 'PDMNeck':
                 raise NotImplementedError(f'{neck_cfg.NAME} is not ported yet '
-                                          '(ROADMAP Queue 1 item 11)')
+                                          '(ROADMAP Queue 1 item 8, the rest of the PDM family)')
             if 'POINT_CLOUD_RANGE' not in neck_cfg:
                 neck_cfg['POINT_CLOUD_RANGE'] = pc_range
             self.pdm_neck = PDMNeck(neck_cfg, self.backbone_3d.num_point_features, device=device)
@@ -57,7 +58,8 @@ class PDMSSD(nn.Module):
                 voxel_size=tuple(neck_cfg.VOXEL_SIZE[:2]),
                 class_names=tuple(class_names) if class_names else None, device=device)
         if cfg.POST_PROCESSING.get('TTA_FLIP'):
-            raise NotImplementedError('TTA_FLIP is not ported yet (ROADMAP Queue 1 item 8)')
+            raise NotImplementedError('TTA_FLIP is not ported yet (ROADMAP Queue 1 item 8, '
+                                      'the rest of the PDM family)')
 
     def forward(self, batch: dict) -> dict:
         batch = dict(batch)

@@ -43,11 +43,13 @@ class PointRCNN(nn.Module):
 
     def get_training_loss(self, batch: dict):
         raise NotImplementedError('PointRCNN training is not ported yet '
-                                  '(ROADMAP Queue 1 item 2: proposal targets, ROI losses)')
+                                  '(ROADMAP Queue 1 item 5, PointRCNN training: proposal targets, '
+                                  'ROI losses)')
 
     def forward_with_loss(self, batch: dict):
         raise NotImplementedError('PointRCNN training is not ported yet '
-                                  '(ROADMAP Queue 1 item 2: proposal targets, ROI losses)')
+                                  '(ROADMAP Queue 1 item 5, PointRCNN training: proposal targets, '
+                                  'ROI losses)')
 
     @torch.inference_mode()
     def predict(self, batch: dict) -> dict:

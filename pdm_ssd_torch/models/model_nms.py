@@ -27,6 +27,6 @@ def dispatch_nms(boxes, scores, labels, valid, nms_cfg, num_class, score_thresh=
     nms_type = nms_cfg.get('NMS_TYPE', 'nms_bev')
     if nms_type != 'nms_bev':
         raise NotImplementedError(
-            f'NMS_TYPE {nms_type} is not ported yet (ROADMAP Queue 1 item 11 for '
-            'circle_nms; item 2 for multi_classes_nms / class_specific_nms)')
+            f'NMS_TYPE {nms_type} is not ported yet (ROADMAP Queue 1 item 8, the rest of the '
+            'PDM family)')
     return class_agnostic_nms(boxes, scores, labels, valid, nms_cfg)

@@ -41,11 +41,11 @@ class RoIHeadTemplate(nn.Module):
 
     def assign_targets(self, batch: dict):
         raise NotImplementedError('ROI target assignment is not ported yet '
-                                  '(ROADMAP Queue 1 item 2: PointRCNN training)')
+                                  '(ROADMAP Queue 1 item 5, PointRCNN training)')
 
     def get_loss(self, batch: dict, targets: dict):
         raise NotImplementedError('the ROI losses are not ported yet '
-                                  '(ROADMAP Queue 1 item 2: PointRCNN training)')
+                                  '(ROADMAP Queue 1 item 5, PointRCNN training)')
 
     def generate_predicted_boxes(self, rois, rcnn_cls, rcnn_reg):
         """Decode canonical residuals back to the global frame: rois (B, R, 7),

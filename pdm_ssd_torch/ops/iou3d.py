@@ -1,4 +1,4 @@
-"""Rotated BEV IoU and rotated NMS (counterpart of `pdm_ssd_tpu/ops/iou3d.py`).
+"""Rotated BEV IoU, 3D IoU and rotated NMS (counterpart of `pdm_ssd_tpu/ops/iou3d.py`).
 
 The overlap is the JAX package's vectorized Sutherland-Hodgman clip: box a
 is clipped by the four edges of box b with growing vertex buffers, and the
@@ -85,17 +85,38 @@ def overlap_bev_pairs(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Ten
     return torch.where(cnt >= 3, area, 0.0)
 
 
-def boxes_iou_bev(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
-    """(..., N, 7) x (..., M, 7) -> (..., N, M) rotated BEV IoU; entry (i, j)
-    clips box a_i by box b_j."""
+def boxes_overlap_bev(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """(..., N, 7) x (..., M, 7) -> (..., N, M) rotated BEV intersection
+    areas; entry (i, j) clips box a_i by box b_j."""
     lead = boxes_a.shape[:-2]
     N, M = boxes_a.shape[-2], boxes_b.shape[-2]
     aa = boxes_a[..., :, None, :].expand(*lead, N, M, boxes_a.shape[-1]).reshape(-1, boxes_a.shape[-1])
     bb = boxes_b[..., None, :, :].expand(*lead, N, M, boxes_b.shape[-1]).reshape(-1, boxes_b.shape[-1])
-    overlap = overlap_bev_pairs(aa, bb).reshape(*lead, N, M)
+    return overlap_bev_pairs(aa, bb).reshape(*lead, N, M)
+
+
+def boxes_iou_bev(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """(..., N, 7) x (..., M, 7) -> (..., N, M) rotated BEV IoU."""
+    overlap = boxes_overlap_bev(boxes_a, boxes_b)
     area_a = (boxes_a[..., 3] * boxes_a[..., 4])[..., :, None]
     area_b = (boxes_b[..., 3] * boxes_b[..., 4])[..., None, :]
     return overlap / torch.clamp(area_a + area_b - overlap, min=1e-6)
+
+
+def boxes_iou3d(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """(N, 7) x (M, 7) -> (N, M) 3D IoU: the BEV overlap times the overlap of
+    the z extents, over the union of the volumes
+    (`iou3d_nms_utils.boxes_iou3d_gpu:48-81`)."""
+    overlap_bev = boxes_overlap_bev(boxes_a, boxes_b)
+    a_max = (boxes_a[:, 2] + boxes_a[:, 5] / 2)[:, None]
+    a_min = (boxes_a[:, 2] - boxes_a[:, 5] / 2)[:, None]
+    b_max = (boxes_b[:, 2] + boxes_b[:, 5] / 2)[None, :]
+    b_min = (boxes_b[:, 2] - boxes_b[:, 5] / 2)[None, :]
+    overlap_h = torch.clamp(torch.minimum(a_max, b_max) - torch.maximum(a_min, b_min), min=0.0)
+    overlap_3d = overlap_bev * overlap_h
+    vol_a = (boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5])[:, None]
+    vol_b = (boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5])[None, :]
+    return overlap_3d / torch.clamp(vol_a + vol_b - overlap_3d, min=1e-6)
 
 
 def _suppression_matrix(cand: torch.Tensor, thresh: float, blk: int = 512) -> torch.Tensor:

@@ -20,9 +20,10 @@ Conventions (the JAX package's):
   keeps the first `cap` keys;
 - the input z extent is `D + 1` (the reference's `sparse_shape`).
 
-Not ported (ROADMAP Queue 1 item 13): the inverse maps of the training
-backward and the UNet, the packed-window correction buckets, the focal
-ladder and the BEV maps of VoxelNeXt.
+Not ported (ROADMAP Queue 1 items 6 and 10, SECOND training and the rest of
+the sparse voxel ladder): the inverse maps of the training backward and the
+UNet, the packed-window correction buckets, the focal ladder and the BEV maps
+of VoxelNeXt.
 """
 from __future__ import annotations
 

@@ -1,0 +1,49 @@
+"""Generate the synthetic mini-KITTI set: frames, labels, calib and image
+headers, then the info pickles and the GT database (`create_kitti_infos`).
+Seeded, so the set is reproducible instead of checked in; the same defaults
+as `tools/make_mini_kitti.py` (64 frames, 3 classes, seed 0), with no JAX.
+
+    python -m pdm_ssd_torch.tools.make_mini_kitti [--root data/kitti] [--frames 64]
+"""
+from __future__ import annotations
+
+import argparse
+import shutil
+from pathlib import Path
+
+from ..datasets.kitti.kitti_dataset import create_kitti_infos
+from ..datasets.kitti.synthetic import make_mini_kitti
+from ..utils.config import cfg_from_yaml_file
+
+REPO = Path(__file__).resolve().parents[2]
+CLASS_NAMES = ['Car', 'Pedestrian', 'Cyclist']
+
+
+def make(root, frames: int = 64, n_bg: int = 8000, seed: int = 0,
+         classes=tuple(CLASS_NAMES)) -> Path:
+    """Write the set under `root` (replacing what is there) and return it."""
+    root = Path(root)
+    if root.exists():
+        shutil.rmtree(root)
+    make_mini_kitti(root, n_frames=frames, seed=seed, n_bg=n_bg, classes=tuple(classes))
+    ds_cfg = cfg_from_yaml_file(str(REPO / 'configs/dataset_configs/kitti_dataset.yaml'))
+    ds_cfg.DATA_PATH = str(root)
+    create_kitti_infos(ds_cfg, CLASS_NAMES, root, root, workers=1)
+    return root
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument('--root', default=str(REPO / 'data/kitti'))
+    ap.add_argument('--frames', type=int, default=64)
+    ap.add_argument('--n_bg', type=int, default=8000)
+    ap.add_argument('--seed', type=int, default=0)
+    ap.add_argument('--classes', default=','.join(CLASS_NAMES),
+                    help='comma list; a single class gives the Car-only set of 3 cars a frame')
+    args = ap.parse_args(argv)
+    root = make(args.root, args.frames, args.n_bg, args.seed, args.classes.split(','))
+    print(f'mini-KITTI with {args.frames} frames at {root}')
+
+
+if __name__ == '__main__':
+    main()

@@ -121,6 +121,15 @@ def cfg_from_list(cfg_list, config: CfgNode) -> CfgNode:
     return config
 
 
+def log_config_to_file(cfg: CfgNode, pre='cfg', logger=None):
+    for key, val in cfg.items():
+        if isinstance(val, CfgNode):
+            logger.info('----------- %s -----------' % key)
+            log_config_to_file(val, pre=pre + '.' + key, logger=logger)
+            continue
+        logger.info('%s.%s: %s' % (pre, key, val))
+
+
 def as_cfg(obj) -> CfgNode:
     """Wrap any mapping (a plain dict, or the JAX package's config node) into
     a CfgNode for attribute access."""

@@ -40,6 +40,19 @@ SLICE_MODULES = [
     'pdm_ssd_torch.ops.voxelize', 'pdm_ssd_torch.ops.sparse_maps', 'pdm_ssd_torch.ops.sparse_conv',
     'pdm_ssd_torch.models.backbones_3d.vfe', 'pdm_ssd_torch.models.backbones_3d.sparse_backbone',
     'pdm_ssd_torch.models.dense_heads.anchor_head', 'pdm_ssd_torch.models.detectors.detector3d',
+    'pdm_ssd_torch.utils.np_iou', 'pdm_ssd_torch.utils.common_utils',
+    'pdm_ssd_torch.utils.box_utils_np', 'pdm_ssd_torch.datasets',
+    'pdm_ssd_torch.datasets.dataset', 'pdm_ssd_torch.datasets.processor.data_processor',
+    'pdm_ssd_torch.datasets.processor.point_feature_encoder',
+    'pdm_ssd_torch.datasets.augmentor.augmentor_utils',
+    'pdm_ssd_torch.datasets.augmentor.database_sampler',
+    'pdm_ssd_torch.datasets.augmentor.data_augmentor',
+    'pdm_ssd_torch.datasets.kitti.calibration', 'pdm_ssd_torch.datasets.kitti.object3d',
+    'pdm_ssd_torch.datasets.kitti.kitti_utils', 'pdm_ssd_torch.datasets.kitti.kitti_dataset',
+    'pdm_ssd_torch.datasets.kitti.eval', 'pdm_ssd_torch.datasets.kitti.synthetic',
+    'pdm_ssd_torch.runtime.eval_utils', 'pdm_ssd_torch.tools.make_mini_kitti',
+    'pdm_ssd_torch.tools.cli_common', 'pdm_ssd_torch.tools.train', 'pdm_ssd_torch.tools.test',
+    'bench_torch',
 ]
 
 
@@ -47,6 +60,7 @@ def test_guard_list_names_every_module_of_the_port():
     found = {'.'.join(p.relative_to(REPO).with_suffix('').parts)
              for p in (REPO / 'pdm_ssd_torch').rglob('*.py') if p.name != '__init__.py'}
     assert found <= set(SLICE_MODULES), sorted(found - set(SLICE_MODULES))
+    assert (REPO / 'bench_torch.py').exists() and 'bench_torch' in SLICE_MODULES
 
 
 def chip_smoke_imports() -> list:
@@ -178,14 +192,31 @@ def test_ball_query_dispatch_runs_plain_on_cpu_and_kernel_wrapper_refuses_cpu():
         dispatch.grouping_operation(feats.to('meta'), got.to('meta'))
 
 
-def test_entry_points_default_to_the_card(monkeypatch):
-    """`build_network` and the dry run with no device named need CUDA: where
-    it is absent they raise instead of building on the CPU."""
+def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """`build_network`, the dry run, the eval loop, the train and test CLIs
+    and `bench_torch.py` with no device named need CUDA: where it is absent
+    they raise instead of running on the CPU, before they load anything."""
+    import bench_torch
     from pdm_ssd_torch.models import build_network
+    from pdm_ssd_torch.runtime import eval_utils
     from pdm_ssd_torch.tools import dryrun
+    from pdm_ssd_torch.tools import test as test_cli
+    from pdm_ssd_torch.tools import train as train_cli
     from pdm_ssd_torch.utils import config as t_config
     monkeypatch.chdir(REPO)
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        bench_torch.main([])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        eval_utils.eval_one_epoch(torch.nn.Linear(1, 1), [], None, ['Car'])
+    cli_args = ['--cfg_file', 'configs/kitti_models/pdm_ssd_point.yaml',
+                '--output_dir', str(tmp_path)]
+    for cli in (train_cli, test_cli):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main(cli_args)
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main(cli_args + ['--device', 'cuda'])
+    assert not any(tmp_path.iterdir())
     for cfg_file in ('configs/kitti_models/pdm_ssd_point.yaml',
                      'configs/kitti_models/pointrcnn.yaml',
                      'configs/kitti_models/second_sparse.yaml'):

@@ -153,8 +153,16 @@ class ModelPair:
         self.net = build_network(self.cfg.MODEL, len(self.cfg.CLASS_NAMES),
                                  self.cfg.DATA_CONFIG, device='cpu')
         self.net.load_state_dict(from_flax(self.variables, self.net))
-        fwd = jax.jit(lambda v, b: self.jax_model.apply(v, b, training=False))
-        self.jax_out = to_numpy(fwd(self.variables, self.inputs))
+        self._jax_out = self._jax_train = None
+
+    @property
+    def jax_out(self) -> dict:
+        """The JAX forward of the batch in eval mode (all intermediates), as
+        numpy; compiled and run on first use."""
+        if self._jax_out is None:
+            fwd = jax.jit(lambda v, b: self.jax_model.apply(v, b, training=False))
+            self._jax_out = to_numpy(fwd(self.variables, self.inputs))
+        return self._jax_out
 
     def torch_inputs(self) -> dict:
         """The port's forward input of the same batch (a fresh dict)."""
@@ -164,28 +172,40 @@ class ModelPair:
         fn = jax.jit(lambda v, *a: self.jax_model.apply(v, *a, method=method))
         return to_numpy(fn(self.variables, *args))
 
-    def jax_loss_and_grads(self, variables=None, batch=None):
+    def _jax_training(self) -> tuple:
+        """One jitted program for the batch: the training-mode forward
+        (batch statistics), then `get_training_loss` on its output, as
+        `forward_with_loss` runs them, and the gradient. Returns (forward
+        outputs, loss, tb, grads, new batch_stats) as numpy, computed once
+        and shared by `jax_train_forward` and `jax_loss_and_grads`."""
+        if self._jax_train is None:
+            def forward_and_loss(module, b):
+                out = module(b, training=True)
+                loss, tb = module.get_training_loss(out)
+                return loss, (tb, out)
+
+            def loss_fn(params, stats, b):
+                (loss, (tb, out)), mutated = self.jax_model.apply(
+                    {'params': params, 'batch_stats': stats}, b, mutable=['batch_stats'],
+                    method=forward_and_loss)
+                return loss, (tb, mutated['batch_stats'], out)
+
+            fn = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+            (loss, (tb, stats, out)), grads = fn(self.variables['params'],
+                                                 self.variables['batch_stats'], self.batch)
+            self._jax_train = (to_numpy(out), to_numpy(loss), to_numpy(tb), to_numpy(grads),
+                               to_numpy(stats))
+        return self._jax_train
+
+    def jax_loss_and_grads(self):
         """Training-mode `forward_with_loss` and its gradient in the JAX
         package: (loss, tb, grads, new batch_stats) as numpy."""
-        variables = self.variables if variables is None else variables
-        batch = self.batch if batch is None else batch
-
-        def loss_fn(params, stats, b):
-            (loss, tb), mutated = self.jax_model.apply(
-                {'params': params, 'batch_stats': stats}, b, training=True,
-                mutable=['batch_stats'], method=self.jax_model.forward_with_loss)
-            return loss, (tb, mutated['batch_stats'])
-
-        fn = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
-        (loss, (tb, stats)), grads = fn(variables['params'], variables['batch_stats'], batch)
-        return to_numpy(loss), to_numpy(tb), to_numpy(grads), to_numpy(stats)
+        return self._jax_training()[1:]
 
     def jax_train_forward(self):
         """The JAX forward in training mode (batch statistics), as numpy,
         with the batch's ground truth carried through."""
-        fn = jax.jit(lambda v, b: self.jax_model.apply(v, b, training=True,
-                                                       mutable=['batch_stats'])[0])
-        return to_numpy(fn(self.variables, self.batch))
+        return self._jax_training()[0]
 
     def torch_batch(self) -> dict:
         return {k: torch.from_numpy(v) for k, v in self.batch.items()}
