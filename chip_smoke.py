@@ -111,10 +111,39 @@ non-zero exit):
    does (deterministic algorithms on for that comparison); then
    `eval_one_epoch` of that checkpoint, AP printed, no threshold;
 18. `bench_torch.py` as a subprocess: exactly one JSON line with the four
-   keys and a positive value, printed with the card's name and power limit.
+   keys and a positive value, printed with the card's name and power limit;
+19. the tiny `pdm_ssd.yaml` (`synthetic.tiny_grid_cfg`: pillarize,
+   GridPointBackbone, the grid PDM neck, circle NMS) on CUDA against the
+   CPU at B=2, N=4096, the heatmap bias at 0 (`synthetic.open_score_gate`):
+   forward outputs within FWD_RTOL of scale, detections matched by box and
+   label; `ops/iou3d.circle_nms` on the card equal to the CPU's, slot order
+   and keep mask, on the same candidates (a lattice with ties and pairs at
+   exactly the radius, and 800 boxes a cloud at B=8);
+20. `pdm_ssd.yaml` as shipped, `predict` at B=8, N=16384, the heatmap bias
+   at 0: shapes, finite values, no launch of any kernel of the port (counted,
+   0 expected), frames/s, peak memory, then `torch.profiler`'s device time
+   and busy share, every kernel of cuDNN's FFT route, and each convolution
+   stage's peak memory beyond its input (the kernels of a stage above 1 GiB
+   named);
+21. five training steps of `pdm_ssd.yaml` at B=8, N=16384 (as phase 8): ms
+   per step and peak memory, no launch;
+22. and 23. phases 16 and 17 with `pdm_ssd.yaml` (the heatmap bias at 0 in
+   the eval loop): the eval loop at B=8, the 2-epoch train loop with
+   checkpoint, resume and bit-equal reload (no CUDA-vs-CPU eval pass: see
+   `grid_family_phases`);
+24. `pdm_ssd_large.yaml` as shipped, `predict` at B=4 on clouds of 163840
+   points over its +-75.2 m range (`synthetic.large_scene_points`), the
+   heatmap bias at 0: frames/s, peak memory, device time, busy share;
+25. five training steps of `pdm_ssd_aux.yaml` (the flagship with the
+   train-only PointHeadSimple) at B=8: 1 FPS, 3 selection, 6 gather and 4
+   scatter-add launches a step, ms per step;
+26. the flagship with TTA_FLIP ['y']: the tiny model on CUDA against the CPU
+   (detections matched by box and label), then as shipped at B=8: twice a
+   predict's launches, frames/s.
 
 The line before the last is the card's name and power limit; before it, one
-JSON line describing each kernel. The last line is
+JSON line describing each kernel, with the launches of each path of phases 20
+to 26 (`launches_<path>`). The last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -185,6 +214,15 @@ SECOND_PREDICT_LAUNCHES = {'farthest_point_sample': 0, 'window_select': 0, 'gath
                            'gather_rows_bf16': 0, 'fps cluster path': 0, 'fps block path': 0,
                            **NO_BALL_QUERY}
 SECOND_POINTS = 50000
+# the grid family (`pdm_ssd.yaml`, `pdm_ssd_large.yaml`) launches none of the
+# port's kernels: pillarize is `index_add_`, the rest cuDNN convolutions and
+# plain torch; the aux variant's train step launches the flagship's
+GRID_CFG = 'configs/kitti_models/pdm_ssd.yaml'
+LARGE_CFG = 'configs/kitti_models/pdm_ssd_large.yaml'
+AUX_CFG = 'configs/kitti_models/pdm_ssd_aux.yaml'
+NO_LAUNCHES = {k: 0 for k in PREDICT_LAUNCHES}
+# a predict with TTA_FLIP ['y'] runs the forward twice
+TTA_PREDICT_LAUNCHES = {k: 2 * v for k, v in PREDICT_LAUNCHES.items()}
 # share of a ladder stage's sites that may fall to its capacity, and the
 # least active input voxels per cloud of 40000 slots
 SECOND_MAX_DROP = 0.01
@@ -505,27 +543,36 @@ def match_rois(got: dict, want: dict, phase: str) -> tuple[dict, dict, str]:
 
 
 def cuda_vs_cpu_phase(cfg, dispatch, synthetic, phase: str = '4 cuda-vs-cpu',
-                      fps_npoint: int = 4096) -> None:
+                      fps_npoint: int | None = 4096, adjust=None, predict: bool = False) -> None:
     """Forward of one model on CUDA against the same model on the CPU at B=2,
     N=4096: float outputs within FWD_RTOL of each output's scale, integer
     and bool outputs (indices, labels, masks) equal. The per-ROI outputs of a
-    two-stage model are compared ROI by ROI after `match_rois`."""
+    two-stage model are compared ROI by ROI after `match_rois`. FPS indices
+    first, unless `fps_npoint` is None; `adjust` is done to the seeded model
+    on both sides; with `predict`, the detections of both runs are matched
+    by box and label (`match_detections`)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     pts = torch.from_numpy(synthetic.kitti_points(2, 4096, 4))
-    want_idx = dispatch.farthest_point_sample(pts[..., :3].contiguous(), fps_npoint)
-    got_idx = dispatch.farthest_point_sample(pts[..., :3].contiguous().cuda(), fps_npoint).cpu()
-    if not torch.equal(want_idx, got_idx):
-        raise SystemExit(f'[{phase}] FAILED: FPS indices differ between CUDA and CPU')
+    note = ''
+    if fps_npoint is not None:
+        want_idx = dispatch.farthest_point_sample(pts[..., :3].contiguous(), fps_npoint)
+        got_idx = dispatch.farthest_point_sample(pts[..., :3].contiguous().cuda(),
+                                                 fps_npoint).cpu()
+        if not torch.equal(want_idx, got_idx):
+            raise SystemExit(f'[{phase}] FAILED: FPS indices differ between CUDA and CPU')
+        note = '; FPS indices equal'
     cpu_net = synthetic.random_model(cfg, 'cpu')
+    if adjust is not None:
+        adjust(cpu_net)
     gpu_net = synthetic.random_model(cfg, 'cuda')
     gpu_net.load_state_dict(cpu_net.state_dict())
     with torch.inference_mode():
         want = flatten(cpu_net({'points': pts}))
         got = {k: v.cpu() for k, v in flatten(gpu_net({'points': pts.cuda()})).items()}
-    note = ''
     if 'rois' in want:
-        got, want, note = match_rois(got, want, phase)
+        got, want, roi_note = match_rois(got, want, phase)
+        note += roi_note
     worst = 0.0
     for k, w in want.items():
         g = got[k]
@@ -537,9 +584,13 @@ def cuda_vs_cpu_phase(cfg, dispatch, synthetic, phase: str = '4 cuda-vs-cpu',
                 raise SystemExit(f'[{phase}] FAILED {k}: max |diff| / max |cpu| = {rel:.3e}')
         elif not torch.equal(g, w):
             raise SystemExit(f'[{phase}] FAILED {k}: integer outputs differ')
+    if predict:
+        note += '; predict: ' + match_detections(
+            {k: v.cpu() for k, v in gpu_net.predict({'points': pts.cuda()}).items()},
+            cpu_net.predict({'points': pts}), phase)
     log(phase, f'{cfg.MODEL.NAME} B=2 N=4096 forward: {len(want)} outputs agree, worst '
         f'max|diff|/max|cpu| = {worst:.3e} (bound {FWD_RTOL:g}), integer and bool outputs '
-        f'equal; FPS indices equal{note}')
+        f'equal{note}')
 
 
 def reset_launches(wrappers: dict) -> None:
@@ -552,9 +603,9 @@ def read_launches(wrappers: dict) -> dict:
     return {name: getattr(fn, counter) for name, (fn, counter) in wrappers.items()}
 
 
-def check_detections(phase: str, det: dict, B: int) -> None:
-    want = {'pred_boxes': (B, 100, 7), 'pred_scores': (B, 100), 'pred_labels': (B, 100),
-            'pred_mask': (B, 100)}
+def check_detections(phase: str, det: dict, B: int, P: int = 100) -> None:
+    want = {'pred_boxes': (B, P, 7), 'pred_scores': (B, P), 'pred_labels': (B, P),
+            'pred_mask': (B, P)}
     for k, shape in want.items():
         if tuple(det[k].shape) != shape:
             raise SystemExit(f'[{phase}] FAILED {k}: shape {tuple(det[k].shape)} != {shape}')
@@ -563,14 +614,20 @@ def check_detections(phase: str, det: dict, B: int) -> None:
 
 
 def predict_phase(cfg, wrappers, synthetic, card: str, phase: str = '5 predict', B: int = 8,
-                  expected: dict = PREDICT_LAUNCHES) -> dict:
+                  expected: dict = PREDICT_LAUNCHES, N: int = 16384, points=None, adjust=None,
+                  profile: bool = False) -> dict:
     """One model's `predict` at full width: shapes, finite values, the
-    kernels' launches in the first run, then frames/s and peak memory."""
+    kernels' launches in the first run, then frames/s and peak memory.
+    `points(B, N, seed)` makes the clouds (default `synthetic.kitti_points`),
+    `adjust` is done to the seeded model; with `profile`, `torch.profiler`
+    reads device time, the busy share and any kernel of cuDNN's FFT route,
+    and each convolution stage of a grid model its memory beyond its input."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     net = synthetic.random_model(cfg, 'cuda', seed=7)
-    N = 16384
-    pts = torch.from_numpy(synthetic.kitti_points(B, N, 5)).cuda()
+    if adjust is not None:
+        adjust(net)
+    pts = torch.from_numpy((points or synthetic.kitti_points)(B, N, 5)).cuda()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(wrappers)
@@ -578,7 +635,7 @@ def predict_phase(cfg, wrappers, synthetic, card: str, phase: str = '5 predict',
     torch.cuda.synchronize()
     launches = read_launches(wrappers)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    check_detections(phase, det, B)
+    check_detections(phase, det, B, cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
     if launches != expected:
         raise SystemExit(f'[{phase}] FAILED: kernel launches {launches}, expected {expected}')
     for _ in range(3):
@@ -595,7 +652,49 @@ def predict_phase(cfg, wrappers, synthetic, card: str, phase: str = '5 predict',
         f'{int(det["pred_mask"].sum())} kept boxes, launches {launches}; median '
         f'{med * 1e3:.3f} ms/batch = {B / med:.2f} frames/s (5 runs), peak allocated '
         f'{peak:.3f} GiB on {card}')
+    if profile:
+        profile_note(phase, net, pts, med)
     return launches
+
+
+# a convolution stage that allocates more than this beyond its input is named
+# with the kernels it ran (cuDNN's workspace)
+WORKSPACE_GIB = 1.0
+
+
+def profile_note(phase: str, net, pts: torch.Tensor, wall_s: float) -> None:
+    """Device time per predict, busy share and cuDNN's FFT kernels
+    (`tools/profile_predict.trace`); for a grid model, each convolution
+    stage's peak memory beyond its input, and the kernels of any stage above
+    WORKSPACE_GIB."""
+    from pdm_ssd_torch.models.backbones_3d.grid_point_backbone import GridPointBackbone
+    from pdm_ssd_torch.tools.profile_predict import grid_conv_stages, peak_extra_gib, trace
+    with torch.inference_mode():
+        prof = trace(net, {'points': pts})
+        fft = prof['fft_kernels']
+        fft_note = ('no FFT-route kernel' if not fft else 'FFT route: ' + '; '.join(
+            f'{r["name"]} x{r["calls_per_predict"]:g} {r["ms_per_predict"]:.3f} ms'
+            for r in fft))
+        log(phase, f'device {prof["device_ms_per_predict"]:.3f} ms per predict '
+            f'({prof["device_activities_per_predict"]:.0f} activities), busy '
+            f'{prof["device_ms_per_predict"] / (wall_s * 1e3):.3f}; top kernels: '
+            + '; '.join(f'{r["name"][:60]} {r["ms_per_predict"]:.3f} ms'
+                        for r in prof['top_kernels'][:5]) + f'; {fft_note}')
+        if not isinstance(net.backbone_3d, GridPointBackbone):
+            return
+        stages, _ = grid_conv_stages(net, pts)
+        peaks = {name: peak_extra_gib(fn) for name, fn in stages}
+        log(phase, 'peak GiB beyond the input per convolution stage: ' + ', '.join(
+            f'{k} {v:.3f}' for k, v in peaks.items()))
+        for name, fn in stages:
+            if peaks[name] > WORKSPACE_GIB:
+                from torch.profiler import ProfilerActivity, profile
+                with profile(activities=[ProfilerActivity.CUDA]) as p:
+                    fn()
+                    torch.cuda.synchronize()
+                names = sorted({e.key[:80] for e in p.key_averages()
+                                if e.self_device_time_total > 0})
+                log(phase, f'{name} allocates {peaks[name]:.3f} GiB: kernels {names}')
 
 
 def shipped_predict_phase(cfg, synthetic, B: int = 4) -> None:
@@ -1130,7 +1229,11 @@ def grads_cuda_vs_cpu_phase(cfg, synthetic) -> None:
         f'(bound {GRAD_RTOL:g}; cosine of every pair at least {GRAD_COSINE})')
 
 
-def train_phase(cfg, wrappers, synthetic, card: str) -> dict:
+def train_phase(cfg, wrappers, synthetic, card: str, phase: str = '8 train',
+                expected: dict = TRAIN_LAUNCHES) -> dict:
+    """Five steps of `make_train_step` at B=8, N=16384, 8 boxes a cloud:
+    finite losses, the last below the first, parameters changed, `expected`
+    launches a step, ms per step and peak memory."""
     from pdm_ssd_torch.runtime.trainer import create_train_state, make_train_step
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1154,22 +1257,22 @@ def train_phase(cfg, wrappers, synthetic, card: str) -> dict:
     launches = read_launches(wrappers)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if not all(np.isfinite(losses)):
-        raise SystemExit(f'[8 train] FAILED: losses {losses}')
+        raise SystemExit(f'[{phase}] FAILED: losses {losses}')
     if not losses[-1] < losses[0]:
-        raise SystemExit(f'[8 train] FAILED: the loss did not fall: {losses}')
-    want = {k: v * steps for k, v in TRAIN_LAUNCHES.items()}
+        raise SystemExit(f'[{phase}] FAILED: the loss did not fall: {losses}')
+    want = {k: v * steps for k, v in expected.items()}
     if launches != want:
-        raise SystemExit(f'[8 train] FAILED: kernel launches {launches}, expected {want}')
+        raise SystemExit(f'[{phase}] FAILED: kernel launches {launches}, expected {want}')
     changed = sum(not torch.equal(p.detach(), before[k]) for k, p in net.named_parameters())
     finite = all(bool(torch.isfinite(p).all()) for p in net.parameters())
     if not finite or changed < 0.9 * len(before):
-        raise SystemExit(f'[8 train] FAILED: {changed} of {len(before)} parameter tensors '
+        raise SystemExit(f'[{phase}] FAILED: {changed} of {len(before)} parameter tensors '
                          f'changed, all finite: {finite}')
     med = statistics.median(times)
-    log('8 train', f'B={B} N={N}, {M} boxes per cloud, {steps} steps: losses '
+    log(phase, f'{cfg.MODEL.NAME} B={B} N={N}, {M} boxes per cloud, {steps} steps: losses '
         + ' '.join(f'{x:.4f}' for x in losses)
         + f'; {changed} of {len(before)} parameter tensors changed; launches per step '
-        f'{TRAIN_LAUNCHES}; median {med * 1e3:.3f} ms/step (first {times[0] * 1e3:.1f} ms); '
+        f'{expected}; median {med * 1e3:.3f} ms/step (first {times[0] * 1e3:.1f} ms); '
         f'peak allocated {peak:.3f} GiB on {card}')
     return launches
 
@@ -1525,11 +1628,11 @@ KITTI_DIR = REPO / 'build' / 'chip_smoke_kitti'
 EVAL_CPU_FRAMES = 8
 
 
-def kitti_cfg(root: Path, num_points: int = 16384):
-    """The flagship as shipped, reading the mini set at `root` with
-    `num_points` points a cloud."""
+def kitti_cfg(root: Path, num_points: int = 16384, cfg_file: str = CFG):
+    """A config as shipped (default the flagship), reading the mini set at
+    `root` with `num_points` points a cloud."""
     from pdm_ssd_torch.utils.config import cfg_from_yaml_file
-    cfg = cfg_from_yaml_file(str(REPO / CFG))
+    cfg = cfg_from_yaml_file(str(REPO / cfg_file))
     cfg.DATA_CONFIG.DATA_PATH = str(root)
     for proc in cfg.DATA_CONFIG.DATA_PROCESSOR:
         if proc.NAME == 'sample_points':
@@ -1566,42 +1669,58 @@ def annos_as_detections(annos: list, class_names: list) -> dict:
     return out
 
 
-def kitti_eval_phase(wrappers, synthetic, card: str) -> dict:
-    """Phase 16. Returns the launches of the B=8 eval loop."""
+def mini_kitti() -> Path:
+    """The mini-KITTI set of the loop phases, generated on first use."""
+    from pdm_ssd_torch.tools.make_mini_kitti import make
+    if not (KITTI_DIR / 'kitti_infos_val.pkl').exists():
+        t0 = time.perf_counter()
+        make(KITTI_DIR, frames=KITTI_FRAMES)
+        log('16 kitti eval', f'mini-KITTI: {KITTI_FRAMES} frames, 3 classes, generated with its '
+            f'infos and GT database in {time.perf_counter() - t0:.1f} s')
+    return KITTI_DIR
+
+
+def kitti_eval_phase(wrappers, synthetic, card: str, cfg_file: str = CFG,
+                     phase: str = '16 kitti eval', expected: dict = PREDICT_LAUNCHES,
+                     adjust=None, cpu_check: bool = True) -> dict:
+    """Phase 16 (and 22 for the grid config): `eval_one_epoch` of a config as
+    shipped, seeded weights (`adjust` done to the model), at B=8 over the
+    val split, then, with `cpu_check`, CUDA against the CPU at B=2 N=4096
+    over 8 frames. Returns the launches of the B=8 eval loop."""
     from pdm_ssd_torch.datasets import build_dataloader
     from pdm_ssd_torch.runtime.eval_utils import eval_one_epoch
-    from pdm_ssd_torch.tools.make_mini_kitti import make
-    phase = '16 kitti eval'
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    t0 = time.perf_counter()
-    root = make(KITTI_DIR, frames=KITTI_FRAMES)
-    log(phase, f'mini-KITTI: {KITTI_FRAMES} frames, 3 classes, generated with its infos and GT '
-        f'database in {time.perf_counter() - t0:.1f} s')
-    cfg = kitti_cfg(root)
+    root = mini_kitti()
+    tag = Path(cfg_file).stem
+    cfg = kitti_cfg(root, cfg_file=cfg_file)
     B = 8
     ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, B, root_path=root,
                                      workers=0, training=False)
     net = synthetic.random_model(cfg, 'cuda', seed=7)
+    if adjust is not None:
+        adjust(net)
     np.random.seed(0)
     reset_launches(wrappers)
     ret = eval_one_epoch(net, loader, ds, cfg.CLASS_NAMES, device='cuda',
-                         result_dir=root / 'eval_b8')
+                         result_dir=root / f'eval_b8_{tag}')
     launches = read_launches(wrappers)
-    want = {k: v * len(loader) for k, v in PREDICT_LAUNCHES.items()}
+    want = {k: v * len(loader) for k, v in expected.items()}
     if launches != want:
         raise SystemExit(f'[{phase}] FAILED: kernel launches {launches} over {len(loader)} '
                          f'batches, expected {want}')
     check_eval(phase, ret)
-    annos = pickle.loads((root / 'eval_b8' / 'result.pkl').read_bytes())
+    annos = pickle.loads((root / f'eval_b8_{tag}' / 'result.pkl').read_bytes())
     n_det = sum(len(a['name']) for a in annos)
-    log(phase, f'flagship as shipped, seeded weights, B={B} N=16384 over {len(ds)} val frames '
+    log(phase, f'{tag}.yaml as shipped, seeded weights, B={B} N=16384 over {len(ds)} val frames '
         f'({len(loader)} batches): {n_det} detections; recall@0.3/0.5/0.7 '
         f'{ret["recall/rcnn_0.3"]:.4f}/{ret["recall/rcnn_0.5"]:.4f}/{ret["recall/rcnn_0.7"]:.4f}; '
         f'{r40_note(ret)}; predict alone {ret["infer_fps"]:.2f} frames/s, the loop with loading '
         f'{ret["loop_fps"]:.2f} frames/s; launches {launches} on {card}')
 
-    small = kitti_cfg(root, 4096)
+    if not cpu_check:
+        return launches
+    small = kitti_cfg(root, 4096, cfg_file=cfg_file)
     ds, loader, _ = build_dataloader(small.DATA_CONFIG, small.CLASS_NAMES, 2, root_path=root,
                                      workers=0, training=False)
     ds.kitti_infos = ds.kitti_infos[:EVAL_CPU_FRAMES]
@@ -1612,8 +1731,8 @@ def kitti_eval_phase(wrappers, synthetic, card: str) -> dict:
     for dev, model in (('cpu', cpu_net), ('cuda', gpu_net)):
         np.random.seed(1)
         rets[dev] = eval_one_epoch(model, loader, ds, small.CLASS_NAMES, device=dev,
-                                   result_dir=root / f'eval_{dev}')
-        annos[dev] = pickle.loads((root / f'eval_{dev}' / 'result.pkl').read_bytes())
+                                   result_dir=root / f'eval_{dev}_{tag}')
+        annos[dev] = pickle.loads((root / f'eval_{dev}_{tag}' / 'result.pkl').read_bytes())
     note = match_detections(annos_as_detections(annos['cuda'], small.CLASS_NAMES),
                             annos_as_detections(annos['cpu'], small.CLASS_NAMES), phase)
     log(phase, f'B=2 N=4096 over {EVAL_CPU_FRAMES} frames, CUDA vs CPU: {note}; Car 3d R40 mod '
@@ -1622,19 +1741,21 @@ def kitti_eval_phase(wrappers, synthetic, card: str) -> dict:
     return launches
 
 
-def train_loop_phase(wrappers, synthetic, card: str) -> dict:
-    """Phase 17. Returns the launches of the two training epochs."""
+def train_loop_phase(wrappers, synthetic, card: str, cfg_file: str = CFG,
+                     phase: str = '17 train loop', expected: dict = TRAIN_LAUNCHES) -> dict:
+    """Phase 17 (and 23 for the grid config). Returns the launches of the two
+    training epochs."""
     from pdm_ssd_torch.datasets import build_dataloader
     from pdm_ssd_torch.runtime import trainer
     from pdm_ssd_torch.runtime.eval_utils import eval_one_epoch
-    phase = '17 train loop'
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = kitti_cfg(KITTI_DIR)
+    tag = Path(cfg_file).stem
+    cfg = kitti_cfg(mini_kitti(), cfg_file=cfg_file)
     B, epochs = 8, 2
     ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, B, root_path=KITTI_DIR,
                                      workers=0, training=True, seed=0)
-    ckpt_dir = KITTI_DIR / 'ckpt'
+    ckpt_dir = KITTI_DIR / f'ckpt_{tag}'
     net = synthetic.random_model(cfg, 'cuda', seed=7)
     optimizer, sched = trainer.create_train_state(net, cfg.OPTIMIZATION, len(loader), epochs)
     np.random.seed(0)
@@ -1663,14 +1784,15 @@ def train_loop_phase(wrappers, synthetic, card: str) -> dict:
     seconds = time.perf_counter() - t0
     launches = read_launches(wrappers)
     steps = epochs * len(loader)
-    want = {k: v * steps for k, v in TRAIN_LAUNCHES.items()}
+    want = {k: v * steps for k, v in expected.items()}
     names = [c.name for c in trainer.list_checkpoints(ckpt_dir)]
     if not all(np.isfinite(losses)) or names != [f'checkpoint_epoch_{epochs}.pth']:
         raise SystemExit(f'[{phase}] FAILED: losses {losses}, checkpoints {names}')
     if launches != want:
         raise SystemExit(f'[{phase}] FAILED: kernel launches {launches} over {steps} steps, '
                          f'expected {want}')
-    log(phase, f'B={B} N=16384 over {len(ds)} train frames, {epochs} epochs of {len(loader)} '
+    log(phase, f'{tag}.yaml B={B} N=16384 over {len(ds)} train frames, {epochs} epochs of '
+        f'{len(loader)} '
         f'steps (the second after a resume at epoch {start}, iteration '
         f'{fresh_opt.count - len(loader)}, moments and weights equal): mean losses '
         f'{" ".join(f"{x:.4f}" for x in losses)}; {seconds:.1f} s with loading; checkpoints '
@@ -1703,7 +1825,7 @@ def train_loop_phase(wrappers, synthetic, card: str) -> dict:
                          f'{differ} (the trained model repeats its predict bit for bit: {repeat})')
     np.random.seed(0)
     ret = eval_one_epoch(reloaded, vloader, vds, cfg.CLASS_NAMES, device='cuda',
-                         result_dir=KITTI_DIR / 'eval_trained')
+                         result_dir=KITTI_DIR / f'eval_trained_{tag}')
     check_eval(phase, ret)
     log(phase, f'the checkpoint of epoch {epochs} reloaded, on the first val batch: its '
         f'{len(want_fwd)} forward outputs and its predict bit-equal to the trained model\'s '
@@ -1733,6 +1855,79 @@ def bench_phase(smi: str) -> None:
         raise SystemExit(f'[{phase}] FAILED: {lines[0]}')
     note = res.stderr.strip().splitlines()[-1] if res.stderr.strip() else ''
     log(phase, f'{lines[0]} on {smi} ({time.perf_counter() - t0:.1f} s with start-up; {note})')
+
+
+def circle_nms_phase(synthetic) -> None:
+    """Phase 19: `ops/iou3d.circle_nms` on the card against the CPU on the
+    same candidates, slot order and keep mask equal: boxes on a 0.5 m
+    lattice with repeated scores (ties, pairs at exactly the radius), and
+    the flagship's candidate count at B=8 (800 boxes, PRE 256, POST 100)."""
+    from pdm_ssd_torch.ops import iou3d
+    rng = np.random.RandomState(9)
+    cases = []
+    for B, N, pre, post, radius, lattice in ((3, 60, 32, 16, 0.5, True),
+                                              (3, 60, 80, 100, 1.0, True),
+                                              (8, 800, 256, 100, 0.8, False)):
+        boxes = np.zeros((B, N, 7), np.float32)
+        if lattice:
+            boxes[..., :2] = rng.randint(0, 8, (B, N, 2)) * 0.5
+            scores = rng.randint(0, 6, (B, N)).astype(np.float32) / 8
+        else:
+            boxes[..., :2] = rng.uniform(0, 12, (B, N, 2))
+            scores = rng.rand(B, N).astype(np.float32)
+        valid = rng.rand(B, N) > 0.2
+        args = [torch.from_numpy(a) for a in (boxes, scores, valid)]
+        want = iou3d.circle_nms(args[0], args[1], radius, pre, post, args[2])
+        got = iou3d.circle_nms(args[0].cuda(), args[1].cuda(), radius, pre, post,
+                               args[2].cuda())
+        if not all(torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+            raise SystemExit(f'[19 grid cuda-vs-cpu] FAILED: circle_nms at B={B} N={N} '
+                             f'PRE {pre} POST {post} differs between CUDA and the CPU')
+        cases.append(f'B={B} N={N} PRE {pre} POST {post}: {int(want[1].sum())} kept')
+    log('19 grid cuda-vs-cpu', 'circle_nms on CUDA == CPU (slot order and keep mask) at '
+        + '; '.join(cases))
+
+
+def grid_family_phases(wrappers, dispatch, synthetic, smi: str, CfgNode,
+                       cfg_from_yaml_file) -> dict:
+    """Phases 19 to 26: the rest of the KITTI PDM family. Returns the kernel
+    launches of each path, by name."""
+    def load(cfg_file):
+        return cfg_from_yaml_file(str(REPO / cfg_file), CfgNode())
+
+    gate = synthetic.open_score_gate
+    cuda_vs_cpu_phase(synthetic.tiny_grid_cfg(load(GRID_CFG)), dispatch, synthetic,
+                      phase='19 grid cuda-vs-cpu', fps_npoint=None, adjust=gate, predict=True)
+    circle_nms_phase(synthetic)
+    grid = load(GRID_CFG)
+    paths = {'grid_predict': predict_phase(grid, wrappers, synthetic, smi, '20 grid predict',
+                                           expected=NO_LAUNCHES, adjust=gate, profile=True),
+             'grid_train': train_phase(grid, wrappers, synthetic, smi, '21 grid train',
+                                       expected=NO_LAUNCHES)}
+    # no CUDA-vs-CPU pass here (phase 19 holds the model and phase 19's
+    # circle NMS check the NMS): with seeded weights and the heatmap bias at
+    # 0, every empty cell of the full-size map scores the same, and float32
+    # rounding of cuDNN's sums reorders those exact ties among the top-100
+    # candidates (measured: 57 against 58 boxes kept in a frame)
+    paths['grid_eval_loop'] = kitti_eval_phase(wrappers, synthetic, smi, GRID_CFG,
+                                               '22 grid eval loop', NO_LAUNCHES, adjust=gate,
+                                               cpu_check=False)
+    paths['grid_train_loop'] = train_loop_phase(wrappers, synthetic, smi, GRID_CFG,
+                                                '23 grid train loop', NO_LAUNCHES)
+    paths['large_predict'] = predict_phase(
+        load(LARGE_CFG), wrappers, synthetic, smi, '24 large predict', B=4,
+        expected=NO_LAUNCHES, N=163840, points=synthetic.large_scene_points, adjust=gate,
+        profile=True)
+    paths['aux_train'] = train_phase(load(AUX_CFG), wrappers, synthetic, smi, '25 aux train')
+    tiny = synthetic.tiny_flagship_cfg(load(CFG))
+    tiny.MODEL.POST_PROCESSING.TTA_FLIP = ['y']
+    cuda_vs_cpu_phase(tiny, dispatch, synthetic, phase='26 tta', fps_npoint=None, adjust=gate,
+                      predict=True)
+    tta = load(CFG)
+    tta.MODEL.POST_PROCESSING.TTA_FLIP = ['y']
+    paths['tta_predict'] = predict_phase(tta, wrappers, synthetic, smi, '26 tta',
+                                         expected=TTA_PREDICT_LAUNCHES)
+    return paths
 
 
 KERNEL_TABLE = (
@@ -1828,6 +2023,9 @@ def main() -> None:
     train_loop_launches = train_loop_phase(wrappers, synthetic, smi)
     bench_phase(smi)
 
+    new_paths = grid_family_phases(wrappers, dispatch, synthetic, smi, CfgNode,
+                                   cfg_from_yaml_file)
+
     # `launches` is the count from the run of a main path: the flagship's five
     # training steps of phase 8 for its four kernels, PointRCNN's predict of
     # phase 11 for the ball query, SECOND's predict of phase 15 for the sparse
@@ -1842,7 +2040,11 @@ def main() -> None:
     # is the time of what a kernel's own walk does, at the peak rate, beside
     # the bound of what the function needs; `launches_eval_loop` and
     # `launches_train_loop` are the counts of phases 16 and 17, each set to 0
-    # just before its loop; the sparse conv's `library_ms` is
+    # just before its loop, and the `launches_<path>` of phases 20 to 26 the
+    # counts of those paths (each set to 0 just before it: the grid family's
+    # predict, train step, eval and train loops and the large scene read 0 for
+    # every kernel, the aux train step's 5 steps the flagship's step's four
+    # kernels, TTA's predict twice the flagship's); the sparse conv's `library_ms` is
     # a pair of PyTorch calls (gather, `torch.matmul`), since no single call
     # computes it; `max_abs_err` is kernel against plain version
     main_path = {kern: train_launches for kern, _, _ in KERNEL_TABLE}
@@ -1859,6 +2061,7 @@ def main() -> None:
         'launches_per_second_predict': second_launches[kern],
         'launches_eval_loop': eval_launches[kern],
         'launches_train_loop': train_loop_launches[kern],
+        **{f'launches_{path}': launches[kern] for path, launches in new_paths.items()},
         **stats[kern]} for kern, source, replaces in KERNEL_TABLE]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {'platform': 'gpu', 'kind': name,

@@ -65,8 +65,8 @@ class Detector3D(nn.Module):
         num_pf = ds.get('NUM_POINT_FEATURES', 4)
         (gw, gh, gd), _ = _grid_info(ds)
         if cfg.POST_PROCESSING.get('TTA_FLIP'):
-            raise NotImplementedError('TTA_FLIP is not ported yet (ROADMAP Queue 1 item 8, '
-                                      'the rest of the PDM family)')
+            raise NotImplementedError('TTA_FLIP of the voxel family is not ported yet (ROADMAP '
+                                      'Queue 1 item 10, the rest of the sparse voxel ladder)')
 
         self.slots = {}         # slot name -> flax name of its module
         width = num_pf

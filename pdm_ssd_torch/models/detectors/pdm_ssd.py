@@ -1,21 +1,28 @@
 """PDM-SSD detector (counterpart of `pdm_ssd_tpu/models/detectors/pdm_ssd.py`):
-point backbone -> vote head -> PDM neck -> BEV convs -> heatmap head, then
-hybrid post-processing with fixed-size outputs."""
+point or grid backbone -> point head (vote boxes, or the train-only
+auxiliary head) -> PDM neck (point or grid form) -> BEV convs -> heatmap
+head, then hybrid post-processing with fixed-size outputs and, with
+POST_PROCESSING.TTA_FLIP, flip test-time augmentation."""
 from __future__ import annotations
 
 import copy
+import math
 
 import torch
 from torch import nn
 
+from ...ops import iou3d
 from ...ops.selection import topk
 from ...utils.config import as_cfg
 from .. import model_nms
 from ..backbones_2d.base_bev_backbone import BaseBEVBackbone
 from ..backbones_2d.pdm_neck import PDMNeck
+from ..backbones_2d.pdm_neck_conv import PDMNeckConv
+from ..backbones_3d.grid_point_backbone import GridPointBackbone
 from ..backbones_3d.pointnet2_backbone import PointNet2MSG
 from ..dense_heads.center_head import CenterHead
 from ..dense_heads.point_head_box import PointHeadBox
+from ..dense_heads.point_head_simple import PointHeadSimple
 from ..model_nms import take_rows
 
 
@@ -28,28 +35,24 @@ class PDMSSD(nn.Module):
         self.num_class = num_class
         pc_range = list(ds_cfg.POINT_CLOUD_RANGE)
         n_feat = ds_cfg.get('NUM_POINT_FEATURES', 4)
-        bb_name = cfg.BACKBONE_3D.get('NAME', 'PointNet2MSG')
-        if bb_name != 'PointNet2MSG':
-            raise NotImplementedError(f'{bb_name} is not ported yet (ROADMAP Queue 1 item 8, '
-                                      'the rest of the PDM family)')
-        self.backbone_3d = PointNet2MSG(cfg.BACKBONE_3D, n_feat, pc_range, device=device)
+        if cfg.BACKBONE_3D.get('NAME', 'PointNet2MSG') == 'GridPointBackbone':
+            self.backbone_3d = GridPointBackbone(cfg.BACKBONE_3D, n_feat, pc_range, device=device)
+        else:
+            self.backbone_3d = PointNet2MSG(cfg.BACKBONE_3D, n_feat, pc_range, device=device)
         self.point_head = None
         if cfg.get('POINT_HEAD') is not None:
-            if cfg.POINT_HEAD.NAME != 'PointHeadBox':
-                raise NotImplementedError(f'{cfg.POINT_HEAD.NAME} is not ported yet '
-                                          '(ROADMAP Queue 1 item 8, the rest of the PDM family)')
+            head_cls = {'PointHeadBox': PointHeadBox,
+                        'PointHeadSimple': PointHeadSimple}[cfg.POINT_HEAD.NAME]
             n_cls = 1 if cfg.POINT_HEAD.get('CLASS_AGNOSTIC', False) else num_class
-            self.point_head = PointHeadBox(cfg.POINT_HEAD, self.backbone_3d.num_point_features,
-                                           n_cls, device=device)
+            self.point_head = head_cls(cfg.POINT_HEAD, self.backbone_3d.num_point_features,
+                                       n_cls, device=device)
         self.pdm_neck = self.backbone_2d = self.dense_head = None
         if cfg.get('PDM_NECK') is not None:
             neck_cfg = cfg.PDM_NECK
-            if neck_cfg.get('NAME', 'PDMNeck') != 'PDMNeck':
-                raise NotImplementedError(f'{neck_cfg.NAME} is not ported yet '
-                                          '(ROADMAP Queue 1 item 8, the rest of the PDM family)')
             if 'POINT_CLOUD_RANGE' not in neck_cfg:
                 neck_cfg['POINT_CLOUD_RANGE'] = pc_range
-            self.pdm_neck = PDMNeck(neck_cfg, self.backbone_3d.num_point_features, device=device)
+            neck_cls = PDMNeckConv if neck_cfg.get('NAME', 'PDMNeck') == 'PDMNeckConv' else PDMNeck
+            self.pdm_neck = neck_cls(neck_cfg, self.backbone_3d.num_point_features, device=device)
             self.backbone_2d = BaseBEVBackbone(cfg.BACKBONE_2D, self.pdm_neck.num_bev_features,
                                                device=device)
             self.dense_head = CenterHead(
@@ -57,9 +60,9 @@ class PDMSSD(nn.Module):
                 grid_size=tuple(neck_cfg.BEV_SIZE), point_cloud_range=tuple(pc_range),
                 voxel_size=tuple(neck_cfg.VOXEL_SIZE[:2]),
                 class_names=tuple(class_names) if class_names else None, device=device)
-        if cfg.POST_PROCESSING.get('TTA_FLIP'):
-            raise NotImplementedError('TTA_FLIP is not ported yet (ROADMAP Queue 1 item 8, '
-                                      'the rest of the PDM family)')
+        for axis in cfg.POST_PROCESSING.get('TTA_FLIP', []):
+            if axis not in ('x', 'y'):
+                raise ValueError(f"TTA_FLIP takes the axes 'x' and 'y', not {axis!r}")
 
     def forward(self, batch: dict) -> dict:
         batch = dict(batch)
@@ -96,10 +99,38 @@ class PDMSSD(nn.Module):
 
     @torch.inference_mode()
     def predict(self, batch: dict) -> dict:
-        """Forward + hybrid post-processing. The model must be in eval mode."""
+        """Forward + hybrid post-processing. The model must be in eval mode.
+
+        With POST_PROCESSING.TTA_FLIP (e.g. ['y']) the model also runs on the
+        cloud mirrored along each listed axis, mirrors those detections back
+        (y: heading -> -heading; x: heading -> pi - heading), and one
+        class-agnostic rotated NMS (`nms_bev`, whatever NMS_TYPE says, as in
+        the JAX package) merges all the variants."""
         if self.training:
             raise RuntimeError('predict needs eval mode (call model.eval())')
-        return self.post_process(self(batch))
+        pp = self.model_cfg.POST_PROCESSING
+        det = self.post_process(self(batch))
+        flips = list(pp.get('TTA_FLIP', []))
+        if not flips:
+            return det
+        dets = [det]
+        for axis in flips:
+            col = 0 if axis == 'x' else 1
+            pts = batch['points'].clone()
+            pts[..., col] *= -1.0
+            fdet = self.post_process(self({**batch, 'points': pts}))
+            boxes = fdet['pred_boxes'].clone()
+            boxes[..., col] *= -1.0
+            boxes[..., 6] = -boxes[..., 6] if axis == 'y' else math.pi - boxes[..., 6]
+            dets.append({**fdet, 'pred_boxes': boxes})
+        boxes, scores, labels, valid = (torch.cat([d[k] for d in dets], dim=1) for k in
+                                        ('pred_boxes', 'pred_scores', 'pred_labels', 'pred_mask'))
+        nms_cfg = pp.NMS_CONFIG
+        idx, keep = iou3d.nms_bev(boxes, scores, nms_cfg.NMS_THRESH,
+                                  pre_maxsize=nms_cfg.NMS_PRE_MAXSIZE,
+                                  post_maxsize=nms_cfg.NMS_POST_MAXSIZE, valid=valid)
+        return {'pred_boxes': take_rows(boxes, idx), 'pred_scores': take_rows(scores, idx) * keep,
+                'pred_labels': take_rows(labels, idx) * keep, 'pred_mask': keep}
 
     def post_process(self, batch: dict) -> dict:
         """Heatmap boxes with scores calibrated by the best vote score within
@@ -123,8 +154,8 @@ class PDMSSD(nn.Module):
                 hm_scores = hm_scores ** (1 - alpha) * torch.maximum(best_vote, hm_scores) ** alpha
             cands.append((hm_boxes, hm_scores, hm_labels, hm_mask))
 
-        if self.point_head is not None and pp.get('USE_VOTE_BOXES', True) \
-                and 'point_box_preds' in batch:
+        if getattr(self.point_head, 'box_coder', None) is not None \
+                and pp.get('USE_VOTE_BOXES', True) and 'point_box_preds' in batch:
             cls_preds, boxes = self.point_head.generate_predicted_boxes(
                 batch['point_coords'], batch['point_cls_preds'], batch['point_box_preds'])
             scores = torch.sigmoid(cls_preds.amax(dim=-1))

@@ -94,6 +94,41 @@ class FCStack(nn.Module):
         return getattr(self, f'Dense_{self.n}')(x)
 
 
+def same_padding(size: int, kernel: int, stride: int) -> tuple:
+    """flax's 'SAME' padding of one axis, (before, after): the output has
+    ceil(size / stride) cells and the odd cell of the padding goes after, so
+    a stride-2 window over an even size starts at cell 0, not at -1 as
+    torch's symmetric `padding=1` would start it."""
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d_same(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """`conv` applied to the NCHW map x with flax's 'SAME' padding (the
+    module's own `padding` is not used)."""
+    (top, bottom), (left, right) = (same_padding(n, k, s) for n, k, s in
+                                    zip(x.shape[-2:], conv.kernel_size, conv.stride))
+    if top == bottom and left == right:
+        return F.conv2d(x, conv.weight, conv.bias, conv.stride, (top, left))
+    return F.conv2d(F.pad(x, (left, right, top, bottom)), conv.weight, conv.bias, conv.stride)
+
+
+class ConvBNReLU(nn.Module):
+    """k x k Conv + BatchNorm(eps 1e-3) + ReLU on NCHW maps, with flax's
+    'SAME' padding (`Conv_0`, `BatchNorm_0`)."""
+
+    def __init__(self, in_channels: int, features: int, kernel: int = 3, stride: int = 1,
+                 use_bias: bool = False, device=None):
+        super().__init__()
+        self.Conv_0 = nn.Conv2d(in_channels, features, kernel, stride=stride, bias=use_bias,
+                                device=device)
+        self.BatchNorm_0 = BatchNorm2d(features, eps=1e-3, momentum=0.01, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.relu(self.BatchNorm_0(conv2d_same(self.Conv_0, x)))
+
+
 def masked_max(x: torch.Tensor, mask: torch.Tensor | None, dim: int) -> torch.Tensor:
     """Max over `dim` of x (..., C) that ignores the slots where `mask`
     (x's shape without the channels) is false; a group with no valid slot
@@ -107,11 +142,16 @@ def masked_max(x: torch.Tensor, mask: torch.Tensor | None, dim: int) -> torch.Te
 @torch.no_grad()
 def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Initialise every parameter and buffer from `generator`, in module order:
-    weights uniform in +-1/sqrt(fan_in), biases at the module's `bias_init`
-    (0 by default), BatchNorm at identity. The values do not depend on the
-    model's device."""
+    weights uniform in +-1/sqrt(fan_in), or from the module's own
+    `weight_init` (a function of the weight's shape, which draws nothing),
+    biases at the module's `bias_init` (0 by default), BatchNorm at
+    identity. The values do not depend on the model's device."""
     for mod in model.modules():
-        if isinstance(mod, nn.modules.batchnorm._BatchNorm):
+        if getattr(mod, 'weight_init', None) is not None:
+            mod.weight.copy_(torch.as_tensor(mod.weight_init(tuple(mod.weight.shape))))
+            if mod.bias is not None:
+                mod.bias.fill_(getattr(mod, 'bias_init', 0.0))
+        elif isinstance(mod, nn.modules.batchnorm._BatchNorm):
             mod.weight.fill_(1.0)
             mod.bias.fill_(0.0)
             mod.running_mean.fill_(0.0)

@@ -105,7 +105,7 @@ def build_box_coder(name: str, **kwargs):
     if name == 'PointResidualCoder':
         if not kwargs.get('use_mean_size', True):
             raise NotImplementedError('PointResidualCoder without mean sizes is not ported yet '
-                                      '(ROADMAP Queue 1 item 8, the rest of the PDM family)')
+                                      '(ROADMAP Queue 1 item 8b, with pdm_ssd_nuscenes.yaml)')
         if 'mean_size' in kwargs:
             kwargs['mean_size'] = tuple(tuple(s) for s in kwargs['mean_size'])
     fields = {f.name for f in dataclasses.fields(registry[name])}

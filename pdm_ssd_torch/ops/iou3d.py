@@ -6,7 +6,8 @@ area is the shoelace sum. Compaction after each clip is an exclusive
 `cumsum` rank and a scatter. `nms_bev` takes the pre-NMS top K by score
 (ties lower index first), suppresses by IoU > thresh in one sequential
 greedy pass over the K candidates, vectorized over the batch, and returns
-`post_maxsize` slots with a keep mask.
+`post_maxsize` slots with a keep mask. `circle_nms` suppresses by center
+distance, with the same keep set computed as the JAX package's fixpoint.
 """
 from __future__ import annotations
 
@@ -131,6 +132,20 @@ def _suppression_matrix(cand: torch.Tensor, thresh: float, blk: int = 512) -> to
                       for r0 in range(0, K, blk)], dim=1)
 
 
+def _keep_slots(order: torch.Tensor, keep: torch.Tensor, post_maxsize: int):
+    """Kept candidates (already in score order) first, stably, cut or
+    zero-padded to `post_maxsize` slots: (idx into N, keep mask)."""
+    rank = torch.sort(torch.where(keep, 0, 1), dim=1, stable=True).indices
+    P = min(post_maxsize, keep.shape[1])
+    sel = rank[:, :P]
+    out_idx = torch.gather(order, 1, sel)
+    out_mask = torch.gather(keep, 1, sel)
+    if P < post_maxsize:
+        out_idx = torch.nn.functional.pad(out_idx, (0, post_maxsize - P))
+        out_mask = torch.nn.functional.pad(out_mask, (0, post_maxsize - P))
+    return torch.where(out_mask, out_idx, 0), out_mask
+
+
 def nms_bev(boxes: torch.Tensor, scores: torch.Tensor, thresh: float, pre_maxsize: int,
             post_maxsize: int, valid: torch.Tensor | None = None):
     """Batched rotated-BEV NMS with fixed-size outputs.
@@ -149,12 +164,40 @@ def nms_bev(boxes: torch.Tensor, scores: torch.Tensor, thresh: float, pre_maxsiz
     for i in range(1, K):
         hit = (suppress[:, i, :i] & keep[:, :i]).any(dim=1)
         keep[:, i] = cand_valid[:, i] & ~hit
-    rank = torch.sort(torch.where(keep, 0, 1), dim=1, stable=True).indices
-    P = min(post_maxsize, K)
-    sel = rank[:, :P]
-    out_idx = torch.gather(order, 1, sel)
-    out_mask = torch.gather(keep, 1, sel)
-    if P < post_maxsize:
-        out_idx = torch.nn.functional.pad(out_idx, (0, post_maxsize - P))
-        out_mask = torch.nn.functional.pad(out_mask, (0, post_maxsize - P))
-    return torch.where(out_mask, out_idx, 0), out_mask
+    return _keep_slots(order, keep, post_maxsize)
+
+
+def greedy_suppress(overlap: torch.Tensor, cand_valid: torch.Tensor) -> torch.Tensor:
+    """The greedy keep set keep[i] = valid[i] & !any_{j<i}(keep[j] &
+    overlap[i, j]) of (B, K, K) bool `overlap` (candidates in rank order),
+    by the JAX package's Jacobi fixpoint: from keep = valid, recompute every
+    entry from the last keep set until nothing changes. After step t the
+    first t entries are final, so it ends within K steps; the steps are as
+    many as the deepest chain of suppressions, each one batched matvec and
+    one comparison read by the host."""
+    K = overlap.shape[-1]
+    idx = torch.arange(K, device=overlap.device)
+    prev = overlap & (idx[None, :] < idx[:, None])              # higher-ranked only
+    keep = cand_valid
+    for _ in range(K):
+        new = cand_valid & ~(prev & keep[:, None, :]).any(dim=-1)
+        if torch.equal(new, keep):
+            break
+        keep = new
+    return keep
+
+
+def circle_nms(boxes: torch.Tensor, scores: torch.Tensor, radius: float, pre_maxsize: int,
+               post_maxsize: int, valid: torch.Tensor | None = None):
+    """Batched center-distance NMS with fixed-size outputs
+    (`centernet_utils.circle_nms` analog): a candidate is suppressed by a
+    higher-scoring kept one whose BEV center lies within `radius`
+    (d^2 <= radius^2). Arguments and returns as `nms_bev`."""
+    N = scores.shape[1]
+    s = scores if valid is None else torch.where(valid, scores, float('-inf'))
+    K = min(pre_maxsize, N)
+    top_scores, order = topk(s, K)
+    cb = torch.gather(boxes[..., :2], 1, order[..., None].expand(-1, -1, 2))
+    d2 = ((cb[:, :, None, :] - cb[:, None, :, :]) ** 2).sum(dim=-1)    # (B, K, K)
+    keep = greedy_suppress(d2 <= radius * radius, torch.isfinite(top_scores))
+    return _keep_slots(order, keep, post_maxsize)

@@ -4,7 +4,10 @@ Builds the tiny point-exact flagship (the shrink of
 `configs/kitti_models/pdm_ssd_point.yaml` in `utils/synthetic.tiny_flagship_cfg`),
 takes one train step on a seeded synthetic batch and one predict, checks that
 the loss is finite and the detections have the batch's size, and prints
-`... OK, loss=...`. With `--cfg_file configs/kitti_models/pointrcnn.yaml` it
+`... OK, loss=...`. With `--cfg_file configs/kitti_models/pdm_ssd.yaml`,
+`pdm_ssd_aux.yaml` or `pdm_ssd_large.yaml` it does the same on that config's
+tiny shrink (`utils/synthetic.tiny_pdmssd_cfg`). With `--cfg_file
+configs/kitti_models/pointrcnn.yaml` it
 builds the tiny PointRCNN (`utils/synthetic.tiny_pointrcnn_cfg`), with
 `configs/kitti_models/second_sparse.yaml` the tiny SECOND on the sparse voxel
 ladder (`utils/synthetic.tiny_second_cfg`; its batch is voxelized and given
@@ -79,8 +82,9 @@ def main() -> None:
                     '(default: the card; fails where CUDA is unavailable)')
     ap.add_argument('--batch', type=int, default=2)
     ap.add_argument('--points', type=int, default=512)
-    ap.add_argument('--cfg_file', default=CFG, help='the flagship (default), '
-                    'configs/kitti_models/pointrcnn.yaml or second_sparse.yaml')
+    ap.add_argument('--cfg_file', default=CFG, help='the flagship (default), or '
+                    'configs/kitti_models/pdm_ssd.yaml, pdm_ssd_aux.yaml, pdm_ssd_large.yaml, '
+                    'pointrcnn.yaml or second_sparse.yaml')
     args = ap.parse_args()
     dryrun(args.device, args.batch, args.points, cfg_file=args.cfg_file)
 

@@ -22,10 +22,17 @@ sparse layers (the whole layer, and its `sparse_conv` kernel alone through
 the plan its forward built), the 8 plans of a forward (`sp_plans`), the
 canvas scatter, the BEV backbone, the head, top-K + decode and the NMS; the
 classification bias is set to 0 so that the candidates pass the score
-threshold and the NMS does its full work. Then `torch.profiler` traces
-three `predict` calls: device time per predict, device activities per
-predict, the busy share (device time over the unprofiled wall time of one
-predict) and the ten kernels with the most device time. Prints one line per
+threshold and the NMS does its full work. With `--cfg_file
+configs/kitti_models/pdm_ssd.yaml` (or `pdm_ssd_large.yaml`, at batch 4 on
+clouds of 163840 points over its +-75.2 m range) the stages are
+pillarize, each level of `GridPointBackbone`, the grid PDM neck, the BEV
+backbone, the heatmap head (each with the GFLOP of its convolutions, its
+rate and its peak memory beyond its input) and post-processing with the
+circle NMS; the heatmap bias is set to 0, as SECOND's. Then
+`torch.profiler` traces three `predict` calls: device time per predict,
+device activities per predict, the busy share (device time over the
+unprofiled wall time of one predict), the ten kernels with the most device
+time and any kernel of cuDNN's FFT route. Prints one line per
 stage and writes everything, with the card's name and power limit, as JSON
 to `--out`. Must be run from the repository root.
 """
@@ -213,8 +220,73 @@ def second_stage_times(net, cfg, predict_inputs: dict, reps: int) -> dict:
     return t
 
 
+def conv_gflop(fn) -> float:
+    """GFLOP of the convolutions `fn` runs (2 per multiply-add), counted by
+    `torch.utils.flop_counter` from the shapes."""
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    return counter.get_total_flops() / 1e9
+
+
+def peak_extra_gib(fn) -> float:
+    """GiB allocated at the peak of `fn` beyond what was allocated before it
+    (its outputs, temporaries and cuDNN's workspace)."""
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - before) / 2 ** 30
+
+
+def grid_conv_stages(net, pts: torch.Tensor) -> tuple:
+    """The convolution stages of a grid-family `predict`, each on its own
+    precomputed input: ([(name, fn)], the dense head's output batch)."""
+    bb = net.backbone_3d
+    stages = []
+    x = bb.pillarize({'points': pts})
+    for lvl in range(len(bb.layer_nums)):
+        stages.append((f'lvl{lvl}', lambda x=x, lvl=lvl: bb.level(lvl, x)))
+        x = bb.level(lvl, x)
+    batch = {'spatial_features': x.permute(0, 2, 3, 1)}
+    for name, key in (('pdm_neck_conv', 'pdm_neck'), ('backbone_2d', 'backbone_2d'),
+                      ('dense_head', 'dense_head')):
+        stages.append((name, lambda b=dict(batch), key=key: getattr(net, key)(dict(b))))
+        batch = getattr(net, key)(batch)
+    return stages, batch
+
+
+def grid_stage_times(net, cfg, predict_inputs: dict, reps: int) -> dict:
+    """Median ms of each stage of the grid family's `predict`
+    (`configs/kitti_models/pdm_ssd.yaml`, `pdm_ssd_large.yaml`), each on its
+    own input: pillarize, each level of `GridPointBackbone`, the grid PDM
+    neck, the BEV backbone, the heatmap head and post-processing (decode and
+    circle NMS); beside each convolution stage its GFLOP (`<stage>_gflop`),
+    its rate (`<stage>_tflops`) and the GiB it allocates at its peak beyond
+    its input (`<stage>_peak_gib`)."""
+    pts = predict_inputs['points']
+    bb = net.backbone_3d
+    t = {'pillarize': median_ms(lambda: bb.pillarize({'points': pts}), reps)}
+    stages, batch = grid_conv_stages(net, pts)
+    for name, fn in stages:
+        t[name] = median_ms(fn, reps)
+        t[f'{name}_gflop'] = conv_gflop(fn)
+        t[f'{name}_tflops'] = t[f'{name}_gflop'] / t[name] / 1e3
+        t[f'{name}_peak_gib'] = peak_extra_gib(fn)
+    t['backbone_3d'] = median_ms(lambda: bb({'points': pts}), reps)
+    t['post_process'] = median_ms(lambda: net.post_process(dict(batch)), reps)
+    t['predict'] = median_ms(lambda: net.predict({'points': pts}), reps)
+    t['conv_gflop'] = sum(v for k, v in t.items() if k.endswith('_gflop'))
+    return t
+
+
 def point_inputs(cfg, B: int, N: int) -> dict:
     return {'points': torch.from_numpy(synthetic.kitti_points(B, N, 5)).cuda()}
+
+
+def large_inputs(cfg, B: int, N: int) -> dict:
+    return {'points': torch.from_numpy(synthetic.large_scene_points(B, N, 5)).cuda()}
 
 
 def second_inputs(cfg, B: int, N: int) -> dict:
@@ -222,18 +294,38 @@ def second_inputs(cfg, B: int, N: int) -> dict:
         synthetic.voxel_batch(B, N, cfg, seed=5, device='cuda'))
 
 
-# per `MODEL.NAME`: what makes the config full width, the default batch and
-# points per cloud, what makes the input of `predict`, the function that times
-# the model's stages, and what is done to the seeded model before it is timed
+# per `MODEL.NAME` (and, for PDMSSD, backbone): what makes the config full
+# width, the default batch and points per cloud, what makes the input of
+# `predict`, the function that times the model's stages, and what is done to
+# the seeded model before it is timed
 PROFILES = {'PDMSSD': (lambda cfg: cfg, 8, 16384, point_inputs, stage_times, None),
+            'PDMSSD grid': (lambda cfg: cfg, 8, 16384, point_inputs, grid_stage_times,
+                            synthetic.open_score_gate),
+            'PDMSSD grid large': (lambda cfg: cfg, 4, 163840, large_inputs, grid_stage_times,
+                                  synthetic.open_score_gate),
             'PointRCNN': (synthetic.pointrcnn_fp3, 4, 16384, point_inputs, pointrcnn_stage_times,
                           None),
             'SECONDNet': (lambda cfg: cfg, 4, 50000, second_inputs, second_stage_times,
                           synthetic.open_score_gate)}
 
 
+def profile_key(cfg) -> str:
+    """The key of a config in PROFILES."""
+    if cfg.MODEL.NAME != 'PDMSSD' or cfg.MODEL.BACKBONE_3D.get('NAME') != 'GridPointBackbone':
+        return cfg.MODEL.NAME
+    return 'PDMSSD grid large' if cfg.DATA_CONFIG.POINT_CLOUD_RANGE[0] < 0 else 'PDMSSD grid'
+
+
+def is_fft_route(kernel: str) -> bool:
+    """A kernel of cuDNN's FFT convolutions: the transforms ('fft' in the
+    name) and the batched complex GEMMs between them ('cf32')."""
+    return 'fft' in kernel.lower() or 'cf32' in kernel
+
+
 def trace(net, predict_inputs: dict, n: int = 3) -> dict:
-    """torch.profiler over `n` predicts: device time and activities per predict."""
+    """torch.profiler over `n` predicts: device time and activities per
+    predict, the ten kernels with the most device time, and every kernel of
+    an FFT route (`is_fft_route`)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     net.predict(predict_inputs)
@@ -253,16 +345,21 @@ def trace(net, predict_inputs: dict, n: int = 3) -> dict:
     return {'device_ms_per_predict': device_us / 1e3 / n,
             'device_activities_per_predict': sum(r[1] for r in rows) / n,
             'top_kernels': [{'name': k[:120], 'calls_per_predict': c / n,
-                             'ms_per_predict': us / 1e3 / n} for k, c, us in rows[:10]]}
+                             'ms_per_predict': us / 1e3 / n} for k, c, us in rows[:10]],
+            'fft_kernels': [{'name': k[:120], 'calls_per_predict': c / n,
+                             'ms_per_predict': us / 1e3 / n} for k, c, us in rows
+                            if is_fft_route(k)]}
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--cfg_file', default=CFG)
     ap.add_argument('--batch', type=int, default=None,
-                    help='default: 8 for the flagship, 4 for PointRCNN and SECOND')
+                    help='default: 8 for the PDM configs, 4 for PointRCNN, SECOND and '
+                    'pdm_ssd_large.yaml')
     ap.add_argument('--points', type=int, default=None,
-                    help='points per cloud (default: 16384; 50000 for SECOND)')
+                    help='points per cloud (default: 16384; 50000 for SECOND, 163840 for '
+                    'pdm_ssd_large.yaml)')
     ap.add_argument('--reps', type=int, default=7)
     ap.add_argument('--out', default='build/profile_predict.json')
     args = ap.parse_args()
@@ -274,9 +371,9 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = cfg_from_yaml_file(args.cfg_file)
-    if cfg.MODEL.NAME not in PROFILES:
+    if profile_key(cfg) not in PROFILES:
         raise SystemExit(f'no stage timing for {cfg.MODEL.NAME}')
-    full_width, batch, points, make_inputs, time_stages, adjust = PROFILES[cfg.MODEL.NAME]
+    full_width, batch, points, make_inputs, time_stages, adjust = PROFILES[profile_key(cfg)]
     cfg = full_width(cfg)
     if args.batch is None:
         args.batch = batch
@@ -297,13 +394,17 @@ def main() -> None:
     wall_ms = statistics.median(walls) * 1e3
     prof = trace(net, inputs)
     prof['busy_share'] = prof['device_ms_per_predict'] / wall_ms
+    units = {'_gflop': 'GFLOP', '_tflops': 'TFLOP/s', '_gib': 'GiB'}
     for k, v in stages.items():
-        print(f'{k:26s} {v:9.3f} ms')
+        unit = next((u for suffix, u in units.items() if k.endswith(suffix)), 'ms')
+        print(f'{k:26s} {v:9.3f} {unit}')
     print(f'predict wall {wall_ms:.3f} ms; device {prof["device_ms_per_predict"]:.3f} ms per '
           f'predict ({prof["device_activities_per_predict"]:.0f} activities), busy '
           f'{prof["busy_share"]:.3f}; B={args.batch} N={args.points}; {card}')
     for r in prof['top_kernels']:
         print(f'  {r["ms_per_predict"]:8.3f} ms  x{r["calls_per_predict"]:<6g} {r["name"]}')
+    print(f'FFT-route kernels: {len(prof["fft_kernels"])}, '
+          f'{sum(r["ms_per_predict"] for r in prof["fft_kernels"]):.3f} ms per predict')
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({'card': card, 'cfg_file': args.cfg_file, 'batch': args.batch,

@@ -1,18 +1,20 @@
-"""Where the time of one training step of the flagship goes, on one GPU.
+"""Where the time of one training step of a PDM-SSD config goes, on one GPU.
 
-    python3 -m pdm_ssd_torch.tools.profile_train [--batch 8] [--points 16384]
-        [--boxes 8] [--reps 5] [--out build/profile_train.json]
+    python3 -m pdm_ssd_torch.tools.profile_train [--cfg_file CFG] [--batch 8]
+        [--points 16384] [--boxes 8] [--reps 5] [--out build/profile_train.json]
 
-Builds `configs/kitti_models/pdm_ssd_point.yaml` unmodified, with seeded
-random weights, float32 with TF32 off, and trains on one seeded synthetic
-batch. After warm-up steps it times whole steps of `make_train_step` on the
-host clock (median of `--reps`), then repeats the step's parts by hand with a
-CUDA event between them: each forward stage, targets and losses, backward,
-gradient clip, optimizer update (median of `--reps`). Then `torch.profiler`
-traces two steps: device time per step, the busy share (device time over
-the unprofiled wall time of a step) and the twelve kernels with the most
-device time. It also reports the launches of the port's own kernels in one
-step and the peak of allocated device memory. Prints one line per part and
+Builds the config (default `configs/kitti_models/pdm_ssd_point.yaml`; also
+`pdm_ssd.yaml`, `pdm_ssd_aux.yaml`), unmodified, with seeded random weights,
+float32 with TF32 off, and trains on one seeded synthetic batch. After
+warm-up steps it times whole steps of `make_train_step` on the host clock
+(median of `--reps`), then repeats the step's parts by hand with a CUDA event
+between them: each forward stage (for `GridPointBackbone` its pillarize and
+each level apart), targets and losses, backward, gradient clip, optimizer
+update (median of `--reps`). Then `torch.profiler` traces two steps: device
+time per step, the busy share (device time over the unprofiled wall time of
+a step), the twelve kernels with the most device time and the time of
+cuDNN's FFT route. It also reports the launches of the port's own kernels in
+one step and the peak of allocated device memory. Prints one line per part and
 writes everything, with the card's name and power limit, as JSON to
 `--out`. Must be run from the repository root.
 """
@@ -27,17 +29,35 @@ from pathlib import Path
 
 import torch
 
+from ..models.backbones_3d.grid_point_backbone import GridPointBackbone
 from ..ops import fps, group
 from ..runtime.trainer import create_train_state, make_train_step
+from .profile_predict import is_fft_route
 from ..utils import synthetic
 from ..utils.config import cfg_from_yaml_file
 
 CFG = 'configs/kitti_models/pdm_ssd_point.yaml'
-STAGES = ('backbone_3d', 'point_head', 'pdm_neck', 'backbone_2d', 'dense_head')
 KERNELS = {'farthest_point_sample': fps.farthest_point_sample_cuda,
            'window_select': group.window_select_cuda,
            'gather_rows': group.gather_rows_cuda,
            'scatter_add_rows': group.scatter_add_rows_cuda}
+
+
+def forward_parts(net) -> list:
+    """(name, batch -> batch) of each stage of the forward, in order."""
+    bb = net.backbone_3d
+    if isinstance(bb, GridPointBackbone):
+        parts = [('pillarize', lambda b: {**b, 'bev_nchw': bb.pillarize(b)})]
+        for lvl in range(len(bb.layer_nums)):
+            def level(b, lvl=lvl):
+                x = bb.level(lvl, b['bev_nchw'])
+                return {**b, 'bev_nchw': x, 'spatial_features': x.permute(0, 2, 3, 1)}
+            parts.append((f'lvl{lvl}', level))
+    else:
+        parts = [('backbone_3d', bb)]
+    return parts + [(name, getattr(net, name)) for name in
+                    ('point_head', 'pdm_neck', 'backbone_2d', 'dense_head')
+                    if getattr(net, name) is not None]
 
 
 def step_in_parts(net, optimizer, batch: dict) -> dict:
@@ -53,8 +73,9 @@ def step_in_parts(net, optimizer, batch: dict) -> dict:
     optimizer.zero_grad()
     marks[0][1].record()
     out = dict(batch)
-    for name in STAGES:
-        out = getattr(net, name)(out)
+    stages = forward_parts(net)
+    for name, stage in stages:
+        out = stage(out)
         mark(name)
     loss, _ = net.get_training_loss(out)
     mark('targets_and_losses')
@@ -68,7 +89,7 @@ def step_in_parts(net, optimizer, batch: dict) -> dict:
     mark('clip_and_update')
     torch.cuda.synchronize()
     parts = {name: marks[i][1].elapsed_time(ev) for i, (name, ev) in enumerate(marks[1:])}
-    parts['forward'] = sum(parts[s] for s in STAGES)
+    parts['forward'] = sum(parts[name] for name, _ in stages)
     return parts
 
 
@@ -87,11 +108,13 @@ def trace(train_step, batch: dict, n: int = 2) -> dict:
     return {'device_ms_per_step': sum(r[2] for r in rows) / 1e3 / n,
             'device_activities_per_step': sum(r[1] for r in rows) / n,
             'top_kernels': [{'name': k[:120], 'calls_per_step': c / n,
-                             'ms_per_step': us / 1e3 / n} for k, c, us in rows[:12]]}
+                             'ms_per_step': us / 1e3 / n} for k, c, us in rows[:12]],
+            'fft_route_ms_per_step': sum(us for k, _, us in rows if is_fft_route(k)) / 1e3 / n}
 
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('--cfg_file', default=CFG)
     ap.add_argument('--batch', type=int, default=8)
     ap.add_argument('--points', type=int, default=16384)
     ap.add_argument('--boxes', type=int, default=8)
@@ -105,7 +128,7 @@ def main() -> None:
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = cfg_from_yaml_file(CFG)
+    cfg = cfg_from_yaml_file(args.cfg_file)
     net = synthetic.random_model(cfg, 'cuda', seed=7)
     batch = {k: torch.from_numpy(v).cuda() for k, v in
              synthetic.kitti_batch(args.batch, args.points, args.boxes, seed=5).items()}
@@ -141,9 +164,11 @@ def main() -> None:
           f'B={args.batch} N={args.points} boxes={args.boxes}; {card}')
     for r in prof['top_kernels']:
         print(f'  {r["ms_per_step"]:8.3f} ms  x{r["calls_per_step"]:<6g} {r["name"]}')
+    print(f'FFT-route kernels (cuDNN): {prof["fft_route_ms_per_step"]:.3f} ms per step')
     out = Path(args.out)
     out.parent.mkdir(parents=True, exist_ok=True)
-    out.write_text(json.dumps({'card': card, 'batch': args.batch, 'points': args.points,
+    out.write_text(json.dumps({'card': card, 'cfg_file': args.cfg_file, 'batch': args.batch,
+                               'points': args.points,
                                'boxes': args.boxes, 'reps': args.reps, 'parts_ms': parts,
                                'step_wall_ms': wall_ms, 'peak_allocated_gib': peak_gib,
                                'kernel_launches_per_step': launches, 'profile': prof}, indent=1))

@@ -27,8 +27,8 @@ def main(argv=None) -> None:
     device = trainer.resolve_device(args.device)
     cfg, output_dir, logger = setup(args, 'train')
     if cfg.get('HOOK'):
-        raise NotImplementedError('training hooks are not ported yet (ROADMAP Queue 1 item 8, '
-                                  'the rest of the PDM family)')
+        raise NotImplementedError('training hooks are not ported: no config of the repo sets one '
+                                  '(ROADMAP Queue 1 item 3)')
     batch_size = args.batch_size or cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
     epochs = args.epochs or cfg.OPTIMIZATION.NUM_EPOCHS
 

@@ -31,6 +31,19 @@ def kitti_batch(B: int, N: int, M: int = 8, seed: int = 0) -> dict:
     return {'points': pts, 'gt_boxes': gt, 'gt_mask': np.ones((B, M), bool)}
 
 
+LARGE_RANGE = (-75.2, -75.2, -3.0, 75.2, 75.2, 3.0)
+
+
+def large_scene_points(B: int, N: int, seed: int) -> np.ndarray:
+    """Uniform clouds over the range of `configs/kitti_models/pdm_ssd_large.yaml`
+    (+-75.2 m around the sensor, z in [-3, 1)), (B, N, 4) float32: x, y, z,
+    intensity."""
+    rng = np.random.RandomState(seed)
+    x0, y0, _, x1, y1, _ = LARGE_RANGE
+    return np.stack([rng.uniform(x0, x1, (B, N)), rng.uniform(y0, y1, (B, N)),
+                     rng.uniform(-3, 1, (B, N)), rng.rand(B, N)], axis=-1).astype(np.float32)
+
+
 def lidar_points(B: int, N: int, seed: int,
                  pc_range=(0.0, -40.0, -3.0, 70.4, 40.0, 1.0)) -> np.ndarray:
     """Clouds that look like a LiDAR scan to a voxel grid, (B, N, 4) float32:
@@ -114,6 +127,49 @@ def tiny_flagship_cfg(cfg):
     return cfg
 
 
+def tiny_grid_cfg(cfg):
+    """Shrink `configs/kitti_models/pdm_ssd.yaml` in place to the size of the
+    JAX package's flip-TTA test (`tests/test_tta_flip.py`): the same path
+    (pillarize, GridPointBackbone, PDMNeckConv, CenterHead, circle NMS) on a
+    44 x 50 grid of 1.6 m cells, whose levels are 44 x 50, 22 x 25 and
+    11 x 13 (odd sizes under stride 2), narrow."""
+    bb = cfg.MODEL.BACKBONE_3D
+    bb.CELL_SIZE = 1.6
+    bb.GRID_SIZE = [44, 50]
+    bb.NUM_FILTERS = [8, 8, 16]
+    neck = cfg.MODEL.PDM_NECK
+    neck.BEV_SIZE = [22, 25]
+    neck.VOXEL_SIZE = [3.2, 3.2, 1.0]
+    neck.NUM_BEV_FEATURES = 8
+    nms = cfg.MODEL.POST_PROCESSING.NMS_CONFIG
+    nms.NMS_PRE_MAXSIZE = 64
+    nms.NMS_POST_MAXSIZE = 16
+    cfg.MODEL.DENSE_HEAD.POST_PROCESSING.MAX_OBJ_PER_SAMPLE = 16
+    return cfg
+
+
+def tiny_large_cfg(cfg):
+    """Shrink `configs/kitti_models/pdm_ssd_large.yaml` in place as
+    `tiny_grid_cfg` shrinks its base, over the file's +-75.2 m range: a
+    47 x 47 grid of 3.2 m cells (levels 47, 24 and 12 cells a side)."""
+    tiny_grid_cfg(cfg)
+    cfg.MODEL.BACKBONE_3D.CELL_SIZE = 3.2
+    cfg.MODEL.BACKBONE_3D.GRID_SIZE = [47, 47]
+    cfg.MODEL.PDM_NECK.BEV_SIZE = [24, 24]
+    cfg.MODEL.PDM_NECK.VOXEL_SIZE = [6.4, 6.4, 1.5]
+    return cfg
+
+
+def tiny_pdmssd_cfg(cfg):
+    """The shrink of a PDMSSD config: the grid family's by its range, the
+    point-exact one's (`tiny_flagship_cfg`) otherwise."""
+    if cfg.MODEL.BACKBONE_3D.get('NAME') != 'GridPointBackbone':
+        return tiny_flagship_cfg(cfg)
+    if cfg.DATA_CONFIG.POINT_CLOUD_RANGE[0] < 0:
+        return tiny_large_cfg(cfg)
+    return tiny_grid_cfg(cfg)
+
+
 def tiny_pointrcnn_cfg(cfg):
     """Shrink `configs/kitti_models/pointrcnn.yaml` in place to the dry run's
     size: the same path (non-fused SA with three sampling methods, FP modules,
@@ -170,7 +226,7 @@ def tiny_second_cfg(cfg):
 
 
 # the dry run's shrink of each model that has one, by `MODEL.NAME`
-TINY_CFGS = {'PDMSSD': tiny_flagship_cfg, 'PointRCNN': tiny_pointrcnn_cfg,
+TINY_CFGS = {'PDMSSD': tiny_pdmssd_cfg, 'PointRCNN': tiny_pointrcnn_cfg,
              'SECONDNet': tiny_second_cfg}
 
 
@@ -200,13 +256,16 @@ def randomize_bn(model: torch.nn.Module, gen: torch.Generator) -> None:
 
 
 def open_score_gate(net: torch.nn.Module) -> torch.nn.Module:
-    """Set an anchor head's classification bias to 0, in place. The port
-    starts it at -log(99) as the JAX package does, so a seeded model scores
-    every anchor near 0.01, below any SCORE_THRESH, and its NMS sees no
-    candidate; at 0 the scores spread around 0.5 and post-processing does the
-    work it does for a trained model."""
+    """Set the classification bias of a model's dense head to 0, in place:
+    an anchor head's (it starts at -log(99), as in the JAX package, so a
+    seeded model scores every anchor near 0.01, below any SCORE_THRESH, and
+    its NMS sees no candidate) or a heatmap head's (it starts at -2.19,
+    scores near 0.1, at the SCORE_THRESH of the PDM configs). At 0 the
+    scores spread around 0.5 and post-processing does the work it does for a
+    trained model."""
+    head = net.dense_head
     with torch.no_grad():
-        net.dense_head.conv_cls.bias.zero_()
+        (head.conv_cls if hasattr(head, 'conv_cls') else head.head.hm_out).bias.zero_()
     return net
 
 

@@ -52,6 +52,9 @@ SLICE_MODULES = [
     'pdm_ssd_torch.datasets.kitti.eval', 'pdm_ssd_torch.datasets.kitti.synthetic',
     'pdm_ssd_torch.runtime.eval_utils', 'pdm_ssd_torch.tools.make_mini_kitti',
     'pdm_ssd_torch.tools.cli_common', 'pdm_ssd_torch.tools.train', 'pdm_ssd_torch.tools.test',
+    'pdm_ssd_torch.ops.pillarize', 'pdm_ssd_torch.models.backbones_3d.grid_point_backbone',
+    'pdm_ssd_torch.models.backbones_2d.pdm_neck_conv',
+    'pdm_ssd_torch.models.dense_heads.point_head_simple',
     'bench_torch',
 ]
 
@@ -219,7 +222,9 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
     assert not any(tmp_path.iterdir())
     for cfg_file in ('configs/kitti_models/pdm_ssd_point.yaml',
                      'configs/kitti_models/pointrcnn.yaml',
-                     'configs/kitti_models/second_sparse.yaml'):
+                     'configs/kitti_models/second_sparse.yaml',
+                     'configs/kitti_models/pdm_ssd.yaml', 'configs/kitti_models/pdm_ssd_aux.yaml',
+                     'configs/kitti_models/pdm_ssd_large.yaml'):
         cfg = t_config.cfg_from_yaml_file(cfg_file)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_network(cfg.MODEL, 3, cfg.DATA_CONFIG)
