@@ -139,11 +139,32 @@ non-zero exit):
    scatter-add launches a step, ms per step;
 26. the flagship with TTA_FLIP ['y']: the tiny model on CUDA against the CPU
    (detections matched by box and label), then as shipped at B=8: twice a
-   predict's launches, frames/s.
+   predict's launches, frames/s;
+27. the sparse conv's backward against its plain versions and a float64
+   evaluation (each within float32 rounding of the sum of magnitudes), two
+   runs bit-equal, absent taps and rows without taps exactly 0: the data
+   gradient (the forward kernel through the transposed map, W flipped) and
+   the weight gradient (`sparse_conv_wgrad`) at SECOND's twelve layers with
+   the maps, plans, layer inputs and a seeded output gradient of a
+   full-width training batch (B=4, 16000 voxel slots, ACTIVE_CAPS as
+   shipped), and at the TPU microbench's shape; times kernel, plain version
+   and the gather + `torch.matmul` pair (device ms per launch, host us), the
+   bound from bytes or the multiply-adds of the present taps;
+28. the tiny SECOND's training loss and every gradient on CUDA (the kernels)
+   against the CPU (the plain versions);
+29. five training steps of `second_sparse.yaml` as shipped at B=4 with 8
+   boxes a cloud: a finite and falling loss, 23 sparse-conv (12 forward, 11
+   data gradient), 12 weight-gradient and 1 row-gather launches a step, ms
+   per step with and without the map build, peak memory (at B=2, said so,
+   where B=4 does not fit);
+30. phases 16 and 17 with `second_sparse.yaml` at B=4: the eval loop (the
+   anchor head's bias at 0) and the 2-epoch train loop with checkpoint,
+   resume and bit-equal reload, a predict's and a train step's launches a
+   batch.
 
 The line before the last is the card's name and power limit; before it, one
 JSON line describing each kernel, with the launches of each path of phases 20
-to 26 (`launches_<path>`). The last line is
+to 30 (`launches_<path>`). The last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -186,11 +207,13 @@ FP32_FLOP_PER_S = 67e12
 NO_BALL_QUERY = {'ball query grid path': 0, 'ball query walk path': 0}
 TRAIN_LAUNCHES = {'farthest_point_sample': 1, 'window_select': 3, 'gather_rows': 6,
                   'scatter_add_rows': 4, 'ball_query': 0, 'sparse_conv': 0,
-                  'gather_rows_bf16': 0, 'fps cluster path': 1, 'fps block path': 0,
+                  'sparse_conv_wgrad': 0, 'gather_rows_bf16': 0, 'fps cluster path': 1,
+                  'fps block path': 0,
                   **NO_BALL_QUERY}
 PREDICT_LAUNCHES = {'farthest_point_sample': 1, 'window_select': 3, 'gather_rows': 6,
                     'scatter_add_rows': 0, 'ball_query': 0, 'sparse_conv': 0,
-                    'gather_rows_bf16': 0, 'fps cluster path': 1, 'fps block path': 0,
+                    'sparse_conv_wgrad': 0, 'gather_rows_bf16': 0, 'fps cluster path': 1,
+                    'fps block path': 0,
                     **NO_BALL_QUERY}
 # one PointRCNN predict. FPS: backbone level 1 is 'random' without a generator
 # (a prefix), level 2 runs FPS 4096 -> 1024, level 3 is its prefix; the ROI
@@ -202,7 +225,8 @@ PREDICT_LAUNCHES = {'farthest_point_sample': 1, 'window_select': 3, 'gather_rows
 POINTRCNN_CFG = 'configs/kitti_models/pointrcnn.yaml'
 POINTRCNN_PREDICT_LAUNCHES = {'farthest_point_sample': 3, 'window_select': 0, 'gather_rows': 16,
                               'scatter_add_rows': 0, 'ball_query': 5, 'sparse_conv': 0,
-                              'gather_rows_bf16': 0, 'fps cluster path': 0,
+                              'sparse_conv_wgrad': 0, 'gather_rows_bf16': 0,
+                              'fps cluster path': 0,
                               'fps block path': 3, 'ball query grid path': 3,
                               'ball query walk path': 2}
 # one SECOND predict: the reorder of the voxel features into slot order, then
@@ -211,8 +235,13 @@ POINTRCNN_PREDICT_LAUNCHES = {'farthest_point_sample': 3, 'window_select': 0, 'g
 SECOND_CFG = 'configs/kitti_models/second_sparse.yaml'
 SECOND_PREDICT_LAUNCHES = {'farthest_point_sample': 0, 'window_select': 0, 'gather_rows': 1,
                            'scatter_add_rows': 0, 'ball_query': 0, 'sparse_conv': 12,
-                           'gather_rows_bf16': 0, 'fps cluster path': 0, 'fps block path': 0,
-                           **NO_BALL_QUERY}
+                           'sparse_conv_wgrad': 0, 'gather_rows_bf16': 0, 'fps cluster path': 0,
+                           'fps block path': 0, **NO_BALL_QUERY}
+# one SECOND train step: the predict's 13, then the backward's data gradient
+# through the forward kernel at every layer but conv_input (its input has no
+# parameters behind it) and the weight gradient at all twelve
+SECOND_TRAIN_LAUNCHES = {**SECOND_PREDICT_LAUNCHES, 'sparse_conv': 12 + 11,
+                         'sparse_conv_wgrad': 12}
 SECOND_POINTS = 50000
 # the grid family (`pdm_ssd.yaml`, `pdm_ssd_large.yaml`) launches none of the
 # port's kernels: pillarize is `index_add_`, the rest cuDNN convolutions and
@@ -1284,7 +1313,7 @@ def second_inputs(cfg, synthetic, B: int, N: int, seed: int, device='cuda') -> d
         synthetic.voxel_batch(B, N, cfg, seed=seed, device=device))
 
 
-def sparse_conv_check(name, sc, feats, nbr, w, plan=None) -> dict:
+def sparse_conv_check(name, sc, feats, nbr, w, plan=None, phase: str = '12 sparse conv') -> dict:
     """Kernel (through `plan`, or the plan it builds) and plain version each
     against float64, within the rounding of a float32 sum of K * Cin products
     (each at most 2^-24 of the sum of magnitudes); two kernel runs bit-equal;
@@ -1297,7 +1326,7 @@ def sparse_conv_check(name, sc, feats, nbr, w, plan=None) -> dict:
     again = sc.sparse_conv_cuda(feats, nbr, w, plan)
     torch.cuda.synchronize()
     if not torch.equal(got, again):
-        raise SystemExit(f'[12 sparse conv] FAILED {name}: two runs of the kernel differ')
+        raise SystemExit(f'[{phase}] FAILED {name}: two runs of the kernel differ')
     want = sc.sparse_conv_plain(feats, nbr, w)
     exact = sc.sparse_conv_plain(feats.double(), nbr, w.double())
     mass = sc.sparse_conv_plain(feats.double().abs(), nbr, w.double().abs())
@@ -1307,12 +1336,12 @@ def sparse_conv_check(name, sc, feats, nbr, w, plan=None) -> dict:
         ratio = (t.double() - exact).abs() / tol
         worst[label] = float(ratio.max())
         if not bool((ratio <= 1.0).all()):
-            raise SystemExit(f'[12 sparse conv] FAILED {name}: {label} differs from the float64 '
+            raise SystemExit(f'[{phase}] FAILED {name}: {label} differs from the float64 '
                              f'evaluation by {worst[label]:.3f} of the rounding bound')
     present = (nbr >= 0) & (nbr < Vin)
     empty = ~present.any(dim=2)
     if bool(got[empty].any()):
-        raise SystemExit(f'[12 sparse conv] FAILED {name}: a row with no present tap is not 0')
+        raise SystemExit(f'[{phase}] FAILED {name}: a row with no present tap is not 0')
     return {'present': int(present.sum()), 'empty_rows': int(empty.sum()),
             'err': float((got - want).abs().max()), 'worst': worst}
 
@@ -1621,6 +1650,280 @@ def second_predict_phase(cfg, net, inputs, wrappers, synthetic, card: str) -> di
     return launches
 
 
+def wgrad_check(name, sc, feats, nbr, dy, plan, phase: str = '27 sparse conv backward') -> dict:
+    """`sparse_conv_wgrad_cuda` (through `plan`) and its plain version each
+    against float64, within the rounding of a float32 sum of each tap's
+    present rows (each term at most 2^-24 of the sum of magnitudes); two
+    kernel runs bit-equal; the rows of a tap that no row has exactly zero.
+    Returns the taps present and the largest kernel-plain difference."""
+    B, Vin, Cin = feats.shape
+    K, Cout = nbr.shape[2], dy.shape[2]
+    got = sc.sparse_conv_wgrad_cuda(feats, nbr, dy, plan)
+    torch.cuda.synchronize()
+    again = sc.sparse_conv_wgrad_cuda(feats, nbr, dy, plan)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise SystemExit(f'[{phase}] FAILED {name}: two runs of the weight gradient differ')
+    want = sc.sparse_conv_wgrad_plain(feats, nbr, dy)
+    exact = sc.sparse_conv_wgrad_plain(feats.double(), nbr, dy.double())
+    mass = sc.sparse_conv_wgrad_plain(feats.double().abs(), nbr, dy.double().abs())
+    present = (nbr >= 0) & (nbr < Vin)
+    rows = present.sum(dim=(0, 1)).double().repeat_interleave(Cin)[:, None]
+    tol = rows * 2.0 ** -24 * mass + 1e-30
+    worst = {}
+    for label, t in (('kernel', got), ('plain', want)):
+        ratio = (t.double() - exact).abs() / tol
+        worst[label] = float(ratio.max())
+        if not bool((ratio <= 1.0).all()):
+            raise SystemExit(f'[{phase}] FAILED {name}: the weight gradient\'s {label} differs '
+                             f'from the float64 evaluation by {worst[label]:.3f} of the bound')
+    absent = ~present.any(dim=(0, 1))
+    if bool(got.view(K, Cin, Cout)[absent].any()):
+        raise SystemExit(f'[{phase}] FAILED {name}: a tap no row has is not 0')
+    return {'present': int(present.sum()), 'absent_taps': int(absent.sum()),
+            'err': float((got - want).abs().max()), 'worst': worst}
+
+
+def sparse_conv_backward_phase(cfg, net, synthetic, sc, smi: str) -> tuple[dict, dict]:
+    """Phase 27: the sparse conv's backward on the card against its plain
+    versions, at SECOND's twelve layers of a full-width training batch and at
+    the TPU microbench's shape. Returns (the data gradient's totals over the
+    11 layers a train step runs it at, the weight gradient's over 12)."""
+    from pdm_ssd_torch.models import get_host_prepare
+    from pdm_ssd_torch.models.backbones_3d.sparse_backbone import SparseConvBNReLU
+    phase = '27 sparse conv backward'
+    B = cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
+    batch = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG, training=True)(
+        synthetic.voxel_train_batch(B, SECOND_POINTS, cfg, 8, seed=5, device='cuda'))
+    bb = net.backbone_3d
+    calls = {}
+    hooks = [m.register_forward_pre_hook(lambda mod, args, name=name: calls.setdefault(name, args))
+             for name, m in bb.named_modules() if isinstance(m, SparseConvBNReLU)]
+    with torch.inference_mode():
+        bb(net.vfe(dict(batch)))
+    for h in hooks:
+        h.remove()
+    modules = dict(bb.named_modules())
+    if len(calls) != 12 or any(len(a) != 6 for a in calls.values()):
+        raise SystemExit(f'[{phase}] FAILED: {len(calls)} layers, not all handed a backward map')
+    keys = ('ms', 'host_us', 'call_ms', 'plain_ms', 'library_ms', 'library_host_us', 'bytes',
+            'flops')
+    tot = {'dgrad': dict.fromkeys(keys, 0.0), 'wgrad': dict.fromkeys(keys, 0.0)}
+    tot['dgrad']['err'] = tot['wgrad']['err'] = 0.0
+    rng = np.random.default_rng(3)
+    with torch.inference_mode():
+        for name, (feats, nbr, mask, plan, bwd, bplan) in calls.items():
+            w = modules[name].kernel.detach()
+            feats, nbr, bwd = feats.contiguous(), nbr.contiguous(), bwd.contiguous()
+            B, Vin, Cin = feats.shape
+            Vout, K = nbr.shape[1], nbr.shape[2]
+            Cout = w.shape[1]
+            if bwd.shape != (B, Vin, K) or bplan.vin != Vout:
+                raise SystemExit(f'[{phase}] FAILED {name}: the backward map is not the '
+                                 'transpose of the forward one')
+            # an output gradient as a loss gives it: zero at the padding slots
+            dy = torch.from_numpy(rng.standard_normal((B, Vout, Cout), np.float32)).cuda()
+            dy = torch.where(mask[..., None], dy, 0.0)
+            rw = wgrad_check(name, sc, feats, nbr, dy, plan)
+            t = device_time(lambda: sc.sparse_conv_wgrad_cuda(feats, nbr, dy, plan))
+            lib_t = device_time(lambda: sc.gather_taps(feats, nbr).reshape(-1, K * Cin).t()
+                                @ dy.reshape(-1, Cout))
+            plain_ms = median_ms(lambda: sc.sparse_conv_wgrad_plain(feats, nbr, dy), 5)
+            byts = (feats.numel() + nbr.numel() + dy.numel() + w.numel()) * 4
+            flops = 2 * rw['present'] * Cin * Cout
+            for key, v in (('ms', t['ms']), ('host_us', t['host_us']), ('call_ms', t['call_ms']),
+                           ('plain_ms', plain_ms), ('library_ms', lib_t['ms']),
+                           ('library_host_us', lib_t['host_us']), ('bytes', byts),
+                           ('flops', flops)):
+                tot['wgrad'][key] += v
+            tot['wgrad']['err'] = max(tot['wgrad']['err'], rw['err'])
+            note = (f'weight gradient: kernel {rw["worst"]["kernel"]:.3f} and plain '
+                    f'{rw["worst"]["plain"]:.3f} of the rounding bound, two runs bit-equal, '
+                    f'{rw["absent_taps"]} taps absent (0); ms kernel/plain/gather+matmul '
+                    f'{t["ms"]:.4f}/{plain_ms:.3f}/{lib_t["ms"]:.4f}, bound '
+                    f'{max(byts / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S) * 1e3:.4f}')
+            if name != 'conv_input':      # a train step skips its data gradient
+                wf = sc.flip_weight(w, K).contiguous()
+                rd = sparse_conv_check(name, sc, dy, bwd, wf, bplan, phase=phase)
+                t = device_time(lambda: sc.sparse_conv_cuda(dy, bwd, wf, bplan))
+                lib_t = device_time(lambda: torch.matmul(sc.gather_taps(dy, bwd), wf))
+                plain_ms = median_ms(lambda: sc.sparse_conv_dgrad_plain(dy, bwd, w), 5)
+                byts = (dy.numel() + bwd.numel() + w.numel() + B * Vin * Cin) * 4
+                flops = 2 * rd['present'] * Cin * Cout
+                for key, v in (('ms', t['ms']), ('host_us', t['host_us']),
+                               ('call_ms', t['call_ms']), ('plain_ms', plain_ms),
+                               ('library_ms', lib_t['ms']), ('library_host_us', lib_t['host_us']),
+                               ('bytes', byts), ('flops', flops)):
+                    tot['dgrad'][key] += v
+                tot['dgrad']['err'] = max(tot['dgrad']['err'], rd['err'])
+                note += (f'; data gradient: kernel {rd["worst"]["kernel"]:.3f} and plain '
+                         f'{rd["worst"]["plain"]:.3f} of the bound, bit-equal, '
+                         f'{rd["empty_rows"]} rows without taps 0; ms kernel/plain/'
+                         f'gather+matmul {t["ms"]:.4f}/{plain_ms:.3f}/{lib_t["ms"]:.4f}, bound '
+                         f'{max(byts / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S) * 1e3:.4f}')
+            log(phase, f'{name} {Cin}->{Cout} K={K} Vin={Vin} Vout={Vout} B={B}: {note}')
+        # the TPU microbench's layer, its map read as its own transpose, one
+        # tap absent from every row and every 97th row without taps
+        V, C, K = 52224, 64, 27
+        idx = np.clip(np.arange(V)[:, None] + rng.integers(-40, 40, size=(1, K))
+                      + rng.integers(-8, 8, size=(V, K)), 0, V - 1)
+        idx[rng.random((V, K)) < 0.10] = V
+        idx[:, 5] = V
+        idx[::97] = V
+        feats = torch.from_numpy(rng.standard_normal((1, V, C), np.float32)).cuda()
+        dy = torch.from_numpy(rng.standard_normal((1, V, C), np.float32)).cuda()
+        nbr = torch.from_numpy(idx.astype(np.int32))[None].cuda()
+        w = torch.from_numpy((rng.standard_normal((K * C, C)) * 0.02).astype(np.float32)).cuda()
+        plan = sc.sparse_conv_plan(nbr, V)
+        rw = wgrad_check('microbench shape', sc, feats, nbr, dy, plan)
+        wf = sc.flip_weight(w, K).contiguous()
+        rd = sparse_conv_check('microbench shape', sc, dy, nbr, wf, plan, phase=phase)
+        w_ms = device_time(lambda: sc.sparse_conv_wgrad_cuda(feats, nbr, dy, plan))['ms']
+        d_ms = device_time(lambda: sc.sparse_conv_cuda(dy, nbr, wf, plan))['ms']
+        log(phase, f'microbench shape V={V} C={C} K={K}: weight gradient '
+            f'{rw["worst"]["kernel"]:.3f} of the rounding bound, tap 5 absent and exactly 0, {w_ms:.4f} ms, '
+            f'{2 * rw["present"] * C * C / w_ms / 1e9:.2f} TFLOP/s; data gradient '
+            f'{rd["worst"]["kernel"]:.3f} of the bound, {rd["empty_rows"]} rows without taps 0, '
+            f'{d_ms:.4f} ms; both bit-equal twice, on {smi}')
+    out = []
+    for kind, n in (('dgrad', 11), ('wgrad', 12)):
+        t = tot[kind]
+        t_bytes, t_ops = t['bytes'] / HBM_BYTES_PER_S * 1e3, t['flops'] / FP32_FLOP_PER_S * 1e3
+        stats = {'max_abs_err': t['err'], 'ms': t['ms'], 'host_us': t['host_us'],
+                 'call_ms': t['call_ms'], 'plain_ms': t['plain_ms'],
+                 'bound_ms': max(t_bytes, t_ops),
+                 'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
+                 'library_ms': t['library_ms'], 'library_host_us': t['library_host_us']}
+        log(phase, f'{"data" if kind == "dgrad" else "weight"} gradient over the {n} layers of '
+            f'a train step at B={B}: kernel {stats["ms"]:.3f} ms device, {stats["host_us"]:.1f} '
+            f'us host, {stats["call_ms"]:.3f} ms one call each; plain torch '
+            f'{stats["plain_ms"]:.3f} ms; gather + torch.matmul (no single PyTorch call '
+            f'computes it) {stats["library_ms"]:.3f} ms; bound {stats["bound_ms"]:.4f} ms by '
+            f'{stats["bound_by"]} ({t["flops"] / 1e9:.2f} GFLOP of present taps, '
+            f'{t["bytes"] / 1e6:.1f} MB) on {smi}')
+        out.append(stats)
+    return out[0], out[1]
+
+
+# the tiny SECOND's training loss and gradients on CUDA against the CPU:
+# float32 sums in another order (the kernels, cuDNN's convolutions, GEMMs)
+# and BatchNorm on batch statistics, which divides by a channel's own
+# deviation, the only differences; relative L2 per parameter tensor
+SECOND_GRAD_RTOL = 1e-2
+
+
+def second_grads_cuda_vs_cpu_phase(cfg, synthetic) -> None:
+    """Phase 28: one training forward and backward of the tiny SECOND on a
+    voxel training batch (8 boxes a cloud), on CUDA with the kernels and on
+    the CPU with the plain versions, the same weights."""
+    from pdm_ssd_torch.models import get_host_prepare
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase = '28 second grads'
+    prepare = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG, training=True)
+    cpu_net = synthetic.random_model(cfg, 'cpu')
+    gpu_net = synthetic.random_model(cfg, 'cuda')
+    gpu_net.load_state_dict(cpu_net.state_dict())
+    out = {}
+    for dev, net in (('cpu', cpu_net), ('cuda', gpu_net)):
+        batch = prepare(synthetic.voxel_train_batch(2, 600, cfg, 8, seed=4, device=dev))
+        net.train()
+        loss, tb = net.forward_with_loss(batch)
+        loss.backward()
+        out[dev] = (float(loss.detach()), {k: float(v.detach()) for k, v in tb.items()},
+                    {k: p.grad.detach().double().cpu() for k, p in net.named_parameters()})
+    (c_loss, c_tb, c_grads), (g_loss, g_tb, g_grads) = out['cpu'], out['cuda']
+    for k, v in c_tb.items():
+        if not (np.isfinite(g_tb[k]) and abs(g_tb[k] - v) <= LOSS_RTOL * max(abs(v), 1.0)):
+            raise SystemExit(f'[{phase}] FAILED {k}: {g_tb[k]} on CUDA vs {v} on the CPU')
+    worst, worst_name = 0.0, ''
+    for k, c in c_grads.items():
+        g = g_grads[k]
+        norm = float(c.norm())
+        rel = float((g - c).norm()) / norm if norm > 0 else float(g.norm())
+        if not (bool(torch.isfinite(g).all()) and rel <= SECOND_GRAD_RTOL):
+            raise SystemExit(f'[{phase}] FAILED {k}: relative L2 error {rel:.3e} (bound '
+                             f'{SECOND_GRAD_RTOL:g})')
+        if rel > worst:
+            worst, worst_name = rel, k
+    log(phase, f'tiny SECOND B=2, 8 boxes: loss {g_loss:.6f} on CUDA vs {c_loss:.6f} on the CPU '
+        f'(the kernels against the plain versions, backward included); {len(c_grads)} '
+        f'gradients agree, worst relative L2 {worst:.3e} at {worst_name} (bound '
+        f'{SECOND_GRAD_RTOL:g})')
+
+
+def second_train_phase(cfg, wrappers, synthetic, card: str) -> dict:
+    """Phase 29: five training steps of `second_sparse.yaml` as shipped at
+    B = BATCH_SIZE_PER_GPU on LiDAR-like clouds with 8 boxes each: ms per
+    step with the map build and without it, both timed inside each step's
+    pass, peak memory, a finite and falling loss, SECOND_TRAIN_LAUNCHES a
+    step. Where B does not fit (cuDNN's float32 FFT route in the BEV
+    backbone), the peak that failed is printed and the phase runs at B=2."""
+    from pdm_ssd_torch.models import get_host_prepare
+    from pdm_ssd_torch.runtime.trainer import create_train_state, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase = '29 second train'
+    prepare = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG, training=True)
+    steps = 5
+
+    def run(B: int):
+        net = synthetic.random_model(cfg, seed=7)          # no device named: the card
+        optimizer, _ = create_train_state(net, cfg.OPTIMIZATION, total_iters_each_epoch=100,
+                                          total_epochs=1)
+        train_step = make_train_step(net, optimizer, prepare)
+        raw = synthetic.voxel_train_batch(B, SECOND_POINTS, cfg, 8, seed=5, device='cuda')
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches(wrappers)
+        losses, times = [], []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            metrics = train_step(raw)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            losses.append(float(metrics['loss']))
+        launches = read_launches(wrappers)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        # the map build and the step on a prepared batch, timed apart in one pass
+        parts = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                prepared = prepare(raw)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            train_step(prepared)
+            torch.cuda.synchronize()
+            parts.append((t1 - t0, time.perf_counter() - t1))
+        return B, losses, times, launches, peak, parts
+
+    B = cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
+    try:
+        B, losses, times, launches, peak, parts = run(B)
+    except torch.cuda.OutOfMemoryError as err:
+        failed = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(phase, f'B={B} does not fit: peak allocated {failed:.3f} GiB when it failed ({err}); '
+            'running at B=2')
+        torch.cuda.empty_cache()
+        B, losses, times, launches, peak, parts = run(2)
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SystemExit(f'[{phase}] FAILED: losses {losses}')
+    want = {k: v * steps for k, v in SECOND_TRAIN_LAUNCHES.items()}
+    if launches != want:
+        raise SystemExit(f'[{phase}] FAILED: kernel launches {launches}, expected {want}')
+    med = statistics.median(times)
+    build = statistics.median(p[0] for p in parts)
+    step = statistics.median(p[1] for p in parts)
+    log(phase, f'{cfg.MODEL.NAME} as shipped B={B}, {SECOND_POINTS} points and 8 boxes per '
+        f'cloud, {steps} steps: losses ' + ' '.join(f'{x:.4f}' for x in losses)
+        + f'; launches per step {SECOND_TRAIN_LAUNCHES}; median {med * 1e3:.3f} ms/step with '
+        f'the map build (first {times[0] * 1e3:.1f} ms); in 3 more passes timed in two parts: '
+        f'map build median {build * 1e3:.3f} ms, step on the prepared batch median '
+        f'{step * 1e3:.3f} ms; peak allocated {peak:.3f} GiB on {card}')
+    return launches
+
+
 # the mini-KITTI set of phases 16 and 17: the port's generator's defaults
 KITTI_FRAMES = 64
 KITTI_DIR = REPO / 'build' / 'chip_smoke_kitti'
@@ -1682,19 +1985,21 @@ def mini_kitti() -> Path:
 
 def kitti_eval_phase(wrappers, synthetic, card: str, cfg_file: str = CFG,
                      phase: str = '16 kitti eval', expected: dict = PREDICT_LAUNCHES,
-                     adjust=None, cpu_check: bool = True) -> dict:
-    """Phase 16 (and 22 for the grid config): `eval_one_epoch` of a config as
-    shipped, seeded weights (`adjust` done to the model), at B=8 over the
-    val split, then, with `cpu_check`, CUDA against the CPU at B=2 N=4096
-    over 8 frames. Returns the launches of the B=8 eval loop."""
+                     adjust=None, cpu_check: bool = True, B: int = 8) -> dict:
+    """Phase 16 (and 22 for the grid config, 30 for SECOND): `eval_one_epoch`
+    of a config as shipped, seeded weights (`adjust` done to the model), at
+    B (8) over the val split, a voxel model's batches given their kernel
+    maps on the card (`get_host_prepare`), then, with `cpu_check`, CUDA
+    against the CPU at B=2 N=4096 over 8 frames. Returns the launches of the
+    eval loop at B."""
     from pdm_ssd_torch.datasets import build_dataloader
+    from pdm_ssd_torch.models import get_host_prepare
     from pdm_ssd_torch.runtime.eval_utils import eval_one_epoch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     root = mini_kitti()
     tag = Path(cfg_file).stem
     cfg = kitti_cfg(root, cfg_file=cfg_file)
-    B = 8
     ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, B, root_path=root,
                                      workers=0, training=False)
     net = synthetic.random_model(cfg, 'cuda', seed=7)
@@ -1703,17 +2008,23 @@ def kitti_eval_phase(wrappers, synthetic, card: str, cfg_file: str = CFG,
     np.random.seed(0)
     reset_launches(wrappers)
     ret = eval_one_epoch(net, loader, ds, cfg.CLASS_NAMES, device='cuda',
-                         result_dir=root / f'eval_b8_{tag}')
+                         result_dir=root / f'eval_b{B}_{tag}',
+                         host_prepare=get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG))
     launches = read_launches(wrappers)
     want = {k: v * len(loader) for k, v in expected.items()}
     if launches != want:
         raise SystemExit(f'[{phase}] FAILED: kernel launches {launches} over {len(loader)} '
                          f'batches, expected {want}')
     check_eval(phase, ret)
-    annos = pickle.loads((root / f'eval_b8_{tag}' / 'result.pkl').read_bytes())
+    annos = pickle.loads((root / f'eval_b{B}_{tag}' / 'result.pkl').read_bytes())
     n_det = sum(len(a['name']) for a in annos)
-    log(phase, f'{tag}.yaml as shipped, seeded weights, B={B} N=16384 over {len(ds)} val frames '
-        f'({len(loader)} batches): {n_det} detections; recall@0.3/0.5/0.7 '
+    # seeded weights and BatchNorm statistics can blow a box's exp-coded size
+    # up to inf: counted, as the evaluator takes them
+    n_inf = sum(int((~np.isfinite(np.asarray(a['boxes_lidar'], np.float64).reshape(-1, 7)))
+                    .any(-1).sum()) for a in annos)
+    log(phase, f'{tag}.yaml as shipped, seeded weights, B={B} over {len(ds)} val frames '
+        f'({len(loader)} batches): {n_det} detections ({n_inf} with a non-finite box); '
+        f'recall@0.3/0.5/0.7 '
         f'{ret["recall/rcnn_0.3"]:.4f}/{ret["recall/rcnn_0.5"]:.4f}/{ret["recall/rcnn_0.7"]:.4f}; '
         f'{r40_note(ret)}; predict alone {ret["infer_fps"]:.2f} frames/s, the loop with loading '
         f'{ret["loop_fps"]:.2f} frames/s; launches {launches} on {card}')
@@ -1742,17 +2053,23 @@ def kitti_eval_phase(wrappers, synthetic, card: str, cfg_file: str = CFG,
 
 
 def train_loop_phase(wrappers, synthetic, card: str, cfg_file: str = CFG,
-                     phase: str = '17 train loop', expected: dict = TRAIN_LAUNCHES) -> dict:
-    """Phase 17 (and 23 for the grid config). Returns the launches of the two
-    training epochs."""
+                     phase: str = '17 train loop', expected: dict = TRAIN_LAUNCHES,
+                     B: int = 8) -> dict:
+    """Phase 17 (and 23 for the grid config, 30 for SECOND), at B (8): a
+    voxel model's batches are given their kernel maps and transposed maps on
+    the card (`get_host_prepare(..., training=True)`). Returns the launches
+    of the two training epochs."""
     from pdm_ssd_torch.datasets import build_dataloader
+    from pdm_ssd_torch.models import get_host_prepare
     from pdm_ssd_torch.runtime import trainer
     from pdm_ssd_torch.runtime.eval_utils import eval_one_epoch
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     tag = Path(cfg_file).stem
     cfg = kitti_cfg(mini_kitti(), cfg_file=cfg_file)
-    B, epochs = 8, 2
+    epochs = 2
+    train_prepare = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG, training=True)
+    eval_prepare = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG)
     ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, B, root_path=KITTI_DIR,
                                      workers=0, training=True, seed=0)
     ckpt_dir = KITTI_DIR / f'ckpt_{tag}'
@@ -1764,7 +2081,7 @@ def train_loop_phase(wrappers, synthetic, card: str, cfg_file: str = CFG,
     reset_launches(wrappers)
     t0 = time.perf_counter()
     losses = trainer.train_model(net, optimizer, sched, loader, 1, ckpt_dir=ckpt_dir,
-                                 max_ckpt_save_num=1)
+                                 max_ckpt_save_num=1, host_prepare=train_prepare)
     names = [c.name for c in trainer.list_checkpoints(ckpt_dir)]
     if names != ['checkpoint_epoch_1.pth']:
         raise SystemExit(f'[{phase}] FAILED: checkpoints after epoch 1: {names}')
@@ -1779,7 +2096,8 @@ def train_loop_phase(wrappers, synthetic, card: str, cfg_file: str = CFG,
         raise SystemExit(f'[{phase}] FAILED: resume gave epoch {start}, iteration '
                          f'{fresh_opt.count} (want {optimizer.count}), state equal: {same}')
     losses += trainer.train_model(fresh, fresh_opt, sched, loader, epochs, ckpt_dir=ckpt_dir,
-                                  max_ckpt_save_num=1, start_epoch=start)
+                                  max_ckpt_save_num=1, start_epoch=start,
+                                  host_prepare=train_prepare)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_launches(wrappers)
@@ -1791,7 +2109,7 @@ def train_loop_phase(wrappers, synthetic, card: str, cfg_file: str = CFG,
     if launches != want:
         raise SystemExit(f'[{phase}] FAILED: kernel launches {launches} over {steps} steps, '
                          f'expected {want}')
-    log(phase, f'{tag}.yaml B={B} N=16384 over {len(ds)} train frames, {epochs} epochs of '
+    log(phase, f'{tag}.yaml B={B} over {len(ds)} train frames, {epochs} epochs of '
         f'{len(loader)} '
         f'steps (the second after a resume at epoch {start}, iteration '
         f'{fresh_opt.count - len(loader)}, moments and weights equal): mean losses '
@@ -1803,7 +2121,9 @@ def train_loop_phase(wrappers, synthetic, card: str, cfg_file: str = CFG,
     vds, vloader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, B, root_path=KITTI_DIR,
                                        workers=0, training=False)
     np.random.seed(0)
-    points = {'points': torch.from_numpy(next(iter(vloader))['points']).cuda()}
+    points = trainer.to_device_batch(next(iter(vloader)), 'cuda', trainer.INPUT_KEYS)
+    if eval_prepare is not None:
+        points = eval_prepare(points)
     # the PDM neck's index_add_ sums with atomics unless deterministic
     # algorithms are asked for
     torch.use_deterministic_algorithms(True, warn_only=True)
@@ -1825,7 +2145,7 @@ def train_loop_phase(wrappers, synthetic, card: str, cfg_file: str = CFG,
                          f'{differ} (the trained model repeats its predict bit for bit: {repeat})')
     np.random.seed(0)
     ret = eval_one_epoch(reloaded, vloader, vds, cfg.CLASS_NAMES, device='cuda',
-                         result_dir=KITTI_DIR / f'eval_trained_{tag}')
+                         result_dir=KITTI_DIR / f'eval_trained_{tag}', host_prepare=eval_prepare)
     check_eval(phase, ret)
     log(phase, f'the checkpoint of epoch {epochs} reloaded, on the first val batch: its '
         f'{len(want_fwd)} forward outputs and its predict bit-equal to the trained model\'s '
@@ -1944,6 +2264,9 @@ KERNEL_TABLE = (
      'tools/microbench_sparse_gather.py:175, tools/microbench_sparse_gather2.py:94 and :182, '
      'tools/microbench_sparse_gather3.py:156'),
     ('gather_rows_bf16', 'pdm_ssd_torch/csrc/group.cu', 'tools/microbench_pallas_gather.py:66'),
+    ('sparse_conv_wgrad', 'pdm_ssd_torch/csrc/sparse_conv.cu',
+     'the backward of rows 7 to 10 (Pallas forward only): '
+     'pdm_ssd_tpu/models/backbones_3d/sparse_backbone.py:354, the dot_general of _scm_bwd'),
 )
 
 
@@ -1974,6 +2297,7 @@ def main() -> None:
                 'scatter_add_rows': (group.scatter_add_rows_cuda, 'launches'),
                 'ball_query': (bq.ball_query_cuda, 'launches'),
                 'sparse_conv': (sc.sparse_conv_cuda, 'launches'),
+                'sparse_conv_wgrad': (sc.sparse_conv_wgrad_cuda, 'launches'),
                 'gather_rows_bf16': (group.gather_rows_cuda, 'launches_bf16'),
                 'fps cluster path': (fps.farthest_point_sample_cuda, 'launches_cluster'),
                 'fps block path': (fps.farthest_point_sample_cuda, 'launches_block'),
@@ -2026,6 +2350,23 @@ def main() -> None:
     new_paths = grid_family_phases(wrappers, dispatch, synthetic, smi, CfgNode,
                                    cfg_from_yaml_file)
 
+    # SECOND's training: the sparse conv's backward, the tiny model's
+    # gradients, the train step as shipped, and the KITTI loops
+    bwd_net = synthetic.random_model(second, 'cuda', seed=7)
+    dgrad, stats['sparse_conv_wgrad'] = sparse_conv_backward_phase(second, bwd_net, synthetic,
+                                                                   sc, smi)
+    stats['sparse_conv'].update({f'dgrad_{k}': v for k, v in dgrad.items()})
+    del bwd_net
+    second_grads_cuda_vs_cpu_phase(synthetic.tiny_second_cfg(
+        cfg_from_yaml_file(str(REPO / SECOND_CFG), CfgNode())), synthetic)
+    B2 = second.OPTIMIZATION.BATCH_SIZE_PER_GPU
+    new_paths['second_train'] = second_train_phase(second, wrappers, synthetic, smi)
+    new_paths['second_eval_loop'] = kitti_eval_phase(
+        wrappers, synthetic, smi, SECOND_CFG, '30 second eval loop', SECOND_PREDICT_LAUNCHES,
+        adjust=synthetic.open_score_gate, cpu_check=False, B=B2)
+    new_paths['second_train_loop'] = train_loop_phase(
+        wrappers, synthetic, smi, SECOND_CFG, '30 second train loop', SECOND_TRAIN_LAUNCHES, B=B2)
+
     # `launches` is the count from the run of a main path: the flagship's five
     # training steps of phase 8 for its four kernels, PointRCNN's predict of
     # phase 11 for the ball query, SECOND's predict of phase 15 for the sparse
@@ -2044,12 +2385,18 @@ def main() -> None:
     # counts of those paths (each set to 0 just before it: the grid family's
     # predict, train step, eval and train loops and the large scene read 0 for
     # every kernel, the aux train step's 5 steps the flagship's step's four
-    # kernels, TTA's predict twice the flagship's); the sparse conv's `library_ms` is
-    # a pair of PyTorch calls (gather, `torch.matmul`), since no single call
-    # computes it; `max_abs_err` is kernel against plain version
+    # kernels, TTA's predict twice the flagship's), `launches_second_train` the
+    # five steps of phase 29 and `launches_second_{eval,train}_loop` the loops
+    # of phase 30; the weight gradient's `launches` are phase 29's, its times
+    # and bounds sums over the twelve layers of phase 27, and the sparse conv's
+    # `dgrad_*` keys the same for its data-gradient launches (11 layers); the
+    # sparse conv's `library_ms` (and the backward's) is a pair of PyTorch
+    # calls (gather, `torch.matmul`), since no single call computes it;
+    # `max_abs_err` is kernel against plain version
     main_path = {kern: train_launches for kern, _, _ in KERNEL_TABLE}
     main_path.update(ball_query=rcnn_launches, sparse_conv=second_launches,
-                     gather_rows_bf16=second_launches)
+                     gather_rows_bf16=second_launches,
+                     sparse_conv_wgrad=new_paths['second_train'])
     for kern in main_path:
         if kern != 'gather_rows_bf16' and main_path[kern][kern] < 1:
             raise SystemExit(f'[kernels] FAILED: {kern} was not launched on its main path')

@@ -7,8 +7,10 @@ batch (copy of `pdm_ssd_tpu/datasets/dataset.py` for LiDAR points).
 - `collate_batch` produces statically-shaped numpy arrays: points (B, N, C) —
   N is fixed by the `sample_points` processor — and gt_boxes (B, M_max, 8)
   with a boolean `gt_mask` instead of ragged zero-padding with a batch-idx
-  column (`dataset.py:220-325`). The voxel and image keys of the JAX
-  package's collate have no producer in the port's processor yet.
+  column (`dataset.py:220-325`); the voxel keys are padded to the
+  voxelizer's cap with a `voxel_mask`, as the JAX package pads them. The
+  image keys of the JAX package's collate have no producer in the port's
+  processor yet.
 """
 from __future__ import annotations
 
@@ -146,6 +148,17 @@ class DatasetTemplate(object):
                         mask[i, :n] = True
                 ret['gt_boxes'] = boxes
                 ret['gt_mask'] = mask
+            elif key in ['voxels', 'voxel_coords', 'voxel_num_points']:
+                # pad to the processor's static cap so batch shapes never vary
+                V = getattr(self.data_processor, 'max_num_voxels', None) \
+                    or max(len(v) for v in val)
+                out = np.zeros((batch_size, V) + val[0].shape[1:], val[0].dtype)
+                vmask = np.zeros((batch_size, V), bool)
+                for i, v in enumerate(val):
+                    out[i, :len(v)] = v
+                    vmask[i, :len(v)] = True
+                ret[key] = out
+                ret.setdefault('voxel_mask', vmask)
             elif key in ['frame_id', 'calib', 'image_shape', 'use_lead_xyz',
                          'flip_x', 'flip_y', 'noise_rot', 'noise_scale']:
                 ret[key] = np.array(val) if key in ['frame_id', 'image_shape'] else val

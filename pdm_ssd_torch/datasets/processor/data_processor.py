@@ -1,22 +1,25 @@
-"""Config-driven host-side data processing queue (copy of the point steps of
-`pdm_ssd_tpu/datasets/processor/data_processor.py:41-108`).
+"""Config-driven host-side data processing queue (copy of the point and voxel
+steps of `pdm_ssd_tpu/datasets/processor/data_processor.py:41-129`).
 
 Each config entry resolves to a `_build_<NAME>` factory returning a bound
-step closure. The steps of the KITTI point pipeline are here: range masking,
-shuffling and the near/far-aware fixed-N point sampler, which gives point
-models their static shapes. Every other step raises `NotImplementedError`
-naming its ROADMAP item.
+step closure. The steps of the KITTI pipelines are here: range masking,
+shuffling, the near/far-aware fixed-N point sampler, which gives point
+models their static shapes, and the voxelizer of the voxel models
+(`ops/voxelize.voxelize` on a CPU tensor: the contract of the JAX package's
+`_numpy_voxelize`, without its Python loop over cells). Every other step
+raises `NotImplementedError` naming its ROADMAP item.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from ...ops.voxelize import voxelize
 from ...utils import box_utils_np
 
 # steps of the JAX package's queue that the port does not have, with the
 # ROADMAP item that brings each
 _UNPORTED = {
-    'transform_points_to_voxels': 'Queue 1 item 6, SECOND training',
     'calculate_grid_size': 'Queue 1 item 9, the pillar family',
     'generate_depth_map': 'Queue 1 item 12, camera and temporal models',
     'downsample_depth_map': 'Queue 1 item 12, camera and temporal models',
@@ -42,6 +45,11 @@ class DataProcessor:
             raise NotImplementedError(f'the data processor step {cfg.NAME} is not ported yet '
                                       f'(ROADMAP {_UNPORTED[cfg.NAME]})')
         return getattr(self, f'_build_{cfg.NAME}')(cfg)
+
+    def _set_grid(self, voxel_size):
+        extent = self.point_cloud_range[3:6] - self.point_cloud_range[0:3]
+        self.voxel_size = voxel_size
+        self.grid_size = np.round(extent / np.asarray(voxel_size)).astype(np.int64)
 
     def forward(self, data_dict: dict) -> dict:
         for step in self.steps:
@@ -116,5 +124,26 @@ class DataProcessor:
                     keep = np.random.choice(n_have, n_want, replace=False)
             np.random.shuffle(keep)
             dd['points'] = points[keep]
+            return dd
+        return step
+
+    def _build_transform_points_to_voxels(self, cfg):
+        """The first MAX_POINTS_PER_VOXEL points of each occupied cell, the
+        first MAX_NUMBER_OF_VOXELS cells in key order, zyx coords: 'voxels'
+        (V, P, C) float32, 'voxel_coords' (V, 3) int32 and 'voxel_num_points'
+        (V,) int32 for the V cells filled (the collate pads them to the cap)."""
+        self._set_grid(cfg.VOXEL_SIZE)
+        self.max_num_voxels = cfg.MAX_NUMBER_OF_VOXELS[self.mode]
+        max_voxels = self.max_num_voxels
+        max_pts = cfg.MAX_POINTS_PER_VOXEL
+        pc_range = self.point_cloud_range.tolist()
+        vs = np.asarray(cfg.VOXEL_SIZE, np.float32).tolist()
+
+        def step(dd):
+            pts = torch.from_numpy(np.ascontiguousarray(dd['points'], np.float32))
+            voxels, coords, num, n = voxelize(pts, pc_range, vs, max_pts, max_voxels)
+            dd['voxels'] = voxels[:n].numpy()
+            dd['voxel_coords'] = coords[:n].numpy()
+            dd['voxel_num_points'] = num[:n].numpy()
             return dd
         return step

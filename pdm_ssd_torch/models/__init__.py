@@ -31,7 +31,12 @@ def get_host_prepare(model_cfg, dataset_cfg, training: bool = False):
     tables: the sparse ladder's kernel maps (`ops/sparse_maps.py`). Returns a
     batch -> batch callable on tensors, which builds the maps on the device of
     the batch's 'voxel_coords', or None for a model that needs none. A batch
-    that already holds 'sp_submap1' comes back unchanged."""
+    that already holds 'sp_submap1' comes back unchanged. `training=True`
+    adds the four transpose maps (`sparse_maps.UPMAP_KEYS`) that the sparse
+    conv's data gradient reads. `GATHER_BWD` (the JAX package's switch
+    between that gather-transpose backward and autodiff of the gather, which
+    give the same gradient) changes nothing: the port has one backward, which
+    reads those maps, so training ships them whatever the key says."""
     bb = model_cfg.get('BACKBONE_3D', None)
     if bb is None:
         return None
@@ -44,9 +49,6 @@ def get_host_prepare(model_cfg, dataset_cfg, training: bool = False):
     if name == 'SparseUNetV2':
         raise NotImplementedError('SparseUNetV2 and its inverse maps are not ported yet '
                                   '(ROADMAP Queue 1 item 10, the rest of the sparse voxel ladder)')
-    if training:
-        raise NotImplementedError('the inverse maps of the ladder\'s training backward are not '
-                                  'ported yet (ROADMAP Queue 1 item 6, SECOND training)')
     if bb.get('QWIN', False) or bb.get('PWIN', False):
         raise NotImplementedError('QWIN / PWIN correction lists have no counterpart in the port: '
                                   'the sparse-conv kernel needs no window plans (ROADMAP Queue 1 '
@@ -54,7 +56,7 @@ def get_host_prepare(model_cfg, dataset_cfg, training: bool = False):
     if model_cfg.get('DENSE_HEAD', {}).get('NAME') == 'VoxelNeXtHead':
         raise NotImplementedError('the BEV maps of VoxelNeXt are not ported yet (ROADMAP Queue 1 '
                                   'item 10, the rest of the sparse voxel ladder)')
-    from ..ops.sparse_maps import batch_build_backbone8x, default_caps
+    from ..ops.sparse_maps import batch_build_backbone8x, batch_invert_ladder, default_caps
     from .detectors.detector3d import _grid_info
     grid, _ = _grid_info(dataset_cfg)
     caps_cfg = bb.get('ACTIVE_CAPS', None)
@@ -68,5 +70,7 @@ def get_host_prepare(model_cfg, dataset_cfg, training: bool = False):
         batch = dict(batch)
         batch.update(batch_build_backbone8x(batch['voxel_coords'], batch['voxel_mask'], grid,
                                             caps))
+        if training:
+            batch.update(batch_invert_ladder(batch, caps))
         return batch
     return prepare

@@ -19,8 +19,13 @@ those keys, builds no window plans and runs the one kernel. `TABLE_DTYPE:
 bf16` does change the numbers in the JAX package (it gathers, multiplies and
 normalises in bf16); the port stays in float32, a known deviation with a
 stated tolerance in `tests/test_torch_port_sparse.py`. `TABLE_DTYPE: int8`
-raises. The training backward through the transposed maps is not ported:
-`SparseConvBNReLU` takes no `bwd_nbr`.
+raises. A batch prepared for training (`get_host_prepare(..., training=True)`)
+carries the transposed maps of the strided convs (`sp_upmap*`); the forward
+then hands each layer its backward map and that map's plan, built once per
+map beside the forward plans, and the sparse conv's backward
+(`ops/sparse_conv.SparseConvFunction`) gathers the output gradient through
+them: a submanifold map is its own transpose, so its layers reuse the
+forward map and plan.
 """
 from __future__ import annotations
 
@@ -71,8 +76,8 @@ class SparseConvBNReLU(nn.Module):
         self.MaskedBatchNorm_0 = MaskedBatchNorm(features, device=device)
 
     def forward(self, feats: torch.Tensor, nbr: torch.Tensor, out_mask: torch.Tensor,
-                plan=None):
-        x = dispatch.sparse_conv(feats, nbr, self.kernel, plan)
+                plan=None, bwd_nbr=None, bwd_plan=None):
+        x = dispatch.sparse_conv(feats, nbr, self.kernel, plan, bwd_nbr, bwd_plan)
         x = self.MaskedBatchNorm_0(x, out_mask)
         if self.use_relu:
             x = torch.relu(x)
@@ -89,9 +94,10 @@ class SparseBasicBlock(nn.Module):
         self.SparseConvBNReLU_1 = SparseConvBNReLU(features, features, 27, use_relu=False,
                                                    device=device)
 
-    def forward(self, feats: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor, plan=None):
-        x = self.SparseConvBNReLU_0(feats, nbr, mask, plan)
-        x = self.SparseConvBNReLU_1(x, nbr, mask, plan)
+    def forward(self, feats: torch.Tensor, nbr: torch.Tensor, mask: torch.Tensor, plan=None,
+                bwd_nbr=None, bwd_plan=None):
+        x = self.SparseConvBNReLU_0(feats, nbr, mask, plan, bwd_nbr, bwd_plan)
+        x = self.SparseConvBNReLU_1(x, nbr, mask, plan, bwd_nbr, bwd_plan)
         return torch.where(mask[..., None], torch.relu(x + feats), 0.0)
 
 
@@ -137,9 +143,10 @@ class SparseVoxelBackBone8x(nn.Module):
             blocks(f'conv{s}', ch, 2)
         self.conv_out = SparseConvBNReLU(filters[3], self.out_features, 3, device=device)
 
-    def _stage(self, name: str, x, nbr, mask, plan):
+    def _stage(self, name: str, x, nbr, mask, plan, bwd: bool):
+        """The submanifold layers of a stage: their map is its own transpose."""
         for layer in self.stage_layers[name]:
-            x = getattr(self, layer)(x, nbr, mask, plan)
+            x = getattr(self, layer)(x, nbr, mask, plan, *((nbr, plan) if bwd else ()))
         return x
 
     def scatter_to_bev(self, x: torch.Tensor, coords: torch.Tensor, mask: torch.Tensor):
@@ -165,19 +172,31 @@ class SparseVoxelBackBone8x(nn.Module):
                            'models.get_host_prepare(model_cfg, dataset_cfg) first')
         # the voxel features in sorted-slot order
         feats = dispatch.gather_rows(batch['voxel_features'], batch['sp_perm1'])
+        # a training batch carries the strided convs' transposed maps
+        bwd = 'sp_upmap2' in batch
+
+        def up(key, rows):
+            """(transposed map, its plan) of a strided conv, in training."""
+            if not bwd:
+                return ()
+            return batch[key], sparse_conv_plan(batch[key], rows)
+
         ms = {}
         m1, n1 = batch['sp_mask1'], batch['sp_submap1']
         p1 = sparse_conv_plan(n1, n1.shape[1])
-        x = self.conv_input(torch.where(m1[..., None], feats, 0.0), n1, m1, p1)
-        x = self._stage('conv1', x, n1, m1, p1)
+        x = self.conv_input(torch.where(m1[..., None], feats, 0.0), n1, m1, p1,
+                            *((n1, p1) if bwd else ()))
+        x = self._stage('conv1', x, n1, m1, p1, bwd)
         ms['x_conv1'] = (x, batch['sp_coords1'], m1, 1)
         for s in (2, 3, 4):
             mask, down, sub = batch[f'sp_mask{s}'], batch[f'sp_downmap{s}'], batch[f'sp_submap{s}']
-            x = getattr(self, f'down{s}')(x, down, mask, sparse_conv_plan(down, x.shape[1]))
-            x = self._stage(f'conv{s}', x, sub, mask, sparse_conv_plan(sub, sub.shape[1]))
+            x = getattr(self, f'down{s}')(x, down, mask, sparse_conv_plan(down, x.shape[1]),
+                                          *up(f'sp_upmap{s}', mask.shape[1]))
+            x = self._stage(f'conv{s}', x, sub, mask, sparse_conv_plan(sub, sub.shape[1]), bwd)
             ms[f'x_conv{s}'] = (x, batch[f'sp_coords{s}'], mask, 2 ** (s - 1))
         mo, no = batch['sp_mask_out'], batch['sp_outmap']
-        x = self.conv_out(x, no, mo, sparse_conv_plan(no, x.shape[1]))
+        x = self.conv_out(x, no, mo, sparse_conv_plan(no, x.shape[1]),
+                          *up('sp_upmap_out', mo.shape[1]))
         batch['spatial_features'] = self.scatter_to_bev(x, batch['sp_coords_out'], mo)
         batch['multi_scale_3d_features_sparse'] = ms
         batch['encoded_sparse_out'] = (x, batch['sp_coords_out'], mo)

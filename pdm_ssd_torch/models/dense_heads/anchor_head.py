@@ -1,8 +1,9 @@
 """Anchor-based dense head (counterpart of
 `pdm_ssd_tpu/models/dense_heads/anchor_head.py`): `generate_anchors`, the
-forward of `AnchorHeadSingle` and its box decode with the direction
-classifier. The serving path; target assignment and the losses are not
-ported yet.
+forward of `AnchorHeadSingle`, its box decode with the direction classifier,
+the axis-aligned target assignment over `nearest_bev_iou` and the losses.
+The ATSS assigner and `AnchorHeadMulti` are not ported (ROADMAP Queue 1
+item 9).
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ...ops import losses
 from ...ops.box_ops import limit_period
 from ...ops.coders import ResidualCoder
 from ...utils.config import as_cfg
@@ -59,10 +61,35 @@ def generate_anchors(anchor_cfg_list, grid_size, point_cloud_range):
     return np.concatenate(all_anchors, axis=0), class_slices
 
 
+def nearest_bev_iou(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """Axis-aligned BEV IoU after snapping each heading to the nearest axis.
+    boxes_a (..., N, 7), boxes_b (..., M, 7) -> (..., N, M), the leading axes
+    broadcast. The JAX package's order of operations, so that ties (which
+    the force-match compares with ==) fall alike."""
+    def to_bev(b):
+        rot = limit_period(b[..., 6], 0.5, math.pi).abs()
+        swap = rot > math.pi / 4
+        dx = torch.where(swap, b[..., 4], b[..., 3])
+        dy = torch.where(swap, b[..., 3], b[..., 4])
+        return torch.stack([b[..., 0] - dx / 2, b[..., 1] - dy / 2,
+                            b[..., 0] + dx / 2, b[..., 1] + dy / 2], dim=-1)
+
+    a = to_bev(boxes_a)[..., :, None, :]
+    b = to_bev(boxes_b)[..., None, :, :]
+    iw = torch.minimum(a[..., 2], b[..., 2]) - torch.maximum(a[..., 0], b[..., 0])
+    ih = torch.minimum(a[..., 3], b[..., 3]) - torch.maximum(a[..., 1], b[..., 1])
+    inter = iw.clamp(min=0) * ih.clamp(min=0)
+    area_a = (a[..., 2] - a[..., 0]) * (a[..., 3] - a[..., 1])
+    area_b = (b[..., 2] - b[..., 0]) * (b[..., 3] - b[..., 1])
+    return inter / (area_a + area_b - inter).clamp(min=1e-6)
+
+
 class AnchorHeadSingle(nn.Module):
     """Config as the JAX package's: ANCHOR_GENERATOR_CONFIG (a list, one entry
-    per class), USE_DIRECTION_CLASSIFIER, DIR_OFFSET, DIR_LIMIT_OFFSET,
-    NUM_DIR_BINS. Takes 'spatial_features_2d' (B, H, W, C), channels last."""
+    per class, with its matched and unmatched IoU thresholds),
+    TARGET_ASSIGNER_CONFIG, LOSS_CONFIG, USE_DIRECTION_CLASSIFIER,
+    DIR_OFFSET, DIR_LIMIT_OFFSET, NUM_DIR_BINS. Takes 'spatial_features_2d'
+    (B, H, W, C), channels last."""
 
     def __init__(self, model_cfg, input_channels: int, num_class: int, class_names, grid_size,
                  point_cloud_range, device=None):
@@ -78,6 +105,13 @@ class AnchorHeadSingle(nn.Module):
                                                               tuple(point_cloud_range))
         self._anchors = {}
         self.n_cls_groups = len(gen_cfg)
+        # each anchor's class (1-based) and IoU thresholds, by its class block
+        A = len(self.anchors_np)
+        self.anchor_rule_np = np.zeros((3, A), np.float32)
+        for ci, (s0, s1) in enumerate(self.class_slices):
+            self.anchor_rule_np[:, s0:s1] = np.array(
+                [[ci + 1], [gen_cfg[ci].get('matched_threshold', 0.6)],
+                 [gen_cfg[ci].get('unmatched_threshold', 0.45)]], np.float32)
         na = sum(len(c['anchor_sizes']) * len(c['anchor_rotations']) for c in gen_cfg)
         self.num_anchors_per_location = na
         self.num_dir_bins = cfg.get('NUM_DIR_BINS', 2)
@@ -118,13 +152,78 @@ class AnchorHeadSingle(nn.Module):
             batch['anchor_dir_preds_map'] = dir_preds.permute(0, 2, 3, 1)
         return batch
 
-    def assign_targets(self, batch: dict):
-        raise NotImplementedError('AnchorHeadSingle.assign_targets is not ported yet '
-                                  '(ROADMAP Queue 1 item 6, SECOND training)')
+    @torch.no_grad()
+    def assign_targets(self, batch: dict) -> dict:
+        """`AxisAlignedTargetAssigner` over the whole anchor grid: per-class
+        thresholds by anchor block, gts of other classes ignored, and every
+        anchor that ties a gt's largest IoU (above 0) forced positive. Reads
+        'gt_boxes' (B, M, 8), class last, and 'gt_mask' (B, M). Returns
+        'anchor_cls_labels' (B, A) int64 (class, 0 background, -1 ignored),
+        'anchor_box_targets' (B, A, 7) and 'anchor_dir_targets' (B, A)."""
+        cfg = self.model_cfg
+        if cfg.TARGET_ASSIGNER_CONFIG.get('NAME') == 'ATSSTargetAssigner':
+            raise NotImplementedError('the ATSS target assigner is not ported yet (ROADMAP '
+                                      'Queue 1 item 9, the pillar family)')
+        gts, gmask = batch['gt_boxes'], batch['gt_mask']
+        anchors = self.anchors(gts.device)
+        rule = torch.from_numpy(self.anchor_rule_np).to(gts.device)
+        anchor_cls, matched_t, unmatched_t = rule[0].long(), rule[1], rule[2]
+        iou = nearest_bev_iou(anchors, gts[..., :7])                     # (B, A, M)
+        gt_cls = gts[..., -1].long()
+        same_class = anchor_cls[None, :, None] == gt_cls[:, None, :]
+        iou = torch.where(same_class & gmask[:, None, :], iou, -1.0)
+        best_gt_iou, best_gt = iou.max(dim=2).values, iou.argmax(dim=2)
+        gt_max = iou.max(dim=1).values                                   # (B, M)
+        force = ((iou == gt_max[:, None, :]) & (iou > 0)).any(dim=2)
+        pos = (best_gt_iou >= matched_t) | force
+        neg = (best_gt_iou < unmatched_t) & ~pos
+        labels = torch.where(pos, gt_cls.gather(1, best_gt),
+                             torch.where(neg, 0, -1))
+        tgt = gts.gather(1, best_gt[..., None].expand(-1, -1, gts.shape[-1]))[..., :7]
+        box_targets = torch.where(pos[..., None], self.coder.encode(tgt, anchors[None]), 0.0)
+        dir_offset = cfg.get('DIR_OFFSET', 0.78539)
+        offset_rot = limit_period(tgt[..., 6] - dir_offset, 0, 2 * math.pi)
+        dir_targets = (offset_rot / (2 * math.pi / self.num_dir_bins)).to(torch.int64) \
+            .clamp(0, self.num_dir_bins - 1)
+        return {'anchor_cls_labels': labels, 'anchor_box_targets': box_targets,
+                'anchor_dir_targets': dir_targets}
 
-    def get_loss(self, batch: dict, targets: dict):
-        raise NotImplementedError('AnchorHeadSingle.get_loss is not ported yet '
-                                  '(ROADMAP Queue 1 item 6, SECOND training)')
+    def get_loss(self, batch: dict, targets: dict) -> tuple:
+        """Focal classification loss normalised by positives per cloud, the
+        sin-difference smooth L1 box loss and the direction cross-entropy,
+        each summed over the batch and divided by B. Returns (total, tb) with
+        'anchor_cls_loss', 'anchor_loc_loss' and 'anchor_dir_loss'."""
+        lw = self.model_cfg.LOSS_CONFIG.LOSS_WEIGHTS
+        labels = targets['anchor_cls_labels']
+        B = labels.shape[0]
+        pos, neg = labels > 0, labels == 0
+        pos_norm = pos.sum(dim=1, keepdim=True).to(torch.float32).clamp(min=1.0)
+        cls_w = (pos | neg).to(torch.float32) / pos_norm
+        one_hot = torch.nn.functional.one_hot(labels.clamp(min=0), self.num_class + 1)[..., 1:]
+        cls_loss = losses.sigmoid_focal_loss(batch['anchor_cls_preds'],
+                                             one_hot.to(torch.float32), cls_w).sum() \
+            / B * lw['cls_weight']
+
+        box_preds, box_tgt = batch['anchor_box_preds'], targets['anchor_box_targets']
+        # the sin-difference on the heading channel
+        sin_diff = torch.sin(box_preds[..., 6:7]) * torch.cos(box_tgt[..., 6:7])
+        cos_diff = torch.cos(box_preds[..., 6:7]) * torch.sin(box_tgt[..., 6:7])
+        bp = torch.cat([box_preds[..., :6], sin_diff, box_preds[..., 7:]], dim=-1)
+        bt = torch.cat([box_tgt[..., :6], cos_diff, box_tgt[..., 7:]], dim=-1)
+        reg_w = pos.to(torch.float32) / pos_norm
+        loc_loss = losses.weighted_smooth_l1(bp, bt, reg_w,
+                                             code_weights=lw.get('code_weights')).sum() \
+            / B * lw['loc_weight']
+        total = cls_loss + loc_loss
+        tb = {'anchor_cls_loss': cls_loss, 'anchor_loc_loss': loc_loss}
+        if 'anchor_dir_preds' in batch:
+            dir_oh = torch.nn.functional.one_hot(targets['anchor_dir_targets'],
+                                                 self.num_dir_bins).to(torch.float32)
+            dir_loss = losses.weighted_cross_entropy(batch['anchor_dir_preds'], dir_oh,
+                                                     reg_w).sum() / B * lw['dir_weight']
+            total = total + dir_loss
+            tb['anchor_dir_loss'] = dir_loss
+        return total, tb
 
     def generate_predicted_boxes(self, batch: dict):
         """(cls_preds (B, A, nc), boxes (B, A, 7)): the residuals decoded

@@ -7,7 +7,9 @@ slots its config names,
 Ported slots: `MeanVFE`, the sparse voxel `BACKBONE_3D`, `BaseBEVBackbone`,
 `AnchorHeadSingle`, which is SECOND on the sparse ladder
 (`configs/kitti_models/second_sparse.yaml`). Every other name raises
-`NotImplementedError`. The serving path; training is not ported yet.
+`NotImplementedError`. It serves, and it trains: the anchor head's targets
+and losses, and the sparse ladder's backward through the transposed maps
+that `models.get_host_prepare(..., training=True)` adds to a batch.
 
 The submodules carry flax's names for the entries of the JAX detector's
 module list (`module_list_0`, ...), so `utils/weights.from_flax` maps the
@@ -120,13 +122,19 @@ class Detector3D(nn.Module):
             batch['spatial_features_2d'] = batch['spatial_features']
         return self.dense_head(batch)
 
-    def get_training_loss(self, batch: dict):
-        raise NotImplementedError('Detector3D training is not ported yet '
-                                  '(ROADMAP Queue 1 item 6, SECOND training)')
+    def get_training_loss(self, batch: dict) -> tuple:
+        """The dense head's targets and losses on a forward's output, which
+        carries the batch's 'gt_boxes' and 'gt_mask'. Returns (loss, tb) with
+        the head's entries and 'loss' in `tb`."""
+        loss, tb = self.dense_head.get_loss(batch, self.dense_head.assign_targets(batch))
+        return loss, {**tb, 'loss': loss}
 
-    def forward_with_loss(self, batch: dict):
-        raise NotImplementedError('Detector3D training is not ported yet '
-                                  '(ROADMAP Queue 1 item 6, SECOND training)')
+    def forward_with_loss(self, batch: dict) -> tuple:
+        """Forward, target assignment and losses: (loss, tb). BatchNorm uses
+        batch statistics when the model is in training mode. The batch holds
+        the voxels, the kernel maps with their transposes
+        (`get_host_prepare(..., training=True)`) and the ground truth."""
+        return self.get_training_loss(self(batch))
 
     @torch.inference_mode()
     def predict(self, batch: dict) -> dict:

@@ -99,15 +99,26 @@ def scatter_add_rows(vals: torch.Tensor, idx: torch.Tensor, n_rows: int) -> torc
 
 
 def sparse_conv(feats: torch.Tensor, nbr: torch.Tensor, weight: torch.Tensor,
-                plan: sc.SparseConvPlan | None = None) -> torch.Tensor:
+                plan: sc.SparseConvPlan | None = None, bwd_nbr: torch.Tensor | None = None,
+                bwd_plan: sc.SparseConvPlan | None = None) -> torch.Tensor:
     """feats (B, Vin, Cin), nbr (B, Vout, K) with entries outside [0, Vin)
     absent, weight (K*Cin, Cout) -> (B, Vout, Cout): the gather-matmul of one
     sparse conv layer. `plan` (`sc.sparse_conv_plan(nbr, Vin)`) is the
-    kernel's; the plain version ignores it."""
+    kernel's; the plain version ignores it. Where a gradient is recorded the
+    layer runs through `sc.SparseConvFunction`, whose data gradient reads
+    the transposed map `bwd_nbr` (B, Vin, K) and its plan `bwd_plan`
+    (`sc.sparse_conv_plan(bwd_nbr, Vout)`); the backward on CUDA tensors
+    launches the kernels or raises, as the forward does."""
     kind = feats.device.type
+    if kind not in ('cpu', 'cuda'):
+        raise NotImplementedError(f'no sparse conv for device {feats.device}')
+    if kind == 'cuda':
+        feats, nbr, weight = feats.contiguous(), nbr.to(torch.int32).contiguous(), \
+            weight.contiguous()
+        if bwd_nbr is not None:
+            bwd_nbr = bwd_nbr.to(torch.int32).contiguous()
+    if torch.is_grad_enabled() and (feats.requires_grad or weight.requires_grad):
+        return sc.SparseConvFunction.apply(feats, nbr, weight, plan, bwd_nbr, bwd_plan)
     if kind == 'cpu':
         return sc.sparse_conv_plain(feats, nbr, weight)
-    if kind == 'cuda':
-        return sc.sparse_conv_cuda(feats.contiguous(), nbr.to(torch.int32).contiguous(),
-                                   weight.contiguous(), plan)
-    raise NotImplementedError(f'no sparse conv for device {feats.device}')
+    return sc.sparse_conv_cuda(feats, nbr, weight, plan)

@@ -54,6 +54,9 @@ _ENTRY_POINTS = {
         'sparse_conv_max_cout': [],
         'sparse_conv_tile_rows': [],
         'sparse_conv_launch': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        'sparse_conv_wgrad_max_channels': [],
+        'sparse_conv_wgrad_launch': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                     _I, _P],
     },
 }
 

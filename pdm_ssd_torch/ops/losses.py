@@ -1,6 +1,6 @@
 """Loss functions (counterpart of `pdm_ssd_tpu/ops/losses.py`): the ones the
-flagship trains with. `corner_loss_lidar`, the IoU losses and the
-cross-entropy of the JAX package are not ported yet.
+flagship and SECOND train with. `corner_loss_lidar`, `weighted_l1` and the
+IoU losses of the JAX package are not ported yet (ROADMAP Queue 1 item 5).
 """
 from __future__ import annotations
 
@@ -44,6 +44,13 @@ def weighted_smooth_l1(pred: torch.Tensor, target: torch.Tensor,
     if weights is not None:
         loss = loss * weights[..., None]
     return loss
+
+
+def weighted_cross_entropy(logits: torch.Tensor, one_hot: torch.Tensor,
+                           weights: torch.Tensor) -> torch.Tensor:
+    """Softmax cross-entropy over the last axis, weighted per row, no
+    reduction."""
+    return -(one_hot * torch.log_softmax(logits, dim=-1)).sum(dim=-1) * weights
 
 
 def centernet_focal_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:

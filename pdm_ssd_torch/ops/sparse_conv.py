@@ -1,5 +1,5 @@
 """Gather-matmul sparse convolution: the one arithmetic op of the sparse
-voxel ladder.
+voxel ladder, and its backward.
 
     out[b, v, :] = sum_k feats[b, nbr[b, v, k], :] @ W[k]
 
@@ -19,9 +19,19 @@ cloud's output rows sorted by their tap mask, and each tile's OR of its rows'
 masks, built with torch ops of fixed shape on the map's device and no host
 sync. Layers that share a map share its plan; the plain version ignores it.
 
-Neither differentiates: the ladder's backward (a gather through the
-transposed map) is not ported yet, and the wrapper refuses an input that
-requires a gradient while gradients are enabled.
+The backward (`SparseConvFunction`, the counterpart of the JAX package's
+`sparse_conv_mm` custom VJP) is two products:
+- the data gradient `d_feats = gather(dy, bwd_nbr) @ flip(W)`: the same
+  function as the forward, through the transposed map `bwd_nbr` (B, Vin, K)
+  (`sparse_maps.invert_down_map` for a strided conv, the map itself for a
+  submanifold one, whose offsets are symmetric) with W's taps reversed and
+  each tap transposed (`flip_weight`); on the card the forward kernel through
+  a plan of that map;
+- the weight gradient `dW[k] = sum_v gather(feats, nbr)[v, k]^T dy[v]`,
+  written through the forward map: `sparse_conv_wgrad_plain`, and on the
+  card `sparse_conv_wgrad_cuda`, which walks the forward's plan and sums its
+  partials in a fixed order (`sparse_conv_wgrad_cuda.launches`).
+The raw wrappers record no gradient: gradients flow through the Function.
 """
 from __future__ import annotations
 
@@ -37,6 +47,9 @@ from .group import _need, _need_contiguous
 PLAIN_CHUNK_ROWS = 32768
 # output rows of one tile of the kernel (`kTileRows` of csrc/sparse_conv.cu)
 TILE_ROWS = 64
+# blocks the weight gradient's first pass aims at: tiles are grouped into
+# chunks so that chunks x taps is about this many
+WGRAD_BLOCKS = 2048
 
 
 class SparseConvPlan(NamedTuple):
@@ -123,16 +136,57 @@ def sparse_conv_plain(feats: torch.Tensor, nbr: torch.Tensor, weight: torch.Tens
     return out.reshape(nbr.shape[0], nbr.shape[1], -1)
 
 
+def flip_weight(weight: torch.Tensor, K: int) -> torch.Tensor:
+    """The data gradient's weight: W (K*Cin, Cout) -> (K*Cout, Cin), the taps
+    reversed and each tap's (Cin, Cout) block transposed."""
+    Cin, Cout = weight.shape[0] // K, weight.shape[1]
+    return weight.reshape(K, Cin, Cout).flip(0).transpose(1, 2).reshape(K * Cout, Cin)
+
+
+def sparse_conv_dgrad_plain(dy: torch.Tensor, bwd_nbr: torch.Tensor,
+                            weight: torch.Tensor) -> torch.Tensor:
+    """d_feats (B, Vin, Cin) of dy (B, Vout, Cout) through the transposed map
+    bwd_nbr (B, Vin, K), whose entries outside [0, Vout) are absent."""
+    return sparse_conv_plain(dy, bwd_nbr, flip_weight(weight, bwd_nbr.shape[2]))
+
+
+def sparse_conv_wgrad_plain(feats: torch.Tensor, nbr: torch.Tensor,
+                            dy: torch.Tensor) -> torch.Tensor:
+    """Plain version of `sparse_conv_wgrad_cuda`: dW (K*Cin, Cout), a gather
+    and one matmul per chunk of rows, any device and float type."""
+    B, Vout, K = nbr.shape
+    Cin, Cout = feats.shape[2], dy.shape[2]
+    table, idx = _flat_table(feats, nbr)
+    d = dy.reshape(B * Vout, Cout)
+    dw = feats.new_zeros((K * Cin, Cout))
+    for r0 in range(0, idx.shape[0], PLAIN_CHUNK_ROWS):
+        rows = idx[r0:r0 + PLAIN_CHUNK_ROWS]
+        g = table[rows.reshape(-1)].reshape(rows.shape[0], K * Cin)
+        dw += g.t() @ d[r0:r0 + PLAIN_CHUNK_ROWS]
+    return dw
+
+
+def _check_plan(plan: SparseConvPlan, B: int, Vin: int, Vout: int, device) -> None:
+    tiles = -(-Vout // TILE_ROWS)
+    if (plan.vin != Vin or tuple(plan.order.shape) != (B, Vout)
+            or tuple(plan.tile_mask.shape) != (B, tiles)):
+        raise ValueError(f'the plan (order {tuple(plan.order.shape)}, tile_mask '
+                         f'{tuple(plan.tile_mask.shape)}, Vin {plan.vin}) is not one of this '
+                         f'map (B={B}, Vout={Vout}, Vin={Vin})')
+    for t, name in ((plan.order, 'plan.order'), (plan.tile_mask, 'plan.tile_mask')):
+        _need(t, name, torch.int32, 2)
+        _need_contiguous(t, name)
+        if t.device != device:
+            raise ValueError(f'{name} is on {t.device}, the inputs on {device}')
+
+
 def sparse_conv_cuda(feats: torch.Tensor, nbr: torch.Tensor, weight: torch.Tensor,
                      plan: SparseConvPlan | None = None) -> torch.Tensor:
     """One launch of `sparse_conv_kernel` for the whole batch. feats (B, Vin,
     Cin) float32, nbr (B, Vout, K) int32, weight (K*Cin, Cout) float32, all
     contiguous CUDA tensors; `plan` is `sparse_conv_plan(nbr, Vin)`, built
     here when not given. Returns (B, Vout, Cout) float32. Does not
-    synchronize. Raises where a gradient would be recorded: it has no backward."""
-    if torch.is_grad_enabled() and (feats.requires_grad or weight.requires_grad):
-        raise NotImplementedError('sparse_conv has no backward kernel yet (ROADMAP Queue 2 '
-                                  'item 9.1): call it with gradients disabled')
+    synchronize, and records no gradient (`SparseConvFunction` does)."""
     _need(feats, 'feats', torch.float32, 3)
     _need(nbr, 'nbr', torch.int32, 3)
     _need(weight, 'weight', torch.float32, 2)
@@ -152,17 +206,7 @@ def sparse_conv_cuda(feats: torch.Tensor, nbr: torch.Tensor, weight: torch.Tenso
                          f'{lib.sparse_conv_max_cout()} output channels, got K={K}, Cout={Cout}')
     if plan is None:
         plan = sparse_conv_plan(nbr, Vin)
-    tiles = -(-Vout // TILE_ROWS)
-    if (plan.vin != Vin or tuple(plan.order.shape) != (B, Vout)
-            or tuple(plan.tile_mask.shape) != (B, tiles)):
-        raise ValueError(f'the plan (order {tuple(plan.order.shape)}, tile_mask '
-                         f'{tuple(plan.tile_mask.shape)}, Vin {plan.vin}) is not one of this '
-                         f'map (B={B}, Vout={Vout}, Vin={Vin})')
-    for t, name in ((plan.order, 'plan.order'), (plan.tile_mask, 'plan.tile_mask')):
-        _need(t, name, torch.int32, 2)
-        _need_contiguous(t, name)
-        if t.device != feats.device:
-            raise ValueError(f'{name} is on {t.device}, feats on {feats.device}')
+    _check_plan(plan, B, Vin, Vout, feats.device)
     out = torch.empty((B, Vout, Cout), dtype=torch.float32, device=feats.device)
     index = feats.device.index
     with kernels.on_device(index):
@@ -177,3 +221,108 @@ def sparse_conv_cuda(feats: torch.Tensor, nbr: torch.Tensor, weight: torch.Tenso
 
 
 sparse_conv_cuda.launches = 0
+
+
+def wgrad_chunking(B: int, Vout: int, K: int) -> tuple[int, int]:
+    """(tiles a block of the weight gradient walks, chunks): the plan's
+    B * ceil(Vout / TILE_ROWS) tiles cut into chunks so that chunks x K is
+    about WGRAD_BLOCKS. A function of the shapes alone, so the order of the
+    sums, and the bits, are the same on every run."""
+    total = B * -(-Vout // TILE_ROWS)
+    per = max(1, -(-total * K // WGRAD_BLOCKS))
+    return per, -(-total // per)
+
+
+def sparse_conv_wgrad_cuda(feats: torch.Tensor, nbr: torch.Tensor, dy: torch.Tensor,
+                           plan: SparseConvPlan | None = None) -> torch.Tensor:
+    """The weight gradient of `sparse_conv_cuda(feats, nbr, W, plan)` for the
+    output gradient dy (B, Vout, Cout) float32: dW (K*Cin, Cout) float32, one
+    launch of `sparse_conv_wgrad_kernel` and one of its fixed-order sum over
+    chunks. Contiguous CUDA tensors; `plan` as for the forward. Does not
+    synchronize."""
+    _need(feats, 'feats', torch.float32, 3)
+    _need(nbr, 'nbr', torch.int32, 3)
+    _need(dy, 'dy', torch.float32, 3)
+    for t, name in ((feats, 'feats'), (nbr, 'nbr'), (dy, 'dy')):
+        _need_contiguous(t, name)
+        if t.device != feats.device:
+            raise ValueError(f'{name} is on {t.device}, feats on {feats.device}')
+    B, Vin, Cin = feats.shape
+    Vout, K = nbr.shape[1], nbr.shape[2]
+    Cout = dy.shape[2]
+    lib = kernels.load()
+    if nbr.shape[0] != B or tuple(dy.shape[:2]) != (B, Vout) or min(B, Vin, Vout, K, Cin,
+                                                                    Cout) < 1:
+        raise ValueError(f'feats {tuple(feats.shape)}, nbr {tuple(nbr.shape)} and dy '
+                         f'{tuple(dy.shape)} disagree')
+    most = lib.sparse_conv_wgrad_max_channels()
+    if K > lib.sparse_conv_max_taps() or Cin > most or Cout > most:
+        raise ValueError(f'the weight gradient takes up to {lib.sparse_conv_max_taps()} taps and '
+                         f'{most} channels each way, got K={K}, Cin={Cin}, Cout={Cout}')
+    if plan is None:
+        plan = sparse_conv_plan(nbr, Vin)
+    _check_plan(plan, B, Vin, Vout, feats.device)
+    per, chunks = wgrad_chunking(B, Vout, K)
+    partial = torch.empty((K * chunks * Cin * Cout,), dtype=torch.float32, device=feats.device)
+    dw = torch.empty((K * Cin, Cout), dtype=torch.float32, device=feats.device)
+    index = feats.device.index
+    with kernels.on_device(index):
+        err = lib.sparse_conv_wgrad_launch(feats.data_ptr(), nbr.data_ptr(), dy.data_ptr(),
+                                           plan.order.data_ptr(), plan.tile_mask.data_ptr(),
+                                           partial.data_ptr(), dw.data_ptr(), B, Vin, Vout, K,
+                                           Cin, Cout, TILE_ROWS, per, kernels.stream(index))
+    if err != 0:
+        raise RuntimeError(f'sparse_conv_wgrad_launch failed with CUDA error {err}')
+    sparse_conv_wgrad_cuda.launches += 1
+    return dw
+
+
+sparse_conv_wgrad_cuda.launches = 0
+
+
+def sparse_conv_grads(dy: torch.Tensor, feats: torch.Tensor, nbr: torch.Tensor,
+                      weight: torch.Tensor, plan: SparseConvPlan | None,
+                      bwd_nbr: torch.Tensor | None, bwd_plan: SparseConvPlan | None,
+                      need_feats: bool = True, need_weight: bool = True) -> tuple:
+    """(d_feats or None, d_weight or None) of the layer `feats, nbr, weight`
+    for the output gradient dy. CPU tensors take the plain versions; CUDA
+    tensors launch the kernels (the forward kernel through `bwd_plan` for the
+    data gradient, `sparse_conv_wgrad_cuda` through `plan`) or raise."""
+    cuda = dy.device.type == 'cuda'
+    dy = dy.contiguous()
+    d_feats = d_weight = None
+    if need_weight:
+        d_weight = (sparse_conv_wgrad_cuda(feats, nbr, dy, plan) if cuda
+                    else sparse_conv_wgrad_plain(feats, nbr, dy))
+    if need_feats:
+        if bwd_nbr is None:
+            raise ValueError('the sparse conv\'s data gradient reads the transposed map: prepare '
+                             'the batch with models.get_host_prepare(..., training=True)')
+        w = flip_weight(weight, nbr.shape[2]).contiguous()
+        d_feats = (sparse_conv_cuda(dy, bwd_nbr, w, bwd_plan) if cuda
+                   else sparse_conv_plain(dy, bwd_nbr, w))
+    return d_feats, d_weight
+
+
+class SparseConvFunction(torch.autograd.Function):
+    """`out = sparse_conv(feats, nbr, weight)` with the gather-transpose
+    backward of `sparse_conv_grads`. Only the layer's input table and the
+    integer maps are kept for the backward. The data gradient is skipped
+    where autograd does not ask for it (the ladder's first layer, whose input
+    has no parameters behind it)."""
+
+    @staticmethod
+    def forward(ctx, feats, nbr, weight, plan, bwd_nbr, bwd_plan):
+        ctx.save_for_backward(feats, nbr, weight, bwd_nbr)
+        ctx.plans = (plan, bwd_plan)
+        if feats.device.type == 'cuda':
+            return sparse_conv_cuda(feats, nbr, weight, plan)
+        return sparse_conv_plain(feats, nbr, weight)
+
+    @staticmethod
+    def backward(ctx, dy):
+        feats, nbr, weight, bwd_nbr = ctx.saved_tensors
+        plan, bwd_plan = ctx.plans
+        d_feats, d_weight = sparse_conv_grads(dy, feats, nbr, weight, plan, bwd_nbr, bwd_plan,
+                                              ctx.needs_input_grad[0], ctx.needs_input_grad[2])
+        return d_feats, None, d_weight, None, None, None

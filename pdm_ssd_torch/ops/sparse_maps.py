@@ -20,17 +20,21 @@ Conventions (the JAX package's):
   keeps the first `cap` keys;
 - the input z extent is `D + 1` (the reference's `sparse_shape`).
 
-Not ported (ROADMAP Queue 1 items 6 and 10, SECOND training and the rest of
-the sparse voxel ladder): the inverse maps of the training backward and the
-UNet, the packed-window correction buckets, the focal ladder and the BEV maps
-of VoxelNeXt.
+The transpose maps of the training backward (`invert_down_map`,
+`batch_invert_ladder`) are built the same way, on the device of the maps,
+with fixed shapes and no host sync.
+
+Not ported (ROADMAP Queue 1 item 10, the rest of the sparse voxel ladder):
+the UNet's use of the transpose maps as forward maps, the packed-window
+correction buckets, the focal ladder and the BEV maps of VoxelNeXt.
 """
 from __future__ import annotations
 
 import torch
 
 __all__ = ['build_backbone8x_maps', 'batch_build_backbone8x', 'ladder_shapes', 'LADDER_KEYS',
-           'default_caps']
+           'default_caps', 'invert_down_map', 'batch_invert_down_maps', 'batch_invert_ladder',
+           'UPMAP_KEYS']
 
 
 def _flat(coords: torch.Tensor, dims) -> torch.Tensor:
@@ -197,3 +201,44 @@ def default_caps(max_voxels: int) -> list:
     dilate the active set before later stages shrink it."""
     v = int(max_voxels)
     return [v, v, (3 * v) // 4, v // 2, v // 2]
+
+
+def invert_down_map(downmap: torch.Tensor, cap_in: int) -> torch.Tensor:
+    """The transposed map of a strided conv: `up[j, K-1-k] = i` iff
+    `downmap[i, k] == j`. Fine slot j receives the coarse slot i that read it
+    at tap k, stored at the flipped tap, as a transposed conv reads its
+    kernel; the (j, k) -> i assignment is unique by geometry. downmap
+    (..., cap_out, K) with pad `cap_in` -> (..., cap_in, K) int32 with pad
+    `cap_out`: a map of the layout every sparse conv reads. One scatter of
+    fixed shape, absent entries sent to a spare row that is dropped."""
+    *lead, cap_out, K = downmap.shape
+    dev = downmap.device
+    d = downmap.reshape(-1, cap_out, K).long()
+    B = d.shape[0]
+    j = torch.where((d >= 0) & (d < cap_in), d, cap_in)
+    rows = j + (torch.arange(B, device=dev) * (cap_in + 1))[:, None, None]
+    flat = rows * K + (K - 1 - torch.arange(K, device=dev))
+    src = torch.arange(cap_out, dtype=torch.int32, device=dev)[None, :, None].expand(B, -1, K)
+    up = torch.full((B * (cap_in + 1) * K,), cap_out, dtype=torch.int32, device=dev)
+    # each slot of a present entry is written once; `amin` keeps the spare
+    # row's many writes deterministic
+    up.scatter_reduce_(0, flat.reshape(-1), src.reshape(-1), reduce='amin')
+    return up.view(B, cap_in + 1, K)[:, :cap_in].reshape(*lead, cap_in, K).contiguous()
+
+
+UPMAP_KEYS = ['sp_upmap2', 'sp_upmap3', 'sp_upmap4', 'sp_upmap_out']
+
+
+def batch_invert_down_maps(maps: dict, caps) -> dict:
+    """'sp_upmap{2,3,4}' (B, caps[s-2], 27) from the batched ladder maps."""
+    return {f'sp_upmap{s}': invert_down_map(maps[f'sp_downmap{s}'], cap_in)
+            for s, cap_in in zip((2, 3, 4), caps[:3])}
+
+
+def batch_invert_ladder(maps: dict, caps) -> dict:
+    """All four transpose maps of the ladder (UPMAP_KEYS): those of the three
+    strided convs and of `conv_out`'s K=3 map against `caps[3]`. The maps
+    the sparse conv's data gradient reads for the strided layers."""
+    out = batch_invert_down_maps(maps, caps)
+    out['sp_upmap_out'] = invert_down_map(maps['sp_outmap'], caps[3])
+    return out

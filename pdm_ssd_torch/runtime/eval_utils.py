@@ -48,12 +48,14 @@ def _sync(device: torch.device) -> None:
 
 
 def eval_one_epoch(model, loader, dataset, class_names, device=None, result_dir=None,
-                   logger=None, thresh_list=(0.3, 0.5, 0.7)) -> dict:
+                   logger=None, thresh_list=(0.3, 0.5, 0.7), host_prepare=None) -> dict:
     """Predict over `loader` with `model` (already on `device`; None means the
     card, and raises where CUDA is unavailable) and score the detections.
+    `host_prepare` (`models.get_host_prepare(model_cfg, dataset_cfg)`, for a
+    voxel model) runs on each batch on the device before its predict.
     Returns 'recall/rcnn_<t>', the evaluator's entries, 'infer_fps' (frames
     over the time of `predict` alone, synchronized) and 'loop_fps' (frames
-    over the whole loop, loading and host work included)."""
+    over the whole loop, loading, map build and host work included)."""
     device = resolve_device(device)
     result_dir = Path(result_dir) if result_dir is not None else None
     predict = make_predict_step(model)
@@ -67,6 +69,8 @@ def eval_one_epoch(model, loader, dataset, class_names, device=None, result_dir=
     t_loop = time.perf_counter()
     for i, batch in enumerate(loader):
         inputs = to_device_batch(batch, device, INPUT_KEYS)
+        if host_prepare is not None:
+            inputs = host_prepare(inputs)
         _sync(device)
         t0 = time.perf_counter()
         dets = predict(inputs)

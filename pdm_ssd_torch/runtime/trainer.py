@@ -23,7 +23,8 @@ from .optimization import build_optimizer_and_schedule
 # the array entries of a collated batch that a model's predict reads, and
 # those its training adds (the role of `_filter_device_batch` in the JAX
 # package)
-INPUT_KEYS = ('points', 'points_mask')
+VOXEL_KEYS = ('voxels', 'voxel_coords', 'voxel_num_points', 'voxel_mask')
+INPUT_KEYS = ('points', 'points_mask') + VOXEL_KEYS
 DEVICE_KEYS = INPUT_KEYS + ('gt_boxes', 'gt_mask')
 
 
@@ -38,7 +39,11 @@ def resolve_device(device=None) -> torch.device:
 
 
 def to_device_batch(batch: dict, device, keys=DEVICE_KEYS) -> dict:
-    """The arrays `keys` of a collated numpy batch, as tensors on `device`."""
+    """The arrays `keys` of a collated numpy batch, as tensors on `device`.
+    A voxel model's ragged raw points (padded to the batch's longest cloud,
+    with a 'points_mask') stay on the host: it reads the voxels."""
+    if 'voxels' in batch and 'points_mask' in batch:
+        keys = [k for k in keys if k not in ('points', 'points_mask')]
     return {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(device)
             for k in keys if k in batch}
 
@@ -52,13 +57,20 @@ def create_train_state(model: torch.nn.Module, opt_cfg, total_iters_each_epoch: 
                                         total_epochs)
 
 
-def make_train_step(model: torch.nn.Module, optimizer):
+def make_train_step(model: torch.nn.Module, optimizer, host_prepare=None):
     """Returns `train_step(batch) -> metrics`: 'loss' and the heads' entries
     as detached 0-d tensors on the model's device (no host synchronisation).
-    `batch` holds 'points', 'gt_boxes' and 'gt_mask' on that device."""
+    `batch` holds the model's inputs ('points', or a voxel model's voxels),
+    'gt_boxes' and 'gt_mask' on that device. `host_prepare`
+    (`models.get_host_prepare(..., training=True)`) runs on the batch first,
+    outside the autograd graph: the sparse ladder's maps and their
+    transposes."""
 
     def train_step(batch: dict) -> dict:
         model.train()
+        if host_prepare is not None:
+            with torch.no_grad():
+                batch = host_prepare(batch)
         optimizer.zero_grad()
         loss, tb = model.forward_with_loss(batch)
         loss.backward()
@@ -80,13 +92,14 @@ def make_predict_step(model: torch.nn.Module):
 
 def train_model(model, optimizer, schedule, loader, epochs: int, ckpt_dir=None,
                 max_ckpt_save_num: int = 5, start_epoch: int = 0, logger=None,
-                log_interval: int = 50) -> list:
+                log_interval: int = 50, host_prepare=None) -> list:
     """Epochs `start_epoch` .. `epochs - 1` over `loader` (collated numpy
     batches) on the model's device, a checkpoint after each into `ckpt_dir`
     when given. `schedule` maps the optimizer's update count to the learning
-    rate, for the log. Returns the mean loss of each epoch run."""
+    rate, for the log; `host_prepare` is `make_train_step`'s. Returns the
+    mean loss of each epoch run."""
     device = next(model.parameters()).device
-    train_step = make_train_step(model, optimizer)
+    train_step = make_train_step(model, optimizer, host_prepare)
     history = []
     for epoch in range(start_epoch, epochs):
         t0 = time.time()

@@ -10,8 +10,9 @@ tiny shrink (`utils/synthetic.tiny_pdmssd_cfg`). With `--cfg_file
 configs/kitti_models/pointrcnn.yaml` it
 builds the tiny PointRCNN (`utils/synthetic.tiny_pointrcnn_cfg`), with
 `configs/kitti_models/second_sparse.yaml` the tiny SECOND on the sparse voxel
-ladder (`utils/synthetic.tiny_second_cfg`; its batch is voxelized and given
-its kernel maps on the device). A model
+ladder (`utils/synthetic.tiny_second_cfg`; its batches are voxelized and given
+their kernel maps on the device, the training batch with 8 boxes a cloud and
+the transposed maps). A model
 whose training path is not ported yet raises `NotImplementedError` from its
 train step; the dry run then checks its predict only. Runs on the card
 unless `--device cpu` is given. The counterpart of
@@ -57,11 +58,13 @@ def dryrun(device: str | None = None, B: int = 2, N: int = 512, seed: int = 0,
                  for k, v in synthetic.kitti_batch(B, N, seed=seed).items()}
         inputs = {'points': batch['points']}
     else:           # a voxel model: voxelize on the device, then its kernel maps
-        batch = inputs = prepare(synthetic.voxel_batch(B, N, cfg, seed=seed, device=dev))
+        batch = synthetic.voxel_train_batch(B, N, cfg, seed=seed, device=dev)
+        inputs = prepare(synthetic.voxel_batch(B, N, cfg, seed=seed, device=dev))
     optimizer, _ = create_train_state(model, cfg.OPTIMIZATION, total_iters_each_epoch=10,
                                       total_epochs=2)
+    train_prepare = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG, training=True)
     try:
-        loss = float(make_train_step(model, optimizer)(batch)['loss'])
+        loss = float(make_train_step(model, optimizer, train_prepare)(batch)['loss'])
     except NotImplementedError:     # the detector says its training path is not ported
         loss = None
     if loss is not None and not math.isfinite(loss):

@@ -1,19 +1,22 @@
-"""Where the time of one training step of a PDM-SSD config goes, on one GPU.
+"""Where the time of one training step of a config goes, on one GPU.
 
     python3 -m pdm_ssd_torch.tools.profile_train [--cfg_file CFG] [--batch 8]
         [--points 16384] [--boxes 8] [--reps 5] [--out build/profile_train.json]
 
 Builds the config (default `configs/kitti_models/pdm_ssd_point.yaml`; also
-`pdm_ssd.yaml`, `pdm_ssd_aux.yaml`), unmodified, with seeded random weights,
-float32 with TF32 off, and trains on one seeded synthetic batch. After
-warm-up steps it times whole steps of `make_train_step` on the host clock
-(median of `--reps`), then repeats the step's parts by hand with a CUDA event
-between them: each forward stage (for `GridPointBackbone` its pillarize and
-each level apart), targets and losses, backward, gradient clip, optimizer
-update (median of `--reps`). Then `torch.profiler` traces two steps: device
-time per step, the busy share (device time over the unprofiled wall time of
-a step), the twelve kernels with the most device time and the time of
-cuDNN's FFT route. It also reports the launches of the port's own kernels in
+`pdm_ssd.yaml`, `pdm_ssd_aux.yaml`, and `second_sparse.yaml`, whose batch is
+seeded LiDAR-like clouds of 50000 points unless `--points` says otherwise,
+voxelized on the card), unmodified, with seeded random weights, float32 with
+TF32 off, and trains on one seeded synthetic batch. After warm-up steps it
+times whole steps of `make_train_step` on the host clock (median of
+`--reps`), then repeats the step's parts by hand with a CUDA event between
+them: a voxel model's map build (`get_host_prepare(..., training=True)`),
+each forward stage (for `GridPointBackbone` its pillarize and each level
+apart, for a voxel model each slot of `Detector3D`), targets and losses,
+backward, gradient clip, optimizer update (median of `--reps`). Then
+`torch.profiler` traces two steps: device time per step, the busy share
+(device time over the unprofiled wall time of a step), the twelve kernels
+with the most device time and the time of cuDNN's FFT route. It also reports the launches of the port's own kernels in
 one step and the peak of allocated device memory. Prints one line per part and
 writes everything, with the card's name and power limit, as JSON to
 `--out`. Must be run from the repository root.
@@ -29,8 +32,10 @@ from pathlib import Path
 
 import torch
 
+from ..models import get_host_prepare
 from ..models.backbones_3d.grid_point_backbone import GridPointBackbone
-from ..ops import fps, group
+from ..models.detectors.detector3d import Detector3D
+from ..ops import fps, group, sparse_conv
 from ..runtime.trainer import create_train_state, make_train_step
 from .profile_predict import is_fft_route
 from ..utils import synthetic
@@ -40,11 +45,18 @@ CFG = 'configs/kitti_models/pdm_ssd_point.yaml'
 KERNELS = {'farthest_point_sample': fps.farthest_point_sample_cuda,
            'window_select': group.window_select_cuda,
            'gather_rows': group.gather_rows_cuda,
-           'scatter_add_rows': group.scatter_add_rows_cuda}
+           'scatter_add_rows': group.scatter_add_rows_cuda,
+           'sparse_conv': sparse_conv.sparse_conv_cuda,
+           'sparse_conv_wgrad': sparse_conv.sparse_conv_wgrad_cuda}
+# points per cloud of a voxel model's batch (`chip_smoke.py`'s SECOND clouds)
+VOXEL_POINTS = 50000
 
 
 def forward_parts(net) -> list:
     """(name, batch -> batch) of each stage of the forward, in order."""
+    if isinstance(net, Detector3D):
+        return [(slot, getattr(net, name)) for slot, name in net.slots.items()] + [
+            ('dense_head', net.dense_head)]
     bb = net.backbone_3d
     if isinstance(bb, GridPointBackbone):
         parts = [('pillarize', lambda b: {**b, 'bev_nchw': bb.pillarize(b)})]
@@ -60,8 +72,9 @@ def forward_parts(net) -> list:
                     if getattr(net, name) is not None]
 
 
-def step_in_parts(net, optimizer, batch: dict) -> dict:
-    """One training step with a CUDA event after each part: ms per part."""
+def step_in_parts(net, optimizer, batch: dict, prepare=None) -> dict:
+    """One training step with a CUDA event after each part: ms per part.
+    `prepare` (a voxel model's training map build) is the first part."""
     marks = [('start', torch.cuda.Event(enable_timing=True))]
 
     def mark(name):
@@ -72,6 +85,10 @@ def step_in_parts(net, optimizer, batch: dict) -> dict:
     net.train()
     optimizer.zero_grad()
     marks[0][1].record()
+    if prepare is not None:
+        with torch.no_grad():
+            batch = prepare(batch)
+        mark('map_build')
     out = dict(batch)
     stages = forward_parts(net)
     for name, stage in stages:
@@ -116,7 +133,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--cfg_file', default=CFG)
     ap.add_argument('--batch', type=int, default=8)
-    ap.add_argument('--points', type=int, default=16384)
+    ap.add_argument('--points', type=int, default=None,
+                    help='points per cloud (16384; a voxel model 50000)')
     ap.add_argument('--boxes', type=int, default=8)
     ap.add_argument('--reps', type=int, default=5)
     ap.add_argument('--out', default='build/profile_train.json')
@@ -130,11 +148,18 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     cfg = cfg_from_yaml_file(args.cfg_file)
     net = synthetic.random_model(cfg, 'cuda', seed=7)
-    batch = {k: torch.from_numpy(v).cuda() for k, v in
-             synthetic.kitti_batch(args.batch, args.points, args.boxes, seed=5).items()}
+    prepare = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG, training=True)
+    if prepare is None:
+        args.points = args.points or 16384
+        batch = {k: torch.from_numpy(v).cuda() for k, v in
+                 synthetic.kitti_batch(args.batch, args.points, args.boxes, seed=5).items()}
+    else:
+        args.points = args.points or VOXEL_POINTS
+        batch = synthetic.voxel_train_batch(args.batch, args.points, cfg, args.boxes, seed=5,
+                                            device='cuda')
     optimizer, _ = create_train_state(net, cfg.OPTIMIZATION, total_iters_each_epoch=100,
                                       total_epochs=1)
-    train_step = make_train_step(net, optimizer)
+    train_step = make_train_step(net, optimizer, prepare)
     for _ in range(2):
         train_step(batch)
     torch.cuda.synchronize()
@@ -152,7 +177,7 @@ def main() -> None:
         walls.append(time.perf_counter() - t0)
     wall_ms = statistics.median(walls) * 1e3
     peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
-    runs = [step_in_parts(net, optimizer, batch) for _ in range(args.reps)]
+    runs = [step_in_parts(net, optimizer, batch, prepare) for _ in range(args.reps)]
     parts = {k: statistics.median(r[k] for r in runs) for k in runs[0]}
     prof = trace(train_step, batch)
     prof['busy_share'] = prof['device_ms_per_step'] / wall_ms

@@ -2,6 +2,7 @@
 split, write result.pkl and the KITTI label files, print recall and KITTI AP.
 
     python -m pdm_ssd_torch.tools.test --cfg_file configs/kitti_models/pdm_ssd_point.yaml
+        (or second_sparse.yaml, pdm_ssd.yaml, ...)
         --ckpt output/.../ckpt/checkpoint_epoch_<n>.pth [--batch_size B]
         [--device cuda|cpu] [--set KEY VALUE ...]
 
@@ -14,7 +15,7 @@ from __future__ import annotations
 from pathlib import Path
 
 from ..datasets import build_dataloader
-from ..models import build_network
+from ..models import build_network, get_host_prepare
 from ..runtime import eval_utils, trainer
 from .cli_common import parser, setup
 
@@ -36,7 +37,8 @@ def main(argv=None) -> dict:
     else:
         logger.warning('no --ckpt given: evaluating the seeded initial weights')
     ret = eval_utils.eval_one_epoch(model, test_loader, test_set, cfg.CLASS_NAMES, device=device,
-                                    result_dir=output_dir / 'eval', logger=logger)
+                                    result_dir=output_dir / 'eval', logger=logger,
+                                    host_prepare=get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG))
     logger.info(f'{ret}')
     return ret
 

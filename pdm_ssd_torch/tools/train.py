@@ -3,6 +3,7 @@ checkpoint an epoch, resuming from the newest checkpoint of the output
 directory.
 
     python -m pdm_ssd_torch.tools.train --cfg_file configs/kitti_models/pdm_ssd_point.yaml
+        (or second_sparse.yaml, pdm_ssd.yaml, ...)
         [--epochs N] [--batch_size B] [--workers W] [--extra_tag TAG]
         [--max_ckpt_save_num K] [--device cuda|cpu] [--set KEY VALUE ...]
 
@@ -14,7 +15,7 @@ from __future__ import annotations
 from pathlib import Path
 
 from ..datasets import build_dataloader
-from ..models import build_network
+from ..models import build_network, get_host_prepare
 from ..runtime import trainer
 from .cli_common import parser, setup
 
@@ -50,7 +51,8 @@ def main(argv=None) -> None:
     logger.info('**********************Start training**********************')
     trainer.train_model(model, optimizer, schedule, train_loader, epochs, ckpt_dir=ckpt_dir,
                         max_ckpt_save_num=args.max_ckpt_save_num, start_epoch=start_epoch,
-                        logger=logger)
+                        logger=logger,
+                        host_prepare=get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG, training=True))
     logger.info('**********************End training**********************')
 
 

@@ -95,17 +95,53 @@ def voxel_processor(cfg):
     raise ValueError('the config voxelizes no points')
 
 
-def voxel_batch(B: int, N: int, cfg, seed: int = 0, device='cpu') -> dict:
+def voxel_batch(B: int, N: int, cfg, seed: int = 0, device='cpu', mode: str = 'test') -> dict:
     """A serving batch of a voxel model: seeded `lidar_points` on `device`,
-    voxelized there as the config's processor says (its test-time voxel cap):
-    'points', 'voxels', 'voxel_coords', 'voxel_num_points', 'voxel_mask'."""
+    voxelized there as the config's processor says (its voxel cap of `mode`,
+    'test' by default): 'points', 'voxels', 'voxel_coords',
+    'voxel_num_points', 'voxel_mask'."""
     from ..ops.voxelize import voxelize_batch
     proc = voxel_processor(cfg)
     pc_range = cfg.DATA_CONFIG.POINT_CLOUD_RANGE
     pts = torch.from_numpy(lidar_points(B, N, seed, pc_range)).to(device)
     batch = voxelize_batch(pts, pc_range, list(proc.VOXEL_SIZE), int(proc.MAX_POINTS_PER_VOXEL),
-                           int(proc.MAX_NUMBER_OF_VOXELS['test']))
+                           int(proc.MAX_NUMBER_OF_VOXELS[mode]))
     batch['points'] = pts
+    return batch
+
+
+# (dx, dy, dz) of the KITTI classes, as the anchors of
+# `configs/kitti_models/second_sparse.yaml` size them
+CLASS_SIZES = {1: (3.9, 1.6, 1.56), 2: (0.8, 0.6, 1.73), 3: (1.76, 0.6, 1.73)}
+
+
+def gt_boxes(B: int, M: int, pc_range, seed: int) -> np.ndarray:
+    """(B, M, 8) float32 ground truth: classes 1..3 drawn uniformly, each of
+    its class's size, standing on the ground plane of `lidar_points` (1.73 m
+    below the sensor), centers uniform over the range's inner 80 %, headings
+    uniform."""
+    rng = np.random.RandomState(seed)
+    x0, y0, _, x1, y1, _ = (float(v) for v in pc_range)
+    cls = rng.randint(1, 4, (B, M))
+    size = np.array([CLASS_SIZES[c] for c in cls.reshape(-1)], np.float32).reshape(B, M, 3)
+    out = np.zeros((B, M, 8), np.float32)
+    out[..., 0] = rng.uniform(x0 + 0.1 * (x1 - x0), x1 - 0.1 * (x1 - x0), (B, M))
+    out[..., 1] = rng.uniform(y0 + 0.1 * (y1 - y0), y1 - 0.1 * (y1 - y0), (B, M))
+    out[..., 2] = -1.73 + size[..., 2] / 2
+    out[..., 3:6] = size
+    out[..., 6] = rng.uniform(-np.pi, np.pi, (B, M))
+    out[..., 7] = cls
+    return out
+
+
+def voxel_train_batch(B: int, N: int, cfg, M: int = 8, seed: int = 0, device='cpu') -> dict:
+    """A training batch of a voxel model: `voxel_batch` at the train-time
+    voxel cap, plus 'gt_boxes' (B, M, 8) of `gt_boxes` and 'gt_mask' (B, M),
+    all true."""
+    batch = voxel_batch(B, N, cfg, seed, device, mode='train')
+    boxes = gt_boxes(B, M, cfg.DATA_CONFIG.POINT_CLOUD_RANGE, seed + 1)
+    batch['gt_boxes'] = torch.from_numpy(boxes).to(device)
+    batch['gt_mask'] = torch.ones((B, M), dtype=torch.bool, device=device)
     return batch
 
 

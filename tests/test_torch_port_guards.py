@@ -269,21 +269,24 @@ class _OnCard(torch.Tensor):
 
 
 def test_sparse_conv_dispatch_has_no_quiet_plain_version(monkeypatch):
-    """CPU tensors take the plain version and launch nothing. A tensor on the
-    card whose kernel cannot be had raises: the plain version is not tried.
-    The kernel's wrapper takes CUDA tensors only and refuses an input that
-    requires a gradient; any other device raises."""
+    """CPU tensors take the plain version and launch nothing, in the forward
+    and in the backward. A tensor on the card whose kernel cannot be had
+    raises, in the forward and in both products of the backward: the plain
+    versions are not tried. The kernels' wrappers take CUDA tensors only;
+    any other device raises."""
     feats, nbr, weight = _sparse_conv_inputs(np.random.RandomState(12))
-    sc.sparse_conv_cuda.launches = 0
+    sc.sparse_conv_cuda.launches = sc.sparse_conv_wgrad_cuda.launches = 0
     got = dispatch.sparse_conv(feats, nbr, weight)
     assert torch.equal(got, sc.sparse_conv_plain(feats, nbr, weight))
     assert not got[:, 77 // 2].any()
     with pytest.raises(ValueError, match='CUDA'):
         sc.sparse_conv_cuda(feats, nbr, weight)
-    with pytest.raises(NotImplementedError, match='backward'):
-        sc.sparse_conv_cuda(feats.clone().requires_grad_(), nbr, weight)
-    with pytest.raises(NotImplementedError, match='backward'):
-        sc.sparse_conv_cuda(feats, nbr, torch.nn.Parameter(weight))
+    dy = torch.ones_like(got)
+    with pytest.raises(ValueError, match='CUDA'):
+        sc.sparse_conv_wgrad_cuda(feats, nbr, dy)
+    w = torch.nn.Parameter(weight.clone())
+    dispatch.sparse_conv(feats, nbr, w).backward(dy)
+    assert torch.equal(w.grad, sc.sparse_conv_wgrad_plain(feats, nbr, dy))
     with pytest.raises(NotImplementedError):
         dispatch.sparse_conv(feats.to('meta'), nbr.to('meta'), weight.to('meta'))
 
@@ -294,18 +297,27 @@ def test_sparse_conv_dispatch_has_no_quiet_plain_version(monkeypatch):
         raise AssertionError('the plain version ran for a tensor on the card')
 
     monkeypatch.setattr(kernels, 'load', no_kernel)
-    monkeypatch.setattr(sc, 'sparse_conv_plain', no_plain)
-    on_card = [t.as_subclass(_OnCard) for t in (feats, nbr, weight)]
+    for name in ('sparse_conv_plain', 'sparse_conv_wgrad_plain', 'sparse_conv_dgrad_plain'):
+        monkeypatch.setattr(sc, name, no_plain)
+    on_card = [t.as_subclass(_OnCard) for t in (feats, nbr, weight, dy)]
     assert on_card[0].device.type == 'cuda'
     with pytest.raises(RuntimeError, match='nvcc not found'):
-        dispatch.sparse_conv(*on_card)
-    assert sc.sparse_conv_cuda.launches == 0
+        dispatch.sparse_conv(*on_card[:3])
+    # the backward: the weight gradient, and the data gradient through the
+    # transposed map (the map of a 27-tap layer onto itself stands in for it)
+    o_feats, o_nbr, o_weight, o_dy = on_card
+    for need_feats, need_weight in ((False, True), (True, False)):
+        with pytest.raises(RuntimeError, match='nvcc not found'):
+            sc.sparse_conv_grads(o_dy, o_feats, o_nbr, o_weight, None, o_nbr, None,
+                                 need_feats, need_weight)
+    assert sc.sparse_conv_cuda.launches == sc.sparse_conv_wgrad_cuda.launches == 0
 
 
-@pytest.mark.parametrize('what', ['TABLE_DTYPE int8', 'training maps', 'QWIN', 'SparseUNetV2',
-                                  'focal ladder', 'VoxelNeXt', 'TTA_FLIP', 'PillarVFE',
-                                  'dense backbone', 'MAP_TO_BEV', 'BaseBEVResBackbone',
-                                  'AnchorHeadMulti', 'multi_classes_nms', 'training'])
+@pytest.mark.parametrize('what', ['TABLE_DTYPE int8', 'SparseUNetV2 training maps', 'QWIN',
+                                  'SparseUNetV2', 'focal ladder', 'VoxelNeXt', 'TTA_FLIP',
+                                  'PillarVFE', 'dense backbone', 'MAP_TO_BEV',
+                                  'BaseBEVResBackbone', 'AnchorHeadMulti', 'multi_classes_nms',
+                                  'ATSS'])
 def test_unported_parts_of_the_voxel_family_raise(what, monkeypatch):
     """Every option and module name of the voxel family that the port does not
     have raises `NotImplementedError` naming its ROADMAP item, at build time
@@ -328,7 +340,8 @@ def test_unported_parts_of_the_voxel_family_raise(what, monkeypatch):
         if what == 'TABLE_DTYPE int8':
             model.BACKBONE_3D.TABLE_DTYPE = 'int8'
             build()
-        elif what == 'training maps':
+        elif what == 'SparseUNetV2 training maps':
+            model.BACKBONE_3D.NAME = 'SparseUNetV2'
             prepare(training=True)
         elif what == 'QWIN':
             model.BACKBONE_3D.QWIN = True
@@ -365,7 +378,10 @@ def test_unported_parts_of_the_voxel_family_raise(what, monkeypatch):
             net = build()
             net.predict(prepare()(synthetic.voxel_batch(1, 300, cfg, seed=1)))
         else:
-            build().forward_with_loss({})
+            model.DENSE_HEAD.TARGET_ASSIGNER_CONFIG.NAME = 'ATSSTargetAssigner'
+            net = build().train()
+            batch = synthetic.voxel_train_batch(1, 300, cfg, seed=1)
+            net.forward_with_loss(prepare(training=True)(batch))
 
 
 @pytest.mark.gpu
@@ -392,8 +408,26 @@ def test_sparse_conv_kernel_matches_plain_on_the_card(B, Vin, Vout, K, Cin, Cout
     tol = K * Cin * 2.0 ** -24 * mass + 1e-30
     assert bool(((got.cpu().double() - exact).abs() <= tol).all())
     assert bool(((sc.sparse_conv_plain(feats, nbr, weight).double() - exact).abs() <= tol).all())
-    with pytest.raises(NotImplementedError, match='backward'):
-        dispatch.sparse_conv(feats.cuda().requires_grad_(), nbr.cuda(), weight.cuda())
+    # the backward: the kernels through the Function, within the rounding
+    # bound of a float64 evaluation of each product (the data gradient runs
+    # the forward kernel through the map read as its own transpose)
+    sc.sparse_conv_wgrad_cuda.launches = 0
+    f, w = feats.cuda().requires_grad_(), weight.cuda().requires_grad_()
+    dy = torch.from_numpy(np.random.RandomState(15).randn(B, Vout, Cout).astype(np.float32))
+    if Vin == Vout:
+        dispatch.sparse_conv(f, nbr.cuda(), w, bwd_nbr=nbr.cuda()).backward(dy.cuda())
+        want = sc.sparse_conv_dgrad_plain(dy.double(), nbr, weight.double())
+        mass = sc.sparse_conv_dgrad_plain(dy.double().abs(), nbr, weight.double().abs())
+        assert bool(((f.grad.cpu().double() - want).abs()
+                     <= K * Cout * 2.0 ** -24 * mass + 1e-30).all())
+    else:
+        dispatch.sparse_conv(feats.cuda(), nbr.cuda(), w).backward(dy.cuda())
+    torch.cuda.synchronize()
+    assert sc.sparse_conv_wgrad_cuda.launches == 1
+    want = sc.sparse_conv_wgrad_plain(feats.double(), nbr, dy.double())
+    mass = sc.sparse_conv_wgrad_plain(feats.double().abs(), nbr, dy.double().abs())
+    assert bool(((w.grad.cpu().double() - want).abs()
+                 <= B * Vout * 2.0 ** -24 * mass + 1e-30).all())
 
 
 @pytest.mark.gpu

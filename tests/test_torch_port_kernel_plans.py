@@ -583,9 +583,9 @@ def test_layers_that_share_a_map_share_one_plan(tiny_second, monkeypatch):
     calls = []
     real = dispatch.sparse_conv
 
-    def recording(feats, nbr, weight, plan=None):
+    def recording(feats, nbr, weight, plan=None, *bwd):
         calls.append((nbr, plan))
-        return real(feats, nbr, weight, plan)
+        return real(feats, nbr, weight, plan, *bwd)
 
     monkeypatch.setattr(dispatch, 'sparse_conv', recording)
     with torch.inference_mode():
@@ -603,6 +603,48 @@ def test_layers_that_share_a_map_share_one_plan(tiny_second, monkeypatch):
         key = maps[id(nbr)]
         want = sc.sparse_conv_plan(nbr, batch[LADDER_MAPS[key]].shape[1])
         assert torch.equal(plan.order, want.order) and torch.equal(plan.tile_mask, want.tile_mask)
+
+
+# the map each layer of a training forward reads its backward through: its own
+# for a submanifold layer, the transposed map of the strided ones
+BACKWARD_MAPS = {'sp_submap1': 'sp_submap1', 'sp_downmap2': 'sp_upmap2',
+                 'sp_submap2': 'sp_submap2', 'sp_downmap3': 'sp_upmap3',
+                 'sp_submap3': 'sp_submap3', 'sp_downmap4': 'sp_upmap4',
+                 'sp_submap4': 'sp_submap4', 'sp_outmap': 'sp_upmap_out'}
+
+
+def test_a_training_forward_hands_each_layer_its_backward_map_and_plan(tiny_second,
+                                                                       monkeypatch):
+    """With the transposed maps of `get_host_prepare(training=True)`, every
+    layer gets its backward map and that map's plan (over the layer's output
+    rows): a submanifold layer its forward map and plan object, a strided one
+    the transposed map and one plan built for it."""
+    from pdm_ssd_torch.ops import sparse_maps
+    net, batch = tiny_second
+    caps = [batch[k].shape[1] for k in ('sp_mask1', 'sp_mask2', 'sp_mask3', 'sp_mask4',
+                                        'sp_mask_out')]
+    batch = {**batch, **sparse_maps.batch_invert_ladder(batch, caps)}
+    calls = []
+    real = dispatch.sparse_conv
+
+    def recording(feats, nbr, weight, plan=None, bwd_nbr=None, bwd_plan=None):
+        calls.append((nbr, plan, bwd_nbr, bwd_plan))
+        return real(feats, nbr, weight, plan, bwd_nbr, bwd_plan)
+
+    monkeypatch.setattr(dispatch, 'sparse_conv', recording)
+    with torch.inference_mode():
+        net.backbone_3d(net.vfe(dict(batch)))
+    assert len(calls) == 12
+    maps = {id(batch[k]): k for k in LADDER_MAPS}
+    for nbr, plan, bwd, bplan in calls:
+        key = maps[id(nbr)]
+        assert bwd is batch[BACKWARD_MAPS[key]], key
+        if key.startswith('sp_submap'):
+            assert bplan is plan
+        else:
+            want = sc.sparse_conv_plan(bwd, nbr.shape[1])
+            assert bplan.vin == nbr.shape[1] and torch.equal(bplan.order, want.order)
+            assert torch.equal(bplan.tile_mask, want.tile_mask)
 
 
 # ---- ball query: path and grid -------------------------------------------------------

@@ -409,15 +409,15 @@ def test_box_range_filter_matches_jax(center):
                                    rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize('what', ['voxels', 'depth map', 'imgaug', 'local rotation',
+@pytest.mark.parametrize('what', ['grid size', 'depth map', 'imgaug', 'local rotation',
                                   'image copy-paste', 'WaymoDataset'])
 def test_unported_parts_of_the_data_path_raise(what, mini):
     """Each step, augmentation and dataset of the JAX package's data path
     that the port does not have raises `NotImplementedError` when the config
     names it, with its ROADMAP item where a config of the repo uses it."""
     cfg = dataset_cfg(mini[0])
-    if what == 'voxels':
-        cfg.DATA_PROCESSOR.append(CfgNode({'NAME': 'transform_points_to_voxels'}))
+    if what == 'grid size':
+        cfg.DATA_PROCESSOR.append(CfgNode({'NAME': 'calculate_grid_size'}))
     elif what == 'depth map':
         cfg.DATA_PROCESSOR.append(CfgNode({'NAME': 'generate_depth_map'}))
     elif what == 'imgaug':

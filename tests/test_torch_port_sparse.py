@@ -398,10 +398,12 @@ def test_anchor_head_single_outputs_and_decoded_boxes():
     assert got['anchor_cls_preds'].shape == (2, 5 * 4 * 6, 3)
     assert_close_to_scale(g_cls.numpy(), w_cls, MODULE_RTOL)
     np.testing.assert_allclose(g_boxes.numpy(), w_boxes, rtol=1e-4, atol=1e-4)
+    # the targets and losses are held in test_torch_port_second_train.py; the
+    # ATSS assigner is not ported
+    tm.model_cfg.TARGET_ASSIGNER_CONFIG.NAME = 'ATSSTargetAssigner'
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tm.assign_targets(got)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tm.get_loss(got, {})
+        tm.assign_targets({'gt_boxes': torch.zeros(2, 1, 8),
+                           'gt_mask': torch.ones(2, 1, dtype=torch.bool)})
 
 
 # ---- the backbone and the slice ----------------------------------------------------------
@@ -584,4 +586,4 @@ def test_from_flax_loads_every_leaf_of_the_full_width_model():
 
 def test_dry_run_of_the_tiny_second():
     from pdm_ssd_torch.tools import dryrun
-    assert dryrun.dryrun('cpu', cfg_file=SECOND) is None     # predict only: training raises
+    assert np.isfinite(dryrun.dryrun('cpu', cfg_file=SECOND))    # a train step, then predict

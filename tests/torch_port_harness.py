@@ -118,11 +118,14 @@ class ModelPair:
     training path. With `voxels`, the batch is a seeded LiDAR-like cloud
     voxelized by the port (`synthetic.voxel_batch`) and prepared by each
     package's own `get_host_prepare`: `inputs` is what the JAX forward takes,
-    `torch_inputs()` what the port's takes."""
+    `torch_inputs()` what the port's takes. With `train_boxes` as well, that
+    batch is a training one (`synthetic.voxel_train_batch`: the train-time
+    voxel cap and as many boxes a cloud), prepared for training by both
+    packages (the transposed maps of the sparse conv's backward included)."""
 
     def __init__(self, cfg, B: int = 2, N: int = 512, seed: int = 0, jax_model=None,
                  points: np.ndarray | None = None, bias_scale: float = 0.0,
-                 voxels: bool = False):
+                 voxels: bool = False, train_boxes: int = 0):
         from pdm_ssd_tpu.models import build_network as j_build_network
         from pdm_ssd_tpu.models import get_host_prepare as j_get_host_prepare
         from pdm_ssd_tpu.utils.config import CfgNode as JCfgNode
@@ -135,11 +138,14 @@ class ModelPair:
         if voxels:
             from pdm_ssd_torch.models import get_host_prepare
             from pdm_ssd_torch.utils import synthetic
-            raw = synthetic.voxel_batch(B, N, cfg, seed)
-            self.batch = j_get_host_prepare(jcfg.MODEL, jcfg.DATA_CONFIG)(
+            training = train_boxes > 0
+            raw = (synthetic.voxel_train_batch(B, N, cfg, train_boxes, seed) if training
+                   else synthetic.voxel_batch(B, N, cfg, seed))
+            self.batch = j_get_host_prepare(jcfg.MODEL, jcfg.DATA_CONFIG, training=training)(
                 {k: v.numpy() for k, v in raw.items()})
             self.inputs = {k: np.asarray(v) for k, v in self.batch.items()}
-            self._torch_inputs = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG)(raw)
+            self._torch_inputs = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG,
+                                                  training=training)(raw)
         else:
             self.batch = graft._make_batch(B, N, seed=seed)
             if points is not None:
