@@ -160,11 +160,30 @@ non-zero exit):
 30. phases 16 and 17 with `second_sparse.yaml` at B=4: the eval loop (the
    anchor head's bias at 0) and the 2-epoch train loop with checkpoint,
    resume and bit-equal reload, a predict's and a train step's launches a
-   batch.
+   batch, the detections of the trained checkpoint's eval with a non-finite
+   box counted;
+31. the tiny shrink of each of `pointpillar.yaml`, `centerpoint_pillar.yaml`,
+   `pillarnet.yaml` and the dense `second.yaml` (`synthetic.TINY_CFGS`) on
+   CUDA against the CPU, the classification bias at 0: batches equal,
+   forward outputs within FWD_RTOL of scale, detections matched by box and
+   label, the training loss within LOSS_RTOL and every gradient within
+   GRAD_RTOL relative L2;
+32. each of the four as shipped, `predict` at B = 8, 8, 8 and 4 (the voxel
+   models on LiDAR-like clouds of 50000 points, their 16000
+   voxel slots, the point models at N=16384), the bias at 0: shapes, finite
+   values, no launch of a kernel of the port (none is on these paths),
+   frames/s, peak memory, the convolutions' GFLOP and rate, device time,
+   busy share and cuDNN's FFT-route kernels;
+33. five training steps of each at its BATCH_SIZE_PER_GPU (4, 8, 8, 4) with
+   8 boxes a cloud: a falling loss, ms per step, peak memory, no launch;
+34. phases 16 and 17 with `pointpillar.yaml` (the voxel data path) at B=4
+   and `centerpoint_pillar.yaml` (the point data path) at B=8: the eval
+   loop with the bias at 0, AP R40 and recall finite, and the 2-epoch train
+   loop with an exact resume.
 
 The line before the last is the card's name and power limit; before it, one
 JSON line describing each kernel, with the launches of each path of phases 20
-to 30 (`launches_<path>`). The last line is
+to 34 (`launches_<path>`). The last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -1983,6 +2002,13 @@ def mini_kitti() -> Path:
     return KITTI_DIR
 
 
+def non_finite_boxes(annos: list) -> int:
+    """Detections of KITTI annos whose box has a non-finite value (an
+    exp-coded size can overflow; the evaluator takes them as they are)."""
+    return sum(int((~np.isfinite(np.asarray(a['boxes_lidar'], np.float64).reshape(-1, 7)))
+                   .any(-1).sum()) for a in annos)
+
+
 def kitti_eval_phase(wrappers, synthetic, card: str, cfg_file: str = CFG,
                      phase: str = '16 kitti eval', expected: dict = PREDICT_LAUNCHES,
                      adjust=None, cpu_check: bool = True, B: int = 8) -> dict:
@@ -2018,10 +2044,7 @@ def kitti_eval_phase(wrappers, synthetic, card: str, cfg_file: str = CFG,
     check_eval(phase, ret)
     annos = pickle.loads((root / f'eval_b{B}_{tag}' / 'result.pkl').read_bytes())
     n_det = sum(len(a['name']) for a in annos)
-    # seeded weights and BatchNorm statistics can blow a box's exp-coded size
-    # up to inf: counted, as the evaluator takes them
-    n_inf = sum(int((~np.isfinite(np.asarray(a['boxes_lidar'], np.float64).reshape(-1, 7)))
-                    .any(-1).sum()) for a in annos)
+    n_inf = non_finite_boxes(annos)
     log(phase, f'{tag}.yaml as shipped, seeded weights, B={B} over {len(ds)} val frames '
         f'({len(loader)} batches): {n_det} detections ({n_inf} with a non-finite box); '
         f'recall@0.3/0.5/0.7 '
@@ -2143,14 +2166,27 @@ def train_loop_phase(wrappers, synthetic, card: str, cfg_file: str = CFG,
     if differ:
         raise SystemExit(f'[{phase}] FAILED: the reloaded model differs from the trained one in '
                          f'{differ} (the trained model repeats its predict bit for bit: {repeat})')
+    # whether a non-finite box below comes from the weights or from a decode
+    # that overflows: float32's exp overflows above 88.72
+    state = {**dict(fresh.named_parameters()), **dict(fresh.named_buffers())}
+    not_finite = [k for k, t in state.items()
+                  if t.is_floating_point() and not bool(torch.isfinite(t).all())]
+    checksum = sum(float(p.detach().double().abs().sum()) for p in fresh.parameters())
+    codes = want_fwd.get('anchor_box_preds')
+    size_code = 'no anchor head' if codes is None else f'{float(codes[..., 3:6].max()):.4f}'
     np.random.seed(0)
     ret = eval_one_epoch(reloaded, vloader, vds, cfg.CLASS_NAMES, device='cuda',
                          result_dir=KITTI_DIR / f'eval_trained_{tag}', host_prepare=eval_prepare)
     check_eval(phase, ret)
+    annos = pickle.loads((KITTI_DIR / f'eval_trained_{tag}' / 'result.pkl').read_bytes())
     log(phase, f'the checkpoint of epoch {epochs} reloaded, on the first val batch: its '
         f'{len(want_fwd)} forward outputs and its predict bit-equal to the trained model\'s '
         f'({int(want_det["pred_mask"].sum())} kept boxes; the trained model repeats its predict '
-        f'bit for bit: {repeat}); its eval over {len(vds)} val frames: recall@0.3/0.5/0.7 '
+        f'bit for bit: {repeat}); parameters and buffers not finite: {not_finite[:4]} of '
+        f'{len(state)}; sum of |parameters| {checksum!r}; the largest size code on that batch '
+        f'{size_code}; its eval over {len(vds)} val frames: '
+        f'{sum(len(a["name"]) for a in annos)} detections ({non_finite_boxes(annos)} with a '
+        f'non-finite box); recall@0.3/0.5/0.7 '
         f'{ret["recall/rcnn_0.3"]:.4f}/{ret["recall/rcnn_0.5"]:.4f}/{ret["recall/rcnn_0.7"]:.4f}; '
         f'{r40_note(ret)} (no threshold); predict alone '
         f'{ret["infer_fps"]:.2f} frames/s, with loading {ret["loop_fps"]:.2f} frames/s')
@@ -2249,6 +2285,220 @@ def grid_family_phases(wrappers, dispatch, synthetic, smi: str, CfgNode,
                                          expected=TTA_PREDICT_LAUNCHES)
     return paths
 
+
+
+# phases 31 to 34: the pillar and dense-voxel family of `Detector3D`, which
+# launches none of the port's kernels (PillarVFE, the scatter, pillarize and
+# the densify are plain torch; the 2D and 3D convolutions cuDNN)
+FAMILY = (('pointpillar', 'configs/kitti_models/pointpillar.yaml'),
+          ('centerpoint_pillar', 'configs/kitti_models/centerpoint_pillar.yaml'),
+          ('pillarnet', 'configs/kitti_models/pillarnet.yaml'),
+          ('dense_second', 'configs/kitti_models/second.yaml'))
+# points per cloud at full width: LiDAR-like clouds of SECOND_POINTS for the
+# voxel models (they fill the 16000 voxel slots), the sampler's 16384 for the
+# point models; and at the tiny size of phase 31
+FAMILY_POINTS = {'pointpillar': SECOND_POINTS, 'centerpoint_pillar': 16384,
+                 'pillarnet': 16384, 'dense_second': SECOND_POINTS}
+TINY_POINTS = {'pointpillar': 3000, 'centerpoint_pillar': 16384, 'pillarnet': 16384,
+               'dense_second': 3000}
+# the batch of phase 32's predict (phase 33 trains at BATCH_SIZE_PER_GPU)
+PREDICT_B = {'pointpillar': 8, 'centerpoint_pillar': 8, 'pillarnet': 8, 'dense_second': 4}
+
+
+def family_batch(name: str, cfg, synthetic, B: int, N: int, seed: int, device,
+                 train: bool = False) -> dict:
+    """A batch of a family config on `device`: voxelized LiDAR-like clouds
+    for a voxel model, uniform KITTI-range points for a point model; with
+    `train`, 8 boxes a cloud."""
+    if synthetic.voxelizes(cfg):
+        if train:
+            return synthetic.voxel_train_batch(B, N, cfg, 8, seed=seed, device=device)
+        return synthetic.voxel_batch(B, N, cfg, seed=seed, device=device)
+    if train:
+        return to_device(synthetic.kitti_batch(B, N, 8, seed=seed), device)
+    return {'points': torch.from_numpy(synthetic.kitti_points(B, N, seed)).to(device)}
+
+
+def family_cuda_vs_cpu_phase(name: str, cfg, synthetic) -> None:
+    """Phase 31: the tiny shrink of a family config (`synthetic.TINY_CFGS`)
+    on CUDA against the CPU, the classification bias at 0: the batches
+    equal, every forward output within FWD_RTOL of its scale, detections
+    matched by box and label, the training loss within LOSS_RTOL and every
+    gradient within GRAD_RTOL relative L2 (cosine GRAD_COSINE)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase = '31 family cuda-vs-cpu'
+    tiny = synthetic.TINY_CFGS[cfg.MODEL.NAME](cfg)
+    N = TINY_POINTS[name]
+    cpu_in = family_batch(name, tiny, synthetic, 2, N, 4, 'cpu', train=True)
+    gpu_in = family_batch(name, tiny, synthetic, 2, N, 4, 'cuda', train=True)
+    for k, v in cpu_in.items():
+        if not torch.equal(gpu_in[k].cpu(), v):
+            raise SystemExit(f'[{phase}] FAILED: {name} {k} made on CUDA differs from the CPU\'s')
+    cpu_net = synthetic.open_score_gate(synthetic.random_model(tiny, 'cpu'))
+    gpu_net = synthetic.random_model(tiny, 'cuda')
+    gpu_net.load_state_dict(cpu_net.state_dict())
+    with torch.inference_mode():
+        want, got = flatten(cpu_net(dict(cpu_in))), flatten(gpu_net(dict(gpu_in)))
+    worst = 0.0
+    for k, w in want.items():
+        if not w.dtype.is_floating_point:
+            continue
+        rel = float((got[k].cpu() - w).abs().max()) / max(float(w.abs().max()), 1e-6)
+        worst = max(worst, rel)
+        if not rel <= FWD_RTOL:
+            raise SystemExit(f'[{phase}] FAILED {name} {k}: max |diff| / max |cpu| = {rel:.3e}')
+    note = match_detections({k: v.cpu() for k, v in gpu_net.predict(dict(gpu_in)).items()},
+                            cpu_net.predict(dict(cpu_in)), phase)
+    out = {}
+    for key, net, batch in (('cpu', cpu_net, cpu_in), ('cuda', gpu_net, gpu_in)):
+        net.train()
+        loss, tb = net.forward_with_loss(dict(batch))
+        loss.backward()
+        out[key] = (float(loss.detach()), {k: p.grad.detach().double().cpu()
+                                           for k, p in net.named_parameters()})
+        net.eval()
+    (c_loss, c_grads), (g_loss, g_grads) = out['cpu'], out['cuda']
+    if not abs(g_loss - c_loss) <= LOSS_RTOL * abs(c_loss):
+        raise SystemExit(f'[{phase}] FAILED {name}: loss {g_loss} on CUDA vs {c_loss} on the CPU')
+    worst_g, worst_k = 0.0, ''
+    for k, c in c_grads.items():
+        g = g_grads[k]
+        norm = float(c.norm())
+        rel = float((g - c).norm()) / norm if norm > 0 else float(g.norm())
+        cos = float((g * c).sum() / (g.norm() * c.norm())) if norm > 0 else 1.0
+        if not (bool(torch.isfinite(g).all()) and rel <= GRAD_RTOL and cos >= GRAD_COSINE):
+            raise SystemExit(f'[{phase}] FAILED {name} {k}: gradient relative L2 {rel:.3e}, '
+                             f'cosine {cos:.6f}')
+        if rel > worst_g:
+            worst_g, worst_k = rel, k
+    log(phase, f'tiny {name} B=2: {len(want)} outputs agree, worst max|diff|/max|cpu| = '
+        f'{worst:.3e} (bound {FWD_RTOL:g}); predict: {note}; loss {g_loss:.6f} on CUDA vs '
+        f'{c_loss:.6f} on the CPU; {len(c_grads)} gradients agree, worst relative L2 '
+        f'{worst_g:.3e} at {worst_k} (bound {GRAD_RTOL:g})')
+
+
+def family_predict_phase(name: str, cfg, wrappers, synthetic, card: str) -> dict:
+    """Phase 32: `predict` of a family config as shipped at PREDICT_B, the
+    classification bias at 0: shapes, finite
+    values, the voxel slots filled, no launch of a kernel of the port,
+    frames/s (median of 5 after warm-up), peak memory, the convolutions'
+    GFLOP and rate over the device time, then `torch.profiler`'s device
+    time, busy share and cuDNN's FFT-route kernels."""
+    from torch.utils.flop_counter import FlopCounterMode
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase = '32 family predict'
+    B, N = PREDICT_B[name], FAMILY_POINTS[name]
+    net = synthetic.open_score_gate(synthetic.random_model(cfg, 'cuda', seed=7))
+    inputs = family_batch(name, cfg, synthetic, B, N, 5, 'cuda')
+    filled = (f'{inputs["voxel_mask"].sum(1).tolist()} of {inputs["voxel_mask"].shape[1]} voxel '
+              'slots filled' if 'voxel_mask' in inputs else f'N={N}')
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(wrappers)
+    det = net.predict(inputs)
+    torch.cuda.synchronize()
+    launches = read_launches(wrappers)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_detections(phase, det, B, cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
+    if launches != NO_LAUNCHES:
+        raise SystemExit(f'[{phase}] FAILED {name}: kernel launches {launches}, expected none')
+    with torch.inference_mode(), FlopCounterMode(display=False) as counter:
+        net(dict(inputs))
+    gflop = counter.get_total_flops() / 1e9
+    for _ in range(3):
+        net.predict(inputs)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        net.predict(inputs)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = statistics.median(times)
+    from pdm_ssd_torch.tools.profile_predict import trace
+    with torch.inference_mode():
+        prof = trace(net, inputs)
+    fft = prof['fft_kernels']
+    device_ms = prof['device_ms_per_predict']
+    log(phase, f'{name} as shipped B={B} ({filled}): shapes ok, finite, '
+        f'{int(det["pred_mask"].sum())} kept boxes, no kernel of the port launched; median '
+        f'{med * 1e3:.3f} ms/batch = {B / med:.2f} frames/s (5 runs); device '
+        f'{device_ms:.3f} ms per predict, busy {device_ms / (med * 1e3):.3f}; convolutions '
+        f'{gflop:.1f} GFLOP a batch, {gflop / device_ms:.2f} TFLOP/s over the device time; '
+        f'peak allocated {peak:.3f} GiB; FFT-route kernels: '
+        + ('none' if not fft else '; '.join(f'{r["name"][:70]} x{r["calls_per_predict"]:g} '
+                                            f'{r["ms_per_predict"]:.3f} ms' for r in fft))
+        + '; top kernels: ' + '; '.join(f'{r["name"][:60]} {r["ms_per_predict"]:.3f} ms'
+                                         for r in prof['top_kernels'][:4]) + f' on {card}')
+    return launches
+
+
+def family_train_phase(name: str, cfg, wrappers, synthetic, card: str) -> dict:
+    """Phase 33: five training steps of a family config as shipped at
+    BATCH_SIZE_PER_GPU, 8 boxes a cloud: a finite and falling loss,
+    parameters changed, no launch of a kernel of the port, ms per step and
+    peak memory."""
+    from pdm_ssd_torch.runtime.trainer import create_train_state, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase = '33 family train'
+    B, N, steps = cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU, FAMILY_POINTS[name], 5
+    net = synthetic.random_model(cfg, seed=7)          # no device named: the card
+    batch = family_batch(name, cfg, synthetic, B, N, 5, 'cuda', train=True)
+    optimizer, _ = create_train_state(net, cfg.OPTIMIZATION, total_iters_each_epoch=100,
+                                      total_epochs=1)
+    train_step = make_train_step(net, optimizer)
+    before = {k: p.detach().clone() for k, p in net.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(wrappers)
+    losses, times = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses.append(float(train_step(batch)['loss']))
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    launches = read_launches(wrappers)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise SystemExit(f'[{phase}] FAILED {name}: losses {losses}')
+    if launches != NO_LAUNCHES:
+        raise SystemExit(f'[{phase}] FAILED {name}: kernel launches {launches}, expected none')
+    changed = sum(not torch.equal(p.detach(), before[k]) for k, p in net.named_parameters())
+    if changed < 0.9 * len(before):
+        raise SystemExit(f'[{phase}] FAILED {name}: {changed} of {len(before)} parameter '
+                         'tensors changed')
+    log(phase, f'{name} as shipped B={B} N={N}, 8 boxes per cloud, {steps} steps: losses '
+        + ' '.join(f'{x:.4f}' for x in losses) + f'; {changed} of {len(before)} parameter '
+        f'tensors changed; no kernel of the port launched; median '
+        f'{statistics.median(times) * 1e3:.3f} ms/step (first {times[0] * 1e3:.1f} ms); peak '
+        f'allocated {peak:.3f} GiB on {card}')
+    return launches
+
+
+def family_phases(wrappers, synthetic, smi: str, cfg_from_yaml_file) -> dict:
+    """Phases 31 to 34. Returns the kernel launches of each path, by name."""
+    paths = {}
+    for name, cfg_file in FAMILY:
+        family_cuda_vs_cpu_phase(name, cfg_from_yaml_file(str(REPO / cfg_file)), synthetic)
+    for name, cfg_file in FAMILY:
+        paths[f'{name}_predict'] = family_predict_phase(
+            name, cfg_from_yaml_file(str(REPO / cfg_file)), wrappers, synthetic, smi)
+        torch.cuda.empty_cache()
+    for name, cfg_file in FAMILY:
+        paths[f'{name}_train'] = family_train_phase(
+            name, cfg_from_yaml_file(str(REPO / cfg_file)), wrappers, synthetic, smi)
+        torch.cuda.empty_cache()
+    for name, cfg_file in FAMILY[:2]:
+        B = cfg_from_yaml_file(str(REPO / cfg_file)).OPTIMIZATION.BATCH_SIZE_PER_GPU
+        paths[f'{name}_eval_loop'] = kitti_eval_phase(
+            wrappers, synthetic, smi, cfg_file, '34 family eval loop', NO_LAUNCHES,
+            adjust=synthetic.open_score_gate, cpu_check=False, B=B)
+        paths[f'{name}_train_loop'] = train_loop_phase(
+            wrappers, synthetic, smi, cfg_file, '34 family train loop', NO_LAUNCHES, B=B)
+    return paths
 
 KERNEL_TABLE = (
     ('farthest_point_sample', 'pdm_ssd_torch/csrc/fps.cu', 'pdm_ssd_tpu/ops/pallas/fps.py:60'),
@@ -2367,6 +2617,12 @@ def main() -> None:
     new_paths['second_train_loop'] = train_loop_phase(
         wrappers, synthetic, smi, SECOND_CFG, '30 second train loop', SECOND_TRAIN_LAUNCHES, B=B2)
 
+    # the pillar and dense-voxel family of `Detector3D`
+    family = family_phases(wrappers, synthetic, smi, cfg_from_yaml_file)
+    if set(family) & set(new_paths):
+        raise SystemExit(f'[kernels] FAILED: path names used twice: {set(family) & set(new_paths)}')
+    new_paths.update(family)
+
     # `launches` is the count from the run of a main path: the flagship's five
     # training steps of phase 8 for its four kernels, PointRCNN's predict of
     # phase 11 for the ball query, SECOND's predict of phase 15 for the sparse
@@ -2387,7 +2643,10 @@ def main() -> None:
     # every kernel, the aux train step's 5 steps the flagship's step's four
     # kernels, TTA's predict twice the flagship's), `launches_second_train` the
     # five steps of phase 29 and `launches_second_{eval,train}_loop` the loops
-    # of phase 30; the weight gradient's `launches` are phase 29's, its times
+    # of phase 30, `launches_<name>_{predict,train}` of phases 32 and 33 (name
+    # one of pointpillar, centerpoint_pillar, pillarnet, dense_second) and
+    # `launches_<name>_{eval,train}_loop` of phase 34 (0 for every kernel on
+    # each); the weight gradient's `launches` are phase 29's, its times
     # and bounds sums over the twelve layers of phase 27, and the sparse conv's
     # `dgrad_*` keys the same for its data-gradient launches (11 layers); the
     # sparse conv's `library_ms` (and the backward's) is a pair of PyTorch

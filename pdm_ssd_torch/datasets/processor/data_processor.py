@@ -4,7 +4,8 @@ steps of `pdm_ssd_tpu/datasets/processor/data_processor.py:41-129`).
 Each config entry resolves to a `_build_<NAME>` factory returning a bound
 step closure. The steps of the KITTI pipelines are here: range masking,
 shuffling, the near/far-aware fixed-N point sampler, which gives point
-models their static shapes, and the voxelizer of the voxel models
+models their static shapes, the grid of the point models that pillarize on
+the device, and the voxelizer of the voxel models
 (`ops/voxelize.voxelize` on a CPU tensor: the contract of the JAX package's
 `_numpy_voxelize`, without its Python loop over cells). Every other step
 raises `NotImplementedError` naming its ROADMAP item.
@@ -20,7 +21,6 @@ from ...utils import box_utils_np
 # steps of the JAX package's queue that the port does not have, with the
 # ROADMAP item that brings each
 _UNPORTED = {
-    'calculate_grid_size': 'Queue 1 item 9, the pillar family',
     'generate_depth_map': 'Queue 1 item 12, camera and temporal models',
     'downsample_depth_map': 'Queue 1 item 12, camera and temporal models',
     'image_normalize': 'Queue 1 item 12, camera and temporal models',
@@ -126,6 +126,12 @@ class DataProcessor:
             dd['points'] = points[keep]
             return dd
         return step
+
+    def _build_calculate_grid_size(self, cfg):
+        """Sets the grid and changes no sample (the point models that
+        pillarize on the device read the grid from the config)."""
+        self._set_grid(cfg.VOXEL_SIZE)
+        return lambda dd: dd
 
     def _build_transform_points_to_voxels(self, cfg):
         """The first MAX_POINTS_PER_VOXEL points of each occupied cell, the

@@ -13,7 +13,7 @@ import torch
 from torch import nn
 
 from ...utils.config import as_cfg
-from ..layers import BatchNorm2d, conv2d_same
+from ..layers import BatchNorm2d, conv_same
 
 N_SH = 9
 
@@ -73,7 +73,7 @@ class PDMNeckConv(nn.Module):
 
     def forward(self, batch: dict) -> dict:
         x = batch['spatial_features'].permute(0, 3, 1, 2)          # NHWC -> NCHW
-        out = conv2d_same(self.dilate, self.sh_proj(x))
+        out = conv_same(self.dilate, self.sh_proj(x))
         out = torch.relu(self.bn(out))
         batch['spatial_features'] = out.permute(0, 2, 3, 1)          # NCHW -> NHWC
         return batch

@@ -1,9 +1,8 @@
 """Anchor-based dense head (counterpart of
 `pdm_ssd_tpu/models/dense_heads/anchor_head.py`): `generate_anchors`, the
 forward of `AnchorHeadSingle`, its box decode with the direction classifier,
-the axis-aligned target assignment over `nearest_bev_iou` and the losses.
-The ATSS assigner and `AnchorHeadMulti` are not ported (ROADMAP Queue 1
-item 9).
+the axis-aligned and the ATSS target assignment over `nearest_bev_iou`, the
+losses, and `AnchorHeadMulti` (a shared trunk, one head per class group).
 """
 from __future__ import annotations
 
@@ -17,6 +16,7 @@ from ...ops import losses
 from ...ops.box_ops import limit_period
 from ...ops.coders import ResidualCoder
 from ...utils.config import as_cfg
+from ..layers import BatchNorm2d
 
 
 def generate_anchors(anchor_cfg_list, grid_size, point_cloud_range):
@@ -94,6 +94,21 @@ class AnchorHeadSingle(nn.Module):
     def __init__(self, model_cfg, input_channels: int, num_class: int, class_names, grid_size,
                  point_cloud_range, device=None):
         super().__init__()
+        gen_cfg = self._setup(model_cfg, num_class, grid_size, point_cloud_range)
+        cfg = self.model_cfg
+        self.n_cls_groups = len(gen_cfg)
+        na = sum(len(c['anchor_sizes']) * len(c['anchor_rotations']) for c in gen_cfg)
+        self.num_anchors_per_location = na
+        self.conv_cls = nn.Conv2d(input_channels, na * num_class, 1, device=device)
+        self.conv_cls.bias_init = -math.log((1 - 0.01) / 0.01)
+        self.conv_box = nn.Conv2d(input_channels, na * self.coder.code_size, 1, device=device)
+        self.conv_dir_cls = None
+        if cfg.get('USE_DIRECTION_CLASSIFIER', True):
+            self.conv_dir_cls = nn.Conv2d(input_channels, na * self.num_dir_bins, 1,
+                                          device=device)
+
+    def _setup(self, model_cfg, num_class: int, grid_size, point_cloud_range) -> list:
+        """Config, coder and anchors; returns the anchor generator's list."""
         cfg = as_cfg(model_cfg)
         self.model_cfg = cfg
         self.num_class = num_class
@@ -104,24 +119,14 @@ class AnchorHeadSingle(nn.Module):
         self.anchors_np, self.class_slices = generate_anchors(gen_cfg, tuple(grid_size),
                                                               tuple(point_cloud_range))
         self._anchors = {}
-        self.n_cls_groups = len(gen_cfg)
         # each anchor's class (1-based) and IoU thresholds, by its class block
-        A = len(self.anchors_np)
-        self.anchor_rule_np = np.zeros((3, A), np.float32)
+        self.anchor_rule_np = np.zeros((3, len(self.anchors_np)), np.float32)
         for ci, (s0, s1) in enumerate(self.class_slices):
             self.anchor_rule_np[:, s0:s1] = np.array(
                 [[ci + 1], [gen_cfg[ci].get('matched_threshold', 0.6)],
                  [gen_cfg[ci].get('unmatched_threshold', 0.45)]], np.float32)
-        na = sum(len(c['anchor_sizes']) * len(c['anchor_rotations']) for c in gen_cfg)
-        self.num_anchors_per_location = na
         self.num_dir_bins = cfg.get('NUM_DIR_BINS', 2)
-        self.conv_cls = nn.Conv2d(input_channels, na * num_class, 1, device=device)
-        self.conv_cls.bias_init = -math.log((1 - 0.01) / 0.01)
-        self.conv_box = nn.Conv2d(input_channels, na * self.coder.code_size, 1, device=device)
-        self.conv_dir_cls = None
-        if cfg.get('USE_DIRECTION_CLASSIFIER', True):
-            self.conv_dir_cls = nn.Conv2d(input_channels, na * self.num_dir_bins, 1,
-                                          device=device)
+        return gen_cfg
 
     def anchors(self, device) -> torch.Tensor:
         """(A, 7) float32 on `device`."""
@@ -161,11 +166,12 @@ class AnchorHeadSingle(nn.Module):
         'anchor_cls_labels' (B, A) int64 (class, 0 background, -1 ignored),
         'anchor_box_targets' (B, A, 7) and 'anchor_dir_targets' (B, A)."""
         cfg = self.model_cfg
-        if cfg.TARGET_ASSIGNER_CONFIG.get('NAME') == 'ATSSTargetAssigner':
-            raise NotImplementedError('the ATSS target assigner is not ported yet (ROADMAP '
-                                      'Queue 1 item 9, the pillar family)')
         gts, gmask = batch['gt_boxes'], batch['gt_mask']
         anchors = self.anchors(gts.device)
+        tcfg = cfg.TARGET_ASSIGNER_CONFIG
+        if tcfg.get('NAME') == 'ATSSTargetAssigner':
+            labels, tgt, pos = atss_assign(anchors, gts, gmask, int(tcfg.get('TOPK', 9)))
+            return self._targets(labels, tgt[..., :7], pos, anchors)
         rule = torch.from_numpy(self.anchor_rule_np).to(gts.device)
         anchor_cls, matched_t, unmatched_t = rule[0].long(), rule[1], rule[2]
         iou = nearest_bev_iou(anchors, gts[..., :7])                     # (B, A, M)
@@ -180,8 +186,13 @@ class AnchorHeadSingle(nn.Module):
         labels = torch.where(pos, gt_cls.gather(1, best_gt),
                              torch.where(neg, 0, -1))
         tgt = gts.gather(1, best_gt[..., None].expand(-1, -1, gts.shape[-1]))[..., :7]
+        return self._targets(labels, tgt, pos, anchors)
+
+    def _targets(self, labels, tgt, pos, anchors) -> dict:
+        """The target dict from labels, each anchor's gt box (B, A, 7) and
+        its positives: box residuals where positive, direction bins."""
         box_targets = torch.where(pos[..., None], self.coder.encode(tgt, anchors[None]), 0.0)
-        dir_offset = cfg.get('DIR_OFFSET', 0.78539)
+        dir_offset = self.model_cfg.get('DIR_OFFSET', 0.78539)
         offset_rot = limit_period(tgt[..., 6] - dir_offset, 0, 2 * math.pi)
         dir_targets = (offset_rot / (2 * math.pi / self.num_dir_bins)).to(torch.int64) \
             .clamp(0, self.num_dir_bins - 1)
@@ -240,3 +251,116 @@ class AnchorHeadSingle(nn.Module):
             rot = rot + dir_offset + period * dir_labels.to(boxes.dtype)
             boxes = torch.cat([boxes[..., :6], rot[..., None], boxes[..., 7:]], dim=-1)
         return batch['anchor_cls_preds'], boxes
+
+
+class AnchorHeadMulti(AnchorHeadSingle):
+    """A shared 3x3 Conv + BN + ReLU trunk (`shared_conv`, `shared_bn`,
+    SHARED_CONV_NUM_FILTER wide), then per RPN_HEAD_CFGS group 1x1 convs
+    `head<g>_cls` / `_box` / `_dir` for its classes' anchors. The outputs are
+    assembled in the global anchor-major layout of `AnchorHeadSingle` with
+    the logits of the classes foreign to an anchor's head at -10, so the
+    assigners, losses and decode are `AnchorHeadSingle`'s. As in the JAX
+    package, a class's anchors are ordered [rotation][y][x] here, while
+    `generate_anchors` orders them [y][x][rotation]."""
+
+    def __init__(self, model_cfg, input_channels: int, num_class: int, class_names, grid_size,
+                 point_cloud_range, device=None):
+        nn.Module.__init__(self)
+        gen_cfg = self._setup(model_cfg, num_class, grid_size, point_cloud_range)
+        cfg = self.model_cfg
+        self.use_dir = cfg.get('USE_DIRECTION_CLASSIFIER', True)
+        self.cls_names = [c['class_name'] for c in gen_cfg]
+        self.n_rot = [len(c['anchor_sizes']) * len(c['anchor_rotations']) for c in gen_cfg]
+        self.groups = [list(hc['HEAD_CLS_NAME']) for hc in cfg.RPN_HEAD_CFGS]
+        shared = cfg.get('SHARED_CONV_NUM_FILTER', 64)
+        self.shared_conv = nn.Conv2d(input_channels, shared, 3, padding=1, bias=False,
+                                     device=device)
+        self.shared_bn = BatchNorm2d(shared, eps=1e-3, momentum=0.01, device=device)
+        code = self.coder.code_size
+        for gi, group in enumerate(self.groups):
+            n_loc = sum(self.n_rot[self.cls_names.index(n)] for n in group)
+            conv_cls = nn.Conv2d(shared, n_loc * len(group), 1, device=device)
+            conv_cls.bias_init = -math.log((1 - 0.01) / 0.01)
+            self.add_module(f'head{gi}_cls', conv_cls)
+            self.add_module(f'head{gi}_box', nn.Conv2d(shared, n_loc * code, 1, device=device))
+            if self.use_dir:
+                self.add_module(f'head{gi}_dir', nn.Conv2d(shared, n_loc * self.num_dir_bins, 1,
+                                                           device=device))
+
+    def forward(self, batch: dict) -> dict:
+        x = batch['spatial_features_2d'].permute(0, 3, 1, 2)      # NHWC -> NCHW
+        h = torch.relu(self.shared_bn(self.shared_conv(x)))
+        B, _, H, W = h.shape
+        code, nd = self.coder.code_size, self.num_dir_bins
+        per_class = {}
+        for gi, group in enumerate(self.groups):
+            n_loc = sum(self.n_rot[self.cls_names.index(n)] for n in group)
+            gcls = getattr(self, f'head{gi}_cls')(h).reshape(B, n_loc, len(group), H, W)
+            gbox = getattr(self, f'head{gi}_box')(h).reshape(B, n_loc, code, H, W)
+            gdir = (getattr(self, f'head{gi}_dir')(h).reshape(B, n_loc, nd, H, W)
+                    if self.use_dir else None)
+            off = 0
+            for ln, name in enumerate(group):
+                sl = slice(off, off + self.n_rot[self.cls_names.index(name)])
+                per_class[name] = (gcls[:, sl, ln], gbox[:, sl],
+                                   gdir[:, sl] if gdir is not None else None)
+                off = sl.stop
+        cls_out, box_out, dir_out = [], [], []
+        for ci, name in enumerate(self.cls_names):
+            logit, box, dirp = per_class[name]                   # (B, nr, H, W), (B, nr, c, H, W)
+            full = torch.full((*logit.shape, self.num_class), -10.0, dtype=logit.dtype,
+                              device=logit.device)
+            full[..., ci] = logit
+            cls_out.append(full.reshape(B, -1, self.num_class))
+            box_out.append(box.permute(0, 1, 3, 4, 2).reshape(B, -1, code))
+            if dirp is not None:
+                dir_out.append(dirp.permute(0, 1, 3, 4, 2).reshape(B, -1, nd))
+        batch['anchor_cls_preds'] = torch.cat(cls_out, dim=1)
+        batch['anchor_box_preds'] = torch.cat(box_out, dim=1)
+        if self.use_dir:
+            batch['anchor_dir_preds'] = torch.cat(dir_out, dim=1)
+        return batch
+
+
+@torch.no_grad()
+def atss_assign(anchors: torch.Tensor, gts: torch.Tensor, gmask: torch.Tensor, topk: int):
+    """ATSS target assignment, batched (`atss_assign_single` of the JAX
+    package): per gt the `topk` anchors nearest its center are candidates
+    (ties to the lower anchor index); a candidate is positive where its IoU
+    reaches the mean plus the deviation of its gt's candidate IoUs and its
+    center lies inside the gt's BEV rectangle; an anchor claimed by several
+    gts keeps the one of highest IoU; every valid gt also forces its best
+    anchor. anchors (A, 7), gts (B, M, 8) class last, gmask (B, M). Returns
+    (labels (B, A), each anchor's gt (B, A, 8), positives (B, A))."""
+    B, M = gmask.shape
+    A = anchors.shape[0]
+    iou = nearest_bev_iou(anchors, gts[..., :7])                          # (B, A, M)
+    iou = torch.where(gmask[:, None, :], iou, -1.0)
+    d = anchors[None, :, None, :3] - gts[:, None, :, :3]
+    dist = torch.sqrt((d * d).sum(-1))
+    dist = torch.where(gmask[:, None, :], dist, torch.inf).transpose(1, 2)  # (B, M, A)
+    cand = torch.sort(dist, dim=-1, stable=True).indices[..., :topk]      # (B, M, K)
+    cand_iou = iou.transpose(1, 2).gather(2, cand)
+    mean = cand_iou.mean(dim=2, keepdim=True)
+    std = cand_iou.std(dim=2, correction=0, keepdim=True)
+    is_pos = cand_iou >= mean + std + 1e-6
+    local = anchors[cand][..., :3] - gts[:, :, None, :3]                 # (B, M, K, 3)
+    c, s = torch.cos(-gts[..., 6])[..., None], torch.sin(-gts[..., 6])[..., None]
+    lx = local[..., 0] * c - local[..., 1] * s
+    ly = local[..., 0] * s + local[..., 1] * c
+    in_gt = (lx.abs() <= gts[..., 3:4] / 2) & (ly.abs() <= gts[..., 4:5] / 2)
+    is_pos = is_pos & in_gt & gmask[..., None]
+    # the candidates of one gt are distinct anchors: a plain scatter
+    claimed = torch.full((B, M, A), -torch.inf, dtype=iou.dtype, device=iou.device)
+    claimed.scatter_(2, cand, torch.where(is_pos, cand_iou, -torch.inf))
+    best_iou, best_gt = claimed.max(dim=1)                              # (B, A)
+    gt_best_anchor = iou.argmax(dim=1)                                  # (B, M)
+    zeros = torch.zeros((B, A), dtype=torch.long, device=iou.device)
+    force = zeros.scatter_reduce(1, gt_best_anchor, gmask.long(), 'amax') > 0
+    m_ids = torch.arange(M, device=iou.device).expand(B, M)
+    forced_gt = zeros.scatter_reduce(1, gt_best_anchor, torch.where(gmask, m_ids, 0), 'amax')
+    pos = (best_iou > -torch.inf) | force
+    gt_idx = torch.where(force & (best_iou <= -torch.inf), forced_gt, best_gt)
+    gt_of_anchor = gts.gather(1, gt_idx[..., None].expand(-1, -1, gts.shape[-1]))
+    labels = torch.where(pos, gt_of_anchor[..., 7].long(), 0)
+    return labels, gt_of_anchor, pos

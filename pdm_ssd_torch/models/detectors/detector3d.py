@@ -4,17 +4,22 @@ slots its config names,
 
     VFE -> BACKBONE_3D -> MAP_TO_BEV -> BACKBONE_2D -> DENSE_HEAD.
 
-Ported slots: `MeanVFE`, the sparse voxel `BACKBONE_3D`, `BaseBEVBackbone`,
-`AnchorHeadSingle`, which is SECOND on the sparse ladder
-(`configs/kitti_models/second_sparse.yaml`). Every other name raises
-`NotImplementedError`. It serves, and it trains: the anchor head's targets
-and losses, and the sparse ladder's backward through the transposed maps
-that `models.get_host_prepare(..., training=True)` adds to a batch.
+Ported slots: `MeanVFE`, `PillarVFE`, `DynamicPillarVFE`; the sparse voxel
+ladder, the dense `DenseVoxelBackBone8x` (any other BACKBONE_3D name, as
+the JAX package's `build_voxel_backbone_3d` reads it) and
+`GridPointBackbone`; `PointPillarScatter`, `HeightCompression`,
+`Conv2DCollapse`; `BaseBEVBackbone`,
+`BaseBEVResBackbone`; `AnchorHeadSingle`, `AnchorHeadMulti` (axis-aligned
+or ATSS targets) and `CenterHead`. That is SECOND on either ladder,
+PointPillar, CenterPoint-pillar and PillarNet (`configs/kitti_models/
+second_sparse.yaml`, `second.yaml`, `pointpillar.yaml`,
+`centerpoint_pillar.yaml`, `pillarnet.yaml`), served and trained. The focal
+ladder, `TTA_FLIP` and the other heads raise `NotImplementedError`.
 
 The submodules carry flax's names for the entries of the JAX detector's
 module list (`module_list_0`, ...), so `utils/weights.from_flax` maps the
-parameter tree one to one; `vfe`, `backbone_3d` and `backbone_2d` name the
-same modules by their slot.
+parameter tree one to one; `vfe`, `backbone_3d`, `map_to_bev` and
+`backbone_2d` name the same modules by their slot.
 """
 from __future__ import annotations
 
@@ -27,10 +32,14 @@ from torch import nn
 from ...ops.selection import two_stage_topk
 from ...utils.config import as_cfg
 from .. import model_nms
-from ..backbones_2d.base_bev_backbone import BaseBEVBackbone
+from ..backbones_2d.base_bev_backbone import BaseBEVBackbone, BaseBEVResBackbone
+from ..backbones_2d.map_to_bev import build_map_to_bev
+from ..backbones_3d.grid_point_backbone import GridPointBackbone
 from ..backbones_3d.sparse_backbone import SparseVoxelBackBone8x
 from ..backbones_3d.vfe import build_vfe
-from ..dense_heads.anchor_head import AnchorHeadSingle
+from ..backbones_3d.voxel_backbone import DenseVoxelBackBone8x
+from ..dense_heads.anchor_head import AnchorHeadMulti, AnchorHeadSingle
+from ..dense_heads.center_head import CenterHead
 from ..model_nms import take_rows
 
 
@@ -48,12 +57,17 @@ def _grid_info(ds_cfg):
 
 
 def build_voxel_backbone_3d(bb_cfg, input_channels: int, grid_size, device=None) -> nn.Module:
+    """The sparse ladder by its names; the focal ladder raises; every other
+    name (`DenseVoxelBackBone8x`, `VoxelBackBone8x`, none) is the dense
+    ladder, as in the JAX package's `build_voxel_backbone_3d`."""
     name = bb_cfg.get('NAME', 'VoxelBackBone8x')
     if name in ('SparseVoxelBackBone8x', 'SparseVoxelResBackBone8x'):
         return SparseVoxelBackBone8x(bb_cfg, input_channels, grid_size,
                                      residual=(name == 'SparseVoxelResBackBone8x'), device=device)
-    raise NotImplementedError(f'BACKBONE_3D {name} is not ported yet (ROADMAP Queue 1 item 10, '
-                              'the rest of the sparse voxel ladder)')
+    if name == 'VoxelBackBone8xFocal':
+        raise NotImplementedError('the focal ladder is not ported yet (ROADMAP Queue 1 item 10, '
+                                  'the rest of the sparse voxel ladder)')
+    return DenseVoxelBackBone8x(bb_cfg, input_channels, grid_size, device=device)
 
 
 class Detector3D(nn.Module):
@@ -65,7 +79,7 @@ class Detector3D(nn.Module):
         self.num_class = num_class
         pc_range = tuple(ds.POINT_CLOUD_RANGE)
         num_pf = ds.get('NUM_POINT_FEATURES', 4)
-        (gw, gh, gd), _ = _grid_info(ds)
+        (gw, gh, gd), voxel = _grid_info(ds)
         if cfg.POST_PROCESSING.get('TTA_FLIP'):
             raise NotImplementedError('TTA_FLIP of the voxel family is not ported yet (ROADMAP '
                                       'Queue 1 item 10, the rest of the sparse voxel ladder)')
@@ -80,38 +94,49 @@ class Detector3D(nn.Module):
             return module
 
         if cfg.get('VFE') is not None:
-            width = add('vfe', build_vfe(cfg.VFE, num_pf)).get_output_feature_dim()
+            width = add('vfe', build_vfe(cfg.VFE, num_pf, voxel, pc_range, (gw, gh),
+                                         device=device)).get_output_feature_dim()
         if cfg.get('BACKBONE_3D') is not None:
-            width = add('backbone_3d', build_voxel_backbone_3d(
-                cfg.BACKBONE_3D, width, (gw, gh, gd), device=device)).num_bev_features
+            if cfg.BACKBONE_3D.get('NAME') == 'GridPointBackbone':
+                width = add('backbone_3d', GridPointBackbone(
+                    cfg.BACKBONE_3D, num_pf, pc_range, device=device)).num_point_features
+            else:
+                width = add('backbone_3d', build_voxel_backbone_3d(
+                    cfg.BACKBONE_3D, width, (gw, gh, gd), device=device)).num_bev_features
         if cfg.get('MAP_TO_BEV') is not None:
-            raise NotImplementedError(f'MAP_TO_BEV {cfg.MAP_TO_BEV.NAME} is not ported yet '
-                                      '(ROADMAP Queue 1 items 9 and 10, the pillar family and the '
-                                      'rest of the sparse voxel ladder)')
+            width = add('map_to_bev', build_map_to_bev(cfg.MAP_TO_BEV, (gw, gh), width,
+                                                       device=device)).num_bev_features
         if cfg.get('BACKBONE_2D') is not None:
             name2d = cfg.BACKBONE_2D.get('NAME', 'BaseBEVBackbone')
-            if name2d != 'BaseBEVBackbone':
+            if name2d not in ('BaseBEVBackbone', 'BaseBEVResBackbone'):
                 raise NotImplementedError(f'BACKBONE_2D {name2d} is not ported yet '
-                                          '(ROADMAP Queue 1 item 9, the pillar family)')
-            width = add('backbone_2d', BaseBEVBackbone(cfg.BACKBONE_2D, width,
-                                                       device=device)).num_bev_features
+                                          '(ROADMAP Queue 1 item 12)')
+            bb_cls = BaseBEVResBackbone if name2d == 'BaseBEVResBackbone' else BaseBEVBackbone
+            width = add('backbone_2d', bb_cls(cfg.BACKBONE_2D, width,
+                                              device=device)).num_bev_features
         head_cfg = cfg.DENSE_HEAD
-        if head_cfg.NAME != 'AnchorHeadSingle':
-            raise NotImplementedError(f'DENSE_HEAD {head_cfg.NAME} is not ported in Detector3D '
-                                      'yet (ROADMAP Queue 1 items 9 to 11: the pillar family, '
-                                      'the rest of the sparse voxel ladder, the other '
-                                      'two-stage heads)')
         stride = head_cfg.TARGET_ASSIGNER_CONFIG.get('FEATURE_MAP_STRIDE', 2) \
             if 'TARGET_ASSIGNER_CONFIG' in head_cfg else 2
-        self.dense_head = AnchorHeadSingle(head_cfg, width, num_class, class_names,
-                                           grid_size=(gw // stride, gh // stride),
-                                           point_cloud_range=pc_range, device=device)
+        fmap = (gw // stride, gh // stride)
+        if head_cfg.NAME == 'CenterHead':
+            self.dense_head = CenterHead(head_cfg, width, num_class, fmap, pc_range, voxel[:2],
+                                         class_names=tuple(class_names) if class_names else None,
+                                         device=device)
+        elif head_cfg.NAME in ('AnchorHeadSingle', 'AnchorHeadMulti'):
+            head_cls = AnchorHeadMulti if head_cfg.NAME == 'AnchorHeadMulti' else AnchorHeadSingle
+            self.dense_head = head_cls(head_cfg, width, num_class, class_names, grid_size=fmap,
+                                       point_cloud_range=pc_range, device=device)
+        else:
+            raise NotImplementedError(f'DENSE_HEAD {head_cfg.NAME} is not ported in Detector3D '
+                                      'yet (ROADMAP Queue 1 items 10 and 11: the rest of the '
+                                      'sparse voxel ladder, the other two-stage heads)')
 
     def _slot(self, slot: str):
         return getattr(self, self.slots[slot]) if slot in self.slots else None
 
     vfe = property(lambda self: self._slot('vfe'))
     backbone_3d = property(lambda self: self._slot('backbone_3d'))
+    map_to_bev = property(lambda self: self._slot('map_to_bev'))
     backbone_2d = property(lambda self: self._slot('backbone_2d'))
 
     def forward(self, batch: dict) -> dict:
@@ -124,16 +149,23 @@ class Detector3D(nn.Module):
 
     def get_training_loss(self, batch: dict) -> tuple:
         """The dense head's targets and losses on a forward's output, which
-        carries the batch's 'gt_boxes' and 'gt_mask'. Returns (loss, tb) with
-        the head's entries and 'loss' in `tb`."""
-        loss, tb = self.dense_head.get_loss(batch, self.dense_head.assign_targets(batch))
+        carries the batch's 'gt_boxes' and 'gt_mask'; a heatmap head's targets
+        at the (H, W) of 'spatial_features_2d'. Returns (loss, tb) with the
+        head's entries and 'loss' in `tb`."""
+        if isinstance(self.dense_head, CenterHead):
+            targets = self.dense_head.assign_targets(batch['gt_boxes'], batch['gt_mask'],
+                                                     batch['spatial_features_2d'].shape[1:3])
+        else:
+            targets = self.dense_head.assign_targets(batch)
+        loss, tb = self.dense_head.get_loss(batch, targets)
         return loss, {**tb, 'loss': loss}
 
     def forward_with_loss(self, batch: dict) -> tuple:
         """Forward, target assignment and losses: (loss, tb). BatchNorm uses
         batch statistics when the model is in training mode. The batch holds
-        the voxels, the kernel maps with their transposes
-        (`get_host_prepare(..., training=True)`) and the ground truth."""
+        the model's inputs (the points, or the voxels with, for the sparse
+        ladder, the kernel maps and their transposes of
+        `get_host_prepare(..., training=True)`) and the ground truth."""
         return self.get_training_loss(self(batch))
 
     @torch.inference_mode()
@@ -144,22 +176,28 @@ class Detector3D(nn.Module):
         return self.post_process(self(batch))
 
     def select_candidates(self, batch: dict):
-        """Sigmoid scores, the best class per anchor and the top
-        2 * NMS_PRE_MAXSIZE anchors by `two_stage_topk`: (boxes (B, K, 7),
-        scores, labels (1-based), valid (B, K)), valid above SCORE_THRESH."""
+        """(boxes (B, K, 7), scores, labels (1-based), valid (B, K)), valid
+        above SCORE_THRESH. A heatmap head's are its fixed-K decode; an anchor
+        head's the sigmoid scores, the best class per anchor and the top
+        2 * NMS_PRE_MAXSIZE anchors by `two_stage_topk`."""
         pp = self.model_cfg.POST_PROCESSING
+        thresh = pp.get('SCORE_THRESH', 0.1)
+        if isinstance(self.dense_head, CenterHead):
+            hm = self.dense_head.generate_predicted_boxes(batch)
+            return (hm['pred_boxes'][..., :7], hm['pred_scores'], hm['pred_labels'] + 1,
+                    hm['pred_mask'] & (hm['pred_scores'] > thresh))
         cls_preds, boxes = self.dense_head.generate_predicted_boxes(batch)
         probs = torch.sigmoid(cls_preds)                          # (B, A, nc)
         scores_all, labels_all = probs.max(dim=-1)
         K = min(int(np.max(pp.NMS_CONFIG.NMS_PRE_MAXSIZE)) * 2, scores_all.shape[1])
         scores, sel = two_stage_topk(scores_all, K)
         return (take_rows(boxes, sel)[..., :7], scores, take_rows(labels_all, sel) + 1,
-                scores > pp.get('SCORE_THRESH', 0.1))
+                scores > thresh)
 
     def post_process(self, batch: dict) -> dict:
         """The candidates of `select_candidates` through one class-agnostic
-        rotated NMS. Returns (B, P, 7) boxes and (B, P) scores, labels
-        (1-based) and mask."""
+        NMS, rotated or by center distance as NMS_TYPE says. Returns (B, P,
+        7) boxes and (B, P) scores, labels (1-based) and mask."""
         boxes, scores, labels, valid = self.select_candidates(batch)
         fb, fs, fl, fm = model_nms.dispatch_nms(boxes, scores, labels, valid,
                                                 self.model_cfg.POST_PROCESSING.NMS_CONFIG,

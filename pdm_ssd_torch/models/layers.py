@@ -4,12 +4,14 @@ Channels-last like the JAX package. Submodule names follow flax's automatic
 names (`Dense_0`, `BatchNorm_0`, ...) so that `utils/weights.from_flax` maps
 the parameter tree one to one. flax BatchNorm momentum 0.9 is torch 0.1.
 
-In training mode the BatchNorm layers here update the running variance with
-the biased batch variance, as flax does; torch's own update uses the
-unbiased one (larger by n / (n - 1) for n values per channel).
+In training mode the BatchNorm layers here take their batch statistics as
+flax's BatchNorm does (the variance as E[x^2] - E[x]^2) and move the running
+variance towards that biased variance; torch's own update uses the unbiased
+one (larger by n / (n - 1) for n values per channel).
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Sequence
 
 import torch
@@ -17,32 +19,47 @@ from torch import nn
 from torch.nn import functional as F
 
 
-class _BiasedVarianceUpdate:
-    """Mixin for torch BatchNorm classes: in training mode it normalises as
-    torch does, lets torch write its running-variance update into a scratch
-    copy, and rescales the batch term of that update from the unbiased to
-    the biased variance (no second pass over the activations)."""
+class _FlaxBatchStatistics:
+    """Mixin for torch BatchNorm classes: in training mode, flax's BatchNorm
+    forward. The batch variance is E[x^2] - E[x]^2 (at least 0), as flax
+    takes it by default (`use_fast_variance`), where torch takes E[(x -
+    E[x])^2]: where a channel's mean lies far above its deviation (a mostly
+    empty map) the two differ beyond float32 rounding, and the gradients
+    through BatchNorm with them. The running statistics move towards the
+    batch mean and that biased variance, in flax's order of operations.
+
+    While `stats_frozen` is set (the recomputation of a checkpointed block,
+    `checkpoint_block`) it normalises the same way and updates nothing, so a
+    step updates the running statistics once, as flax's `nn.remat` does."""
+
+    stats_frozen = False
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
             return super().forward(x)
-        keep = 1.0 - self.momentum
-        old = self.running_var * keep
-        scratch = self.running_var.clone()      # autograd keeps this one
-        y = F.batch_norm(x, self.running_mean, scratch, self.weight, self.bias, True,
-                         self.momentum, self.eps)
-        n = x.numel() // x.shape[1]
-        with torch.no_grad():
-            self.running_var.copy_(old + (scratch - old) * ((n - 1) / n))
-            self.num_batches_tracked.add_(1)
+        dims = [d for d in range(x.dim()) if d != 1]
+        shape = [1, x.shape[1]] + [1] * (x.dim() - 2)
+        mean = x.mean(dims)
+        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        y = (x - mean.view(shape)) * scale.view(shape) + self.bias.view(shape)
+        if not self.stats_frozen:
+            with torch.no_grad():
+                self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
+                self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)
+                self.num_batches_tracked.add_(1)
         return y
 
 
-class BatchNorm2d(_BiasedVarianceUpdate, nn.BatchNorm2d):
+class BatchNorm2d(_FlaxBatchStatistics, nn.BatchNorm2d):
     """BatchNorm over the channels of an NCHW map."""
 
 
-class BatchNormLast(_BiasedVarianceUpdate, nn.BatchNorm1d):
+class BatchNorm3d(_FlaxBatchStatistics, nn.BatchNorm3d):
+    """BatchNorm over the channels of an NCDHW volume."""
+
+
+class BatchNormLast(_FlaxBatchStatistics, nn.BatchNorm1d):
     """BatchNorm over the last axis of a (..., C) tensor."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -104,14 +121,42 @@ def same_padding(size: int, kernel: int, stride: int) -> tuple:
     return total // 2, total - total // 2
 
 
-def conv2d_same(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """`conv` applied to the NCHW map x with flax's 'SAME' padding (the
-    module's own `padding` is not used)."""
-    (top, bottom), (left, right) = (same_padding(n, k, s) for n, k, s in
-                                    zip(x.shape[-2:], conv.kernel_size, conv.stride))
-    if top == bottom and left == right:
-        return F.conv2d(x, conv.weight, conv.bias, conv.stride, (top, left))
-    return F.conv2d(F.pad(x, (left, right, top, bottom)), conv.weight, conv.bias, conv.stride)
+def conv_same(conv: nn.Conv2d | nn.Conv3d, x: torch.Tensor) -> torch.Tensor:
+    """`conv` (2D or 3D) applied to the NCHW map or NCDHW volume x with
+    flax's 'SAME' padding (the module's own `padding` is not used)."""
+    nd = len(conv.kernel_size)
+    pads = [same_padding(n, k, s) for n, k, s in zip(x.shape[-nd:], conv.kernel_size,
+                                                     conv.stride)]
+    fn = F.conv2d if nd == 2 else F.conv3d
+    if all(a == b for a, b in pads):
+        return fn(x, conv.weight, conv.bias, conv.stride, tuple(a for a, _ in pads))
+    flat = [p for pair in reversed(pads) for p in pair]     # F.pad lists the last axis first
+    return fn(F.pad(x, flat), conv.weight, conv.bias, conv.stride)
+
+
+class _FrozenStats:
+    """Context in which the BatchNorm layers of a module update nothing."""
+
+    def __init__(self, module: nn.Module):
+        self.norms = [m for m in module.modules() if isinstance(m, _FlaxBatchStatistics)]
+
+    def __enter__(self):
+        for m in self.norms:
+            m.stats_frozen = True
+
+    def __exit__(self, *exc):
+        for m in self.norms:
+            m.stats_frozen = False
+
+
+def checkpoint_block(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """`block(x)` with its activations recomputed in the backward pass
+    (`torch.utils.checkpoint`), the analog of flax's `nn.remat`. The
+    recomputation runs the block's BatchNorm layers with their statistics
+    frozen, so one step updates them once."""
+    from torch.utils.checkpoint import checkpoint
+    return checkpoint(block, x, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), _FrozenStats(block)))
 
 
 class ConvBNReLU(nn.Module):
@@ -126,7 +171,7 @@ class ConvBNReLU(nn.Module):
         self.BatchNorm_0 = BatchNorm2d(features, eps=1e-3, momentum=0.01, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return torch.relu(self.BatchNorm_0(conv2d_same(self.Conv_0, x)))
+        return torch.relu(self.BatchNorm_0(conv_same(self.Conv_0, x)))
 
 
 def masked_max(x: torch.Tensor, mask: torch.Tensor | None, dim: int) -> torch.Tensor:
@@ -157,9 +202,9 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
             mod.running_mean.fill_(0.0)
             mod.running_var.fill_(1.0)
             mod.num_batches_tracked.fill_(0)
-        elif isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+        elif isinstance(mod, (nn.Linear, nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d)):
             w = mod.weight
-            bound = 1.0 / w[0].numel() ** 0.5     # torch's fan_in for all three
+            bound = 1.0 / w[0].numel() ** 0.5     # torch's fan_in for all four
             vals = (torch.rand(w.shape, generator=generator) * 2 - 1) * bound
             w.copy_(vals)
             if mod.bias is not None:

@@ -12,7 +12,10 @@ builds the tiny PointRCNN (`utils/synthetic.tiny_pointrcnn_cfg`), with
 `configs/kitti_models/second_sparse.yaml` the tiny SECOND on the sparse voxel
 ladder (`utils/synthetic.tiny_second_cfg`; its batches are voxelized and given
 their kernel maps on the device, the training batch with 8 boxes a cloud and
-the transposed maps). A model
+the transposed maps), with `second.yaml` the tiny SECOND on the dense ladder,
+with `pointpillar.yaml`, `centerpoint_pillar.yaml` or `pillarnet.yaml` the
+tiny shrink of that file (`utils/synthetic.TINY_CFGS`; a config that
+voxelizes its points gets voxel batches, made on the device). A model
 whose training path is not ported yet raises `NotImplementedError` from its
 train step; the dry run then checks its predict only. Runs on the card
 unless `--device cpu` is given. The counterpart of
@@ -53,13 +56,15 @@ def dryrun(device: str | None = None, B: int = 2, N: int = 512, seed: int = 0,
                           seed=seed)
     dev = next(model.parameters()).device
     prepare = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG)
-    if prepare is None:
+    if not synthetic.voxelizes(cfg):
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in synthetic.kitti_batch(B, N, seed=seed).items()}
         inputs = {'points': batch['points']}
-    else:           # a voxel model: voxelize on the device, then its kernel maps
+    else:           # a voxel model: voxelize on the device, then any kernel maps
         batch = synthetic.voxel_train_batch(B, N, cfg, seed=seed, device=dev)
-        inputs = prepare(synthetic.voxel_batch(B, N, cfg, seed=seed, device=dev))
+        inputs = synthetic.voxel_batch(B, N, cfg, seed=seed, device=dev)
+        if prepare is not None:
+            inputs = prepare(inputs)
     optimizer, _ = create_train_state(model, cfg.OPTIMIZATION, total_iters_each_epoch=10,
                                       total_epochs=2)
     train_prepare = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG, training=True)
@@ -87,7 +92,8 @@ def main() -> None:
     ap.add_argument('--points', type=int, default=512)
     ap.add_argument('--cfg_file', default=CFG, help='the flagship (default), or '
                     'configs/kitti_models/pdm_ssd.yaml, pdm_ssd_aux.yaml, pdm_ssd_large.yaml, '
-                    'pointrcnn.yaml or second_sparse.yaml')
+                    'pointrcnn.yaml, second_sparse.yaml, second.yaml, pointpillar.yaml, '
+                    'centerpoint_pillar.yaml or pillarnet.yaml')
     args = ap.parse_args()
     dryrun(args.device, args.batch, args.points, cfg_file=args.cfg_file)
 

@@ -28,7 +28,13 @@ clouds of 163840 points over its +-75.2 m range) the stages are
 pillarize, each level of `GridPointBackbone`, the grid PDM neck, the BEV
 backbone, the heatmap head (each with the GFLOP of its convolutions, its
 rate and its peak memory beyond its input) and post-processing with the
-circle NMS; the heatmap bias is set to 0, as SECOND's. Then
+circle NMS; the heatmap bias is set to 0, as SECOND's. With
+`configs/kitti_models/pointpillar.yaml` (B=8), `second.yaml` (B=4; both on
+LiDAR-like clouds of 50000 points, voxelized on the card),
+`centerpoint_pillar.yaml` or `pillarnet.yaml` (B=8, N=16384) the stages
+are the slots of `Detector3D` (VFE, 3D backbone, map to BEV, BEV backbone,
+head; each convolving one with its GFLOP, rate and peak memory), top-K +
+decode and the NMS, the classification bias at 0. Then
 `torch.profiler` traces three `predict` calls: device time per predict,
 device activities per predict, the busy share (device time over the
 unprofiled wall time of one predict), the ten kernels with the most device
@@ -272,11 +278,37 @@ def grid_stage_times(net, cfg, predict_inputs: dict, reps: int) -> dict:
     for name, fn in stages:
         t[name] = median_ms(fn, reps)
         t[f'{name}_gflop'] = conv_gflop(fn)
-        t[f'{name}_tflops'] = t[f'{name}_gflop'] / t[name] / 1e3
+        t[f'{name}_tflops'] = t[f'{name}_gflop'] / t[name]     # GFLOP / ms
         t[f'{name}_peak_gib'] = peak_extra_gib(fn)
     t['backbone_3d'] = median_ms(lambda: bb({'points': pts}), reps)
     t['post_process'] = median_ms(lambda: net.post_process(dict(batch)), reps)
     t['predict'] = median_ms(lambda: net.predict({'points': pts}), reps)
+    t['conv_gflop'] = sum(v for k, v in t.items() if k.endswith('_gflop'))
+    return t
+
+
+def detector3d_stage_times(net, cfg, predict_inputs: dict, reps: int) -> dict:
+    """Median ms of each slot of a `Detector3D` (`pointpillar.yaml`,
+    `centerpoint_pillar.yaml`, `pillarnet.yaml`, the dense `second.yaml`),
+    each on its own input, with the GFLOP, rate and peak GiB beyond its
+    input of each slot that convolves (`<slot>_gflop`, `_tflops`,
+    `_peak_gib`); then the head's decode and the NMS."""
+    t = {}
+    batch = dict(predict_inputs)
+    for slot, name in list(net.slots.items()) + [('dense_head', None)]:
+        module = getattr(net, name) if name else net.dense_head
+        fn = (lambda m=module, b=dict(batch): m(dict(b)))
+        t[slot] = median_ms(fn, reps)
+        gflop = conv_gflop(fn)
+        if gflop > 0:
+            t[f'{slot}_gflop'] = gflop
+            t[f'{slot}_tflops'] = gflop / t[slot]            # GFLOP / ms
+            t[f'{slot}_peak_gib'] = peak_extra_gib(fn)
+        batch = module(batch)
+    t['topk_decode'] = median_ms(lambda: net.select_candidates(batch), reps)
+    t['post_process'] = median_ms(lambda: net.post_process(batch), reps)
+    t['nms'] = t['post_process'] - t['topk_decode']
+    t['predict'] = median_ms(lambda: net.predict(predict_inputs), reps)
     t['conv_gflop'] = sum(v for k, v in t.items() if k.endswith('_gflop'))
     return t
 
@@ -290,8 +322,11 @@ def large_inputs(cfg, B: int, N: int) -> dict:
 
 
 def second_inputs(cfg, B: int, N: int) -> dict:
-    return get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG)(
-        synthetic.voxel_batch(B, N, cfg, seed=5, device='cuda'))
+    """A voxel model's serving batch of LiDAR-like clouds, voxelized on the
+    card, with the kernel maps of a model that has them."""
+    batch = synthetic.voxel_batch(B, N, cfg, seed=5, device='cuda')
+    prepare = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG)
+    return batch if prepare is None else prepare(batch)
 
 
 # per `MODEL.NAME` (and, for PDMSSD, backbone): what makes the config full
@@ -306,13 +341,24 @@ PROFILES = {'PDMSSD': (lambda cfg: cfg, 8, 16384, point_inputs, stage_times, Non
             'PointRCNN': (synthetic.pointrcnn_fp3, 4, 16384, point_inputs, pointrcnn_stage_times,
                           None),
             'SECONDNet': (lambda cfg: cfg, 4, 50000, second_inputs, second_stage_times,
+                          synthetic.open_score_gate),
+            'SECONDNet dense': (lambda cfg: cfg, 4, 50000, second_inputs,
+                                detector3d_stage_times, synthetic.open_score_gate),
+            'PointPillar': (lambda cfg: cfg, 8, 50000, second_inputs, detector3d_stage_times,
+                            synthetic.open_score_gate),
+            'CenterPoint': (lambda cfg: cfg, 8, 16384, point_inputs, detector3d_stage_times,
+                            synthetic.open_score_gate),
+            'PillarNet': (lambda cfg: cfg, 8, 16384, point_inputs, detector3d_stage_times,
                           synthetic.open_score_gate)}
 
 
 def profile_key(cfg) -> str:
     """The key of a config in PROFILES."""
-    if cfg.MODEL.NAME != 'PDMSSD' or cfg.MODEL.BACKBONE_3D.get('NAME') != 'GridPointBackbone':
-        return cfg.MODEL.NAME
+    name = cfg.MODEL.NAME
+    if name == 'SECONDNet' and not cfg.MODEL.BACKBONE_3D.get('NAME', '').startswith('Sparse'):
+        return 'SECONDNet dense'
+    if name != 'PDMSSD' or cfg.MODEL.BACKBONE_3D.get('NAME') != 'GridPointBackbone':
+        return name
     return 'PDMSSD grid large' if cfg.DATA_CONFIG.POINT_CLOUD_RANGE[0] < 0 else 'PDMSSD grid'
 
 

@@ -4,10 +4,12 @@
         [--points 16384] [--boxes 8] [--reps 5] [--out build/profile_train.json]
 
 Builds the config (default `configs/kitti_models/pdm_ssd_point.yaml`; also
-`pdm_ssd.yaml`, `pdm_ssd_aux.yaml`, and `second_sparse.yaml`, whose batch is
-seeded LiDAR-like clouds of 50000 points unless `--points` says otherwise,
-voxelized on the card), unmodified, with seeded random weights, float32 with
-TF32 off, and trains on one seeded synthetic batch. After warm-up steps it
+`pdm_ssd.yaml`, `pdm_ssd_aux.yaml`, `centerpoint_pillar.yaml`,
+`pillarnet.yaml`, and the voxel models `second_sparse.yaml`, `second.yaml`
+and `pointpillar.yaml`, whose batch is seeded LiDAR-like clouds of 50000
+points unless `--points` says otherwise, voxelized on the card),
+unmodified, with seeded random weights, float32 with TF32 off, and trains
+on one seeded synthetic batch. After warm-up steps it
 times whole steps of `make_train_step` on the host clock (median of
 `--reps`), then repeats the step's parts by hand with a CUDA event between
 them: a voxel model's map build (`get_host_prepare(..., training=True)`),
@@ -149,7 +151,7 @@ def main() -> None:
     cfg = cfg_from_yaml_file(args.cfg_file)
     net = synthetic.random_model(cfg, 'cuda', seed=7)
     prepare = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG, training=True)
-    if prepare is None:
+    if not synthetic.voxelizes(cfg):
         args.points = args.points or 16384
         batch = {k: torch.from_numpy(v).cuda() for k, v in
                  synthetic.kitti_batch(args.batch, args.points, args.boxes, seed=5).items()}

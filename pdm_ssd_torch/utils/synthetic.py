@@ -261,9 +261,117 @@ def tiny_second_cfg(cfg):
     return cfg
 
 
-# the dry run's shrink of each model that has one, by `MODEL.NAME`
+def tiny_dense_second_cfg(cfg):
+    """Shrink `configs/kitti_models/second.yaml` in place: the same path
+    (MeanVFE, the dense ladder of seven 3D blocks, BEV convs, anchor head)
+    on the tiny sparse SECOND's 32 x 32 x 4 m range at 0.5 x 0.5 x 0.2 m
+    voxels, a 64 x 64 x 20 grid whose depth runs 20, 10, 5 and 3 (the odd
+    stride-2 step of the file's grid) and 256 voxel slots, narrow."""
+    ds = cfg.DATA_CONFIG
+    ds.POINT_CLOUD_RANGE = [0, -16, -3, 32, 16, 1]
+    proc = voxel_processor(cfg)
+    proc.VOXEL_SIZE = [0.5, 0.5, 0.2]
+    proc.MAX_NUMBER_OF_VOXELS = {'train': 256, 'test': 256}
+    cfg.MODEL.BACKBONE_3D.NUM_FILTERS = [4, 8, 8, 8]
+    b2 = cfg.MODEL.BACKBONE_2D
+    b2.LAYER_NUMS = [1, 1]
+    b2.NUM_FILTERS = [16, 32]
+    b2.NUM_UPSAMPLE_FILTERS = [16, 16]
+    nms = cfg.MODEL.POST_PROCESSING.NMS_CONFIG
+    nms.NMS_PRE_MAXSIZE = 32
+    nms.NMS_POST_MAXSIZE = 16
+    return cfg
+
+
+def tiny_secondnet_cfg(cfg):
+    """The shrink of a SECONDNet config, by its backbone: the sparse ladder's
+    (`tiny_second_cfg`) or the dense one's (`tiny_dense_second_cfg`)."""
+    if cfg.MODEL.BACKBONE_3D.get('NAME', '').startswith('Sparse'):
+        return tiny_second_cfg(cfg)
+    return tiny_dense_second_cfg(cfg)
+
+
+def tiny_pointpillar_cfg(cfg):
+    """Shrink `configs/kitti_models/pointpillar.yaml` in place: the same path
+    (PillarVFE, PointPillarScatter, the three-level BEV backbone, anchor
+    head) on a 32 x 32 grid of 1 m pillars of up to 32 points, 256 pillar
+    slots, narrow and shallow."""
+    cfg.DATA_CONFIG.POINT_CLOUD_RANGE = [0, -16, -3, 32, 16, 1]
+    proc = voxel_processor(cfg)
+    proc.VOXEL_SIZE = [1.0, 1.0, 4.0]
+    proc.MAX_NUMBER_OF_VOXELS = {'train': 256, 'test': 256}
+    cfg.MODEL.VFE.NUM_FILTERS = [16]
+    cfg.MODEL.MAP_TO_BEV.NUM_BEV_FEATURES = 16
+    b2 = cfg.MODEL.BACKBONE_2D
+    b2.LAYER_NUMS = [1, 1, 1]
+    b2.NUM_FILTERS = [16, 16, 32]
+    b2.NUM_UPSAMPLE_FILTERS = [16, 16, 16]
+    nms = cfg.MODEL.POST_PROCESSING.NMS_CONFIG
+    nms.NMS_PRE_MAXSIZE = 64
+    nms.NMS_POST_MAXSIZE = 16
+    return cfg
+
+
+def _tiny_center_head(cfg):
+    cfg.MODEL.DENSE_HEAD.SHARED_CONV_CHANNEL = 8
+    cfg.MODEL.DENSE_HEAD.POST_PROCESSING.MAX_OBJ_PER_SAMPLE = 16
+    nms = cfg.MODEL.POST_PROCESSING.NMS_CONFIG
+    nms.NMS_PRE_MAXSIZE = 64
+    nms.NMS_POST_MAXSIZE = 16
+
+
+def _grid_processor(cfg):
+    for proc in cfg.DATA_CONFIG.DATA_PROCESSOR:
+        if proc.get('NAME') == 'calculate_grid_size':
+            return proc
+    raise ValueError('the config sets no grid')
+
+
+def tiny_centerpoint_pillar_cfg(cfg):
+    """Shrink `configs/kitti_models/centerpoint_pillar.yaml` in place: the
+    same path (DynamicPillarVFE, the two-level BEV backbone, CenterHead,
+    circle NMS) over the KITTI range on an 88 x 100 grid of 0.8 m pillars,
+    narrow."""
+    _grid_processor(cfg).VOXEL_SIZE = [0.8, 0.8, 4.0]
+    b2 = cfg.MODEL.BACKBONE_2D
+    b2.LAYER_NUMS = [1, 1]
+    b2.NUM_FILTERS = [8, 16]
+    b2.NUM_UPSAMPLE_FILTERS = [8, 8]
+    _tiny_center_head(cfg)
+    return cfg
+
+
+def tiny_pillarnet_cfg(cfg):
+    """Shrink `configs/kitti_models/pillarnet.yaml` in place: the same path
+    (GridPointBackbone's four levels, the one-level BEV backbone with its
+    2x deconv, CenterHead at stride 4, circle NMS) over the KITTI range on a
+    176 x 200 grid of 0.4 m cells (levels down to 22 x 25), narrow."""
+    _grid_processor(cfg).VOXEL_SIZE = [0.4, 0.4, 4.0]
+    bb = cfg.MODEL.BACKBONE_3D
+    bb.CELL_SIZE = 0.4
+    bb.GRID_SIZE = [176, 200]
+    bb.NUM_FILTERS = [8, 8, 16, 16]
+    bb.LAYER_NUMS = [1, 1, 1, 1]
+    b2 = cfg.MODEL.BACKBONE_2D
+    b2.LAYER_NUMS = [1]
+    b2.NUM_FILTERS = [16]
+    b2.NUM_UPSAMPLE_FILTERS = [8]
+    _tiny_center_head(cfg)
+    return cfg
+
+
+# the dry run's shrink of each model that has one, by `MODEL.NAME` (a
+# SECONDNet's by its backbone too)
 TINY_CFGS = {'PDMSSD': tiny_pdmssd_cfg, 'PointRCNN': tiny_pointrcnn_cfg,
-             'SECONDNet': tiny_second_cfg}
+             'SECONDNet': tiny_secondnet_cfg, 'PointPillar': tiny_pointpillar_cfg,
+             'CenterPoint': tiny_centerpoint_pillar_cfg, 'PillarNet': tiny_pillarnet_cfg}
+
+
+def voxelizes(cfg) -> bool:
+    """Whether the config's data path voxelizes its points (a voxel model's
+    batches hold voxels, a point model's the points)."""
+    return any(proc.get('NAME') == 'transform_points_to_voxels'
+               for proc in cfg.DATA_CONFIG.DATA_PROCESSOR)
 
 
 def pointrcnn_fp3(cfg):

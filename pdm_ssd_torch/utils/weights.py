@@ -7,6 +7,7 @@ generic rule set maps every leaf. The layout rules are those of
 
 - Dense kernel (in, out)             -> Linear weight (out, in)
 - Conv kernel (kh, kw, in, out)      -> Conv2d weight (out, in, kh, kw)
+- Conv kernel (kd, kh, kw, in, out)  -> Conv3d weight (out, in, kd, kh, kw)
 - ConvTranspose kernel (kh, kw, in, out) -> ConvTranspose2d weight
   (in, out, kh, kw), spatially flipped
 - sparse conv kernel (taps * in, out)   -> the same `kernel`
@@ -42,7 +43,7 @@ def _flatten(tree, prefix=()):
 def _convert_param(mod: nn.Module, leaf: str, arr: np.ndarray):
     if isinstance(mod, nn.modules.batchnorm._BatchNorm) and leaf in _BN_PARAM:
         return _BN_PARAM[leaf], arr
-    if leaf == 'bias' and isinstance(mod, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+    if leaf == 'bias' and isinstance(mod, (nn.Linear, nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d)):
         return 'bias', arr
     if leaf == 'kernel':
         if isinstance(getattr(mod, 'kernel', None), nn.Parameter):
@@ -53,6 +54,8 @@ def _convert_param(mod: nn.Module, leaf: str, arr: np.ndarray):
             return 'weight', arr[::-1, ::-1].transpose(2, 3, 0, 1)
         if isinstance(mod, nn.Conv2d):
             return 'weight', arr.transpose(3, 2, 0, 1)
+        if isinstance(mod, nn.Conv3d):
+            return 'weight', arr.transpose(4, 3, 0, 1, 2)
     raise KeyError(f'no rule for leaf {leaf!r} of {type(mod).__name__}')
 
 
@@ -106,6 +109,8 @@ def _to_flax_leaf(mod: nn.Module, name: str, arr: np.ndarray):
             return 'kernel', arr.transpose(2, 3, 0, 1)[::-1, ::-1]
         if isinstance(mod, nn.Conv2d):
             return 'kernel', arr.transpose(2, 3, 1, 0)
+        if isinstance(mod, nn.Conv3d):
+            return 'kernel', arr.transpose(2, 3, 4, 1, 0)
     raise KeyError(f'no rule for tensor {name!r} of {type(mod).__name__}')
 
 

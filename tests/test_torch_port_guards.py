@@ -55,6 +55,8 @@ SLICE_MODULES = [
     'pdm_ssd_torch.ops.pillarize', 'pdm_ssd_torch.models.backbones_3d.grid_point_backbone',
     'pdm_ssd_torch.models.backbones_2d.pdm_neck_conv',
     'pdm_ssd_torch.models.dense_heads.point_head_simple',
+    'pdm_ssd_torch.models.backbones_2d.map_to_bev',
+    'pdm_ssd_torch.models.backbones_3d.voxel_backbone',
     'bench_torch',
 ]
 
@@ -224,7 +226,10 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
                      'configs/kitti_models/pointrcnn.yaml',
                      'configs/kitti_models/second_sparse.yaml',
                      'configs/kitti_models/pdm_ssd.yaml', 'configs/kitti_models/pdm_ssd_aux.yaml',
-                     'configs/kitti_models/pdm_ssd_large.yaml'):
+                     'configs/kitti_models/pdm_ssd_large.yaml',
+                     'configs/kitti_models/pointpillar.yaml',
+                     'configs/kitti_models/centerpoint_pillar.yaml',
+                     'configs/kitti_models/pillarnet.yaml', 'configs/kitti_models/second.yaml'):
         cfg = t_config.cfg_from_yaml_file(cfg_file)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_network(cfg.MODEL, 3, cfg.DATA_CONFIG)
@@ -315,9 +320,7 @@ def test_sparse_conv_dispatch_has_no_quiet_plain_version(monkeypatch):
 
 @pytest.mark.parametrize('what', ['TABLE_DTYPE int8', 'SparseUNetV2 training maps', 'QWIN',
                                   'SparseUNetV2', 'focal ladder', 'VoxelNeXt', 'TTA_FLIP',
-                                  'PillarVFE', 'dense backbone', 'MAP_TO_BEV',
-                                  'BaseBEVResBackbone', 'AnchorHeadMulti', 'multi_classes_nms',
-                                  'ATSS'])
+                                  'multi_classes_nms'])
 def test_unported_parts_of_the_voxel_family_raise(what, monkeypatch):
     """Every option and module name of the voxel family that the port does not
     have raises `NotImplementedError` naming its ROADMAP item, at build time
@@ -358,30 +361,10 @@ def test_unported_parts_of_the_voxel_family_raise(what, monkeypatch):
         elif what == 'TTA_FLIP':
             model.POST_PROCESSING.TTA_FLIP = ['x']
             build()
-        elif what == 'PillarVFE':
-            model.VFE.NAME = 'PillarVFE'
-            build()
-        elif what == 'dense backbone':
-            model.BACKBONE_3D.NAME = 'VoxelBackBone8x'
-            build()
-        elif what == 'MAP_TO_BEV':
-            model.MAP_TO_BEV = {'NAME': 'HeightCompression'}
-            build()
-        elif what == 'BaseBEVResBackbone':
-            model.BACKBONE_2D.NAME = 'BaseBEVResBackbone'
-            build()
-        elif what == 'AnchorHeadMulti':
-            model.DENSE_HEAD.NAME = 'AnchorHeadMulti'
-            build()
-        elif what == 'multi_classes_nms':
+        else:
             model.POST_PROCESSING.NMS_CONFIG.NMS_TYPE = 'multi_classes_nms'
             net = build()
             net.predict(prepare()(synthetic.voxel_batch(1, 300, cfg, seed=1)))
-        else:
-            model.DENSE_HEAD.TARGET_ASSIGNER_CONFIG.NAME = 'ATSSTargetAssigner'
-            net = build().train()
-            batch = synthetic.voxel_train_batch(1, 300, cfg, seed=1)
-            net.forward_with_loss(prepare(training=True)(batch))
 
 
 @pytest.mark.gpu

@@ -409,16 +409,42 @@ def test_box_range_filter_matches_jax(center):
                                    rtol=0, atol=1e-5)
 
 
-@pytest.mark.parametrize('what', ['grid size', 'depth map', 'imgaug', 'local rotation',
+def test_calculate_grid_size_matches_jax(mini):
+    """`calculate_grid_size` (`centerpoint_pillar.yaml`'s processor list)
+    sets the JAX package's grid and voxel size and changes no sample: every
+    sample of the val split equal to the JAX package's under one seed."""
+    import os
+    cwd = os.getcwd()
+    os.chdir(REPO)
+    try:
+        ds_cfg = cfg_from_yaml_file('configs/kitti_models/centerpoint_pillar.yaml').DATA_CONFIG
+    finally:
+        os.chdir(cwd)
+    sets = []
+    for root, build, node in ((mini[0], t_kitti.KittiDataset, CfgNode),
+                              (mini[1], j_kitti.KittiDataset, JCfgNode)):
+        cfg = node(ds_cfg.to_dict())
+        cfg.DATA_PATH = str(root)
+        cfg.DATA_PROCESSOR[2]['NUM_POINTS'] = {'train': N_POINTS, 'test': N_POINTS}
+        sets.append(build(cfg, CLASS_NAMES, training=False, root_path=root))
+    t_set, j_set = sets
+    assert [g.tolist() for g in (t_set.grid_size, j_set.grid_size)] == [[352, 400, 1]] * 2
+    np.testing.assert_array_equal(t_set.voxel_size, j_set.voxel_size)
+    for i in range(len(t_set)):
+        np.random.seed(50 + i)
+        got = t_set[i]
+        np.random.seed(50 + i)
+        assert_deep_equal(got, j_set[i], f'sample {i}')
+
+
+@pytest.mark.parametrize('what', ['depth map', 'imgaug', 'local rotation',
                                   'image copy-paste', 'WaymoDataset'])
 def test_unported_parts_of_the_data_path_raise(what, mini):
     """Each step, augmentation and dataset of the JAX package's data path
     that the port does not have raises `NotImplementedError` when the config
     names it, with its ROADMAP item where a config of the repo uses it."""
     cfg = dataset_cfg(mini[0])
-    if what == 'grid size':
-        cfg.DATA_PROCESSOR.append(CfgNode({'NAME': 'calculate_grid_size'}))
-    elif what == 'depth map':
+    if what == 'depth map':
         cfg.DATA_PROCESSOR.append(CfgNode({'NAME': 'generate_depth_map'}))
     elif what == 'imgaug':
         cfg.DATA_AUGMENTOR.AUG_CONFIG_LIST.append(CfgNode({'NAME': 'imgaug'}))

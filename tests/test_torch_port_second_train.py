@@ -444,13 +444,24 @@ def test_get_loss_matches_jax():
     assert min(float(v) for v in g_tb.values()) > 0
 
 
-def test_atss_assigner_raises():
+@pytest.mark.parametrize('case', ['random', 'ties'])
+def test_atss_assign_targets_match_jax(case):
+    """The ATSS assigner on the tiny SECOND's anchors: labels and direction
+    targets exactly, box targets within BOX_TARGET_ATOL, every valid box with
+    at least its forced anchor."""
     cfg = tiny_cfg()
     cfg.MODEL.DENSE_HEAD.TARGET_ASSIGNER_CONFIG.NAME = 'ATSSTargetAssigner'
-    _, tm = _heads(cfg)
-    gt, mask = _gt_case('random')
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 item 9'):
-        tm.assign_targets({'gt_boxes': torch.from_numpy(gt), 'gt_mask': torch.from_numpy(mask)})
+    jm, tm = _heads(cfg)
+    gt, mask = _gt_case(case)
+    want = to_numpy(jm.apply({}, {'gt_boxes': jnp.asarray(gt), 'gt_mask': jnp.asarray(mask)},
+                             method=jm.assign_targets))
+    got = to_numpy(tm.assign_targets({'gt_boxes': torch.from_numpy(gt),
+                                      'gt_mask': torch.from_numpy(mask)}))
+    np.testing.assert_array_equal(got['anchor_cls_labels'], want['anchor_cls_labels'])
+    np.testing.assert_array_equal(got['anchor_dir_targets'], want['anchor_dir_targets'])
+    np.testing.assert_allclose(got['anchor_box_targets'], want['anchor_box_targets'], rtol=0,
+                               atol=BOX_TARGET_ATOL)
+    assert (got['anchor_cls_labels'] > 0).sum(axis=1).min() >= mask.sum(axis=1).min()
 
 
 # ---- the tiny SECOND in training -----------------------------------------------------------
@@ -598,3 +609,111 @@ def test_train_and_eval_loops_and_clis_on_a_small_set(mini, tmp_path):
     ret = test_cli.main(common + ['--ckpt', str(ckpt)])
     assert (tmp_path / 'cli' / 'eval' / 'result.pkl').exists()
     assert np.isfinite(ret['Car_3d/moderate_R40'])
+
+
+def _non_finite(annos) -> int:
+    return sum(int((~np.isfinite(np.asarray(a['boxes_lidar'], np.float64).reshape(-1, 7)))
+                   .any(-1).sum()) for a in annos)
+
+
+@pytest.fixture(scope='module')
+def barely_trained(mini):
+    """(cfg, net): the tiny SECOND trained 2 epochs by `train_model` on the
+    port's mini set, its score threshold 0, so that every frame keeps its
+    NMS_POST_MAXSIZE boxes (at 0.1 such a model keeps none)."""
+    from pdm_ssd_torch.datasets import build_dataloader
+    from pdm_ssd_torch.models import build_network
+    from pdm_ssd_torch.runtime import trainer
+    cfg = tiny_cfg()
+    cfg.DATA_CONFIG.DATA_PATH = str(mini[0])
+    cfg.MODEL.POST_PROCESSING.SCORE_THRESH = 0.0
+    _, loader, _ = build_dataloader(cfg.DATA_CONFIG, CLASS_NAMES, 2, root_path=mini[0],
+                                    workers=0, training=True, seed=0)
+    net = build_network(cfg.MODEL, 3, cfg.DATA_CONFIG, device='cpu', seed=0)
+    opt, sched = trainer.create_train_state(net, cfg.OPTIMIZATION, len(loader), 2)
+    np.random.seed(0)
+    torch.manual_seed(0)
+    trainer.train_model(net, opt, sched, loader, 2,
+                        host_prepare=get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG, training=True))
+    return cfg, net
+
+
+def _eval_both(cfg, net, mini, out) -> tuple:
+    """`net` converted with `to_flax`, through both packages' `eval_one_epoch`
+    over the val split (the JAX package's numpy voxelizer, which keeps the
+    port's key order): (port annos, JAX annos)."""
+    import pickle
+    from pdm_ssd_torch.datasets import build_dataloader
+    from pdm_ssd_torch.runtime import eval_utils
+    from pdm_ssd_tpu.datasets import build_dataloader as j_build_dataloader
+    from pdm_ssd_tpu.datasets.processor.data_processor import DataProcessor as JProcessor
+    from pdm_ssd_tpu.models import build_network as j_build_network
+    from pdm_ssd_tpu.runtime import eval_utils as j_eval_utils
+    t_root, j_root = mini
+    variables = jax.tree_util.tree_map(jnp.asarray, to_flax(net))
+    vds, vloader, _ = build_dataloader(cfg.DATA_CONFIG, CLASS_NAMES, 2, root_path=t_root,
+                                       workers=0, training=False)
+    np.random.seed(0)
+    eval_utils.eval_one_epoch(net, vloader, vds, CLASS_NAMES, device='cpu',
+                              result_dir=out / 'port',
+                              host_prepare=get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG))
+    jcfg = JCfgNode(cfg.to_dict())
+    jcfg.DATA_CONFIG.DATA_PATH = str(j_root)
+    j_set, j_loader, _ = j_build_dataloader(jcfg.DATA_CONFIG, CLASS_NAMES, batch_size=2,
+                                            root_path=j_root, workers=0, training=False)
+    j_model = j_build_network(jcfg.MODEL, num_class=3, dataset_cfg=jcfg.DATA_CONFIG)
+    (out / 'jax' / 'final_result' / 'data').mkdir(parents=True)
+    native = JProcessor._native_voxelize
+    JProcessor._native_voxelize = lambda *args: None
+    try:
+        np.random.seed(0)
+        j_eval_utils.eval_one_epoch(j_model, variables['params'], variables['batch_stats'],
+                                    j_loader, j_set, CLASS_NAMES, result_dir=out / 'jax',
+                                    host_prepare=j_get_host_prepare(jcfg.MODEL, jcfg.DATA_CONFIG))
+    finally:
+        JProcessor._native_voxelize = native
+    return tuple(pickle.loads((out / side / 'result.pkl').read_bytes())
+                 for side in ('port', 'jax'))
+
+
+def _hold_detections(t_annos, j_annos) -> None:
+    """The same number of detections per frame and of boxes with a
+    non-finite value; the finite boxes matched by box and class."""
+    assert [len(a['name']) for a in t_annos] == [len(a['name']) for a in j_annos]
+    assert sum(len(a['name']) for a in t_annos) > 0
+    assert _non_finite(t_annos) == _non_finite(j_annos)
+    for t, j in zip(t_annos, j_annos):
+        tb, jb = (np.asarray(a['boxes_lidar'], np.float64).reshape(-1, 7) for a in (t, j))
+        keep = np.isfinite(jb).all(-1)
+        free = keep.copy()
+        for i in np.flatnonzero(np.isfinite(tb).all(-1)):
+            d = np.where(free & (j['name'] == t['name'][i]), np.abs(jb - tb[i]).max(-1), np.inf)
+            k = int(np.argmin(d))
+            assert d[k] <= 1e-3 * max(np.abs(jb[keep]).max(), 1.0), (t['frame_id'], i, d[k])
+            free[k] = False
+
+
+def test_barely_trained_second_gives_the_jax_package_non_finite_boxes(barely_trained, mini,
+                                                                      tmp_path):
+    """The tiny SECOND trained 2 epochs, through both packages' eval: the
+    same detections and the same number of boxes with a non-finite value,
+    so such boxes (a barely trained model's exp-coded sizes) are the
+    reference's behaviour, not the port's."""
+    _hold_detections(*_eval_both(*barely_trained, mini, tmp_path))
+
+
+def test_overflowing_second_gives_the_jax_package_non_finite_boxes(barely_trained, mini,
+                                                                   tmp_path):
+    """The same checkpoint with one anchor's length code raised by 100 (its
+    exp overflows float32 in both packages' decode): both packages keep the
+    same detections, the same number of them with an infinite box, and the
+    finite ones matched by box."""
+    import copy
+    cfg, net = barely_trained
+    planted = copy.deepcopy(net)
+    with torch.no_grad():
+        planted.dense_head.conv_box.bias[3] += 100.0       # Car, rotation 0: dx
+    t_annos, j_annos = _eval_both(cfg, planted, mini, tmp_path)
+    _hold_detections(t_annos, j_annos)
+    assert _non_finite(t_annos) > 0
+    print('non-finite boxes:', _non_finite(t_annos), 'of', sum(len(a['name']) for a in t_annos))

@@ -399,11 +399,21 @@ def test_anchor_head_single_outputs_and_decoded_boxes():
     assert_close_to_scale(g_cls.numpy(), w_cls, MODULE_RTOL)
     np.testing.assert_allclose(g_boxes.numpy(), w_boxes, rtol=1e-4, atol=1e-4)
     # the targets and losses are held in test_torch_port_second_train.py; the
-    # ATSS assigner is not ported
+    # ATSS assigner on this head's 120 anchors: the JAX package's labels
     tm.model_cfg.TARGET_ASSIGNER_CONFIG.NAME = 'ATSSTargetAssigner'
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        tm.assign_targets({'gt_boxes': torch.zeros(2, 1, 8),
-                           'gt_mask': torch.ones(2, 1, dtype=torch.bool)})
+    j_cfg = head_cfg.to_dict()
+    j_cfg['TARGET_ASSIGNER_CONFIG']['NAME'] = 'ATSSTargetAssigner'
+    ja = j_ah.AnchorHeadSingle(model_cfg=JCfgNode(j_cfg), input_channels=12, num_class=3,
+                               class_names=cfg.CLASS_NAMES, grid_size=(4, 5),
+                               point_cloud_range=pc_range)
+    gt = synthetic.gt_boxes(2, 3, pc_range, seed=3)
+    mask = np.ones((2, 3), bool)
+    w_labels = to_numpy(ja.apply({}, {'gt_boxes': jnp.asarray(gt), 'gt_mask': jnp.asarray(mask)},
+                                 method=ja.assign_targets))['anchor_cls_labels']
+    g_labels = tm.assign_targets({'gt_boxes': torch.from_numpy(gt),
+                                  'gt_mask': torch.from_numpy(mask)})['anchor_cls_labels']
+    np.testing.assert_array_equal(g_labels.numpy(), w_labels)
+    assert (w_labels > 0).any(axis=1).all()
 
 
 # ---- the backbone and the slice ----------------------------------------------------------

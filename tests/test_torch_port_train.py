@@ -33,7 +33,8 @@ from pdm_ssd_torch.runtime.trainer import create_train_state, make_train_step
 from pdm_ssd_torch.utils import synthetic
 from pdm_ssd_torch.utils.config import CfgNode as TCfgNode
 from pdm_ssd_torch.utils.weights import from_flax, to_flax
-from torch_port_harness import FlagshipPair, jax_bf16_extraction, to_torch
+from torch_port_harness import (FlagshipPair, jax_bf16_extraction, randomize_variables, rel_l2,
+                                to_torch)
 
 # the same float32 arithmetic on the same inputs; sums and transcendentals
 # may round differently in the two libraries
@@ -584,6 +585,42 @@ def test_batchnorm_running_variance_is_biased_like_flax():
     frozen = bn2.running_var.clone()
     bn2.eval()(x4 * 3)
     assert torch.equal(bn2.running_var, frozen)
+
+
+# flax's BatchNorm against the port's, float32 on both sides, on a map whose
+# channel means lie 17 deviations above 0: E[x^2] - E[x]^2 loses about 300
+# times float32's rounding there, in either package's order of sums
+BN_REL_L2 = 1e-4
+
+
+def test_batchnorm_training_forward_and_backward_match_flax():
+    """flax's BatchNorm in training mode (its variance E[x^2] - E[x]^2)
+    against the port's: output, the gradients of input, scale and bias, and
+    the running statistics within BN_REL_L2."""
+    import flax.linen as fnn
+    from pdm_ssd_torch.models.layers import BatchNorm2d
+    rng = np.random.RandomState(17)
+    x = (rng.randn(4, 6, 5, 7) * 0.3 + 5.0).astype(np.float32)        # NHWC
+    g = rng.randn(*x.shape).astype(np.float32)
+    bn = fnn.BatchNorm(use_running_average=False, momentum=0.99, epsilon=1e-3)
+    variables = randomize_variables(bn.init(jax.random.PRNGKey(0), jnp.asarray(x)), 18)
+
+    def f(params, x):
+        y, mutated = bn.apply({**variables, 'params': params}, x, mutable=['batch_stats'])
+        return (y * g).sum(), (y, mutated['batch_stats'])
+
+    (_, (y, stats)), (gp, gx) = jax.jit(jax.value_and_grad(f, argnums=(0, 1), has_aux=True))(
+        variables['params'], jnp.asarray(x))
+    port = BatchNorm2d(7, eps=1e-3, momentum=0.01).train()
+    port.load_state_dict(from_flax(variables, port))
+    xt = torch.from_numpy(x).permute(0, 3, 1, 2).requires_grad_()
+    yt = port(xt)
+    (yt * torch.from_numpy(g).permute(0, 3, 1, 2)).sum().backward()
+    pairs = {'y': (yt.detach().permute(0, 2, 3, 1), y), 'dx': (xt.grad.permute(0, 2, 3, 1), gx),
+             'dscale': (port.weight.grad, gp['scale']), 'dbias': (port.bias.grad, gp['bias']),
+             'mean': (port.running_mean, stats['mean']), 'var': (port.running_var, stats['var'])}
+    for k, (got, want) in pairs.items():
+        assert rel_l2(got.numpy(), np.asarray(want)) <= BN_REL_L2, k
 
 
 # ---- the optimizer alone -------------------------------------------------------

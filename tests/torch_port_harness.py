@@ -54,7 +54,7 @@ def randomize_variables(variables: Mapping, seed: int, bias_scale: float = 0.0) 
         return out
 
     return {'params': walk(variables['params'], False),
-            'batch_stats': walk(variables['batch_stats'], True)}
+            'batch_stats': walk(variables.get('batch_stats', {}), True)}
 
 
 @contextlib.contextmanager
@@ -117,7 +117,7 @@ class ModelPair:
     CfgNode. `batch` also holds the batch's `gt_boxes` and `gt_mask` for a
     training path. With `voxels`, the batch is a seeded LiDAR-like cloud
     voxelized by the port (`synthetic.voxel_batch`) and prepared by each
-    package's own `get_host_prepare`: `inputs` is what the JAX forward takes,
+    package's own `get_host_prepare` where the model has one: `inputs` is what the JAX forward takes,
     `torch_inputs()` what the port's takes. With `train_boxes` as well, that
     batch is a training one (`synthetic.voxel_train_batch`: the train-time
     voxel cap and as many boxes a cloud), prepared for training by both
@@ -141,11 +141,12 @@ class ModelPair:
             training = train_boxes > 0
             raw = (synthetic.voxel_train_batch(B, N, cfg, train_boxes, seed) if training
                    else synthetic.voxel_batch(B, N, cfg, seed))
-            self.batch = j_get_host_prepare(jcfg.MODEL, jcfg.DATA_CONFIG, training=training)(
-                {k: v.numpy() for k, v in raw.items()})
+            j_prepare = j_get_host_prepare(jcfg.MODEL, jcfg.DATA_CONFIG, training=training)
+            t_prepare = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG, training=training)
+            raw_np = {k: v.numpy() for k, v in raw.items()}
+            self.batch = raw_np if j_prepare is None else j_prepare(raw_np)
             self.inputs = {k: np.asarray(v) for k, v in self.batch.items()}
-            self._torch_inputs = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG,
-                                                  training=training)(raw)
+            self._torch_inputs = raw if t_prepare is None else t_prepare(raw)
         else:
             self.batch = graft._make_batch(B, N, seed=seed)
             if points is not None:
@@ -178,30 +179,49 @@ class ModelPair:
         fn = jax.jit(lambda v, *a: self.jax_model.apply(v, *a, method=method))
         return to_numpy(fn(self.variables, *args))
 
+    def _jax_value_and_grad(self):
+        """One jitted program: the training-mode forward (batch statistics),
+        then `get_training_loss` on its output, as `forward_with_loss` runs
+        them, and the gradient of the loss in the parameters."""
+        def forward_and_loss(module, b):
+            out = module(b, training=True)
+            loss, tb = module.get_training_loss(out)
+            return loss, (tb, out)
+
+        def loss_fn(params, stats, b):
+            (loss, (tb, out)), mutated = self.jax_model.apply(
+                {'params': params, 'batch_stats': stats}, b, mutable=['batch_stats'],
+                method=forward_and_loss)
+            return loss, (tb, mutated['batch_stats'], out)
+
+        return jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
+
     def _jax_training(self) -> tuple:
-        """One jitted program for the batch: the training-mode forward
-        (batch statistics), then `get_training_loss` on its output, as
-        `forward_with_loss` runs them, and the gradient. Returns (forward
-        outputs, loss, tb, grads, new batch_stats) as numpy, computed once
-        and shared by `jax_train_forward` and `jax_loss_and_grads`."""
+        """The training program on the batch: (forward outputs, loss, tb,
+        grads, new batch_stats) as numpy, computed once and shared by
+        `jax_train_forward` and `jax_loss_and_grads`."""
         if self._jax_train is None:
-            def forward_and_loss(module, b):
-                out = module(b, training=True)
-                loss, tb = module.get_training_loss(out)
-                return loss, (tb, out)
-
-            def loss_fn(params, stats, b):
-                (loss, (tb, out)), mutated = self.jax_model.apply(
-                    {'params': params, 'batch_stats': stats}, b, mutable=['batch_stats'],
-                    method=forward_and_loss)
-                return loss, (tb, mutated['batch_stats'], out)
-
-            fn = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
-            (loss, (tb, stats, out)), grads = fn(self.variables['params'],
-                                                 self.variables['batch_stats'], self.batch)
+            (loss, (tb, stats, out)), grads = self._jax_value_and_grad()(
+                self.variables['params'], self.variables['batch_stats'], self.batch)
             self._jax_train = (to_numpy(out), to_numpy(loss), to_numpy(tb), to_numpy(grads),
                                to_numpy(stats))
         return self._jax_train
+
+    def jax_f64_loss_and_grads(self) -> tuple:
+        """The same training program in float64 (`jax.enable_x64`, weights
+        and batch cast): (tb, grads) as numpy. The reference that tells the
+        JAX package's float32 rounding from a difference of algorithm."""
+        def f64(tree):
+            if isinstance(tree, Mapping):
+                return {k: f64(v) for k, v in tree.items()}
+            a = np.asarray(tree)
+            return a.astype(np.float64) if a.dtype == np.float32 else a
+
+        with jax.enable_x64(True):
+            (_, (tb, _, _)), grads = self._jax_value_and_grad()(
+                f64(self.variables['params']), f64(self.variables['batch_stats']),
+                f64(self.batch))
+            return to_numpy(tb), to_numpy(grads)
 
     def jax_loss_and_grads(self):
         """Training-mode `forward_with_loss` and its gradient in the JAX
@@ -223,3 +243,117 @@ class FlagshipPair(ModelPair):
     def __init__(self, B: int = 2, N: int = 512, seed: int = 0):
         jax_model, cfg = graft._flagship(tiny=True)
         super().__init__(cfg, B=B, N=N, seed=seed, jax_model=jax_model)
+
+
+def load_cfg(name: str):
+    """`configs/kitti_models/<name>.yaml` through the port's loader (its base
+    config is named relative to the repo)."""
+    import os
+    from pdm_ssd_torch.utils.config import CfgNode, cfg_from_yaml_file
+    cwd = os.getcwd()
+    os.chdir(REPO)
+    try:
+        return cfg_from_yaml_file(f'configs/kitti_models/{name}.yaml', CfgNode())
+    finally:
+        os.chdir(cwd)
+
+
+def leaves(tree, prefix=()):
+    """(path 'a/b/c', numpy array) of every leaf of a nested dict."""
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from leaves(v, prefix + (k,))
+        else:
+            yield '/'.join(prefix + (k,)), np.asarray(v)
+
+
+def assert_close_to_scale(got, want, rtol, name=''):
+    """Same shape, and every element within `rtol` of the largest |want|."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape, (name, got.shape, want.shape)
+    scale = max(np.abs(want).max(), 1e-6)
+    err = np.abs(got - want).max()
+    assert err <= rtol * scale, f'{name}: max |diff| {err:.3e} > {rtol} * {scale:.3e}'
+
+
+def rel_l2(got, want) -> float:
+    got, want = np.asarray(got, np.float64).ravel(), np.asarray(want, np.float64).ravel()
+    nw = np.linalg.norm(want)
+    return float(np.linalg.norm(got - want) / nw) if nw > 0 else float(np.linalg.norm(got))
+
+
+def match_detections(got: dict, want: dict, atol: float = 1e-3) -> int:
+    """The same number of kept boxes in every cloud, each kept box of `want`
+    paired with a distinct kept box of `got` with the same label and every
+    box parameter within `atol`: matched by box, since near-tied scores may
+    permute slots. Returns the number of pairs."""
+    got, want = to_numpy(got), to_numpy(want)
+    np.testing.assert_array_equal(got['pred_mask'].sum(1), want['pred_mask'].sum(1))
+    n = 0
+    for b in range(want['pred_mask'].shape[0]):
+        wm, gm = want['pred_mask'][b], got['pred_mask'][b]
+        w, g = want['pred_boxes'][b][wm], got['pred_boxes'][b][gm]
+        wl, gl = want['pred_labels'][b][wm], got['pred_labels'][b][gm]
+        free = np.ones(len(g), bool)
+        for i in range(len(w)):
+            d = np.where(free & (gl == wl[i]), np.abs(g - w[i]).max(axis=1), np.inf)
+            j = int(np.argmin(d))
+            assert d[j] <= atol, (b, i, d[j])
+            free[j] = False
+            n += 1
+    return n
+
+
+def open_score_gate_flax(variables: dict) -> dict:
+    """`synthetic.open_score_gate` on a flax tree: the dense head's
+    classification bias (an anchor head's `conv_cls`, a heatmap head's
+    `head/hm_out`) at 0, in a copy."""
+    import copy
+    params = copy.deepcopy(variables['params'])
+    head = params['dense_head']
+    layer = head['conv_cls'] if 'conv_cls' in head else head['head']['hm_out']
+    layer['bias'] = np.zeros_like(layer['bias'])
+    return {'params': params, 'batch_stats': variables['batch_stats']}
+
+
+def port_loss_and_grads(pair, batch: dict) -> tuple:
+    """The port's training-mode `forward_with_loss` of `batch` and every
+    parameter's gradient in the flax layout, from the pair's weights; the
+    BatchNorm statistics after that step, in the flax layout; the model is
+    put back to the pair's weights in eval mode after. Returns (loss, tb,
+    grads, batch_stats)."""
+    from pdm_ssd_torch.utils.weights import to_flax
+    net = pair.net
+    net.load_state_dict(from_flax(pair.variables, net))
+    net.train()
+    net.zero_grad()
+    try:
+        loss, tb = net.forward_with_loss(batch)
+        loss.backward()
+        grads = to_flax(net, {k: p.grad for k, p in net.named_parameters()})['params']
+        stats = to_flax(net)['batch_stats']
+    finally:
+        net.zero_grad()
+        net.load_state_dict(from_flax(pair.variables, net))
+        net.eval()
+    return (float(loss.detach()), {k: float(v.detach()) for k, v in tb.items()}, grads, stats)
+
+
+def hold_to_jax(got, want, exact, rtol: float, jax_rtol: float, max_apart: int) -> None:
+    """Every leaf of `got` (the port's float32 losses or gradients, a dict or
+    a tree) within `rtol` relative L2 of the JAX package's `want`. Where the
+    JAX package's own float32 sums stray (a BatchNorm channel of a mostly
+    empty map, whose mean lies far above its deviation; a reduction over a
+    whole volume), at most `max_apart` leaves may be further apart: each is
+    held to `exact()`, the JAX package's float64 value
+    (`ModelPair.jax_f64_loss_and_grads`), the port's within `rtol` and the
+    JAX package's float32 within `jax_rtol`."""
+    got, want = dict(leaves(got)), dict(leaves(want))
+    assert set(got) == set(want)
+    apart = [k for k in want if rel_l2(got[k], want[k]) > rtol]
+    assert len(apart) <= max_apart, apart
+    if apart:
+        ref = dict(leaves(exact()))
+        for k in apart:
+            assert rel_l2(got[k], ref[k]) <= rtol, (k, rel_l2(got[k], ref[k]))
+            assert rel_l2(want[k], ref[k]) <= jax_rtol, (k, rel_l2(want[k], ref[k]))
