@@ -166,8 +166,8 @@ non-zero exit):
    `pillarnet.yaml` and the dense `second.yaml` (`synthetic.TINY_CFGS`) on
    CUDA against the CPU, the classification bias at 0: batches equal,
    forward outputs within FWD_RTOL of scale, detections matched by box and
-   label, the training loss within LOSS_RTOL and every gradient within
-   GRAD_RTOL relative L2;
+   label, every term of the training loss within LOSS_RTOL and every
+   gradient within GRAD_RTOL relative L2;
 32. each of the four as shipped, `predict` at B = 8, 8, 8 and 4 (the voxel
    models on LiDAR-like clouds of 50000 points, their 16000
    voxel slots, the point models at N=16384), the bias at 0: shapes, finite
@@ -179,11 +179,41 @@ non-zero exit):
 34. phases 16 and 17 with `pointpillar.yaml` (the voxel data path) at B=4
    and `centerpoint_pillar.yaml` (the point data path) at B=8: the eval
    loop with the bias at 0, AP R40 and recall finite, and the 2-epoch train
-   loop with an exact resume.
+   loop with an exact resume;
+35. the tiny shrink of `voxelnext.yaml` and of `second_focal.yaml`
+   (`synthetic.TINY_CFGS`) on CUDA against the CPU on a training batch
+   prepared on each device, the classification bias at 0: every map tensor
+   (the BEV slot table, the focal ladder and the transposed maps) equal, the
+   forward within FWD_RTOL of scale, its integer and bool outputs (the focal
+   activation bits per stage) equal, detections matched by box and label,
+   every loss within LOSS_RTOL, every gradient within SECOND_GRAD_RTOL
+   relative L2;
+36. the sparse conv, its data gradient and its weight gradient against their
+   plain versions and a float64 evaluation, two runs bit-equal, at the
+   shapes only these models give them: VoxelNeXt's six 9-tap BEV layers
+   (B=4, 40000 voxel slots), the focal SECOND's three importance convs (27
+   output channels), three convs over its dilated tables and three down
+   convs reading them (B=4 training batch, tables of 64000 and 120000
+   slots); device ms, plain ms and the bound per layer and per group;
+37. `predict` of both as shipped at B=4 on LiDAR-like clouds of 50000
+   points (40000 voxel slots), the bias at 0: shapes, finite values, 1 row
+   gather and 18 sparse-conv launches, the tables' fill, ms of the map build
+   and of predict on a prepared batch, each timed inside one pass,
+   frames/s, device time and busy share, peak memory;
+38. five training steps of each at B=4 (phase 29's function): 35
+   sparse-conv, 18 weight-gradient and 1 row-gather launches a step, ms with
+   and without the map build, peak memory;
+39. phases 16 and 17 with `voxelnext.yaml` at B=4: the eval loop (bias at 0,
+   non-finite boxes counted) and the 2-epoch train loop with resume and
+   bit-equal reload;
+40. TTA_FLIP of `Detector3D` on CUDA against the CPU: the tiny
+   `centerpoint_pillar.yaml` with ['x', 'y'] and the tiny sparse SECOND with
+   ['x'] (its maps built once, before `predict`), detections matched by box
+   and label.
 
 The line before the last is the card's name and power limit; before it, one
 JSON line describing each kernel, with the launches of each path of phases 20
-to 34 (`launches_<path>`). The last line is
+to 39 (`launches_<path>`). The last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -1871,18 +1901,19 @@ def second_grads_cuda_vs_cpu_phase(cfg, synthetic) -> None:
         f'{SECOND_GRAD_RTOL:g})')
 
 
-def second_train_phase(cfg, wrappers, synthetic, card: str) -> dict:
-    """Phase 29: five training steps of `second_sparse.yaml` as shipped at
-    B = BATCH_SIZE_PER_GPU on LiDAR-like clouds with 8 boxes each: ms per
-    step with the map build and without it, both timed inside each step's
-    pass, peak memory, a finite and falling loss, SECOND_TRAIN_LAUNCHES a
-    step. Where B does not fit (cuDNN's float32 FFT route in the BEV
-    backbone), the peak that failed is printed and the phase runs at B=2."""
+def second_train_phase(cfg, wrappers, synthetic, card: str, phase: str = '29 second train',
+                       expected: dict = SECOND_TRAIN_LAUNCHES) -> dict:
+    """Phase 29 (and 38 for VoxelNeXt and the focal SECOND): five training
+    steps of a config on the sparse ladder as shipped at B =
+    BATCH_SIZE_PER_GPU on LiDAR-like clouds with 8 boxes each: ms per step
+    with the map build and without it, both timed inside each step's pass,
+    peak memory, a finite and falling loss, `expected` launches a step. Where
+    B does not fit (cuDNN's float32 FFT route in the BEV backbone), the peak
+    that failed is printed and the phase runs at B=2."""
     from pdm_ssd_torch.models import get_host_prepare
     from pdm_ssd_torch.runtime.trainer import create_train_state, make_train_step
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase = '29 second train'
     prepare = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG, training=True)
     steps = 5
 
@@ -1928,7 +1959,7 @@ def second_train_phase(cfg, wrappers, synthetic, card: str) -> dict:
         B, losses, times, launches, peak, parts = run(2)
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise SystemExit(f'[{phase}] FAILED: losses {losses}')
-    want = {k: v * steps for k, v in SECOND_TRAIN_LAUNCHES.items()}
+    want = {k: v * steps for k, v in expected.items()}
     if launches != want:
         raise SystemExit(f'[{phase}] FAILED: kernel launches {launches}, expected {want}')
     med = statistics.median(times)
@@ -1936,7 +1967,7 @@ def second_train_phase(cfg, wrappers, synthetic, card: str) -> dict:
     step = statistics.median(p[1] for p in parts)
     log(phase, f'{cfg.MODEL.NAME} as shipped B={B}, {SECOND_POINTS} points and 8 boxes per '
         f'cloud, {steps} steps: losses ' + ' '.join(f'{x:.4f}' for x in losses)
-        + f'; launches per step {SECOND_TRAIN_LAUNCHES}; median {med * 1e3:.3f} ms/step with '
+        + f'; launches per step {expected}; median {med * 1e3:.3f} ms/step with '
         f'the map build (first {times[0] * 1e3:.1f} ms); in 3 more passes timed in two parts: '
         f'map build median {build * 1e3:.3f} ms, step on the prepared batch median '
         f'{step * 1e3:.3f} ms; peak allocated {peak:.3f} GiB on {card}')
@@ -2319,12 +2350,48 @@ def family_batch(name: str, cfg, synthetic, B: int, N: int, seed: int, device,
     return {'points': torch.from_numpy(synthetic.kitti_points(B, N, seed)).to(device)}
 
 
+def training_cuda_vs_cpu(phase: str, name: str, nets: dict, batches: dict, grad_rtol: float,
+                         cosine: float = -1.0) -> tuple:
+    """One training forward and backward of one model on the CPU and on CUDA
+    (`nets` and `batches` keyed 'cpu' and 'cuda'): every loss term within
+    LOSS_RTOL of the CPU's, every gradient finite, within `grad_rtol`
+    relative L2 of the CPU's and at a cosine of at least `cosine`. Returns
+    (the CPU's loss terms, CUDA's, the worst relative L2, its parameter, the
+    number of gradients)."""
+    out = {}
+    for dev in ('cpu', 'cuda'):
+        net = nets[dev]
+        net.train()
+        loss, tb = net.forward_with_loss(dict(batches[dev]))
+        loss.backward()
+        out[dev] = ({k: float(v.detach()) for k, v in tb.items()},
+                    {k: p.grad.detach().double().cpu() for k, p in net.named_parameters()})
+        net.eval()
+    (c_tb, c_grads), (g_tb, g_grads) = out['cpu'], out['cuda']
+    for k, v in c_tb.items():
+        if not (np.isfinite(g_tb[k]) and abs(g_tb[k] - v) <= LOSS_RTOL * abs(v)):
+            raise SystemExit(f'[{phase}] FAILED {name} {k}: {g_tb[k]} on CUDA vs {v} on the CPU')
+    worst, worst_k = 0.0, ''
+    for k, c in c_grads.items():
+        g = g_grads[k]
+        norm = float(c.norm())
+        rel = float((g - c).norm()) / norm if norm > 0 else float(g.norm())
+        cos = float((g * c).sum() / (g.norm() * c.norm())) if norm > 0 else 1.0
+        if not (bool(torch.isfinite(g).all()) and rel <= grad_rtol and cos >= cosine):
+            raise SystemExit(f'[{phase}] FAILED {name} {k}: gradient relative L2 {rel:.3e} '
+                             f'(bound {grad_rtol:g}), cosine {cos:.6f}')
+        if rel > worst:
+            worst, worst_k = rel, k
+    return c_tb, g_tb, worst, worst_k, len(c_grads)
+
+
 def family_cuda_vs_cpu_phase(name: str, cfg, synthetic) -> None:
     """Phase 31: the tiny shrink of a family config (`synthetic.TINY_CFGS`)
     on CUDA against the CPU, the classification bias at 0: the batches
     equal, every forward output within FWD_RTOL of its scale, detections
-    matched by box and label, the training loss within LOSS_RTOL and every
-    gradient within GRAD_RTOL relative L2 (cosine GRAD_COSINE)."""
+    matched by box and label, every term of the training loss within
+    LOSS_RTOL and every gradient within GRAD_RTOL relative L2 (cosine
+    GRAD_COSINE)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase = '31 family cuda-vs-cpu'
@@ -2350,31 +2417,12 @@ def family_cuda_vs_cpu_phase(name: str, cfg, synthetic) -> None:
             raise SystemExit(f'[{phase}] FAILED {name} {k}: max |diff| / max |cpu| = {rel:.3e}')
     note = match_detections({k: v.cpu() for k, v in gpu_net.predict(dict(gpu_in)).items()},
                             cpu_net.predict(dict(cpu_in)), phase)
-    out = {}
-    for key, net, batch in (('cpu', cpu_net, cpu_in), ('cuda', gpu_net, gpu_in)):
-        net.train()
-        loss, tb = net.forward_with_loss(dict(batch))
-        loss.backward()
-        out[key] = (float(loss.detach()), {k: p.grad.detach().double().cpu()
-                                           for k, p in net.named_parameters()})
-        net.eval()
-    (c_loss, c_grads), (g_loss, g_grads) = out['cpu'], out['cuda']
-    if not abs(g_loss - c_loss) <= LOSS_RTOL * abs(c_loss):
-        raise SystemExit(f'[{phase}] FAILED {name}: loss {g_loss} on CUDA vs {c_loss} on the CPU')
-    worst_g, worst_k = 0.0, ''
-    for k, c in c_grads.items():
-        g = g_grads[k]
-        norm = float(c.norm())
-        rel = float((g - c).norm()) / norm if norm > 0 else float(g.norm())
-        cos = float((g * c).sum() / (g.norm() * c.norm())) if norm > 0 else 1.0
-        if not (bool(torch.isfinite(g).all()) and rel <= GRAD_RTOL and cos >= GRAD_COSINE):
-            raise SystemExit(f'[{phase}] FAILED {name} {k}: gradient relative L2 {rel:.3e}, '
-                             f'cosine {cos:.6f}')
-        if rel > worst_g:
-            worst_g, worst_k = rel, k
+    c_tb, g_tb, worst_g, worst_k, n = training_cuda_vs_cpu(
+        phase, name, {'cpu': cpu_net, 'cuda': gpu_net}, {'cpu': cpu_in, 'cuda': gpu_in},
+        GRAD_RTOL, GRAD_COSINE)
     log(phase, f'tiny {name} B=2: {len(want)} outputs agree, worst max|diff|/max|cpu| = '
-        f'{worst:.3e} (bound {FWD_RTOL:g}); predict: {note}; loss {g_loss:.6f} on CUDA vs '
-        f'{c_loss:.6f} on the CPU; {len(c_grads)} gradients agree, worst relative L2 '
+        f'{worst:.3e} (bound {FWD_RTOL:g}); predict: {note}; loss {g_tb["loss"]:.6f} on CUDA vs '
+        f'{c_tb["loss"]:.6f} on the CPU; {n} gradients agree, worst relative L2 '
         f'{worst_g:.3e} at {worst_k} (bound {GRAD_RTOL:g})')
 
 
@@ -2500,6 +2548,362 @@ def family_phases(wrappers, synthetic, smi: str, cfg_from_yaml_file) -> dict:
             wrappers, synthetic, smi, cfg_file, '34 family train loop', NO_LAUNCHES, B=B)
     return paths
 
+# phases 35 to 40: VoxelNeXt and the focal SECOND, on the sparse ladder's
+# kernels; then TTA_FLIP of `Detector3D`
+VOXELNEXT_CFG = 'configs/kitti_models/voxelnext.yaml'
+FOCAL_CFG = 'configs/kitti_models/second_focal.yaml'
+LADDER_MODELS = (('voxelnext', VOXELNEXT_CFG), ('second_focal', FOCAL_CFG))
+# one predict of either: the reorder of the voxel features, then 18 sparse
+# convs (VoxelNeXt: the ladder's 12, `shared_conv` and the five branches'
+# hidden layers; the focal SECOND: 12 plain layers and each focal layer's
+# importance conv and conv over its dilated table); a train step adds the
+# data gradient of every layer but conv_input and the weight gradient of all
+LADDER_PREDICT_LAUNCHES = {**SECOND_PREDICT_LAUNCHES, 'sparse_conv': 18}
+LADDER_TRAIN_LAUNCHES = {**SECOND_PREDICT_LAUNCHES, 'sparse_conv': 18 + 17,
+                         'sparse_conv_wgrad': 18}
+# points per cloud of phase 35's tiny batches (256 voxel slots)
+TINY_LADDER_POINTS = 3000
+
+
+def ladder_cuda_vs_cpu_phase(name: str, cfg, synthetic) -> None:
+    """Phase 35: the tiny shrink of VoxelNeXt or the focal SECOND
+    (`synthetic.TINY_CFGS`) on CUDA (the kernels) against the CPU (the plain
+    versions), the classification bias at 0, on a training batch with 8
+    boxes a cloud prepared on each device: every map tensor equal, the
+    forward's outputs within FWD_RTOL of scale and its integer and bool
+    outputs (the focal activation bits, per stage) equal, detections matched
+    by box and label, each loss within LOSS_RTOL and every gradient within
+    SECOND_GRAD_RTOL relative L2."""
+    from pdm_ssd_torch.models import get_host_prepare
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase = '35 ladder cuda-vs-cpu'
+    tiny = synthetic.TINY_CFGS[cfg.MODEL.NAME](cfg)
+    prepare = get_host_prepare(tiny.MODEL, tiny.DATA_CONFIG, training=True)
+    ins = {dev: prepare(synthetic.voxel_train_batch(2, TINY_LADDER_POINTS, tiny, 8, seed=4,
+                                                    device=dev)) for dev in ('cpu', 'cuda')}
+    for k, v in ins['cpu'].items():
+        if not torch.equal(ins['cuda'][k].cpu(), v):
+            raise SystemExit(f'[{phase}] FAILED: {name} {k} built on CUDA differs from the CPU\'s')
+    cpu_net = synthetic.open_score_gate(synthetic.random_model(tiny, 'cpu'))
+    gpu_net = synthetic.random_model(tiny, 'cuda')
+    gpu_net.load_state_dict(cpu_net.state_dict())
+    outs = {}
+    with torch.inference_mode():
+        for dev, net in (('cpu', cpu_net), ('cuda', gpu_net)):
+            out = net(dict(ins[dev]))
+            flat = flatten(out)
+            for stage, (x, _, act, _) in out['multi_scale_3d_features_sparse'].items():
+                flat[f'{stage} feats'], flat[f'{stage} bits'] = x, act
+            x, _, act = out['encoded_sparse_out']
+            flat['out feats'], flat['out bits'] = x, act
+            outs[dev] = flat
+    worst, n_exact = 0.0, 0
+    for k, w in outs['cpu'].items():
+        g = outs['cuda'][k].cpu()
+        if not w.dtype.is_floating_point:
+            if not torch.equal(g, w):
+                raise SystemExit(f'[{phase}] FAILED {name} {k}: differs between CUDA and the CPU')
+            n_exact += 1
+            continue
+        rel = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-6)
+        worst = max(worst, rel)
+        if not rel <= FWD_RTOL:
+            raise SystemExit(f'[{phase}] FAILED {name} {k}: max |diff| / max |cpu| = {rel:.3e}')
+    note = match_detections({k: v.cpu() for k, v in gpu_net.predict(dict(ins['cuda'])).items()},
+                            cpu_net.predict(dict(ins['cpu'])), phase)
+    c_tb, g_tb, worst_g, worst_k, n = training_cuda_vs_cpu(
+        phase, name, {'cpu': cpu_net, 'cuda': gpu_net}, ins, SECOND_GRAD_RTOL)
+    log(phase, f'tiny {name} B=2, 8 boxes: {len(ins["cpu"])} batch and map tensors equal; '
+        f'{len(outs["cpu"]) - n_exact} float outputs agree, worst max|diff|/max|cpu| = '
+        f'{worst:.3e} (bound {FWD_RTOL:g}), {n_exact} integer and bool outputs (activation '
+        f'bits included) equal; predict: {note}; losses on CUDA / CPU '
+        + ', '.join(f'{k} {g_tb[k]:.6f} / {v:.6f}' for k, v in c_tb.items())
+        + f'; {n} gradients agree, worst relative L2 {worst_g:.3e} at {worst_k} '
+        f'(bound {SECOND_GRAD_RTOL:g})')
+
+
+def layer_capture(net, batch: dict, kinds: tuple, names=None) -> dict:
+    """The arguments of each call of the modules of `kinds` (named in
+    `names`, or all) in one eval-mode forward of `net` on `batch`."""
+    calls = {}
+    hooks = [m.register_forward_pre_hook(lambda mod, args, name=name: calls.setdefault(name, args))
+             for name, m in net.named_modules()
+             if isinstance(m, kinds) and (names is None or name in names)]
+    try:
+        with torch.inference_mode():
+            net(dict(batch))
+    finally:
+        for h in hooks:
+            h.remove()
+    return calls
+
+
+def layer_kernels(phase: str, name: str, sc, feats, nbr, w, plan, bwd, bplan, mask, rng) -> dict:
+    """One layer's three products on the card against their plain versions
+    and float64 (`sparse_conv_check`, `wgrad_check`: within float32 rounding,
+    two runs bit-equal, empty rows and absent taps 0): the forward, the data
+    gradient through the transposed map `bwd` (W flipped) and the weight
+    gradient, for a seeded output gradient zero outside `mask`. Returns each
+    product's device ms, plain ms, bound ms, and the largest kernel-plain
+    difference."""
+    feats, nbr, bwd = feats.contiguous(), nbr.contiguous(), bwd.contiguous()
+    B, Vin, Cin = feats.shape
+    Vout, K = nbr.shape[1], nbr.shape[2]
+    Cout = w.shape[1]
+    rf = sparse_conv_check(name, sc, feats, nbr, w, plan, phase=phase)
+    dy = torch.from_numpy(rng.standard_normal((B, Vout, Cout), np.float32)).cuda()
+    if mask is not None:
+        dy = torch.where(mask[..., None], dy, 0.0)
+    rw = wgrad_check(name, sc, feats, nbr, dy, plan, phase=phase)
+    wf = sc.flip_weight(w, K).contiguous()
+    rd = sparse_conv_check(f'{name} data gradient', sc, dy, bwd, wf, bplan, phase=phase)
+
+    def bound(byts, present):
+        return max(byts / HBM_BYTES_PER_S, 2 * present * Cin * Cout / FP32_FLOP_PER_S) * 1e3
+
+    out = {
+        'fwd': (device_time(lambda: sc.sparse_conv_cuda(feats, nbr, w, plan))['ms'],
+                median_ms(lambda: sc.sparse_conv_plain(feats, nbr, w), 3),
+                bound((feats.numel() + nbr.numel() + w.numel() + B * Vout * Cout) * 4,
+                      rf['present']), rf['err']),
+        'dgrad': (device_time(lambda: sc.sparse_conv_cuda(dy, bwd, wf, bplan))['ms'],
+                  median_ms(lambda: sc.sparse_conv_dgrad_plain(dy, bwd, w), 3),
+                  bound((dy.numel() + bwd.numel() + w.numel() + B * Vin * Cin) * 4,
+                        rd['present']), rd['err']),
+        'wgrad': (device_time(lambda: sc.sparse_conv_wgrad_cuda(feats, nbr, dy, plan))['ms'],
+                  median_ms(lambda: sc.sparse_conv_wgrad_plain(feats, nbr, dy), 3),
+                  bound((feats.numel() + nbr.numel() + dy.numel() + w.numel()) * 4,
+                        rw['present']), rw['err'])}
+    log(phase, f'{name} {Cin}->{Cout} K={K} Vin={Vin} Vout={Vout} B={B}: '
+        f'{rf["present"] / nbr.numel():.3f} of taps present; of the float64 rounding bound '
+        f'forward {rf["worst"]["kernel"]:.3f}, data gradient {rd["worst"]["kernel"]:.3f}, '
+        f'weight gradient {rw["worst"]["kernel"]:.3f} (plain {rf["worst"]["plain"]:.3f}, '
+        f'{rd["worst"]["plain"]:.3f}, {rw["worst"]["plain"]:.3f}); each two runs bit-equal; '
+        'ms kernel / plain / bound: ' + '; '.join(
+            f'{k} {v[0]:.4f} / {v[1]:.3f} / {v[2]:.4f}' for k, v in out.items()))
+    return out
+
+
+def ladder_kernels_phase(sc, synthetic, smi: str, cfg_from_yaml_file) -> None:
+    """Phase 36: `sparse_conv`, its data gradient and `sparse_conv_wgrad` at
+    the shapes only these models give them, each against its plain version
+    and float64: VoxelNeXt's six 9-tap BEV layers (`shared_conv` 128 -> 64,
+    the branches' 64 -> 64) on a serving batch as shipped (B=4, 40000 voxel
+    slots, 35000 BEV slots), and the focal SECOND's three importance convs
+    (27 output channels), three convs over the dilated tables and the three
+    down convs that read them (64000 and 120000 slots) on a training batch as
+    shipped (B=4, 16000 voxel slots). Prints each layer's and each group's
+    device ms, plain ms and bound."""
+    from pdm_ssd_torch.models import get_host_prepare
+    from pdm_ssd_torch.models.backbones_3d.sparse_backbone import SparseConvBNReLU
+    from pdm_ssd_torch.models.backbones_3d.sparse_backbone_focal import SparseTapDense
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase = '36 ladder kernels'
+    rng = np.random.default_rng(6)
+    groups = {}
+    cfg = cfg_from_yaml_file(str(REPO / VOXELNEXT_CFG))
+    net = synthetic.random_model(cfg, 'cuda', seed=7)
+    batch = second_inputs(cfg, synthetic, 4, SECOND_POINTS, seed=5)
+    head = {n for n, m in net.named_modules()
+            if n.startswith('dense_head.') and isinstance(m, SparseConvBNReLU)}
+    calls = layer_capture(net, batch, (SparseConvBNReLU,), head)
+    if len(calls) != 6:
+        raise SystemExit(f'[{phase}] FAILED: VoxelNeXt\'s head ran {len(calls)} sparse layers, '
+                         'not 6')
+    modules = dict(net.named_modules())
+    with torch.inference_mode():
+        groups['voxelnext BEV layers'] = [
+            layer_kernels(phase, f'voxelnext {n}', sc, f, nbr, modules[n].kernel.detach(), plan,
+                          bwd, bplan, mask, rng)
+            for n, (f, nbr, mask, plan, bwd, bplan) in calls.items()]
+    del net, batch, calls, modules
+    torch.cuda.empty_cache()
+    cfg = cfg_from_yaml_file(str(REPO / FOCAL_CFG))
+    net = synthetic.random_model(cfg, 'cuda', seed=7)
+    B = cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
+    batch = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG, training=True)(
+        synthetic.voxel_train_batch(B, SECOND_POINTS, cfg, 8, seed=5, device='cuda'))
+    fills = [batch[f'fl_emask{s}'].sum(1).tolist() for s in (1, 2, 3)]
+    bb = net.slots['backbone_3d']
+    kinds = {f'{bb}.focal{s}.conv_imp': 'conv_imp' for s in (1, 2, 3)}
+    kinds.update({f'{bb}.focal{s}.conv': 'conv' for s in (1, 2, 3)})
+    kinds.update({f'{bb}.down{s}': 'down' for s in (2, 3, 4)})
+    calls = layer_capture(net, batch, (SparseConvBNReLU, SparseTapDense), set(kinds))
+    if len(calls) != 9:
+        raise SystemExit(f'[{phase}] FAILED: the focal ladder ran {len(calls)} of its 9 layers '
+                         'over dilated tables')
+    modules = dict(net.named_modules())
+    with torch.inference_mode():
+        for kind in ('conv_imp', 'conv', 'down'):
+            rows = []
+            for n, args in calls.items():
+                if kinds[n] != kind:
+                    continue
+                if kind == 'conv_imp':
+                    (f, nbr, plan, bwd, bplan), mask = args, None
+                else:
+                    f, nbr, mask, plan, bwd, bplan = args
+                rows.append(layer_kernels(phase, f'second_focal {n}', sc, f, nbr,
+                                          modules[n].kernel.detach(), plan, bwd, bplan, mask,
+                                          rng))
+            groups[f'second_focal {kind} layers'] = rows
+    for group, rows in groups.items():
+        log(phase, f'{group} ({len(rows)}), summed, ms kernel / plain / bound: ' + '; '.join(
+            f'{k} {sum(r[k][0] for r in rows):.4f} / {sum(r[k][1] for r in rows):.3f} / '
+            f'{sum(r[k][2] for r in rows):.4f}, kernel vs plain max |diff| '
+            f'{max(r[k][3] for r in rows):.2e}' for k in ('fwd', 'dgrad', 'wgrad'))
+            + f' on {smi}')
+    log(phase, f'the focal training batch B={B}: dilated-table slots filled per stage and cloud '
+        f'{fills} of {[batch[f"fl_emask{s}"].shape[1] for s in (1, 2, 3)]}')
+
+
+def ladder_predict_phase(name: str, cfg, wrappers, synthetic, card: str) -> dict:
+    """Phase 37: `predict` of VoxelNeXt or the focal SECOND as shipped at B=4
+    on LiDAR-like clouds (40000 voxel slots), the classification bias at 0:
+    shapes, finite values, LADDER_PREDICT_LAUNCHES in the first run; then 5
+    passes timed in two parts (the map build, then predict on the prepared
+    batch), frames/s, peak memory, and `torch.profiler`'s device time and
+    busy share of a prepared predict."""
+    from pdm_ssd_torch.models import get_host_prepare
+    from pdm_ssd_torch.tools.profile_predict import trace
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase = '37 ladder predict'
+    B = 4
+    net = synthetic.open_score_gate(synthetic.random_model(cfg, 'cuda', seed=7))
+    prepare = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG)
+    raw = synthetic.voxel_batch(B, SECOND_POINTS, cfg, seed=5, device='cuda')
+    inputs = prepare(raw)
+    if 'sp_sites' in inputs:
+        caps = [inputs[k].shape[1] for k in ('sp_mask1', 'sp_mask2', 'sp_mask3', 'sp_mask4',
+                                             'sp_mask_out')]
+        fill = (f'caps {caps}, sites per stage and cloud {inputs["sp_sites"].tolist()}, BEV '
+                f'slots {inputs["sp_bev_mask"].sum(1).tolist()} of '
+                f'{inputs["sp_bev_mask"].shape[1]}')
+    else:
+        fill = '; '.join(f'stage {s}: candidates {inputs[f"fl_cmask{s}"].sum(1).tolist()} of '
+                         f'{inputs[f"fl_cmask{s}"].shape[1]}, dilated '
+                         f'{inputs[f"fl_emask{s}"].sum(1).tolist()} of '
+                         f'{inputs[f"fl_emask{s}"].shape[1]}' for s in (1, 2, 3))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(wrappers)
+    det = net.predict(inputs)
+    torch.cuda.synchronize()
+    launches = read_launches(wrappers)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_detections(phase, det, B, cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
+    if launches != LADDER_PREDICT_LAUNCHES:
+        raise SystemExit(f'[{phase}] FAILED {name}: kernel launches {launches}, expected '
+                         f'{LADDER_PREDICT_LAUNCHES}')
+
+    def two_parts() -> tuple[float, float]:
+        t0 = time.perf_counter()
+        batch = prepare(raw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        net.predict(batch)
+        torch.cuda.synchronize()
+        return t1 - t0, time.perf_counter() - t1
+
+    for _ in range(2):
+        two_parts()
+    reps = [two_parts() for _ in range(5)]
+    build = statistics.median(r[0] for r in reps)
+    pred = statistics.median(r[1] for r in reps)
+    with torch.inference_mode():
+        prof = trace(net, inputs)
+    device_ms = prof['device_ms_per_predict']
+    log(phase, f'{name} as shipped B={B} ({inputs["voxel_mask"].sum(1).tolist()} of '
+        f'{inputs["voxel_mask"].shape[1]} voxel slots filled; {fill}): shapes ok, finite, '
+        f'{int(det["pred_mask"].sum())} kept boxes, launches {launches}; 5 passes timed in two '
+        f'parts: map build median {build * 1e3:.3f} ms, predict on the prepared batch median '
+        f'{pred * 1e3:.3f} ms/batch = {B / pred:.2f} frames/s (least '
+        f'{min(r[1] for r in reps) * 1e3:.3f}, most {max(r[1] for r in reps) * 1e3:.3f}); '
+        f'device {device_ms:.3f} ms per predict, busy {device_ms / (pred * 1e3):.3f}; peak '
+        f'allocated {peak:.3f} GiB; top kernels: '
+        + '; '.join(f'{r["name"][:60]} x{r["calls_per_predict"]:g} {r["ms_per_predict"]:.3f} ms'
+                    for r in prof['top_kernels'][:5]) + f' on {card}')
+    return launches
+
+
+# TTA_FLIP of phase 40: the tiny model, its flips, points per cloud
+TTA_CASES = (('centerpoint_pillar', 'configs/kitti_models/centerpoint_pillar.yaml', ['x', 'y'],
+              16384), ('second_sparse', SECOND_CFG, ['x'], TINY_LADDER_POINTS))
+
+
+def tta_cuda_vs_cpu_phase(name: str, cfg, flips, N: int, synthetic) -> None:
+    """Phase 40: the tiny shrink of a `Detector3D` config with TTA_FLIP, the
+    classification bias at 0, on CUDA against the CPU: detections matched by
+    box and label; the flips change the detections. A voxel model's batch
+    gets its maps once, before `predict`, which does not rebuild them for a
+    flip (as the JAX package's does not)."""
+    from pdm_ssd_torch.models import get_host_prepare
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase = '40 tta'
+    tiny = synthetic.TINY_CFGS[cfg.MODEL.NAME](cfg)
+    nets, ins = {}, {}
+    for dev in ('cpu', 'cuda'):
+        if synthetic.voxelizes(tiny):
+            batch = synthetic.voxel_batch(2, N, tiny, seed=4, device=dev)
+            prepare = get_host_prepare(tiny.MODEL, tiny.DATA_CONFIG)
+            ins[dev] = batch if prepare is None else prepare(batch)
+        else:
+            ins[dev] = {'points': torch.from_numpy(synthetic.kitti_points(2, N, 4)).to(dev)}
+    plain = synthetic.open_score_gate(synthetic.random_model(tiny, 'cpu')).predict(ins['cpu'])
+    tiny.MODEL.POST_PROCESSING.TTA_FLIP = flips
+    nets['cpu'] = synthetic.open_score_gate(synthetic.random_model(tiny, 'cpu'))
+    nets['cuda'] = synthetic.random_model(tiny, 'cuda')
+    nets['cuda'].load_state_dict(nets['cpu'].state_dict())
+    want = nets['cpu'].predict(ins['cpu'])
+    if torch.equal(want['pred_boxes'], plain['pred_boxes']):
+        raise SystemExit(f'[{phase}] FAILED {name}: TTA_FLIP {flips} changed no detection')
+    note = match_detections({k: v.cpu() for k, v in nets['cuda'].predict(ins['cuda']).items()},
+                            want, phase)
+    log(phase, f'tiny {name} with TTA_FLIP {flips}, B=2, CUDA vs CPU: {note}')
+
+
+def ladder_phases(wrappers, sc, synthetic, smi: str, cfg_from_yaml_file) -> dict:
+    """Phases 35 to 40. Returns the kernel launches of each path, by name."""
+    def load(cfg_file):
+        return cfg_from_yaml_file(str(REPO / cfg_file))
+
+    for name, cfg_file in LADDER_MODELS:
+        ladder_cuda_vs_cpu_phase(name, load(cfg_file), synthetic)
+    ladder_kernels_phase(sc, synthetic, smi, cfg_from_yaml_file)
+    torch.cuda.empty_cache()
+    paths = {}
+    for name, cfg_file in LADDER_MODELS:
+        paths[f'{name}_predict'] = ladder_predict_phase(name, load(cfg_file), wrappers, synthetic,
+                                                        smi)
+        torch.cuda.empty_cache()
+    for name, cfg_file in LADDER_MODELS:
+        paths[f'{name}_train'] = second_train_phase(load(cfg_file), wrappers, synthetic, smi,
+                                                    '38 ladder train', LADDER_TRAIN_LAUNCHES)
+        torch.cuda.empty_cache()
+    B = load(VOXELNEXT_CFG).OPTIMIZATION.BATCH_SIZE_PER_GPU
+    paths['voxelnext_eval_loop'] = kitti_eval_phase(
+        wrappers, synthetic, smi, VOXELNEXT_CFG, '39 voxelnext eval loop',
+        LADDER_PREDICT_LAUNCHES, adjust=synthetic.open_score_gate, cpu_check=False, B=B)
+    paths['voxelnext_train_loop'] = train_loop_phase(
+        wrappers, synthetic, smi, VOXELNEXT_CFG, '39 voxelnext train loop',
+        LADDER_TRAIN_LAUNCHES, B=B)
+    for name, cfg_file, flips, N in TTA_CASES:
+        tta_cuda_vs_cpu_phase(name, load(cfg_file), flips, N, synthetic)
+    # every kernel of these paths ran on each: the row gather and the sparse
+    # conv on both predicts and train steps, the weight gradient on the steps
+    for path, launches in paths.items():
+        need = ('gather_rows', 'sparse_conv') + (
+            ('sparse_conv_wgrad',) if path.endswith('train') or path.endswith('train_loop')
+            else ())
+        if any(launches[k] < 1 for k in need):
+            raise SystemExit(f'[kernels] FAILED: {path} launched {launches}, none of one of {need}')
+    return paths
+
+
 KERNEL_TABLE = (
     ('farthest_point_sample', 'pdm_ssd_torch/csrc/fps.cu', 'pdm_ssd_tpu/ops/pallas/fps.py:60'),
     ('window_select', 'pdm_ssd_torch/csrc/group.cu',
@@ -2617,11 +3021,14 @@ def main() -> None:
     new_paths['second_train_loop'] = train_loop_phase(
         wrappers, synthetic, smi, SECOND_CFG, '30 second train loop', SECOND_TRAIN_LAUNCHES, B=B2)
 
-    # the pillar and dense-voxel family of `Detector3D`
-    family = family_phases(wrappers, synthetic, smi, cfg_from_yaml_file)
-    if set(family) & set(new_paths):
-        raise SystemExit(f'[kernels] FAILED: path names used twice: {set(family) & set(new_paths)}')
-    new_paths.update(family)
+    # the pillar and dense-voxel family of `Detector3D`, then VoxelNeXt, the
+    # focal SECOND and TTA_FLIP
+    for more in (family_phases(wrappers, synthetic, smi, cfg_from_yaml_file),
+                 ladder_phases(wrappers, sc, synthetic, smi, cfg_from_yaml_file)):
+        if set(more) & set(new_paths):
+            raise SystemExit(f'[kernels] FAILED: path names used twice: '
+                             f'{set(more) & set(new_paths)}')
+        new_paths.update(more)
 
     # `launches` is the count from the run of a main path: the flagship's five
     # training steps of phase 8 for its four kernels, PointRCNN's predict of
@@ -2646,7 +3053,10 @@ def main() -> None:
     # of phase 30, `launches_<name>_{predict,train}` of phases 32 and 33 (name
     # one of pointpillar, centerpoint_pillar, pillarnet, dense_second) and
     # `launches_<name>_{eval,train}_loop` of phase 34 (0 for every kernel on
-    # each); the weight gradient's `launches` are phase 29's, its times
+    # each), `launches_{voxelnext,second_focal}_{predict,train}` of phases 37
+    # and 38 and `launches_voxelnext_{eval,train}_loop` of phase 39 (the row
+    # gather once and the sparse conv 18 times a predict, 35 a step, the
+    # weight gradient 18 a step); the weight gradient's `launches` are phase 29's, its times
     # and bounds sums over the twelve layers of phase 27, and the sparse conv's
     # `dgrad_*` keys the same for its data-gradient launches (11 layers); the
     # sparse conv's `library_ms` (and the backward's) is a pair of PyTorch

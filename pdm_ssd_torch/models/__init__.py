@@ -28,38 +28,39 @@ _SPARSE_BB_NAMES = ('SparseVoxelBackBone8x', 'SparseVoxelResBackBone8x', 'Sparse
 
 def get_host_prepare(model_cfg, dataset_cfg, training: bool = False):
     """Per-batch preparation for models whose graph consumes precomputed
-    tables: the sparse ladder's kernel maps (`ops/sparse_maps.py`). Returns a
-    batch -> batch callable on tensors, which builds the maps on the device of
-    the batch's 'voxel_coords', or None for a model that needs none. A batch
-    that already holds 'sp_submap1' comes back unchanged. `training=True`
-    adds the four transpose maps (`sparse_maps.UPMAP_KEYS`) that the sparse
-    conv's data gradient reads. `GATHER_BWD` (the JAX package's switch
-    between that gather-transpose backward and autodiff of the gather, which
-    give the same gradient) changes nothing: the port has one backward, which
-    reads those maps, so training ships them whatever the key says."""
+    tables: the kernel maps of the sparse or focal ladder
+    (`ops/sparse_maps.py`) and, for VoxelNeXt, the BEV slot table of the
+    ladder's output. Returns a batch -> batch callable on tensors, which
+    builds them on the device of the batch's 'voxel_coords', or None for a
+    model that needs none. A batch that already holds its maps comes back
+    unchanged. `training=True` adds the transposed maps of the strided convs
+    (`sparse_maps.UPMAP_KEYS`, `FOCAL_UPMAP_KEYS`) that the sparse conv's
+    data gradient reads. `GATHER_BWD` (the JAX package's switch between that
+    gather-transpose backward and autodiff of the gather, which give the same
+    gradient) changes nothing: the port has one backward, which reads those
+    maps, so training ships them whatever the key says."""
     bb = model_cfg.get('BACKBONE_3D', None)
     if bb is None:
         return None
     name = bb.get('NAME')
     if name == 'VoxelBackBone8xFocal':
-        raise NotImplementedError('the focal ladder is not ported yet (ROADMAP Queue 1 item 10, '
-                                  'the rest of the sparse voxel ladder)')
+        return _focal_prepare(bb, dataset_cfg, training)
     if name not in _SPARSE_BB_NAMES:
         return None
     if name == 'SparseUNetV2':
         raise NotImplementedError('SparseUNetV2 and its inverse maps are not ported yet '
-                                  '(ROADMAP Queue 1 item 10, the rest of the sparse voxel ladder)')
+                                  '(ROADMAP Queue 1 item 11, with Part-A2)')
     if bb.get('QWIN', False) or bb.get('PWIN', False):
         raise NotImplementedError('QWIN / PWIN correction lists have no counterpart in the port: '
                                   'the sparse-conv kernel needs no window plans (ROADMAP Queue 1 '
                                   'item 10, the rest of the sparse voxel ladder)')
-    if model_cfg.get('DENSE_HEAD', {}).get('NAME') == 'VoxelNeXtHead':
-        raise NotImplementedError('the BEV maps of VoxelNeXt are not ported yet (ROADMAP Queue 1 '
-                                  'item 10, the rest of the sparse voxel ladder)')
-    from ..ops.sparse_maps import batch_build_backbone8x, batch_invert_ladder, default_caps
+    from ..ops.sparse_maps import (batch_build_backbone8x, batch_build_bev, batch_invert_ladder,
+                                   default_caps, ladder_shapes)
     from .detectors.detector3d import _grid_info
     grid, _ = _grid_info(dataset_cfg)
     caps_cfg = bb.get('ACTIVE_CAPS', None)
+    bev_hw = ladder_shapes(grid)[4][1:] \
+        if model_cfg.get('DENSE_HEAD', {}).get('NAME') == 'VoxelNeXtHead' else None
 
     def prepare(batch: dict) -> dict:
         if 'sp_submap1' in batch:
@@ -72,5 +73,34 @@ def get_host_prepare(model_cfg, dataset_cfg, training: bool = False):
                                             caps))
         if training:
             batch.update(batch_invert_ladder(batch, caps))
+        if bev_hw is not None:
+            batch.update(batch_build_bev(batch['sp_coords_out'], batch['sp_mask_out'], bev_hw))
+        return batch
+    return prepare
+
+
+def _focal_prepare(bb, dataset_cfg, training: bool):
+    """The focal ladder's maps (`sparse_maps.batch_build_focal`): candidate
+    capacities ACTIVE_CAPS and dilated ones FOCAL_ECAPS, by default [V, 2V,
+    3V/2, V, V] and four times the first three, with `caps[0] = V`, the JAX
+    package's defaults; in training also their transposes
+    (`sparse_maps.batch_invert_focal`)."""
+    from ..ops.sparse_maps import batch_build_focal, batch_invert_focal
+    from .detectors.detector3d import _grid_info
+    grid, _ = _grid_info(dataset_cfg)
+    caps_cfg, ecaps_cfg = bb.get('ACTIVE_CAPS', None), bb.get('FOCAL_ECAPS', None)
+
+    def prepare(batch: dict) -> dict:
+        if 'fl_submap1' in batch:
+            return batch
+        V = batch['voxel_coords'].shape[1]
+        caps = list(caps_cfg) if caps_cfg else [V, 2 * V, (3 * V) // 2, V, V]
+        caps[0] = V
+        ecaps = list(ecaps_cfg) if ecaps_cfg else [4 * c for c in caps[:3]]
+        batch = dict(batch)
+        batch.update(batch_build_focal(batch['voxel_coords'], batch['voxel_mask'], grid, caps,
+                                       ecaps))
+        if training:
+            batch.update(batch_invert_focal(batch, caps, ecaps))
         return batch
     return prepare

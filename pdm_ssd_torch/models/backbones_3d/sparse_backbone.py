@@ -111,15 +111,18 @@ class SparseVoxelBackBone8x(nn.Module):
     z outer, in the JAX package's channels-last layout, which the 2D backbone
     takes; 'multi_scale_3d_features_sparse' {x_conv1..4: (feats, coords,
     mask, stride)}; 'encoded_sparse_out' (feats, coords, mask);
-    'spatial_features_stride' 8."""
+    'spatial_features_stride' 8. With `dense_canvas=False` (VoxelNeXt,
+    whose head reads 'encoded_sparse_out' only) 'spatial_features' is not
+    made."""
 
     def __init__(self, model_cfg, input_channels: int, grid_size, residual: bool = False,
-                 device=None):
+                 dense_canvas: bool = True, device=None):
         super().__init__()
         cfg = as_cfg(model_cfg)
         filters = list(cfg.get('NUM_FILTERS', [16, 32, 64, 64]))
         self.out_features = cfg.get('OUT_FEATURES', 128)
         self.residual = cfg.get('RESIDUAL', residual)
+        self.dense_canvas = dense_canvas
         dtype = str(cfg.get('TABLE_DTYPE', '')).lower()
         if dtype == 'int8':
             raise NotImplementedError('TABLE_DTYPE int8 is not ported (ROADMAP Queue 1 item 10, '
@@ -197,7 +200,8 @@ class SparseVoxelBackBone8x(nn.Module):
         mo, no = batch['sp_mask_out'], batch['sp_outmap']
         x = self.conv_out(x, no, mo, sparse_conv_plan(no, x.shape[1]),
                           *up('sp_upmap_out', mo.shape[1]))
-        batch['spatial_features'] = self.scatter_to_bev(x, batch['sp_coords_out'], mo)
+        if self.dense_canvas:
+            batch['spatial_features'] = self.scatter_to_bev(x, batch['sp_coords_out'], mo)
         batch['multi_scale_3d_features_sparse'] = ms
         batch['encoded_sparse_out'] = (x, batch['sp_coords_out'], mo)
         batch['spatial_features_stride'] = 8

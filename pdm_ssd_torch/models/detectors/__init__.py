@@ -4,7 +4,8 @@ from .pdm_ssd import PDMSSD
 from .point_rcnn import PointRCNN
 
 _DETECTORS = {'PDMSSD': PDMSSD, 'PointRCNN': PointRCNN, 'SECONDNet': Detector3D,
-              'PointPillar': Detector3D, 'CenterPoint': Detector3D, 'PillarNet': Detector3D}
+              'PointPillar': Detector3D, 'CenterPoint': Detector3D, 'PillarNet': Detector3D,
+              'VoxelNeXt': Detector3D}
 
 
 def build_detector(model_cfg, num_class, dataset_cfg, class_names=None, device=None):

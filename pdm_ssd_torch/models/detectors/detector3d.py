@@ -5,16 +5,18 @@ slots its config names,
     VFE -> BACKBONE_3D -> MAP_TO_BEV -> BACKBONE_2D -> DENSE_HEAD.
 
 Ported slots: `MeanVFE`, `PillarVFE`, `DynamicPillarVFE`; the sparse voxel
-ladder, the dense `DenseVoxelBackBone8x` (any other BACKBONE_3D name, as
-the JAX package's `build_voxel_backbone_3d` reads it) and
-`GridPointBackbone`; `PointPillarScatter`, `HeightCompression`,
-`Conv2DCollapse`; `BaseBEVBackbone`,
-`BaseBEVResBackbone`; `AnchorHeadSingle`, `AnchorHeadMulti` (axis-aligned
-or ATSS targets) and `CenterHead`. That is SECOND on either ladder,
-PointPillar, CenterPoint-pillar and PillarNet (`configs/kitti_models/
-second_sparse.yaml`, `second.yaml`, `pointpillar.yaml`,
-`centerpoint_pillar.yaml`, `pillarnet.yaml`), served and trained. The focal
-ladder, `TTA_FLIP` and the other heads raise `NotImplementedError`.
+ladder, the focal ladder `VoxelBackBone8xFocal`, the dense
+`DenseVoxelBackBone8x` (any other BACKBONE_3D name, as the JAX package's
+`build_voxel_backbone_3d` reads it) and `GridPointBackbone`;
+`PointPillarScatter`, `HeightCompression`, `Conv2DCollapse`;
+`BaseBEVBackbone`, `BaseBEVResBackbone`; `AnchorHeadSingle`,
+`AnchorHeadMulti` (axis-aligned or ATSS targets), `CenterHead` and
+`VoxelNeXtHead`. That is SECOND on the sparse, focal or dense ladder,
+PointPillar, CenterPoint-pillar, PillarNet and VoxelNeXt
+(`configs/kitti_models/second_sparse.yaml`, `second_focal.yaml`,
+`second.yaml`, `pointpillar.yaml`, `centerpoint_pillar.yaml`,
+`pillarnet.yaml`, `voxelnext.yaml`), served and trained, with `TTA_FLIP`.
+The other heads raise `NotImplementedError`.
 
 The submodules carry flax's names for the entries of the JAX detector's
 module list (`module_list_0`, ...), so `utils/weights.from_flax` maps the
@@ -24,6 +26,7 @@ parameter tree one to one; `vfe`, `backbone_3d`, `map_to_bev` and
 from __future__ import annotations
 
 import copy
+import math
 
 import numpy as np
 import torch
@@ -36,10 +39,12 @@ from ..backbones_2d.base_bev_backbone import BaseBEVBackbone, BaseBEVResBackbone
 from ..backbones_2d.map_to_bev import build_map_to_bev
 from ..backbones_3d.grid_point_backbone import GridPointBackbone
 from ..backbones_3d.sparse_backbone import SparseVoxelBackBone8x
+from ..backbones_3d.sparse_backbone_focal import VoxelBackBone8xFocal
 from ..backbones_3d.vfe import build_vfe
 from ..backbones_3d.voxel_backbone import DenseVoxelBackBone8x
 from ..dense_heads.anchor_head import AnchorHeadMulti, AnchorHeadSingle
 from ..dense_heads.center_head import CenterHead
+from ..dense_heads.voxelnext_head import VoxelNeXtHead
 from ..model_nms import take_rows
 
 
@@ -56,17 +61,21 @@ def _grid_info(ds_cfg):
     return tuple(int(g) for g in grid), tuple(float(v) for v in voxel)
 
 
-def build_voxel_backbone_3d(bb_cfg, input_channels: int, grid_size, device=None) -> nn.Module:
-    """The sparse ladder by its names; the focal ladder raises; every other
-    name (`DenseVoxelBackBone8x`, `VoxelBackBone8x`, none) is the dense
-    ladder, as in the JAX package's `build_voxel_backbone_3d`."""
+def build_voxel_backbone_3d(bb_cfg, input_channels: int, grid_size, voxel_size=None,
+                            pc_range=None, dense_canvas: bool = True, device=None) -> nn.Module:
+    """The sparse and focal ladders by their names; every other name
+    (`DenseVoxelBackBone8x`, `VoxelBackBone8x`, none) is the dense ladder, as
+    in the JAX package's `build_voxel_backbone_3d`. `dense_canvas=False`
+    spares the sparse ladder its dense BEV map, for a head that reads only
+    the sparse output."""
     name = bb_cfg.get('NAME', 'VoxelBackBone8x')
     if name in ('SparseVoxelBackBone8x', 'SparseVoxelResBackBone8x'):
         return SparseVoxelBackBone8x(bb_cfg, input_channels, grid_size,
-                                     residual=(name == 'SparseVoxelResBackBone8x'), device=device)
+                                     residual=(name == 'SparseVoxelResBackBone8x'),
+                                     dense_canvas=dense_canvas, device=device)
     if name == 'VoxelBackBone8xFocal':
-        raise NotImplementedError('the focal ladder is not ported yet (ROADMAP Queue 1 item 10, '
-                                  'the rest of the sparse voxel ladder)')
+        return VoxelBackBone8xFocal(bb_cfg, input_channels, grid_size, voxel_size, pc_range,
+                                    device=device)
     return DenseVoxelBackBone8x(bb_cfg, input_channels, grid_size, device=device)
 
 
@@ -80,9 +89,8 @@ class Detector3D(nn.Module):
         pc_range = tuple(ds.POINT_CLOUD_RANGE)
         num_pf = ds.get('NUM_POINT_FEATURES', 4)
         (gw, gh, gd), voxel = _grid_info(ds)
-        if cfg.POST_PROCESSING.get('TTA_FLIP'):
-            raise NotImplementedError('TTA_FLIP of the voxel family is not ported yet (ROADMAP '
-                                      'Queue 1 item 10, the rest of the sparse voxel ladder)')
+        self.grid_size = (gw, gh, gd)
+        head_cfg = cfg.DENSE_HEAD
 
         self.slots = {}         # slot name -> flax name of its module
         width = num_pf
@@ -101,8 +109,12 @@ class Detector3D(nn.Module):
                 width = add('backbone_3d', GridPointBackbone(
                     cfg.BACKBONE_3D, num_pf, pc_range, device=device)).num_point_features
             else:
+                # VoxelNeXt's head reads the sparse output only: no reader of
+                # the dense BEV map, which the JAX package's jit drops
                 width = add('backbone_3d', build_voxel_backbone_3d(
-                    cfg.BACKBONE_3D, width, (gw, gh, gd), device=device)).num_bev_features
+                    cfg.BACKBONE_3D, width, (gw, gh, gd), voxel, pc_range,
+                    dense_canvas=head_cfg.NAME != 'VoxelNeXtHead', device=device)
+                ).num_bev_features
         if cfg.get('MAP_TO_BEV') is not None:
             width = add('map_to_bev', build_map_to_bev(cfg.MAP_TO_BEV, (gw, gh), width,
                                                        device=device)).num_bev_features
@@ -114,7 +126,6 @@ class Detector3D(nn.Module):
             bb_cls = BaseBEVResBackbone if name2d == 'BaseBEVResBackbone' else BaseBEVBackbone
             width = add('backbone_2d', bb_cls(cfg.BACKBONE_2D, width,
                                               device=device)).num_bev_features
-        head_cfg = cfg.DENSE_HEAD
         stride = head_cfg.TARGET_ASSIGNER_CONFIG.get('FEATURE_MAP_STRIDE', 2) \
             if 'TARGET_ASSIGNER_CONFIG' in head_cfg else 2
         fmap = (gw // stride, gh // stride)
@@ -122,6 +133,12 @@ class Detector3D(nn.Module):
             self.dense_head = CenterHead(head_cfg, width, num_class, fmap, pc_range, voxel[:2],
                                          class_names=tuple(class_names) if class_names else None,
                                          device=device)
+        elif head_cfg.NAME == 'VoxelNeXtHead':
+            # the head reads the ladder's sparse output rows, not a BEV map
+            self.dense_head = VoxelNeXtHead(head_cfg, self.backbone_3d.out_features, num_class,
+                                            pc_range, voxel[:2],
+                                            class_names=tuple(class_names) if class_names
+                                            else None, device=device)
         elif head_cfg.NAME in ('AnchorHeadSingle', 'AnchorHeadMulti'):
             head_cls = AnchorHeadMulti if head_cfg.NAME == 'AnchorHeadMulti' else AnchorHeadSingle
             self.dense_head = head_cls(head_cfg, width, num_class, class_names, grid_size=fmap,
@@ -143,6 +160,8 @@ class Detector3D(nn.Module):
         batch = dict(batch)
         for name in self.slots.values():
             batch = getattr(self, name)(batch)
+        if isinstance(self.dense_head, VoxelNeXtHead):
+            return self.dense_head(batch)
         if 'spatial_features_2d' not in batch:
             batch['spatial_features_2d'] = batch['spatial_features']
         return self.dense_head(batch)
@@ -151,13 +170,22 @@ class Detector3D(nn.Module):
         """The dense head's targets and losses on a forward's output, which
         carries the batch's 'gt_boxes' and 'gt_mask'; a heatmap head's targets
         at the (H, W) of 'spatial_features_2d'. Returns (loss, tb) with the
-        head's entries and 'loss' in `tb`."""
+        head's entries and 'loss' in `tb`. The focal ladder's importance loss
+        ('loss_box_of_pts') is added to an anchor or heatmap head's."""
+        if isinstance(self.dense_head, VoxelNeXtHead):
+            targets = self.dense_head.assign_targets(batch['gt_boxes'], batch['gt_mask'],
+                                                     batch['sp_bev_coords'], batch['sp_bev_mask'])
+            loss, tb = self.dense_head.get_loss(batch, targets)
+            return loss, {**tb, 'loss': loss}
         if isinstance(self.dense_head, CenterHead):
             targets = self.dense_head.assign_targets(batch['gt_boxes'], batch['gt_mask'],
                                                      batch['spatial_features_2d'].shape[1:3])
         else:
             targets = self.dense_head.assign_targets(batch)
         loss, tb = self.dense_head.get_loss(batch, targets)
+        if 'loss_box_of_pts' in batch:
+            loss = loss + batch['loss_box_of_pts']
+            tb = {**tb, 'loss_box_of_pts': batch['loss_box_of_pts']}
         return loss, {**tb, 'loss': loss}
 
     def forward_with_loss(self, batch: dict) -> tuple:
@@ -170,10 +198,52 @@ class Detector3D(nn.Module):
 
     @torch.inference_mode()
     def predict(self, batch: dict) -> dict:
-        """Forward + post-processing. The model must be in eval mode."""
+        """Forward + post-processing. The model must be in eval mode.
+
+        With POST_PROCESSING.TTA_FLIP (a list of 'x', 'y', 'xy') the model
+        also runs once per entry on the scene mirrored along those axes
+        ('points' and 'voxels' negated in x or y, 'voxel_coords' mirrored on
+        the grid), mirrors those detections back (heading: 'x' pi - theta,
+        'y' -theta, 'xy' pi + theta), and one NMS of the config's type
+        merges all the variants, as in the JAX package. The batch's kernel
+        maps are not rebuilt for a flip, as the JAX package's `predict` does
+        not rebuild them: on the sparse and focal ladders a flipped pass
+        runs the unflipped maps (and the unflipped reorder) on features
+        whose x or y mean is negated (ROADMAP Queue 3, known faults of the
+        reference)."""
         if self.training:
             raise RuntimeError('predict needs eval mode (call model.eval())')
-        return self.post_process(self(batch))
+        det = self.post_process(self(batch))
+        flips = list(self.model_cfg.POST_PROCESSING.get('TTA_FLIP', []))
+        if not flips:
+            return det
+        gw, gh, _ = self.grid_size
+        dets = [det]
+        for axes in flips:
+            cols = {'x': [0], 'y': [1], 'xy': [0, 1]}[axes]
+            fb = dict(batch)
+            for col in cols:
+                for key in ('points', 'voxels'):
+                    if key in fb:
+                        fb[key] = fb[key].clone()
+                        fb[key][..., col] *= -1.0
+                if 'voxel_coords' in fb:       # zyx: column 2 is x, column 1 is y
+                    ccol, dim = (2, gw) if col == 0 else (1, gh)
+                    fb['voxel_coords'] = fb['voxel_coords'].clone()
+                    fb['voxel_coords'][..., ccol] = dim - 1 - fb['voxel_coords'][..., ccol]
+            fdet = self.post_process(self(fb))
+            boxes = fdet['pred_boxes'].clone()
+            for col in cols:
+                boxes[..., col] *= -1.0
+            boxes[..., 6] = {'x': math.pi - boxes[..., 6], 'y': -boxes[..., 6],
+                             'xy': math.pi + boxes[..., 6]}[axes]
+            dets.append({**fdet, 'pred_boxes': boxes})
+        boxes, scores, labels, valid = (torch.cat([d[k] for d in dets], dim=1) for k in
+                                        ('pred_boxes', 'pred_scores', 'pred_labels', 'pred_mask'))
+        fb_, fs, fl, fm = model_nms.dispatch_nms(boxes, scores, labels, valid,
+                                                 self.model_cfg.POST_PROCESSING.NMS_CONFIG,
+                                                 self.num_class)
+        return {'pred_boxes': fb_, 'pred_scores': fs, 'pred_labels': fl, 'pred_mask': fm}
 
     def select_candidates(self, batch: dict):
         """(boxes (B, K, 7), scores, labels (1-based), valid (B, K)), valid
@@ -182,7 +252,7 @@ class Detector3D(nn.Module):
         2 * NMS_PRE_MAXSIZE anchors by `two_stage_topk`."""
         pp = self.model_cfg.POST_PROCESSING
         thresh = pp.get('SCORE_THRESH', 0.1)
-        if isinstance(self.dense_head, CenterHead):
+        if isinstance(self.dense_head, (CenterHead, VoxelNeXtHead)):
             hm = self.dense_head.generate_predicted_boxes(batch)
             return (hm['pred_boxes'][..., :7], hm['pred_scores'], hm['pred_labels'] + 1,
                     hm['pred_mask'] & (hm['pred_scores'] > thresh))

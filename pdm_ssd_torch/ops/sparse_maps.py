@@ -24,9 +24,17 @@ The transpose maps of the training backward (`invert_down_map`,
 `batch_invert_ladder`) are built the same way, on the device of the maps,
 with fixed shapes and no host sync.
 
-Not ported (ROADMAP Queue 1 item 10, the rest of the sparse voxel ladder):
-the UNet's use of the transpose maps as forward maps, the packed-window
-correction buckets, the focal ladder and the BEV maps of VoxelNeXt.
+The focal ladder of `VoxelBackBone8xFocal` (`build_focal_ladder_maps`:
+each focal stage's candidate table and its maximal dilation, with the
+tables that say where a learned mask may spawn a site) and the BEV slot
+table of VoxelNeXt's head (`build_bev_maps`) follow the JAX package's
+builders the same way. The focal ladder's strided maps have transposes too
+(`batch_invert_focal`), which the JAX package does not build: its strided
+focal convs take XLA's gradient, the port's sparse conv reads a transposed
+map.
+
+Not ported (ROADMAP Queue 1 items 10 and 11): the UNet's use of the
+transpose maps as forward maps and the packed-window correction buckets.
 """
 from __future__ import annotations
 
@@ -34,7 +42,9 @@ import torch
 
 __all__ = ['build_backbone8x_maps', 'batch_build_backbone8x', 'ladder_shapes', 'LADDER_KEYS',
            'default_caps', 'invert_down_map', 'batch_invert_down_maps', 'batch_invert_ladder',
-           'UPMAP_KEYS']
+           'UPMAP_KEYS', 'focal_kernel_offsets', 'FOCAL_KEYS', 'FOCAL_UPMAP_KEYS',
+           'build_focal_ladder_maps', 'batch_build_focal', 'batch_invert_focal', 'BEV_KEYS',
+           'build_bev_maps', 'batch_build_bev']
 
 
 def _flat(coords: torch.Tensor, dims) -> torch.Tensor:
@@ -242,3 +252,181 @@ def batch_invert_ladder(maps: dict, caps) -> dict:
     out = batch_invert_down_maps(maps, caps)
     out['sp_upmap_out'] = invert_down_map(maps['sp_outmap'], caps[3])
     return out
+
+
+# ---- the focal ladder (`VoxelBackBone8xFocal`) ------------------------------
+#
+# A focal stage's learned mask may spawn sites at the 26 neighbours of its
+# foreground sites. The maps hold every site any mask could activate: each
+# focal stage's candidate table C_s, its maximal dilation E_s = C_s and the
+# in-bounds 26-neighbourhood of its sites, and the next stage's sites are
+# those of a strided conv over E_s. The learned mask toggles activation bits
+# over these fixed tables (`models/backbones_3d/sparse_backbone_focal.py`).
+
+
+def focal_kernel_offsets(device=None) -> torch.Tensor:
+    """(26, 3) int64: the offsets of a 3x3x3 kernel without its center, z
+    outer, x inner, the reference's channel order of the importance map."""
+    offs = [(i, j, k) for i in (-1, 0, 1) for j in (-1, 0, 1) for k in (-1, 0, 1)
+            if (i, j, k) != (0, 0, 0)]
+    return torch.tensor(offs, dtype=torch.int64, device=device)
+
+
+def _dilate_table(coords: torch.Tensor, n_valid: int, dims, cap_e: int):
+    """The maximal dilation of an active table: its sites and their in-bounds
+    26 neighbours, sorted by flat key, capped at `cap_e`. When the cap binds,
+    every site of the table is kept and the spawn candidates are cut in
+    flat-key order. Returns (ecoords (cap_e, 3), n_e, eorig (cap_e,) the
+    site's slot in the base table or cap_base, espawn (cap_e, 26) the base
+    slot of `ecoord - offset_j` or cap_base). A spawn lands only on a site
+    whose every coordinate is strictly above 0 (the reference's `> 0`)."""
+    dev = coords.device
+    cap_base = coords.shape[0]
+    offs = focal_kernel_offsets(dev)
+    c = coords[:n_valid].long()
+    nbr = (c[:, None, :] + offs[None]).reshape(-1, 3)
+    base_keys = _flat(c, dims)
+    cand = torch.unique(_flat(nbr[_in_bounds(nbr, dims)], dims))
+    cand = cand[~torch.isin(cand, base_keys)]
+    room = max(cap_e - base_keys.numel(), 0)
+    u = torch.sort(torch.cat([base_keys, cand[:room]]))[0][:cap_e]
+    n_e = int(u.numel())
+    ecoords = torch.zeros((cap_e, 3), dtype=torch.int32, device=dev)
+    ecoords[:n_e] = torch.stack([u // (dims[2] * dims[1]), (u // dims[2]) % dims[1],
+                                 u % dims[2]], -1).int()
+    sk = _flat(coords, dims)
+    eorig = _lookup(sk, n_valid, _flat(ecoords, dims))
+    eorig[n_e:] = cap_base
+    src = ecoords.long()[:, None, :] - offs[None]                         # (cap_e, 26, 3)
+    ok = _in_bounds(src, dims) & (ecoords.amin(dim=-1) > 0)[:, None]
+    ok[n_e:] = False
+    espawn = _lookup(sk, n_valid, _flat(src, dims).reshape(-1)).reshape(cap_e, 26)
+    return ecoords, n_e, eorig, torch.where(ok, espawn, cap_base).int()
+
+
+FOCAL_KEYS = (
+    ['fl_perm1']
+    + sum([[f'fl_coords{s}', f'fl_cmask{s}', f'fl_submap{s}', f'fl_ecoords{s}', f'fl_emask{s}',
+            f'fl_eorig{s}', f'fl_espawn{s}', f'fl_esubmap{s}'] for s in (1, 2, 3)], [])
+    + ['fl_downmap2', 'fl_downmap3', 'fl_downmap4', 'fl_coords4', 'fl_cmask4', 'fl_submap4',
+       'fl_coords_out', 'fl_cmask_out', 'fl_outmap']
+)
+
+
+def build_focal_ladder_maps(coords: torch.Tensor, n_valid: int, grid_size_whd, caps,
+                            ecaps) -> dict:
+    """One cloud's maps of `VoxelBackBone8xFocal` (the FOCAL_KEYS tensors):
+    the ladder with a dilated table after each of stages 1 to 3, the stages
+    below built from the dilated tables. coords (cap1, 3) int32 zyx, the
+    first `n_valid` valid, in any order (`fl_perm1` sorts them stably by
+    flat key). caps: candidate capacities [cap1, cap2, cap3, cap4, cap_out];
+    ecaps: dilated capacities [capE1, capE2, capE3]."""
+    dev = coords.device
+    dims = ladder_shapes(grid_size_whd)
+    cap1 = caps[0]
+    n1 = min(int(n_valid), cap1)
+    order = torch.sort(_flat(coords[:n1], dims[0]), stable=True)[1]
+    c = torch.zeros((cap1, 3), dtype=torch.int32, device=dev)
+    c[:n1] = coords[:n1].int()[order]
+    perm = torch.zeros((cap1,), dtype=torch.int32, device=dev)
+    perm[:n1] = order.int()
+
+    def mask(cap, n):
+        return torch.arange(cap, device=dev) < n
+
+    out = {'fl_perm1': perm}
+    n = n1
+    for s in (1, 2, 3):
+        d = dims[s - 1]
+        out[f'fl_coords{s}'] = c
+        out[f'fl_cmask{s}'] = mask(c.shape[0], n)
+        out[f'fl_submap{s}'] = _subm_map(c, n, d, (3, 3, 3))
+        ec, ne, eorig, espawn = _dilate_table(c, n, d, ecaps[s - 1])
+        out[f'fl_ecoords{s}'] = ec
+        out[f'fl_emask{s}'] = mask(ecaps[s - 1], ne)
+        out[f'fl_eorig{s}'] = eorig
+        out[f'fl_espawn{s}'] = espawn
+        out[f'fl_esubmap{s}'] = _subm_map(ec, ne, d, (3, 3, 3))
+        ks, st, pd = _DOWN_SPECS[s - 1]
+        c, n, _, _ = _down_sites(ec, ne, d, ks, st, pd, caps[s])
+        out[f'fl_downmap{s + 1}'] = _down_map(ec, ne, d, c, n, ks, st, pd)
+    out['fl_coords4'] = c
+    out['fl_cmask4'] = mask(caps[3], n)
+    out['fl_submap4'] = _subm_map(c, n, dims[3], (3, 3, 3))
+    ks, st, pd = _DOWN_SPECS[3]
+    co, no, _, _ = _down_sites(c, n, dims[3], ks, st, pd, caps[4])
+    out['fl_coords_out'] = co
+    out['fl_cmask_out'] = mask(caps[4], no)
+    out['fl_outmap'] = _down_map(c, n, dims[3], co, no, ks, st, pd)
+    return out
+
+
+def batch_build_focal(voxel_coords: torch.Tensor, voxel_mask: torch.Tensor, grid_size_whd,
+                      caps, ecaps) -> dict:
+    """`build_focal_ladder_maps` stacked over the batch: the FOCAL_KEYS
+    tensors, each with a leading batch axis."""
+    counts = voxel_mask.sum(dim=1).tolist()
+    per = [build_focal_ladder_maps(voxel_coords[b], counts[b], grid_size_whd, caps, ecaps)
+           for b in range(voxel_coords.shape[0])]
+    return {k: torch.stack([p[k] for p in per]) for k in FOCAL_KEYS}
+
+
+FOCAL_UPMAP_KEYS = ['fl_upmap2', 'fl_upmap3', 'fl_upmap4', 'fl_upmap_out']
+
+
+def batch_invert_focal(maps: dict, caps, ecaps) -> dict:
+    """The transposed maps of the focal ladder's strided convs
+    (FOCAL_UPMAP_KEYS), for the sparse conv's data gradient: the down convs
+    of stages 2 to 4 read the dilated tables of stages 1 to 3 (`ecaps`),
+    `conv_out` reads stage 4's candidate table (`caps[3]`)."""
+    out = {f'fl_upmap{s}': invert_down_map(maps[f'fl_downmap{s}'], cap_in)
+           for s, cap_in in zip((2, 3, 4), ecaps[:3])}
+    out['fl_upmap_out'] = invert_down_map(maps['fl_outmap'], caps[3])
+    return out
+
+
+# ---- VoxelNeXt's BEV slot table ----------------------------------------------
+#
+# VoxelNeXt's head works on the ladder's output sites compressed in height:
+# one BEV slot per occupied (y, x) cell of the stride-8 grid, and a 3x3
+# submanifold map over those slots.
+
+BEV_KEYS = ['sp_bev_coords', 'sp_bev_mask', 'sp_bev_from_out', 'sp_bev_submap']
+
+
+def build_bev_maps(coords_out: torch.Tensor, n_valid: int, bev_hw) -> dict:
+    """One cloud. coords_out (cap, 3) zyx of the ladder's output sites, the
+    first `n_valid` valid; bev_hw (H, W) of the stride-8 grid. Returns
+    'sp_bev_coords' (cap, 2) (y, x) sorted by y*W + x, 'sp_bev_mask' (cap,),
+    'sp_bev_from_out' (cap,) each output site's BEV slot (cap where absent),
+    'sp_bev_submap' (cap, 9) the 3x3 neighbour slots, (dy, dx) taps with x
+    inner, cap where absent."""
+    dev = coords_out.device
+    H, W = (int(v) for v in bev_hw)
+    cap = coords_out.shape[0]
+    c = coords_out[:n_valid].long()
+    key = c[:, 1] * W + c[:, 2]
+    uniq = torch.unique(key)[:cap]
+    nb = int(uniq.numel())
+    bev = torch.zeros((cap, 2), dtype=torch.int32, device=dev)
+    bev[:nb] = torch.stack([uniq // W, uniq % W], -1).int()
+    from_out = torch.full((cap,), cap, dtype=torch.int32, device=dev)
+    from_out[:n_valid] = _lookup(uniq, nb, key)
+    from_out[from_out == nb] = cap      # `_lookup` names a miss by the table's length
+    offs = torch.stack(torch.meshgrid(torch.arange(3) - 1, torch.arange(3) - 1, indexing='ij'),
+                       -1).reshape(-1, 2).to(dev)
+    nbr = bev.long()[:, None, :] + offs[None]                                 # (cap, 9, 2)
+    ok = ((nbr >= 0) & (nbr < torch.tensor([H, W], device=dev))).all(dim=-1)
+    ok[nb:] = False
+    sub = _lookup(uniq, nb, (nbr[..., 0] * W + nbr[..., 1]).reshape(-1)).reshape(cap, 9)
+    return {'sp_bev_coords': bev, 'sp_bev_mask': torch.arange(cap, device=dev) < nb,
+            'sp_bev_from_out': from_out,
+            'sp_bev_submap': torch.where(ok & (sub < nb), sub, cap).int()}
+
+
+def batch_build_bev(coords_out: torch.Tensor, mask_out: torch.Tensor, bev_hw) -> dict:
+    """`build_bev_maps` stacked over the batch: the BEV_KEYS tensors, each
+    with a leading batch axis."""
+    counts = mask_out.sum(dim=1).tolist()
+    per = [build_bev_maps(coords_out[b], counts[b], bev_hw) for b in range(coords_out.shape[0])]
+    return {k: torch.stack([p[k] for p in per]) for k in BEV_KEYS}

@@ -12,7 +12,9 @@ builds the tiny PointRCNN (`utils/synthetic.tiny_pointrcnn_cfg`), with
 `configs/kitti_models/second_sparse.yaml` the tiny SECOND on the sparse voxel
 ladder (`utils/synthetic.tiny_second_cfg`; its batches are voxelized and given
 their kernel maps on the device, the training batch with 8 boxes a cloud and
-the transposed maps), with `second.yaml` the tiny SECOND on the dense ladder,
+the transposed maps), with `second_focal.yaml` the tiny SECOND on the focal
+ladder, with `voxelnext.yaml` the tiny VoxelNeXt (the sparse ladder and its
+BEV slot table), with `second.yaml` the tiny SECOND on the dense ladder,
 with `pointpillar.yaml`, `centerpoint_pillar.yaml` or `pillarnet.yaml` the
 tiny shrink of that file (`utils/synthetic.TINY_CFGS`; a config that
 voxelizes its points gets voxel batches, made on the device). A model
@@ -92,8 +94,8 @@ def main() -> None:
     ap.add_argument('--points', type=int, default=512)
     ap.add_argument('--cfg_file', default=CFG, help='the flagship (default), or '
                     'configs/kitti_models/pdm_ssd.yaml, pdm_ssd_aux.yaml, pdm_ssd_large.yaml, '
-                    'pointrcnn.yaml, second_sparse.yaml, second.yaml, pointpillar.yaml, '
-                    'centerpoint_pillar.yaml or pillarnet.yaml')
+                    'pointrcnn.yaml, second_sparse.yaml, second_focal.yaml, voxelnext.yaml, '
+                    'second.yaml, pointpillar.yaml, centerpoint_pillar.yaml or pillarnet.yaml')
     args = ap.parse_args()
     dryrun(args.device, args.batch, args.points, cfg_file=args.cfg_file)
 

@@ -34,7 +34,11 @@ LiDAR-like clouds of 50000 points, voxelized on the card),
 `centerpoint_pillar.yaml` or `pillarnet.yaml` (B=8, N=16384) the stages
 are the slots of `Detector3D` (VFE, 3D backbone, map to BEV, BEV backbone,
 head; each convolving one with its GFLOP, rate and peak memory), top-K +
-decode and the NMS, the classification bias at 0. Then
+decode and the NMS, the classification bias at 0. With
+`configs/kitti_models/voxelnext.yaml` or `second_focal.yaml` (B=4, LiDAR-like
+clouds of 50000 points) the stages are the map build (the sparse ladder with
+VoxelNeXt's BEV slot table, or the focal ladder) and then those slots, the
+bias at 0. Then
 `torch.profiler` traces three `predict` calls: device time per predict,
 device activities per predict, the busy share (device time over the
 unprofiled wall time of one predict), the ten kernels with the most device
@@ -313,6 +317,19 @@ def detector3d_stage_times(net, cfg, predict_inputs: dict, reps: int) -> dict:
     return t
 
 
+def ladder_stage_times(net, cfg, predict_inputs: dict, reps: int) -> dict:
+    """`detector3d_stage_times` of a model on the sparse or focal ladder
+    (`voxelnext.yaml`, `second_focal.yaml`), after the map build of the batch
+    (`map_build`: `get_host_prepare` on the voxelized batch without its
+    maps), timed apart."""
+    raw = {k: v for k, v in predict_inputs.items() if not k.startswith(('sp_', 'fl_'))}
+    prepare = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG)
+    t = {'map_build': median_ms(lambda: prepare(raw), reps)}
+    t.update(detector3d_stage_times(net, cfg, predict_inputs, reps))
+    t['predict_with_map_build'] = t['predict'] + t['map_build']
+    return t
+
+
 def point_inputs(cfg, B: int, N: int) -> dict:
     return {'points': torch.from_numpy(synthetic.kitti_points(B, N, 5)).cuda()}
 
@@ -349,14 +366,20 @@ PROFILES = {'PDMSSD': (lambda cfg: cfg, 8, 16384, point_inputs, stage_times, Non
             'CenterPoint': (lambda cfg: cfg, 8, 16384, point_inputs, detector3d_stage_times,
                             synthetic.open_score_gate),
             'PillarNet': (lambda cfg: cfg, 8, 16384, point_inputs, detector3d_stage_times,
+                          synthetic.open_score_gate),
+            'SECONDNet focal': (lambda cfg: cfg, 4, 50000, second_inputs, ladder_stage_times,
+                                synthetic.open_score_gate),
+            'VoxelNeXt': (lambda cfg: cfg, 4, 50000, second_inputs, ladder_stage_times,
                           synthetic.open_score_gate)}
 
 
 def profile_key(cfg) -> str:
     """The key of a config in PROFILES."""
     name = cfg.MODEL.NAME
-    if name == 'SECONDNet' and not cfg.MODEL.BACKBONE_3D.get('NAME', '').startswith('Sparse'):
-        return 'SECONDNet dense'
+    if name == 'SECONDNet':
+        bb = cfg.MODEL.BACKBONE_3D.get('NAME', '')
+        return 'SECONDNet' if bb.startswith('Sparse') else \
+            'SECONDNet focal' if bb == 'VoxelBackBone8xFocal' else 'SECONDNet dense'
     if name != 'PDMSSD' or cfg.MODEL.BACKBONE_3D.get('NAME') != 'GridPointBackbone':
         return name
     return 'PDMSSD grid large' if cfg.DATA_CONFIG.POINT_CLOUD_RANGE[0] < 0 else 'PDMSSD grid'

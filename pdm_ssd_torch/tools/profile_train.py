@@ -5,11 +5,11 @@
 
 Builds the config (default `configs/kitti_models/pdm_ssd_point.yaml`; also
 `pdm_ssd.yaml`, `pdm_ssd_aux.yaml`, `centerpoint_pillar.yaml`,
-`pillarnet.yaml`, and the voxel models `second_sparse.yaml`, `second.yaml`
-and `pointpillar.yaml`, whose batch is seeded LiDAR-like clouds of 50000
-points unless `--points` says otherwise, voxelized on the card),
-unmodified, with seeded random weights, float32 with TF32 off, and trains
-on one seeded synthetic batch. After warm-up steps it
+`pillarnet.yaml`, and the voxel models `second_sparse.yaml`, `second.yaml`,
+`second_focal.yaml`, `voxelnext.yaml` and `pointpillar.yaml`, whose batch
+is seeded LiDAR-like clouds of 50000 points unless `--points` says
+otherwise, voxelized on the card), unmodified, with seeded random weights,
+float32 with TF32 off, and trains on one seeded synthetic batch. After warm-up steps it
 times whole steps of `make_train_step` on the host clock (median of
 `--reps`), then repeats the step's parts by hand with a CUDA event between
 them: a voxel model's map build (`get_host_prepare(..., training=True)`),

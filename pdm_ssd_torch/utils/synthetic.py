@@ -283,12 +283,53 @@ def tiny_dense_second_cfg(cfg):
     return cfg
 
 
+def tiny_second_focal_cfg(cfg):
+    """Shrink `configs/kitti_models/second_focal.yaml` in place: the same
+    path (MeanVFE, the focal ladder with its three focal layers and TOPK,
+    BEV convs, anchor head) on the tiny sparse SECOND's 64 x 64 x 40 grid of
+    256 voxel slots, narrow. The capacities become the JAX package's
+    defaults for 256 slots: candidates [256, 512, 384, 256, 256], dilated
+    tables [1024, 2048, 1536]."""
+    tiny_second_cfg(cfg)
+    cfg.MODEL.BACKBONE_3D.pop('FOCAL_ECAPS', None)
+    return cfg
+
+
 def tiny_secondnet_cfg(cfg):
     """The shrink of a SECONDNet config, by its backbone: the sparse ladder's
-    (`tiny_second_cfg`) or the dense one's (`tiny_dense_second_cfg`)."""
-    if cfg.MODEL.BACKBONE_3D.get('NAME', '').startswith('Sparse'):
+    (`tiny_second_cfg`), the focal one's (`tiny_second_focal_cfg`) or the
+    dense one's (`tiny_dense_second_cfg`)."""
+    name = cfg.MODEL.BACKBONE_3D.get('NAME', '')
+    if name.startswith('Sparse'):
         return tiny_second_cfg(cfg)
+    if name == 'VoxelBackBone8xFocal':
+        return tiny_second_focal_cfg(cfg)
     return tiny_dense_second_cfg(cfg)
+
+
+def tiny_voxelnext_cfg(cfg):
+    """Shrink `configs/kitti_models/voxelnext.yaml` in place: the same path
+    (MeanVFE, the sparse ladder, the BEV slot table, VoxelNeXtHead's 9-tap
+    convs, circle NMS) on the tiny sparse SECOND's 64 x 64 x 40 grid of 256
+    voxel slots (an 8 x 8 BEV grid at stride 8), narrow; the head's centre
+    limit follows the range."""
+    ds = cfg.DATA_CONFIG
+    ds.POINT_CLOUD_RANGE = [0, -16, -3, 32, 16, 1]
+    proc = voxel_processor(cfg)
+    proc.VOXEL_SIZE = [0.5, 0.5, 0.1]
+    proc.MAX_NUMBER_OF_VOXELS = {'train': 256, 'test': 256}
+    bb = cfg.MODEL.BACKBONE_3D
+    bb.NUM_FILTERS = [4, 8, 8, 8]
+    bb.OUT_FEATURES = 8
+    bb.pop('ACTIVE_CAPS', None)
+    head = cfg.MODEL.DENSE_HEAD
+    head.SHARED_CONV_CHANNEL = 8
+    head.POST_PROCESSING.POST_CENTER_LIMIT_RANGE = [0, -16, -3, 32, 16, 1]
+    head.POST_PROCESSING.MAX_OBJ_PER_SAMPLE = 16
+    nms = cfg.MODEL.POST_PROCESSING.NMS_CONFIG
+    nms.NMS_PRE_MAXSIZE = 32
+    nms.NMS_POST_MAXSIZE = 16
+    return cfg
 
 
 def tiny_pointpillar_cfg(cfg):
@@ -364,7 +405,8 @@ def tiny_pillarnet_cfg(cfg):
 # SECONDNet's by its backbone too)
 TINY_CFGS = {'PDMSSD': tiny_pdmssd_cfg, 'PointRCNN': tiny_pointrcnn_cfg,
              'SECONDNet': tiny_secondnet_cfg, 'PointPillar': tiny_pointpillar_cfg,
-             'CenterPoint': tiny_centerpoint_pillar_cfg, 'PillarNet': tiny_pillarnet_cfg}
+             'CenterPoint': tiny_centerpoint_pillar_cfg, 'PillarNet': tiny_pillarnet_cfg,
+             'VoxelNeXt': tiny_voxelnext_cfg}
 
 
 def voxelizes(cfg) -> bool:
@@ -404,12 +446,14 @@ def open_score_gate(net: torch.nn.Module) -> torch.nn.Module:
     an anchor head's (it starts at -log(99), as in the JAX package, so a
     seeded model scores every anchor near 0.01, below any SCORE_THRESH, and
     its NMS sees no candidate) or a heatmap head's (it starts at -2.19,
-    scores near 0.1, at the SCORE_THRESH of the PDM configs). At 0 the
-    scores spread around 0.5 and post-processing does the work it does for a
-    trained model."""
+    scores near 0.1, at the SCORE_THRESH of the PDM configs; VoxelNeXt's
+    first head group). At 0 the scores spread around 0.5 and
+    post-processing does the work it does for a trained model."""
     head = net.dense_head
+    layer = (head.conv_cls if hasattr(head, 'conv_cls') else
+             head.head.hm_out if hasattr(head, 'head') else head.head_0.hm_out)
     with torch.no_grad():
-        (head.conv_cls if hasattr(head, 'conv_cls') else head.head.hm_out).bias.zero_()
+        layer.bias.zero_()
     return net
 
 

@@ -1,7 +1,8 @@
 """The rest of the KITTI PDM family in the port against the JAX package, on
 the CPU: `pdm_ssd.yaml` (pillarize, GridPointBackbone, PDMNeckConv, circle
 NMS), `pdm_ssd_aux.yaml` (PointHeadSimple), `pdm_ssd_large.yaml` and flip
-TTA.
+TTA, with the flip TTA of `Detector3D` (a pillar config and the sparse
+SECOND) beside the PDM family's.
 
 The tiny configs are `utils/synthetic.tiny_grid_cfg` (the JAX package's flip
 TTA test shrink of `pdm_ssd.yaml`), `tiny_large_cfg` and, for the aux
@@ -36,8 +37,8 @@ from pdm_ssd_tpu.models.backbones_2d import pdm_neck_conv as j_neck
 from pdm_ssd_tpu.ops import iou3d as j_iou3d
 from pdm_ssd_tpu.ops.pillarize import pillarize as j_pillarize
 from pdm_ssd_tpu.utils.config import CfgNode as JCfgNode
-from torch_port_harness import (FlagshipPair, ModelPair, jax_bf16_extraction, randomize_variables,
-                                to_numpy)
+from torch_port_harness import (FlagshipPair, ModelPair, jax_bf16_extraction,
+                                open_score_gate_flax, randomize_variables, to_numpy)
 
 REPO = Path(__file__).resolve().parents[1]
 KITTI_RANGE = (0.0, -40.0, -3.0, 70.4, 40.0, 1.0)
@@ -458,6 +459,91 @@ def test_tta_flip_predict_matches_jax(model, flips, grid):
             plain = to_numpy(pair.net.predict({'points': torch.from_numpy(pair.points)}))
     assert not np.array_equal(want['pred_boxes'], plain['pred_boxes'])   # the flips count
     assert match_detections(got, want) > 8
+
+
+TTA_DETECTOR3D = {'centerpoint_pillar': (['x', 'y'], False, 4096),
+                  'second_sparse': (['x'], True, 3000)}
+
+
+def _detector3d_tta(name):
+    """(the tiny config with TTA_FLIP, the JAX model of it, the pair of the
+    config without it, the flax weights with the classification bias at 0)."""
+    flips, voxels, N = TTA_DETECTOR3D[name]
+    cfg = synthetic.TINY_CFGS[load_cfg(name).MODEL.NAME](load_cfg(name))
+    if name == 'second_sparse':
+        cfg.MODEL.BACKBONE_3D.pop('TABLE_DTYPE')      # the JAX ladder would run in bf16
+    pair = ModelPair(cfg, B=2, N=N, seed=3, voxels=voxels)
+    tta = TCfgNode(cfg.to_dict())
+    tta.MODEL.POST_PROCESSING.TTA_FLIP = flips
+    jcfg = JCfgNode(tta.to_dict())
+    j_model = j_build_network(jcfg.MODEL, num_class=3, dataset_cfg=jcfg.DATA_CONFIG)
+    return tta, j_model, pair, open_score_gate_flax(pair.variables)
+
+
+@pytest.mark.parametrize('name', sorted(TTA_DETECTOR3D))
+def test_detector3d_tta_flip_predict_matches_jax(name):
+    """`Detector3D.predict` with TTA_FLIP (a forward per entry on the mirrored
+    scene, boxes and heading mirrored back, one joint NMS of the config's
+    type): on the tiny `centerpoint_pillar.yaml` (points, circle NMS) and the
+    tiny sparse SECOND (a batch prepared once, rotated NMS), the
+    classification bias at 0: detections matched by box and label, and the
+    flips change them."""
+    tta, j_model, pair, variables = _detector3d_tta(name)
+    want = to_numpy(jax.jit(lambda v, b: j_model.apply(v, b, method=j_model.predict))(
+        variables, pair.inputs))
+    net = build_network(tta.MODEL, 3, tta.DATA_CONFIG, device='cpu')
+    net.load_state_dict(from_flax(variables, net))
+    got = net.predict(pair.torch_inputs())
+    pair.net.load_state_dict(from_flax(variables, pair.net))
+    plain = to_numpy(pair.net.predict(pair.torch_inputs()))
+    assert not np.array_equal(want['pred_boxes'], plain['pred_boxes'])   # the flips count
+    assert match_detections(got, want) >= 16
+
+
+def test_tta_flip_runs_the_flipped_pass_on_the_unflipped_maps():
+    """A fault of the reference, copied: the JAX package's `predict` takes a
+    batch whose kernel maps were built before the flip and does not rebuild
+    them, so the sparse SECOND's flipped pass runs the unflipped maps and
+    reorder on features whose x mean is negated. The port's TTA predict is
+    that: the joint NMS of the plain pass and of a forward on the flipped
+    voxels with the batch's own maps, boxes mirrored back; a pass on maps
+    rebuilt for the flipped scene gives other detections."""
+    import math
+    from pdm_ssd_torch.models import model_nms
+    tta, _, pair, variables = _detector3d_tta('second_sparse')
+    net = build_network(tta.MODEL, 3, tta.DATA_CONFIG, device='cpu')
+    net.load_state_dict(from_flax(variables, net))
+    batch = pair.torch_inputs()
+    gw = net.grid_size[0]
+
+    def flipped(b):
+        b = dict(b)
+        b['voxels'] = b['voxels'].clone()
+        b['voxels'][..., 0] *= -1.0
+        b['points'] = b['points'].clone()
+        b['points'][..., 0] *= -1.0
+        b['voxel_coords'] = b['voxel_coords'].clone()
+        b['voxel_coords'][..., 2] = gw - 1 - b['voxel_coords'][..., 2]
+        return b
+
+    def merged(flip_det):
+        boxes = flip_det['pred_boxes'].clone()
+        boxes[..., 0] *= -1.0
+        boxes[..., 6] = math.pi - boxes[..., 6]
+        dets = [net.post_process(net(dict(batch))), {**flip_det, 'pred_boxes': boxes}]
+        cat = [torch.cat([d[k] for d in dets], 1)
+               for k in ('pred_boxes', 'pred_scores', 'pred_labels', 'pred_mask')]
+        return dict(zip(('pred_boxes', 'pred_scores', 'pred_labels', 'pred_mask'),
+                        model_nms.dispatch_nms(*cat, tta.MODEL.POST_PROCESSING.NMS_CONFIG, 3)))
+
+    with torch.inference_mode():
+        stale = merged(net.post_process(net(flipped(batch))))
+        raw = {k: v for k, v in flipped(batch).items() if not k.startswith('sp_')}
+        rebuilt = merged(net.post_process(net(get_host_prepare(tta.MODEL, tta.DATA_CONFIG)(raw))))
+    got = net.predict(batch)
+    for k in got:
+        assert torch.equal(got[k], stale[k]), k
+    assert not torch.equal(got['pred_boxes'], rebuilt['pred_boxes'])
 
 
 # ---- the auxiliary head ------------------------------------------------------------

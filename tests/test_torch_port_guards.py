@@ -57,6 +57,8 @@ SLICE_MODULES = [
     'pdm_ssd_torch.models.dense_heads.point_head_simple',
     'pdm_ssd_torch.models.backbones_2d.map_to_bev',
     'pdm_ssd_torch.models.backbones_3d.voxel_backbone',
+    'pdm_ssd_torch.models.backbones_3d.sparse_backbone_focal',
+    'pdm_ssd_torch.models.dense_heads.voxelnext_head',
     'bench_torch',
 ]
 
@@ -229,7 +231,9 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
                      'configs/kitti_models/pdm_ssd_large.yaml',
                      'configs/kitti_models/pointpillar.yaml',
                      'configs/kitti_models/centerpoint_pillar.yaml',
-                     'configs/kitti_models/pillarnet.yaml', 'configs/kitti_models/second.yaml'):
+                     'configs/kitti_models/pillarnet.yaml', 'configs/kitti_models/second.yaml',
+                     'configs/kitti_models/voxelnext.yaml',
+                     'configs/kitti_models/second_focal.yaml'):
         cfg = t_config.cfg_from_yaml_file(cfg_file)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_network(cfg.MODEL, 3, cfg.DATA_CONFIG)
@@ -319,8 +323,7 @@ def test_sparse_conv_dispatch_has_no_quiet_plain_version(monkeypatch):
 
 
 @pytest.mark.parametrize('what', ['TABLE_DTYPE int8', 'SparseUNetV2 training maps', 'QWIN',
-                                  'SparseUNetV2', 'focal ladder', 'VoxelNeXt', 'TTA_FLIP',
-                                  'multi_classes_nms'])
+                                  'SparseUNetV2', 'multi_classes_nms'])
 def test_unported_parts_of_the_voxel_family_raise(what, monkeypatch):
     """Every option and module name of the voxel family that the port does not
     have raises `NotImplementedError` naming its ROADMAP item, at build time
@@ -352,15 +355,6 @@ def test_unported_parts_of_the_voxel_family_raise(what, monkeypatch):
         elif what == 'SparseUNetV2':
             model.BACKBONE_3D.NAME = 'SparseUNetV2'
             prepare()
-        elif what == 'focal ladder':
-            model.BACKBONE_3D.NAME = 'VoxelBackBone8xFocal'
-            prepare()
-        elif what == 'VoxelNeXt':
-            model.DENSE_HEAD.NAME = 'VoxelNeXtHead'
-            prepare()
-        elif what == 'TTA_FLIP':
-            model.POST_PROCESSING.TTA_FLIP = ['x']
-            build()
         else:
             model.POST_PROCESSING.NMS_CONFIG.NMS_TYPE = 'multi_classes_nms'
             net = build()

@@ -110,6 +110,13 @@ def to_torch(tree):
     return torch.from_numpy(np.array(tree))
 
 
+def arrays_only(out: dict) -> dict:
+    """A forward's output without its entries of names (VoxelNeXt's
+    'voxelnext_head_order'), which a jitted function cannot return."""
+    return {k: v for k, v in out.items()
+            if not (isinstance(v, (list, tuple)) and v and isinstance(v[0], str))}
+
+
 class ModelPair:
     """One config built in both packages with the same weights, plus the JAX
     forward of one batch (all intermediates) as numpy. `cfg` is a whole
@@ -167,7 +174,7 @@ class ModelPair:
         """The JAX forward of the batch in eval mode (all intermediates), as
         numpy; compiled and run on first use."""
         if self._jax_out is None:
-            fwd = jax.jit(lambda v, b: self.jax_model.apply(v, b, training=False))
+            fwd = jax.jit(lambda v, b: arrays_only(self.jax_model.apply(v, b, training=False)))
             self._jax_out = to_numpy(fwd(self.variables, self.inputs))
         return self._jax_out
 
@@ -186,7 +193,7 @@ class ModelPair:
         def forward_and_loss(module, b):
             out = module(b, training=True)
             loss, tb = module.get_training_loss(out)
-            return loss, (tb, out)
+            return loss, (tb, arrays_only(out))
 
         def loss_fn(params, stats, b):
             (loss, (tb, out)), mutated = self.jax_model.apply(
@@ -307,11 +314,12 @@ def match_detections(got: dict, want: dict, atol: float = 1e-3) -> int:
 def open_score_gate_flax(variables: dict) -> dict:
     """`synthetic.open_score_gate` on a flax tree: the dense head's
     classification bias (an anchor head's `conv_cls`, a heatmap head's
-    `head/hm_out`) at 0, in a copy."""
+    `head/hm_out`, VoxelNeXt's `head_0/hm_out`) at 0, in a copy."""
     import copy
     params = copy.deepcopy(variables['params'])
     head = params['dense_head']
-    layer = head['conv_cls'] if 'conv_cls' in head else head['head']['hm_out']
+    layer = (head['conv_cls'] if 'conv_cls' in head else
+             head['head']['hm_out'] if 'head' in head else head['head_0']['hm_out'])
     layer['bias'] = np.zeros_like(layer['bias'])
     return {'params': params, 'batch_stats': variables['batch_stats']}
 
