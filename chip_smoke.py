@@ -106,7 +106,8 @@ non-zero exit):
    into a fresh model and optimizer (epoch, the schedule's iteration, the
    optimizer's moments and the weights restored exactly), a second epoch,
    the rotation down to `max_ckpt_save_num=1`; finite losses and the
-   kernels' launches over both epochs (the scatter-add's 4 a step); a model
+   kernels' launches over both epochs (the scatter-add's 4 a step); every
+   step's loss and each term's largest value (`StepLog`); a model
    loaded from the last checkpoint predicts bit for bit what the trained one
    does (deterministic algorithms on for that comparison); then
    `eval_one_epoch` of that checkpoint, AP printed, no threshold;
@@ -209,11 +210,37 @@ non-zero exit):
 40. TTA_FLIP of `Detector3D` on CUDA against the CPU: the tiny
    `centerpoint_pillar.yaml` with ['x', 'y'] and the tiny sparse SECOND with
    ['x'] (its maps built once, before `predict`), detections matched by box
-   and label.
+   and label;
+41. the tiny PointRCNN (its FP list whole, its ROIs pooled 2 m wider) and
+   the tiny shrinks of `pv_rcnn.yaml`, `pv_rcnn_sparse.yaml`,
+   `voxel_rcnn.yaml` and `voxel_rcnn_sparse.yaml` on CUDA against the CPU,
+   on a training batch whose ground truth sits on proposals and one draw of
+   the ROI targets fed to both: integer and bool outputs equal (the
+   keypoints, the proposals' mask and labels, PV-RCNN's grid-pool indices
+   and empty balls, the targets' order, fg mask, matched ground truth),
+   the rest within FWD_RTOL, detections matched, losses within LOSS_RTOL,
+   gradients within SECOND_GRAD_RTOL;
+42. the kernels at this slice's shapes against their plain versions on the
+   files as shipped at B=4: PV-RCNN's grid-pool ball query (B * R clouds of
+   64 keypoints, 216 grid points, two radii; exact), the gathers of its
+   offsets and projected features (exact) and the scatter-add of their
+   backward (float64 bound), the voxel pools' gathers of PV-RCNN's VSA and
+   of Voxel R-CNN's ROI pool on the dense and the sparse ladder (exact);
+   device ms, plain ms, library ms and the bound;
+43. `predict` of the four as shipped at B=4 on LiDAR-like clouds of 16384
+   points (16000 voxel slots), the anchor bias at 0: the launches of
+   `two_stage_launches`, ms of the map build and of predict, frames/s,
+   device time, busy share, top kernels, peak memory;
+44. five training steps of PointRCNN (B=4, its FP list whole) and of the
+   four (B=2), 8 boxes a cloud: finite losses, the ROI terms of every
+   step, the launches a step, ms per step, peak memory;
+45. phases 16 and 17 with `pv_rcnn.yaml` at B=2: the eval loop (bias at 0,
+   non-finite boxes counted) and the 2-epoch train loop with an exact
+   resume and a bit-equal reload.
 
 The line before the last is the card's name and power limit; before it, one
 JSON line describing each kernel, with the launches of each path of phases 20
-to 39 (`launches_<path>`). The last line is
+to 45 (`launches_<path>`) and the sums of phase 42 (`two_stage_*`). The last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -587,7 +614,8 @@ def match_rois(got: dict, want: dict, phase: str) -> tuple[dict, dict, str]:
     cut to the pairs (clouds side by side along the first axis), and a note
     for the log."""
     n_want = n_pairs = 0
-    g_rows, w_rows = {k: [] for k in ROI_KEYS}, {k: [] for k in ROI_KEYS}
+    keys = [k for k in ROI_KEYS if k in want]
+    g_rows, w_rows = {k: [] for k in keys}, {k: [] for k in keys}
     kept_g, kept_w = got['roi_mask'].sum(dim=1), want['roi_mask'].sum(dim=1)
     if not torch.equal(kept_g, kept_w):
         raise SystemExit(f'[{phase}] FAILED: proposals kept per cloud {kept_g.tolist()} on CUDA, '
@@ -607,7 +635,7 @@ def match_rois(got: dict, want: dict, phase: str) -> tuple[dict, dict, str]:
                              f'run (at most {ROI_UNMATCHED_PER_CLOUD})')
         n_want += len(w_slots)
         n_pairs += int(paired.sum())
-        for k in ROI_KEYS:
+        for k in keys:
             w_rows[k].append(want[k][b][w_slots[paired]])
             g_rows[k].append(got[k][b][g_slots[twin[paired]]])
     if n_pairs < ROI_MATCH_SHARE * n_want:
@@ -2106,6 +2134,49 @@ def kitti_eval_phase(wrappers, synthetic, card: str, cfg_file: str = CFG,
     return launches
 
 
+def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal bit for bit: a float tensor's bits compared as integers, so a
+    NaN equals the same NaN (a box decoded past float32's `exp` limit and
+    rotated holds NaN, which `torch.equal` never finds equal)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype in (torch.float32, torch.float64):
+        view = torch.int32 if a.dtype == torch.float32 else torch.int64
+        return torch.equal(a.contiguous().view(view), b.contiguous().view(view))
+    return torch.equal(a, b)
+
+
+class StepLog:
+    """A logger for `trainer.train_model` at `log_interval=1`: keeps each
+    step's learning rate and loss terms, parsed from its line."""
+
+    def __init__(self):
+        self.steps = []
+
+    def info(self, msg: str) -> None:
+        head, _, terms = msg.partition(' lr ')
+        if ' iter ' not in head:
+            return
+        lr, *rest = terms.split()
+        self.steps.append({'loss': float(head.rsplit(' ', 1)[1]), 'lr': float(lr),
+                           **{k: float(v) for k, v in (t.split('=') for t in rest)}})
+
+    def summary(self, per_epoch: int) -> str:
+        """Each step's loss; each term's largest value and its step, and the
+        steps on which it is 0 (an ROI term on a step without a foreground
+        ROI); the terms of the step with the largest loss."""
+        terms = [k for k in self.steps[0] if k not in ('loss', 'lr')]
+        losses = [s['loss'] for s in self.steps]
+        top = int(np.argmax(losses))
+        peaks = ', '.join(f'{k} {max(s[k] for s in self.steps):.4f} at step '
+                          f'{int(np.argmax([s[k] for s in self.steps]))}, 0 on '
+                          f'{sum(s[k] == 0 for s in self.steps)}' for k in terms)
+        at_top = ', '.join(f'{k} {self.steps[top][k]:.4f}' for k in terms)
+        return (f'losses a step ({per_epoch} an epoch): {" ".join(f"{x:.4g}" for x in losses)}; '
+                f'each term\'s largest and the steps it is 0 on: {peaks}; the largest step, '
+                f'{top} (lr {self.steps[top]["lr"]:.3e}): {at_top}')
+
+
 def train_loop_phase(wrappers, synthetic, card: str, cfg_file: str = CFG,
                      phase: str = '17 train loop', expected: dict = TRAIN_LAUNCHES,
                      B: int = 8) -> dict:
@@ -2134,8 +2205,10 @@ def train_loop_phase(wrappers, synthetic, card: str, cfg_file: str = CFG,
     torch.cuda.synchronize()
     reset_launches(wrappers)
     t0 = time.perf_counter()
+    steps = StepLog()
     losses = trainer.train_model(net, optimizer, sched, loader, 1, ckpt_dir=ckpt_dir,
-                                 max_ckpt_save_num=1, host_prepare=train_prepare)
+                                 max_ckpt_save_num=1, host_prepare=train_prepare,
+                                 logger=steps, log_interval=1)
     names = [c.name for c in trainer.list_checkpoints(ckpt_dir)]
     if names != ['checkpoint_epoch_1.pth']:
         raise SystemExit(f'[{phase}] FAILED: checkpoints after epoch 1: {names}')
@@ -2151,24 +2224,24 @@ def train_loop_phase(wrappers, synthetic, card: str, cfg_file: str = CFG,
                          f'{fresh_opt.count} (want {optimizer.count}), state equal: {same}')
     losses += trainer.train_model(fresh, fresh_opt, sched, loader, epochs, ckpt_dir=ckpt_dir,
                                   max_ckpt_save_num=1, start_epoch=start,
-                                  host_prepare=train_prepare)
+                                  host_prepare=train_prepare, logger=steps, log_interval=1)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_launches(wrappers)
-    steps = epochs * len(loader)
-    want = {k: v * steps for k, v in expected.items()}
+    want = {k: v * epochs * len(loader) for k, v in expected.items()}
     names = [c.name for c in trainer.list_checkpoints(ckpt_dir)]
     if not all(np.isfinite(losses)) or names != [f'checkpoint_epoch_{epochs}.pth']:
         raise SystemExit(f'[{phase}] FAILED: losses {losses}, checkpoints {names}')
     if launches != want:
-        raise SystemExit(f'[{phase}] FAILED: kernel launches {launches} over {steps} steps, '
-                         f'expected {want}')
+        raise SystemExit(f'[{phase}] FAILED: kernel launches {launches} over '
+                         f'{epochs * len(loader)} steps, expected {want}')
     log(phase, f'{tag}.yaml B={B} over {len(ds)} train frames, {epochs} epochs of '
         f'{len(loader)} '
         f'steps (the second after a resume at epoch {start}, iteration '
         f'{fresh_opt.count - len(loader)}, moments and weights equal): mean losses '
         f'{" ".join(f"{x:.4f}" for x in losses)}; {seconds:.1f} s with loading; checkpoints '
         f'left {names}; launches {launches} on {card}')
+    log(phase, steps.summary(len(loader)))
 
     reloaded = synthetic.random_model(cfg, 'cuda', seed=13)
     trainer.load_checkpoint(ckpt_dir / names[-1], reloaded)
@@ -2191,9 +2264,9 @@ def train_loop_phase(wrappers, synthetic, card: str, cfg_file: str = CFG,
         torch.cuda.synchronize()
     finally:
         torch.use_deterministic_algorithms(False)
-    repeat = all(torch.equal(again[k], want_det[k]) for k in want_det)
-    differ = [k for k in want_fwd if not torch.equal(got_fwd[k], want_fwd[k])] + [
-        k for k in want_det if not torch.equal(got_det[k], want_det[k])]
+    repeat = all(bit_equal(again[k], want_det[k]) for k in want_det)
+    differ = [k for k in want_fwd if not bit_equal(got_fwd[k], want_fwd[k])] + [
+        k for k in want_det if not bit_equal(got_det[k], want_det[k])]
     if differ:
         raise SystemExit(f'[{phase}] FAILED: the reloaded model differs from the trained one in '
                          f'{differ} (the trained model repeats its predict bit for bit: {repeat})')
@@ -2212,7 +2285,9 @@ def train_loop_phase(wrappers, synthetic, card: str, cfg_file: str = CFG,
     annos = pickle.loads((KITTI_DIR / f'eval_trained_{tag}' / 'result.pkl').read_bytes())
     log(phase, f'the checkpoint of epoch {epochs} reloaded, on the first val batch: its '
         f'{len(want_fwd)} forward outputs and its predict bit-equal to the trained model\'s '
-        f'({int(want_det["pred_mask"].sum())} kept boxes; the trained model repeats its predict '
+        f'({int(want_det["pred_mask"].sum())} kept boxes, '
+        f'{int((~torch.isfinite(want_det["pred_boxes"]).all(-1) & want_det["pred_mask"]).sum())} '
+        f'of them not finite; the trained model repeats its predict '
         f'bit for bit: {repeat}); parameters and buffers not finite: {not_finite[:4]} of '
         f'{len(state)}; sum of |parameters| {checksum!r}; the largest size code on that batch '
         f'{size_code}; its eval over {len(vds)} val frames: '
@@ -2904,14 +2979,644 @@ def ladder_phases(wrappers, sc, synthetic, smi: str, cfg_from_yaml_file) -> dict
     return paths
 
 
+# phases 41 to 45: the two-stage family's shared core. PointRCNN's training,
+# PV-RCNN and Voxel R-CNN on the dense and the sparse ladder, served and trained
+TWO_STAGE_MODELS = (('pv_rcnn', 'configs/kitti_models/pv_rcnn.yaml'),
+                    ('pv_rcnn_sparse', 'configs/kitti_models/pv_rcnn_sparse.yaml'),
+                    ('voxel_rcnn', 'configs/kitti_models/voxel_rcnn.yaml'),
+                    ('voxel_rcnn_sparse', 'configs/kitti_models/voxel_rcnn_sparse.yaml'))
+PV_RCNN_CFG = TWO_STAGE_MODELS[0][1]
+# points per cloud: the `sample_points` of the four files' data processor
+TWO_STAGE_POINTS = 16384
+# the tiny models' clouds (256 voxel slots) and PointRCNN's
+TINY_TWO_STAGE_POINTS = 3000
+TINY_POINTRCNN_POINTS = 2048
+# one PointRCNN train step launches a predict's kernels (the ROI stack's FPS
+# and ball query on its B * ROI_PER_IMAGE clouds), and in the backward one
+# scatter-add for each gather of features with a gradient: SA levels 2 and 3
+# of the backbone at two radii, the ROI stack's two levels at one
+POINTRCNN_TRAIN_LAUNCHES = {**POINTRCNN_PREDICT_LAUNCHES, 'scatter_add_rows': 6}
+
+
+def two_stage_launches(cfg, B: int, train: bool) -> dict:
+    """The launches of one predict (or train step) of PV-RCNN or Voxel R-CNN
+    at B clouds of TWO_STAGE_POINTS points: on the sparse ladder the reorder
+    gather and 12 sparse convs (a step: 11 data gradients and 12 weight
+    gradients more); one gather per voxel pool (PV-RCNN's two VSA stages,
+    Voxel R-CNN's three pooled stages), a scatter-add each in the backward;
+    PV-RCNN's FPS of the keypoints, one selection and a gather per radius for
+    its raw points (no gradient behind them), one ball query of the grid pool
+    on its B * R clouds of POOL_MAX_KEYPOINTS keypoints and a gather of the
+    offsets and one of the projected features per radius, a scatter-add for
+    the features in the backward. FPS and the ball query by the path their
+    plans take."""
+    from pdm_ssd_torch.ops import ball_query as bq
+    from pdm_ssd_torch.ops import fps
+    m = cfg.MODEL
+    sparse = m.BACKBONE_3D.NAME.startswith('Sparse')
+    n = {k: 0 for k in PREDICT_LAUNCHES}
+    if sparse:
+        n['gather_rows'] += 1
+        n['sparse_conv'] += 12 + (11 if train else 0)
+        n['sparse_conv_wgrad'] += 12 if train else 0
+    if m.NAME == 'PVRCNN':
+        pools = sum(s.startswith('x_conv') for s in m.PFE.FEATURES_SOURCE)
+        radii = m.ROI_HEAD.ROI_GRID_POOL.POOL_RADIUS
+        raw = len(m.PFE.SA_LAYER.raw_points.POOL_RADIUS)
+        plan = fps.plan_for(0, B, TWO_STAGE_POINTS, int(m.PFE.NUM_KEYPOINTS))
+        n['farthest_point_sample'] = 1
+        n[f'fps {plan.path} path'] = 1
+        n['window_select'] = 1
+        n['ball_query'] = 1
+        path = bq.ball_query_plan(int(m.ROI_HEAD.POOL_MAX_KEYPOINTS), radii).path
+        n[f'ball query {path} path'] = 1
+        n['gather_rows'] += pools + raw + 2 * len(radii)
+        n['scatter_add_rows'] += (pools + len(radii)) if train else 0
+    else:
+        pools = len(m.ROI_HEAD.ROI_GRID_POOL.FEATURES_SOURCE)
+        n['gather_rows'] += pools
+        n['scatter_add_rows'] += pools if train else 0
+    return n
+
+
+def roi_draw(B: int, R: int, seed: int) -> torch.Tensor:
+    """The uniform draw of the ROI targets, (B, R), made on the CPU: fed to
+    both devices as 'roi_target_rand'."""
+    return torch.rand((B, R), generator=torch.Generator().manual_seed(seed))
+
+
+def plant_gt(net, batch: dict) -> dict:
+    """The batch with its first 3 ground-truth boxes of each cloud moved onto
+    proposals of a training forward of `net` (its first 3 valid ROIs, label
+    1), so that the targets hold foreground ROIs; the other boxes stay. The
+    proposals do not depend on the ground truth; the BatchNorm statistics
+    the forward moved are restored."""
+    state = {k: v.clone() for k, v in net.state_dict().items()}
+    net.train()
+    with torch.no_grad():
+        out = net(dict(batch))
+    net.eval()
+    net.load_state_dict(state)
+    gt, mask = batch['gt_boxes'].clone(), batch['gt_mask'].clone()
+    for b in range(gt.shape[0]):
+        rois = out['rois'][b][out['roi_mask'][b]][:3]
+        gt[b, :len(rois), :7] = rois
+        gt[b, :len(rois), 7] = 1
+        mask[b, :len(rois)] = True
+    return {**batch, 'gt_boxes': gt, 'gt_mask': mask}
+
+
+def two_stage_batch(name: str, cfg, synthetic, B: int, N: int, seed: int, device) -> dict:
+    """A training batch of a two-stage model: PointRCNN's LiDAR-like points
+    with 8 boxes a cloud, a voxel model's voxelized clouds prepared for
+    training on `device`."""
+    from pdm_ssd_torch.models import get_host_prepare
+    if name == 'pointrcnn':
+        pc = cfg.DATA_CONFIG.POINT_CLOUD_RANGE
+        pts = torch.from_numpy(synthetic.lidar_points(B, N, seed, pc)).to(device)
+        gt = torch.from_numpy(synthetic.gt_boxes(B, 8, pc, seed + 1)).to(device)
+        return {'points': pts, 'gt_boxes': gt,
+                'gt_mask': torch.ones((B, 8), dtype=torch.bool, device=device)}
+    batch = synthetic.voxel_train_batch(B, N, cfg, 8, seed=seed, device=device)
+    prepare = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG, training=True)
+    return batch if prepare is None else prepare(batch)
+
+
+class ProposalReplay:
+    """While active, the CUDA model's proposal layer returns what the CPU
+    model's proposal layer returned in the same call of a paired run (the
+    CPU runs first): near-tied first-stage scores permute the proposals'
+    slots between the devices and move a few across the cut (phase 10), and
+    the targets' draw is per slot, so the second stage is compared on one
+    set of proposals. `match_rois` holds the proposal layers themselves."""
+
+    def __init__(self, cpu_net, gpu_net):
+        self.heads = cpu_net.roi_head, gpu_net.roi_head
+        self.queue = []
+
+    def __enter__(self):
+        cpu_head, gpu_head = self.heads
+        record, keys = cpu_head.proposal_layer, ('rois', 'roi_scores', 'roi_labels', 'roi_mask')
+
+        def recorded(batch):
+            out = record(batch)
+            self.queue.append({k: out[k].clone() for k in keys})
+            return out
+
+        def replayed(batch):
+            batch.update({k: v.cuda() for k, v in self.queue.pop(0).items()})
+            return batch
+
+        cpu_head.proposal_layer, gpu_head.proposal_layer = recorded, replayed
+        return self
+
+    def __exit__(self, *exc):
+        for head in self.heads:
+            del head.proposal_layer
+
+
+def serving_batch(cfg, synthetic, B: int, seed: int) -> dict:
+    """A two-stage voxel model's serving batch on the card: B LiDAR-like
+    clouds of TWO_STAGE_POINTS points, voxelized, with the sparse ladder's
+    maps where the model has them."""
+    from pdm_ssd_torch.models import get_host_prepare
+    batch = synthetic.voxel_batch(B, TWO_STAGE_POINTS, cfg, seed=seed, device='cuda')
+    prepare = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG)
+    return batch if prepare is None else prepare(batch)
+
+
+def two_stage_cuda_vs_cpu_phase(name: str, cfg, synthetic) -> None:
+    """Phase 41: the tiny shrink of a two-stage config (`synthetic.TINY_CFGS`;
+    PointRCNN's with its FP list whole and its ROIs pooled 2 m wider, so that
+    they hold points) on CUDA (the kernels) against the CPU (the plain
+    versions), the anchor bias at 0, on a training batch whose ground truth
+    sits on proposals, with one draw of the targets fed to both: the batches
+    equal; the proposal layers on the CPU's first stage, matched by box
+    (`match_rois`); then, the CUDA run given the CPU run's proposals
+    (`ProposalReplay`): every integer and bool output of the eval forward
+    equal (the keypoints, the proposals' mask and labels) and the float ones
+    within FWD_RTOL of scale, PV-RCNN's grid-pool indices and empty balls
+    equal, the targets' order, fg mask and matched ground truth equal,
+    detections matched by box and label, each loss within LOSS_RTOL and
+    every gradient within SECOND_GRAD_RTOL relative L2."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase = '41 two-stage cuda-vs-cpu'
+    if name == 'pointrcnn':
+        tiny = synthetic.tiny_pointrcnn_cfg(synthetic.pointrcnn_fp3(cfg))
+        tiny.MODEL.ROI_HEAD.ROI_POINT_POOL.POOL_EXTRA_WIDTH = [2.0, 2.0, 2.0]
+        N = TINY_POINTRCNN_POINTS
+    else:
+        tiny = synthetic.TINY_CFGS[cfg.MODEL.NAME](cfg)
+        N = TINY_TWO_STAGE_POINTS
+    ins = {dev: two_stage_batch(name, tiny, synthetic, 2, N, 4, dev) for dev in ('cpu', 'cuda')}
+    for k, v in ins['cpu'].items():
+        if not torch.equal(ins['cuda'][k].cpu(), v):
+            raise SystemExit(f'[{phase}] FAILED: {name} {k} made on CUDA differs from the CPU\'s')
+    cpu_net = synthetic.random_model(tiny, 'cpu')
+    if name != 'pointrcnn':
+        synthetic.open_score_gate(cpu_net)
+    gpu_net = synthetic.random_model(tiny, 'cuda')
+    gpu_net.load_state_dict(cpu_net.state_dict())
+    planted = plant_gt(cpu_net, ins['cpu'])
+    R = tiny.MODEL.ROI_HEAD.NMS_CONFIG.TRAIN.NMS_POST_MAXSIZE
+    draw = roi_draw(2, R, 9)
+    ins = {'cpu': {**planted, 'roi_target_rand': draw},
+           'cuda': {**ins['cuda'], 'gt_boxes': planted['gt_boxes'].cuda(),
+                    'gt_mask': planted['gt_mask'].cuda(), 'roi_target_rand': draw.cuda()}}
+    # the proposal layers on one first stage, the CPU's
+    first = {}
+    with torch.inference_mode():
+        out = cpu_net(dict(ins['cpu']))
+        keys = ('batch_cls_preds', 'batch_box_preds')
+        for dev, net in (('cpu', cpu_net), ('cuda', gpu_net)):
+            first[dev] = net.roi_head.proposal_layer({k: out[k].to(dev) for k in keys})
+    _, _, roi_note = match_rois({k: v.cpu() for k, v in first['cuda'].items()
+                                 if k in ROI_KEYS[:4]},
+                                {k: v for k, v in first['cpu'].items() if k in ROI_KEYS[:4]},
+                                phase)
+    with ProposalReplay(cpu_net, gpu_net):
+        outs = {}
+        with torch.inference_mode():
+            for dev, net in (('cpu', cpu_net), ('cuda', gpu_net)):
+                outs[dev] = {k: v for k, v in flatten(net(dict(ins[dev]))).items()
+                             if not k.startswith(('sp_', 'voxel'))}
+        worst, n_exact = 0.0, 0
+        for k, w in outs['cpu'].items():
+            g = outs['cuda'][k].cpu()
+            if not w.dtype.is_floating_point or k == 'point_coords':
+                if not torch.equal(g, w):
+                    raise SystemExit(f'[{phase}] FAILED {name} {k}: differs between CUDA and the '
+                                     'CPU')
+                n_exact += 1
+                continue
+            rel = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-6)
+            worst = max(worst, rel)
+            if not rel <= FWD_RTOL:
+                raise SystemExit(f'[{phase}] FAILED {name} {k}: max |diff| / max |cpu| = '
+                                 f'{rel:.3e}')
+        grid_note = ''
+        if hasattr(cpu_net.roi_head, 'grid_select'):
+            # the grid pool's selection on CUDA and on the CPU, from the CPU's inputs
+            with torch.inference_mode():
+                b = cpu_net.pfe(cpu_net.first_stage(dict(ins['cpu'])))
+                head = cpu_net.roi_head      # its own proposal layer, not the recording
+                b = {k: v for k, v in type(head).proposal_layer(head, b).items()
+                     if torch.is_tensor(v)}
+                sel = {dev: net.roi_head.grid_select({k: v.to(dev) for k, v in b.items()},
+                                                     b['rois'].to(dev))
+                       for dev, net in (('cpu', cpu_net), ('cuda', gpu_net))}
+            for i, (gw, gg) in enumerate(zip(sel['cpu'][4], sel['cuda'][4])):
+                if not (torch.equal(gg.cpu(), gw)
+                        and torch.equal(sel['cuda'][5][i].cpu(), sel['cpu'][5][i])):
+                    raise SystemExit(f'[{phase}] FAILED {name}: grid-pool indices of radius {i} '
+                                     'differ between CUDA and the CPU')
+            grid_note = (f'; grid-pool indices {[tuple(g.shape) for g in sel["cpu"][4]]} equal, '
+                         f'{int(sum(e.sum() for e in sel["cpu"][5]))} empty balls of '
+                         f'{sum(e.numel() for e in sel["cpu"][5])}')
+        # the targets of a training forward
+        tgts = {}
+        for dev, net in (('cpu', cpu_net), ('cuda', gpu_net)):
+            state = {k: v.clone() for k, v in net.state_dict().items()}
+            net.train()
+            with torch.no_grad():
+                tgts[dev] = net(dict(ins[dev]))['roi_targets']
+            net.eval()
+            net.load_state_dict(state)
+        for k in ('roi_mask', 'reg_valid_mask', 'gt_of_roi', 'rois'):
+            if not torch.equal(tgts['cuda'][k].cpu(), tgts['cpu'][k]):
+                raise SystemExit(f'[{phase}] FAILED {name}: targets {k} differ between CUDA and '
+                                 'the CPU')
+        for k in ('rcnn_cls_labels', 'rcnn_reg_targets'):
+            w, g = tgts['cpu'][k], tgts['cuda'][k].cpu()
+            if not float((g - w).abs().max()) <= FWD_RTOL * max(float(w.abs().max()), 1.0):
+                raise SystemExit(f'[{phase}] FAILED {name}: targets {k} differ beyond FWD_RTOL')
+        n_fg = int(tgts['cpu']['reg_valid_mask'].sum())
+        want = cpu_net.predict(dict(ins['cpu']))
+        note = match_detections({k: v.cpu() for k, v in gpu_net.predict(dict(ins['cuda'])).items()},
+                                want, phase)
+        c_tb, g_tb, worst_g, worst_k, n = training_cuda_vs_cpu(
+            phase, name, {'cpu': cpu_net, 'cuda': gpu_net}, ins, SECOND_GRAD_RTOL)
+    log(phase, f'tiny {name} B=2, ground truth on 3 proposals a cloud, one draw of the targets: '
+        f'batches equal; the proposal layers on the CPU\'s first stage{roi_note}; with the CPU\'s '
+        f'proposals on both: {len(outs["cpu"]) - n_exact} float outputs agree, worst '
+        f'max|diff|/max|cpu| = {worst:.3e} (bound {FWD_RTOL:g}), {n_exact} integer, bool and '
+        f'keypoint outputs equal{grid_note}; targets equal (order, masks, matched ground truth; '
+        f'{n_fg} foreground ROIs); predict: {note}; losses on CUDA / CPU '
+        + ', '.join(f'{k} {g_tb[k]:.6f} / {v:.6f}' for k, v in c_tb.items())
+        + f'; {n} gradients agree, worst relative L2 {worst_g:.3e} at {worst_k} '
+        f'(bound {SECOND_GRAD_RTOL:g})')
+
+
+class _GatherRecorder:
+    """Stands in for `GatherRows` in a module while it runs: records each
+    call's (table, indices) and gathers as the original does."""
+
+    def __init__(self, original):
+        self.original, self.calls = original, []
+
+    def apply(self, features, idx):
+        self.calls.append((features.detach(), idx))
+        return self.original.apply(features, idx)
+
+
+def gather_check(phase: str, name: str, group, table, idx) -> dict:
+    """The row gather at one shape against its plain version (exact), with
+    its device ms, the plain version's ms, torch.gather's ms and the bound."""
+    table, idx = table.contiguous(), idx.to(torch.int32).contiguous()
+    B, N, C = table.shape
+    got = group.gather_rows_cuda(table, idx)
+    torch.cuda.synchronize()
+    if not torch.equal(got, group.gather_rows_plain(table, idx)):
+        raise SystemExit(f'[{phase}] FAILED {name}: gather_rows differs from its plain version')
+    safe = idx.long().clamp(0, N - 1)[..., None].expand(-1, -1, C)
+    t = device_time(lambda: group.gather_rows_cuda(table, idx))
+    byts = (idx.numel() * (C + 1) + min(B * N, idx.numel()) * C) * 4
+    r = {'ms': t['ms'], 'plain_ms': median_ms(lambda: group.gather_rows_plain(table, idx), 3),
+         'library_ms': device_time(lambda: torch.gather(table, 1, safe))['ms'],
+         'bound_ms': byts / HBM_BYTES_PER_S * 1e3}
+    log(phase, f'{name} gather_rows (B={B}, N={N}, R={idx.shape[1]}, C={C}): == plain (exact); '
+        f'kernel {timing_note(t)}; plain {r["plain_ms"]:.4f} ms; torch.gather '
+        f'{r["library_ms"]:.4f} ms; bound {r["bound_ms"]:.5f} ms')
+    return r
+
+
+def scatter_check(phase: str, name: str, group, idx, C: int, N: int, seed: int) -> dict:
+    """The row scatter-add at one shape, the backward of a gather with
+    indices `idx` into N rows of C channels: kernel and plain version within
+    float32 rounding of the float64 sum, with times and bound."""
+    B, R = idx.shape
+    idx = idx.to(torch.int32).contiguous()
+    vals = torch.randn((B, R, C), generator=torch.Generator().manual_seed(seed)).cuda()
+    back = group.scatter_add_rows_cuda(vals, idx, N)
+    torch.cuda.synchronize()
+    plain_back = group.scatter_add_rows_plain(vals, idx, N)
+    exact = group.scatter_add_rows_plain(vals.double().cpu(), idx.cpu(), N)
+    mass = group.scatter_add_rows_plain(vals.double().abs().cpu(), idx.cpu(), N)
+    count = group.scatter_add_rows_plain(torch.ones((B, R, 1), dtype=torch.float64),
+                                         idx.cpu(), N)
+    tol = 2.0 ** -23 * count * mass + 1e-30
+    for label, t in (('kernel', back), ('plain', plain_back)):
+        if bool(((t.double().cpu() - exact).abs() > tol).any()):
+            raise SystemExit(f'[{phase}] FAILED {name}: scatter_add_rows {label} differs from '
+                             'the float64 sum beyond rounding')
+    flat = (idx.long() + torch.arange(B, device='cuda')[:, None] * N).reshape(-1)
+    v2 = vals.reshape(-1, C)
+    t = device_time(lambda: group.scatter_add_rows_cuda(vals, idx, N))
+    byts = (vals.numel() + idx.numel() + B * N * C) * 4
+    r = {'ms': t['ms'], 'plain_ms': median_ms(
+        lambda: group.scatter_add_rows_plain(vals, idx, N), 3),
+         'library_ms': device_time(lambda: torch.zeros((B * N, C), device='cuda').index_add_(
+             0, flat, v2))['ms'], 'bound_ms': byts / HBM_BYTES_PER_S * 1e3,
+         'err': float((back - plain_back).abs().max())}
+    log(phase, f'{name} scatter_add_rows (B={B}, R={R}, C={C}, into {N} rows): kernel and plain '
+        f'within float32 rounding of float64 (kernel vs plain max |diff| {r["err"]:.2e}); kernel '
+        f'{timing_note(t)}; plain {r["plain_ms"]:.4f} ms; index_add_ {r["library_ms"]:.4f} ms; '
+        f'bound {r["bound_ms"]:.5f} ms')
+    return r
+
+
+def two_stage_kernels_phase(synthetic, smi: str, cfg_from_yaml_file) -> dict:
+    """Phase 42: the kernels at the shapes this slice gives them, each against
+    its plain version, on the serving batches of the files as shipped (B=4,
+    LiDAR-like clouds of 16384 points, the anchor bias at 0): PV-RCNN's grid
+    pool, its ball query (B * R clouds of 64 preselected keypoints, 216 grid
+    points, radii 0.8 and 1.6, K 16 and 16: indices exact) and the gathers
+    of offsets and projected features by its indices (exact), with the
+    scatter-add of the features' backward (float64 bound); the gathers of
+    the voxel pools (PV-RCNN's VSA on the dense ladder's x_conv3 and
+    x_conv4, Voxel R-CNN's on x_conv2 to x_conv4 of the dense and the sparse
+    ladder: exact). Returns, per kernel, the sums of device ms, plain ms,
+    library ms and bound over these shapes."""
+    from pdm_ssd_torch.models.backbones_3d import pfe
+    from pdm_ssd_torch.ops import ball_query as bq
+    from pdm_ssd_torch.ops import group
+    from pdm_ssd_torch.ops import pointnet2 as plain
+    from pdm_ssd_torch.models.model_nms import take_rows
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase = '42 two-stage kernels'
+    sums = {k: {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0, 'bound_ms': 0.0}
+            for k in ('ball_query', 'gather_rows', 'scatter_add_rows')}
+
+    def add(kern, r):
+        for key in sums[kern]:
+            sums[kern][key] += r[key] if r[key] is not None else 0.0
+
+    cfg = cfg_from_yaml_file(str(REPO / PV_RCNN_CFG))
+    net = synthetic.open_score_gate(synthetic.random_model(cfg, 'cuda', seed=7))
+    inputs = serving_batch(cfg, synthetic, 4, seed=5)
+    rec = _GatherRecorder(pfe.GatherRows)
+    pfe.GatherRows = rec
+    try:
+        with torch.inference_mode():
+            b = net.pfe(net.first_stage(inputs))
+    finally:
+        pfe.GatherRows = rec.original
+    for stage, (table, idx) in zip(('x_conv3', 'x_conv4'), rec.calls):
+        add('gather_rows', gather_check(phase, f'pv_rcnn VSA {stage} window', group, table, idx))
+    head = net.roi_head
+    with torch.inference_mode():
+        b = head.proposal_layer(b)
+        idx, valid, sel_xyz, grid, gidx, empties = head.grid_select(b, b['rois'])
+        BR, P = sel_xyz.shape[:2]
+        mask = valid.reshape(BR, P).contiguous()
+        got = bq.ball_query_cuda(head.radii, head.nsamples, sel_xyz, grid, mask)
+        want = [plain.ball_query(r, k, sel_xyz, grid, mask=mask)
+                for r, k in zip(head.radii, head.nsamples)]
+        torch.cuda.synchronize()
+        for r, g, w in zip(head.radii, got, want):
+            if not torch.equal(g, w):
+                raise SystemExit(f'[{phase}] FAILED grid-pool ball query r={r}: '
+                                 f'{int((g != w).sum())} indices differ from the plain version')
+        path = bq.ball_query_plan(P, head.radii).path
+        t = device_time(lambda: bq.ball_query_cuda(head.radii, head.nsamples, sel_xyz, grid,
+                                                   mask))
+        M = grid.shape[1]
+        # bytes: the points, their mask, the centres and the indices written;
+        # operations: one distance test (8 flops) per centre, point and radius
+        byts = (sel_xyz.numel() + mask.numel() / 4 + grid.numel()
+                + sum(BR * M * k for k in head.nsamples)) * 4
+        flops = 8 * BR * M * P * len(head.radii)
+        bq_r = {'ms': t['ms'], 'plain_ms': median_ms(lambda: [
+            plain.ball_query(r, k, sel_xyz, grid, mask=mask)
+            for r, k in zip(head.radii, head.nsamples)], 3), 'library_ms': None,
+            'bound_ms': max(byts / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S) * 1e3}
+        add('ball_query', bq_r)
+        log(phase, f'pv_rcnn grid pool ball query (B*R={BR} clouds of P={P} keypoints, '
+            f'{int(mask.sum())} valid, M={M} grid points, r={head.radii}, K={head.nsamples}, '
+            f'the {path} path): == plain (exact), {int(sum(e.sum() for e in empties))} empty '
+            f'balls of {sum(e.numel() for e in empties)}; kernel {timing_note(t)}; plain '
+            f'{bq_r["plain_ms"]:.3f} ms; bound {bq_r["bound_ms"]:.5f} ms')
+        kf = take_rows(b['point_features'], idx.reshape(b['rois'].shape[0], -1).long())
+        sel_feat = torch.where(valid.reshape(BR, P)[..., None], kf.reshape(BR, P, -1), 0.0)
+        for i, gi in enumerate(gidx):
+            rows = gi.reshape(BR, -1)
+            add('gather_rows', gather_check(phase, f'pv_rcnn grid pool r={head.radii[i]} offsets',
+                                            group, sel_xyz, rows))
+            pre = getattr(head, f'pre_feat_{i}')(sel_feat).contiguous()
+            add('gather_rows', gather_check(phase, f'pv_rcnn grid pool r={head.radii[i]} '
+                                            'features', group, pre, rows))
+            add('scatter_add_rows', {**scatter_check(
+                phase, f'pv_rcnn grid pool r={head.radii[i]} features backward', group, rows,
+                pre.shape[-1], P, 11 + i)})
+    del net, inputs, b, rec
+    torch.cuda.empty_cache()
+    for name, cfg_file in TWO_STAGE_MODELS[2:]:
+        cfg = cfg_from_yaml_file(str(REPO / cfg_file))
+        net = synthetic.open_score_gate(synthetic.random_model(cfg, 'cuda', seed=7))
+        inputs = serving_batch(cfg, synthetic, 4, seed=5)
+        rec = _GatherRecorder(pfe.GatherRows)
+        pfe.GatherRows = rec
+        try:
+            with torch.inference_mode():
+                net(dict(inputs))
+        finally:
+            pfe.GatherRows = rec.original
+        for stage, (table, idx) in zip(cfg.MODEL.ROI_HEAD.ROI_GRID_POOL.FEATURES_SOURCE,
+                                       rec.calls):
+            add('gather_rows', gather_check(phase, f'{name} ROI pool {stage} window', group,
+                                            table, idx))
+        del net, inputs, rec
+        torch.cuda.empty_cache()
+    log(phase, 'summed over these shapes, ms kernel / plain / library / bound: ' + '; '.join(
+        f'{k} {v["ms"]:.4f} / {v["plain_ms"]:.3f} / {v["library_ms"]:.4f} / '
+        f'{v["bound_ms"]:.4f}' for k, v in sums.items()) + f' on {smi}')
+    return sums
+
+
+def two_stage_predict_phase(name: str, cfg, wrappers, synthetic, card: str) -> dict:
+    """Phase 43: `predict` of a two-stage voxel model as shipped at B=4 on
+    LiDAR-like clouds of 16384 points (the data processor's sample) voxelized
+    into the file's 16000 slots, the anchor bias at 0: shapes, finite values,
+    `two_stage_launches` in the first run; then 5 passes timed in two parts
+    (the sparse ladder's map build, then predict on the prepared batch),
+    frames/s, peak memory, `torch.profiler`'s device time, busy share and top
+    kernels."""
+    from pdm_ssd_torch.models import get_host_prepare
+    from pdm_ssd_torch.tools.profile_predict import trace
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase = '43 two-stage predict'
+    B = 4
+    net = synthetic.open_score_gate(synthetic.random_model(cfg, 'cuda', seed=7))
+    prepare = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG)
+    raw = synthetic.voxel_batch(B, TWO_STAGE_POINTS, cfg, seed=5, device='cuda')
+    inputs = raw if prepare is None else prepare(raw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(wrappers)
+    det = net.predict(inputs)
+    torch.cuda.synchronize()
+    launches = read_launches(wrappers)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check_detections(phase, det, B, cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
+    expected = two_stage_launches(cfg, B, train=False)
+    if launches != expected:
+        raise SystemExit(f'[{phase}] FAILED {name}: kernel launches {launches}, expected '
+                         f'{expected}')
+
+    def two_parts() -> tuple[float, float]:
+        t0 = time.perf_counter()
+        batch = raw if prepare is None else prepare(raw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        net.predict(batch)
+        torch.cuda.synchronize()
+        return t1 - t0, time.perf_counter() - t1
+
+    for _ in range(2):
+        two_parts()
+    reps = [two_parts() for _ in range(5)]
+    build = statistics.median(r[0] for r in reps)
+    pred = statistics.median(r[1] for r in reps)
+    with torch.inference_mode():
+        prof = trace(net, inputs)
+    device_ms = prof['device_ms_per_predict']
+    log(phase, f'{name} as shipped B={B} N={TWO_STAGE_POINTS} '
+        f'({inputs["voxel_mask"].sum(1).tolist()} of {inputs["voxel_mask"].shape[1]} voxel '
+        f'slots filled): shapes ok, finite, {int(det["pred_mask"].sum())} kept boxes, launches '
+        f'{launches}; 5 passes timed in two parts: map build median {build * 1e3:.3f} ms, '
+        f'predict on the prepared batch median {pred * 1e3:.3f} ms/batch = {B / pred:.2f} '
+        f'frames/s (least {min(r[1] for r in reps) * 1e3:.3f}, most '
+        f'{max(r[1] for r in reps) * 1e3:.3f}); device {device_ms:.3f} ms per predict, busy '
+        f'{device_ms / (pred * 1e3):.3f}; peak allocated {peak:.3f} GiB; top kernels: '
+        + '; '.join(f'{r["name"][:60]} x{r["calls_per_predict"]:g} {r["ms_per_predict"]:.3f} ms'
+                    for r in prof['top_kernels'][:5]) + f' on {card}')
+    return launches
+
+
+def two_stage_train_phase(name: str, cfg, wrappers, synthetic, card: str) -> dict:
+    """Phase 44: five training steps of a two-stage config as shipped at
+    B = BATCH_SIZE_PER_GPU (PV-RCNN and Voxel R-CNN 2, PointRCNN 4, its FP
+    list whole), LiDAR-like clouds of 16384 points with 8 boxes each, 3 of
+    them on the seeded model's proposals (`plant_gt`): finite losses, the
+    ROI terms of every step, parameters changed, the expected launches a
+    step, ms per step (a voxel model's map build timed apart in 3 more
+    passes) and peak memory."""
+    from pdm_ssd_torch.models import get_host_prepare
+    from pdm_ssd_torch.runtime.trainer import create_train_state, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase = '44 two-stage train'
+    steps = 5
+    B = cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
+    net = synthetic.random_model(cfg, seed=7)          # no device named: the card
+    optimizer, _ = create_train_state(net, cfg.OPTIMIZATION, total_iters_each_epoch=100,
+                                      total_epochs=1)
+    if name == 'pointrcnn':
+        prepare, expected = None, POINTRCNN_TRAIN_LAUNCHES
+        raw = two_stage_batch(name, cfg, synthetic, B, TWO_STAGE_POINTS, 5, 'cuda')
+    else:
+        prepare = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG, training=True)
+        expected = two_stage_launches(cfg, B, train=True)
+        raw = synthetic.voxel_train_batch(B, TWO_STAGE_POINTS, cfg, 8, seed=5, device='cuda')
+    # 3 of the 8 boxes on proposals, so that the box and corner losses count
+    planted = plant_gt(net, raw if prepare is None else prepare(raw))
+    raw = {**raw, 'gt_boxes': planted['gt_boxes'], 'gt_mask': planted['gt_mask']}
+    train_step = make_train_step(net, optimizer, prepare)
+    before = {k: p.detach().clone() for k, p in net.named_parameters()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(wrappers)
+    losses, times, roi_terms = [], [], {}
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        metrics = train_step(raw)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        losses.append(float(metrics['loss']))
+        # the planted boxes sit on the first step's proposals; later steps
+        # move the proposals away from them
+        for k, v in metrics.items():
+            if k.startswith('rcnn'):
+                roi_terms.setdefault(k, []).append(float(v))
+    launches = read_launches(wrappers)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if not all(np.isfinite(losses)):
+        raise SystemExit(f'[{phase}] FAILED {name}: losses {losses}')
+    want = {k: v * steps for k, v in expected.items()}
+    if launches != want:
+        raise SystemExit(f'[{phase}] FAILED {name}: kernel launches {launches}, expected {want}')
+    changed = sum(not torch.equal(p.detach(), before[k]) for k, p in net.named_parameters())
+    if changed < 0.9 * len(before):
+        raise SystemExit(f'[{phase}] FAILED {name}: {changed} of {len(before)} parameter '
+                         'tensors changed')
+    parts = ''
+    if prepare is not None:
+        split = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            with torch.no_grad():
+                prepared = prepare(raw)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            train_step(prepared)
+            torch.cuda.synchronize()
+            split.append((t1 - t0, time.perf_counter() - t1))
+        parts = (f'; in 3 more passes timed in two parts: map build median '
+                 f'{statistics.median(p[0] for p in split) * 1e3:.3f} ms, step on the prepared '
+                 f'batch median {statistics.median(p[1] for p in split) * 1e3:.3f} ms')
+    log(phase, f'{name} as shipped B={B} N={TWO_STAGE_POINTS}, 8 boxes per cloud, {steps} '
+        'steps: losses ' + ' '.join(f'{x:.4f}' for x in losses) + ' (the ROI terms a step: '
+        + ', '.join(f'{k} {" ".join(f"{x:.4f}" for x in v)}' for k, v in roi_terms.items())
+        + f'); {changed} of '
+        f'{len(before)} '
+        f'parameter tensors changed; launches per step {expected}; median '
+        f'{statistics.median(times) * 1e3:.3f} ms/step (first {times[0] * 1e3:.1f} ms){parts}; '
+        f'peak allocated {peak:.3f} GiB on {card}')
+    return launches
+
+
+def two_stage_phases(wrappers, synthetic, smi: str, cfg_from_yaml_file) -> tuple:
+    """Phases 41 to 45. Returns (the kernel launches of each path, by name;
+    phase 42's sums per kernel)."""
+    def load(cfg_file):
+        return cfg_from_yaml_file(str(REPO / cfg_file))
+
+    two_stage_cuda_vs_cpu_phase('pointrcnn', load(POINTRCNN_CFG), synthetic)
+    for name, cfg_file in TWO_STAGE_MODELS:
+        two_stage_cuda_vs_cpu_phase(name, load(cfg_file), synthetic)
+    sums = two_stage_kernels_phase(synthetic, smi, cfg_from_yaml_file)
+    paths = {}
+    for name, cfg_file in TWO_STAGE_MODELS:
+        paths[f'{name}_predict'] = two_stage_predict_phase(name, load(cfg_file), wrappers,
+                                                           synthetic, smi)
+        torch.cuda.empty_cache()
+    paths['pointrcnn_train'] = two_stage_train_phase(
+        'pointrcnn', synthetic.pointrcnn_fp3(load(POINTRCNN_CFG)), wrappers, synthetic, smi)
+    torch.cuda.empty_cache()
+    for name, cfg_file in TWO_STAGE_MODELS:
+        paths[f'{name}_train'] = two_stage_train_phase(name, load(cfg_file), wrappers, synthetic,
+                                                       smi)
+        torch.cuda.empty_cache()
+    cfg = load(PV_RCNN_CFG)
+    B = cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
+    paths['pv_rcnn_eval_loop'] = kitti_eval_phase(
+        wrappers, synthetic, smi, PV_RCNN_CFG, '45 pv_rcnn eval loop',
+        two_stage_launches(cfg, B, train=False), adjust=synthetic.open_score_gate,
+        cpu_check=False, B=B)
+    paths['pv_rcnn_train_loop'] = train_loop_phase(
+        wrappers, synthetic, smi, PV_RCNN_CFG, '45 pv_rcnn train loop',
+        two_stage_launches(cfg, B, train=True), B=B)
+    # each kernel of the port's rows 1, 2, 3, 4, 6 and 7 ran on a path of this slice
+    need = ('farthest_point_sample', 'ball_query', 'window_select', 'gather_rows',
+            'scatter_add_rows', 'sparse_conv', 'sparse_conv_wgrad')
+    for kern in need:
+        if not any(launches[kern] > 0 for launches in paths.values()):
+            raise SystemExit(f'[kernels] FAILED: {kern} was launched on no path of phases 41 to '
+                             '45')
+    return paths, sums
+
+
 KERNEL_TABLE = (
     ('farthest_point_sample', 'pdm_ssd_torch/csrc/fps.cu', 'pdm_ssd_tpu/ops/pallas/fps.py:60'),
     ('window_select', 'pdm_ssd_torch/csrc/group.cu',
-     'pdm_ssd_tpu/ops/pallas/retired/grid_query.py:239'),
+     'pdm_ssd_tpu/ops/pallas/retired/grid_query.py:240'),
     ('gather_rows', 'pdm_ssd_torch/csrc/group.cu',
      'pdm_ssd_tpu/ops/pallas/retired/onehot_gather.py:146'),
     ('scatter_add_rows', 'pdm_ssd_torch/csrc/group.cu',
-     'pdm_ssd_tpu/ops/pallas/retired/onehot_gather.py:226'),
+     'pdm_ssd_tpu/ops/pallas/retired/onehot_gather.py:227'),
     ('ball_query', 'pdm_ssd_torch/csrc/ball_query.cu',
      'pdm_ssd_tpu/ops/pallas/retired/grid_query.py:112'),
     ('sparse_conv', 'pdm_ssd_torch/csrc/sparse_conv.cu',
@@ -2922,6 +3627,29 @@ KERNEL_TABLE = (
      'the backward of rows 7 to 10 (Pallas forward only): '
      'pdm_ssd_tpu/models/backbones_3d/sparse_backbone.py:354, the dot_general of _scm_bwd'),
 )
+
+
+def launch_counters() -> dict:
+    """Each kernel wrapper of the port and the attribute that counts its
+    launches, by the name the `kernels` line gives it."""
+    from pdm_ssd_torch.ops import ball_query as bq
+    from pdm_ssd_torch.ops import fps, group
+    from pdm_ssd_torch.ops import sparse_conv as sc
+    # the row gather has two entry points, float32 and bfloat16, each with
+    # its own counter on the one wrapper; FPS and the ball query count their
+    # launches by path too
+    return {'farthest_point_sample': (fps.farthest_point_sample_cuda, 'launches'),
+            'window_select': (group.window_select_cuda, 'launches'),
+            'gather_rows': (group.gather_rows_cuda, 'launches'),
+            'scatter_add_rows': (group.scatter_add_rows_cuda, 'launches'),
+            'ball_query': (bq.ball_query_cuda, 'launches'),
+            'sparse_conv': (sc.sparse_conv_cuda, 'launches'),
+            'sparse_conv_wgrad': (sc.sparse_conv_wgrad_cuda, 'launches'),
+            'gather_rows_bf16': (group.gather_rows_cuda, 'launches_bf16'),
+            'fps cluster path': (fps.farthest_point_sample_cuda, 'launches_cluster'),
+            'fps block path': (fps.farthest_point_sample_cuda, 'launches_block'),
+            'ball query grid path': (bq.ball_query_cuda, 'launches_grid'),
+            'ball query walk path': (bq.ball_query_cuda, 'launches_walk')}
 
 
 def main() -> None:
@@ -2942,21 +3670,7 @@ def main() -> None:
     for line in kernels.build_log.splitlines():
         if 'registers' in line or 'spill' in line or 'Compiling entry' in line:
             print(f'    {line.strip()}')
-    # the row gather has two entry points, float32 and bfloat16, each with
-    # its own counter on the one wrapper; FPS and the ball query count their
-    # launches by path too
-    wrappers = {'farthest_point_sample': (fps.farthest_point_sample_cuda, 'launches'),
-                'window_select': (group.window_select_cuda, 'launches'),
-                'gather_rows': (group.gather_rows_cuda, 'launches'),
-                'scatter_add_rows': (group.scatter_add_rows_cuda, 'launches'),
-                'ball_query': (bq.ball_query_cuda, 'launches'),
-                'sparse_conv': (sc.sparse_conv_cuda, 'launches'),
-                'sparse_conv_wgrad': (sc.sparse_conv_wgrad_cuda, 'launches'),
-                'gather_rows_bf16': (group.gather_rows_cuda, 'launches_bf16'),
-                'fps cluster path': (fps.farthest_point_sample_cuda, 'launches_cluster'),
-                'fps block path': (fps.farthest_point_sample_cuda, 'launches_block'),
-                'ball query grid path': (bq.ball_query_cuda, 'launches_grid'),
-                'ball query walk path': (bq.ball_query_cuda, 'launches_walk')}
+    wrappers = launch_counters()
 
     stats = {'farthest_point_sample': fps_phase(fps, plain, synthetic.kitti_points)}
     fps_stats = stats['farthest_point_sample']
@@ -3029,6 +3743,14 @@ def main() -> None:
             raise SystemExit(f'[kernels] FAILED: path names used twice: '
                              f'{set(more) & set(new_paths)}')
         new_paths.update(more)
+
+    # the two-stage family: PointRCNN's training, PV-RCNN and Voxel R-CNN
+    more, two_stage_sums = two_stage_phases(wrappers, synthetic, smi, cfg_from_yaml_file)
+    if set(more) & set(new_paths):
+        raise SystemExit(f'[kernels] FAILED: path names used twice: {set(more) & set(new_paths)}')
+    new_paths.update(more)
+    for kern, r in two_stage_sums.items():
+        stats[kern].update({f'two_stage_{k}': v for k, v in r.items()})
 
     # `launches` is the count from the run of a main path: the flagship's five
     # training steps of phase 8 for its four kernels, PointRCNN's predict of

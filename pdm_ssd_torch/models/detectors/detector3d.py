@@ -188,12 +188,14 @@ class Detector3D(nn.Module):
             tb = {**tb, 'loss_box_of_pts': batch['loss_box_of_pts']}
         return loss, {**tb, 'loss': loss}
 
-    def forward_with_loss(self, batch: dict) -> tuple:
+    def forward_with_loss(self, batch: dict, target_generator=None) -> tuple:
         """Forward, target assignment and losses: (loss, tb). BatchNorm uses
         batch statistics when the model is in training mode. The batch holds
         the model's inputs (the points, or the voxels with, for the sparse
         ladder, the kernel maps and their transposes of
-        `get_host_prepare(..., training=True)`) and the ground truth."""
+        `get_host_prepare(..., training=True)`) and the ground truth. The
+        model draws no random targets: `target_generator` is taken and
+        ignored."""
         return self.get_training_loss(self(batch))
 
     @torch.inference_mode()

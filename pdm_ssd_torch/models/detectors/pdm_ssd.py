@@ -92,9 +92,10 @@ class PDMSSD(nn.Module):
         tb['loss'] = loss
         return loss, tb
 
-    def forward_with_loss(self, batch: dict) -> tuple:
+    def forward_with_loss(self, batch: dict, target_generator=None) -> tuple:
         """Forward, target assignment and losses: (loss, tb). BatchNorm uses
-        batch statistics when the model is in training mode."""
+        batch statistics when the model is in training mode. The model draws
+        no random targets: `target_generator` is taken and ignored."""
         return self.get_training_loss(self(batch))
 
     @torch.inference_mode()

@@ -30,8 +30,10 @@ class PointRCNN(nn.Module):
         self.point_head = PointHeadBox(cfg.POINT_HEAD, n_feat, num_class, device=device)
         self.roi_head = PointRCNNHead(cfg.ROI_HEAD, num_class, n_feat, device=device)
 
-    def forward(self, batch: dict, generator: torch.Generator | None = None) -> dict:
-        """`generator` is handed to the backbone's 'random' sampling levels."""
+    def forward(self, batch: dict, generator: torch.Generator | None = None,
+                target_generator: torch.Generator | None = None) -> dict:
+        """`generator` is handed to the backbone's 'random' sampling levels,
+        `target_generator` to the ROI head's target sampling in training."""
         batch = dict(batch)
         batch = self.backbone_3d(batch, generator)
         batch = self.point_head(batch)
@@ -39,17 +41,21 @@ class PointRCNN(nn.Module):
             batch['point_coords'], batch['point_cls_preds'], batch['point_box_preds'])
         batch['batch_cls_preds'] = cls_preds
         batch['batch_box_preds'] = box_preds
-        return self.roi_head(batch)
+        return self.roi_head(batch, target_generator)
 
-    def get_training_loss(self, batch: dict):
-        raise NotImplementedError('PointRCNN training is not ported yet '
-                                  '(ROADMAP Queue 1 item 5, PointRCNN training: proposal targets, '
-                                  'ROI losses)')
+    def get_training_loss(self, batch: dict) -> tuple:
+        """The point head's targets and loss plus the ROI head's loss on its
+        'roi_targets', from a training forward's output. Returns (loss, tb)."""
+        p_loss, tb = self.point_head.get_loss(batch, self.point_head.assign_targets(batch))
+        r_loss, tb2 = self.roi_head.get_loss(batch, batch['roi_targets'])
+        loss = p_loss + r_loss
+        return loss, {**tb, **tb2, 'loss': loss}
 
-    def forward_with_loss(self, batch: dict):
-        raise NotImplementedError('PointRCNN training is not ported yet '
-                                  '(ROADMAP Queue 1 item 5, PointRCNN training: proposal targets, '
-                                  'ROI losses)')
+    def forward_with_loss(self, batch: dict, target_generator: torch.Generator | None = None):
+        """Forward in training mode with the batch's 'gt_boxes' and 'gt_mask',
+        then `get_training_loss`: (loss, tb). `target_generator` draws the ROI
+        targets' sampling (see `RoIHeadTemplate.assign_targets`)."""
+        return self.get_training_loss(self(batch, target_generator=target_generator))
 
     @torch.inference_mode()
     def predict(self, batch: dict) -> dict:

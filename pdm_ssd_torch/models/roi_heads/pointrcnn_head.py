@@ -13,7 +13,6 @@ import torch
 from torch import nn
 
 from ...ops import box_ops
-from ...utils.config import as_cfg
 from ..backbones_3d.pointnet2_backbone import SAModuleMSG
 from ..layers import BatchNormLast, FCStack, SharedMLP, masked_max
 from ..model_nms import take_rows
@@ -145,10 +144,13 @@ class PointRCNNHead(RoIHeadTemplate):
         self.cls_fc = FCStack(c_in, tuple(cfg.get('CLS_FC', [256, 256])), 1, device=device)
         self.reg_fc = FCStack(c_in, tuple(cfg.get('REG_FC', [256, 256])), 7, device=device)
 
-    def forward(self, batch: dict) -> dict:
+    def forward(self, batch: dict, target_generator: torch.Generator | None = None) -> dict:
+        """In training with ground truth in the batch, the head predicts on the
+        subsampled, reordered ROIs of `assign_targets` (drawn from
+        `target_generator`), whose targets it adds as 'roi_targets'."""
         batch = self.proposal_layer(batch)
         if self.training and 'gt_boxes' in batch:
-            batch['roi_targets'] = self.assign_targets(batch)
+            batch['roi_targets'] = self.assign_targets(batch, target_generator)
         rois = batch['rois']                                    # (B, R, 7)
         pts = batch['point_coords']                             # (B, Np, 3)
         feats = batch['point_features']                         # (B, Np, C)
@@ -210,7 +212,10 @@ class PointRCNNHead(RoIHeadTemplate):
         xf = _run_dense_stack(self, 'xyz_up', prefix, self.n_up, self.use_bn)
         merged = _run_dense_stack(self, 'merge_down', torch.cat([xf, pooled_feat], dim=-1), 1,
                                  self.use_bn)
-        l_xyz = prefix[..., :3].reshape(B * R, K, 3)
+        # no parameter lies behind the pooled points' coordinates (the score
+        # column beside them has one): the SA stack's gathers of them need no
+        # backward
+        l_xyz = prefix[..., :3].detach().reshape(B * R, K, 3)
         l_feat = merged.reshape(B * R, K, -1)
         for k, npoint in enumerate(self.sa_npoints):
             if npoint > 0:

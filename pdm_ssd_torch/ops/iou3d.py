@@ -105,18 +105,18 @@ def boxes_iou_bev(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
 
 
 def boxes_iou3d(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
-    """(N, 7) x (M, 7) -> (N, M) 3D IoU: the BEV overlap times the overlap of
-    the z extents, over the union of the volumes
+    """(..., N, 7) x (..., M, 7) -> (..., N, M) 3D IoU: the BEV overlap times
+    the overlap of the z extents, over the union of the volumes
     (`iou3d_nms_utils.boxes_iou3d_gpu:48-81`)."""
     overlap_bev = boxes_overlap_bev(boxes_a, boxes_b)
-    a_max = (boxes_a[:, 2] + boxes_a[:, 5] / 2)[:, None]
-    a_min = (boxes_a[:, 2] - boxes_a[:, 5] / 2)[:, None]
-    b_max = (boxes_b[:, 2] + boxes_b[:, 5] / 2)[None, :]
-    b_min = (boxes_b[:, 2] - boxes_b[:, 5] / 2)[None, :]
+    a_max = (boxes_a[..., 2] + boxes_a[..., 5] / 2)[..., :, None]
+    a_min = (boxes_a[..., 2] - boxes_a[..., 5] / 2)[..., :, None]
+    b_max = (boxes_b[..., 2] + boxes_b[..., 5] / 2)[..., None, :]
+    b_min = (boxes_b[..., 2] - boxes_b[..., 5] / 2)[..., None, :]
     overlap_h = torch.clamp(torch.minimum(a_max, b_max) - torch.maximum(a_min, b_min), min=0.0)
     overlap_3d = overlap_bev * overlap_h
-    vol_a = (boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5])[:, None]
-    vol_b = (boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5])[None, :]
+    vol_a = (boxes_a[..., 3] * boxes_a[..., 4] * boxes_a[..., 5])[..., :, None]
+    vol_b = (boxes_b[..., 3] * boxes_b[..., 4] * boxes_b[..., 5])[..., None, :]
     return overlap_3d / torch.clamp(vol_a + vol_b - overlap_3d, min=1e-6)
 
 

@@ -1,10 +1,14 @@
 """Loss functions (counterpart of `pdm_ssd_tpu/ops/losses.py`): the ones the
-flagship and SECOND train with. `corner_loss_lidar`, `weighted_l1` and the
-IoU losses of the JAX package are not ported yet (ROADMAP Queue 1 item 5).
+flagship, SECOND and the two-stage heads train with. `weighted_l1` and the
+IoU losses of the JAX package are not ported yet.
 """
 from __future__ import annotations
 
+import math
+
 import torch
+
+from . import box_ops
 
 
 def sigmoid_bce_with_logits(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -79,3 +83,23 @@ def centernet_reg_loss(pred: torch.Tensor, mask: torch.Tensor,
     target = torch.nan_to_num(target)
     loss = (pred * m - target * m).abs().sum(dim=(0, 1))
     return loss / num.clamp(min=1.0)
+
+
+def corner_loss_lidar(pred_boxes: torch.Tensor, gt_boxes: torch.Tensor) -> torch.Tensor:
+    """Smooth L1 (beta 1) of the distances between the 8 corners of each
+    predicted box and those of its ground truth, the smaller of the two
+    distances to the ground truth and to it turned by pi, averaged over the
+    corners. pred and gt (N, 7) -> (N,). The norm adds 1e-12 under its root,
+    so coincident corners give a bounded gradient."""
+    pred_corners = box_ops.boxes_to_corners_3d(pred_boxes)
+    gt_corners = box_ops.boxes_to_corners_3d(gt_boxes)
+    gt_flip = gt_boxes.clone()
+    gt_flip[:, 6] = gt_flip[:, 6] + math.pi
+    gt_corners_flip = box_ops.boxes_to_corners_3d(gt_flip)
+
+    def safe_norm(d):
+        return torch.sqrt((d * d).sum(dim=-1) + 1e-12)
+
+    dist = torch.minimum(safe_norm(pred_corners - gt_corners),
+                         safe_norm(pred_corners - gt_corners_flip))         # (N, 8)
+    return smooth_l1(dist, beta=1.0).mean(dim=1)

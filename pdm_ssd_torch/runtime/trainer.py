@@ -64,7 +64,15 @@ def make_train_step(model: torch.nn.Module, optimizer, host_prepare=None):
     'gt_boxes' and 'gt_mask' on that device. `host_prepare`
     (`models.get_host_prepare(..., training=True)`) runs on the batch first,
     outside the autograd graph: the sparse ladder's maps and their
-    transposes."""
+    transposes.
+
+    A two-stage model samples its ROI targets from a `torch.Generator` on
+    the model's device, seeded before each step from the optimizer's
+    update count (the JAX package's `fold_in(base_key, step)`
+    'targets' stream): every step draws anew, and a resumed run draws what
+    an unbroken one would. The single-stage models draw nothing from it."""
+    device = next(model.parameters()).device
+    generator = torch.Generator(device=device)
 
     def train_step(batch: dict) -> dict:
         model.train()
@@ -72,7 +80,8 @@ def make_train_step(model: torch.nn.Module, optimizer, host_prepare=None):
             with torch.no_grad():
                 batch = host_prepare(batch)
         optimizer.zero_grad()
-        loss, tb = model.forward_with_loss(batch)
+        generator.manual_seed(optimizer.count)
+        loss, tb = model.forward_with_loss(batch, target_generator=generator)
         loss.backward()
         optimizer.step()
         return {k: v.detach() for k, v in {'loss': loss, **tb}.items()}

@@ -16,11 +16,11 @@ the transposed maps), with `second_focal.yaml` the tiny SECOND on the focal
 ladder, with `voxelnext.yaml` the tiny VoxelNeXt (the sparse ladder and its
 BEV slot table), with `second.yaml` the tiny SECOND on the dense ladder,
 with `pointpillar.yaml`, `centerpoint_pillar.yaml` or `pillarnet.yaml` the
-tiny shrink of that file (`utils/synthetic.TINY_CFGS`; a config that
-voxelizes its points gets voxel batches, made on the device). A model
-whose training path is not ported yet raises `NotImplementedError` from its
-train step; the dry run then checks its predict only. Runs on the card
-unless `--device cpu` is given. The counterpart of
+tiny shrink of that file, with `pv_rcnn.yaml`, `pv_rcnn_sparse.yaml`,
+`voxel_rcnn.yaml` or `voxel_rcnn_sparse.yaml` the tiny two-stage model on
+the dense or sparse ladder (`utils/synthetic.TINY_CFGS`; a config that
+voxelizes its points gets voxel batches, made on the device). Runs on the
+card unless `--device cpu` is given. The counterpart of
 `__graft_entry__.dryrun_multichip` on one device.
 """
 from __future__ import annotations
@@ -42,8 +42,8 @@ CFG = 'configs/kitti_models/pdm_ssd_point.yaml'
 
 
 def dryrun(device: str | None = None, B: int = 2, N: int = 512, seed: int = 0,
-           cfg_file: str = CFG) -> float | None:
-    """Returns the train step's loss, or None for a model that only predicts."""
+           cfg_file: str = CFG) -> float:
+    """Returns the train step's loss."""
     cwd = os.getcwd()
     os.chdir(REPO)   # the config names its base config relative to the repo
     try:
@@ -70,19 +70,13 @@ def dryrun(device: str | None = None, B: int = 2, N: int = 512, seed: int = 0,
     optimizer, _ = create_train_state(model, cfg.OPTIMIZATION, total_iters_each_epoch=10,
                                       total_epochs=2)
     train_prepare = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG, training=True)
-    try:
-        loss = float(make_train_step(model, optimizer, train_prepare)(batch)['loss'])
-    except NotImplementedError:     # the detector says its training path is not ported
-        loss = None
-    if loss is not None and not math.isfinite(loss):
+    loss = float(make_train_step(model, optimizer, train_prepare)(batch)['loss'])
+    if not math.isfinite(loss):
         raise SystemExit(f'dryrun: loss is not finite: {loss}')
     dets = make_predict_step(model)(inputs)
     if dets['pred_boxes'].shape[0] != B or not bool(torch.isfinite(dets['pred_boxes']).all()):
         raise SystemExit(f'dryrun: {name} detections are not finite boxes for {B} clouds')
-    if loss is None:
-        print(f'dryrun({dev}): {name} predict OK, {int(dets["pred_mask"].sum())} boxes kept')
-    else:
-        print(f'dryrun({dev}): {name} train step + predict OK, loss={loss:.4f}')
+    print(f'dryrun({dev}): {name} train step + predict OK, loss={loss:.4f}')
     return loss
 
 
@@ -95,7 +89,9 @@ def main() -> None:
     ap.add_argument('--cfg_file', default=CFG, help='the flagship (default), or '
                     'configs/kitti_models/pdm_ssd.yaml, pdm_ssd_aux.yaml, pdm_ssd_large.yaml, '
                     'pointrcnn.yaml, second_sparse.yaml, second_focal.yaml, voxelnext.yaml, '
-                    'second.yaml, pointpillar.yaml, centerpoint_pillar.yaml or pillarnet.yaml')
+                    'second.yaml, pointpillar.yaml, centerpoint_pillar.yaml, pillarnet.yaml, '
+                    'pv_rcnn.yaml, pv_rcnn_sparse.yaml, voxel_rcnn.yaml or '
+                    'voxel_rcnn_sparse.yaml')
     args = ap.parse_args()
     dryrun(args.device, args.batch, args.points, cfg_file=args.cfg_file)
 

@@ -38,7 +38,11 @@ decode and the NMS, the classification bias at 0. With
 `configs/kitti_models/voxelnext.yaml` or `second_focal.yaml` (B=4, LiDAR-like
 clouds of 50000 points) the stages are the map build (the sparse ladder with
 VoxelNeXt's BEV slot table, or the focal ladder) and then those slots, the
-bias at 0. Then
+bias at 0. With `configs/kitti_models/pv_rcnn.yaml`, `pv_rcnn_sparse.yaml`,
+`voxel_rcnn.yaml` or `voxel_rcnn_sparse.yaml` (B=4, LiDAR-like clouds of
+16384 points, the `sample_points` of their data processor, voxelized on the
+card into their 16000 slots) the stages are those of
+`two_stage_stage_times`, the anchor bias at 0. Then
 `torch.profiler` traces three `predict` calls: device time per predict,
 device activities per predict, the busy share (device time over the
 unprofiled wall time of one predict), the ten kernels with the most device
@@ -330,6 +334,53 @@ def ladder_stage_times(net, cfg, predict_inputs: dict, reps: int) -> dict:
     return t
 
 
+def two_stage_stage_times(net, cfg, predict_inputs: dict, reps: int) -> dict:
+    """Median ms of each stage of PV-RCNN or Voxel R-CNN, each on its own
+    input: the sparse ladder's map build (timed apart, `map_build`), the
+    first stage's slots (VFE, 3D backbone, BEV backbone, anchor head) and
+    the decode of its boxes; PV-RCNN's keypoints (`pfe_fps`, FPS alone),
+    the whole VSA (`pfe`) and the point head; then the proposal layer, the
+    grid pool's selection (PV-RCNN: the preselection and one ball query of
+    all radii, `roi_grid_select`), the whole ROI head (`roi_head`, the
+    proposals included) and the post-processing with its NMS."""
+    from ..models.detectors.pv_rcnn import PVRCNN
+    t = {}
+    if any(k.startswith('sp_') for k in predict_inputs):
+        raw = {k: v for k, v in predict_inputs.items() if not k.startswith('sp_')}
+        prepare = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG)
+        t['map_build'] = median_ms(lambda: prepare(raw), reps)
+    batch = dict(predict_inputs)
+    for name in ('vfe', 'backbone_3d', 'backbone_2d', 'dense_head'):
+        module = getattr(net, name)
+        t[name] = median_ms(lambda m=module, b=dict(batch): m(dict(b)), reps)
+        batch = module(batch)
+    t['decode'] = median_ms(lambda: net.dense_head.generate_predicted_boxes(batch), reps)
+    cls_preds, box_preds = net.dense_head.generate_predicted_boxes(batch)
+    batch.update(batch_cls_preds=cls_preds, batch_box_preds=box_preds)
+    if isinstance(net, PVRCNN) and net.pfe is not None:
+        xyz = batch['points'][..., :3].contiguous()
+        t['pfe_fps'] = median_ms(lambda: dispatch.farthest_point_sample(
+            xyz, int(net.pfe.cfg.NUM_KEYPOINTS)), reps)
+        t['pfe'] = median_ms(lambda b=dict(batch): net.pfe(dict(b)), reps)
+        batch = net.pfe(batch)
+        if net.point_head is not None:
+            t['point_head'] = median_ms(lambda b=dict(batch): net.point_head(dict(b)), reps)
+            batch = net.point_head(batch)
+    head = net.roi_head
+    t['proposal_layer'] = median_ms(lambda b=dict(batch): head.proposal_layer(dict(b)), reps)
+    if hasattr(head, 'grid_select'):
+        proposed = head.proposal_layer(dict(batch))
+        t['roi_grid_select'] = median_ms(
+            lambda: head.grid_select(proposed, proposed['rois']), reps)
+    t['roi_head'] = median_ms(lambda b=dict(batch): head(dict(b)), reps)
+    batch = head(batch)
+    t['post_process'] = median_ms(lambda: net.post_process(batch), reps)
+    t['predict'] = median_ms(lambda: net.predict(predict_inputs), reps)
+    if 'map_build' in t:
+        t['predict_with_map_build'] = t['predict'] + t['map_build']
+    return t
+
+
 def point_inputs(cfg, B: int, N: int) -> dict:
     return {'points': torch.from_numpy(synthetic.kitti_points(B, N, 5)).cuda()}
 
@@ -370,6 +421,10 @@ PROFILES = {'PDMSSD': (lambda cfg: cfg, 8, 16384, point_inputs, stage_times, Non
             'SECONDNet focal': (lambda cfg: cfg, 4, 50000, second_inputs, ladder_stage_times,
                                 synthetic.open_score_gate),
             'VoxelNeXt': (lambda cfg: cfg, 4, 50000, second_inputs, ladder_stage_times,
+                          synthetic.open_score_gate),
+            'PVRCNN': (lambda cfg: cfg, 4, 16384, second_inputs, two_stage_stage_times,
+                       synthetic.open_score_gate),
+            'VoxelRCNN': (lambda cfg: cfg, 4, 16384, second_inputs, two_stage_stage_times,
                           synthetic.open_score_gate)}
 
 
@@ -424,8 +479,8 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--cfg_file', default=CFG)
     ap.add_argument('--batch', type=int, default=None,
-                    help='default: 8 for the PDM configs, 4 for PointRCNN, SECOND and '
-                    'pdm_ssd_large.yaml')
+                    help='default: 8 for the PDM configs, 4 for PointRCNN, SECOND, the '
+                    'two-stage voxel models and pdm_ssd_large.yaml')
     ap.add_argument('--points', type=int, default=None,
                     help='points per cloud (default: 16384; 50000 for SECOND, 163840 for '
                     'pdm_ssd_large.yaml)')

@@ -8,13 +8,19 @@ Builds the config (default `configs/kitti_models/pdm_ssd_point.yaml`; also
 `pillarnet.yaml`, and the voxel models `second_sparse.yaml`, `second.yaml`,
 `second_focal.yaml`, `voxelnext.yaml` and `pointpillar.yaml`, whose batch
 is seeded LiDAR-like clouds of 50000 points unless `--points` says
-otherwise, voxelized on the card), unmodified, with seeded random weights,
+otherwise, voxelized on the card; the two-stage `pointrcnn.yaml`,
+`pv_rcnn.yaml`, `pv_rcnn_sparse.yaml`, `voxel_rcnn.yaml` and
+`voxel_rcnn_sparse.yaml`, the last four at `--points 16384` as their data
+processor samples), unmodified, with seeded random weights,
 float32 with TF32 off, and trains on one seeded synthetic batch. After warm-up steps it
 times whole steps of `make_train_step` on the host clock (median of
 `--reps`), then repeats the step's parts by hand with a CUDA event between
 them: a voxel model's map build (`get_host_prepare(..., training=True)`),
 each forward stage (for `GridPointBackbone` its pillarize and each level
-apart, for a voxel model each slot of `Detector3D`), targets and losses,
+apart, for a voxel model each slot of `Detector3D`, for a two-stage model
+its first stage's slots, the decode of its boxes, the keypoints and point
+head where it has them, and the ROI head with its proposals and targets),
+targets and losses,
 backward, gradient clip, optimizer update (median of `--reps`). Then
 `torch.profiler` traces two steps: device time per step, the busy share
 (device time over the unprofiled wall time of a step), the twelve kernels
@@ -37,7 +43,9 @@ import torch
 from ..models import get_host_prepare
 from ..models.backbones_3d.grid_point_backbone import GridPointBackbone
 from ..models.detectors.detector3d import Detector3D
-from ..ops import fps, group, sparse_conv
+from ..models.detectors.point_rcnn import PointRCNN
+from ..models.detectors.pv_rcnn import PVRCNN
+from ..ops import ball_query, fps, group, sparse_conv
 from ..runtime.trainer import create_train_state, make_train_step
 from .profile_predict import is_fft_route
 from ..utils import synthetic
@@ -48,10 +56,22 @@ KERNELS = {'farthest_point_sample': fps.farthest_point_sample_cuda,
            'window_select': group.window_select_cuda,
            'gather_rows': group.gather_rows_cuda,
            'scatter_add_rows': group.scatter_add_rows_cuda,
+           'ball_query': ball_query.ball_query_cuda,
            'sparse_conv': sparse_conv.sparse_conv_cuda,
            'sparse_conv_wgrad': sparse_conv.sparse_conv_wgrad_cuda}
 # points per cloud of a voxel model's batch (`chip_smoke.py`'s SECOND clouds)
 VOXEL_POINTS = 50000
+
+
+def _decode(head, points: bool):
+    """The stage that decodes the first stage's boxes into a batch's
+    'batch_cls_preds' and 'batch_box_preds'."""
+    def decode(b):
+        cls, box = (head.generate_predicted_boxes(b['point_coords'], b['point_cls_preds'],
+                                                  b['point_box_preds']) if points
+                    else head.generate_predicted_boxes(b))
+        return {**b, 'batch_cls_preds': cls, 'batch_box_preds': box}
+    return decode
 
 
 def forward_parts(net) -> list:
@@ -59,6 +79,15 @@ def forward_parts(net) -> list:
     if isinstance(net, Detector3D):
         return [(slot, getattr(net, name)) for slot, name in net.slots.items()] + [
             ('dense_head', net.dense_head)]
+    if isinstance(net, PVRCNN):             # and Voxel R-CNN
+        parts = [(name, getattr(net, name)) for name in
+                 ('vfe', 'backbone_3d', 'backbone_2d', 'dense_head')]
+        parts.append(('decode', _decode(net.dense_head, False)))
+        return parts + [(name, getattr(net, name)) for name in ('pfe', 'point_head', 'roi_head')
+                        if getattr(net, name) is not None]
+    if isinstance(net, PointRCNN):
+        return [('backbone_3d', net.backbone_3d), ('point_head', net.point_head),
+                ('decode', _decode(net.point_head, True)), ('roi_head', net.roi_head)]
     bb = net.backbone_3d
     if isinstance(bb, GridPointBackbone):
         parts = [('pillarize', lambda b: {**b, 'bev_nchw': bb.pillarize(b)})]

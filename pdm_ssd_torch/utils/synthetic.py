@@ -401,12 +401,89 @@ def tiny_pillarnet_cfg(cfg):
     return cfg
 
 
+def _tiny_two_stage_common(cfg):
+    """The first stage and ROI head shrink shared by PV-RCNN and Voxel R-CNN,
+    after the JAX package's zoo test (`tests/test_detector3d_zoo.py`): the
+    tiny SECOND's 32 x 32 x 4 m range at its ladder's voxel size, 256 voxel
+    slots, a one-level BEV backbone, a GRID_SIZE 3 lattice, 16 ROIs a cloud.
+    The sparse ladder keeps XWIN (an exact gather order) and drops
+    TABLE_DTYPE, which the port does not take (it stays in float32)."""
+    ds = cfg.DATA_CONFIG
+    ds.POINT_CLOUD_RANGE = [0, -16, -3, 32, 16, 1]
+    proc = voxel_processor(cfg)
+    sparse = cfg.MODEL.BACKBONE_3D.get('NAME', '').startswith('Sparse')
+    proc.VOXEL_SIZE = [0.5, 0.5, 0.1] if sparse else [0.5, 0.5, 0.2]
+    proc.MAX_NUMBER_OF_VOXELS = {'train': 256, 'test': 256}
+    bb = cfg.MODEL.BACKBONE_3D
+    bb.NUM_FILTERS = [4, 8, 8, 8]
+    if sparse:
+        bb.OUT_FEATURES = 8
+        bb.pop('ACTIVE_CAPS', None)
+        bb.pop('TABLE_DTYPE', None)
+    b2 = cfg.MODEL.BACKBONE_2D
+    b2.LAYER_NUMS = [1]
+    b2.LAYER_STRIDES = [1]
+    b2.NUM_FILTERS = [16]
+    b2.UPSAMPLE_STRIDES = [1]
+    b2.NUM_UPSAMPLE_FILTERS = [16]
+    roi = cfg.MODEL.ROI_HEAD
+    roi.GRID_SIZE = 3
+    roi.SHARED_FC = [32]
+    roi.CLS_FC = [16]
+    roi.REG_FC = [16]
+    for mode in ('TRAIN', 'TEST'):
+        roi.NMS_CONFIG[mode].NMS_PRE_MAXSIZE = 64
+        roi.NMS_CONFIG[mode].NMS_POST_MAXSIZE = 16
+    roi.TARGET_CONFIG.ROI_PER_IMAGE = 16
+    nms = cfg.MODEL.POST_PROCESSING.NMS_CONFIG
+    nms.NMS_PRE_MAXSIZE = 16
+    nms.NMS_POST_MAXSIZE = 16
+    return cfg
+
+
+def tiny_pv_rcnn_cfg(cfg):
+    """Shrink `configs/kitti_models/pv_rcnn.yaml` or `pv_rcnn_sparse.yaml` in
+    place: the same path (MeanVFE, the dense or sparse ladder, the anchor
+    proposals, VoxelSetAbstraction from the BEV map, x_conv3, x_conv4 and the
+    raw points, PointHeadSimple on the features before fusion, the grid
+    pool's two radii and its ROI head), 64 keypoints, narrow."""
+    _tiny_two_stage_common(cfg)
+    pfe = cfg.MODEL.PFE
+    pfe.NUM_KEYPOINTS = 64
+    pfe.NUM_OUTPUT_FEATURES = 16
+    sa = pfe.SA_LAYER
+    sa.raw_points.MLPS = [[8, 8], [8, 8]]
+    sa.raw_points.POOL_RADIUS = [1.6, 3.2]
+    sa.x_conv3.MLPS = [[16, 16]]
+    sa.x_conv4.MLPS = [[16, 16]]
+    cfg.MODEL.POINT_HEAD.CLS_FC = [16]
+    roi = cfg.MODEL.ROI_HEAD
+    roi.POOL_MAX_KEYPOINTS = 32
+    roi.ROI_GRID_POOL.POOL_RADIUS = [1.6, 3.2]
+    roi.ROI_GRID_POOL.NSAMPLE = [8, 8]
+    roi.ROI_GRID_POOL.MLPS = [[16, 16], [16, 16]]
+    return cfg
+
+
+def tiny_voxel_rcnn_cfg(cfg):
+    """Shrink `configs/kitti_models/voxel_rcnn.yaml` or
+    `voxel_rcnn_sparse.yaml` in place: the same path (MeanVFE, the dense or
+    sparse ladder, the anchor proposals, the voxel pools of x_conv2, x_conv3
+    and x_conv4 and the ROI head), narrow."""
+    _tiny_two_stage_common(cfg)
+    pool = cfg.MODEL.ROI_HEAD.ROI_GRID_POOL
+    for src in pool.FEATURES_SOURCE:
+        pool[src].MLPS = [16, 16]
+    return cfg
+
+
 # the dry run's shrink of each model that has one, by `MODEL.NAME` (a
 # SECONDNet's by its backbone too)
 TINY_CFGS = {'PDMSSD': tiny_pdmssd_cfg, 'PointRCNN': tiny_pointrcnn_cfg,
              'SECONDNet': tiny_secondnet_cfg, 'PointPillar': tiny_pointpillar_cfg,
              'CenterPoint': tiny_centerpoint_pillar_cfg, 'PillarNet': tiny_pillarnet_cfg,
-             'VoxelNeXt': tiny_voxelnext_cfg}
+             'VoxelNeXt': tiny_voxelnext_cfg, 'PVRCNN': tiny_pv_rcnn_cfg,
+             'VoxelRCNN': tiny_voxel_rcnn_cfg}
 
 
 def voxelizes(cfg) -> bool:

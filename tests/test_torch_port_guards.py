@@ -59,6 +59,9 @@ SLICE_MODULES = [
     'pdm_ssd_torch.models.backbones_3d.voxel_backbone',
     'pdm_ssd_torch.models.backbones_3d.sparse_backbone_focal',
     'pdm_ssd_torch.models.dense_heads.voxelnext_head',
+    'pdm_ssd_torch.models.backbones_3d.pfe', 'pdm_ssd_torch.models.roi_heads.pvrcnn_head',
+    'pdm_ssd_torch.models.roi_heads.voxelrcnn_head', 'pdm_ssd_torch.models.detectors.pv_rcnn',
+    'pdm_ssd_torch.models.detectors.voxel_rcnn',
     'bench_torch',
 ]
 
@@ -233,7 +236,11 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
                      'configs/kitti_models/centerpoint_pillar.yaml',
                      'configs/kitti_models/pillarnet.yaml', 'configs/kitti_models/second.yaml',
                      'configs/kitti_models/voxelnext.yaml',
-                     'configs/kitti_models/second_focal.yaml'):
+                     'configs/kitti_models/second_focal.yaml',
+                     'configs/kitti_models/pv_rcnn.yaml',
+                     'configs/kitti_models/pv_rcnn_sparse.yaml',
+                     'configs/kitti_models/voxel_rcnn.yaml',
+                     'configs/kitti_models/voxel_rcnn_sparse.yaml'):
         cfg = t_config.cfg_from_yaml_file(cfg_file)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build_network(cfg.MODEL, 3, cfg.DATA_CONFIG)
