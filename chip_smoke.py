@@ -284,12 +284,12 @@ NO_BALL_QUERY = {'ball query grid path': 0, 'ball query walk path': 0}
 TRAIN_LAUNCHES = {'farthest_point_sample': 1, 'window_select': 3, 'gather_rows': 6,
                   'scatter_add_rows': 4, 'ball_query': 0, 'sparse_conv': 0,
                   'sparse_conv_wgrad': 0, 'gather_rows_bf16': 0, 'fps cluster path': 1,
-                  'fps block path': 0,
+                  'fps block path': 0, 'fps masked': 0,
                   **NO_BALL_QUERY}
 PREDICT_LAUNCHES = {'farthest_point_sample': 1, 'window_select': 3, 'gather_rows': 6,
                     'scatter_add_rows': 0, 'ball_query': 0, 'sparse_conv': 0,
                     'sparse_conv_wgrad': 0, 'gather_rows_bf16': 0, 'fps cluster path': 1,
-                    'fps block path': 0,
+                    'fps block path': 0, 'fps masked': 0,
                     **NO_BALL_QUERY}
 # one PointRCNN predict. FPS: backbone level 1 is 'random' without a generator
 # (a prefix), level 2 runs FPS 4096 -> 1024, level 3 is its prefix; the ROI
@@ -303,7 +303,7 @@ POINTRCNN_PREDICT_LAUNCHES = {'farthest_point_sample': 3, 'window_select': 0, 'g
                               'scatter_add_rows': 0, 'ball_query': 5, 'sparse_conv': 0,
                               'sparse_conv_wgrad': 0, 'gather_rows_bf16': 0,
                               'fps cluster path': 0,
-                              'fps block path': 3, 'ball query grid path': 3,
+                              'fps block path': 3, 'fps masked': 0, 'ball query grid path': 3,
                               'ball query walk path': 2}
 # one SECOND predict: the reorder of the voxel features into slot order, then
 # conv_input, conv1, three stages of one strided and two submanifold convs,
@@ -312,7 +312,7 @@ SECOND_CFG = 'configs/kitti_models/second_sparse.yaml'
 SECOND_PREDICT_LAUNCHES = {'farthest_point_sample': 0, 'window_select': 0, 'gather_rows': 1,
                            'scatter_add_rows': 0, 'ball_query': 0, 'sparse_conv': 12,
                            'sparse_conv_wgrad': 0, 'gather_rows_bf16': 0, 'fps cluster path': 0,
-                           'fps block path': 0, **NO_BALL_QUERY}
+                           'fps block path': 0, 'fps masked': 0, **NO_BALL_QUERY}
 # one SECOND train step: the predict's 13, then the backward's data gradient
 # through the forward kernel at every layer but conv_input (its input has no
 # parameters behind it) and the weight gradient at all twelve
@@ -3009,21 +3009,33 @@ def two_stage_launches(cfg, B: int, train: bool) -> dict:
     on its B * R clouds of POOL_MAX_KEYPOINTS keypoints and a gather of the
     offsets and one of the projected features per radius, a scatter-add for
     the features in the backward. FPS and the ball query by the path their
-    plans take."""
+    plans take. PV-RCNN++ runs its keypoints' FPS masked, one launch for its
+    B * NUM_SECTORS sector clouds, and its raw points through VectorPool
+    (one radius); the sparse UNet of Part-A2 runs 28 sparse convs (the
+    ladder's 12, four UR blocks of 4), 27 data gradients and 28 weight
+    gradients a step; SECOND-IoU and the dense Part-A2 launch none of the
+    port's kernels."""
     from pdm_ssd_torch.ops import ball_query as bq
     from pdm_ssd_torch.ops import fps
     m = cfg.MODEL
     sparse = m.BACKBONE_3D.NAME.startswith('Sparse')
+    layers = 28 if m.BACKBONE_3D.NAME == 'SparseUNetV2' else 12
     n = {k: 0 for k in PREDICT_LAUNCHES}
     if sparse:
         n['gather_rows'] += 1
-        n['sparse_conv'] += 12 + (11 if train else 0)
-        n['sparse_conv_wgrad'] += 12 if train else 0
-    if m.NAME == 'PVRCNN':
+        n['sparse_conv'] += layers + (layers - 1 if train else 0)
+        n['sparse_conv_wgrad'] += layers if train else 0
+    if m.NAME in ('PVRCNN', 'PVRCNNPlusPlus'):
         pools = sum(s.startswith('x_conv') for s in m.PFE.FEATURES_SOURCE)
         radii = m.ROI_HEAD.ROI_GRID_POOL.POOL_RADIUS
         raw = len(m.PFE.SA_LAYER.raw_points.POOL_RADIUS)
-        plan = fps.plan_for(0, B, TWO_STAGE_POINTS, int(m.PFE.NUM_KEYPOINTS))
+        n_key = int(m.PFE.NUM_KEYPOINTS)
+        if m.PFE.get('SAMPLE_METHOD', 'FPS') == 'SPC':
+            sectors = int(m.PFE.SPC_SAMPLING.get('NUM_SECTORS', 6))
+            plan = fps.plan_for(0, B * sectors, TWO_STAGE_POINTS, min(n_key, TWO_STAGE_POINTS))
+            n['fps masked'] = 1
+        else:
+            plan = fps.plan_for(0, B, TWO_STAGE_POINTS, n_key)
         n['farthest_point_sample'] = 1
         n[f'fps {plan.path} path'] = 1
         n['window_select'] = 1
@@ -3032,7 +3044,7 @@ def two_stage_launches(cfg, B: int, train: bool) -> dict:
         n[f'ball query {path} path'] = 1
         n['gather_rows'] += pools + raw + 2 * len(radii)
         n['scatter_add_rows'] += (pools + len(radii)) if train else 0
-    else:
+    elif m.NAME == 'VoxelRCNN':
         pools = len(m.ROI_HEAD.ROI_GRID_POOL.FEATURES_SOURCE)
         n['gather_rows'] += pools
         n['scatter_add_rows'] += pools if train else 0
@@ -3045,12 +3057,15 @@ def roi_draw(B: int, R: int, seed: int) -> torch.Tensor:
     return torch.rand((B, R), generator=torch.Generator().manual_seed(seed))
 
 
-def plant_gt(net, batch: dict) -> dict:
+def plant_gt(net, batch: dict, shift: float = 0.0) -> dict:
     """The batch with its first 3 ground-truth boxes of each cloud moved onto
     proposals of a training forward of `net` (its first 3 valid ROIs, label
-    1), so that the targets hold foreground ROIs; the other boxes stay. The
-    proposals do not depend on the ground truth; the BatchNorm statistics
-    the forward moved are restored."""
+    1), so that the targets hold foreground ROIs; the other boxes stay. With
+    `shift`, each moved along x by `shift` times its length and turned by
+    `shift` radians (a box on its ROI exactly is a degenerate case of the
+    rotated IoU, whose label SECOND-IoU regresses). The proposals do not
+    depend on the ground truth; the BatchNorm statistics the forward moved
+    are restored."""
     state = {k: v.clone() for k, v in net.state_dict().items()}
     net.train()
     with torch.no_grad():
@@ -3059,7 +3074,9 @@ def plant_gt(net, batch: dict) -> dict:
     net.load_state_dict(state)
     gt, mask = batch['gt_boxes'].clone(), batch['gt_mask'].clone()
     for b in range(gt.shape[0]):
-        rois = out['rois'][b][out['roi_mask'][b]][:3]
+        rois = out['rois'][b][out['roi_mask'][b]][:3].clone()
+        rois[:, 0] += shift * rois[:, 3]
+        rois[:, 6] += shift
         gt[b, :len(rois), :7] = rois
         gt[b, :len(rois), 7] = 1
         mask[b, :len(rois)] = True
@@ -3125,7 +3142,9 @@ def serving_batch(cfg, synthetic, B: int, seed: int) -> dict:
     return batch if prepare is None else prepare(batch)
 
 
-def two_stage_cuda_vs_cpu_phase(name: str, cfg, synthetic) -> None:
+def two_stage_cuda_vs_cpu_phase(name: str, cfg, synthetic,
+                                phase: str = '41 two-stage cuda-vs-cpu',
+                                shift: float = 0.0) -> None:
     """Phase 41: the tiny shrink of a two-stage config (`synthetic.TINY_CFGS`;
     PointRCNN's with its FP list whole and its ROIs pooled 2 m wider, so that
     they hold points) on CUDA (the kernels) against the CPU (the plain
@@ -3138,10 +3157,10 @@ def two_stage_cuda_vs_cpu_phase(name: str, cfg, synthetic) -> None:
     within FWD_RTOL of scale, PV-RCNN's grid-pool indices and empty balls
     equal, the targets' order, fg mask and matched ground truth equal,
     detections matched by box and label, each loss within LOSS_RTOL and
-    every gradient within SECOND_GRAD_RTOL relative L2."""
+    every gradient within SECOND_GRAD_RTOL relative L2. `shift` moves the
+    planted boxes off their proposals (`plant_gt`)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase = '41 two-stage cuda-vs-cpu'
     if name == 'pointrcnn':
         tiny = synthetic.tiny_pointrcnn_cfg(synthetic.pointrcnn_fp3(cfg))
         tiny.MODEL.ROI_HEAD.ROI_POINT_POOL.POOL_EXTRA_WIDTH = [2.0, 2.0, 2.0]
@@ -3158,7 +3177,7 @@ def two_stage_cuda_vs_cpu_phase(name: str, cfg, synthetic) -> None:
         synthetic.open_score_gate(cpu_net)
     gpu_net = synthetic.random_model(tiny, 'cuda')
     gpu_net.load_state_dict(cpu_net.state_dict())
-    planted = plant_gt(cpu_net, ins['cpu'])
+    planted = plant_gt(cpu_net, ins['cpu'], shift)
     R = tiny.MODEL.ROI_HEAD.NMS_CONFIG.TRAIN.NMS_POST_MAXSIZE
     draw = roi_draw(2, R, 9)
     ins = {'cpu': {**planted, 'roi_target_rand': draw},
@@ -3425,7 +3444,8 @@ def two_stage_kernels_phase(synthetic, smi: str, cfg_from_yaml_file) -> dict:
     return sums
 
 
-def two_stage_predict_phase(name: str, cfg, wrappers, synthetic, card: str) -> dict:
+def two_stage_predict_phase(name: str, cfg, wrappers, synthetic, card: str,
+                            phase: str = '43 two-stage predict') -> dict:
     """Phase 43: `predict` of a two-stage voxel model as shipped at B=4 on
     LiDAR-like clouds of 16384 points (the data processor's sample) voxelized
     into the file's 16000 slots, the anchor bias at 0: shapes, finite values,
@@ -3437,7 +3457,6 @@ def two_stage_predict_phase(name: str, cfg, wrappers, synthetic, card: str) -> d
     from pdm_ssd_torch.tools.profile_predict import trace
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase = '43 two-stage predict'
     B = 4
     net = synthetic.open_score_gate(synthetic.random_model(cfg, 'cuda', seed=7))
     prepare = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG)
@@ -3486,21 +3505,21 @@ def two_stage_predict_phase(name: str, cfg, wrappers, synthetic, card: str) -> d
     return launches
 
 
-def two_stage_train_phase(name: str, cfg, wrappers, synthetic, card: str) -> dict:
+def two_stage_train_phase(name: str, cfg, wrappers, synthetic, card: str,
+                          phase: str = '44 two-stage train', B: int | None = None) -> dict:
     """Phase 44: five training steps of a two-stage config as shipped at
     B = BATCH_SIZE_PER_GPU (PV-RCNN and Voxel R-CNN 2, PointRCNN 4, its FP
     list whole), LiDAR-like clouds of 16384 points with 8 boxes each, 3 of
     them on the seeded model's proposals (`plant_gt`): finite losses, the
     ROI terms of every step, parameters changed, the expected launches a
     step, ms per step (a voxel model's map build timed apart in 3 more
-    passes) and peak memory."""
+    passes) and peak memory. `B` overrides the config's batch."""
     from pdm_ssd_torch.models import get_host_prepare
     from pdm_ssd_torch.runtime.trainer import create_train_state, make_train_step
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase = '44 two-stage train'
     steps = 5
-    B = cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
+    B = B or cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
     net = synthetic.random_model(cfg, seed=7)          # no device named: the card
     optimizer, _ = create_train_state(net, cfg.OPTIMIZATION, total_iters_each_epoch=100,
                                       total_epochs=1)
@@ -3609,6 +3628,117 @@ def two_stage_phases(wrappers, synthetic, smi: str, cfg_from_yaml_file) -> tuple
     return paths, sums
 
 
+# the rest of the KITTI two-stage family (phases 46 to 50)
+REST_MODELS = (('second_iou', 'configs/kitti_models/second_iou.yaml'),
+               ('parta2', 'configs/kitti_models/parta2.yaml'),
+               ('parta2_sparse', 'configs/kitti_models/parta2_sparse.yaml'),
+               ('pv_rcnn_plusplus', 'configs/kitti_models/pv_rcnn_plusplus.yaml'),
+               ('pv_rcnn_plusplus_sparse', 'configs/kitti_models/pv_rcnn_plusplus_sparse.yaml'))
+PARTA2_CFG = REST_MODELS[1][1]
+REST_TRAIN_B = 2
+# PV-RCNN++'s keypoints: 6 sectors of each of B = 4 clouds, 2048 picks each
+SECTORS, SECTOR_PICKS = 6, 2048
+
+
+def masked_fps_phase(fps_mod, plain, synthetic, smi: str) -> dict:
+    """Phase 47: the masked FPS at PV-RCNN++'s shape, B * 6 sector clouds of
+    16384 points and 2048 picks each (B = 4), the masks those of
+    `pointnet2.sector_masks` over LiDAR-like clouds, the points within 1.6 m
+    of 100 box centres a cloud valid (so sectors run empty or out of points,
+    which the kernel's tail picks then hold): each path and the plan's own
+    choice equal to the plain masked version, index for index; device ms,
+    host us, plain ms and the bound; the same for the unmasked kernel on the
+    same clouds. The bound's operations count what the data needs: each
+    sector's valid points updated at each of its min(picks, valid) - 1
+    steps."""
+    phase = '47 masked fps'
+    B, N, S, npoint = 4, TWO_STAGE_POINTS, SECTORS, SECTOR_PICKS
+    pc = (0.0, -40.0, -3.0, 70.4, 40.0, 1.0)
+    xyz = torch.from_numpy(synthetic.lidar_points(B, N, 21, pc)[..., :3].copy()).cuda()
+    centres = torch.from_numpy(synthetic.gt_boxes(B, 100, pc, 22)[..., :2]).cuda()
+    d2 = ((xyz[:, :, None, :2] - centres[:, None]) ** 2).sum(-1).amin(-1)
+    masks = plain.sector_masks(xyz, d2 < 1.6 * 1.6, S).reshape(B * S, N).contiguous()
+    cnt = masks.sum(-1)
+    rows = xyz.repeat_interleave(S, dim=0).contiguous()
+    want = plain.farthest_point_sample(rows, npoint, mask=masks)
+    plans = {'plan': fps_mod.plan_for(0, B * S, N, npoint),
+             'block': fps_mod.fps_plan(B * S, N, npoint, 1, lambda *a: 0, path='block'),
+             'cluster 4': fps_mod.FpsPlan('cluster', 4, *fps_mod.cluster_layout(N, 4))}
+    for label, plan in plans.items():
+        got = fps_mod.farthest_point_sample_cuda(xyz, npoint, plan, mask=masks)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise SystemExit(f'[{phase}] FAILED {label} {plan}: {int((got != want).sum())} '
+                             'indices differ from the plain masked version')
+    if not (int(cnt.min()) == 0 and bool(((cnt > 0) & (cnt < npoint)).any())):
+        raise SystemExit(f'[{phase}] FAILED: the clouds hold no empty or exhausted sector '
+                         f'({cnt.tolist()})')
+    unmasked_want = plain.farthest_point_sample(rows, npoint)
+    if not torch.equal(fps_mod.farthest_point_sample_cuda(rows, npoint), unmasked_want):
+        raise SystemExit(f'[{phase}] FAILED: the unmasked kernel differs from plain')
+    t = device_time(lambda: fps_mod.farthest_point_sample_cuda(xyz, npoint, mask=masks))
+    plain_ms = median_ms(lambda: plain.farthest_point_sample(rows, npoint, mask=masks), 3)
+    u = device_time(lambda: fps_mod.farthest_point_sample_cuda(rows, npoint))
+    u_plain = median_ms(lambda: plain.farthest_point_sample(rows, npoint), 3)
+    steps = (cnt.clamp(max=npoint) - 1).clamp(min=0)
+    t_bytes = (B * N * 12 + B * S * N + B * S * npoint * 4) / HBM_BYTES_PER_S * 1e3
+    t_ops = float((cnt * steps).sum()) * 10 / FP32_FLOP_PER_S * 1e3
+    u_bytes = (B * S * N * 12 + B * S * npoint * 4) / HBM_BYTES_PER_S * 1e3
+    u_ops = B * S * N * (npoint - 1) * 10 / FP32_FLOP_PER_S * 1e3
+    log(phase, f'({B} x {S}, {N}) -> {npoint}, valid points a sector cloud {cnt.tolist()}: '
+        + ', '.join(f'{k} {tuple(v)}' for k, v in plans.items()) + ' each == plain masked '
+        f'(exact); masked kernel {timing_note(t)} ({plans["plan"].path} path), plain masked '
+        f'{plain_ms:.3f} ms, bound {max(t_bytes, t_ops):.4f} ms by '
+        f'{"bytes" if t_bytes >= t_ops else "operations"}; unmasked kernel on the same clouds '
+        f'{timing_note(u)}, plain {u_plain:.3f} ms, bound {max(u_bytes, u_ops):.4f} ms; on {smi}')
+    return {'masked_ms': t['ms'], 'masked_host_us': t['host_us'], 'masked_call_ms': t['call_ms'],
+            'masked_plain_ms': plain_ms, 'masked_bound_ms': max(t_bytes, t_ops),
+            'masked_bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
+            'masked_shape_unmasked_ms': u['ms'], 'masked_shape_unmasked_plain_ms': u_plain,
+            'masked_shape_unmasked_bound_ms': max(u_bytes, u_ops)}
+
+
+def rest_two_stage_phases(wrappers, fps_mod, plain, synthetic, smi: str,
+                          cfg_from_yaml_file) -> tuple:
+    """Phases 46 to 50: the tiny shrinks of SECOND-IoU, Part-A2 (dense and
+    sparse) and PV-RCNN++ (dense and sparse) on CUDA against the CPU (the
+    planted boxes 5 % off their proposals, so SECOND-IoU's IoU labels are not
+    degenerate); the masked FPS; each as shipped: predict at B = 4 and five
+    training steps at B = 2; `parta2.yaml`'s eval and train loops. Returns
+    (the kernel launches of each path, by name; phase 47's FPS readings)."""
+    def load(cfg_file):
+        return cfg_from_yaml_file(str(REPO / cfg_file))
+
+    for name, cfg_file in REST_MODELS:
+        two_stage_cuda_vs_cpu_phase(name, load(cfg_file), synthetic, '46 rest cuda-vs-cpu',
+                                    shift=0.05)
+    masked = masked_fps_phase(fps_mod, plain, synthetic, smi)
+    paths = {}
+    for name, cfg_file in REST_MODELS:
+        paths[f'{name}_predict'] = two_stage_predict_phase(name, load(cfg_file), wrappers,
+                                                           synthetic, smi, '48 rest predict')
+        torch.cuda.empty_cache()
+    for name, cfg_file in REST_MODELS:
+        paths[f'{name}_train'] = two_stage_train_phase(name, load(cfg_file), wrappers, synthetic,
+                                                       smi, '49 rest train', B=REST_TRAIN_B)
+        torch.cuda.empty_cache()
+    cfg = load(PARTA2_CFG)
+    paths['parta2_eval_loop'] = kitti_eval_phase(
+        wrappers, synthetic, smi, PARTA2_CFG, '50 parta2 eval loop',
+        two_stage_launches(cfg, REST_TRAIN_B, train=False), adjust=synthetic.open_score_gate,
+        cpu_check=False, B=REST_TRAIN_B)
+    paths['parta2_train_loop'] = train_loop_phase(
+        wrappers, synthetic, smi, PARTA2_CFG, '50 parta2 train loop',
+        two_stage_launches(cfg, REST_TRAIN_B, train=True), B=REST_TRAIN_B)
+    # the masked FPS ran on PV-RCNN++'s paths, and the sparse files' kernels
+    for kern in ('fps masked', 'sparse_conv', 'sparse_conv_wgrad', 'gather_rows',
+                 'scatter_add_rows', 'window_select', 'ball_query'):
+        if not any(launches[kern] > 0 for launches in paths.values()):
+            raise SystemExit(f'[kernels] FAILED: {kern} was launched on no path of phases 46 to '
+                             '50')
+    return paths, masked
+
+
 KERNEL_TABLE = (
     ('farthest_point_sample', 'pdm_ssd_torch/csrc/fps.cu', 'pdm_ssd_tpu/ops/pallas/fps.py:60'),
     ('window_select', 'pdm_ssd_torch/csrc/group.cu',
@@ -3648,6 +3778,7 @@ def launch_counters() -> dict:
             'gather_rows_bf16': (group.gather_rows_cuda, 'launches_bf16'),
             'fps cluster path': (fps.farthest_point_sample_cuda, 'launches_cluster'),
             'fps block path': (fps.farthest_point_sample_cuda, 'launches_block'),
+            'fps masked': (fps.farthest_point_sample_cuda, 'launches_masked'),
             'ball query grid path': (bq.ball_query_cuda, 'launches_grid'),
             'ball query walk path': (bq.ball_query_cuda, 'launches_walk')}
 
@@ -3751,6 +3882,15 @@ def main() -> None:
     new_paths.update(more)
     for kern, r in two_stage_sums.items():
         stats[kern].update({f'two_stage_{k}': v for k, v in r.items()})
+
+    # the rest of the two-stage family: SECOND-IoU, Part-A2, PV-RCNN++
+    more, masked = rest_two_stage_phases(wrappers, fps, plain, synthetic, smi, cfg_from_yaml_file)
+    if set(more) & set(new_paths):
+        raise SystemExit(f'[kernels] FAILED: path names used twice: {set(more) & set(new_paths)}')
+    new_paths.update(more)
+    stats['farthest_point_sample'].update(masked)
+    stats['farthest_point_sample'].update(
+        {f'launches_masked_{path}': launches['fps masked'] for path, launches in more.items()})
 
     # `launches` is the count from the run of a main path: the flagship's five
     # training steps of phase 8 for its four kernels, PointRCNN's predict of

@@ -8,6 +8,19 @@
 // (starting from 1e10), and each step picks the first index of the maximum;
 // npoint > N keeps picking (index 0 once every minimum is 0).
 //
+// Masked FPS (`mask` not null: one byte a point, nonzero where valid), as
+// `farthest_point_sample(xyz, npoint, mask)` of pdm_ssd_tpu/ops/pointnet2.py
+// computes it: the first pick is the first valid index (0 in a cloud with
+// none), the running minima are kept as before, and a candidate outside the
+// mask reads -1, so each pick is the first arg-max over the valid points'
+// minima, and the lowest valid index once every valid point reads 0. An
+// invalid point's minimum is never read: the block path stores -1 for it
+// from the start, the cluster path's key of an invalid point is 0 and a
+// valid point's is its minimum's bits plus 1. `groups` consecutive clouds
+// read one cloud's coordinates (cloud c reads xyz cloud c / groups), so the
+// sectors of a cloud, each with its own mask, run in one launch. Each path
+// is a template on the mask, so the unmasked kernels are the code they were.
+//
 // What bounds it: FPS is a chain of npoint - 1 dependent arg-max reductions
 // over one cloud, so the time is the latency of one cloud-wide reduction per
 // step, not bytes or FLOPs. One block per cloud leaves B of 132 SMs busy and
@@ -102,13 +115,15 @@ __device__ __forceinline__ void warp_argmax(float& d, int& i) {
   }
 }
 
-template <int PPT, int TMAX>
+template <int PPT, int TMAX, bool MASK>
 __global__ void __launch_bounds__(TMAX, 1)
-    fps_block_kernel(const float* __restrict__ xyz, int* __restrict__ out, int n, int npoint) {
+    fps_block_kernel(const float* __restrict__ xyz, const unsigned char* __restrict__ mask,
+                     int* __restrict__ out, int n, int npoint, int groups) {
   extern __shared__ float s_dist[];  // (PPT, T): point t + k*T at s_dist[k*T + t]
   __shared__ float s_wd[32], s_wx[32], s_wy[32], s_wz[32];
   __shared__ int s_wi[32];
   __shared__ float s_last[3];
+  __shared__ int s_seed;
 
   // with several points a thread the block is TMAX threads, so k * T is a
   // constant offset and no register holds a slot's address
@@ -117,29 +132,44 @@ __global__ void __launch_bounds__(TMAX, 1)
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int nwarps = T >> 5;
-  const float* p = xyz + static_cast<size_t>(blockIdx.x) * n * 3;
+  const float* p = xyz + static_cast<size_t>(blockIdx.x / groups) * n * 3;
+  const unsigned char* m = MASK ? mask + static_cast<size_t>(blockIdx.x) * n : nullptr;
   int* o = out + static_cast<size_t>(blockIdx.x) * npoint;
+  if (MASK && tid == 0) s_seed = INT_MAX;
+  if (MASK) __syncthreads();
 
   float px[PPT], py[PPT], pz[PPT];
+  int seed = INT_MAX;
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
     const int j = tid + k * T;
     px[k] = py[k] = pz[k] = 0.f;
-    // padding points hold -1 and can never win against a real point (>= 0)
+    // padding points, and points outside the mask, hold -1 and can never
+    // win against a valid point (>= 0)
     float d0 = -1.f;
     if (j < n) {
       px[k] = p[3 * j];
       py[k] = p[3 * j + 1];
       pz[k] = p[3 * j + 2];
-      d0 = kBig;
+      if (!MASK || m[j]) {
+        d0 = kBig;
+        seed = min(seed, j);
+      }
     }
     s_dist[k * T + tid] = d0;
   }
+  if (MASK) {
+    seed = __reduce_min_sync(kFull, seed);
+    if (lane == 0 && seed != INT_MAX) atomicMin(&s_seed, seed);
+    __syncthreads();
+  }
   if (tid == 0) {
-    o[0] = 0;
-    s_last[0] = p[0];
-    s_last[1] = p[1];
-    s_last[2] = p[2];
+    // the first valid point, or point 0 where no point is valid
+    const int first = MASK && s_seed != INT_MAX ? s_seed : 0;
+    o[0] = first;
+    s_last[0] = p[3 * first];
+    s_last[1] = p[3 * first + 1];
+    s_last[2] = p[3 * first + 2];
   }
   __syncthreads();
 
@@ -198,9 +228,9 @@ __global__ void __launch_bounds__(TMAX, 1)
   }
 }
 
-template <int PPT, int TMAX>
-int launch_block(const float* xyz, int* out, int B, int N, int npoint, int threads,
-                 cudaStream_t stream) {
+template <int PPT, int TMAX, bool MASK>
+int launch_block(const float* xyz, const unsigned char* mask, int* out, int B, int N,
+                 int npoint, int groups, int threads, cudaStream_t stream) {
   if (threads < 32 || threads > TMAX || threads % 32 != 0 || threads * PPT < N ||
       (PPT > 1 && threads != TMAX))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -209,12 +239,13 @@ int launch_block(const float* xyz, int* out, int B, int N, int npoint, int threa
   bool* done = once.slot();
   if (done == nullptr || !*done) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fps_block_kernel<PPT, TMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        fps_block_kernel<PPT, TMAX, MASK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(sizeof(float)) * PPT * TMAX);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (done != nullptr) *done = true;
   }
-  fps_block_kernel<PPT, TMAX><<<B, threads, smem, stream>>>(xyz, out, N, npoint);
+  fps_block_kernel<PPT, TMAX, MASK><<<B, threads, smem, stream>>>(xyz, mask, out, N, npoint,
+                                                                    groups);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -259,14 +290,16 @@ __device__ __forceinline__ void warp_pick(unsigned d, unsigned ni, unsigned x, u
   wz = __uint_as_float(__shfl_sync(kFull, z, src));
 }
 
-template <int PPT>
+template <int PPT, bool MASK>
 __global__ void __launch_bounds__(kClusterThreads, 1)
-    fps_cluster_kernel(const float* __restrict__ xyz, int* __restrict__ out, int n, int npoint) {
+    fps_cluster_kernel(const float* __restrict__ xyz, const unsigned char* __restrict__ mask,
+                       int* __restrict__ out, int n, int npoint, int groups) {
   extern __shared__ __align__(16) unsigned char s_raw[];
   Record* s_warp = reinterpret_cast<Record*>(s_raw);             // [T/32]
   Record* s_block = s_warp + kClusterThreads / 32;                // [2], by parity
   Record* s_pick_rec = s_block + 2;                               // [2]: the pick, by parity
   int* s_pick = reinterpret_cast<int*>(s_raw + kPickOffset);      // [npoint], rank 0
+  __shared__ int s_seed;                                          // the block's first valid
   cg::cluster_group cluster = cg::this_cluster();
   const int S = static_cast<int>(cluster.num_blocks());
   const int rank = static_cast<int>(cluster.block_rank());
@@ -276,7 +309,8 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int nwarps = T >> 5;
-  const float* p = xyz + static_cast<size_t>(cloud) * n * 3;
+  const float* p = xyz + static_cast<size_t>(cloud / groups) * n * 3;
+  const unsigned char* m = MASK ? mask + static_cast<size_t>(cloud) * n : nullptr;
   int* o = out + static_cast<size_t>(cloud) * npoint;
   const int first = rank * T * PPT + tid;
   // picks wait in shared memory while they fit: a store to device memory
@@ -284,6 +318,8 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   const bool keep = kPickOffset + 4 * npoint <= kClusterSmem;
 
   float px[PPT], py[PPT], pz[PPT], md[PPT];
+  unsigned valid = 0;  // bit k: slot k is in the mask (MASK only)
+  int seed = INT_MAX;
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
     const int j = first + k * T;
@@ -292,13 +328,31 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
     py[k] = p[3 * src + 1];
     pz[k] = p[3 * src + 2];
     md[k] = kBig;
+    if (MASK && m[src]) {
+      valid |= 1u << k;
+      if (j < n) seed = min(seed, j);
+    }
   }
   // lane l < S reads block l's record
   const Record* remote = cluster.map_shared_rank(s_block, min(lane, S - 1));
-  float lx = p[0], ly = p[1], lz = p[2];
+  int start = 0;
+  if (MASK) {
+    // the first valid index of the cloud: a minimum over the block, then
+    // over the cluster's blocks through distributed shared memory
+    if (tid == 0) s_seed = INT_MAX;
+    __syncthreads();
+    seed = __reduce_min_sync(kFull, seed);
+    if (lane == 0 && seed != INT_MAX) atomicMin(&s_seed, seed);
+    cluster.sync();
+    int best = INT_MAX;
+    for (int r = 0; r < S; ++r) best = min(best, *cluster.map_shared_rank(&s_seed, r));
+    start = best == INT_MAX ? 0 : best;
+    // no block rewrites s_seed, and the records are written after this
+  }
+  float lx = p[3 * start], ly = p[3 * start + 1], lz = p[3 * start + 2];
   if (rank == 0 && tid == 0) {
-    if (keep) s_pick[0] = 0;
-    else o[0] = 0;
+    if (keep) s_pick[0] = start;
+    else o[0] = start;
   }
 
   for (int it = 1; it < npoint; ++it) {
@@ -313,7 +367,10 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
       const float dz = __fsub_rn(pz[k], lz);
       const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
       md[k] = fminf(md[k], d);
-      const unsigned db = __float_as_uint(md[k]);
+      // masked: 0 outside the mask, the minimum's bits + 1 inside (minima
+      // are finite, so the + 1 keeps their order)
+      const unsigned db = MASK ? ((valid >> k) & 1u ? __float_as_uint(md[k]) + 1u : 0u)
+                               : __float_as_uint(md[k]);
       if (k == 0 || db > bd) {
         bd = db;
         bni = ~static_cast<unsigned>(first + k * T);
@@ -379,12 +436,12 @@ __global__ void __launch_bounds__(kClusterThreads, 1)
   }
 }
 
-template <int PPT>
+template <int PPT, bool MASK>
 cudaError_t cluster_config(int S, int threads, cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
   static OncePerDevice once;
   bool* done = once.slot();
   if (done == nullptr || !*done) {
-    const void* fn = reinterpret_cast<const void*>(fps_cluster_kernel<PPT>);
+    const void* fn = reinterpret_cast<const void*>(fps_cluster_kernel<PPT, MASK>);
     cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            kClusterSmem);
     if (err != cudaSuccess) return err;
@@ -407,27 +464,28 @@ template <int PPT>
 int cluster_occupancy(int S, int threads) {
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
-  cudaError_t err = cluster_config<PPT>(S, threads, &cfg, &attr);
+  cudaError_t err = cluster_config<PPT, false>(S, threads, &cfg, &attr);
   if (err != cudaSuccess) return -static_cast<int>(err);
   cfg.gridDim = dim3(static_cast<unsigned>(S));
   int clusters = 0;
-  err = cudaOccupancyMaxActiveClusters(&clusters, fps_cluster_kernel<PPT>, &cfg);
+  err = cudaOccupancyMaxActiveClusters(&clusters, fps_cluster_kernel<PPT, false>, &cfg);
   return err == cudaSuccess ? clusters : -static_cast<int>(err);
 }
 
-template <int PPT>
-int launch_cluster(const float* xyz, int* out, int B, int N, int npoint, int S, int threads,
-                   cudaStream_t stream) {
+template <int PPT, bool MASK>
+int launch_cluster(const float* xyz, const unsigned char* mask, int* out, int B, int N,
+                   int npoint, int groups, int S, int threads, cudaStream_t stream) {
   if (S < 1 || S > kMaxCluster || threads < 32 || threads > kClusterThreads ||
       (threads & (threads - 1)) != 0 || static_cast<long long>(S) * threads * PPT < N)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaLaunchConfig_t cfg = {};
   cudaLaunchAttribute attr;
-  cudaError_t err = cluster_config<PPT>(S, threads, &cfg, &attr);
+  cudaError_t err = cluster_config<PPT, MASK>(S, threads, &cfg, &attr);
   if (err != cudaSuccess) return static_cast<int>(err);
   cfg.gridDim = dim3(static_cast<unsigned>(B) * static_cast<unsigned>(S));
   cfg.stream = stream;
-  err = cudaLaunchKernelEx(&cfg, fps_cluster_kernel<PPT>, xyz, out, N, npoint);
+  err = cudaLaunchKernelEx(&cfg, fps_cluster_kernel<PPT, MASK>, xyz, mask, out, N, npoint,
+                           groups);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -454,30 +512,46 @@ extern "C" int fps_max_active_clusters(int S, int threads, int ppt) {
   }
 }
 
-// xyz: (B, N, 3) float32 contiguous on the device; out: (B, npoint) int32.
+namespace {
+
+// xyz: (B / groups, N, 3) float32 contiguous on the device; mask: null, or
+// (B, N) bytes, nonzero where a point is valid; out: (B, npoint) int32.
+// Cloud c reads xyz cloud c / groups and mask row c.
 // cluster 0: the block path (`threads` threads, `ppt` points each; S unused);
 // cluster 1: a cluster of S blocks per cloud. Returns 0 or the CUDA error of
 // the launch, cudaErrorInvalidValue for a layout the library does not hold;
 // does not synchronize.
-extern "C" int fps_launch(const float* xyz, int* out, int B, int N, int npoint, int cluster,
-                          int S, int threads, int ppt, cudaStream_t stream) {
-  if (B < 1 || N < 1 || npoint < 1) return static_cast<int>(cudaErrorInvalidValue);
+template <bool MASK>
+int launch(const float* xyz, const unsigned char* mask, int* out, int B, int N, int npoint,
+           int groups, int cluster, int S, int threads, int ppt, cudaStream_t stream) {
   if (cluster) {
     switch (ppt) {
-      case 1: return launch_cluster<1>(xyz, out, B, N, npoint, S, threads, stream);
-      case 2: return launch_cluster<2>(xyz, out, B, N, npoint, S, threads, stream);
-      case 4: return launch_cluster<4>(xyz, out, B, N, npoint, S, threads, stream);
-      case 8: return launch_cluster<8>(xyz, out, B, N, npoint, S, threads, stream);
-      case 16: return launch_cluster<16>(xyz, out, B, N, npoint, S, threads, stream);
+      case 1: return launch_cluster<1, MASK>(xyz, mask, out, B, N, npoint, groups, S, threads, stream);
+      case 2: return launch_cluster<2, MASK>(xyz, mask, out, B, N, npoint, groups, S, threads, stream);
+      case 4: return launch_cluster<4, MASK>(xyz, mask, out, B, N, npoint, groups, S, threads, stream);
+      case 8: return launch_cluster<8, MASK>(xyz, mask, out, B, N, npoint, groups, S, threads, stream);
+      case 16: return launch_cluster<16, MASK>(xyz, mask, out, B, N, npoint, groups, S, threads, stream);
       default: return static_cast<int>(cudaErrorInvalidValue);
     }
   }
   switch (ppt) {
-    case 1: return launch_block<1, 1024>(xyz, out, B, N, npoint, threads, stream);
-    case 2: return launch_block<2, 1024>(xyz, out, B, N, npoint, threads, stream);
-    case 4: return launch_block<4, 1024>(xyz, out, B, N, npoint, threads, stream);
-    case 8: return launch_block<8, 1024>(xyz, out, B, N, npoint, threads, stream);
-    case 16: return launch_block<16, 1024>(xyz, out, B, N, npoint, threads, stream);
+    case 1: return launch_block<1, 1024, MASK>(xyz, mask, out, B, N, npoint, groups, threads, stream);
+    case 2: return launch_block<2, 1024, MASK>(xyz, mask, out, B, N, npoint, groups, threads, stream);
+    case 4: return launch_block<4, 1024, MASK>(xyz, mask, out, B, N, npoint, groups, threads, stream);
+    case 8: return launch_block<8, 1024, MASK>(xyz, mask, out, B, N, npoint, groups, threads, stream);
+    case 16: return launch_block<16, 1024, MASK>(xyz, mask, out, B, N, npoint, groups, threads, stream);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+}  // namespace
+
+extern "C" int fps_launch(const float* xyz, const unsigned char* mask, int* out, int B, int N,
+                          int npoint, int groups, int cluster, int S, int threads, int ppt,
+                          cudaStream_t stream) {
+  if (B < 1 || N < 1 || npoint < 1 || groups < 1 || B % groups != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (mask != nullptr)
+    return launch<true>(xyz, mask, out, B, N, npoint, groups, cluster, S, threads, ppt, stream);
+  return launch<false>(xyz, mask, out, B, N, npoint, groups, cluster, S, threads, ppt, stream);
 }

@@ -35,7 +35,8 @@ def get_host_prepare(model_cfg, dataset_cfg, training: bool = False):
     model that needs none. A batch that already holds its maps comes back
     unchanged. `training=True` adds the transposed maps of the strided convs
     (`sparse_maps.UPMAP_KEYS`, `FOCAL_UPMAP_KEYS`) that the sparse conv's
-    data gradient reads. `GATHER_BWD` (the JAX package's switch between that
+    data gradient reads; `SparseUNetV2`'s batches hold the first three of
+    them in eval too, since its decoder convolves through them. `GATHER_BWD` (the JAX package's switch between that
     gather-transpose backward and autodiff of the gather, which give the same
     gradient) changes nothing: the port has one backward, which reads those
     maps, so training ships them whatever the key says."""
@@ -47,15 +48,13 @@ def get_host_prepare(model_cfg, dataset_cfg, training: bool = False):
         return _focal_prepare(bb, dataset_cfg, training)
     if name not in _SPARSE_BB_NAMES:
         return None
-    if name == 'SparseUNetV2':
-        raise NotImplementedError('SparseUNetV2 and its inverse maps are not ported yet '
-                                  '(ROADMAP Queue 1 item 11, with Part-A2)')
     if bb.get('QWIN', False) or bb.get('PWIN', False):
         raise NotImplementedError('QWIN / PWIN correction lists have no counterpart in the port: '
                                   'the sparse-conv kernel needs no window plans (ROADMAP Queue 1 '
                                   'item 10, the rest of the sparse voxel ladder)')
-    from ..ops.sparse_maps import (batch_build_backbone8x, batch_build_bev, batch_invert_ladder,
-                                   default_caps, ladder_shapes)
+    from ..ops.sparse_maps import (batch_build_backbone8x, batch_build_bev,
+                                   batch_invert_down_maps, batch_invert_ladder, default_caps,
+                                   ladder_shapes)
     from .detectors.detector3d import _grid_info
     grid, _ = _grid_info(dataset_cfg)
     caps_cfg = bb.get('ACTIVE_CAPS', None)
@@ -73,6 +72,9 @@ def get_host_prepare(model_cfg, dataset_cfg, training: bool = False):
                                             caps))
         if training:
             batch.update(batch_invert_ladder(batch, caps))
+        elif name == 'SparseUNetV2':
+            # the UNet's decoder reads the strided convs' transposed maps forward
+            batch.update(batch_invert_down_maps(batch, caps))
         if bev_hw is not None:
             batch.update(batch_build_bev(batch['sp_coords_out'], batch['sp_mask_out'], bev_hw))
         return batch

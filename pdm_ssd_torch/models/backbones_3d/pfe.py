@@ -11,10 +11,21 @@ the two-stage heads (counterpart of `pdm_ssd_tpu/models/backbones_3d/pfe.py`).
   wide rows.
 - `SparseVoxelNeighborAgg`: the same pool over a sparse ladder's slot table,
   through a grid of slot ids (cell -> slot + 1) scattered once per call.
-- `VoxelSetAbstraction`: FPS keypoints of the raw cloud and their features
-  from the sources FEATURES_SOURCE names ('bev', 'raw_points' through
-  `SAGroupMLP`, 'x_conv1' .. 'x_conv4' through the pools above), fused by
-  a Linear + BatchNorm + ReLU.
+- `VectorPoolAgg`: PV-RCNN++'s raw-point source. Up to NSAMPLE points in a
+  ball around each keypoint (`sa_fused.fused_query_group`), each put in its
+  sub-voxel of a LOCAL_GRID^3 grid over the ball by its offset, the offsets
+  and features averaged per sub-voxel (a one-hot matrix product and a
+  count), the sub-voxels' averages concatenated through an MLP, zero where
+  the ball is empty. The JAX package rounds the averaged values to bf16;
+  they are its bf16 extraction already, which `jax_bf16_extraction` of the
+  tests emulates.
+- `VoxelSetAbstraction`: keypoints of the raw cloud, by FPS or, for
+  PV-RCNN++ (SAMPLE_METHOD 'SPC' with proposals in the batch), by sector FPS
+  over the points near a proposal (`pointnet2.sector_fps`: one masked FPS
+  kernel launch for all sectors of all clouds), and their features from the
+  sources FEATURES_SOURCE names ('bev', 'raw_points' through `SAGroupMLP` or
+  `VectorPoolAgg`, 'x_conv1' .. 'x_conv4' through the pools above), fused
+  by a Linear + BatchNorm + ReLU.
 
 The relative offsets, the clipping of the base cell's x to [1, W - 2], the
 masks and the rows fetched for cells outside the volume are the JAX
@@ -30,6 +41,7 @@ from torch import nn
 
 from ...ops import dispatch
 from ...ops import pointnet2 as plain
+from ...ops import sa_fused
 from ...ops.sa_fused import GatherRows
 from ...ops.sparse_maps import ladder_shapes
 from ...utils.config import as_cfg
@@ -173,6 +185,55 @@ class SparseVoxelNeighborAgg(VoxelNeighborAgg):
         return self.pool(rel, rows, hit)
 
 
+class VectorPoolAgg(nn.Module):
+    """Config of the raw-point source: POOL_RADIUS[0], NSAMPLE[0],
+    LOCAL_GRID, MLPS[0]; `in_channels` is the points' feature width (0 for
+    none). Layers `fc<i>` (Linear, no bias) and `bn<i>` (BatchNorm eps
+    1e-5), the JAX package's names."""
+
+    def __init__(self, in_channels: int, radius: float, nsample: int, local_grid: int,
+                 mlp: Sequence[int], pc_range, device=None):
+        super().__init__()
+        self.radius, self.nsample, self.grid = float(radius), int(nsample), int(local_grid)
+        self.pc_range = tuple(float(v) for v in pc_range)
+        self.mlp = [int(c) for c in mlp]
+        c_in = self.grid ** 3 * (3 + in_channels)
+        for i, c in enumerate(self.mlp):
+            self.add_module(f'fc{i}', nn.Linear(c_in, c, bias=False, device=device))
+            self.add_module(f'bn{i}', BatchNormLast(c, eps=1e-5, momentum=0.1, device=device))
+            c_in = c
+        self.out_channels = self.mlp[-1]
+
+    def subvoxel_mean(self, neigh: torch.Tensor, cid: torch.Tensor,
+                      live: torch.Tensor) -> torch.Tensor:
+        """The mean of the live samples (B, M, K, C') of each sub-voxel cid,
+        (B, M, G^3, C'), 0 in an empty one: a one-hot matrix product and a
+        count."""
+        onehot = ((cid[..., None] == torch.arange(self.grid ** 3, device=cid.device))
+                  & live[..., None]).to(neigh.dtype)                          # (B, M, K, G3)
+        sums = torch.einsum('bmkg,bmkc->bmgc', onehot, neigh)
+        cnt = onehot.sum(dim=2)[..., None]                                   # (B, M, G3, 1)
+        return torch.where(cnt > 0, sums / cnt.clamp(min=1.0), 0.0)
+
+    def forward(self, xyz: torch.Tensor, features: torch.Tensor | None,
+                keypoints: torch.Tensor) -> torch.Tensor:
+        """xyz (B, N, 3), features (B, N, C) or None, keypoints (B, M, 3) ->
+        (B, M, mlp[-1])."""
+        B, M, _ = keypoints.shape
+        G = self.grid
+        (rel, gfeat, _, hit), = sa_fused.fused_query_group(
+            [self.radius], [self.nsample], xyz, features, keypoints, self.pc_range, cap=32)
+        neigh = rel if gfeat is None else torch.cat([rel, gfeat], dim=-1)   # (B, M, K, 3 + C)
+        cell = ((rel / (2 * self.radius) + 0.5) * G).to(torch.int32).clamp(0, G - 1)
+        cid = (cell[..., 0] * G + cell[..., 1]) * G + cell[..., 2]
+        # every slot of a ball with a hit counts, the first hit's repeats too
+        live = (rel.abs() > 1e-6).any(dim=-1) | hit[..., None]
+        h = self.subvoxel_mean(neigh, cid, live).reshape(B, M, -1)
+        for i in range(len(self.mlp)):
+            h = torch.relu(getattr(self, f'bn{i}')(getattr(self, f'fc{i}')(h)))
+        return torch.where(hit[..., None], h, 0.0)
+
+
 def sparse_stage_dims(point_cloud_range, voxel_size, stride) -> tuple:
     """(D, H, W) of the sparse ladder's stage of downsample `stride` (1, 2,
     4, 8: stages 1 to 4), as `ops/sparse_maps.ladder_shapes` gives them."""
@@ -195,8 +256,9 @@ def is_sparse_ladder(bb_cfg) -> bool:
 
 
 class VoxelSetAbstraction(nn.Module):
-    """Config: NUM_KEYPOINTS, NUM_OUTPUT_FEATURES, SAMPLE_METHOD (FPS),
-    FEATURES_SOURCE, SA_LAYER. Takes 'points' (B, N, 3 + C) and the 3D
+    """Config: NUM_KEYPOINTS, NUM_OUTPUT_FEATURES, SAMPLE_METHOD (FPS, or SPC
+    with SPC_SAMPLING {SAMPLE_RADIUS_WITH_ROI, NUM_SECTORS}), FEATURES_SOURCE,
+    SA_LAYER. Takes 'points' (B, N, 3 + C) and the 3D
     backbone's outputs; adds 'point_coords' (the keypoints, B, K, 3),
     'point_features_before_fusion' (B, K, num_fused_features) and
     'point_features' (B, K, NUM_OUTPUT_FEATURES). `stage_widths` maps each
@@ -211,9 +273,10 @@ class VoxelSetAbstraction(nn.Module):
         self.pc_range = tuple(float(v) for v in point_cloud_range)
         self.sparse = sparse
         method = cfg.get('SAMPLE_METHOD', 'FPS')
-        if method != 'FPS':
-            raise NotImplementedError(f'SAMPLE_METHOD {method} (sector FPS, SPC) belongs to '
-                                      'PV-RCNN++ and is not ported yet (ROADMAP Queue 1 item 11)')
+        if method not in ('FPS', 'SPC'):
+            raise NotImplementedError(f'SAMPLE_METHOD {method} is not ported (the JAX package '
+                                      'has FPS and SPC)')
+        self.spc = method == 'SPC'
         self.sources = list(cfg.FEATURES_SOURCE)
         sa_cfg = cfg.SA_LAYER
         width = 0
@@ -221,15 +284,20 @@ class VoxelSetAbstraction(nn.Module):
             width += num_bev_features
         if 'raw_points' in self.sources:
             rp = sa_cfg.raw_points
-            if rp.get('AGGREGATION', '') == 'VectorPoolAgg':
-                raise NotImplementedError('VectorPoolAgg belongs to PV-RCNN++ and is not ported '
-                                          'yet (ROADMAP Queue 1 item 11)')
-            mlps = [list(m) for m in rp.MLPS]
             pr = self.pc_range
-            self.sa_raw = SAGroupMLP(num_rawpoint_features - 3, list(rp.POOL_RADIUS),
-                                     list(rp.NSAMPLE), mlps, use_xyz=True,
-                                     pc_range=(pr[0], pr[1], pr[3], pr[4]), device=device)
-            width += sum(int(m[-1]) for m in mlps)
+            bev_range = (pr[0], pr[1], pr[3], pr[4])
+            self.vector_pool = rp.get('AGGREGATION', '') == 'VectorPoolAgg'
+            if self.vector_pool:
+                self.vp_raw = VectorPoolAgg(num_rawpoint_features - 3, rp.POOL_RADIUS[0],
+                                            rp.NSAMPLE[0], rp.get('LOCAL_GRID', 3), rp.MLPS[0],
+                                            bev_range, device=device)
+                width += self.vp_raw.out_channels
+            else:
+                mlps = [list(m) for m in rp.MLPS]
+                self.sa_raw = SAGroupMLP(num_rawpoint_features - 3, list(rp.POOL_RADIUS),
+                                         list(rp.NSAMPLE), mlps, use_xyz=True,
+                                         pc_range=bev_range, device=device)
+                width += sum(int(m[-1]) for m in mlps)
         agg_cls = SparseVoxelNeighborAgg if sparse else VoxelNeighborAgg
         self.conv_sources = [s for s in self.sources if s.startswith('x_conv')]
         for src in self.conv_sources:
@@ -244,12 +312,32 @@ class VoxelSetAbstraction(nn.Module):
         self.fusion_bn = BatchNormLast(self.num_point_features, eps=1e-5, momentum=0.1,
                                        device=device)
 
+    def keypoint_indices(self, batch: dict, xyz: torch.Tensor) -> torch.Tensor:
+        """(B, NUM_KEYPOINTS) indices into the raw points: FPS of the cloud,
+        or with SPC and proposals in the batch the sector FPS of the points
+        within SAMPLE_RADIUS_WITH_ROI of a proposal's centre in BEV (every
+        point of a cloud without a valid proposal)."""
+        cfg = self.cfg
+        n_key = int(cfg.NUM_KEYPOINTS)
+        if not (self.spc and 'rois' in batch):
+            return dispatch.farthest_point_sample(xyz, n_key)
+        spc = cfg.SPC_SAMPLING
+        rad = float(spc.SAMPLE_RADIUS_WITH_ROI)
+        rois = batch['rois'][..., :2]
+        d = xyz[:, :, None, :2] - rois[:, None, :, :]
+        d2 = (d * d).sum(-1).amin(dim=-1)                                    # (B, N)
+        roi_mask = batch.get('roi_mask')
+        has_roi = (roi_mask.any(dim=-1, keepdim=True) if roi_mask is not None
+                   else torch.ones_like(d2[:, :1], dtype=torch.bool))
+        near = (d2 < rad * rad) | ~has_roi
+        return plain.sector_fps(xyz, near, n_key, int(spc.get('NUM_SECTORS', 6)),
+                                per_sector_cap=min(n_key, xyz.shape[1]))
+
     def forward(self, batch: dict) -> dict:
         cfg = self.cfg
         points = batch['points']
         xyz = points[..., :3].contiguous()
-        fps_idx = dispatch.farthest_point_sample(xyz, int(cfg.NUM_KEYPOINTS))
-        keypoints = plain.gather_operation(xyz, fps_idx)                     # (B, K, 3)
+        keypoints = plain.gather_operation(xyz, self.keypoint_indices(batch, xyz))  # (B, K, 3)
         # the JAX package's order: the BEV map, the raw points, then the stages
         feats = []
         if 'bev' in self.sources:
@@ -259,7 +347,8 @@ class VoxelSetAbstraction(nn.Module):
                                            batch.get('spatial_features_stride', 8)))
         if 'raw_points' in self.sources:
             raw = points[..., 3:] if points.shape[-1] > 3 else None
-            feats.append(self.sa_raw(xyz, raw, keypoints))
+            feats.append(self.vp_raw(xyz, raw, keypoints) if self.vector_pool
+                         else self.sa_raw(xyz, raw, keypoints))
         for src in self.conv_sources:
             agg = getattr(self, f'agg_{src}')
             down = int(cfg.SA_LAYER[src].DOWNSAMPLE_FACTOR)

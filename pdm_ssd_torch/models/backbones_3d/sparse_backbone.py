@@ -1,6 +1,6 @@
-"""Sparse voxel backbone (counterpart of
-`pdm_ssd_tpu/models/backbones_3d/sparse_backbone.py`, `SparseVoxelBackBone8x`
-and its residual form).
+"""Sparse voxel backbones (counterpart of
+`pdm_ssd_tpu/models/backbones_3d/sparse_backbone.py`, `SparseVoxelBackBone8x`,
+its residual form, and Part-A2's `SparseUNetV2`).
 
 Each layer is a gather-matmul sparse convolution over a fixed-capacity slot
 table (`ops/dispatch.sparse_conv`: the Hopper kernel on CUDA tensors, the
@@ -205,4 +205,113 @@ class SparseVoxelBackBone8x(nn.Module):
         batch['multi_scale_3d_features_sparse'] = ms
         batch['encoded_sparse_out'] = (x, batch['sp_coords_out'], mo)
         batch['spatial_features_stride'] = 8
+        return batch
+
+
+class SparseUNetV2(nn.Module):
+    """Part-A2's sparse UNet: the ladder's encoder (conv_input, conv1_subm0,
+    down<s>, conv<s>_subm0 and _subm1 for s = 2..4, conv_out to the BEV map)
+    and a decoder of four UR blocks, 4 to 1. UR block s: a residual block of
+    two submanifold convs over the stage's encoder output ('up<s>_t'), its
+    concatenation after the coarser features (2C channels), a submanifold
+    conv back to C ('up<s>_m') plus the channel reduction (channels 2c and
+    2c + 1 summed), then the inverse conv to the next finer stage
+    ('up<s>_inv'): a conv through the transposed map of the stage's strided
+    conv, `sp_upmap<s>`, read forward, its backward through the strided
+    conv's own map. UR block 1's inverse slot is a submanifold conv at stage
+    1. The batch must hold `sp_upmap2` to `sp_upmap4` in eval too
+    (`models.get_host_prepare` builds them for this backbone); a training
+    batch also holds `sp_upmap_out`, conv_out's backward map.
+
+    Config: NUM_FILTERS, OUT_FEATURES, TABLE_DTYPE as the ladder's. Sets what
+    the ladder sets but 'encoded_sparse_out' and the multi-scale features,
+    and 'point_features' (B, cap1, NUM_FILTERS[0]) at the stage-1 slots,
+    'point_coords' (the slots' voxel centres) and 'point_mask'."""
+
+    def __init__(self, model_cfg, input_channels: int, grid_size, voxel_size, point_cloud_range,
+                 device=None):
+        super().__init__()
+        cfg = as_cfg(model_cfg)
+        f = list(cfg.get('NUM_FILTERS', [16, 32, 64, 64]))
+        self.out_features = cfg.get('OUT_FEATURES', 128)
+        if str(cfg.get('TABLE_DTYPE', '')).lower() == 'int8':
+            raise NotImplementedError('TABLE_DTYPE int8 is not ported (ROADMAP Queue 1 item 10, '
+                                      'the rest of the sparse voxel ladder)')
+        self.shapes = ladder_shapes(grid_size)
+        self.num_bev_features = self.out_features * self.shapes[4][0]
+        self.num_point_features = f[0]
+        self.voxel_size = tuple(float(v) for v in voxel_size)
+        self.pc_range = tuple(float(v) for v in point_cloud_range)
+
+        def conv(name, c_in, ch, taps=27):
+            self.add_module(name, SparseConvBNReLU(c_in, ch, taps, device=device))
+
+        conv('conv_input', input_channels, f[0])
+        conv('conv1_subm0', f[0], f[0])
+        for s, c_in, ch in zip((2, 3, 4), f[:3], f[1:]):
+            conv(f'down{s}', c_in, ch)
+            conv(f'conv{s}_subm0', ch, ch)
+            conv(f'conv{s}_subm1', ch, ch)
+        conv('conv_out', f[3], self.out_features, taps=3)
+        # UR block s works at stage s's width and hands stage s - 1's width on
+        for s, ch, ch_out in ((4, f[3], f[2]), (3, f[2], f[1]), (2, f[1], f[0]), (1, f[0], f[0])):
+            self.add_module(f'up{s}_t', SparseBasicBlock(ch, device=device))
+            conv(f'up{s}_m', 2 * ch, ch)
+            conv(f'up{s}_inv', ch, ch_out)
+
+    scatter_to_bev = SparseVoxelBackBone8x.scatter_to_bev
+
+    def forward(self, batch: dict) -> dict:
+        if 'sp_upmap2' not in batch:
+            raise KeyError('the batch holds no inverse maps: pass it through '
+                           'models.get_host_prepare(model_cfg, dataset_cfg) first')
+        feats = dispatch.gather_rows(batch['voxel_features'], batch['sp_perm1'])
+        m = {s: batch[f'sp_mask{s}'] for s in (1, 2, 3, 4)}
+        sub, down, up = {}, {}, {}
+        for s in (1, 2, 3, 4):
+            n = batch[f'sp_submap{s}']
+            sub[s] = (n, sparse_conv_plan(n, n.shape[1]))
+        for s in (2, 3, 4):
+            d, u = batch[f'sp_downmap{s}'], batch[f'sp_upmap{s}']
+            down[s] = (d, sparse_conv_plan(d, u.shape[1]))       # reads stage s - 1's slots
+            up[s] = (u, sparse_conv_plan(u, d.shape[1]))         # reads stage s's slots
+
+        def layer(name, x, fwd, mask, bwd):
+            """A conv through map `fwd`, its data gradient through `bwd`."""
+            return getattr(self, name)(x, fwd[0], mask, fwd[1], bwd[0], bwd[1])
+
+        x = layer('conv_input', torch.where(m[1][..., None], feats, 0.0), sub[1], m[1], sub[1])
+        enc = {1: layer('conv1_subm0', x, sub[1], m[1], sub[1])}
+        x = enc[1]
+        for s in (2, 3, 4):
+            x = layer(f'down{s}', x, down[s], m[s], up[s])
+            x = layer(f'conv{s}_subm0', x, sub[s], m[s], sub[s])
+            enc[s] = x = layer(f'conv{s}_subm1', x, sub[s], m[s], sub[s])
+        mo, no = batch['sp_mask_out'], batch['sp_outmap']
+        out_bwd = ((batch['sp_upmap_out'], sparse_conv_plan(batch['sp_upmap_out'], mo.shape[1]))
+                   if 'sp_upmap_out' in batch else (None, None))
+        xo = layer('conv_out', x, (no, sparse_conv_plan(no, x.shape[1])), mo, out_bwd)
+        batch['spatial_features'] = self.scatter_to_bev(xo, batch['sp_coords_out'], mo)
+        batch['spatial_features_stride'] = 8
+
+        x = enc[4]
+        for s in (4, 3, 2, 1):
+            t = getattr(self, f'up{s}_t')(enc[s], sub[s][0], m[s], sub[s][1], *sub[s])
+            cat = torch.cat([x, t], dim=-1)
+            ch = t.shape[-1]
+            xm = layer(f'up{s}_m', cat, sub[s], m[s], sub[s])
+            red = cat.reshape(*cat.shape[:-1], ch, 2).sum(-1)
+            x = torch.where(m[s][..., None], xm + red, 0.0)
+            if s > 1:
+                x = layer(f'up{s}_inv', x, up[s], m[s - 1], down[s])
+            else:
+                x = layer('up1_inv', x, sub[1], m[1], sub[1])
+
+        c1 = batch['sp_coords1'].float()                                 # zyx
+        vsz, org = self.voxel_size, self.pc_range
+        batch['point_features'] = x
+        batch['point_coords'] = torch.stack([(c1[..., 2] + 0.5) * vsz[0] + org[0],
+                                             (c1[..., 1] + 0.5) * vsz[1] + org[1],
+                                             (c1[..., 0] + 0.5) * vsz[2] + org[2]], dim=-1)
+        batch['point_mask'] = m[1]
         return batch

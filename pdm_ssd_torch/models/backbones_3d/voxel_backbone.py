@@ -1,8 +1,10 @@
-"""Dense voxel backbone (counterpart of `DenseVoxelBackBone8x` in
-`pdm_ssd_tpu/models/backbones_3d/voxel_backbone.py`): the voxel features
-densified into a (B, C, D, H, W) volume with one scatter, seven 3x3x3
-Conv + BatchNorm + ReLU blocks with flax's 'SAME' padding (strides 1, 2, 1,
-2, 1, 2, 1 in all three axes), then the depth folded into channels.
+"""Dense voxel backbones (counterparts of `DenseVoxelBackBone8x` and
+`DenseUNetV2` in `pdm_ssd_tpu/models/backbones_3d/voxel_backbone.py`): the
+voxel features densified into a (B, C, D, H, W) volume with one scatter,
+seven 3x3x3 Conv + BatchNorm + ReLU blocks with flax's 'SAME' padding
+(strides 1, 2, 1, 2, 1, 2, 1 in all three axes), then the depth folded into
+channels. The UNet adds a decoder back to full resolution and reads its
+features at the input voxels.
 
 The convolutions run in NCDHW (cuDNN); the outputs are channels last as the
 JAX package returns them: 'dense_voxel_features' (B, D, H, W, C) and each
@@ -105,4 +107,89 @@ class DenseVoxelBackBone8x(nn.Module):
         batch['dense_voxel_features'] = x.permute(0, 2, 3, 4, 1)
         batch['spatial_features'] = x.permute(0, 3, 4, 2, 1).reshape(B, H, W, D * C)
         batch['spatial_features_stride'] = 8
+        return batch
+
+
+def conv_transpose_same(deconv: nn.ConvTranspose3d, x: torch.Tensor) -> torch.Tensor:
+    """flax's `ConvTranspose` with padding 'SAME' (a correlation over the
+    input dilated by the stride; the kernel not flipped): torch's transposed
+    convolution with the kernel flipped (`utils/weights` stores it so) and
+    no padding, cut to stride times the input's size."""
+    out = F.conv_transpose3d(x, deconv.weight, deconv.bias, deconv.stride)
+    D, H, W = (n * s for n, s in zip(x.shape[2:], deconv.stride))
+    return out[:, :, :D, :H, :W]
+
+
+class DenseUNetV2(DenseVoxelBackBone8x):
+    """The dense ladder as encoder plus a decoder of three steps ('up3',
+    'up2', 'up1') back to the input resolution. A step is a stride-2 3x3x3
+    transposed conv ('<step>_deconv') + BatchNorm ('_bn') + ReLU, cut to the
+    skip's size, plus the skip projected by a bias-free Linear ('_skip'),
+    then a `Conv3DBlock` ('_fuse'). Config: NUM_FILTERS,
+    REMAT (the encoder's blocks and the decoder's fuse blocks). Takes what
+    the ladder takes; sets 'spatial_features' (the encoder's top, depth
+    folded into channels) and 'spatial_features_stride' 8, and at the input
+    voxels 'point_features' (B, V, NUM_FILTERS[0]) from the decoder's full
+    resolution map (zero at invalid voxels), 'point_coords' (B, V, 3), the
+    voxel centres, and 'point_mask' (B, V)."""
+
+    def __init__(self, model_cfg, input_channels: int, grid_size, voxel_size, point_cloud_range,
+                 device=None):
+        super().__init__(model_cfg, input_channels, grid_size, device=device)
+        f = self.filters
+        self.voxel_size = tuple(float(v) for v in voxel_size)
+        self.pc_range = tuple(float(v) for v in point_cloud_range)
+        self.num_point_features = f[0]
+        for name, c_in, ch in (('up3', f[3], f[2]), ('up2', f[2], f[1]), ('up1', f[1], f[0])):
+            self.add_module(f'{name}_deconv', nn.ConvTranspose3d(c_in, ch, 3, stride=2, bias=False,
+                                                                 device=device))
+            self.add_module(f'{name}_bn', BatchNorm3d(ch, eps=1e-3, momentum=0.01, device=device))
+            self.add_module(f'{name}_skip', nn.Linear(ch, ch, bias=False, device=device))
+            self.add_module(f'{name}_fuse', Conv3DBlock(ch, ch, device=device))
+
+    def up(self, name: str, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        """A decoder step's input to its fuse block: the deconvolved map cut
+        to the skip's size, plus the projected skip."""
+        x = torch.relu(getattr(self, f'{name}_bn')(
+            conv_transpose_same(getattr(self, f'{name}_deconv'), x)))
+        D, H, W = skip.shape[2:]
+        proj = F.linear(skip.permute(0, 2, 3, 4, 1), getattr(self, f'{name}_skip').weight)
+        return x[:, :, :D, :H, :W] + proj.permute(0, 4, 1, 2, 3)
+
+    def forward(self, batch: dict) -> dict:
+        x, _ = self.densify(batch)
+        remat = self.remat and torch.is_grad_enabled()
+
+        def block(module, x):
+            return checkpoint_block(module, x) if remat else module(x)
+
+        enc = {}
+        for name, _, _ in BLOCKS:
+            x = block(getattr(self, name), x)
+            if name == 'conv_input' or name.endswith('b'):
+                enc[len(enc) + 1] = x
+        B, C, D, H, W = x.shape
+        batch['spatial_features'] = x.permute(0, 3, 4, 2, 1).reshape(B, H, W, D * C)
+        batch['spatial_features_stride'] = 8
+        for name, skip in (('up3', enc[3]), ('up2', enc[2]), ('up1', enc[1])):
+            x = block(getattr(self, f'{name}_fuse'), self.up(name, x, skip))
+
+        coords = batch['voxel_coords']
+        Wg, Hg, Dg = self.grid_size
+        iz, iy, ix = (coords[..., i].long() for i in range(3))
+        ok = (ix >= 0) & (ix < Wg) & (iy >= 0) & (iy < Hg) & (iz >= 0) & (iz < Dg)
+        if batch.get('voxel_mask') is not None:
+            ok = ok & batch['voxel_mask']
+        ncells = Dg * Hg * Wg
+        flat = torch.where(ok, (iz * Hg + iy) * Wg + ix, 0)
+        C0 = x.shape[1]
+        pf = torch.gather(x.reshape(x.shape[0], C0, ncells), 2,
+                          flat[:, None, :].expand(-1, C0, -1)).transpose(1, 2)
+        vsz, org = self.voxel_size, self.pc_range
+        centers = torch.stack([(ix.float() + 0.5) * vsz[0] + org[0],
+                               (iy.float() + 0.5) * vsz[1] + org[1],
+                               (iz.float() + 0.5) * vsz[2] + org[2]], dim=-1)
+        batch['point_features'] = torch.where(ok[..., None], pf, 0.0)
+        batch['point_coords'] = centers
+        batch['point_mask'] = ok
         return batch

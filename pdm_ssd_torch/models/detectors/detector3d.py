@@ -38,10 +38,10 @@ from .. import model_nms
 from ..backbones_2d.base_bev_backbone import BaseBEVBackbone, BaseBEVResBackbone
 from ..backbones_2d.map_to_bev import build_map_to_bev
 from ..backbones_3d.grid_point_backbone import GridPointBackbone
-from ..backbones_3d.sparse_backbone import SparseVoxelBackBone8x
+from ..backbones_3d.sparse_backbone import SparseUNetV2, SparseVoxelBackBone8x
 from ..backbones_3d.sparse_backbone_focal import VoxelBackBone8xFocal
 from ..backbones_3d.vfe import build_vfe
-from ..backbones_3d.voxel_backbone import DenseVoxelBackBone8x
+from ..backbones_3d.voxel_backbone import DenseUNetV2, DenseVoxelBackBone8x
 from ..dense_heads.anchor_head import AnchorHeadMulti, AnchorHeadSingle
 from ..dense_heads.center_head import CenterHead
 from ..dense_heads.voxelnext_head import VoxelNeXtHead
@@ -63,12 +63,18 @@ def _grid_info(ds_cfg):
 
 def build_voxel_backbone_3d(bb_cfg, input_channels: int, grid_size, voxel_size=None,
                             pc_range=None, dense_canvas: bool = True, device=None) -> nn.Module:
-    """The sparse and focal ladders by their names; every other name
+    """The sparse and focal ladders and the two UNets (Part-A2's, which the
+    JAX package's `PartA2Net` builds itself) by their names; every other name
     (`DenseVoxelBackBone8x`, `VoxelBackBone8x`, none) is the dense ladder, as
     in the JAX package's `build_voxel_backbone_3d`. `dense_canvas=False`
     spares the sparse ladder its dense BEV map, for a head that reads only
     the sparse output."""
     name = bb_cfg.get('NAME', 'VoxelBackBone8x')
+    if name == 'DenseUNetV2':
+        return DenseUNetV2(bb_cfg, input_channels, grid_size, voxel_size, pc_range, device=device)
+    if name == 'SparseUNetV2':
+        return SparseUNetV2(bb_cfg, input_channels, grid_size, voxel_size, pc_range,
+                            device=device)
     if name in ('SparseVoxelBackBone8x', 'SparseVoxelResBackBone8x'):
         return SparseVoxelBackBone8x(bb_cfg, input_channels, grid_size,
                                      residual=(name == 'SparseVoxelResBackBone8x'),

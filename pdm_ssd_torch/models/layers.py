@@ -202,9 +202,10 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
             mod.running_mean.fill_(0.0)
             mod.running_var.fill_(1.0)
             mod.num_batches_tracked.fill_(0)
-        elif isinstance(mod, (nn.Linear, nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d)):
+        elif isinstance(mod, (nn.Linear, nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d,
+                              nn.ConvTranspose3d)):
             w = mod.weight
-            bound = 1.0 / w[0].numel() ** 0.5     # torch's fan_in for all four
+            bound = 1.0 / w[0].numel() ** 0.5     # torch's fan_in for all five
             vals = (torch.rand(w.shape, generator=generator) * 2 - 1) * bound
             w.copy_(vals)
             if mod.bias is not None:

@@ -109,13 +109,17 @@ class PVRCNNHead(RoIHeadTemplate):
         live = ~empty[..., None, None]
         return torch.where(live, rel, 0.0), torch.where(live, gfeat, 0.0)
 
-    def forward(self, batch: dict, target_generator: torch.Generator | None = None) -> dict:
+    def forward(self, batch: dict, target_generator: torch.Generator | None = None,
+                skip_proposals: bool = False) -> dict:
         """In training with ground truth in the batch, the head predicts on the
         subsampled, reordered ROIs of `assign_targets` (drawn from
-        `target_generator`), whose targets it adds as 'roi_targets'."""
-        batch = self.proposal_layer(batch)
-        if self.training and 'gt_boxes' in batch:
-            batch['roi_targets'] = self.assign_targets(batch, target_generator)
+        `target_generator`), whose targets it adds as 'roi_targets'. With
+        `skip_proposals` (PV-RCNN++, which draws its proposals and targets
+        before the keypoints) it takes the batch's ROIs as they are."""
+        if not skip_proposals:
+            batch = self.proposal_layer(batch)
+            if self.training and 'gt_boxes' in batch:
+                batch['roi_targets'] = self.assign_targets(batch, target_generator)
         rois = batch['rois']                                               # (B, R, 7)
         B, R = rois.shape[:2]
         P, G3 = self.max_keypoints, self.grid ** 3

@@ -15,12 +15,18 @@ from . import pointnet2 as plain
 from . import sparse_conv as sc
 
 
-def farthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
+def farthest_point_sample(xyz: torch.Tensor, npoint: int,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
+    """xyz (B, N, 3) -> (B, npoint) int32. With `mask` (B * G, N) bool, the
+    masked FPS of G masked clouds over each cloud's coordinates (rows b * G
+    to b * G + G - 1 over cloud b): (B * G, npoint), one launch on CUDA."""
     kind = xyz.device.type
     if kind == 'cpu':
-        return plain.farthest_point_sample(xyz, npoint)
+        if mask is not None and mask.shape[0] != xyz.shape[0]:
+            xyz = xyz.repeat_interleave(mask.shape[0] // xyz.shape[0], dim=0)
+        return plain.farthest_point_sample(xyz, npoint, mask=mask)
     if kind == 'cuda':
-        return fps.farthest_point_sample_cuda(xyz.contiguous(), npoint)
+        return fps.farthest_point_sample_cuda(xyz.contiguous(), npoint, mask=mask)
     raise NotImplementedError(f'no FPS for device {xyz.device}')
 
 

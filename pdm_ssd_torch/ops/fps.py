@@ -4,7 +4,15 @@ Replaces `pdm_ssd_tpu/ops/pallas/fps.py:farthest_point_sample_pallas`; its
 plain version is `ops/pointnet2.farthest_point_sample`. The wrapper takes
 CUDA tensors only: `ops/dispatch.py` routes CPU tensors to the plain version.
 `farthest_point_sample_cuda.launches` counts the kernel launches, of either
-path; `launches_cluster` and `launches_block` count them by path.
+path, masked or not; `launches_cluster` and `launches_block` count them by
+path, `launches_masked` those with a mask.
+
+With a mask (PV-RCNN++'s sector FPS, `ops/pointnet2.sector_fps`) the kernels
+compute the JAX package's masked FPS: the first pick is the first valid
+point, a point outside the mask is never picked while a valid one is left,
+and the picks after the valid points run out are the lowest valid index.
+The mask may hold several rows a cloud: each row is a cloud of its own, over
+the same coordinates, and all of them run in one launch.
 
 Two kernels compute the same function. The cluster path spreads one cloud
 over a thread-block cluster of S blocks, one per SM; the block path gives a
@@ -122,9 +130,13 @@ def plan_for(index: int, B: int, N: int, npoint: int, path: str | None = None) -
 
 
 def farthest_point_sample_cuda(xyz: torch.Tensor, npoint: int,
-                               plan: FpsPlan | None = None) -> torch.Tensor:
+                               plan: FpsPlan | None = None,
+                               mask: torch.Tensor | None = None) -> torch.Tensor:
     """xyz: (B, N, 3) float32 contiguous CUDA tensor -> (B, npoint) int32.
-    `plan` (default `plan_for` the shape) names the path and layout.
+    With `mask`, (B * G, N) bool on the same card: G masked clouds over each
+    cloud's coordinates, rows b * G to b * G + G - 1 over cloud b, and the
+    result is (B * G, npoint). `plan` (default `plan_for` the shape) names
+    the path and layout of the B * G clouds.
 
     Launches on the current stream and does not synchronize."""
     if xyz.device.type != 'cuda':
@@ -136,18 +148,30 @@ def farthest_point_sample_cuda(xyz: torch.Tensor, npoint: int,
     if not xyz.is_contiguous():
         raise ValueError('FPS kernel needs a contiguous tensor')
     B, N, _ = xyz.shape
+    clouds = B
+    if mask is not None:
+        if mask.dtype != torch.bool or mask.device != xyz.device:
+            raise ValueError(f'FPS mask must be bool on {xyz.device}, got {mask.dtype} on '
+                             f'{mask.device}')
+        if mask.dim() != 2 or mask.shape[1] != N or mask.shape[0] % B != 0:
+            raise ValueError(f'FPS mask must be (B * G, {N}) for B={B}, got {tuple(mask.shape)}')
+        mask = mask.contiguous()
+        clouds = mask.shape[0]
     index = xyz.device.index
     if plan is None:
-        plan = plan_for(index, B, N, int(npoint))
+        plan = plan_for(index, clouds, N, int(npoint))
     lib = kernels.load()
-    out = torch.empty((B, npoint), dtype=torch.int32, device=xyz.device)
+    out = torch.empty((clouds, npoint), dtype=torch.int32, device=xyz.device)
     with kernels.on_device(index):
-        err = lib.fps_launch(xyz.data_ptr(), out.data_ptr(), B, N, npoint,
+        err = lib.fps_launch(xyz.data_ptr(), 0 if mask is None else mask.data_ptr(),
+                             out.data_ptr(), clouds, N, npoint, clouds // B,
                              int(plan.path == 'cluster'), plan.S,
                              plan.threads, plan.ppt, kernels.stream(index))
     if err != 0:
         raise RuntimeError(f'fps_launch {plan} failed with CUDA error {err}')
     farthest_point_sample_cuda.launches += 1
+    if mask is not None:
+        farthest_point_sample_cuda.launches_masked += 1
     if plan.path == 'cluster':
         farthest_point_sample_cuda.launches_cluster += 1
     else:
@@ -158,3 +182,4 @@ def farthest_point_sample_cuda(xyz: torch.Tensor, npoint: int,
 farthest_point_sample_cuda.launches = 0
 farthest_point_sample_cuda.launches_cluster = 0
 farthest_point_sample_cuda.launches_block = 0
+farthest_point_sample_cuda.launches_masked = 0

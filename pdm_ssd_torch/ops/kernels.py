@@ -31,7 +31,7 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # entry points of each source: name -> argument types (every one returns int)
 _ENTRY_POINTS = {
     'fps.cu': {
-        'fps_launch': [_P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+        'fps_launch': [_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
         'fps_max_active_clusters': [_I, _I, _I],
     },
     'group.cu': {

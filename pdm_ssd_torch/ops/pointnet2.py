@@ -4,7 +4,10 @@
 (`ops/fps.py`): seed index 0, running minimum of the squared distance from
 BIG, first index of the maximum. The distance is written as separate
 elementwise ops, (dx*dx + dy*dy) + dz*dz, so that it rounds exactly like the
-kernel.
+kernel. With a mask it is the JAX package's masked FPS: the seed is the first
+valid index (0 where none is), and a point outside the mask reads -1 among
+the candidates. `sector_fps` is PV-RCNN++'s sector FPS, one masked FPS a
+sector.
 
 `ball_query` is the plain version of the ball-query kernel
 (`ops/ball_query.py`) and its contract: for each center the first `nsample`
@@ -19,6 +22,8 @@ the product of the two clouds' sizes.
 """
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -29,8 +34,12 @@ BIG = 1e10
 CHUNK_ELEMS = 1 << 25
 
 
-def farthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
-    """xyz: (B, N, 3) -> (B, npoint) int32 indices; the first is always 0."""
+def farthest_point_sample(xyz: torch.Tensor, npoint: int,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
+    """xyz: (B, N, 3), mask (B, N) bool or None -> (B, npoint) int32
+    indices. Without a mask the first is always 0; with one it is the first
+    valid index, and once every valid point is picked the picks are the
+    lowest valid index (a row with no valid point picks 0 throughout)."""
     B, N, _ = xyz.shape
     x = xyz.float()
     xs, ys, zs = x[..., 0], x[..., 1], x[..., 2]
@@ -38,6 +47,9 @@ def farthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     out = torch.zeros((B, npoint), dtype=torch.int32, device=xyz.device)
     rows = torch.arange(B, device=xyz.device)
     last = torch.zeros(B, dtype=torch.long, device=xyz.device)
+    if mask is not None:
+        last = torch.argmax(mask.to(torch.uint8), dim=1)   # the first valid index, else 0
+        out[:, 0] = last.to(torch.int32)
     for i in range(1, npoint):
         lx = xs[rows, last][:, None]
         ly = ys[rows, last][:, None]
@@ -47,9 +59,51 @@ def farthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
         dz = zs - lz
         d = dx * dx + dy * dy + dz * dz
         dists = torch.minimum(dists, d)
-        last = torch.argmax(dists, dim=1)   # first index of the maximum
+        cand = dists if mask is None else torch.where(mask, dists, -1.0)
+        last = torch.argmax(cand, dim=1)    # first index of the maximum
         out[:, i] = last.to(torch.int32)
     return out
+
+
+def sector_masks(xyz: torch.Tensor, valid: torch.Tensor, num_sectors: int) -> torch.Tensor:
+    """The valid points of each azimuth sector: (B, N, 3), (B, N) -> (B, S, N)
+    bool, sector s holding the angles atan2(y, x) + pi in [s, s + 1) times
+    2 pi / S (the last sector takes the angle 2 pi)."""
+    S = int(num_sectors)
+    x = xyz.float()
+    ang = torch.atan2(x[..., 1], x[..., 0]) + math.pi
+    # a true division by a device tensor: CUDA multiplies by the reciprocal
+    # of a Python scalar divisor, which may round to the other sector
+    width = torch.tensor(2 * math.pi / S, dtype=torch.float32, device=xyz.device)
+    sec = torch.floor(ang / width).clamp(0, S - 1).long()
+    return valid[:, None, :] & (sec[:, None, :] == torch.arange(S, device=xyz.device)[:, None])
+
+
+def sector_fps(xyz: torch.Tensor, valid: torch.Tensor, npoint: int, num_sectors: int,
+               per_sector_cap: int | None = None) -> torch.Tensor:
+    """PV-RCNN++'s sector FPS (the JAX package's `sector_fps`): xyz (B, N, 3),
+    valid (B, N) bool -> (B, npoint) int32 indices. The valid points are
+    split into `num_sectors` azimuth sectors (`sector_masks`); one masked
+    FPS a sector picks `per_sector_cap` points (all sectors of all clouds in
+    one call of the FPS kernel on CUDA tensors); pick i of a sector of cnt
+    points has the priority (i + 1) / cnt, a pick past cnt (or in an empty
+    sector) 1e9; the npoint picks of least priority are kept, ties to the
+    earlier sector and pick, as the JAX package's `top_k` of the negated
+    priorities orders them."""
+    B, N, _ = xyz.shape
+    S = int(num_sectors)
+    cap = int(per_sector_cap or npoint)
+    masks = sector_masks(xyz, valid, S)
+    cnt = masks.sum(dim=-1)                                          # (B, S)
+    from . import dispatch                                           # dispatch imports this module
+    idx = dispatch.farthest_point_sample(xyz, cap, mask=masks.reshape(B * S, N))
+    idx = idx.reshape(B, S * cap)
+    rank = torch.arange(cap, device=xyz.device)
+    ok = (rank < cnt[..., None]) & (cnt[..., None] > 0)
+    prio = torch.where(ok, (rank + 1.0) / cnt.clamp(min=1)[..., None], 1e9).reshape(B, S * cap)
+    # the JAX package's top_k of -prio: least priority first, ties to the lower index
+    sel = torch.argsort(prio, dim=1, stable=True)[:, :npoint]
+    return torch.gather(idx, 1, sel)
 
 
 def gather_operation(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -477,13 +477,60 @@ def tiny_voxel_rcnn_cfg(cfg):
     return cfg
 
 
+def tiny_second_iou_cfg(cfg):
+    """Shrink `configs/kitti_models/second_iou.yaml` in place: the same path
+    (MeanVFE, the dense ladder, the anchor proposals, SECONDHead's rotated
+    BEV crop, its FC layers and IoU logit) on the two-stage shrink, a 3 x 3
+    crop, narrow."""
+    _tiny_two_stage_common(cfg)
+    roi = cfg.MODEL.ROI_HEAD
+    roi.ROI_GRID_POOL.GRID_SIZE = 3
+    roi.IOU_FC = [16]
+    return cfg
+
+
+def tiny_parta2_cfg(cfg):
+    """Shrink `configs/kitti_models/parta2.yaml` or `parta2_sparse.yaml` in
+    place: the same path (MeanVFE, the dense or sparse UNet, the anchor
+    proposals, the part head, both ROI-aware pools, the ROI convs and FC
+    stacks) on the two-stage shrink, a 4^3 pool of up to 16 points, narrow
+    (TABLE_DTYPE dropped, as for the other sparse shrinks). The anchors are
+    8 x 8 x 2 m: a seeded head shrinks its boxes below a voxel of the shrink
+    (0.5 m), and Part-A2's pools read the voxels inside a ROI only."""
+    _tiny_two_stage_common(cfg)
+    for anchor in cfg.MODEL.DENSE_HEAD.ANCHOR_GENERATOR_CONFIG:
+        anchor['anchor_sizes'] = [[8.0, 8.0, 2.0]]
+        anchor['anchor_bottom_heights'] = [-2.0]
+    cfg.MODEL.POINT_HEAD.CLS_FC = [8]
+    cfg.MODEL.POINT_HEAD.PART_FC = [8]
+    pool = cfg.MODEL.ROI_HEAD.ROI_AWARE_POOL
+    pool.POOL_SIZE = 4
+    pool.NUM_FEATURES = 8
+    pool.MAX_POINTS = 16
+    return cfg
+
+
+def tiny_pv_rcnn_plusplus_cfg(cfg):
+    """Shrink `configs/kitti_models/pv_rcnn_plusplus.yaml` or
+    `pv_rcnn_plusplus_sparse.yaml` in place: PV-RCNN's shrink, with the
+    proposals before the keypoints, sector FPS near them (six sectors) and
+    the raw points through VectorPool (one radius, a 3^3 grid, 8 + 8
+    channels)."""
+    tiny_pv_rcnn_cfg(cfg)
+    rp = cfg.MODEL.PFE.SA_LAYER.raw_points
+    rp.MLPS = [[8, 8]]
+    rp.POOL_RADIUS = [1.6]
+    return cfg
+
+
 # the dry run's shrink of each model that has one, by `MODEL.NAME` (a
 # SECONDNet's by its backbone too)
 TINY_CFGS = {'PDMSSD': tiny_pdmssd_cfg, 'PointRCNN': tiny_pointrcnn_cfg,
              'SECONDNet': tiny_secondnet_cfg, 'PointPillar': tiny_pointpillar_cfg,
              'CenterPoint': tiny_centerpoint_pillar_cfg, 'PillarNet': tiny_pillarnet_cfg,
              'VoxelNeXt': tiny_voxelnext_cfg, 'PVRCNN': tiny_pv_rcnn_cfg,
-             'VoxelRCNN': tiny_voxel_rcnn_cfg}
+             'VoxelRCNN': tiny_voxel_rcnn_cfg, 'SECONDNetIoU': tiny_second_iou_cfg,
+             'PartA2Net': tiny_parta2_cfg, 'PVRCNNPlusPlus': tiny_pv_rcnn_plusplus_cfg}
 
 
 def voxelizes(cfg) -> bool:

@@ -10,6 +10,8 @@ generic rule set maps every leaf. The layout rules are those of
 - Conv kernel (kd, kh, kw, in, out)  -> Conv3d weight (out, in, kd, kh, kw)
 - ConvTranspose kernel (kh, kw, in, out) -> ConvTranspose2d weight
   (in, out, kh, kw), spatially flipped
+- ConvTranspose kernel (kd, kh, kw, in, out) -> ConvTranspose3d weight
+  (in, out, kd, kh, kw), spatially flipped
 - sparse conv kernel (taps * in, out)   -> the same `kernel`
 - BatchNorm scale / bias / mean / var -> weight / bias / running_mean /
   running_var
@@ -43,7 +45,8 @@ def _flatten(tree, prefix=()):
 def _convert_param(mod: nn.Module, leaf: str, arr: np.ndarray):
     if isinstance(mod, nn.modules.batchnorm._BatchNorm) and leaf in _BN_PARAM:
         return _BN_PARAM[leaf], arr
-    if leaf == 'bias' and isinstance(mod, (nn.Linear, nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d)):
+    if leaf == 'bias' and isinstance(mod, (nn.Linear, nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d,
+                                           nn.ConvTranspose3d)):
         return 'bias', arr
     if leaf == 'kernel':
         if isinstance(getattr(mod, 'kernel', None), nn.Parameter):
@@ -52,6 +55,8 @@ def _convert_param(mod: nn.Module, leaf: str, arr: np.ndarray):
             return 'weight', arr.T
         if isinstance(mod, nn.ConvTranspose2d):
             return 'weight', arr[::-1, ::-1].transpose(2, 3, 0, 1)
+        if isinstance(mod, nn.ConvTranspose3d):
+            return 'weight', arr[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2)
         if isinstance(mod, nn.Conv2d):
             return 'weight', arr.transpose(3, 2, 0, 1)
         if isinstance(mod, nn.Conv3d):
@@ -107,6 +112,8 @@ def _to_flax_leaf(mod: nn.Module, name: str, arr: np.ndarray):
             return 'kernel', arr.T
         if isinstance(mod, nn.ConvTranspose2d):
             return 'kernel', arr.transpose(2, 3, 0, 1)[::-1, ::-1]
+        if isinstance(mod, nn.ConvTranspose3d):
+            return 'kernel', arr.transpose(2, 3, 4, 0, 1)[::-1, ::-1, ::-1]
         if isinstance(mod, nn.Conv2d):
             return 'kernel', arr.transpose(2, 3, 1, 0)
         if isinstance(mod, nn.Conv3d):

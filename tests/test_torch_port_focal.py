@@ -27,6 +27,7 @@ from pdm_ssd_tpu.models import get_host_prepare as j_get_host_prepare
 from pdm_ssd_tpu.models.backbones_3d import sparse_backbone_focal as j_focal
 from pdm_ssd_tpu.ops import sparse_maps as j_maps
 from pdm_ssd_tpu.utils.config import CfgNode as JCfgNode
+from torch_port_harness import one_torch_thread  # noqa: F401 (an autouse fixture)
 from torch_port_harness import (REPO, ModelPair, assert_close_to_scale, hold_to_jax, leaves,
                                 port_loss_and_grads, rel_l2)
 

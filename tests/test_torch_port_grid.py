@@ -37,6 +37,8 @@ from pdm_ssd_tpu.models.backbones_2d import pdm_neck_conv as j_neck
 from pdm_ssd_tpu.ops import iou3d as j_iou3d
 from pdm_ssd_tpu.ops.pillarize import pillarize as j_pillarize
 from pdm_ssd_tpu.utils.config import CfgNode as JCfgNode
+from torch_port_harness import one_torch_thread  # noqa: F401 (an autouse fixture)
+from torch_port_threads import default_torch_threads  # noqa: F401 (a fixture)
 from torch_port_harness import (FlagshipPair, ModelPair, jax_bf16_extraction,
                                 open_score_gate_flax, randomize_variables, to_numpy)
 
@@ -388,14 +390,17 @@ STEP_PARAM_REL_L2 = 1e-3
 STEP_PARAM_RATE_SHARE = 0.5
 
 
-def test_three_train_steps_track_jax(grid):
+def test_three_train_steps_track_jax(grid, default_torch_threads):
     """Three steps of each package's train step from the same state on one
     batch: the loss of each step within 1e-4 relative (measured 9e-6 at
     the third), every leaf of parameters and BatchNorm statistics within
     STEP_PARAM_REL_L2 relative L2, and no element apart by more than
     STEP_PARAM_RATE_SHARE of the three steps' summed rate (Adam moves an
     element by about the rate a step, so no element took a step that the
-    other package's did not)."""
+    other package's did not). It runs at torch's own thread count: on one
+    thread torch's CPU sums round otherwise, and one element of
+    `pdm_neck/dilate/kernel` then takes an Adam step the JAX package's does
+    not."""
     from pdm_ssd_torch.runtime.trainer import create_train_state, make_train_step
     from pdm_ssd_tpu.runtime import optimization as j_opt
     from pdm_ssd_tpu.runtime.trainer import TrainState, make_train_step as j_make_train_step

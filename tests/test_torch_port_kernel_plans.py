@@ -20,6 +20,8 @@ from pdm_ssd_torch.ops import dispatch, fps, group, kernels, sa_fused
 from pdm_ssd_torch.ops import pointnet2 as plain
 from pdm_ssd_torch.ops import sparse_conv as sc
 
+from torch_port_threads import one_torch_thread  # noqa: F401 (an autouse fixture)
+
 SM = 132
 
 

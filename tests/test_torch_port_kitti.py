@@ -32,6 +32,8 @@ from pdm_ssd_tpu.datasets.kitti import kitti_dataset as j_kitti
 from pdm_ssd_tpu.datasets.kitti import synthetic as j_syn
 from pdm_ssd_tpu.utils.config import CfgNode as JCfgNode
 
+from torch_port_harness import one_torch_thread  # noqa: F401 (an autouse fixture)
+
 REPO = Path(__file__).resolve().parents[1]
 CLASS_NAMES = ['Car', 'Pedestrian', 'Cyclist']
 N_POINTS = 2048

@@ -23,6 +23,8 @@ from pdm_ssd_torch.ops import pointnet2 as t_p2
 from pdm_ssd_torch.ops import sa_fused as t_sa
 from pdm_ssd_torch.ops import selection as t_sel
 
+from torch_port_harness import one_torch_thread  # noqa: F401 (an autouse fixture)
+
 # JAX extracts center-relative coordinates and narrow (table-carried)
 # features in bf16 (pdm_ssd_tpu/ops/sa_fused.py:212): |err| <= 2^-9 |x|
 BF16_RTOL = 2.0 ** -8

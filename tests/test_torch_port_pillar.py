@@ -26,6 +26,7 @@ from pdm_ssd_torch.utils.weights import from_flax, to_flax
 from pdm_ssd_tpu.models.backbones_2d import map_to_bev as j_m2b
 from pdm_ssd_tpu.models.backbones_3d import vfe as j_vfe
 from pdm_ssd_tpu.utils.config import CfgNode as JCfgNode
+from torch_port_harness import one_torch_thread  # noqa: F401 (an autouse fixture)
 from torch_port_harness import (ModelPair, assert_close_to_scale, hold_to_jax,
                                 leaves, load_cfg, match_detections,
                                 open_score_gate_flax, port_loss_and_grads,

@@ -26,6 +26,7 @@ from pdm_ssd_torch.ops import pointnet2 as t_p2
 from pdm_ssd_torch.utils import synthetic
 from pdm_ssd_torch.utils.config import CfgNode, cfg_from_yaml_file
 from pdm_ssd_torch.utils.weights import from_flax
+from torch_port_harness import one_torch_thread  # noqa: F401 (an autouse fixture)
 from torch_port_harness import REPO, ModelPair, randomize_variables, to_numpy
 
 POINTRCNN = 'configs/kitti_models/pointrcnn.yaml'

@@ -35,6 +35,7 @@ from pdm_ssd_tpu.models.backbones_3d import sparse_backbone as j_sb
 from pdm_ssd_tpu.models.dense_heads import anchor_head as j_ah
 from pdm_ssd_tpu.ops import sparse_maps as j_maps
 from pdm_ssd_tpu.utils.config import CfgNode as JCfgNode
+from torch_port_harness import one_torch_thread  # noqa: F401 (an autouse fixture)
 from torch_port_harness import REPO, ModelPair, to_numpy
 
 SECOND = 'configs/kitti_models/second_sparse.yaml'

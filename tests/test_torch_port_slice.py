@@ -10,6 +10,7 @@ import numpy as np
 import pytest
 import torch
 
+from torch_port_harness import one_torch_thread  # noqa: F401 (an autouse fixture)
 from torch_port_harness import FlagshipPair, to_numpy, to_torch
 
 # a module fed the same inputs: float32 sums in another order only

@@ -34,6 +34,7 @@ from pdm_ssd_torch.ops import voxelize as t_vox
 from pdm_ssd_torch.utils import synthetic
 from pdm_ssd_torch.utils.config import cfg_from_yaml_file
 from pdm_ssd_torch.utils.weights import from_flax
+from torch_port_harness import one_torch_thread  # noqa: F401 (an autouse fixture)
 from torch_port_harness import REPO, ModelPair, randomize_variables, to_numpy
 
 SECOND = 'configs/kitti_models/second_sparse.yaml'

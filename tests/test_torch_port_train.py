@@ -33,6 +33,7 @@ from pdm_ssd_torch.runtime.trainer import create_train_state, make_train_step
 from pdm_ssd_torch.utils import synthetic
 from pdm_ssd_torch.utils.config import CfgNode as TCfgNode
 from pdm_ssd_torch.utils.weights import from_flax, to_flax
+from torch_port_harness import one_torch_thread  # noqa: F401 (an autouse fixture)
 from torch_port_harness import (FlagshipPair, jax_bf16_extraction, randomize_variables, rel_l2,
                                 to_torch)
 

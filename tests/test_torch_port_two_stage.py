@@ -520,23 +520,41 @@ def test_sparse_stage_dims_match_jax():
 
 @pytest.mark.parametrize('name', ['SECONDNetIoU', 'PartA2Net', 'PVRCNNPlusPlus'])
 def test_later_two_stage_detectors_name_their_roadmap_item(name):
+    """The detectors that waited for ROADMAP Queue 1 item 11 are ported: each
+    builds from its own config's tiny shrink, and PV-RCNN's config under
+    their name builds the same modules as PV-RCNN's (the JAX package builds
+    every one of them as a PVRCNN subclass)."""
     from pdm_ssd_torch.models import build_network
-    cfg = load_cfg('pv_rcnn')
-    cfg.MODEL.NAME = name
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 item 11'):
-        build_network(cfg.MODEL, 3, cfg.DATA_CONFIG, device='cpu')
+    own = {'SECONDNetIoU': 'second_iou', 'PartA2Net': 'parta2',
+           'PVRCNNPlusPlus': 'pv_rcnn_plusplus'}[name]
+    cfg = load_cfg(own)
+    synthetic.TINY_CFGS[name](cfg)
+    assert type(build_network(cfg.MODEL, 3, cfg.DATA_CONFIG, device='cpu')).__name__ == name
+    if name == 'PVRCNNPlusPlus':
+        cfg = load_cfg('pv_rcnn')
+        cfg.MODEL.NAME = name
+        net = build_network(cfg.MODEL, 3, cfg.DATA_CONFIG, device='cpu')
+        assert hasattr(net.pfe, 'sa_raw') and not net.pfe.spc
 
 
 @pytest.mark.parametrize('what', ['VectorPoolAgg', 'SPC'])
 def test_pv_rcnn_plusplus_sources_name_their_roadmap_item(what):
+    """PV-RCNN++'s two sources are ported (ROADMAP Queue 1 item 11): each
+    switched on alone in PV-RCNN's shrink builds its module; an unknown
+    SAMPLE_METHOD still raises."""
     from pdm_ssd_torch.models import build_network
     cfg = synthetic.tiny_pv_rcnn_cfg(load_cfg('pv_rcnn'))
     if what == 'SPC':
         cfg.MODEL.PFE.SAMPLE_METHOD = 'SPC'
+        cfg.MODEL.PFE.SPC_SAMPLING = {'SAMPLE_RADIUS_WITH_ROI': 1.6, 'NUM_SECTORS': 6}
+        assert build_network(cfg.MODEL, 3, cfg.DATA_CONFIG, device='cpu').pfe.spc
+        cfg.MODEL.PFE.SAMPLE_METHOD = 'RS'
+        with pytest.raises(NotImplementedError, match='SAMPLE_METHOD RS'):
+            build_network(cfg.MODEL, 3, cfg.DATA_CONFIG, device='cpu')
     else:
         cfg.MODEL.PFE.SA_LAYER.raw_points.AGGREGATION = 'VectorPoolAgg'
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 item 11'):
-        build_network(cfg.MODEL, 3, cfg.DATA_CONFIG, device='cpu')
+        net = build_network(cfg.MODEL, 3, cfg.DATA_CONFIG, device='cpu')
+        assert net.pfe.vp_raw.out_channels == cfg.MODEL.PFE.SA_LAYER.raw_points.MLPS[0][-1]
 
 
 # ---- the dry run and the KITTI loops ----------------------------------------------

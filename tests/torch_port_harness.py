@@ -14,27 +14,14 @@ from collections.abc import Mapping
 
 import jax
 import numpy as np
-import pytest
 import torch
 
 import __graft_entry__ as graft
 from pdm_ssd_torch.models import build_network
 from pdm_ssd_torch.utils.weights import from_flax
+from torch_port_threads import one_torch_thread  # noqa: F401 (re-exported)
 
 REPO = graft.REPO
-
-
-@pytest.fixture(scope='module', autouse=True)
-def one_torch_thread():
-    """Torch on one intra-op thread while a module that imports this fixture
-    runs, then back. The CPU test run puts six pytest-xdist workers on the
-    machine's cores; each torch op would wake one thread a core in every
-    worker, and the small ops of the tiny models then wait on each other (a
-    test of 2 s alone took over 70 s in a six-worker run on 8 cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def make_points(B: int, N: int, seed: int = 0) -> np.ndarray:
@@ -96,6 +83,46 @@ class _GridPoolBf16(torch.autograd.Function):
         return g.to(torch.bfloat16).to(g.dtype), None
 
 
+class _Bf16(torch.autograd.Function):
+    """x rounded to bf16 forward, and the cotangent rounded to bf16 backward:
+    what the JAX package's cast of a bf16 operand into a one-hot matrix
+    product does, where each element's cotangent is one product of the
+    output's cotangent with a one-hot entry (Part-A2's average pool)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.to(torch.bfloat16).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(torch.bfloat16).to(g.dtype)
+
+
+def _roiaware_pool_bf16(pool_fn):
+    """`ops/roiaware.roiaware_pool` with its average taken over the selected
+    points' features rounded to bf16, forward and backward, as the JAX
+    package's one-hot product takes it (pdm_ssd_tpu/ops/roiaware.py:61-66),
+    and in float32 whatever the model's type, as its float32 product gives it
+    even in a float64 run."""
+    from pdm_ssd_torch.ops import roiaware
+
+    def pool(points, feats, rois, grid_size, pool='max', num_sampled=128, roi_mask=None):
+        if pool != 'avg':
+            return pool_fn(points, feats, rois, grid_size, pool, num_sampled, roi_mask)
+        B, R = rois.shape[:2]
+        G, P, C = int(grid_size), int(num_sampled), feats.shape[-1]
+        idx, valid, cid = roiaware.roi_cells(points, rois, G, P, roi_mask)
+        pfeat = torch.gather(feats, 1, idx.reshape(B, R * P, 1).long().expand(-1, -1, C))
+        pfeat = _Bf16.apply(pfeat).float().reshape(B * R, P, C)
+        onehot = ((cid.reshape(B * R, P, 1) == torch.arange(G ** 3)) & valid.reshape(B * R, P, 1))
+        onehot = onehot.float()
+        sums = torch.bmm(onehot.transpose(1, 2), pfeat)
+        cnt = onehot.sum(dim=1)[..., None]
+        out = torch.where(cnt > 0, sums / cnt.clamp(min=1.0), 0.0)
+        return out.reshape(B, R, G, G, G, C).to(feats.dtype)
+    return pool
+
+
 @contextlib.contextmanager
 def jax_bf16_extraction():
     """Make the port round what the JAX package's selection extracts in bf16
@@ -105,12 +132,16 @@ def jax_bf16_extraction():
     grid pool extracts in bf16 (pdm_ssd_tpu/models/roi_heads/
     pvrcnn_head.py:119, 145-147): each sample's offset from its grid point
     and its projected features, and their cotangents where the JAX
-    package's backward rounds them (`_GridPoolBf16`). With it the two
-    forwards and backwards differ by float32 rounding only, so a test can
-    hold the port's algorithm tightly; without it they differ by that
+    package's backward rounds them (`_GridPoolBf16`); the features that
+    Part-A2's average pool averages, forward and backward (`_Bf16`); and the
+    means of PV-RCNN++'s VectorPool and of that pool in float32, as the JAX
+    package's float32 products give them in a float64 run too. With it
+    the two forwards and backwards differ by float32 rounding only, so a test
+    can hold the port's algorithm tightly; without it they differ by that
     extraction."""
+    from pdm_ssd_torch.models.backbones_3d.pfe import VectorPoolAgg
     from pdm_ssd_torch.models.roi_heads.pvrcnn_head import PVRCNNHead
-    from pdm_ssd_torch.ops import dispatch, sa_fused
+    from pdm_ssd_torch.ops import dispatch, roiaware, sa_fused
 
     def bf16(x):
         return x.to(torch.bfloat16).to(x.dtype)
@@ -130,13 +161,22 @@ def jax_bf16_extraction():
         rel, gfeat = grid_group(self, sel_xyz, grid, pre, gi, empty)
         return _GridPoolBf16.apply(rel, gi), _GridPoolBf16.apply(gfeat, gi)
 
+    pool, mean = roiaware.roiaware_pool, VectorPoolAgg.subvoxel_mean
+
+    def float32_mean(self, neigh, cid, live):
+        return mean(self, neigh.float(), cid, live).to(neigh.dtype)
+
     dispatch.window_select, sa_fused.fused_query_group = rounded_select, rounded_group
     PVRCNNHead.group_branch = rounded_grid_group
+    roiaware.roiaware_pool = _roiaware_pool_bf16(pool)
+    VectorPoolAgg.subvoxel_mean = float32_mean
     try:
         yield
     finally:
         dispatch.window_select, sa_fused.fused_query_group = select, group
         PVRCNNHead.group_branch = grid_group
+        roiaware.roiaware_pool = pool
+        VectorPoolAgg.subvoxel_mean = mean
 
 
 @contextlib.contextmanager
@@ -461,7 +501,7 @@ F64_RTOL = 1e-9
 
 
 def hold_to_jax(got, want, exact, rtol: float, jax_rtol: float, max_apart: int,
-                port_exact=None) -> None:
+                port_exact=None, total: str | None = None) -> None:
     """Every leaf of `got` (the port's float32 losses or gradients, a dict or
     a tree) within `rtol` relative L2 of the JAX package's `want`. Where the
     JAX package's own float32 sums stray (a BatchNorm channel of a mostly
@@ -492,17 +532,27 @@ def hold_to_jax(got, want, exact, rtol: float, jax_rtol: float, max_apart: int,
             off = rel_l2(got[k], ref[k])
             if off > rtol and mine is not None:
                 assert rel_l2(mine[k], ref[k]) <= F64_RTOL, (k, rel_l2(mine[k], ref[k]))
+                if k == total:
+                    budget = sum(abs(float(want[t]) - float(ref[t])) for t in want if t != k)
+                    jax_off = max(jax_off, budget / abs(float(ref[k])))
                 assert off <= jax_off, (k, off, jax_off)
             else:
                 assert off <= rtol, (k, off)
 
 
-def plant_ground_truth(pair, per_cloud: int = 3) -> None:
+def plant_ground_truth(pair, per_cloud: int = 3, shift: float = 0.0,
+                       occupied: bool = False) -> None:
     """Put the ground truth of the pair's training batch on proposals of a
     training forward of the port (the proposals do not depend on the ground
     truth, and the JAX package's lie within float32 rounding of them), so
     that the targets hold foreground ROIs: the first `per_cloud` valid ROIs
-    of each cloud, label 1. The pair's JAX training results are dropped."""
+    of each cloud, label 1, moved along x by `shift` times its length and
+    turned by `shift` radians (a box on its ROI exactly is a degenerate case of the
+    rotated IoU's polygon clipping, where the two packages' float32 give 1
+    and 0.9975). With `occupied`, the valid ROIs that hold the most of the
+    forward's 'point_coords' are taken instead (Part-A2's point targets need
+    voxel points inside the boxes). The pair's JAX training results are
+    dropped."""
     net = pair.net
     batch = dict(pair.torch_inputs()) if 'gt_boxes' in pair._torch_inputs else \
         pair.torch_batch()
@@ -516,8 +566,16 @@ def plant_ground_truth(pair, per_cloud: int = 3) -> None:
     gt = np.zeros_like(pair.batch['gt_boxes'])
     mask = np.zeros_like(pair.batch['gt_mask'])
     for b in range(gt.shape[0]):
-        rois = out['rois'][b][out['roi_mask'][b]][:per_cloud].numpy()
+        rois = out['rois'][b][out['roi_mask'][b]]
+        if occupied:
+            from pdm_ssd_torch.ops import box_ops
+            inside = box_ops.points_in_boxes(out['point_coords'][b:b + 1], rois[None])[0]
+            held = torch.bincount(inside[inside >= 0].long(), minlength=len(rois))
+            rois = rois[torch.argsort(-held, stable=True)]
+        rois = rois[:per_cloud].numpy()
         gt[b, :len(rois), :7] = rois
+        gt[b, :len(rois), 0] += shift * gt[b, :len(rois), 3]
+        gt[b, :len(rois), 6] += shift
         gt[b, :len(rois), 7] = 1
         mask[b, :len(rois)] = True
     pair.batch['gt_boxes'], pair.batch['gt_mask'] = gt, mask
@@ -538,16 +596,17 @@ def jax_target_draw(pair) -> torch.Tensor:
 
 # ---- the two-stage voxel models (PV-RCNN, Voxel R-CNN) ----------------------------
 
-def two_stage_pair(name: str):
+def two_stage_pair(name: str, shift: float = 0.0, occupied: bool = False):
     """`configs/kitti_models/<name>.yaml` shrunk by `synthetic.TINY_CFGS` in
     both packages, on a training batch of two LiDAR-like clouds of 3000
     points, 8 boxes a cloud, then the ground truth planted on proposals
-    (`plant_ground_truth`)."""
+    (`plant_ground_truth`, moved by `shift`, on occupied ROIs with
+    `occupied`)."""
     from pdm_ssd_torch.utils import synthetic
     cfg = load_cfg(name)
     synthetic.TINY_CFGS[cfg.MODEL.NAME](cfg)
     pair = ModelPair(cfg, B=2, N=3000, seed=0, voxels=True, bias_scale=0.1, train_boxes=8)
-    plant_ground_truth(pair)
+    plant_ground_truth(pair, shift=shift, occupied=occupied)
     return pair
 
 
@@ -571,15 +630,18 @@ def check_weights_round_trip(pair, names) -> None:
 
 
 def check_training(pair, loss_rtol: float, grad_rel_l2: float, jax_loss_rtol: float,
-                   jax_grad_rel_l2: float) -> dict:
+                   jax_grad_rel_l2: float,
+                   roi_terms=('rcnn_reg_loss', 'rcnn_corner_loss'),
+                   total: str | None = None) -> dict:
     """One training-mode `forward_with_loss` of the pair's planted batch on
     the JAX draw, with the JAX package's bf16 extraction emulated and its
     voxel pools' max by argmax (`jax_pool_max_by_argmax`): the targets exact
     (the masks, the matched ground truth), the ROIs and labels to the
     training forward's float32 rounding, every loss term and every gradient
     within the bounds, or held to the JAX package's float64 run by
-    `hold_to_jax` beside the port's own float64 run. Returns the port's loss
-    terms."""
+    `hold_to_jax` beside the port's own float64 run; each of `roi_terms`
+    positive in the JAX package's run; `total` as `hold_to_jax` takes it.
+    Returns the port's loss terms."""
     import functools
     batch = pair.torch_inputs()
     batch['roi_target_rand'] = jax_target_draw(pair)
@@ -603,7 +665,7 @@ def check_training(pair, loss_rtol: float, grad_rel_l2: float, jax_loss_rtol: fl
     with jax_bf16_extraction():
         _, tb, grads, _ = port_loss_and_grads(pair, batch)
     assert set(tb) == set(j_tb)
-    assert j_tb['rcnn_reg_loss'] > 0 and j_tb['rcnn_corner_loss'] > 0
+    assert all(j_tb[k] > 0 for k in roi_terms), {k: j_tb[k] for k in roi_terms}
 
     @functools.lru_cache
     def exact():
@@ -616,7 +678,7 @@ def check_training(pair, loss_rtol: float, grad_rel_l2: float, jax_loss_rtol: fl
             return port_loss_and_grads(pair, batch, torch.float64)[1:3]
 
     hold_to_jax(tb, j_tb, lambda: exact()[0], loss_rtol, jax_loss_rtol, len(tb),
-                lambda: port_exact()[0])
+                lambda: port_exact()[0], total)
     hold_to_jax(grads, j_grads, lambda: exact()[1], grad_rel_l2, jax_grad_rel_l2,
                 len(dict(leaves(grads))), lambda: port_exact()[1])
     return tb
@@ -737,12 +799,12 @@ def mini_kitti_twin(name: str, root, steps: int) -> tuple:
     return twin_steps(model, variables, net, cfg.OPTIMIZATION, batches, len(loader), 2, rand)
 
 
-def check_predict(pair, atol: float) -> int:
+def check_predict(pair, atol: float,
+                  keys=('rois', 'rcnn_cls_preds', 'rcnn_reg_preds', 'roi_labels', 'roi_mask')) -> int:
     """`predict` of the port against the JAX package's post-processing of its
-    own eval forward (`pair.jax_out`), the bf16 extraction emulated: the same
-    boxes kept per cloud, matched by box and label. Returns the number of
-    pairs."""
-    keys = ('rois', 'rcnn_cls_preds', 'rcnn_reg_preds', 'roi_labels', 'roi_mask')
+    own eval forward (`pair.jax_out`'s `keys`, what the post-processing
+    reads), the bf16 extraction emulated: the same boxes kept per cloud,
+    matched by box and label. Returns the number of pairs."""
     want = pair.jax_method(pair.jax_model.post_process, {k: pair.jax_out[k] for k in keys})
     with jax_bf16_extraction():
         got = pair.net.predict(pair.torch_inputs())
