@@ -235,12 +235,38 @@ non-zero exit):
    four (B=2), 8 boxes a cloud: finite losses, the ROI terms of every
    step, the launches a step, ms per step, peak memory;
 45. phases 16 and 17 with `pv_rcnn.yaml` at B=2: the eval loop (bias at 0,
-   non-finite boxes counted) and the 2-epoch train loop with an exact
-   resume and a bit-equal reload.
+   non-finite boxes counted) and the 2-epoch train loop over the first 16
+   train frames with an exact resume and a bit-equal reload;
+46. to 50. SECOND-IoU, Part-A2 and PV-RCNN++ (dense and sparse): the tiny
+   shrinks on CUDA against the CPU, the masked FPS at PV-RCNN++'s shape,
+   predict at B=4 and five steps at B=2 as shipped, `parta2.yaml`'s loops
+   (its train loop over the first 16 train frames);
+51. the tiny `pdm_ssd_nuscenes.yaml` (`synthetic.tiny_nuscenes_cfg`) and its
+   variant with `bevfusion.yaml`'s six head groups, 'vel' and 'iou' branches,
+   IOU_REG_LOSS and PRED_VELOCITY (`synthetic.multihead_variant`) on CUDA
+   against the CPU at B=2, N=4096 (forward, detections matched by box and
+   label, losses, gradients), and `multi_classes_nms` and
+   `class_specific_nms` on the card equal to the CPU's, slot order and keep
+   mask;
+52. both at full width, `predict` at B=4 on clouds of 163840 points of 5
+   features, every head group's score gate open: no launch of a kernel of
+   the port, frames/s, device time, busy share, GFLOP, top kernels, peak;
+53. five training steps of each at B=4, 8 boxes a cloud: ms a step, peak;
+54. the port's mini nuScenes set (80 frames at 10 sweeps, generated under
+   `build/chip_smoke_nuscenes/`) through `eval_one_epoch` at B=4 (NDS, mAP,
+   `infer_fps`, `loop_fps`) and 2 epochs of `train_model` with CBGS; the
+   eval loop's seeded weights and the trained checkpoint on CUDA against
+   the CPU over 4 of its frames and 4 clouds that fill the range: the
+   forward within FWD_RTOL; for the seeded weights also the kept boxes
+   above every tied candidate score matched by box and label, on the CPU's
+   maps post-processed on the card and on each side's own maps (at least
+   one such box; the trained checkpoint's top scores all tie).
 
-The line before the last is the card's name and power limit; before it, one
-JSON line describing each kernel, with the launches of each path of phases 20
-to 45 (`launches_<path>`) and the sums of phase 42 (`two_stage_*`). The last line is
+The elapsed time is printed after phases 18, 40, 50 and 54. The line before
+the last is the card's name and power limit; before it, one JSON line
+describing each kernel, with the launches of each path of phases 20 to 54
+(`launches_<path>`, `launches_nuscenes_{predict,train,eval_loop,train_loop}`
+among them) and the sums of phase 42 (`two_stage_*`). The last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -258,6 +284,8 @@ import numpy as np
 import torch
 
 REPO = Path(__file__).resolve().parent
+# the start of the run, for the elapsed time printed after each group of phases
+T0 = time.perf_counter()
 CFG = 'configs/kitti_models/pdm_ssd_point.yaml'
 # forward on CUDA vs CPU: float32 sums in another order (GEMM, cuDNN) and
 # atomic adds in the PDM scatter; the measured difference on an H100 is
@@ -2005,6 +2033,10 @@ def second_train_phase(cfg, wrappers, synthetic, card: str, phase: str = '29 sec
 # the mini-KITTI set of phases 16 and 17: the port's generator's defaults
 KITTI_FRAMES = 64
 KITTI_DIR = REPO / 'build' / 'chip_smoke_kitti'
+# train frames of the two-stage train loops (phases 45 and 50, B=2): 8 steps
+# an epoch, which keeps the whole script well inside its time limit (their
+# 32 steps an epoch took 58.9 and 138.8 s of a 970 s run on an H100)
+TWO_STAGE_LOOP_FRAMES = 16
 # frames of the CUDA-vs-CPU eval loop of phase 16
 EVAL_CPU_FRAMES = 8
 
@@ -2179,11 +2211,12 @@ class StepLog:
 
 def train_loop_phase(wrappers, synthetic, card: str, cfg_file: str = CFG,
                      phase: str = '17 train loop', expected: dict = TRAIN_LAUNCHES,
-                     B: int = 8) -> dict:
+                     B: int = 8, frames: int | None = None) -> dict:
     """Phase 17 (and 23 for the grid config, 30 for SECOND), at B (8): a
     voxel model's batches are given their kernel maps and transposed maps on
-    the card (`get_host_prepare(..., training=True)`). Returns the launches
-    of the two training epochs."""
+    the card (`get_host_prepare(..., training=True)`); with `frames`, the
+    epochs run over the first `frames` train frames only. Returns the
+    launches of the two training epochs."""
     from pdm_ssd_torch.datasets import build_dataloader
     from pdm_ssd_torch.models import get_host_prepare
     from pdm_ssd_torch.runtime import trainer
@@ -2197,6 +2230,8 @@ def train_loop_phase(wrappers, synthetic, card: str, cfg_file: str = CFG,
     eval_prepare = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG)
     ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, B, root_path=KITTI_DIR,
                                      workers=0, training=True, seed=0)
+    if frames is not None:
+        ds.kitti_infos = ds.kitti_infos[:frames]
     ckpt_dir = KITTI_DIR / f'ckpt_{tag}'
     net = synthetic.random_model(cfg, 'cuda', seed=7)
     optimizer, sched = trainer.create_train_state(net, cfg.OPTIMIZATION, len(loader), epochs)
@@ -2502,21 +2537,29 @@ def family_cuda_vs_cpu_phase(name: str, cfg, synthetic) -> None:
 
 
 def family_predict_phase(name: str, cfg, wrappers, synthetic, card: str) -> dict:
-    """Phase 32: `predict` of a family config as shipped at PREDICT_B, the
-    classification bias at 0: shapes, finite
-    values, the voxel slots filled, no launch of a kernel of the port,
-    frames/s (median of 5 after warm-up), peak memory, the convolutions'
-    GFLOP and rate over the device time, then `torch.profiler`'s device
-    time, busy share and cuDNN's FFT-route kernels."""
-    from torch.utils.flop_counter import FlopCounterMode
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    phase = '32 family predict'
+    """Phase 32: `predict` of a family config as shipped at PREDICT_B on
+    FAMILY_POINTS points a cloud, the classification bias at 0
+    (`measured_predict`)."""
     B, N = PREDICT_B[name], FAMILY_POINTS[name]
     net = synthetic.open_score_gate(synthetic.random_model(cfg, 'cuda', seed=7))
     inputs = family_batch(name, cfg, synthetic, B, N, 5, 'cuda')
     filled = (f'{inputs["voxel_mask"].sum(1).tolist()} of {inputs["voxel_mask"].shape[1]} voxel '
               'slots filled' if 'voxel_mask' in inputs else f'N={N}')
+    return measured_predict('32 family predict', f'{name} as shipped', cfg, net, inputs, B,
+                            filled, wrappers, card)
+
+
+def measured_predict(phase: str, name: str, cfg, net, inputs: dict, B: int, what: str, wrappers,
+                     card: str) -> dict:
+    """One model's `predict` on `inputs` (a batch of B described by `what`):
+    shapes, finite values, no launch of a kernel of the port, frames/s
+    (median of 5 after warm-up), peak memory, the convolutions' GFLOP and
+    rate over the device time, then `torch.profiler`'s device time, busy
+    share, cuDNN's FFT-route kernels and top kernels. Returns the launches."""
+    from torch.utils.flop_counter import FlopCounterMode
+    from pdm_ssd_torch.tools.profile_predict import trace
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches(wrappers)
@@ -2540,12 +2583,11 @@ def family_predict_phase(name: str, cfg, wrappers, synthetic, card: str) -> dict
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     med = statistics.median(times)
-    from pdm_ssd_torch.tools.profile_predict import trace
     with torch.inference_mode():
         prof = trace(net, inputs)
     fft = prof['fft_kernels']
     device_ms = prof['device_ms_per_predict']
-    log(phase, f'{name} as shipped B={B} ({filled}): shapes ok, finite, '
+    log(phase, f'{name} B={B} ({what}): shapes ok, finite, '
         f'{int(det["pred_mask"].sum())} kept boxes, no kernel of the port launched; median '
         f'{med * 1e3:.3f} ms/batch = {B / med:.2f} frames/s (5 runs); device '
         f'{device_ms:.3f} ms per predict, busy {device_ms / (med * 1e3):.3f}; convolutions '
@@ -2554,22 +2596,30 @@ def family_predict_phase(name: str, cfg, wrappers, synthetic, card: str) -> dict
         + ('none' if not fft else '; '.join(f'{r["name"][:70]} x{r["calls_per_predict"]:g} '
                                             f'{r["ms_per_predict"]:.3f} ms' for r in fft))
         + '; top kernels: ' + '; '.join(f'{r["name"][:60]} {r["ms_per_predict"]:.3f} ms'
-                                         for r in prof['top_kernels'][:4]) + f' on {card}')
+                                         for r in prof['top_kernels'][:5]) + f' on {card}')
     return launches
 
 
 def family_train_phase(name: str, cfg, wrappers, synthetic, card: str) -> dict:
     """Phase 33: five training steps of a family config as shipped at
-    BATCH_SIZE_PER_GPU, 8 boxes a cloud: a finite and falling loss,
-    parameters changed, no launch of a kernel of the port, ms per step and
-    peak memory."""
+    BATCH_SIZE_PER_GPU, 8 boxes a cloud (`measured_train`)."""
+    B, N = cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU, FAMILY_POINTS[name]
+    net = synthetic.random_model(cfg, seed=7)          # no device named: the card
+    batch = family_batch(name, cfg, synthetic, B, N, 5, 'cuda', train=True)
+    return measured_train('33 family train', f'{name} as shipped', cfg, net, batch,
+                          f'B={B} N={N}', wrappers, card)
+
+
+def measured_train(phase: str, name: str, cfg, net, batch: dict, what: str, wrappers,
+                   card: str) -> dict:
+    """Five `make_train_step` steps of a model on one batch (described by
+    `what`, 8 boxes a cloud): a finite and falling loss, parameters changed,
+    no launch of a kernel of the port, ms per step and peak memory. Returns
+    the launches."""
     from pdm_ssd_torch.runtime.trainer import create_train_state, make_train_step
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    phase = '33 family train'
-    B, N, steps = cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU, FAMILY_POINTS[name], 5
-    net = synthetic.random_model(cfg, seed=7)          # no device named: the card
-    batch = family_batch(name, cfg, synthetic, B, N, 5, 'cuda', train=True)
+    steps = 5
     optimizer, _ = create_train_state(net, cfg.OPTIMIZATION, total_iters_each_epoch=100,
                                       total_epochs=1)
     train_step = make_train_step(net, optimizer)
@@ -2593,7 +2643,7 @@ def family_train_phase(name: str, cfg, wrappers, synthetic, card: str) -> dict:
     if changed < 0.9 * len(before):
         raise SystemExit(f'[{phase}] FAILED {name}: {changed} of {len(before)} parameter '
                          'tensors changed')
-    log(phase, f'{name} as shipped B={B} N={N}, 8 boxes per cloud, {steps} steps: losses '
+    log(phase, f'{name} {what}, 8 boxes per cloud, {steps} steps: losses '
         + ' '.join(f'{x:.4f}' for x in losses) + f'; {changed} of {len(before)} parameter '
         f'tensors changed; no kernel of the port launched; median '
         f'{statistics.median(times) * 1e3:.3f} ms/step (first {times[0] * 1e3:.1f} ms); peak '
@@ -3617,7 +3667,7 @@ def two_stage_phases(wrappers, synthetic, smi: str, cfg_from_yaml_file) -> tuple
         cpu_check=False, B=B)
     paths['pv_rcnn_train_loop'] = train_loop_phase(
         wrappers, synthetic, smi, PV_RCNN_CFG, '45 pv_rcnn train loop',
-        two_stage_launches(cfg, B, train=True), B=B)
+        two_stage_launches(cfg, B, train=True), B=B, frames=TWO_STAGE_LOOP_FRAMES)
     # each kernel of the port's rows 1, 2, 3, 4, 6 and 7 ran on a path of this slice
     need = ('farthest_point_sample', 'ball_query', 'window_select', 'gather_rows',
             'scatter_add_rows', 'sparse_conv', 'sparse_conv_wgrad')
@@ -3729,7 +3779,8 @@ def rest_two_stage_phases(wrappers, fps_mod, plain, synthetic, smi: str,
         cpu_check=False, B=REST_TRAIN_B)
     paths['parta2_train_loop'] = train_loop_phase(
         wrappers, synthetic, smi, PARTA2_CFG, '50 parta2 train loop',
-        two_stage_launches(cfg, REST_TRAIN_B, train=True), B=REST_TRAIN_B)
+        two_stage_launches(cfg, REST_TRAIN_B, train=True), B=REST_TRAIN_B,
+        frames=TWO_STAGE_LOOP_FRAMES)
     # the masked FPS ran on PV-RCNN++'s paths, and the sparse files' kernels
     for kern in ('fps masked', 'sparse_conv', 'sparse_conv_wgrad', 'gather_rows',
                  'scatter_add_rows', 'window_select', 'ball_query'):
@@ -3737,6 +3788,385 @@ def rest_two_stage_phases(wrappers, fps_mod, plain, synthetic, smi: str,
             raise SystemExit(f'[kernels] FAILED: {kern} was launched on no path of phases 46 to '
                              '50')
     return paths, masked
+
+
+# phases 51 to 54: the nuScenes half of the PDM family (`pdm_ssd_nuscenes.yaml`),
+# which launches none of the port's kernels (pillarize is `index_add_`, the
+# rest cuDNN convolutions and plain torch, the NMS plain torch), and its
+# variant with `bevfusion.yaml`'s six head groups, 'vel' and 'iou' branches,
+# IOU_REG_LOSS and PRED_VELOCITY (`synthetic.multihead_variant`)
+NUSCENES_CFG = 'configs/nuscenes_models/pdm_ssd_nuscenes.yaml'
+NUSCENES_MODELS = ('nuscenes', 'nuscenes_multihead')
+# points a cloud at full width: 10 sweeps of a 32-beam LiDAR, as the file's
+# `sample_points` keeps them
+NUSCENES_POINTS = 163840
+NUSCENES_DIR = REPO / 'build' / 'chip_smoke_nuscenes'
+# frames of the generated mini set: CBGS keeps round(frames / 10) for its one
+# class, 8 frames, 2 steps an epoch at B=4
+NUSCENES_SAMPLES = 80
+NUSCENES_SWEEPS = 10
+# frames of the CUDA-vs-CPU passes of phase 54
+NUSCENES_CPU_FRAMES = 4
+# the paths of phases 52 to 54 whose counts the kernels line must carry
+NUSCENES_PATHS = ('predict', 'train', 'eval_loop', 'train_loop')
+# a kept box scoring within this of a tied candidate score is left out of
+# that pass (float32 rounding may rank it on either side of the tie)
+TIE_MARGIN = 1e-4
+
+
+def nuscenes_cfg(cfg_from_yaml_file, name: str):
+    """`pdm_ssd_nuscenes.yaml` as shipped, or as `synthetic.multihead_variant`
+    sets it."""
+    from pdm_ssd_torch.utils import synthetic
+    cfg = cfg_from_yaml_file(str(REPO / NUSCENES_CFG))
+    return synthetic.multihead_variant(cfg) if name == 'nuscenes_multihead' else cfg
+
+
+def nuscenes_batch(cfg, synthetic, B: int, N: int, seed: int, device, train: bool) -> dict:
+    """`synthetic.nuscenes_batch` on `device`: points alone, or with 8 boxes
+    a cloud (with velocity where the config predicts it)."""
+    batch = synthetic.nuscenes_batch(B, N, 8, seed=seed,
+                                     velocity=bool(cfg.DATA_CONFIG.get('PRED_VELOCITY', False)))
+    keys = ('points', 'gt_boxes', 'gt_mask') if train else ('points',)
+    return {k: torch.from_numpy(batch[k]).to(device) for k in keys}
+
+
+def per_class_nms_phase() -> None:
+    """Phase 51: `multi_classes_nms` and `class_specific_nms` on the card
+    against the CPU on the same candidates, slot order, boxes, scores,
+    labels and keep mask equal: 10 classes at B=4 over 1000 candidates
+    crowded into 24 m x 24 m (so NMS suppresses), with one NMS_THRESH / PRE /
+    POST for every class and with a list of each."""
+    from pdm_ssd_torch.models import model_nms
+    from pdm_ssd_torch.utils.config import CfgNode
+    phase = '51 nuscenes cuda-vs-cpu'
+    rng = np.random.RandomState(12)
+    B, A, C = 4, 1000, 10
+    boxes = np.concatenate([rng.uniform(-12, 12, (B, A, 2)), rng.uniform(-2, 0, (B, A, 1)),
+                            rng.uniform(0.5, 5, (B, A, 3)), rng.uniform(-np.pi, np.pi, (B, A, 1))],
+                           -1).astype(np.float32)
+    probs = rng.rand(B, A, C).astype(np.float32)
+    scores, labels = probs.max(-1), probs.argmax(-1) + 1
+    valid = rng.rand(B, A) > 0.1
+    notes = []
+    for kind in ('multi_classes_nms', 'class_specific_nms'):
+        for lists in (False, True):
+            cfg = CfgNode({'NMS_TYPE': kind, 'NMS_THRESH': [0.1 + 0.05 * c for c in range(C)]
+                           if lists else 0.2, 'NMS_PRE_MAXSIZE': [64 + 16 * c for c in range(C)]
+                           if lists else 128, 'NMS_POST_MAXSIZE': [64 + 16 * c for c in range(C)]
+                           if lists else 128})
+            out = {}
+            for dev in ('cpu', 'cuda'):
+                t = [torch.from_numpy(a).to(dev) for a in (boxes, scores, labels, valid, probs)]
+                res = model_nms.dispatch_nms(t[0], t[1], t[2], t[3], cfg, C, cls_probs=t[4],
+                                             score_thresh=0.3)
+                out[dev] = [r.cpu() for r in res]
+            if not all(torch.equal(g, w) for g, w in zip(out['cuda'], out['cpu'])):
+                raise SystemExit(f'[{phase}] FAILED: {kind} ({"lists" if lists else "scalars"}) '
+                                 'differs between CUDA and the CPU')
+            notes.append(f'{kind} {"per-class lists" if lists else "scalars"}: '
+                         f'{int(out["cpu"][3].sum())} kept of {out["cpu"][3].numel()} slots')
+    log(phase, f'per-class NMS on CUDA == CPU (slot order, boxes, scores, labels, keep mask) at '
+        f'B={B}, {A} candidates of {C} classes: ' + '; '.join(notes))
+
+
+def nuscenes_cuda_vs_cpu_phase(name: str, cfg, synthetic) -> None:
+    """Phase 51: the tiny shrink (`synthetic.tiny_nuscenes_cfg`) on CUDA
+    against the CPU at B=2, N=4096, every head group's score gate open: the
+    forward within FWD_RTOL of scale, detections matched by box and label,
+    every loss term within LOSS_RTOL and every gradient within GRAD_RTOL
+    relative L2 (cosine GRAD_COSINE)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase = '51 nuscenes cuda-vs-cpu'
+    tiny = synthetic.tiny_nuscenes_cfg(cfg)
+    cpu_in = nuscenes_batch(tiny, synthetic, 2, 4096, 4, 'cpu', train=True)
+    gpu_in = {k: v.cuda() for k, v in cpu_in.items()}
+    cpu_net = synthetic.open_score_gate(synthetic.random_model(tiny, 'cpu'))
+    gpu_net = synthetic.random_model(tiny, 'cuda')
+    gpu_net.load_state_dict(cpu_net.state_dict())
+    with torch.inference_mode():
+        want, got = flatten(cpu_net(dict(cpu_in))), flatten(gpu_net(dict(gpu_in)))
+    worst = 0.0
+    for k, w in want.items():
+        if not w.dtype.is_floating_point:
+            continue
+        rel = float((got[k].cpu() - w).abs().max()) / max(float(w.abs().max()), 1e-6)
+        worst = max(worst, rel)
+        if not rel <= FWD_RTOL:
+            raise SystemExit(f'[{phase}] FAILED {name} {k}: max |diff| / max |cpu| = {rel:.3e}')
+    note = match_detections({k: v.cpu() for k, v in gpu_net.predict(dict(gpu_in)).items()},
+                            cpu_net.predict(dict(cpu_in)), phase)
+    c_tb, g_tb, worst_g, worst_k, n = training_cuda_vs_cpu(
+        phase, name, {'cpu': cpu_net, 'cuda': gpu_net}, {'cpu': cpu_in, 'cuda': gpu_in},
+        GRAD_RTOL, GRAD_COSINE)
+    log(phase, f'tiny {name} B=2 N=4096 ({len(gpu_net.dense_head.head_names)} head groups): '
+        f'{len(want)} outputs agree, worst max|diff|/max|cpu| = {worst:.3e} (bound {FWD_RTOL:g}); '
+        f'predict: {note}; loss {g_tb["loss"]:.6f} on CUDA vs {c_tb["loss"]:.6f} on the CPU, '
+        f'{len(c_tb)} terms; {n} gradients agree, worst relative L2 {worst_g:.3e} at {worst_k} '
+        f'(bound {GRAD_RTOL:g})')
+
+
+def nuscenes_predict_phase(name: str, cfg, wrappers, synthetic, card: str) -> dict:
+    """Phase 52: `predict` at full width, B=4 on clouds of NUSCENES_POINTS
+    points of 5 features, every head group's score gate open
+    (`measured_predict`)."""
+    net = synthetic.open_score_gate(synthetic.random_model(cfg, 'cuda', seed=7))
+    inputs = nuscenes_batch(cfg, synthetic, 4, NUSCENES_POINTS, 5, 'cuda', train=False)
+    return measured_predict('52 nuscenes predict', name, cfg, net, inputs, 4,
+                            f'N={NUSCENES_POINTS}, 5 features, '
+                            f'{len(net.dense_head.head_names)} head groups', wrappers, card)
+
+
+def nuscenes_train_phase(name: str, cfg, wrappers, synthetic, card: str) -> dict:
+    """Phase 53: five training steps at BATCH_SIZE_PER_GPU (4), full width
+    (`measured_train`)."""
+    B = cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
+    net = synthetic.random_model(cfg, seed=7)     # no device named: the card
+    batch = nuscenes_batch(cfg, synthetic, B, NUSCENES_POINTS, 5, 'cuda', train=True)
+    return measured_train('53 nuscenes train', name, cfg, net, batch,
+                          f'B={B} N={NUSCENES_POINTS}', wrappers, card)
+
+
+def nuscenes_loop_cfg(cfg_from_yaml_file, root: Path):
+    """`pdm_ssd_nuscenes.yaml` as shipped, reading the generated mini set at
+    `root`: no VERSION subdirectory, the train infos also the test split's
+    (the set's one scene is a train scene)."""
+    cfg = cfg_from_yaml_file(str(REPO / NUSCENES_CFG))
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    cfg.DATA_CONFIG.VERSION = ''
+    cfg.DATA_CONFIG.INFO_PATH['test'] = list(cfg.DATA_CONFIG.INFO_PATH['train'])
+    return cfg
+
+
+def nds_note(ret: dict) -> str:
+    return (f'NDS {ret["NDS"]:.4f}, mAP {ret["mAP"]:.4f}, car AP {ret["car_AP"]:.4f}, mATE '
+            f'{ret["mTRANSE"]:.4f}, mASE {ret["mSCALEE"]:.4f}, mAOE {ret["mORIENTE"]:.4f}')
+
+
+def check_nds(phase: str, ret: dict) -> None:
+    keys = ['NDS', 'mAP', 'mTRANSE', 'mSCALEE', 'mORIENTE'] + [k for k in ret if k.endswith('_AP')]
+    if len(keys) < 15 or not all(np.isfinite(float(ret[k])) for k in keys):
+        raise SystemExit(f'[{phase}] FAILED: nuScenes metrics missing or not finite: '
+                         f'{ {k: ret.get(k) for k in keys} }')
+
+
+def above(det: dict, cut: torch.Tensor) -> dict:
+    """`det` with the kept boxes scoring at most `cut` (B,) masked out."""
+    return {**det, 'pred_mask': det['pred_mask'] & (det['pred_scores'] > cut[:, None])}
+
+
+def tie_level(hm: dict) -> torch.Tensor:
+    """Per cloud of a heatmap decode, the highest candidate score that two
+    candidates share, or the lowest candidate score if higher (a tie may
+    straddle the top-K cut), plus TIE_MARGIN: below it the order among exact
+    ties, which float32 rounding of the convolutions may change, decides
+    what NMS keeps."""
+    cuts = []
+    for s in hm['pred_scores'].cpu():
+        vals, counts = torch.unique(s, return_counts=True)
+        tied = vals[counts > 1]
+        floor = float(s.min())
+        cuts.append(max(float(tied.max()) if len(tied) else 0.0, floor) + TIE_MARGIN)
+    return torch.tensor(cuts)
+
+
+def twins(got: dict, want: dict, phase: str, side: str) -> None:
+    """Every kept box of `want` has a kept box of `got` with its label within
+    ROI_MATCH_ATOL."""
+    for f in range(want['pred_mask'].shape[0]):
+        wm, gm = want['pred_mask'][f], got['pred_mask'][f]
+        wb, wl = want['pred_boxes'][f][wm], want['pred_labels'][f][wm]
+        gb, gl = got['pred_boxes'][f][gm], got['pred_labels'][f][gm]
+        for i in range(len(wb)):
+            ok = ((gb - wb[i]).abs().amax(-1) <= ROI_MATCH_ATOL) & (gl == wl[i])
+            if not bool(ok.any()):
+                raise SystemExit(f'[{phase}] FAILED: a {side} box above the tie level has no '
+                                 'twin on the other side')
+
+
+def nuscenes_check_clouds(cfg, root, synthetic) -> dict:
+    """The clouds of phase 54's CUDA-vs-CPU passes, B=2 a batch: the first
+    NUSCENES_CPU_FRAMES frames of the mini set, and 4 clouds of
+    `synthetic.nuscenes_points` that fill the range."""
+    from pdm_ssd_torch.datasets import build_dataloader
+    ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 2, root_path=root,
+                                     workers=0, training=False)
+    ds.infos = ds.infos[:NUSCENES_CPU_FRAMES]
+    np.random.seed(1)
+    return {'the mini set': [torch.from_numpy(b['points']) for b in loader],
+            'range-filling clouds': [torch.from_numpy(synthetic.nuscenes_points(
+                2, NUSCENES_POINTS, seed)) for seed in (21, 22)]}
+
+
+def nuscenes_cuda_vs_cpu(phase: str, net, cfg, synthetic, sources: dict,
+                         detections: bool) -> str:
+    """`net` on the card against a copy of its weights on the CPU, on each
+    batch of `sources`: the forward within FWD_RTOL of scale. With
+    `detections`, also the kept boxes that score above every tied candidate
+    score (`tie_level`), on the CPU's maps post-processed on the card and
+    on each side's own maps, matched by box and label both ways, and at
+    least one such box. A tie of exactly equal candidate scores, as in
+    cells whose features are constant (no point in the receptive field, or
+    every activation cut by a ReLU: seeded weights at full width tie all
+    but one kept box a cloud, even on clouds that fill the range), is
+    ordered differently by the two devices' top-K, so even on the same maps
+    the two runs keep other boxes below it (255 against 256 for the 4-step
+    checkpoint, whose top scores all tie). Returns the note to log."""
+    cpu_net = synthetic.random_model(cfg, 'cpu')
+    cpu_net.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()})
+    notes, n_untied = [], 0
+    for source, batches in sources.items():
+        worst, n_cmp, n_kept, cuts = 0.0, 0, 0, []
+        for pts in batches:
+            with torch.inference_mode():
+                out = cpu_net({'points': pts})
+                gout = net({'points': pts.cuda()})
+                for k, w in flatten(out).items():
+                    if w.dtype.is_floating_point:
+                        g = flatten(gout)[k].cpu()
+                        rel = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-6)
+                        worst = max(worst, rel)
+                        if not rel <= FWD_RTOL:
+                            raise SystemExit(f'[{phase}] FAILED {source} {k}: max |diff| / '
+                                             f'max |cpu| = {rel:.3e}')
+                if not detections:
+                    continue
+                want = cpu_net.post_process(out)
+                moved = {k: [{n: t.cuda() for n, t in p.items()} for p in v]
+                         if k == 'center_head_preds' else v for k, v in out.items()}
+                shared = {k: v.cpu() for k, v in net.post_process(moved).items()}
+                own = {k: v.cpu() for k, v in net.post_process(gout).items()}
+                cut = tie_level(cpu_net.dense_head.generate_predicted_boxes(dict(out)))
+            # a box above the cut plus the margin has a twin among the other
+            # run's above the cut (rounding moves a score by far less)
+            for got, kind in ((shared, 'shared maps'), (own, 'own maps')):
+                twins(above(got, cut), above(want, cut + TIE_MARGIN), phase, f'CPU ({kind})')
+                twins(above(want, cut), above(got, cut + TIE_MARGIN), phase, f'CUDA ({kind})')
+            n_cmp += int(above(want, cut + TIE_MARGIN)['pred_mask'].sum())
+            n_kept += int(want['pred_mask'].sum())
+            cuts += [round(float(c), 4) for c in cut]
+        note = f'{source}: forward within {worst:.3e} of scale (bound {FWD_RTOL:g})'
+        if detections:
+            note += (f'; {n_cmp} of {n_kept} kept boxes above the tie levels {cuts}, each with a '
+                     'twin on the CPU\'s maps post-processed on the card and on its own maps')
+        notes.append(note)
+        n_untied += n_cmp
+    if detections and n_untied == 0:
+        raise SystemExit(f'[{phase}] FAILED: no kept box scores above the tie levels, so the '
+                         'two runs\' detections were not compared')
+    return ' | '.join(notes)
+
+
+def nuscenes_loop_phases(wrappers, synthetic, card: str, cfg_from_yaml_file) -> dict:
+    """Phase 54: the port's mini nuScenes set (NUSCENES_SAMPLES frames at
+    NUSCENES_SWEEPS sweeps, generated under `build/chip_smoke_nuscenes/`),
+    `pdm_ssd_nuscenes.yaml` as shipped: `eval_one_epoch` at B=4 of seeded
+    weights with the score gate open (NDS, mAP, `infer_fps`, `loop_fps`, no
+    launch) and those weights on CUDA against the CPU, forward and the
+    detections above the tie level (`nuscenes_cuda_vs_cpu`), then
+    `train_model` for 2 epochs (CBGS on, a checkpoint an epoch, no launch),
+    then the trained checkpoint (its score gate opened) through the eval
+    loop and its forward on CUDA against the CPU (its top scores all tie
+    after so few steps, so no detection lies above the tie level). Returns
+    the launches of the two loops, by path name."""
+    from pdm_ssd_torch.datasets import build_dataloader
+    from pdm_ssd_torch.runtime import trainer
+    from pdm_ssd_torch.runtime.eval_utils import eval_one_epoch
+    from pdm_ssd_torch.tools.make_mini_nuscenes import make
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    root = make(NUSCENES_DIR, samples=NUSCENES_SAMPLES, max_sweeps=NUSCENES_SWEEPS)
+    cfg = nuscenes_loop_cfg(cfg_from_yaml_file, root)
+    B = cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
+    phase = '54 nuscenes eval loop'
+    log(phase, f'mini-nuScenes: {NUSCENES_SAMPLES} frames at {NUSCENES_SWEEPS} sweeps generated '
+        f'in {time.perf_counter() - t0:.1f} s')
+    ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, B, root_path=root,
+                                     workers=4, training=False)
+    net = synthetic.open_score_gate(synthetic.random_model(cfg, 'cuda', seed=7))
+    np.random.seed(0)
+    reset_launches(wrappers)
+    ret = eval_one_epoch(net, loader, ds, cfg.CLASS_NAMES, device='cuda',
+                         result_dir=root / 'eval_seeded')
+    paths = {'nuscenes_eval_loop': read_launches(wrappers)}
+    if paths['nuscenes_eval_loop'] != NO_LAUNCHES:
+        raise SystemExit(f'[{phase}] FAILED: kernel launches {paths["nuscenes_eval_loop"]}')
+    check_nds(phase, ret)
+    annos = pickle.loads((root / 'eval_seeded' / 'result.pkl').read_bytes())
+    log(phase, f'pdm_ssd_nuscenes.yaml as shipped, seeded weights (score gate open), B={B} over '
+        f'{len(ds)} frames ({len(loader)} batches): {sum(len(a["name"]) for a in annos)} '
+        f'detections; {nds_note(ret)}; recall@0.3/0.5/0.7 {ret["recall/rcnn_0.3"]:.4f}/'
+        f'{ret["recall/rcnn_0.5"]:.4f}/{ret["recall/rcnn_0.7"]:.4f}; predict alone '
+        f'{ret["infer_fps"]:.2f} frames/s, the loop with loading {ret["loop_fps"]:.2f} frames/s; '
+        f'no kernel of the port launched, on {card}')
+    sources = nuscenes_check_clouds(cfg, root, synthetic)
+    log(phase, 'the same weights on CUDA vs the CPU at B=2, N='
+        f'{NUSCENES_POINTS}: ' + nuscenes_cuda_vs_cpu(phase, net, cfg, synthetic, sources,
+                                                      detections=True))
+
+    phase = '54 nuscenes train loop'
+    epochs = 2
+    tds, tloader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, B, root_path=root,
+                                       workers=4, training=True, seed=0)
+    ckpt_dir = root / 'ckpt'
+    net = synthetic.random_model(cfg, 'cuda', seed=7)
+    optimizer, sched = trainer.create_train_state(net, cfg.OPTIMIZATION, len(tloader), epochs)
+    np.random.seed(0)
+    torch.manual_seed(0)
+    steps = StepLog()
+    torch.cuda.synchronize()
+    reset_launches(wrappers)
+    t0 = time.perf_counter()
+    losses = trainer.train_model(net, optimizer, sched, tloader, epochs, ckpt_dir=ckpt_dir,
+                                 max_ckpt_save_num=1, logger=steps, log_interval=1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    paths['nuscenes_train_loop'] = read_launches(wrappers)
+    names = [c.name for c in trainer.list_checkpoints(ckpt_dir)]
+    if not all(np.isfinite(losses)) or names != [f'checkpoint_epoch_{epochs}.pth']:
+        raise SystemExit(f'[{phase}] FAILED: losses {losses}, checkpoints {names}')
+    if paths['nuscenes_train_loop'] != NO_LAUNCHES:
+        raise SystemExit(f'[{phase}] FAILED: kernel launches {paths["nuscenes_train_loop"]}')
+    log(phase, f'pdm_ssd_nuscenes.yaml B={B}, {len(tds)} frames after CBGS, {epochs} epochs of '
+        f'{len(tloader)} steps: mean losses {" ".join(f"{x:.4f}" for x in losses)}; '
+        f'{seconds:.1f} s with loading; checkpoints left {names}; no kernel of the port '
+        f'launched, on {card}')
+    log(phase, steps.summary(len(tloader)))
+
+    np.random.seed(0)
+    trained = synthetic.random_model(cfg, 'cuda', seed=13)
+    trainer.load_checkpoint(ckpt_dir / names[-1], trained)
+    ret = eval_one_epoch(trained, loader, ds, cfg.CLASS_NAMES, device='cuda',
+                         result_dir=root / 'eval_trained')
+    check_nds(phase, ret)
+    log(phase, f'the checkpoint of epoch {epochs} over the {len(ds)} frames: {nds_note(ret)}; '
+        f'predict alone {ret["infer_fps"]:.2f} frames/s, with loading {ret["loop_fps"]:.2f} '
+        'frames/s (no threshold)')
+    synthetic.open_score_gate(trained)
+    log(phase, 'the trained checkpoint, score gate opened, on CUDA vs the CPU at B=2, N='
+        f'{NUSCENES_POINTS}: ' + nuscenes_cuda_vs_cpu(phase, trained, cfg, synthetic, sources,
+                                                      detections=False))
+    return paths
+
+
+def nuscenes_phases(wrappers, synthetic, smi: str, cfg_from_yaml_file) -> dict:
+    """Phases 51 to 54. Returns the kernel launches of each path, by name."""
+    per_class_nms_phase()
+    for name in NUSCENES_MODELS:
+        nuscenes_cuda_vs_cpu_phase(name, nuscenes_cfg(cfg_from_yaml_file, name), synthetic)
+    paths = {}
+    for name in NUSCENES_MODELS:
+        paths[f'{name}_predict'] = nuscenes_predict_phase(
+            name, nuscenes_cfg(cfg_from_yaml_file, name), wrappers, synthetic, smi)
+        torch.cuda.empty_cache()
+    for name in NUSCENES_MODELS:
+        paths[f'{name}_train'] = nuscenes_train_phase(
+            name, nuscenes_cfg(cfg_from_yaml_file, name), wrappers, synthetic, smi)
+        torch.cuda.empty_cache()
+    paths.update(nuscenes_loop_phases(wrappers, synthetic, smi, cfg_from_yaml_file))
+    return paths
 
 
 KERNEL_TABLE = (
@@ -3784,6 +4214,8 @@ def launch_counters() -> dict:
 
 
 def main() -> None:
+    global T0
+    T0 = time.perf_counter()
     name, smi = device_check()
     sys.path.insert(0, str(REPO))
     from pdm_ssd_torch.ops import ball_query as bq
@@ -3845,6 +4277,7 @@ def main() -> None:
     eval_launches = kitti_eval_phase(wrappers, synthetic, smi)
     train_loop_launches = train_loop_phase(wrappers, synthetic, smi)
     bench_phase(smi)
+    log('time', f'{time.perf_counter() - T0:.1f} s since the start, after phase 18')
 
     new_paths = grid_family_phases(wrappers, dispatch, synthetic, smi, CfgNode,
                                    cfg_from_yaml_file)
@@ -3875,6 +4308,8 @@ def main() -> None:
                              f'{set(more) & set(new_paths)}')
         new_paths.update(more)
 
+    log('time', f'{time.perf_counter() - T0:.1f} s since the start, after phase 40')
+
     # the two-stage family: PointRCNN's training, PV-RCNN and Voxel R-CNN
     more, two_stage_sums = two_stage_phases(wrappers, synthetic, smi, cfg_from_yaml_file)
     if set(more) & set(new_paths):
@@ -3891,6 +4326,18 @@ def main() -> None:
     stats['farthest_point_sample'].update(masked)
     stats['farthest_point_sample'].update(
         {f'launches_masked_{path}': launches['fps masked'] for path, launches in more.items()})
+    log('time', f'{time.perf_counter() - T0:.1f} s since the start, after phase 50')
+
+    # the nuScenes half of the PDM family: pdm_ssd_nuscenes.yaml and its
+    # six-group variant
+    more = nuscenes_phases(wrappers, synthetic, smi, cfg_from_yaml_file)
+    if set(more) & set(new_paths):
+        raise SystemExit(f'[kernels] FAILED: path names used twice: {set(more) & set(new_paths)}')
+    new_paths.update(more)
+    missing = [f'launches_nuscenes_{p}' for p in NUSCENES_PATHS if f'nuscenes_{p}' not in new_paths]
+    if missing:
+        raise SystemExit(f'[kernels] FAILED: no count for {missing}')
+    log('time', f'{time.perf_counter() - T0:.1f} s since the start, after phase 54')
 
     # `launches` is the count from the run of a main path: the flagship's five
     # training steps of phase 8 for its four kernels, PointRCNN's predict of
@@ -3923,7 +4370,8 @@ def main() -> None:
     # `dgrad_*` keys the same for its data-gradient launches (11 layers); the
     # sparse conv's `library_ms` (and the backward's) is a pair of PyTorch
     # calls (gather, `torch.matmul`), since no single call computes it;
-    # `max_abs_err` is kernel against plain version
+    # `max_abs_err` is kernel against plain version; the
+    # `launches_nuscenes*` counts of phases 52 to 54 are 0 for every kernel
     main_path = {kern: train_launches for kern, _, _ in KERNEL_TABLE}
     main_path.update(ball_query=rcnn_launches, sparse_conv=second_launches,
                      gather_rows_bf16=second_launches,

@@ -1,5 +1,5 @@
 """Dataset registry and `build_dataloader` (counterpart of
-`pdm_ssd_tpu/datasets/__init__.py`, KITTI only).
+`pdm_ssd_tpu/datasets/__init__.py`, KITTI and nuScenes).
 
 The host-side loader is torch's CPU DataLoader, for worker-process
 prefetching; batches are plain numpy dicts that the loops move to the device.
@@ -15,14 +15,16 @@ import torch.utils.data as torch_data
 
 from .dataset import DatasetTemplate
 from .kitti.kitti_dataset import KittiDataset
+from .nuscenes.nuscenes_dataset import NuScenesDataset
 
 __all__ = {
     'DatasetTemplate': DatasetTemplate,
     'KittiDataset': KittiDataset,
+    'NuScenesDataset': NuScenesDataset,
 }
 
-_UNPORTED = ('CustomDataset', 'NuScenesDataset', 'WaymoDataset', 'ONCEDataset', 'LyftDataset',
-             'PandasetDataset', 'Argo2Dataset')
+_UNPORTED = ('CustomDataset', 'WaymoDataset', 'ONCEDataset', 'LyftDataset', 'PandasetDataset',
+             'Argo2Dataset')
 
 
 def _worker_init_fn(worker_id, seed=None):

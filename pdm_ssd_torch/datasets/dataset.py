@@ -8,7 +8,8 @@ batch (copy of `pdm_ssd_tpu/datasets/dataset.py` for LiDAR points).
   N is fixed by the `sample_points` processor — and gt_boxes (B, M_max, 8)
   with a boolean `gt_mask` instead of ragged zero-padding with a batch-idx
   column (`dataset.py:220-325`); the voxel keys are padded to the
-  voxelizer's cap with a `voxel_mask`, as the JAX package pads them. The
+  voxelizer's cap with a `voxel_mask`, as the JAX package pads them; a
+  nuScenes sample's `metadata` dicts become an object array of B. The
   image keys of the JAX package's collate have no producer in the port's
   processor yet.
 """
@@ -162,6 +163,9 @@ class DatasetTemplate(object):
             elif key in ['frame_id', 'calib', 'image_shape', 'use_lead_xyz',
                          'flip_x', 'flip_y', 'noise_rot', 'noise_scale']:
                 ret[key] = np.array(val) if key in ['frame_id', 'image_shape'] else val
+            elif key == 'metadata':
+                ret[key] = np.empty(batch_size, object)
+                ret[key][:] = val
             else:
                 try:
                     ret[key] = np.stack(val, axis=0)

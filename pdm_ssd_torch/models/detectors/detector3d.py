@@ -254,30 +254,40 @@ class Detector3D(nn.Module):
         return {'pred_boxes': fb_, 'pred_scores': fs, 'pred_labels': fl, 'pred_mask': fm}
 
     def select_candidates(self, batch: dict):
-        """(boxes (B, K, 7), scores, labels (1-based), valid (B, K)), valid
-        above SCORE_THRESH. A heatmap head's are its fixed-K decode; an anchor
-        head's the sigmoid scores, the best class per anchor and the top
-        2 * NMS_PRE_MAXSIZE anchors by `two_stage_topk`."""
+        """(boxes (B, K, 7), scores, labels (1-based), valid (B, K), the
+        per-class scores (B, K, C) or None), valid above SCORE_THRESH. A
+        heatmap head's are its fixed-K decode; an anchor head's the sigmoid
+        scores, the best class per anchor and the top 2 * NMS_PRE_MAXSIZE
+        anchors by `two_stage_topk`, with their per-class scores under
+        NMS_TYPE `multi_classes_nms`."""
         pp = self.model_cfg.POST_PROCESSING
         thresh = pp.get('SCORE_THRESH', 0.1)
         if isinstance(self.dense_head, (CenterHead, VoxelNeXtHead)):
             hm = self.dense_head.generate_predicted_boxes(batch)
             return (hm['pred_boxes'][..., :7], hm['pred_scores'], hm['pred_labels'] + 1,
-                    hm['pred_mask'] & (hm['pred_scores'] > thresh))
+                    hm['pred_mask'] & (hm['pred_scores'] > thresh), None)
         cls_preds, boxes = self.dense_head.generate_predicted_boxes(batch)
         probs = torch.sigmoid(cls_preds)                          # (B, A, nc)
         scores_all, labels_all = probs.max(dim=-1)
         K = min(int(np.max(pp.NMS_CONFIG.NMS_PRE_MAXSIZE)) * 2, scores_all.shape[1])
         scores, sel = two_stage_topk(scores_all, K)
+        cls_probs = (take_rows(probs, sel)
+                     if pp.NMS_CONFIG.get('NMS_TYPE', 'nms_bev') == 'multi_classes_nms' else None)
         return (take_rows(boxes, sel)[..., :7], scores, take_rows(labels_all, sel) + 1,
-                scores > thresh)
+                scores > thresh, cls_probs)
 
     def post_process(self, batch: dict) -> dict:
-        """The candidates of `select_candidates` through one class-agnostic
-        NMS, rotated or by center distance as NMS_TYPE says. Returns (B, P,
-        7) boxes and (B, P) scores, labels (1-based) and mask."""
-        boxes, scores, labels, valid = self.select_candidates(batch)
-        fb, fs, fl, fm = model_nms.dispatch_nms(boxes, scores, labels, valid,
-                                                self.model_cfg.POST_PROCESSING.NMS_CONFIG,
-                                                self.num_class)
+        """The candidates of `select_candidates` through the NMS of
+        NMS_TYPE (`model_nms.dispatch_nms`): class-agnostic, rotated or by
+        center distance, or per class (`multi_classes_nms` on an anchor
+        head's per-class scores, `class_specific_nms`), the per-class kinds
+        gated at SCORE_THRESH. Returns (B, P, 7) boxes and (B, P) scores,
+        labels (1-based) and mask."""
+        pp = self.model_cfg.POST_PROCESSING
+        boxes, scores, labels, valid, cls_probs = self.select_candidates(batch)
+        per_class = pp.NMS_CONFIG.get('NMS_TYPE', 'nms_bev') in ('multi_classes_nms',
+                                                                 'class_specific_nms')
+        fb, fs, fl, fm = model_nms.dispatch_nms(
+            boxes, scores, labels, valid, pp.NMS_CONFIG, self.num_class, cls_probs=cls_probs,
+            score_thresh=pp.get('SCORE_THRESH', 0.1) if per_class else None)
         return {'pred_boxes': fb, 'pred_scores': fs, 'pred_labels': fl, 'pred_mask': fm}

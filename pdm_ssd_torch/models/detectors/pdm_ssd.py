@@ -135,9 +135,10 @@ class PDMSSD(nn.Module):
 
     def post_process(self, batch: dict) -> dict:
         """Heatmap boxes with scores calibrated by the best vote score within
-        CALIBRATION_RADIUS, plus the top VOTE_TOPK vote boxes, through one
-        class-agnostic rotated NMS. Returns (B, P, 7) boxes and (B, P)
-        scores, labels (1-based) and mask."""
+        CALIBRATION_RADIUS, plus the top VOTE_TOPK vote boxes, through the
+        NMS of NMS_TYPE (`model_nms.dispatch_nms`; `class_specific_nms` also
+        gates each class at SCORE_THRESH). Returns (B, P, 7) boxes and (B,
+        P) scores, labels (1-based) and mask."""
         pp = self.model_cfg.POST_PROCESSING
         cands = []
         if self.dense_head is not None:
@@ -172,6 +173,8 @@ class PDMSSD(nn.Module):
         valid = torch.cat([c[3] for c in cands], dim=1)
         thresh = pp.get('SCORE_THRESH', 0.1)
         valid = valid & (scores > thresh)
+        per_class = pp.NMS_CONFIG.get('NMS_TYPE', 'nms_bev') == 'class_specific_nms'
         fb, fs, fl, fm = model_nms.dispatch_nms(boxes, scores, labels, valid, pp.NMS_CONFIG,
-                                                self.num_class)
+                                                self.num_class,
+                                                score_thresh=thresh if per_class else None)
         return {'pred_boxes': fb, 'pred_scores': fs, 'pred_labels': fl, 'pred_mask': fm}

@@ -1,5 +1,5 @@
-"""CenterNet heatmap targets and fixed-K decode (counterpart of
-`pdm_ssd_tpu/ops/centernet.py`)."""
+"""CenterNet heatmap targets, fixed-K decode and the decode at target cells
+(counterpart of `pdm_ssd_tpu/ops/centernet.py`)."""
 from __future__ import annotations
 
 import torch
@@ -56,11 +56,12 @@ def assign_center_targets(gt_boxes: torch.Tensor, gt_valid: torch.Tensor, num_cl
                           min_radius: int = 2):
     """CenterHead targets of one head for a batch.
 
-    gt_boxes (B, M, 8): x y z dx dy dz heading class (1-indexed); gt_valid
-    (B, M) bool; feature_map_size (W, H). Returns heatmap (B, C, H, W),
-    target boxes (B, M, 8) (offsets in the cell, z, log sizes, cos, sin),
-    inds (B, M) int32 = y * W + x, mask (B, M) int32, and the raw boxes of
-    the kept slots (B, M, 8). Float-to-int casts truncate."""
+    gt_boxes (B, M, 8 + E): x y z dx dy dz heading, E extra columns
+    (velocity), class (1-indexed); gt_valid (B, M) bool; feature_map_size
+    (W, H). Returns heatmap (B, C, H, W), target boxes (B, M, 8 + E)
+    (offsets in the cell, z, log sizes, cos, sin, the extras), inds (B, M)
+    int32 = y * W + x, mask (B, M) int32, and the raw boxes of the kept
+    slots (B, M, 8 + E). Float-to-int casts truncate."""
     W, H = int(feature_map_size[0]), int(feature_map_size[1])
     x, y, z = gt_boxes[..., 0], gt_boxes[..., 1], gt_boxes[..., 2]
     coord_x = (x - point_cloud_range[0]) / voxel_size[0] / feature_map_stride
@@ -103,9 +104,12 @@ def topk_heatmap(scores: torch.Tensor, K: int):
 
 def decode_bbox_from_heatmap(heatmap, rot_cos, rot_sin, center, center_z, dim,
                              point_cloud_range, voxel_size, feature_map_stride,
-                             K=100, score_thresh=None, post_center_limit_range=None):
+                             K=100, score_thresh=None, post_center_limit_range=None,
+                             vel=None, iou=None):
     """All channel tensors are (B, C_head, H, W). Returns fixed-shape boxes
-    (B, K, 7), scores (B, K), labels (B, K) and mask (B, K)."""
+    (B, K, 7), or (B, K, 9) with `vel`'s two columns, scores (B, K), labels
+    (B, K) and mask (B, K); with `iou`, also 'pred_iou' (B, K), the channel
+    at each box's cell."""
     B = heatmap.shape[0]
     scores, inds, class_ids, ys, xs = topk_heatmap(heatmap, K)
 
@@ -124,8 +128,10 @@ def decode_bbox_from_heatmap(heatmap, rot_cos, rot_sin, center, center_z, dim,
     ys = ys + center[..., 1]
     xs = xs * feature_map_stride * voxel_size[0] + point_cloud_range[0]
     ys = ys * feature_map_stride * voxel_size[1] + point_cloud_range[1]
-    boxes = torch.cat([xs[..., None], ys[..., None], center_z[..., None], dim,
-                       angle[..., None]], dim=-1)
+    parts = [xs[..., None], ys[..., None], center_z[..., None], dim, angle[..., None]]
+    if vel is not None:
+        parts.append(gather(vel))
+    boxes = torch.cat(parts, dim=-1)
 
     mask = torch.ones((B, K), dtype=torch.bool, device=heatmap.device)
     if post_center_limit_range is not None:
@@ -134,5 +140,34 @@ def decode_bbox_from_heatmap(heatmap, rot_cos, rot_sin, center, center_z, dim,
         mask &= (boxes[..., :3] <= lim[3:]).all(dim=-1)
     if score_thresh is not None:
         mask &= scores > score_thresh
-    return {'pred_boxes': boxes, 'pred_scores': scores, 'pred_labels': class_ids,
-            'pred_mask': mask}
+    out = {'pred_boxes': boxes, 'pred_scores': scores, 'pred_labels': class_ids,
+           'pred_mask': mask}
+    if iou is not None:
+        out['pred_iou'] = gather(iou)[..., 0]
+    return out
+
+
+def decode_boxes_at_inds(preds: dict, inds: torch.Tensor, point_cloud_range, voxel_size,
+                         feature_map_stride, fmap_wh) -> torch.Tensor:
+    """The (B, K, 7) boxes decoded at flat y * W + x cells `inds` (B, K) of
+    the NHWC maps 'center', 'center_z', 'dim', 'rot' (the per-slot
+    counterpart of `centernet_utils.decode_bbox_from_pred_dicts`, which the
+    CenterHead's IoU losses read, `center_head.py:260-266`)."""
+    W, _ = fmap_wh
+    inds = inds.long()
+
+    def gather(t):   # (B, H, W, C) -> (B, K, C)
+        flat = t.reshape(t.shape[0], -1, t.shape[-1])
+        return torch.gather(flat, 1, inds[..., None].expand(-1, -1, t.shape[-1]))
+
+    center = gather(preds['center'])
+    center_z = gather(preds['center_z'])[..., 0]
+    dim = torch.exp(torch.clamp(gather(preds['dim']), -5.0, 5.0))
+    rot = gather(preds['rot'])
+    angle = torch.atan2(rot[..., 1], rot[..., 0])
+    xs = (inds % W).float() + center[..., 0]
+    ys = (inds // W).float() + center[..., 1]
+    xs = xs * feature_map_stride * voxel_size[0] + point_cloud_range[0]
+    ys = ys * feature_map_stride * voxel_size[1] + point_cloud_range[1]
+    return torch.cat([xs[..., None], ys[..., None], center_z[..., None], dim,
+                      angle[..., None]], dim=-1)

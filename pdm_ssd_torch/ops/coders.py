@@ -1,6 +1,6 @@
 """Box coders (counterpart of `pdm_ssd_tpu/ops/coders.py`): `ResidualCoder`
-(anchor-relative) and `PointResidualCoder` with class mean sizes, encode and
-decode."""
+(anchor-relative) and `PointResidualCoder` with or without class mean sizes,
+encode and decode."""
 from __future__ import annotations
 
 import dataclasses
@@ -55,9 +55,12 @@ class ResidualCoder:
 
 @dataclasses.dataclass(frozen=True)
 class PointResidualCoder:
-    """Per-point residual coder with class mean sizes (1-indexed by class id);
-    the heading is encoded as cos/sin."""
+    """Per-point residual coder; the heading is encoded as cos/sin. With
+    `use_mean_size` the offsets are scaled by the class's mean size
+    (1-indexed by class id) and the sizes coded as log ratios to it; without,
+    the offsets are plain differences and the sizes plain logs."""
     code_size: int = 8
+    use_mean_size: bool = True
     mean_size: tuple = ()
 
     def _anchor_sizes(self, classes: torch.Tensor) -> torch.Tensor:
@@ -65,48 +68,47 @@ class PointResidualCoder:
         return ms[torch.clamp(classes.long() - 1, 0, ms.shape[0] - 1)]
 
     def encode(self, gt_boxes: torch.Tensor, points: torch.Tensor,
-               gt_classes: torch.Tensor) -> torch.Tensor:
-        """gt_boxes (..., 7 + E), points (..., 3), gt_classes (...) 1-indexed ->
-        (..., 8 + E): offsets over the mean size's diagonal and height, log
-        size ratios, cos and sin of the heading, then the extras."""
+               gt_classes: torch.Tensor | None = None) -> torch.Tensor:
+        """gt_boxes (..., 7 + E), points (..., 3), gt_classes (...) 1-indexed
+        (read with `use_mean_size` only) -> (..., 8 + E): the centre offsets,
+        the size codes, cos and sin of the heading, then the extras."""
         sizes = gt_boxes[..., 3:6].clamp(min=1e-5)
         xg, yg, zg = torch.unbind(gt_boxes[..., :3], dim=-1)
         dxg, dyg, dzg = torch.unbind(sizes, dim=-1)
         rg = gt_boxes[..., 6]
         xa, ya, za = torch.unbind(points[..., :3], dim=-1)
-        dxa, dya, dza = torch.unbind(self._anchor_sizes(gt_classes), dim=-1)
-        diagonal = torch.sqrt(dxa ** 2 + dya ** 2)
+        if self.use_mean_size:
+            dxa, dya, dza = torch.unbind(self._anchor_sizes(gt_classes), dim=-1)
+            diagonal = torch.sqrt(dxa ** 2 + dya ** 2)
+            codes = [(xg - xa) / diagonal, (yg - ya) / diagonal, (zg - za) / dza,
+                     torch.log(dxg / dxa), torch.log(dyg / dya), torch.log(dzg / dza)]
+        else:
+            codes = [xg - xa, yg - ya, zg - za, torch.log(dxg), torch.log(dyg), torch.log(dzg)]
         extras = [gt_boxes[..., 7 + i] for i in range(gt_boxes.shape[-1] - 7)]
-        return torch.stack([(xg - xa) / diagonal, (yg - ya) / diagonal, (zg - za) / dza,
-                            torch.log(dxg / dxa), torch.log(dyg / dya), torch.log(dzg / dza),
-                            torch.cos(rg), torch.sin(rg), *extras], dim=-1)
+        return torch.stack([*codes, torch.cos(rg), torch.sin(rg), *extras], dim=-1)
 
     def decode(self, box_encodings: torch.Tensor, points: torch.Tensor,
                pred_classes: torch.Tensor | None = None) -> torch.Tensor:
         xt, yt, zt, dxt, dyt, dzt, cost, sint = torch.unbind(box_encodings[..., :8], dim=-1)
         xa, ya, za = torch.unbind(points[..., :3], dim=-1)
-        dxa, dya, dza = torch.unbind(self._anchor_sizes(pred_classes), dim=-1)
-        diagonal = torch.sqrt(dxa ** 2 + dya ** 2)
-        xg = xt * diagonal + xa
-        yg = yt * diagonal + ya
-        zg = zt * dza + za
-        dxg = torch.exp(dxt) * dxa
-        dyg = torch.exp(dyt) * dya
-        dzg = torch.exp(dzt) * dza
+        if self.use_mean_size:
+            dxa, dya, dza = torch.unbind(self._anchor_sizes(pred_classes), dim=-1)
+            diagonal = torch.sqrt(dxa ** 2 + dya ** 2)
+            centre = [xt * diagonal + xa, yt * diagonal + ya, zt * dza + za]
+            size = [torch.exp(dxt) * dxa, torch.exp(dyt) * dya, torch.exp(dzt) * dza]
+        else:
+            centre = [xt + xa, yt + ya, zt + za]
+            size = [torch.exp(dxt), torch.exp(dyt), torch.exp(dzt)]
         rg = torch.atan2(sint, cost)
         extras = [box_encodings[..., 8 + i] for i in range(box_encodings.shape[-1] - 8)]
-        return torch.stack([xg, yg, zg, dxg, dyg, dzg, rg, *extras], dim=-1)
+        return torch.stack([*centre, *size, rg, *extras], dim=-1)
 
 
 def build_box_coder(name: str, **kwargs):
     registry = {'ResidualCoder': ResidualCoder, 'PointResidualCoder': PointResidualCoder}
     if name not in registry:
         raise NotImplementedError(f'box coder {name} is not ported')
-    if name == 'PointResidualCoder':
-        if not kwargs.get('use_mean_size', True):
-            raise NotImplementedError('PointResidualCoder without mean sizes is not ported yet '
-                                      '(ROADMAP Queue 1 item 8b, with pdm_ssd_nuscenes.yaml)')
-        if 'mean_size' in kwargs:
-            kwargs['mean_size'] = tuple(tuple(s) for s in kwargs['mean_size'])
+    if name == 'PointResidualCoder' and 'mean_size' in kwargs:
+        kwargs['mean_size'] = tuple(tuple(s) for s in kwargs['mean_size'])
     fields = {f.name for f in dataclasses.fields(registry[name])}
     return registry[name](**{k: v for k, v in kwargs.items() if k in fields})

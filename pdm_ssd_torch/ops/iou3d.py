@@ -8,6 +8,8 @@ area is the shoelace sum. Compaction after each clip is an exclusive
 greedy pass over the K candidates, vectorized over the batch, and returns
 `post_maxsize` slots with a keep mask. `circle_nms` suppresses by center
 distance, with the same keep set computed as the JAX package's fixpoint.
+`boxes_aligned_iou3d` and `bbox3d_overlaps_diou` pair box i with box i; the
+CenterHead's IoU losses read them.
 """
 from __future__ import annotations
 
@@ -201,3 +203,48 @@ def circle_nms(boxes: torch.Tensor, scores: torch.Tensor, radius: float, pre_max
     d2 = ((cb[:, :, None, :] - cb[:, None, :, :]) ** 2).sum(dim=-1)    # (B, K, K)
     keep = greedy_suppress(d2 <= radius * radius, torch.isfinite(top_scores))
     return _keep_slots(order, keep, post_maxsize)
+
+
+def boxes_aligned_iou3d(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """Element-aligned 3D IoU: (N, 7), (N, 7) -> (N,): pair i's rotated BEV
+    overlap times the overlap of its z extents, over the union of the
+    volumes (`iou3d_nms_utils.boxes_aligned_iou3d_gpu:83-117`)."""
+    overlap_bev = overlap_bev_pairs(boxes_a, boxes_b)
+    a_max = boxes_a[:, 2] + boxes_a[:, 5] / 2
+    a_min = boxes_a[:, 2] - boxes_a[:, 5] / 2
+    b_max = boxes_b[:, 2] + boxes_b[:, 5] / 2
+    b_min = boxes_b[:, 2] - boxes_b[:, 5] / 2
+    overlap_h = torch.clamp(torch.minimum(a_max, b_max) - torch.maximum(a_min, b_min), min=0.0)
+    overlap_3d = overlap_bev * overlap_h
+    vol_a = boxes_a[:, 3] * boxes_a[:, 4] * boxes_a[:, 5]
+    vol_b = boxes_b[:, 3] * boxes_b[:, 4] * boxes_b[:, 5]
+    return overlap_3d / torch.clamp(vol_a + vol_b - overlap_3d, min=1e-6)
+
+
+def bbox3d_overlaps_diou(pred_boxes: torch.Tensor, gt_boxes: torch.Tensor) -> torch.Tensor:
+    """Paired axis-aligned DIoU (`pcdet/utils/box_utils.py:396-439`, the
+    PillarNet form: the heading ignored, the BEV extents from the sizes, minus
+    the squared centre distance over the squared diagonal of the enclosing
+    box). (N, 7), (N, 7) -> (N,) in [-1, 1]."""
+    def extent(b):
+        half = b[:, 3:5] * 0.5
+        return b[:, 0:2] - half, b[:, 0:2] + half
+
+    pmin, pmax = extent(pred_boxes)
+    gmin, gmax = extent(gt_boxes)
+    inter_wh = torch.clamp(torch.minimum(pmax, gmax) - torch.maximum(pmin, gmin), min=0.0)
+    outer_wh = torch.clamp(torch.maximum(pmax, gmax) - torch.minimum(pmin, gmin), min=0.0)
+    vol_p = pred_boxes[:, 3] * pred_boxes[:, 4] * pred_boxes[:, 5]
+    vol_g = gt_boxes[:, 3] * gt_boxes[:, 4] * gt_boxes[:, 5]
+    p_top, p_bot = (pred_boxes[:, 2] + 0.5 * pred_boxes[:, 5],
+                    pred_boxes[:, 2] - 0.5 * pred_boxes[:, 5])
+    g_top, g_bot = gt_boxes[:, 2] + 0.5 * gt_boxes[:, 5], gt_boxes[:, 2] - 0.5 * gt_boxes[:, 5]
+    inter_h = torch.clamp(torch.minimum(p_top, g_top) - torch.maximum(p_bot, g_bot), min=0.0)
+    outer_h = torch.clamp(torch.maximum(p_top, g_top) - torch.minimum(p_bot, g_bot), min=0.0)
+    vol_inter = inter_wh[:, 0] * inter_wh[:, 1] * inter_h
+    vol_union = vol_p + vol_g - vol_inter
+    inter_diag = ((gt_boxes[:, 0:3] - pred_boxes[:, 0:3]) ** 2).sum(dim=-1)
+    outer_diag = outer_wh[:, 0] ** 2 + outer_wh[:, 1] ** 2 + outer_h ** 2
+    dious = (vol_inter / torch.clamp(vol_union, min=1e-6)
+             - inter_diag / torch.clamp(outer_diag, min=1e-6))
+    return torch.clamp(dious, -1.0, 1.0)

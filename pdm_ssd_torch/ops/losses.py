@@ -1,6 +1,7 @@
 """Loss functions (counterpart of `pdm_ssd_tpu/ops/losses.py`): the ones the
-flagship, SECOND and the two-stage heads train with. `weighted_l1` and the
-IoU losses of the JAX package are not ported yet.
+flagship, SECOND, the two-stage heads and the CenterHead's IoU branches
+train with. `weighted_l1` of the JAX package is not ported: no ported model
+uses it.
 """
 from __future__ import annotations
 
@@ -103,3 +104,34 @@ def corner_loss_lidar(pred_boxes: torch.Tensor, gt_boxes: torch.Tensor) -> torch
     dist = torch.minimum(safe_norm(pred_corners - gt_corners),
                          safe_norm(pred_corners - gt_corners_flip))         # (N, 8)
     return smooth_l1(dist, beta=1.0).mean(dim=1)
+
+
+def centerhead_iou_loss(iou_preds: torch.Tensor, decoded_boxes: torch.Tensor,
+                        mask: torch.Tensor, gt_boxes_src: torch.Tensor) -> torch.Tensor:
+    """IoU-prediction regression (`loss_utils.calculate_iou_loss_centerhead`,
+    `pcdet/utils/loss_utils.py:610-634`): masked L1 between the predicted
+    IoU channel, gathered at the target cells (B, K), and the aligned 3D IoU
+    of the decoded boxes with the raw ground truth mapped from [0, 1] to
+    [-1, 1]; no gradient flows through the boxes or the target.
+    decoded_boxes and gt_boxes_src (B, K, 7+), mask (B, K)."""
+    from . import iou3d
+    B, K = iou_preds.shape
+    flat_p = decoded_boxes[..., :7].detach().reshape(B * K, 7)
+    flat_g = gt_boxes_src[..., :7].reshape(B * K, 7)
+    iou_target = iou3d.boxes_aligned_iou3d(flat_p, flat_g).reshape(B, K) * 2.0 - 1.0
+    m = mask.to(torch.float32)
+    err = (iou_preds - iou_target.detach()).abs() * m
+    return err.sum() / m.sum().clamp(min=1e-4)
+
+
+def centerhead_iou_reg_loss(decoded_boxes: torch.Tensor, mask: torch.Tensor,
+                            gt_boxes_src: torch.Tensor) -> torch.Tensor:
+    """DIoU box regression (`loss_utils.calculate_iou_reg_loss_centerhead`,
+    `pcdet/utils/loss_utils.py:637-648`): the mean of 1 - DIoU over the valid
+    slots. decoded_boxes and gt_boxes_src (B, K, 7+), mask (B, K)."""
+    from . import iou3d
+    B, K = decoded_boxes.shape[:2]
+    diou = iou3d.bbox3d_overlaps_diou(decoded_boxes[..., :7].reshape(B * K, 7),
+                                      gt_boxes_src[..., :7].reshape(B * K, 7))
+    m = mask.to(torch.float32).reshape(B * K)
+    return ((1.0 - diou) * m).sum() / m.sum().clamp(min=1e-4)

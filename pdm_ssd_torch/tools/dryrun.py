@@ -5,8 +5,10 @@ Builds the tiny point-exact flagship (the shrink of
 takes one train step on a seeded synthetic batch and one predict, checks that
 the loss is finite and the detections have the batch's size, and prints
 `... OK, loss=...`. With `--cfg_file configs/kitti_models/pdm_ssd.yaml`,
-`pdm_ssd_aux.yaml` or `pdm_ssd_large.yaml` it does the same on that config's
-tiny shrink (`utils/synthetic.tiny_pdmssd_cfg`). With `--cfg_file
+`pdm_ssd_aux.yaml`, `pdm_ssd_large.yaml` or
+`configs/nuscenes_models/pdm_ssd_nuscenes.yaml` (on nuScenes-like clouds of
+5 features) it does the same on that config's tiny shrink
+(`utils/synthetic.tiny_pdmssd_cfg`). With `--cfg_file
 configs/kitti_models/pointrcnn.yaml` it
 builds the tiny PointRCNN (`utils/synthetic.tiny_pointrcnn_cfg`), with
 `configs/kitti_models/second_sparse.yaml` the tiny SECOND on the sparse voxel
@@ -55,10 +57,14 @@ def dryrun(device: str | None = None, B: int = 2, N: int = 512, seed: int = 0,
         raise SystemExit(f'dryrun: no tiny version of {name}')
     cfg = synthetic.TINY_CFGS[name](cfg)
     model = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG, device=device,
-                          seed=seed)
+                          seed=seed, class_names=cfg.CLASS_NAMES)
     dev = next(model.parameters()).device
     prepare = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG)
-    if not synthetic.voxelizes(cfg):
+    if cfg.DATA_CONFIG.get('DATASET') == 'NuScenesDataset':
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in synthetic.nuscenes_batch(B, N, seed=seed).items()}
+        inputs = {'points': batch['points']}
+    elif not synthetic.voxelizes(cfg):
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in synthetic.kitti_batch(B, N, seed=seed).items()}
         inputs = {'points': batch['points']}
@@ -90,8 +96,8 @@ def main() -> None:
                     'configs/kitti_models/pdm_ssd.yaml, pdm_ssd_aux.yaml, pdm_ssd_large.yaml, '
                     'pointrcnn.yaml, second_sparse.yaml, second_focal.yaml, voxelnext.yaml, '
                     'second.yaml, pointpillar.yaml, centerpoint_pillar.yaml, pillarnet.yaml, '
-                    'pv_rcnn.yaml, pv_rcnn_sparse.yaml, voxel_rcnn.yaml or '
-                    'voxel_rcnn_sparse.yaml')
+                    'pv_rcnn.yaml, pv_rcnn_sparse.yaml, voxel_rcnn.yaml, '
+                    'voxel_rcnn_sparse.yaml or configs/nuscenes_models/pdm_ssd_nuscenes.yaml')
     args = ap.parse_args()
     dryrun(args.device, args.batch, args.points, cfg_file=args.cfg_file)
 

@@ -1,28 +1,40 @@
-"""Logger and seeding (copy of the helpers of
-`pdm_ssd_tpu/utils/common_utils.py`, itself the non-distributed part of the
-reference's `pcdet/utils/common_utils.py`)."""
+"""Logger and seeding (the helpers of `pdm_ssd_tpu/utils/common_utils.py`,
+itself the non-distributed part of the reference's
+`pcdet/utils/common_utils.py`; the logger also moves its file handler to a
+new `log_file`)."""
 from __future__ import annotations
 
 import logging
+import os
 import random
 
 import numpy as np
 
 
 def create_logger(log_file=None, rank=0, log_level=logging.INFO):
+    """The rank's logger, to the console and, with `log_file`, to that file.
+    A later call with another `log_file` moves the file handler there, so
+    that each CLI run of one process (the train CLI, then the test CLI) logs
+    to its own file."""
     logger = logging.getLogger(__name__ + f'.rank{rank}')
     logger.setLevel(log_level if rank == 0 else 'ERROR')
     formatter = logging.Formatter('%(asctime)s  %(levelname)5s  %(message)s')
-    if not logger.handlers:
+    files = [h for h in logger.handlers if isinstance(h, logging.FileHandler)]
+    if len(files) == len(logger.handlers):
         console = logging.StreamHandler()
         console.setLevel(log_level if rank == 0 else 'ERROR')
         console.setFormatter(formatter)
         logger.addHandler(console)
-        if log_file is not None:
-            file_handler = logging.FileHandler(filename=log_file)
-            file_handler.setLevel(log_level if rank == 0 else 'ERROR')
-            file_handler.setFormatter(formatter)
-            logger.addHandler(file_handler)
+    target = None if log_file is None else os.path.abspath(log_file)
+    for handler in files:
+        if handler.baseFilename != target:
+            logger.removeHandler(handler)
+            handler.close()
+    if target is not None and not any(h.baseFilename == target for h in files):
+        file_handler = logging.FileHandler(filename=log_file)
+        file_handler.setLevel(log_level if rank == 0 else 'ERROR')
+        file_handler.setFormatter(formatter)
+        logger.addHandler(file_handler)
     logger.propagate = False
     return logger
 

@@ -44,6 +44,76 @@ def large_scene_points(B: int, N: int, seed: int) -> np.ndarray:
                      rng.uniform(-3, 1, (B, N)), rng.rand(B, N)], axis=-1).astype(np.float32)
 
 
+NUSCENES_RANGE = (-51.2, -51.2, -5.0, 51.2, 51.2, 3.0)
+NUSCENES_CLASSES = ('car', 'truck', 'construction_vehicle', 'bus', 'trailer', 'barrier',
+                    'motorcycle', 'bicycle', 'pedestrian', 'traffic_cone')
+# (dx, dy, dz) in metres of a box of each nuScenes class, 1-indexed in
+# NUSCENES_CLASSES order: sizes near the class means of the nuScenes train
+# split (rounded)
+NUSCENES_SIZES = {1: (4.63, 1.97, 1.74), 2: (6.93, 2.51, 2.84), 3: (6.37, 2.85, 3.19),
+                  4: (10.5, 2.94, 3.47), 5: (12.29, 2.90, 3.87), 6: (0.50, 2.53, 0.98),
+                  7: (2.11, 0.77, 1.47), 8: (1.70, 0.60, 1.28), 9: (0.73, 0.67, 1.77),
+                  10: (0.41, 0.41, 1.07)}
+
+
+def nuscenes_points(B: int, N: int, seed: int, sweeps: int = 10) -> np.ndarray:
+    """Clouds like a 10-sweep nuScenes LiDAR scan over +-51.2 m, (B, N, 5)
+    float32: x, y, z, intensity and the time lag of the sweep a point came
+    from (0 to 0.45 s in steps of 0.05 s). 60% of the points on a ground
+    plane 1.84 m below the sensor, all round it (range 1 m plus an
+    exponential of mean 12 m), 30% on two vertical faces of 60 car-sized
+    boxes, 10% scattered over the range."""
+    rng = np.random.RandomState(seed)
+    x0, y0, _, x1, y1, _ = NUSCENES_RANGE
+    out = np.zeros((B, N, 5), np.float32)
+    n_boxes = 60
+    for b in range(B):
+        n_far, n_box = int(N * 0.1), int(N * 0.3)
+        n_ground = N - n_far - n_box
+        r = np.minimum(1.0 + 12.0 * rng.exponential(1.0, n_ground), 70.0)
+        th = rng.uniform(-np.pi, np.pi, n_ground)
+        ground = np.stack([r * np.cos(th), r * np.sin(th),
+                           -1.84 + 0.03 * rng.randn(n_ground)], -1)
+        far = np.stack([rng.uniform(x0, x1, n_far), rng.uniform(y0, y1, n_far),
+                        rng.uniform(-2.0, 1.0, n_far)], -1)
+        centers = np.stack([rng.uniform(x0 + 5, x1 - 5, n_boxes),
+                            rng.uniform(y0 + 5, y1 - 5, n_boxes)], -1)
+        which = rng.randint(0, n_boxes, n_box)
+        yaw = rng.uniform(-np.pi, np.pi, n_boxes)[which]
+        u, v = rng.uniform(-0.5, 0.5, n_box), rng.uniform(0, 1, n_box)
+        long_face = rng.rand(n_box) < 0.5
+        lx = np.where(long_face, u * 4.6, -2.3)
+        ly = np.where(long_face, -1.0, u * 2.0)
+        box = np.stack([centers[which, 0] + lx * np.cos(yaw) - ly * np.sin(yaw),
+                        centers[which, 1] + lx * np.sin(yaw) + ly * np.cos(yaw),
+                        -1.84 + v * 1.74], -1)
+        pts = np.concatenate([ground, far, box])
+        out[b, :, :3] = pts[rng.permutation(N)]
+        out[b, :, 3] = rng.rand(N)
+        out[b, :, 4] = rng.randint(0, sweeps, N) * 0.05
+    return out
+
+
+def nuscenes_batch(B: int, N: int, M: int = 8, seed: int = 0, velocity: bool = False) -> dict:
+    """A training batch of a nuScenes config: `nuscenes_points` and M boxes a
+    cloud of the 10 classes in turn, at their mean sizes, within +-40 m;
+    with `velocity` the boxes carry vx, vy (m/s) before the class, as
+    PRED_VELOCITY keeps them. Numpy."""
+    rng = np.random.RandomState(seed + 1)
+    E = 2 if velocity else 0
+    gt = np.zeros((B, M, 8 + E), np.float32)
+    gt[..., 0:2] = rng.uniform(-40, 40, (B, M, 2))
+    cls = (np.arange(B * M).reshape(B, M) % 10) + 1
+    gt[..., 3:6] = np.array([NUSCENES_SIZES[c] for c in cls.ravel()]).reshape(B, M, 3)
+    gt[..., 2] = -1.84 + gt[..., 5] / 2
+    gt[..., 6] = rng.uniform(-np.pi, np.pi, (B, M))
+    if velocity:
+        gt[..., 7:9] = rng.normal(0, 3, (B, M, 2))
+    gt[..., -1] = cls
+    return {'points': nuscenes_points(B, N, seed), 'gt_boxes': gt,
+            'gt_mask': np.ones((B, M), bool)}
+
+
 def lidar_points(B: int, N: int, seed: int,
                  pc_range=(0.0, -40.0, -3.0, 70.4, 40.0, 1.0)) -> np.ndarray:
     """Clouds that look like a LiDAR scan to a voxel grid, (B, N, 4) float32:
@@ -201,9 +271,52 @@ def tiny_pdmssd_cfg(cfg):
     point-exact one's (`tiny_flagship_cfg`) otherwise."""
     if cfg.MODEL.BACKBONE_3D.get('NAME') != 'GridPointBackbone':
         return tiny_flagship_cfg(cfg)
+    if cfg.DATA_CONFIG.get('DATASET') == 'NuScenesDataset':
+        return tiny_nuscenes_cfg(cfg)
     if cfg.DATA_CONFIG.POINT_CLOUD_RANGE[0] < 0:
         return tiny_large_cfg(cfg)
     return tiny_grid_cfg(cfg)
+
+
+def tiny_nuscenes_cfg(cfg):
+    """Shrink `configs/nuscenes_models/pdm_ssd_nuscenes.yaml` in place as
+    `tiny_grid_cfg` shrinks its KITTI counterpart, over its +-51.2 m range:
+    a 32 x 32 grid of 3.2 m cells (levels 32, 16 and 8 cells a side), the
+    head at 16 x 16 cells of 6.4 m, narrow."""
+    bb = cfg.MODEL.BACKBONE_3D
+    bb.CELL_SIZE = 3.2
+    bb.GRID_SIZE = [32, 32]
+    bb.NUM_FILTERS = [8, 8, 16]
+    neck = cfg.MODEL.PDM_NECK
+    neck.BEV_SIZE = [16, 16]
+    neck.VOXEL_SIZE = [6.4, 6.4, 2.0]
+    neck.NUM_BEV_FEATURES = 8
+    cfg.MODEL.BACKBONE_2D.NUM_FILTERS = [16]
+    cfg.MODEL.BACKBONE_2D.NUM_UPSAMPLE_FILTERS = [16]
+    _tiny_center_head(cfg)
+    return cfg
+
+
+def multihead_variant(cfg, iou_rectify: bool = True):
+    """`pdm_ssd_nuscenes.yaml` with `bevfusion.yaml`'s six head groups, 'vel'
+    and 'iou' branches, IOU_REG_LOSS and PRED_VELOCITY (the velocity's two
+    codes join the regression, code weight 1), in place; with
+    `iou_rectify` the decode rectifies its scores by the 'iou' branch
+    (IOU_RECTIFIER 0.5 for every class)."""
+    head = cfg.MODEL.DENSE_HEAD
+    head.CLASS_NAMES_EACH_HEAD = [['car'], ['truck', 'construction_vehicle'],
+                                  ['bus', 'trailer'], ['barrier'], ['motorcycle', 'bicycle'],
+                                  ['pedestrian', 'traffic_cone']]
+    head.SEPARATE_HEAD_CFG.HEAD_ORDER = ['center', 'center_z', 'dim', 'rot', 'vel']
+    head.SEPARATE_HEAD_CFG.HEAD_DICT['vel'] = {'out_channels': 2, 'num_conv': 2}
+    head.SEPARATE_HEAD_CFG.HEAD_DICT['iou'] = {'out_channels': 1, 'num_conv': 2}
+    head.IOU_REG_LOSS = True
+    head.LOSS_CONFIG.LOSS_WEIGHTS['code_weights'] = [1.0] * 10
+    if iou_rectify:
+        head.POST_PROCESSING.USE_IOU_TO_RECTIFY_SCORE = True
+        head.POST_PROCESSING.IOU_RECTIFIER = [0.5] * 10
+    cfg.DATA_CONFIG.PRED_VELOCITY = True
+    return cfg
 
 
 def tiny_pointrcnn_cfg(cfg):
@@ -569,23 +682,26 @@ def open_score_gate(net: torch.nn.Module) -> torch.nn.Module:
     """Set the classification bias of a model's dense head to 0, in place:
     an anchor head's (it starts at -log(99), as in the JAX package, so a
     seeded model scores every anchor near 0.01, below any SCORE_THRESH, and
-    its NMS sees no candidate) or a heatmap head's (it starts at -2.19,
-    scores near 0.1, at the SCORE_THRESH of the PDM configs; VoxelNeXt's
-    first head group). At 0 the scores spread around 0.5 and
-    post-processing does the work it does for a trained model."""
+    its NMS sees no candidate) or a heatmap head's, in every head group of
+    a CenterHead or a VoxelNeXtHead (it starts at -2.19, scores near 0.1,
+    at the SCORE_THRESH of the PDM configs). At 0 the scores spread around
+    0.5 and post-processing does the work it does for a trained model."""
     head = net.dense_head
-    layer = (head.conv_cls if hasattr(head, 'conv_cls') else
-             head.head.hm_out if hasattr(head, 'head') else head.head_0.hm_out)
+    layers = ([head.conv_cls] if hasattr(head, 'conv_cls') else
+              [m.hm_out for n, m in head.named_children() if n == 'head' or n.startswith('head_')])
     with torch.no_grad():
-        layer.bias.zero_()
+        for layer in layers:
+            layer.bias.zero_()
     return net
 
 
 def random_model(cfg, device=None, seed: int = 0) -> torch.nn.Module:
     """The detector of a full config (`MODEL`, `CLASS_NAMES`, `DATA_CONFIG`)
-    with seeded weights and BatchNorm statistics, in eval mode."""
+    with seeded weights and BatchNorm statistics, in eval mode, built with
+    the config's CLASS_NAMES as the CLIs build it (a CenterHead has one
+    head per CLASS_NAMES_EACH_HEAD group)."""
     from ..models import build_network
     net = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG, device=device,
-                        seed=seed)
+                        seed=seed, class_names=cfg.CLASS_NAMES)
     randomize_bn(net, torch.Generator().manual_seed(seed + 1))
     return net

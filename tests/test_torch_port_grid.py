@@ -767,24 +767,3 @@ def test_train_and_test_clis_run_the_grid_config_on_the_cpu(tmp_path, monkeypatc
     assert (out / 'eval' / 'result.pkl').exists()
     log = ''.join(p.read_text() for p in out.rglob('*.log'))
     assert 'Car AP_R40@0.70, 0.70, 0.70' in log and 'recall_rcnn_0.7' in log
-
-
-@pytest.mark.parametrize('what', ['multi_classes_nms', 'class_specific_nms', 'multi-head',
-                                  'iou branch'])
-def test_the_nuscenes_half_of_the_family_raises(what):
-    """What `pdm_ssd_nuscenes.yaml` needs and the port lacks raises
-    `NotImplementedError` naming ROADMAP Queue 1 item 8b."""
-    cfg = synthetic.tiny_grid_cfg(load_cfg('pdm_ssd'))
-    model = cfg.MODEL
-    if what in ('multi_classes_nms', 'class_specific_nms'):
-        model.POST_PROCESSING.NMS_CONFIG.NMS_TYPE = what
-        net = build_network(model, 3, cfg.DATA_CONFIG, device='cpu')
-        with pytest.raises(NotImplementedError, match='item 8b'):
-            net.predict({'points': torch.from_numpy(synthetic.kitti_points(1, 256, 0))})
-        return
-    if what == 'multi-head':
-        model.DENSE_HEAD.CLASS_NAMES_EACH_HEAD = [['Car'], ['Pedestrian', 'Cyclist']]
-    else:
-        model.DENSE_HEAD.SEPARATE_HEAD_CFG.HEAD_DICT['iou'] = {'out_channels': 1, 'num_conv': 2}
-    with pytest.raises(NotImplementedError, match='item 8b'):
-        build_network(model, 3, cfg.DATA_CONFIG, device='cpu', class_names=cfg.CLASS_NAMES)

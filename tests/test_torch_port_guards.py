@@ -21,6 +21,10 @@ from torch_port_threads import one_torch_thread  # noqa: F401 (an autouse fixtur
 REPO = Path(__file__).resolve().parents[1]
 
 SLICE_MODULES = [
+    'pdm_ssd_torch.datasets.nuscenes.nuscenes_dataset',
+    'pdm_ssd_torch.datasets.nuscenes.nuscenes_eval',
+    'pdm_ssd_torch.datasets.nuscenes.nuscenes_info', 'pdm_ssd_torch.datasets.nuscenes.synthetic',
+    'pdm_ssd_torch.tools.make_mini_nuscenes',
     'pdm_ssd_torch', 'pdm_ssd_torch.ops.kernels', 'pdm_ssd_torch.ops.fps',
     'pdm_ssd_torch.ops.pointnet2', 'pdm_ssd_torch.ops.dispatch', 'pdm_ssd_torch.ops.sa_fused',
     'pdm_ssd_torch.ops.coders', 'pdm_ssd_torch.ops.selection', 'pdm_ssd_torch.ops.centernet',
@@ -342,7 +346,9 @@ def test_unported_parts_of_the_voxel_family_raise(what, monkeypatch):
     have raises `NotImplementedError` naming its ROADMAP item, at build time
     or where it is first used. `SparseUNetV2` is ported: its cases hold the
     UNet to the options it still lacks, int8 tables and QWIN's correction
-    lists in its training batches."""
+    lists in its training batches. NMS_TYPE `multi_classes_nms` is ported
+    too: its case holds SECOND's anchor head to its per-class slots (3
+    classes of NMS_POST_MAXSIZE each, each holding its class only)."""
     from pdm_ssd_torch.models import build_network, get_host_prepare
     from pdm_ssd_torch.utils import config as t_config
     from pdm_ssd_torch.utils import synthetic
@@ -357,6 +363,17 @@ def test_unported_parts_of_the_voxel_family_raise(what, monkeypatch):
     def prepare(training=False):
         return get_host_prepare(model, ds, training=training)
 
+    if what == 'multi_classes_nms':
+        nms = model.POST_PROCESSING.NMS_CONFIG
+        nms.NMS_TYPE = 'multi_classes_nms'
+        net = synthetic.open_score_gate(build())
+        det = net.predict(prepare()(synthetic.voxel_batch(1, 300, cfg, seed=1)))
+        post = nms.NMS_POST_MAXSIZE
+        assert det['pred_mask'].shape == (1, 3 * post) and bool(det['pred_mask'].any())
+        for c in range(3):
+            labels = det['pred_labels'][0, c * post:(c + 1) * post]
+            assert set(labels[det['pred_mask'][0, c * post:(c + 1) * post]].tolist()) <= {c + 1}
+        return
     with pytest.raises(NotImplementedError, match='ROADMAP'):
         if what == 'TABLE_DTYPE int8':
             model.BACKBONE_3D.TABLE_DTYPE = 'int8'
@@ -368,14 +385,10 @@ def test_unported_parts_of_the_voxel_family_raise(what, monkeypatch):
         elif what == 'QWIN':
             model.BACKBONE_3D.QWIN = True
             prepare()
-        elif what == 'SparseUNetV2':
+        else:
             model.BACKBONE_3D.NAME = 'SparseUNetV2'
             model.BACKBONE_3D.TABLE_DTYPE = 'int8'
             build()
-        else:
-            model.POST_PROCESSING.NMS_CONFIG.NMS_TYPE = 'multi_classes_nms'
-            net = build()
-            net.predict(prepare()(synthetic.voxel_batch(1, 300, cfg, seed=1)))
 
 
 @pytest.mark.gpu
@@ -508,18 +521,66 @@ def test_configs_build_or_name_their_roadmap_item(name, monkeypatch):
             build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG, device='meta')
 
 
-def test_pdm_ssd_nuscenes_builds_and_its_dataset_names_its_roadmap_item(monkeypatch):
-    """`pdm_ssd_nuscenes.yaml`'s model builds; its dataset raises naming
-    item 13 (the other datasets)."""
+def test_pdm_ssd_nuscenes_builds_and_its_dataset_reads_generated_infos(tmp_path, monkeypatch):
+    """`pdm_ssd_nuscenes.yaml`'s model builds as shipped, and its dataset,
+    pointed at a mini set generated by the port's tool, gives a batch of
+    163840 points of 5 features (a key frame and its past sweeps sampled with
+    replacement, each sweep's time lag in the fifth column) with its ground
+    truth and each sample's token."""
     from pdm_ssd_torch.datasets import build_dataloader
     from pdm_ssd_torch.models.detectors import build_detector
+    from pdm_ssd_torch.tools import make_mini_nuscenes
     from pdm_ssd_torch.utils import config as t_config
     monkeypatch.chdir(REPO)
     cfg = t_config.cfg_from_yaml_file('configs/nuscenes_models/pdm_ssd_nuscenes.yaml',
                                       t_config.CfgNode())
-    build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG, device='meta')
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 item 13'):
-        build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 1, workers=0)
+    net = build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG,
+                         class_names=cfg.CLASS_NAMES, device='meta')
+    assert sum(p.numel() for p in net.parameters()) > 1e6
+    make_mini_nuscenes.main(['--root', str(tmp_path), '--samples', '3', '--max_sweeps', '10'])
+    t_config.cfg_from_list(['DATA_CONFIG.DATA_PATH', str(tmp_path), 'DATA_CONFIG.VERSION', "''",
+                            'DATA_CONFIG.INFO_PATH',
+                            "{'test': ['nuscenes_infos_10sweeps_train.pkl']}"], cfg)
+    ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 2, workers=0,
+                                     training=False)
+    batch = next(iter(loader))
+    assert len(ds) == 3 and batch['points'].shape == (2, 163840, 5)
+    # the first frame has no past sweep, the second one, 0.5 s before it
+    assert set(np.unique(batch['points'][0, :, 4])) == {0.0}
+    assert set(np.unique(batch['points'][1, :, 4])) == {0.0, 0.5}
+    assert batch['gt_mask'].sum(1).tolist() == [1, 1] and batch['gt_boxes'].shape[-1] == 8
+    assert [m['token'] for m in batch['metadata']] == ['s0', 's1']
+
+
+UNPORTED_DATASETS = ['CustomDataset', 'WaymoDataset', 'ONCEDataset', 'LyftDataset',
+                     'PandasetDataset', 'Argo2Dataset']
+
+
+@pytest.mark.parametrize('what', UNPORTED_DATASETS + ['CAMERA_CONFIG', 'with_cams'])
+def test_unported_datasets_and_the_nuscenes_camera_half_name_their_roadmap_item(what, tmp_path,
+                                                                                 monkeypatch):
+    """The other six datasets raise `NotImplementedError` naming ROADMAP
+    Queue 1 item 13; nuScenes' camera half (a dataset with CAMERA_CONFIG,
+    the generator's CAM_FRONT stream) names item 12."""
+    from pdm_ssd_torch.datasets import build_dataloader
+    from pdm_ssd_torch.datasets.nuscenes import synthetic as nus_synthetic
+    from pdm_ssd_torch.utils import config as t_config
+    monkeypatch.chdir(REPO)
+    if what == 'with_cams':
+        with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 item 12'):
+            nus_synthetic.write_tables(tmp_path, with_cams=True)
+        return
+    cfg = t_config.cfg_from_yaml_file('configs/nuscenes_models/pdm_ssd_nuscenes.yaml',
+                                      t_config.CfgNode())
+    ds_cfg = cfg.DATA_CONFIG
+    if what == 'CAMERA_CONFIG':
+        ds_cfg.CAMERA_CONFIG = t_config.CfgNode({'USE_CAMERA': True, 'IMAGE': {}})
+        item = 'ROADMAP Queue 1 item 12'
+    else:
+        ds_cfg.DATASET = what
+        item = 'ROADMAP Queue 1 item 13'
+    with pytest.raises(NotImplementedError, match=item):
+        build_dataloader(ds_cfg, cfg.CLASS_NAMES, 1, root_path=tmp_path, workers=0)
 
 
 def _masked_fps_cases(rng):

@@ -137,8 +137,12 @@ def test_point_residual_coder_encode_matches_jax_and_inverts_decode():
     np.testing.assert_allclose(got.numpy(), want, rtol=OP_TOL, atol=OP_TOL)
     back = t_coder.decode(got[:, 1:], torch.from_numpy(pts[:, 1:]), torch.from_numpy(cls[:, 1:]))
     np.testing.assert_allclose(back[..., :6].numpy(), boxes[:, 1:, :6], rtol=1e-4, atol=1e-4)
-    with pytest.raises(NotImplementedError):
-        t_coders.build_box_coder('PointResidualCoder', use_mean_size=False)
+    # without mean sizes: plain offsets and log sizes, as the JAX package codes them
+    j_plain = j_coders.PointResidualCoder(use_mean_size=False)
+    t_plain = t_coders.build_box_coder('PointResidualCoder', use_mean_size=False)
+    np.testing.assert_allclose(t_plain.encode(*to_torch([boxes, pts])).numpy(),
+                               np.asarray(j_plain.encode(jnp.asarray(boxes), jnp.asarray(pts))),
+                               rtol=OP_TOL, atol=OP_TOL)
 
 
 def _loss_case(name, rng):

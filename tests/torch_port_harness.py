@@ -274,19 +274,28 @@ class ModelPair:
     `torch_inputs()` what the port's takes. With `train_boxes` as well, that
     batch is a training one (`synthetic.voxel_train_batch`: the train-time
     voxel cap and as many boxes a cloud), prepared for training by both
-    packages (the transposed maps of the sparse conv's backward included)."""
+    packages (the transposed maps of the sparse conv's backward included).
+    `batch` (numpy 'points', 'gt_boxes', 'gt_mask') replaces the KITTI-range
+    batch of points. Both packages build the model with the config's
+    CLASS_NAMES, as the CLIs build it (a CenterHead has one head per
+    CLASS_NAMES_EACH_HEAD group). `variables` (a flax tree, for example
+    `to_flax` of a seeded port model) stands in for the JAX package's init,
+    whose compile (a threefry draw per parameter) is most of a small pair's
+    set-up; it is randomized as the init would be."""
 
     def __init__(self, cfg, B: int = 2, N: int = 512, seed: int = 0, jax_model=None,
                  points: np.ndarray | None = None, bias_scale: float = 0.0,
-                 voxels: bool = False, train_boxes: int = 0):
+                 voxels: bool = False, train_boxes: int = 0, batch: dict | None = None,
+                 variables: dict | None = None):
         from pdm_ssd_tpu.models import build_network as j_build_network
         from pdm_ssd_tpu.models import get_host_prepare as j_get_host_prepare
         from pdm_ssd_tpu.utils.config import CfgNode as JCfgNode
         self.cfg = cfg
         jcfg = JCfgNode(cfg.to_dict())
+        names = list(cfg.CLASS_NAMES)
         if jax_model is None:
             jax_model = j_build_network(jcfg.MODEL, num_class=len(jcfg.CLASS_NAMES),
-                                        dataset_cfg=jcfg.DATA_CONFIG)
+                                        dataset_cfg=jcfg.DATA_CONFIG, class_names=names)
         self.jax_model = jax_model
         if voxels:
             from pdm_ssd_torch.models import get_host_prepare
@@ -301,17 +310,19 @@ class ModelPair:
             self.inputs = {k: np.asarray(v) for k, v in self.batch.items()}
             self._torch_inputs = raw if t_prepare is None else t_prepare(raw)
         else:
-            self.batch = graft._make_batch(B, N, seed=seed)
+            self.batch = dict(batch) if batch is not None else graft._make_batch(B, N, seed=seed)
             if points is not None:
                 self.batch['points'] = points
             self.inputs = {'points': self.batch['points']}
             self._torch_inputs = to_torch(self.inputs)
         self.points = self.batch['points']
-        init = jax.jit(lambda b: self.jax_model.init(
-            {'params': jax.random.PRNGKey(seed)}, b, training=False))
-        self.variables = randomize_variables(init(self.inputs), seed + 1, bias_scale)
+        if variables is None:
+            init = jax.jit(lambda b: self.jax_model.init(
+                {'params': jax.random.PRNGKey(seed)}, b, training=False))
+            variables = init(self.inputs)
+        self.variables = randomize_variables(variables, seed + 1, bias_scale)
         self.net = build_network(self.cfg.MODEL, len(self.cfg.CLASS_NAMES),
-                                 self.cfg.DATA_CONFIG, device='cpu')
+                                 self.cfg.DATA_CONFIG, device='cpu', class_names=names)
         self.net.load_state_dict(from_flax(self.variables, self.net))
         self._jax_out = self._jax_train = self._jax_f64 = self._jax_vg = None
 
@@ -453,14 +464,15 @@ def match_detections(got: dict, want: dict, atol: float = 1e-3) -> int:
 
 def open_score_gate_flax(variables: dict) -> dict:
     """`synthetic.open_score_gate` on a flax tree: the dense head's
-    classification bias (an anchor head's `conv_cls`, a heatmap head's
-    `head/hm_out`, VoxelNeXt's `head_0/hm_out`) at 0, in a copy."""
+    classification bias (an anchor head's `conv_cls`, or `hm_out` in every
+    `head` / `head_<i>` group of a heatmap head) at 0, in a copy."""
     import copy
     params = copy.deepcopy(variables['params'])
     head = params['dense_head']
-    layer = (head['conv_cls'] if 'conv_cls' in head else
-             head['head']['hm_out'] if 'head' in head else head['head_0']['hm_out'])
-    layer['bias'] = np.zeros_like(layer['bias'])
+    layers = ([head['conv_cls']] if 'conv_cls' in head else
+              [v['hm_out'] for k, v in head.items() if k == 'head' or k.startswith('head_')])
+    for layer in layers:
+        layer['bias'] = np.zeros_like(layer['bias'])
     return {'params': params, 'batch_stats': variables['batch_stats']}
 
 
