@@ -150,7 +150,8 @@ non-zero exit):
    full-width training batch (B=4, 16000 voxel slots, ACTIVE_CAPS as
    shipped), and at the TPU microbench's shape; times kernel, plain version
    and the gather + `torch.matmul` pair (device ms per launch, host us), the
-   bound from bytes or the multiply-adds of the present taps;
+   bound from bytes or the multiply-adds of the present taps, and the weight
+   gradient's scratch per layer and the largest;
 28. the tiny SECOND's training loss and every gradient on CUDA (the kernels)
    against the CPU (the plain versions);
 29. five training steps of `second_sparse.yaml` as shipped at B=4 with 8
@@ -1760,10 +1761,12 @@ def wgrad_check(name, sc, feats, nbr, dy, plan, phase: str = '27 sparse conv bac
     against float64, within the rounding of a float32 sum of each tap's
     present rows (each term at most 2^-24 of the sum of magnitudes); two
     kernel runs bit-equal; the rows of a tap that no row has exactly zero.
-    Returns the taps present and the largest kernel-plain difference."""
+    Returns the taps present, the largest kernel-plain difference and the
+    partials' scratch that the wrapper allocated."""
     B, Vin, Cin = feats.shape
     K, Cout = nbr.shape[2], dy.shape[2]
     got = sc.sparse_conv_wgrad_cuda(feats, nbr, dy, plan)
+    scratch = sc.sparse_conv_wgrad_cuda.last_scratch_bytes
     torch.cuda.synchronize()
     again = sc.sparse_conv_wgrad_cuda(feats, nbr, dy, plan)
     torch.cuda.synchronize()
@@ -1786,7 +1789,7 @@ def wgrad_check(name, sc, feats, nbr, dy, plan, phase: str = '27 sparse conv bac
     if bool(got.view(K, Cin, Cout)[absent].any()):
         raise SystemExit(f'[{phase}] FAILED {name}: a tap no row has is not 0')
     return {'present': int(present.sum()), 'absent_taps': int(absent.sum()),
-            'err': float((got - want).abs().max()), 'worst': worst}
+            'err': float((got - want).abs().max()), 'worst': worst, 'scratch_mb': scratch / 1e6}
 
 
 def sparse_conv_backward_phase(cfg, net, synthetic, sc, smi: str) -> tuple[dict, dict]:
@@ -1814,7 +1817,7 @@ def sparse_conv_backward_phase(cfg, net, synthetic, sc, smi: str) -> tuple[dict,
     keys = ('ms', 'host_us', 'call_ms', 'plain_ms', 'library_ms', 'library_host_us', 'bytes',
             'flops')
     tot = {'dgrad': dict.fromkeys(keys, 0.0), 'wgrad': dict.fromkeys(keys, 0.0)}
-    tot['dgrad']['err'] = tot['wgrad']['err'] = 0.0
+    tot['dgrad']['err'] = tot['wgrad']['err'] = tot['wgrad']['scratch_mb'] = 0.0
     rng = np.random.default_rng(3)
     with torch.inference_mode():
         for name, (feats, nbr, mask, plan, bwd, bplan) in calls.items():
@@ -1842,9 +1845,12 @@ def sparse_conv_backward_phase(cfg, net, synthetic, sc, smi: str) -> tuple[dict,
                            ('flops', flops)):
                 tot['wgrad'][key] += v
             tot['wgrad']['err'] = max(tot['wgrad']['err'], rw['err'])
+            tot['wgrad']['scratch_mb'] = max(tot['wgrad']['scratch_mb'], rw['scratch_mb'])
             note = (f'weight gradient: kernel {rw["worst"]["kernel"]:.3f} and plain '
                     f'{rw["worst"]["plain"]:.3f} of the rounding bound, two runs bit-equal, '
-                    f'{rw["absent_taps"]} taps absent (0); ms kernel/plain/gather+matmul '
+                    f'{rw["absent_taps"]} taps absent (0), scratch {rw["scratch_mb"]:.3f} MB, '
+                    f'{2 * rw["present"] * Cin * Cout / 1e9:.3f} GFLOP; '
+                    'ms kernel/plain/gather+matmul '
                     f'{t["ms"]:.4f}/{plain_ms:.3f}/{lib_t["ms"]:.4f}, bound '
                     f'{max(byts / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S) * 1e3:.4f}')
             if name != 'conv_input':      # a train step skips its data gradient
@@ -1905,7 +1911,11 @@ def sparse_conv_backward_phase(cfg, net, synthetic, sc, smi: str) -> tuple[dict,
             f'{stats["plain_ms"]:.3f} ms; gather + torch.matmul (no single PyTorch call '
             f'computes it) {stats["library_ms"]:.3f} ms; bound {stats["bound_ms"]:.4f} ms by '
             f'{stats["bound_by"]} ({t["flops"] / 1e9:.2f} GFLOP of present taps, '
-            f'{t["bytes"] / 1e6:.1f} MB) on {smi}')
+            f'{t["bytes"] / 1e6:.1f} MB)'
+            + (f'; largest scratch {t["scratch_mb"]:.3f} MB' if kind == 'wgrad' else '')
+            + f' on {smi}')
+        if kind == 'wgrad':
+            stats['largest_scratch_mb'] = t['scratch_mb']
         out.append(stats)
     return out[0], out[1]
 
@@ -2805,8 +2815,9 @@ def layer_kernels(phase: str, name: str, sc, feats, nbr, w, plan, bwd, bplan, ma
         f'forward {rf["worst"]["kernel"]:.3f}, data gradient {rd["worst"]["kernel"]:.3f}, '
         f'weight gradient {rw["worst"]["kernel"]:.3f} (plain {rf["worst"]["plain"]:.3f}, '
         f'{rd["worst"]["plain"]:.3f}, {rw["worst"]["plain"]:.3f}); each two runs bit-equal; '
-        'ms kernel / plain / bound: ' + '; '.join(
-            f'{k} {v[0]:.4f} / {v[1]:.3f} / {v[2]:.4f}' for k, v in out.items()))
+        f'weight gradient scratch {rw["scratch_mb"]:.3f} MB; ms kernel / plain / bound: '
+        + '; '.join(f'{k} {v[0]:.4f} / {v[1]:.3f} / {v[2]:.4f}' for k, v in out.items()))
+    out['scratch_mb'] = rw['scratch_mb']
     return out
 
 
@@ -2819,7 +2830,8 @@ def ladder_kernels_phase(sc, synthetic, smi: str, cfg_from_yaml_file) -> None:
     (27 output channels), three convs over the dilated tables and the three
     down convs that read them (64000 and 120000 slots) on a training batch as
     shipped (B=4, 16000 voxel slots). Prints each layer's and each group's
-    device ms, plain ms and bound."""
+    device ms, plain ms and bound, and the weight gradient's largest
+    scratch."""
     from pdm_ssd_torch.models import get_host_prepare
     from pdm_ssd_torch.models.backbones_3d.sparse_backbone import SparseConvBNReLU
     from pdm_ssd_torch.models.backbones_3d.sparse_backbone_focal import SparseTapDense
@@ -2880,6 +2892,8 @@ def ladder_kernels_phase(sc, synthetic, smi: str, cfg_from_yaml_file) -> None:
             f'{sum(r[k][2] for r in rows):.4f}, kernel vs plain max |diff| '
             f'{max(r[k][3] for r in rows):.2e}' for k in ('fwd', 'dgrad', 'wgrad'))
             + f' on {smi}')
+    log(phase, 'the weight gradient\'s largest scratch over these layers '
+        f'{max(r["scratch_mb"] for rows in groups.values() for r in rows):.3f} MB')
     log(phase, f'the focal training batch B={B}: dilated-table slots filled per stage and cloud '
         f'{fills} of {[batch[f"fl_emask{s}"].shape[1] for s in (1, 2, 3)]}')
 
@@ -4183,7 +4197,7 @@ KERNEL_TABLE = (
      'tools/microbench_sparse_gather.py:175, tools/microbench_sparse_gather2.py:94 and :182, '
      'tools/microbench_sparse_gather3.py:156'),
     ('gather_rows_bf16', 'pdm_ssd_torch/csrc/group.cu', 'tools/microbench_pallas_gather.py:66'),
-    ('sparse_conv_wgrad', 'pdm_ssd_torch/csrc/sparse_conv.cu',
+    ('sparse_conv_wgrad', 'pdm_ssd_torch/csrc/sparse_conv_wgrad.cu',
      'the backward of rows 7 to 10 (Pallas forward only): '
      'pdm_ssd_tpu/models/backbones_3d/sparse_backbone.py:354, the dot_general of _scm_bwd'),
 )

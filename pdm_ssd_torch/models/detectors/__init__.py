@@ -14,8 +14,10 @@ _DETECTORS = {'PDMSSD': PDMSSD, 'PointRCNN': PointRCNN, 'SECONDNet': Detector3D,
               'SECONDNetIoU': SECONDNetIoU, 'PartA2Net': PartA2Net,
               'PVRCNNPlusPlus': PVRCNNPlusPlus}
 # the detectors the port does not have yet, by the ROADMAP item that ports them
-_LATER = {name: 'ROADMAP Queue 1 item 12, the camera and temporal models'
-          for name in ('DSVT', 'TransFusion', 'BevFusion', 'MPPNet')}
+_LATER = {'DSVT': 'ROADMAP Queue 1 item 12a, DSVT and TransFusion',
+          'TransFusion': 'ROADMAP Queue 1 item 12a, DSVT and TransFusion',
+          'BevFusion': 'ROADMAP Queue 1 item 12, the camera and temporal models',
+          'MPPNet': 'ROADMAP Queue 1 item 12, the camera and temporal models'}
 
 
 def build_detector(model_cfg, num_class, dataset_cfg, class_names=None, device=None):

@@ -151,8 +151,7 @@ class Detector3D(nn.Module):
                                        point_cloud_range=pc_range, device=device)
         else:
             raise NotImplementedError(f'DENSE_HEAD {head_cfg.NAME} is not ported in Detector3D '
-                                      'yet (ROADMAP Queue 1 items 10 and 11: the rest of the '
-                                      'sparse voxel ladder, the other two-stage heads)')
+                                      'yet (ROADMAP Queue 1 item 12a: DSVT and TransFusion)')
 
     def _slot(self, slot: str):
         return getattr(self, self.slots[slot]) if slot in self.slots else None

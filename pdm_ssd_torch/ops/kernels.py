@@ -3,8 +3,8 @@
 The sources in `pdm_ssd_torch/csrc/` have a plain C interface. At first use
 each is compiled with `nvcc` for `sm_90a` into its own shared library under
 `build/torch_kernels/` (listed in `.gitignore`), named by a hash of the
-source and the flags; the compilers of all sources run side by side. The
-libraries are loaded with `ctypes`. A missing compiler or a failed build
+source, the headers beside it and the flags; the compilers of all sources
+run side by side. The libraries are loaded with `ctypes`. A missing compiler or a failed build
 raises: there is no fallback for CUDA tensors.
 """
 from __future__ import annotations
@@ -23,7 +23,7 @@ import torch
 
 _CSRC = Path(__file__).resolve().parents[1] / 'csrc'
 _BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'torch_kernels'
-SOURCES = ('fps.cu', 'group.cu', 'ball_query.cu', 'sparse_conv.cu')
+SOURCES = ('fps.cu', 'group.cu', 'ball_query.cu', 'sparse_conv.cu', 'sparse_conv_wgrad.cu')
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
               '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
@@ -54,7 +54,10 @@ _ENTRY_POINTS = {
         'sparse_conv_max_cout': [],
         'sparse_conv_tile_rows': [],
         'sparse_conv_launch': [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    },
+    'sparse_conv_wgrad.cu': {
         'sparse_conv_wgrad_max_channels': [],
+        'sparse_conv_wgrad_blocks_per_sm': [_I, _I],
         'sparse_conv_wgrad_launch': [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                      _I, _P],
     },
@@ -80,6 +83,8 @@ def _nvcc() -> str:
 def library_path(source: str) -> Path:
     h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
     h.update((_CSRC / source).read_bytes())
+    for header in sorted(_CSRC.glob('*.cuh')):      # every source may include them
+        h.update(header.read_bytes())
     return _BUILD_DIR / f'{Path(source).stem}_{h.hexdigest()[:16]}.so'
 
 

@@ -29,12 +29,15 @@ The backward (`SparseConvFunction`, the counterpart of the JAX package's
   a plan of that map;
 - the weight gradient `dW[k] = sum_v gather(feats, nbr)[v, k]^T dy[v]`,
   written through the forward map: `sparse_conv_wgrad_plain`, and on the
-  card `sparse_conv_wgrad_cuda`, which walks the forward's plan and sums its
-  partials in a fixed order (`sparse_conv_wgrad_cuda.launches`).
+  card `sparse_conv_wgrad_cuda` (`csrc/sparse_conv_wgrad.cu`), which walks
+  the tiles of output rows in slot order that hold a tap, three taps a row
+  of blocks (`wgrad_plan`), and sums its partials in a fixed order
+  (`sparse_conv_wgrad_cuda.launches`).
 The raw wrappers record no gradient: gradients flow through the Function.
 """
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple
 
@@ -47,9 +50,13 @@ from .group import _need, _need_contiguous
 PLAIN_CHUNK_ROWS = 32768
 # output rows of one tile of the kernel (`kTileRows` of csrc/sparse_conv.cu)
 TILE_ROWS = 64
-# blocks the weight gradient's first pass aims at: tiles are grouped into
-# chunks so that chunks x taps is about this many
-WGRAD_BLOCKS = 2048
+# the multiprocessors of an H100: the weight gradient's first launch is one
+# wave of its blocks on them
+WGRAD_SMS = 132
+# taps of a row of the weight gradient's blocks, and most tiles a block walks
+# (csrc/sparse_conv_wgrad.cu refuses a launch that breaks either)
+WGRAD_ROW_TAPS = 3
+WGRAD_MAX_TILES = 1024
 
 
 class SparseConvPlan(NamedTuple):
@@ -223,23 +230,61 @@ def sparse_conv_cuda(feats: torch.Tensor, nbr: torch.Tensor, weight: torch.Tenso
 sparse_conv_cuda.launches = 0
 
 
-def wgrad_chunking(B: int, Vout: int, K: int) -> tuple[int, int]:
-    """(tiles a block of the weight gradient walks, chunks): the plan's
-    B * ceil(Vout / TILE_ROWS) tiles cut into chunks so that chunks x K is
-    about WGRAD_BLOCKS. A function of the shapes alone, so the order of the
-    sums, and the bits, are the same on every run."""
-    total = B * -(-Vout // TILE_ROWS)
-    per = max(1, -(-total * K // WGRAD_BLOCKS))
-    return per, -(-total // per)
+def wgrad_row_taps(K: int) -> tuple[int, ...]:
+    """The taps of each row of the weight gradient's blocks, WGRAD_ROW_TAPS a
+    row (-1 past K), flat: a 27-tap kernel (dz, dy, dx) has 9 rows, row y
+    holding one tap of every plane dz, dy or dx = const, so the taps of a
+    thin layer of sites (LiDAR's ground: the plane dz = 0 holds most present
+    taps) spread over all rows; a 9-tap kernel (dy, dx) has 3 rows, one tap
+    of each dy and each dx; any other K rows of 3 consecutive taps."""
+    rows = -(-K // WGRAD_ROW_TAPS)
+    if K == 27:
+        return tuple(i * 9 + (y // 3 - i) % 3 * 3 + (y % 3 - i) % 3
+                     for y in range(rows) for i in range(3))
+    if K == 9:
+        return tuple(i * 3 + (y - i) % 3 for y in range(rows) for i in range(3))
+    return tuple(k if k < K else -1 for k in range(3 * rows))
+
+
+class WgradPlan(NamedTuple):
+    row_taps: tuple[int, ...]   # `wgrad_row_taps(K)`: row y of blocks sums taps [3y, 3y + 3)
+    tiles: int      # tiles of TILE_ROWS rows over the batch: B * ceil(Vout / TILE_ROWS)
+    chunks: int     # block x of a row walks tiles x, x + chunks, x + 2 * chunks, ...
+    scratch: int    # floats of the partials, K * chunks * Cin * Cout
+
+    @property
+    def rows(self) -> int:
+        return len(self.row_taps) // WGRAD_ROW_TAPS
+
+
+def wgrad_plan(B: int, Vout: int, K: int, Cin: int, Cout: int, per_sm: int) -> WgradPlan:
+    """The weight gradient's launch: `rows` x `chunks` blocks, one wave on an
+    H100 of `per_sm` blocks a multiprocessor (the library's
+    `sparse_conv_wgrad_blocks_per_sm`, 1 or 2 by the widths), each summing
+    its row's taps over its tiles in ascending order (those with one of its
+    taps), then the partials summed over the chunks in order; no block walks
+    more than WGRAD_MAX_TILES tiles. A function of the shapes alone, so the
+    order of every sum is the same on every run. Where the tiles are fewer
+    than WGRAD_MAX_TILES times that wave's chunks, the scratch is at most
+    3 * WGRAD_SMS * per_sm * Cin * Cout floats (per_sm times 12.98 MB at
+    the widest shipped layers, 64 -> 128 and 128 -> 64)."""
+    taps = wgrad_row_taps(K)
+    rows = len(taps) // WGRAD_ROW_TAPS
+    tiles = B * -(-Vout // TILE_ROWS)
+    chunks = max(1, -(-tiles // WGRAD_MAX_TILES), min(tiles, WGRAD_SMS * per_sm // rows))
+    return WgradPlan(taps, tiles, chunks, K * chunks * Cin * Cout)
 
 
 def sparse_conv_wgrad_cuda(feats: torch.Tensor, nbr: torch.Tensor, dy: torch.Tensor,
                            plan: SparseConvPlan | None = None) -> torch.Tensor:
     """The weight gradient of `sparse_conv_cuda(feats, nbr, W, plan)` for the
     output gradient dy (B, Vout, Cout) float32: dW (K*Cin, Cout) float32, one
-    launch of `sparse_conv_wgrad_kernel` and one of its fixed-order sum over
-    chunks. Contiguous CUDA tensors; `plan` as for the forward. Does not
-    synchronize."""
+    launch of `sparse_conv_wgrad_kernel` as `wgrad_plan` lays it out, one
+    before it that ORs each tile's tap masks and one after it, the
+    fixed-order sum over chunks. Contiguous CUDA tensors. `plan`, the
+    forward's, is checked against the map when given and not read further:
+    the kernel walks tiles in slot order. Records the partials' bytes in
+    `sparse_conv_wgrad_cuda.last_scratch_bytes`. Does not synchronize."""
     _need(feats, 'feats', torch.float32, 3)
     _need(nbr, 'nbr', torch.int32, 3)
     _need(dy, 'dy', torch.float32, 3)
@@ -259,25 +304,28 @@ def sparse_conv_wgrad_cuda(feats: torch.Tensor, nbr: torch.Tensor, dy: torch.Ten
     if K > lib.sparse_conv_max_taps() or Cin > most or Cout > most:
         raise ValueError(f'the weight gradient takes up to {lib.sparse_conv_max_taps()} taps and '
                          f'{most} channels each way, got K={K}, Cin={Cin}, Cout={Cout}')
-    if plan is None:
-        plan = sparse_conv_plan(nbr, Vin)
-    _check_plan(plan, B, Vin, Vout, feats.device)
-    per, chunks = wgrad_chunking(B, Vout, K)
-    partial = torch.empty((K * chunks * Cin * Cout,), dtype=torch.float32, device=feats.device)
+    if plan is not None:
+        _check_plan(plan, B, Vin, Vout, feats.device)
+    wp = wgrad_plan(B, Vout, K, Cin, Cout, lib.sparse_conv_wgrad_blocks_per_sm(Cin, Cout))
+    row_taps = (ctypes.c_int * len(wp.row_taps))(*wp.row_taps)
+    tile_taps = torch.empty((wp.tiles,), dtype=torch.int32, device=feats.device)
+    partial = torch.empty((wp.scratch,), dtype=torch.float32, device=feats.device)
     dw = torch.empty((K * Cin, Cout), dtype=torch.float32, device=feats.device)
     index = feats.device.index
     with kernels.on_device(index):
         err = lib.sparse_conv_wgrad_launch(feats.data_ptr(), nbr.data_ptr(), dy.data_ptr(),
-                                           plan.order.data_ptr(), plan.tile_mask.data_ptr(),
-                                           partial.data_ptr(), dw.data_ptr(), B, Vin, Vout, K,
-                                           Cin, Cout, TILE_ROWS, per, kernels.stream(index))
+                                           row_taps, tile_taps.data_ptr(), partial.data_ptr(),
+                                           dw.data_ptr(), B, Vin, Vout, K, Cin, Cout, TILE_ROWS,
+                                           wp.chunks, kernels.stream(index))
     if err != 0:
         raise RuntimeError(f'sparse_conv_wgrad_launch failed with CUDA error {err}')
     sparse_conv_wgrad_cuda.launches += 1
+    sparse_conv_wgrad_cuda.last_scratch_bytes = partial.numel() * partial.element_size()
     return dw
 
 
 sparse_conv_wgrad_cuda.launches = 0
+sparse_conv_wgrad_cuda.last_scratch_bytes = 0
 
 
 def sparse_conv_grads(dy: torch.Tensor, feats: torch.Tensor, nbr: torch.Tensor,

@@ -1,8 +1,10 @@
-"""Device time of four kernels as a model call makes them, on one GPU: the
-sparse conv over SECOND's 12 layers, the ball query over PointRCNN's three
-backbone levels, and the flagship's in-ball selection and row scatter-add.
+"""Device time of five kernels as a model call makes them, on one GPU: the
+sparse conv over SECOND's 12 layers, its weight gradient over the 12 layers
+of SECOND's train step, the ball query over PointRCNN's three backbone
+levels, and the flagship's in-ball selection and row scatter-add.
 
     python3 pdm_ssd_torch/tools/time_kernels.py [--tree DIR] [--out FILE]
+        [--only sparse_conv,wgrad,ball_query,grouping]
 
 Run it by path from the repository root. `--tree` names a checkout of this
 repository whose `pdm_ssd_torch` is timed (default: the one this script lies
@@ -14,13 +16,20 @@ B=4 on `synthetic.voxel_batch(4, 50000, seed=5)` with seeded weights,
 `synthetic.kitti_points(4, 16384, 5)`, and `pdm_ssd_point.yaml`'s three SA
 levels at B=8 on `synthetic.kitti_points(8, 16384, 6)` with FPS centers.
 Each sparse layer's call is the one its forward makes (with its map's plan
-where the tree has plans; the plans' build is timed on its own), each ball
+where the tree has plans; the plans' build is timed on its own). The weight
+gradient's inputs are those of `chip_smoke.py` phase 27: each layer's input
+table and maps from SECOND's training forward at B=4 on
+`synthetic.voxel_train_batch(4, 50000, seed=5)` (16000 voxel slots a cloud),
+a seeded output gradient zero at the padding slots, the call
+`sparse_conv_wgrad_cuda(feats, nbr, dy, plan)`; then the TPU microbench's
+layer (V=52224, C=64, K=27) as phase 27 builds it. Each ball
 query the level's `dispatch.ball_query_level` (with the grid build where the
 tree builds one), each selection one `group.window_select_cuda` call of an
 SA level on its slot table (built outside the timed call), and the
 scatter-add the 4 launches of a flagship train step's backward (levels 2
 and 3, one a radius) on the indices that level's selection gives, an empty
-ball's slots at -1, as `sa_fused.fused_query_group` passes them.
+ball's slots at -1, as `sa_fused.fused_query_group` passes them. `--only`
+times the named groups alone.
 A reading is device time per call: a sleep kernel long enough to cover the
 enqueue queued first, then n back-to-back calls between two CUDA events (a
 run of at least 1 ms), median of 5 runs. Prints one JSON line, with the
@@ -112,11 +121,57 @@ def grouping_ms(cfg, synthetic) -> dict:
             'scatter_add_rows_total_ms': sum(scatter.values())}
 
 
+def wgrad_ms(cfg, synthetic) -> dict:
+    """The weight gradient at `chip_smoke.py` phase 27's shapes, device ms per
+    call: SECOND's 12 layers of a B=4 training batch, and the microbench
+    layer."""
+    import numpy as np
+    import torch
+
+    from pdm_ssd_torch.models import get_host_prepare
+    from pdm_ssd_torch.models.backbones_3d.sparse_backbone import SparseConvBNReLU
+    from pdm_ssd_torch.ops import sparse_conv as sc
+    net = synthetic.random_model(cfg, 'cuda', seed=7)
+    batch = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG, training=True)(
+        synthetic.voxel_train_batch(4, 50000, cfg, 8, seed=5, device='cuda'))
+    bb = net.backbone_3d
+    calls = {}
+    hooks = [m.register_forward_pre_hook(lambda mod, a, name=name: calls.setdefault(name, a))
+             for name, m in bb.named_modules() if isinstance(m, SparseConvBNReLU)]
+    rng = np.random.default_rng(3)
+    layers = {}
+    with torch.inference_mode():
+        bb(net.vfe(dict(batch)))
+        for h in hooks:
+            h.remove()
+        for name, (feats, nbr, mask, plan, _, _) in calls.items():
+            feats, nbr = feats.contiguous(), nbr.contiguous()
+            dy = torch.from_numpy(rng.standard_normal(
+                (*nbr.shape[:2], bb.get_submodule(name).kernel.shape[1]), np.float32)).cuda()
+            dy = torch.where(mask[..., None], dy, 0.0)
+            layers[name] = device_ms(lambda: sc.sparse_conv_wgrad_cuda(feats, nbr, dy, plan))
+        V, C, K = 52224, 64, 27
+        idx = np.clip(np.arange(V)[:, None] + rng.integers(-40, 40, size=(1, K))
+                      + rng.integers(-8, 8, size=(V, K)), 0, V - 1)
+        idx[rng.random((V, K)) < 0.10] = V
+        idx[:, 5] = V
+        idx[::97] = V
+        feats = torch.from_numpy(rng.standard_normal((1, V, C), np.float32)).cuda()
+        dy = torch.from_numpy(rng.standard_normal((1, V, C), np.float32)).cuda()
+        nbr = torch.from_numpy(idx.astype(np.int32))[None].cuda()
+        plan = sc.sparse_conv_plan(nbr, V)
+        micro = device_ms(lambda: sc.sparse_conv_wgrad_cuda(feats, nbr, dy, plan))
+    return {'wgrad_ms': layers, 'wgrad_total_ms': sum(layers.values()),
+            'wgrad_microbench_ms': micro}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--tree', default=str(Path(__file__).resolve().parents[2]))
     ap.add_argument('--out', default=None)
+    ap.add_argument('--only', default='sparse_conv,wgrad,ball_query,grouping')
     args = ap.parse_args()
+    only = set(args.only.split(','))
     tree = Path(args.tree).resolve()
     out_path = None if args.out is None else Path(args.out).resolve()
     sys.path.insert(0, str(tree))
@@ -138,51 +193,57 @@ def main() -> None:
     out = {'tree': str(tree), 'card': card}
 
     cfg = cfg_from_yaml_file('configs/kitti_models/second_sparse.yaml')
-    net = synthetic.open_score_gate(synthetic.random_model(cfg, 'cuda', seed=7))
-    inputs = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG)(
-        synthetic.voxel_batch(4, 50000, cfg, seed=5, device='cuda'))
-    bb = net.backbone_3d
-    calls = {}
-    hooks = [m.register_forward_pre_hook(lambda mod, a, name=name: calls.setdefault(name, a))
-             for name, m in bb.named_modules() if isinstance(m, SparseConvBNReLU)]
     with torch.inference_mode():
-        bb(net.vfe(dict(inputs)))
-        for h in hooks:
-            h.remove()
-        modules = dict(bb.named_modules())
-        layers = {}
-        plans = {}
-        for name, a in calls.items():
-            w = modules[name].kernel
-            layers[name] = device_ms(lambda: dispatch.sparse_conv(a[0], a[1], w, *a[3:4]))
-            if len(a) > 3:
-                plans[id(a[3])] = (a[1], a[3].vin)
-        out['sparse_conv_ms'] = layers
-        out['sparse_conv_total_ms'] = sum(layers.values())
-        if plans:
-            from pdm_ssd_torch.ops.sparse_conv import sparse_conv_plan
-            out['sparse_conv_plans_ms'] = device_ms(
-                lambda: [sparse_conv_plan(nbr, vin) for nbr, vin in plans.values()])
-        del net, inputs, calls, modules
-
-        cfg = synthetic.pointrcnn_fp3(cfg_from_yaml_file('configs/kitti_models/pointrcnn.yaml'))
-        net = synthetic.random_model(cfg, 'cuda', seed=7)
-        bb = net.backbone_3d
-        pts = torch.from_numpy(synthetic.kitti_points(4, 16384, 5)).cuda()
-        n_fp, bb.n_fp = bb.n_fp, 0
-        l_xyz = bb({'points': pts})['sa_xyz']
-        bb.n_fp = n_fp
-        levels = {}
-        for k in range(len(bb.npoints)):
-            sa = getattr(bb, f'sa_{k}')
-            levels[f'sa{k + 1}'] = device_ms(lambda: dispatch.ball_query_level(
-                sa.radii, sa.nsamples, l_xyz[k], l_xyz[k + 1]))
-        out['ball_query_ms'] = levels
-        out['ball_query_total_ms'] = sum(levels.values())
-        del net, bb, l_xyz
-
-        out.update(grouping_ms(cfg_from_yaml_file('configs/kitti_models/pdm_ssd_point.yaml'),
-                               synthetic))
+        if 'sparse_conv' in only:
+            net = synthetic.open_score_gate(synthetic.random_model(cfg, 'cuda', seed=7))
+            inputs = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG)(
+                synthetic.voxel_batch(4, 50000, cfg, seed=5, device='cuda'))
+            bb = net.backbone_3d
+            calls = {}
+            hooks = [m.register_forward_pre_hook(
+                lambda mod, a, name=name: calls.setdefault(name, a))
+                for name, m in bb.named_modules() if isinstance(m, SparseConvBNReLU)]
+            bb(net.vfe(dict(inputs)))
+            for h in hooks:
+                h.remove()
+            modules = dict(bb.named_modules())
+            layers = {}
+            plans = {}
+            for name, a in calls.items():
+                w = modules[name].kernel
+                layers[name] = device_ms(lambda: dispatch.sparse_conv(a[0], a[1], w, *a[3:4]))
+                if len(a) > 3:
+                    plans[id(a[3])] = (a[1], a[3].vin)
+            out['sparse_conv_ms'] = layers
+            out['sparse_conv_total_ms'] = sum(layers.values())
+            if plans:
+                from pdm_ssd_torch.ops.sparse_conv import sparse_conv_plan
+                out['sparse_conv_plans_ms'] = device_ms(
+                    lambda: [sparse_conv_plan(nbr, vin) for nbr, vin in plans.values()])
+            del net, inputs, calls, modules
+    if 'wgrad' in only:
+        out.update(wgrad_ms(cfg, synthetic))
+    with torch.inference_mode():
+        if 'ball_query' in only:
+            cfg = synthetic.pointrcnn_fp3(
+                cfg_from_yaml_file('configs/kitti_models/pointrcnn.yaml'))
+            net = synthetic.random_model(cfg, 'cuda', seed=7)
+            bb = net.backbone_3d
+            pts = torch.from_numpy(synthetic.kitti_points(4, 16384, 5)).cuda()
+            n_fp, bb.n_fp = bb.n_fp, 0
+            l_xyz = bb({'points': pts})['sa_xyz']
+            bb.n_fp = n_fp
+            levels = {}
+            for k in range(len(bb.npoints)):
+                sa = getattr(bb, f'sa_{k}')
+                levels[f'sa{k + 1}'] = device_ms(lambda: dispatch.ball_query_level(
+                    sa.radii, sa.nsamples, l_xyz[k], l_xyz[k + 1]))
+            out['ball_query_ms'] = levels
+            out['ball_query_total_ms'] = sum(levels.values())
+            del net, bb, l_xyz
+        if 'grouping' in only:
+            out.update(grouping_ms(
+                cfg_from_yaml_file('configs/kitti_models/pdm_ssd_point.yaml'), synthetic))
     line = json.dumps(out)
     print(line)
     if out_path is not None:

@@ -391,17 +391,31 @@ def test_unported_parts_of_the_voxel_family_raise(what, monkeypatch):
             build()
 
 
+# the weight gradient's widths and tap counts, each map with a tap that no
+# row has (the center) and a tile of rows (64 to 127) without taps
+_HOLED_CONV_CASES = [
+    (2, 3000, 3000, 27, 16, 16), (2, 3000, 3000, 27, 16, 27), (2, 2000, 2000, 9, 128, 64),
+    (1, 1500, 1500, 27, 128, 128), (2, 2000, 2600, 27, 32, 64), (2, 900, 700, 9, 64, 27)]
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize('B,Vin,Vout,K,Cin,Cout', [
     (2, 300, 77, 27, 8, 8), (1, 5000, 5000, 27, 64, 64), (3, 1000, 1001, 27, 4, 16),
-    (2, 900, 700, 3, 64, 128), (2, 301, 1, 3, 5, 3), (2, 640, 640, 27, 7, 100)])
+    (2, 900, 700, 3, 64, 128), (2, 301, 1, 3, 5, 3), (2, 640, 640, 27, 7, 100)]
+    + _HOLED_CONV_CASES)
 def test_sparse_conv_kernel_matches_plain_on_the_card(B, Vin, Vout, K, Cin, Cout):
     """Kernel and plain version each within float32 rounding of a float64
     evaluation (at most K * Cin roundings of the sum of magnitudes), two runs
-    of the kernel bit-equal, a row with no present tap exactly zero."""
+    of the kernel bit-equal, a row with no present tap exactly zero. The
+    weight gradient (Cin 4 to 128, Cout 3 to 128, K 3, 9, 27) within its
+    bound, two runs bit-equal, every tap that no row has exactly 0; in the
+    holed cases the center tap is absent and rows 64 to 127 have no tap."""
     if not torch.cuda.is_available():
         pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
     feats, nbr, weight = _sparse_conv_inputs(np.random.RandomState(13), B, Vin, Vout, K, Cin, Cout)
+    if (B, Vin, Vout, K, Cin, Cout) in _HOLED_CONV_CASES:
+        nbr[:, :, K // 2] = Vin
+        nbr[:, 64:128] = Vin
     sc.sparse_conv_cuda.launches = 0
     with torch.no_grad():
         got = dispatch.sparse_conv(feats.cuda(), nbr.cuda(), weight.cuda())
@@ -435,6 +449,9 @@ def test_sparse_conv_kernel_matches_plain_on_the_card(B, Vin, Vout, K, Cin, Cout
     mass = sc.sparse_conv_wgrad_plain(feats.double().abs(), nbr, dy.double().abs())
     assert bool(((w.grad.cpu().double() - want).abs()
                  <= B * Vout * 2.0 ** -24 * mass + 1e-30).all())
+    assert torch.equal(w.grad, sc.sparse_conv_wgrad_cuda(feats.cuda(), nbr.cuda(), dy.cuda()))
+    absent = ~((nbr >= 0) & (nbr < Vin)).any(dim=(0, 1))
+    assert not w.grad.view(K, Cin, Cout)[absent.cuda()].any()
 
 
 @pytest.mark.gpu
@@ -505,8 +522,8 @@ def test_configs_build_or_name_their_roadmap_item(name, monkeypatch):
     """The five KITTI files of the two-stage family's rest build through
     `build_detector` as shipped (on the meta device: the modules, no
     storage); DSVT, TransFusion, BEVFusion and MPPNet still raise
-    `NotImplementedError` naming their ROADMAP item (12, the camera and
-    temporal models)."""
+    `NotImplementedError` naming their ROADMAP item (12a for DSVT and
+    TransFusion, 12 for the camera and temporal models)."""
     from pdm_ssd_torch.models.detectors import build_detector
     from pdm_ssd_torch.utils import config as t_config
     monkeypatch.chdir(REPO)
@@ -518,6 +535,25 @@ def test_configs_build_or_name_their_roadmap_item(name, monkeypatch):
         assert sum(p.numel() for p in net.parameters()) > 1e6
     else:
         with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 item 12'):
+            build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG, device='meta')
+
+
+def test_detector3d_names_item_12a_for_an_unported_dense_head(monkeypatch):
+    """A `Detector3D` whose dense head the port lacks (`TransFusionHead` on
+    SECOND's ladder) raises naming ROADMAP Queue 1 item 12a, and the DSVT and
+    TransFusion detectors name it too."""
+    from pdm_ssd_torch.models.detectors import build_detector
+    from pdm_ssd_torch.utils import config as t_config
+    monkeypatch.chdir(REPO)
+    cfg = t_config.cfg_from_yaml_file('configs/kitti_models/second_sparse.yaml',
+                                      t_config.CfgNode())
+    cfg.MODEL.DENSE_HEAD.NAME = 'TransFusionHead'
+    with pytest.raises(NotImplementedError, match=r'TransFusionHead .*ROADMAP Queue 1 item 12a: '
+                                                  'DSVT and TransFusion'):
+        build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG, device='meta')
+    for name in ('dsvt', 'transfusion'):
+        cfg = t_config.cfg_from_yaml_file(f'configs/kitti_models/{name}.yaml', t_config.CfgNode())
+        with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 item 12a'):
             build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG, device='meta')
 
 
