@@ -261,17 +261,34 @@ non-zero exit):
    forward within FWD_RTOL; for the seeded weights also the kept boxes
    above every tied candidate score matched by box and label, on the CPU's
    maps post-processed on the card and on each side's own maps (at least
-   one such box; the trained checkpoint's top scores all tie).
+   one such box; the trained checkpoint's top scores all tie);
+55. the tiny `dsvt.yaml` and `transfusion.yaml` (`synthetic.TINY_CFGS`) on
+   CUDA against the CPU at B=2, N=16384, 8 boxes a cloud: the forward within
+   FWD_RTOL; DSVT's kept boxes above the tie level matched both ways, as
+   phase 54 holds them; TransFusion's queries replayed from the CPU's picks
+   (`QueryReplay`, its own picks above the tie level checked among them),
+   its detections matched by box and label and its LAP assignment equal
+   (or of equal total cost); losses and gradients;
+56. `predict` of both as shipped at B=8 on clouds of 16384 points: no
+   launch of a kernel of the port, frames/s, device time, busy share, the
+   GFLOP of the convolutions and matrix products, top kernels, peak;
+57. five training steps of each at B=8, 8 boxes a cloud: ms a step, peak,
+   and TransFusion's host LAP a step;
+58. phases 16 and 17 with both files at B=8: the eval loop over the val
+   split and the 2-epoch train loop over the first 16 train frames, with
+   resume and bit-equal reload, no launch.
 
-The elapsed time is printed after phases 18, 40, 50 and 54. The line before
-the last is the card's name and power limit; before it, one JSON line
-describing each kernel, with the launches of each path of phases 20 to 54
+The elapsed time is printed after phases 18, 40, 50, 54 and 58. The line
+before the last is the card's name and power limit; before it, one JSON line
+describing each kernel, with the launches of each path of phases 20 to 58
 (`launches_<path>`, `launches_nuscenes_{predict,train,eval_loop,train_loop}`
-among them) and the sums of phase 42 (`two_stage_*`). The last line is
+and `launches_{dsvt,transfusion}_{predict,train,eval_loop,train_loop}` among
+them) and the sums of phase 42 (`two_stage_*`). The last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import pickle
@@ -2470,14 +2487,23 @@ def family_batch(name: str, cfg, synthetic, B: int, N: int, seed: int, device,
     return {'points': torch.from_numpy(synthetic.kitti_points(B, N, seed)).to(device)}
 
 
+# an attention key's bias shifts every score of a query alike, which the
+# softmax cancels: its gradient is 0 in exact arithmetic, rounding alone on
+# either device (2e-9 against 660 for the largest on the tiny DSVT, the CPU)
+NULL_GRAD_RTOL = 1e-6
+NULL_GRADS = ('attn.key.bias',)
+
+
 def training_cuda_vs_cpu(phase: str, name: str, nets: dict, batches: dict, grad_rtol: float,
                          cosine: float = -1.0) -> tuple:
     """One training forward and backward of one model on the CPU and on CUDA
     (`nets` and `batches` keyed 'cpu' and 'cuda'): every loss term within
     LOSS_RTOL of the CPU's, every gradient finite, within `grad_rtol`
-    relative L2 of the CPU's and at a cosine of at least `cosine`. Returns
-    (the CPU's loss terms, CUDA's, the worst relative L2, its parameter, the
-    number of gradients)."""
+    relative L2 of the CPU's and at a cosine of at least `cosine`; a
+    gradient that is 0 in exact arithmetic (a name ending in one of
+    NULL_GRADS) no larger on either device than NULL_GRAD_RTOL times the
+    largest gradient's norm. Returns (the CPU's loss terms, CUDA's, the
+    worst relative L2, its parameter, the number of gradients)."""
     out = {}
     for dev in ('cpu', 'cuda'):
         net = nets[dev]
@@ -2492,8 +2518,15 @@ def training_cuda_vs_cpu(phase: str, name: str, nets: dict, batches: dict, grad_
         if not (np.isfinite(g_tb[k]) and abs(g_tb[k] - v) <= LOSS_RTOL * abs(v)):
             raise SystemExit(f'[{phase}] FAILED {name} {k}: {g_tb[k]} on CUDA vs {v} on the CPU')
     worst, worst_k = 0.0, ''
+    largest = max(float(c.norm()) for c in c_grads.values())
     for k, c in c_grads.items():
         g = g_grads[k]
+        if k.endswith(NULL_GRADS):
+            if not max(float(c.norm()), float(g.norm())) <= NULL_GRAD_RTOL * largest:
+                raise SystemExit(f'[{phase}] FAILED {name} {k}: a null gradient of norm '
+                                 f'{float(g.norm()):.3e} on CUDA, {float(c.norm()):.3e} on the '
+                                 f'CPU (bound {NULL_GRAD_RTOL:g} * {largest:.3e})')
+            continue
         norm = float(c.norm())
         rel = float((g - c).norm()) / norm if norm > 0 else float(g.norm())
         cos = float((g * c).sum() / (g.norm() * c.norm())) if norm > 0 else 1.0
@@ -2560,12 +2593,13 @@ def family_predict_phase(name: str, cfg, wrappers, synthetic, card: str) -> dict
 
 
 def measured_predict(phase: str, name: str, cfg, net, inputs: dict, B: int, what: str, wrappers,
-                     card: str) -> dict:
+                     card: str, P: int | None = None, flops: str = 'convolutions') -> dict:
     """One model's `predict` on `inputs` (a batch of B described by `what`):
-    shapes, finite values, no launch of a kernel of the port, frames/s
-    (median of 5 after warm-up), peak memory, the convolutions' GFLOP and
-    rate over the device time, then `torch.profiler`'s device time, busy
-    share, cuDNN's FFT-route kernels and top kernels. Returns the launches."""
+    shapes (P boxes a cloud, default NMS_POST_MAXSIZE), finite values, no
+    launch of a kernel of the port, frames/s (median of 5 after warm-up),
+    peak memory, the GFLOP of the forward's `flops` and their rate over the
+    device time, then `torch.profiler`'s device time, busy share, cuDNN's
+    FFT-route kernels and top kernels. Returns the launches."""
     from torch.utils.flop_counter import FlopCounterMode
     from pdm_ssd_torch.tools.profile_predict import trace
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2577,7 +2611,7 @@ def measured_predict(phase: str, name: str, cfg, net, inputs: dict, B: int, what
     torch.cuda.synchronize()
     launches = read_launches(wrappers)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    check_detections(phase, det, B, cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
+    check_detections(phase, det, B, P or cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
     if launches != NO_LAUNCHES:
         raise SystemExit(f'[{phase}] FAILED {name}: kernel launches {launches}, expected none')
     with torch.inference_mode(), FlopCounterMode(display=False) as counter:
@@ -2600,7 +2634,7 @@ def measured_predict(phase: str, name: str, cfg, net, inputs: dict, B: int, what
     log(phase, f'{name} B={B} ({what}): shapes ok, finite, '
         f'{int(det["pred_mask"].sum())} kept boxes, no kernel of the port launched; median '
         f'{med * 1e3:.3f} ms/batch = {B / med:.2f} frames/s (5 runs); device '
-        f'{device_ms:.3f} ms per predict, busy {device_ms / (med * 1e3):.3f}; convolutions '
+        f'{device_ms:.3f} ms per predict, busy {device_ms / (med * 1e3):.3f}; {flops} '
         f'{gflop:.1f} GFLOP a batch, {gflop / device_ms:.2f} TFLOP/s over the device time; '
         f'peak allocated {peak:.3f} GiB; FFT-route kernels: '
         + ('none' if not fft else '; '.join(f'{r["name"][:70]} x{r["calls_per_predict"]:g} '
@@ -4183,6 +4217,225 @@ def nuscenes_phases(wrappers, synthetic, smi: str, cfg_from_yaml_file) -> dict:
     return paths
 
 
+# phases 55 to 58: DSVT (`dsvt.yaml`: the window-attention BEV backbone under
+# CenterHead) and TransFusion (`transfusion.yaml`: the query decoder with its
+# host LAP), which launch none of the port's kernels (pillarize is
+# `index_add_`, the attention plain matmuls and softmax, the convolutions
+# cuDNN's, the LAP numpy on the host)
+QUERY_MODELS = (('dsvt', 'configs/kitti_models/dsvt.yaml'),
+                ('transfusion', 'configs/kitti_models/transfusion.yaml'))
+# points a cloud: the files' `sample_points`
+QUERY_POINTS = 16384
+# the paths of phases 56 to 58 whose counts the kernels line must carry
+QUERY_PATHS = ('predict', 'train', 'eval_loop', 'train_loop')
+
+
+def flatten_all(out: dict) -> dict:
+    """`flatten`, and the tensors of the dict entries (TransFusion's
+    'transfusion_preds' and 'transfusion_query') as `<entry>.<name>`."""
+    flat = flatten(out)
+    for k, v in out.items():
+        if isinstance(v, dict):
+            flat.update({f'{k}.{n}': t for n, t in v.items() if isinstance(t, torch.Tensor)})
+    return flat
+
+
+class QueryReplay:
+    """While active, TransFusion's query pick (`two_stage_topk` of its
+    heatmap scores) records the CPU run's picks and hands each to the next
+    CUDA run, which takes its own scores at the CPU's cells: a seeded
+    model's heatmap ties exactly at cells of constant features (no point
+    near them), and the two devices' top-K order such ties differently, so
+    without the replay the two runs would decode other queries. The CUDA
+    run's own picks are checked against the CPU's: every cell the CPU picks
+    above the tie level of its scores (`tie_level`'s rule) is among them.
+    `notes` counts those cells per pick."""
+
+    def __init__(self):
+        from pdm_ssd_torch.models.dense_heads import transfusion_head
+        self.module, self.topk = transfusion_head, transfusion_head.two_stage_topk
+        self.picks, self.notes = [], []
+
+    def pick(self, x: torch.Tensor, k: int):
+        vals, idx = self.topk(x, k)
+        if not x.is_cuda:
+            self.picks.append((x.detach(), vals.detach(), idx))
+            return vals, idx
+        cpu_x, cpu_vals, cpu_idx = self.picks.pop(0)
+        n_above = 0
+        for b in range(x.shape[0]):
+            scores, counts = torch.unique(cpu_x[b], return_counts=True)
+            tied = scores[counts > 1]
+            cut = (float(tied.max()) if len(tied) else float('-inf')) + TIE_MARGIN
+            want = set(cpu_idx[b][cpu_vals[b] > cut].tolist())
+            if not want <= set(idx[b].cpu().tolist()):
+                raise SystemExit('[55 query cuda-vs-cpu] FAILED: a query the CPU picks above '
+                                 'the tie level is not among the CUDA run\'s own picks')
+            n_above += len(want)
+        self.notes.append(f'{n_above} of {cpu_idx.numel()}')
+        cpu_idx = cpu_idx.to(x.device)
+        return torch.gather(x, 1, cpu_idx), cpu_idx
+
+    def __enter__(self):
+        self.module.two_stage_topk = self.pick
+        return self
+
+    def __exit__(self, *exc):
+        self.module.two_stage_topk = self.topk
+
+
+def assignment_note(phase: str, nets: dict, batches: dict) -> str:
+    """TransFusion's `assign_targets` on a training forward of each device
+    (the queries replayed): the same query for every ground-truth box, or,
+    where a near-tied cost lets the LAP choose another optimum, the same
+    total cost on the CPU's cost matrix within 1e-5 relative."""
+    outs, q = {}, {}
+    with QueryReplay():
+        for dev in ('cpu', 'cuda'):
+            nets[dev].train()
+            with torch.no_grad():
+                outs[dev] = nets[dev](dict(batches[dev]))
+                q[dev] = nets[dev].dense_head.assign_targets(outs[dev])['q_of_gt'].cpu()
+            nets[dev].eval()
+    mask = batches['cpu']['gt_mask']
+    if torch.equal(q['cpu'], q['cuda']):
+        return f'q_of_gt equal ({int(mask.sum())} boxes)'
+    with torch.no_grad():
+        cost = nets['cpu'].dense_head.matching_cost(outs['cpu']).transpose(1, 2).double()
+
+    def total(qg):
+        return float(torch.where(mask, torch.gather(cost, 2, qg.long().clamp(min=0)[..., None])
+                                 [..., 0], 0.0).sum())
+    want, got = total(q['cpu']), total(q['cuda'])
+    if not abs(got - want) <= 1e-5 * abs(want):
+        raise SystemExit(f'[{phase}] FAILED: q_of_gt {q["cuda"].tolist()} on CUDA vs '
+                         f'{q["cpu"].tolist()} on the CPU, total cost {got} vs {want}')
+    return (f'q_of_gt differs in {int((q["cpu"] != q["cuda"]).sum())} boxes, the same total cost '
+            f'{got:.6f} vs {want:.6f} (a near tie)')
+
+
+def query_cuda_vs_cpu_phase(name: str, cfg, synthetic) -> None:
+    """Phase 55: the tiny shrink (`synthetic.TINY_CFGS`) on CUDA against the
+    CPU at B=2 on clouds of QUERY_POINTS points with 8 boxes, the same
+    seeded weights, a heatmap head's score gate open: every forward
+    output within FWD_RTOL of scale; DSVT's kept boxes above the tie level
+    of its heatmap decode with a twin both ways (as phase 54 holds them),
+    TransFusion's detections (no NMS) matched by box and label with the
+    queries replayed (`QueryReplay`) and its assignment (`assignment_note`);
+    every loss term within LOSS_RTOL and every gradient within GRAD_RTOL
+    relative L2 (cosine GRAD_COSINE)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase = '55 query cuda-vs-cpu'
+    tiny = synthetic.TINY_CFGS[cfg.MODEL.NAME](cfg)
+    cpu_in = to_device(synthetic.kitti_batch(2, QUERY_POINTS, 8, seed=4), 'cpu')
+    gpu_in = {k: v.cuda() for k, v in cpu_in.items()}
+    nets = {dev: synthetic.open_score_gate(synthetic.random_model(tiny, dev))
+            for dev in ('cpu', 'cuda')}
+    batches = {'cpu': cpu_in, 'cuda': gpu_in}
+    query = name == 'transfusion'
+    replay = QueryReplay() if query else contextlib.nullcontext()
+    with torch.inference_mode(), replay:
+        want, got = (flatten_all(nets[dev](dict(batches[dev]))) for dev in ('cpu', 'cuda'))
+        if query:
+            det = {dev: nets[dev].predict(dict(batches[dev])) for dev in ('cpu', 'cuda')}
+    worst = 0.0
+    for k, w in want.items():
+        if not w.dtype.is_floating_point:
+            continue
+        rel = float((got[k].cpu() - w).abs().max()) / max(float(w.abs().max()), 1e-6)
+        worst = max(worst, rel)
+        if not rel <= FWD_RTOL:
+            raise SystemExit(f'[{phase}] FAILED {name} {k}: max |diff| / max |cpu| = {rel:.3e}')
+    if query:
+        note = match_detections({k: v.cpu() for k, v in det['cuda'].items()}, det['cpu'], phase)
+        note += (f'; the CPU\'s picks above the tie level among CUDA\'s own: '
+                 f'{", ".join(replay.notes)}; ' + assignment_note(phase, nets, batches))
+    else:
+        note = nuscenes_cuda_vs_cpu(phase, nets['cuda'], tiny, synthetic,
+                                    {'clouds': [cpu_in['points'][:1], cpu_in['points'][1:]]},
+                                    detections=True)
+    with QueryReplay() if query else contextlib.nullcontext():
+        c_tb, g_tb, worst_g, worst_k, n = training_cuda_vs_cpu(phase, name, nets, batches,
+                                                               GRAD_RTOL, GRAD_COSINE)
+    log(phase, f'tiny {name} B=2 N={QUERY_POINTS}: {len(want)} outputs agree, worst '
+        f'max|diff|/max|cpu| = {worst:.3e} (bound {FWD_RTOL:g}); {note}; loss '
+        f'{g_tb["loss"]:.6f} on CUDA vs {c_tb["loss"]:.6f} on the CPU, {len(c_tb)} terms; {n} '
+        f'gradients agree, worst relative L2 {worst_g:.3e} at {worst_k} (bound {GRAD_RTOL:g})')
+
+
+class LapTimer:
+    """While active, times each host LAP of TransFusion's `assign_targets`
+    (`ops/lap.lap_host`: the cost copied to the host, the Jonker-Volgenant
+    solve, the assignment copied back), the device synchronized first so
+    that the time is the LAP's alone."""
+
+    def __init__(self):
+        from pdm_ssd_torch.models.dense_heads import transfusion_head
+        self.module, self.lap = transfusion_head, transfusion_head.lap_host
+        self.seconds = []
+
+    def timed(self, cost, mask):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = self.lap(cost, mask)
+        self.seconds.append(time.perf_counter() - t0)
+        return out
+
+    def __enter__(self):
+        self.module.lap_host = self.timed
+        return self
+
+    def __exit__(self, *exc):
+        self.module.lap_host = self.lap
+
+
+def query_phases(wrappers, synthetic, smi: str, cfg_from_yaml_file) -> dict:
+    """Phases 55 to 58. Returns the kernel launches of each path, by name."""
+    def load(cfg_file):
+        return cfg_from_yaml_file(str(REPO / cfg_file))
+
+    for name, cfg_file in QUERY_MODELS:
+        query_cuda_vs_cpu_phase(name, load(cfg_file), synthetic)
+    paths = {}
+    for name, cfg_file in QUERY_MODELS:
+        cfg = load(cfg_file)
+        B = cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
+        net = synthetic.open_score_gate(synthetic.random_model(cfg, 'cuda', seed=7))
+        inputs = {'points': torch.from_numpy(synthetic.kitti_points(B, QUERY_POINTS, 5)).cuda()}
+        paths[f'{name}_predict'] = measured_predict(
+            '56 query predict', f'{name} as shipped', cfg, net, inputs, B, f'N={QUERY_POINTS}',
+            wrappers, smi, P=cfg.MODEL.DENSE_HEAD.get('NUM_PROPOSALS', None),
+            flops='convolutions and matrix products')
+        del net, inputs
+        torch.cuda.empty_cache()
+    for name, cfg_file in QUERY_MODELS:
+        cfg = load(cfg_file)
+        B = cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
+        net = synthetic.random_model(cfg, seed=7)          # no device named: the card
+        batch = to_device(synthetic.kitti_batch(B, QUERY_POINTS, 8, seed=5), 'cuda')
+        with LapTimer() as lap:
+            paths[f'{name}_train'] = measured_train('57 query train', f'{name} as shipped', cfg,
+                                                    net, batch, f'B={B} N={QUERY_POINTS}',
+                                                    wrappers, smi)
+        if lap.seconds:
+            log('57 query train', f'{name}: the host LAP of each step (cost to the host, '
+                'Jonker-Volgenant over the 8 clouds, the assignment back) '
+                + ' '.join(f'{s * 1e3:.3f}' for s in lap.seconds) + ' ms, median '
+                f'{statistics.median(lap.seconds) * 1e3:.3f} ms')
+        del net, batch
+        torch.cuda.empty_cache()
+    for name, cfg_file in QUERY_MODELS:
+        B = load(cfg_file).OPTIMIZATION.BATCH_SIZE_PER_GPU
+        paths[f'{name}_eval_loop'] = kitti_eval_phase(
+            wrappers, synthetic, smi, cfg_file, '58 query eval loop', NO_LAUNCHES,
+            adjust=synthetic.open_score_gate, cpu_check=False, B=B)
+        paths[f'{name}_train_loop'] = train_loop_phase(
+            wrappers, synthetic, smi, cfg_file, '58 query train loop', NO_LAUNCHES, B=B,
+            frames=TWO_STAGE_LOOP_FRAMES)
+    return paths
+
+
 KERNEL_TABLE = (
     ('farthest_point_sample', 'pdm_ssd_torch/csrc/fps.cu', 'pdm_ssd_tpu/ops/pallas/fps.py:60'),
     ('window_select', 'pdm_ssd_torch/csrc/group.cu',
@@ -4353,6 +4606,17 @@ def main() -> None:
         raise SystemExit(f'[kernels] FAILED: no count for {missing}')
     log('time', f'{time.perf_counter() - T0:.1f} s since the start, after phase 54')
 
+    # DSVT and TransFusion: the window-attention backbone and the query head
+    more = query_phases(wrappers, synthetic, smi, cfg_from_yaml_file)
+    if set(more) & set(new_paths):
+        raise SystemExit(f'[kernels] FAILED: path names used twice: {set(more) & set(new_paths)}')
+    new_paths.update(more)
+    missing = [f'launches_{m}_{p}' for m, _ in QUERY_MODELS for p in QUERY_PATHS
+               if f'{m}_{p}' not in new_paths]
+    if missing:
+        raise SystemExit(f'[kernels] FAILED: no count for {missing}')
+    log('time', f'{time.perf_counter() - T0:.1f} s since the start, after phase 58')
+
     # `launches` is the count from the run of a main path: the flagship's five
     # training steps of phase 8 for its four kernels, PointRCNN's predict of
     # phase 11 for the ball query, SECOND's predict of phase 15 for the sparse
@@ -4385,7 +4649,9 @@ def main() -> None:
     # sparse conv's `library_ms` (and the backward's) is a pair of PyTorch
     # calls (gather, `torch.matmul`), since no single call computes it;
     # `max_abs_err` is kernel against plain version; the
-    # `launches_nuscenes*` counts of phases 52 to 54 are 0 for every kernel
+    # `launches_nuscenes*` counts of phases 52 to 54 and the
+    # `launches_{dsvt,transfusion}_*` counts of phases 56 to 58 are 0 for
+    # every kernel
     main_path = {kern: train_launches for kern, _, _ in KERNEL_TABLE}
     main_path.update(ball_query=rcnn_launches, sparse_conv=second_launches,
                      gather_rows_bf16=second_launches,

@@ -12,11 +12,9 @@ _DETECTORS = {'PDMSSD': PDMSSD, 'PointRCNN': PointRCNN, 'SECONDNet': Detector3D,
               'PointPillar': Detector3D, 'CenterPoint': Detector3D, 'PillarNet': Detector3D,
               'VoxelNeXt': Detector3D, 'PVRCNN': PVRCNN, 'VoxelRCNN': VoxelRCNN,
               'SECONDNetIoU': SECONDNetIoU, 'PartA2Net': PartA2Net,
-              'PVRCNNPlusPlus': PVRCNNPlusPlus}
+              'PVRCNNPlusPlus': PVRCNNPlusPlus, 'DSVT': Detector3D, 'TransFusion': Detector3D}
 # the detectors the port does not have yet, by the ROADMAP item that ports them
-_LATER = {'DSVT': 'ROADMAP Queue 1 item 12a, DSVT and TransFusion',
-          'TransFusion': 'ROADMAP Queue 1 item 12a, DSVT and TransFusion',
-          'BevFusion': 'ROADMAP Queue 1 item 12, the camera and temporal models',
+_LATER = {'BevFusion': 'ROADMAP Queue 1 item 12, the camera and temporal models',
           'MPPNet': 'ROADMAP Queue 1 item 12, the camera and temporal models'}
 
 

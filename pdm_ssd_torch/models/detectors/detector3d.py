@@ -9,14 +9,16 @@ ladder, the focal ladder `VoxelBackBone8xFocal`, the dense
 `DenseVoxelBackBone8x` (any other BACKBONE_3D name, as the JAX package's
 `build_voxel_backbone_3d` reads it) and `GridPointBackbone`;
 `PointPillarScatter`, `HeightCompression`, `Conv2DCollapse`;
-`BaseBEVBackbone`, `BaseBEVResBackbone`; `AnchorHeadSingle`,
-`AnchorHeadMulti` (axis-aligned or ATSS targets), `CenterHead` and
-`VoxelNeXtHead`. That is SECOND on the sparse, focal or dense ladder,
-PointPillar, CenterPoint-pillar, PillarNet and VoxelNeXt
+`BaseBEVBackbone`, `BaseBEVResBackbone`, `DSVTBackbone`;
+`AnchorHeadSingle`, `AnchorHeadMulti` (axis-aligned or ATSS targets),
+`CenterHead`, `VoxelNeXtHead` and `TransFusionHead` (its decode takes no
+NMS). That is SECOND on the sparse, focal or dense ladder, PointPillar,
+CenterPoint-pillar, PillarNet, VoxelNeXt, DSVT and TransFusion
 (`configs/kitti_models/second_sparse.yaml`, `second_focal.yaml`,
 `second.yaml`, `pointpillar.yaml`, `centerpoint_pillar.yaml`,
-`pillarnet.yaml`, `voxelnext.yaml`), served and trained, with `TTA_FLIP`.
-The other heads raise `NotImplementedError`.
+`pillarnet.yaml`, `voxelnext.yaml`, `dsvt.yaml`, `transfusion.yaml`),
+served and trained, with `TTA_FLIP`. Another head or BEV backbone raises
+`NotImplementedError`.
 
 The submodules carry flax's names for the entries of the JAX detector's
 module list (`module_list_0`, ...), so `utils/weights.from_flax` maps the
@@ -36,6 +38,7 @@ from ...ops.selection import two_stage_topk
 from ...utils.config import as_cfg
 from .. import model_nms
 from ..backbones_2d.base_bev_backbone import BaseBEVBackbone, BaseBEVResBackbone
+from ..backbones_2d.dsvt_backbone import DSVTBackbone
 from ..backbones_2d.map_to_bev import build_map_to_bev
 from ..backbones_3d.grid_point_backbone import GridPointBackbone
 from ..backbones_3d.sparse_backbone import SparseUNetV2, SparseVoxelBackBone8x
@@ -44,6 +47,7 @@ from ..backbones_3d.vfe import build_vfe
 from ..backbones_3d.voxel_backbone import DenseUNetV2, DenseVoxelBackBone8x
 from ..dense_heads.anchor_head import AnchorHeadMulti, AnchorHeadSingle
 from ..dense_heads.center_head import CenterHead
+from ..dense_heads.transfusion_head import TransFusionHead
 from ..dense_heads.voxelnext_head import VoxelNeXtHead
 from ..model_nms import take_rows
 
@@ -126,10 +130,11 @@ class Detector3D(nn.Module):
                                                        device=device)).num_bev_features
         if cfg.get('BACKBONE_2D') is not None:
             name2d = cfg.BACKBONE_2D.get('NAME', 'BaseBEVBackbone')
-            if name2d not in ('BaseBEVBackbone', 'BaseBEVResBackbone'):
+            bb_cls = {'BaseBEVBackbone': BaseBEVBackbone, 'BaseBEVResBackbone': BaseBEVResBackbone,
+                      'DSVTBackbone': DSVTBackbone}.get(name2d)
+            if bb_cls is None:
                 raise NotImplementedError(f'BACKBONE_2D {name2d} is not ported yet '
-                                          '(ROADMAP Queue 1 item 12)')
-            bb_cls = BaseBEVResBackbone if name2d == 'BaseBEVResBackbone' else BaseBEVBackbone
+                                          '(ROADMAP Queue 1)')
             width = add('backbone_2d', bb_cls(cfg.BACKBONE_2D, width,
                                               device=device)).num_bev_features
         stride = head_cfg.TARGET_ASSIGNER_CONFIG.get('FEATURE_MAP_STRIDE', 2) \
@@ -145,13 +150,16 @@ class Detector3D(nn.Module):
                                             pc_range, voxel[:2],
                                             class_names=tuple(class_names) if class_names
                                             else None, device=device)
+        elif head_cfg.NAME == 'TransFusionHead':
+            self.dense_head = TransFusionHead(head_cfg, width, num_class, pc_range, voxel[:2],
+                                              device=device)
         elif head_cfg.NAME in ('AnchorHeadSingle', 'AnchorHeadMulti'):
             head_cls = AnchorHeadMulti if head_cfg.NAME == 'AnchorHeadMulti' else AnchorHeadSingle
             self.dense_head = head_cls(head_cfg, width, num_class, class_names, grid_size=fmap,
                                        point_cloud_range=pc_range, device=device)
         else:
             raise NotImplementedError(f'DENSE_HEAD {head_cfg.NAME} is not ported in Detector3D '
-                                      'yet (ROADMAP Queue 1 item 12a: DSVT and TransFusion)')
+                                      'yet (ROADMAP Queue 1)')
 
     def _slot(self, slot: str):
         return getattr(self, self.slots[slot]) if slot in self.slots else None
@@ -181,6 +189,9 @@ class Detector3D(nn.Module):
             targets = self.dense_head.assign_targets(batch['gt_boxes'], batch['gt_mask'],
                                                      batch['sp_bev_coords'], batch['sp_bev_mask'])
             loss, tb = self.dense_head.get_loss(batch, targets)
+            return loss, {**tb, 'loss': loss}
+        if isinstance(self.dense_head, TransFusionHead):
+            loss, tb = self.dense_head.get_loss(batch, self.dense_head.assign_targets(batch))
             return loss, {**tb, 'loss': loss}
         if isinstance(self.dense_head, CenterHead):
             targets = self.dense_head.assign_targets(batch['gt_boxes'], batch['gt_mask'],
@@ -255,12 +266,17 @@ class Detector3D(nn.Module):
     def select_candidates(self, batch: dict):
         """(boxes (B, K, 7), scores, labels (1-based), valid (B, K), the
         per-class scores (B, K, C) or None), valid above SCORE_THRESH. A
-        heatmap head's are its fixed-K decode; an anchor head's the sigmoid
-        scores, the best class per anchor and the top 2 * NMS_PRE_MAXSIZE
-        anchors by `two_stage_topk`, with their per-class scores under
-        NMS_TYPE `multi_classes_nms`."""
+        query head's are its queries' decode, valid above its own
+        SCORE_THRESH; a heatmap head's its fixed-K decode; an anchor head's
+        the sigmoid scores, the best class per anchor and the top 2 *
+        NMS_PRE_MAXSIZE anchors by `two_stage_topk`, with their per-class
+        scores under NMS_TYPE `multi_classes_nms`."""
         pp = self.model_cfg.POST_PROCESSING
         thresh = pp.get('SCORE_THRESH', 0.1)
+        if isinstance(self.dense_head, TransFusionHead):
+            out = self.dense_head.generate_predicted_boxes(batch)
+            return (out['pred_boxes'], out['pred_scores'], out['pred_labels'] + 1,
+                    out['pred_mask'], None)
         if isinstance(self.dense_head, (CenterHead, VoxelNeXtHead)):
             hm = self.dense_head.generate_predicted_boxes(batch)
             return (hm['pred_boxes'][..., :7], hm['pred_scores'], hm['pred_labels'] + 1,
@@ -284,6 +300,10 @@ class Detector3D(nn.Module):
         labels (1-based) and mask."""
         pp = self.model_cfg.POST_PROCESSING
         boxes, scores, labels, valid, cls_probs = self.select_candidates(batch)
+        if isinstance(self.dense_head, TransFusionHead):
+            # a query head takes no NMS (the reference TransFusion's default)
+            return {'pred_boxes': boxes, 'pred_scores': scores * valid,
+                    'pred_labels': labels * valid, 'pred_mask': valid}
         per_class = pp.NMS_CONFIG.get('NMS_TYPE', 'nms_bev') in ('multi_classes_nms',
                                                                  'class_specific_nms')
         fb, fs, fl, fm = model_nms.dispatch_nms(

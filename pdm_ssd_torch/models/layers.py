@@ -174,6 +174,77 @@ class ConvBNReLU(nn.Module):
         return torch.relu(self.BatchNorm_0(conv_same(self.Conv_0, x)))
 
 
+class LayerNorm(nn.LayerNorm):
+    """flax's LayerNorm over the last axis: epsilon 1e-6 and the variance as
+    E[x^2] - E[x]^2 (at least 0), the scale folded into the reciprocal
+    deviation before the product, as flax orders it (`scale`, `bias` are
+    `weight`, `bias` here)."""
+
+    def __init__(self, features: int, eps: float = 1e-6, device=None):
+        super().__init__(features, eps=eps, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mean = x.mean(-1, keepdim=True)
+        var = torch.clamp((x * x).mean(-1, keepdim=True) - mean * mean, min=0.0)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
+class HeadsLinear(nn.Linear):
+    """A Linear whose flax counterpart is a `DenseGeneral` of several axes:
+    `flax_kernel` and `flax_bias` are the flax shapes of its kernel and bias
+    (`utils/weights` reshapes between them and the torch weight's)."""
+
+    def __init__(self, in_features: int, out_features: int, flax_kernel: tuple,
+                 flax_bias: tuple, device=None):
+        super().__init__(in_features, out_features, device=device)
+        self.flax_kernel, self.flax_bias = tuple(flax_kernel), tuple(flax_bias)
+
+
+class MultiHeadAttention(nn.Module):
+    """flax's `MultiHeadDotProductAttention` (`query`, `key`, `value`, `out`)
+    as plain tensor ops: the query scaled by 1 / sqrt(head_dim) before the
+    product, masked scores filled with the float32 minimum (not -inf, so a
+    query whose keys are all masked weighs them uniformly instead of giving
+    NaN), softmax in the scores' type."""
+
+    def __init__(self, in_features: int, qkv_features: int, num_heads: int,
+                 out_features: int | None = None, device=None):
+        super().__init__()
+        if qkv_features % num_heads:
+            raise ValueError(f'qkv_features {qkv_features} is not a multiple of {num_heads} heads')
+        self.num_heads, self.head_dim = num_heads, qkv_features // num_heads
+        out_features = out_features or in_features
+        for name in ('query', 'key', 'value'):
+            self.add_module(name, HeadsLinear(in_features, qkv_features,
+                                              (in_features, num_heads, self.head_dim),
+                                              (num_heads, self.head_dim), device=device))
+        self.out = HeadsLinear(qkv_features, out_features,
+                               (num_heads, self.head_dim, out_features), (out_features,),
+                               device=device)
+
+    def forward(self, inputs_q: torch.Tensor, inputs_k: torch.Tensor | None = None,
+                inputs_v: torch.Tensor | None = None,
+                mask: torch.Tensor | None = None) -> torch.Tensor:
+        """inputs (..., L, C); keys default to the queries and values to the
+        keys, as in flax; mask broadcast to (..., heads, Lq, Lk), True where
+        a query may attend a key."""
+        inputs_k = inputs_q if inputs_k is None else inputs_k
+        inputs_v = inputs_k if inputs_v is None else inputs_v
+
+        def heads(layer, x):
+            return layer(x).unflatten(-1, (self.num_heads, self.head_dim)).transpose(-3, -2)
+
+        q = heads(self.query, inputs_q)                                 # (..., h, Lq, d)
+        k, v = heads(self.key, inputs_k), heads(self.value, inputs_v)
+        q = q / torch.sqrt(torch.tensor(float(self.head_dim), dtype=q.dtype))
+        scores = q @ k.transpose(-2, -1)                                # (..., h, Lq, Lk)
+        if mask is not None:
+            scores = scores.masked_fill(~mask, torch.finfo(scores.dtype).min)
+        weights = torch.softmax(scores, dim=-1)
+        x = (weights @ v).transpose(-3, -2).flatten(-2)                 # (..., Lq, h * d)
+        return self.out(x)
+
+
 def masked_max(x: torch.Tensor, mask: torch.Tensor | None, dim: int) -> torch.Tensor:
     """Max over `dim` of x (..., C) that ignores the slots where `mask`
     (x's shape without the channels) is false; a group with no valid slot
@@ -189,19 +260,24 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Initialise every parameter and buffer from `generator`, in module order:
     weights uniform in +-1/sqrt(fan_in), or from the module's own
     `weight_init` (a function of the weight's shape, which draws nothing),
-    biases at the module's `bias_init` (0 by default), BatchNorm at
-    identity. The values do not depend on the model's device."""
+    biases at the module's `bias_init` (0 by default), BatchNorm and
+    LayerNorm at identity, an embedding's rows uniform in +-1/sqrt(width).
+    The values do not depend on the model's device."""
     for mod in model.modules():
         if getattr(mod, 'weight_init', None) is not None:
             mod.weight.copy_(torch.as_tensor(mod.weight_init(tuple(mod.weight.shape))))
             if mod.bias is not None:
                 mod.bias.fill_(getattr(mod, 'bias_init', 0.0))
-        elif isinstance(mod, nn.modules.batchnorm._BatchNorm):
+        elif isinstance(mod, (nn.modules.batchnorm._BatchNorm, nn.LayerNorm)):
             mod.weight.fill_(1.0)
             mod.bias.fill_(0.0)
-            mod.running_mean.fill_(0.0)
-            mod.running_var.fill_(1.0)
-            mod.num_batches_tracked.fill_(0)
+            if isinstance(mod, nn.modules.batchnorm._BatchNorm):
+                mod.running_mean.fill_(0.0)
+                mod.running_var.fill_(1.0)
+                mod.num_batches_tracked.fill_(0)
+        elif isinstance(mod, nn.Embedding):
+            w = mod.weight
+            w.copy_((torch.rand(w.shape, generator=generator) * 2 - 1) / w.shape[1] ** 0.5)
         elif isinstance(mod, (nn.Linear, nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d,
                               nn.ConvTranspose3d)):
             w = mod.weight

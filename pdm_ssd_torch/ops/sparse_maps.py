@@ -33,8 +33,11 @@ builders the same way. The focal ladder's strided maps have transposes too
 focal convs take XLA's gradient, the port's sparse conv reads a transposed
 map.
 
-Not ported (ROADMAP Queue 1 items 10 and 11): the UNet's use of the
-transpose maps as forward maps and the packed-window correction buckets.
+`SparseUNetV2`'s decoder convolves through the transposed maps as forward
+maps (`get_host_prepare` ships the first three of them in eval too). The
+packed-window correction buckets of QWIN / PWIN have no counterpart: the
+sparse-conv kernel needs no window plans, and `get_host_prepare` raises for
+them (ROADMAP Queue 1 item 10).
 """
 from __future__ import annotations
 

@@ -20,9 +20,10 @@ BEV slot table), with `second.yaml` the tiny SECOND on the dense ladder,
 with `pointpillar.yaml`, `centerpoint_pillar.yaml` or `pillarnet.yaml` the
 tiny shrink of that file, with `pv_rcnn.yaml`, `pv_rcnn_sparse.yaml`,
 `voxel_rcnn.yaml` or `voxel_rcnn_sparse.yaml` the tiny two-stage model on
-the dense or sparse ladder (`utils/synthetic.TINY_CFGS`; a config that
-voxelizes its points gets voxel batches, made on the device). Runs on the
-card unless `--device cpu` is given. The counterpart of
+the dense or sparse ladder, with `dsvt.yaml` or `transfusion.yaml` the
+tiny window-attention or query-head model (`utils/synthetic.TINY_CFGS`; a
+config that voxelizes its points gets voxel batches, made on the device).
+Runs on the card unless `--device cpu` is given. The counterpart of
 `__graft_entry__.dryrun_multichip` on one device.
 """
 from __future__ import annotations

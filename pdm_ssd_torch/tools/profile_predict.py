@@ -42,7 +42,11 @@ bias at 0. With `configs/kitti_models/pv_rcnn.yaml`, `pv_rcnn_sparse.yaml`,
 `voxel_rcnn.yaml` or `voxel_rcnn_sparse.yaml` (B=4, LiDAR-like clouds of
 16384 points, the `sample_points` of their data processor, voxelized on the
 card into their 16000 slots) the stages are those of
-`two_stage_stage_times`, the anchor bias at 0. Then
+`two_stage_stage_times`, the anchor bias at 0. With
+`configs/kitti_models/dsvt.yaml` or `transfusion.yaml` (B=8, N=16384) the
+stages are the slots of `Detector3D` and the parts of the window-attention
+backbone or of the query head (`query_stage_times`), DSVT's heatmap bias
+at 0 (TransFusion's scores pass its threshold as seeded). Then
 `torch.profiler` traces three `predict` calls: device time per predict,
 device activities per predict, the busy share (device time over the
 unprofiled wall time of one predict), the ten kernels with the most device
@@ -321,6 +325,75 @@ def detector3d_stage_times(net, cfg, predict_inputs: dict, reps: int) -> dict:
     return t
 
 
+def query_stage_times(net, cfg, predict_inputs: dict, reps: int) -> dict:
+    """`detector3d_stage_times` of DSVT or TransFusion, then the parts of
+    its new module, each on its own input: of `DSVTBackbone`, each stage's
+    projection and pool and each block's windowing (the window and unwindow
+    copies), LayerNorm with attention, and LayerNorm with FFN; of
+    `TransFusionHead`, the shared conv, the heatmap with the query pick, the
+    queries' gather, the self-attention, the cross-attention to every BEV
+    token, and the FFN with the five branches."""
+    from torch.nn import functional as F
+    from ..models.backbones_2d.dsvt_backbone import _max_pool_same
+    from ..ops import losses
+    from ..ops.selection import two_stage_topk
+    t = detector3d_stage_times(net, cfg, predict_inputs, reps)
+    batch = dict(predict_inputs)
+    for name in net.slots.values():
+        if name == net.slots.get('backbone_2d') and cfg.MODEL.NAME == 'DSVT':
+            break
+        batch = getattr(net, name)(batch)
+    if cfg.MODEL.NAME == 'DSVT':
+        bb = net.backbone_2d
+        x = batch['spatial_features']
+        occ = (x.abs() > 0).any(dim=-1)
+        for si, stride in enumerate(bb.strides):
+            ph, pw = (-x.shape[1]) % bb.wy, (-x.shape[2]) % bb.wx
+            if ph or pw:
+                x, occ = F.pad(x, (0, 0, 0, pw, 0, ph)), F.pad(occ, (0, pw, 0, ph))
+            proj = getattr(bb, f's{si}_proj')
+            t[f'dsvt_s{si}_proj'] = median_ms(lambda: proj(x), reps)
+            x = proj(x)
+            for bi in range(bb.blocks[si]):
+                blk, xm, key = getattr(bb, f's{si}_block{bi}'), bi % 2 == 0, f'dsvt_s{si}_b{bi}'
+                xw, mw = bb.window(x, xm), bb.window(occ, xm)[:, None, None, :]
+                t[f'{key}_window'] = median_ms(
+                    lambda: bb.unwindow(bb.window(x, xm), x.shape, xm), reps)
+                t[f'{key}_attn'] = median_ms(lambda: blk.attn(blk.ln1(xw), mask=mw), reps)
+                h = xw + blk.attn(blk.ln1(xw), mask=mw)
+                t[f'{key}_ffn'] = median_ms(
+                    lambda: blk.ff2(torch.relu(blk.ff1(blk.ln2(h)))), reps)
+                x = bb.unwindow(blk(xw, mw[:, 0, 0]), x.shape, xm)
+            x = torch.where(occ[..., None], x, 0.0)
+            if stride > 1:
+                t[f'dsvt_s{si}_pool'] = median_ms(lambda: _max_pool_same(x, stride), reps)
+                x = _max_pool_same(x, stride)
+                occ = _max_pool_same(occ[..., None].to(x.dtype), stride)[..., 0] > 0.5
+        return t
+    head = net.dense_head
+    x = batch['spatial_features_2d'].permute(0, 3, 1, 2)
+    B, _, H, W = x.shape
+    t['tf_shared_conv'] = median_ms(lambda: torch.relu(head.shared_bn(head.shared(x))), reps)
+    feat = torch.relu(head.shared_bn(head.shared(x)))
+
+    def pick():
+        hm = torch.sigmoid(head.heatmap_conv(feat).permute(0, 2, 3, 1))
+        return two_stage_topk(hm.amax(dim=-1).reshape(B, H * W), head.num_proposals)
+
+    t['tf_heatmap_pick'] = median_ms(pick, reps)
+    top_idx = pick()[1]
+    tokens = feat.permute(0, 2, 3, 1).reshape(B, H * W, -1) + head.pos_encoding(H, W, feat)
+    t['tf_query_gather'] = median_ms(lambda: losses.gather_feat(tokens, top_idx), reps)
+    q = losses.gather_feat(tokens, top_idx)
+    t['tf_self_attn'] = median_ms(lambda: head.self_attn(head.ln_sa(q)), reps)
+    t['tf_cross_attn'] = median_ms(lambda: head.cross_attn(head.ln_ca(q), tokens), reps)
+    t['tf_ffn_branches'] = median_ms(lambda: [
+        getattr(head, f'{n}_out')(torch.relu(getattr(head, f'{n}_fc')(
+            head.ff2(torch.relu(head.ff1(head.ln_ff(q))))))) for n in
+        ('center', 'height', 'dim', 'rot', 'cls')], reps)
+    return t
+
+
 def ladder_stage_times(net, cfg, predict_inputs: dict, reps: int) -> dict:
     """`detector3d_stage_times` of a model on the sparse or focal ladder
     (`voxelnext.yaml`, `second_focal.yaml`), after the map build of the batch
@@ -425,7 +498,10 @@ PROFILES = {'PDMSSD': (lambda cfg: cfg, 8, 16384, point_inputs, stage_times, Non
             'PVRCNN': (lambda cfg: cfg, 4, 16384, second_inputs, two_stage_stage_times,
                        synthetic.open_score_gate),
             'VoxelRCNN': (lambda cfg: cfg, 4, 16384, second_inputs, two_stage_stage_times,
-                          synthetic.open_score_gate)}
+                          synthetic.open_score_gate),
+            'DSVT': (lambda cfg: cfg, 8, 16384, point_inputs, query_stage_times,
+                     synthetic.open_score_gate),
+            'TransFusion': (lambda cfg: cfg, 8, 16384, point_inputs, query_stage_times, None)}
 
 
 def profile_key(cfg) -> str:

@@ -5,7 +5,7 @@
 
 Builds the config (default `configs/kitti_models/pdm_ssd_point.yaml`; also
 `pdm_ssd.yaml`, `pdm_ssd_aux.yaml`, `centerpoint_pillar.yaml`,
-`pillarnet.yaml`, and the voxel models `second_sparse.yaml`, `second.yaml`,
+`pillarnet.yaml`, `dsvt.yaml`, `transfusion.yaml`, and the voxel models `second_sparse.yaml`, `second.yaml`,
 `second_focal.yaml`, `voxelnext.yaml` and `pointpillar.yaml`, whose batch
 is seeded LiDAR-like clouds of 50000 points unless `--points` says
 otherwise, voxelized on the card; the two-stage `pointrcnn.yaml`,
@@ -20,7 +20,8 @@ each forward stage (for `GridPointBackbone` its pillarize and each level
 apart, for a voxel model each slot of `Detector3D`, for a two-stage model
 its first stage's slots, the decode of its boxes, the keypoints and point
 head where it has them, and the ROI head with its proposals and targets),
-targets and losses,
+TransFusion's assignment (the matching cost and the host LAP) apart, targets
+and losses,
 backward, gradient clip, optimizer update (median of `--reps`). Then
 `torch.profiler` traces two steps: device time per step, the busy share
 (device time over the unprofiled wall time of a step), the twelve kernels
@@ -45,6 +46,7 @@ from ..models.backbones_3d.grid_point_backbone import GridPointBackbone
 from ..models.detectors.detector3d import Detector3D
 from ..models.detectors.point_rcnn import PointRCNN
 from ..models.detectors.pv_rcnn import PVRCNN
+from ..models.dense_heads.transfusion_head import TransFusionHead
 from ..ops import ball_query, fps, group, sparse_conv
 from ..runtime.trainer import create_train_state, make_train_step
 from .profile_predict import is_fft_route
@@ -125,7 +127,13 @@ def step_in_parts(net, optimizer, batch: dict, prepare=None) -> dict:
     for name, stage in stages:
         out = stage(out)
         mark(name)
-    loss, _ = net.get_training_loss(out)
+    head = getattr(net, 'dense_head', None)
+    if isinstance(head, TransFusionHead):
+        targets = head.assign_targets(out)
+        mark('assign_lap')
+        loss, _ = head.get_loss(out, targets)
+    else:
+        loss, _ = net.get_training_loss(out)
     mark('targets_and_losses')
     loss.backward()
     mark('backward')

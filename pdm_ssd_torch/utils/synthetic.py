@@ -636,6 +636,39 @@ def tiny_pv_rcnn_plusplus_cfg(cfg):
     return cfg
 
 
+def tiny_dsvt_cfg(cfg):
+    """Shrink `configs/kitti_models/dsvt.yaml` in place: the same path
+    (DynamicPillarVFE, both DSVT stages of two blocks, the stride-2 pool,
+    CenterHead, circle NMS) over the KITTI range on an 88 x 100 grid of
+    0.8 m pillars (H padded to 104 for the 8 x 8 windows), at the JAX
+    package's zoo widths (D_MODEL [16, 16], NHEAD [2, 2])."""
+    _grid_processor(cfg).VOXEL_SIZE = [0.8, 0.8, 4.0]
+    b2 = cfg.MODEL.BACKBONE_2D
+    b2.D_MODEL = [16, 16]
+    b2.NHEAD = [2, 2]
+    b2.DIM_FEEDFORWARD = [32, 32]
+    _tiny_center_head(cfg)
+    return cfg
+
+
+def tiny_transfusion_cfg(cfg):
+    """Shrink `configs/kitti_models/transfusion.yaml` in place: the same path
+    (DynamicPillarVFE, the two-level BEV backbone, the query decoder, the
+    host LAP) over the KITTI range on an 88 x 100 grid of 0.8 m pillars,
+    narrow, at the JAX package's zoo widths (HIDDEN_CHANNEL 16,
+    NUM_PROPOSALS 16, NUM_HEADS 2)."""
+    _grid_processor(cfg).VOXEL_SIZE = [0.8, 0.8, 4.0]
+    b2 = cfg.MODEL.BACKBONE_2D
+    b2.LAYER_NUMS = [1, 1]
+    b2.NUM_FILTERS = [8, 16]
+    b2.NUM_UPSAMPLE_FILTERS = [8, 8]
+    head = cfg.MODEL.DENSE_HEAD
+    head.HIDDEN_CHANNEL = 16
+    head.NUM_PROPOSALS = 16
+    head.NUM_HEADS = 2
+    return cfg
+
+
 # the dry run's shrink of each model that has one, by `MODEL.NAME` (a
 # SECONDNet's by its backbone too)
 TINY_CFGS = {'PDMSSD': tiny_pdmssd_cfg, 'PointRCNN': tiny_pointrcnn_cfg,
@@ -643,7 +676,8 @@ TINY_CFGS = {'PDMSSD': tiny_pdmssd_cfg, 'PointRCNN': tiny_pointrcnn_cfg,
              'CenterPoint': tiny_centerpoint_pillar_cfg, 'PillarNet': tiny_pillarnet_cfg,
              'VoxelNeXt': tiny_voxelnext_cfg, 'PVRCNN': tiny_pv_rcnn_cfg,
              'VoxelRCNN': tiny_voxel_rcnn_cfg, 'SECONDNetIoU': tiny_second_iou_cfg,
-             'PartA2Net': tiny_parta2_cfg, 'PVRCNNPlusPlus': tiny_pv_rcnn_plusplus_cfg}
+             'PartA2Net': tiny_parta2_cfg, 'PVRCNNPlusPlus': tiny_pv_rcnn_plusplus_cfg,
+             'DSVT': tiny_dsvt_cfg, 'TransFusion': tiny_transfusion_cfg}
 
 
 def voxelizes(cfg) -> bool:

@@ -15,6 +15,12 @@ generic rule set maps every leaf. The layout rules are those of
 - sparse conv kernel (taps * in, out)   -> the same `kernel`
 - BatchNorm scale / bias / mean / var -> weight / bias / running_mean /
   running_var
+- LayerNorm scale / bias             -> weight / bias
+- Embed embedding (num, d)           -> Embedding weight (num, d)
+- DenseGeneral kernel of several axes (an attention's `query`, `key`,
+  `value`: (in, heads, head_dim); its `out`: (heads, head_dim, out)) and
+  its bias ((heads, head_dim) or (out,)) -> a `HeadsLinear`'s weight
+  (out, in) and bias (out,), flattened
 
 `to_flax` applies the same rules the other way, for a model's tensors or for
 any tensors keyed like its state dict (gradients, for one).
@@ -43,16 +49,20 @@ def _flatten(tree, prefix=()):
 
 
 def _convert_param(mod: nn.Module, leaf: str, arr: np.ndarray):
-    if isinstance(mod, nn.modules.batchnorm._BatchNorm) and leaf in _BN_PARAM:
+    if isinstance(mod, (nn.modules.batchnorm._BatchNorm, nn.LayerNorm)) and leaf in _BN_PARAM:
         return _BN_PARAM[leaf], arr
-    if leaf == 'bias' and isinstance(mod, (nn.Linear, nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d,
+    if isinstance(mod, nn.Embedding) and leaf == 'embedding':
+        return 'weight', arr
+    if leaf == 'bias' and isinstance(mod, nn.Linear):
+        return 'bias', arr.reshape(-1)      # a HeadsLinear's (heads, head_dim) flattened
+    if leaf == 'bias' and isinstance(mod, (nn.Conv2d, nn.Conv3d, nn.ConvTranspose2d,
                                            nn.ConvTranspose3d)):
         return 'bias', arr
     if leaf == 'kernel':
         if isinstance(getattr(mod, 'kernel', None), nn.Parameter):
             return 'kernel', arr            # a sparse conv keeps flax's (taps * in, out)
         if isinstance(mod, nn.Linear):
-            return 'weight', arr.T
+            return 'weight', arr.reshape(mod.in_features, mod.out_features).T
         if isinstance(mod, nn.ConvTranspose2d):
             return 'weight', arr[::-1, ::-1].transpose(2, 3, 0, 1)
         if isinstance(mod, nn.ConvTranspose3d):
@@ -101,13 +111,19 @@ def from_flax(variables: Mapping, model: nn.Module) -> dict:
 
 
 def _to_flax_leaf(mod: nn.Module, name: str, arr: np.ndarray):
-    if isinstance(mod, nn.modules.batchnorm._BatchNorm):
+    if isinstance(mod, (nn.modules.batchnorm._BatchNorm, nn.LayerNorm)):
         inv = {v: k for k, v in {**_BN_PARAM, **_BN_STAT}.items()}
         if name in inv:
             return inv[name], arr
+    elif isinstance(mod, nn.Embedding) and name == 'weight':
+        return 'embedding', arr
+    elif name == 'bias' and hasattr(mod, 'flax_bias'):
+        return 'bias', arr.reshape(mod.flax_bias)
     elif name in ('bias', 'kernel'):
         return name, arr
     elif name == 'weight':
+        if hasattr(mod, 'flax_kernel'):
+            return 'kernel', arr.T.reshape(mod.flax_kernel)
         if isinstance(mod, nn.Linear):
             return 'kernel', arr.T
         if isinstance(mod, nn.ConvTranspose2d):
@@ -137,7 +153,7 @@ def to_flax(model: nn.Module, tensors: Mapping | None = None) -> dict:
             continue
         leaf, arr = _to_flax_leaf(modules[path], name, t.detach().cpu().numpy())
         node = out['batch_stats' if leaf in _BN_STAT else 'params']
-        for part in path.split('.'):
+        for part in filter(None, path.split('.')):     # '' for the model's own tensors
             node = node.setdefault(part, {})
         node[leaf] = np.array(arr, order='C', copy=True)
     return out

@@ -39,7 +39,7 @@ from pdm_ssd_tpu.ops.pillarize import pillarize as j_pillarize
 from pdm_ssd_tpu.utils.config import CfgNode as JCfgNode
 from torch_port_harness import one_torch_thread  # noqa: F401 (an autouse fixture)
 from torch_port_threads import default_torch_threads  # noqa: F401 (a fixture)
-from torch_port_harness import (FlagshipPair, ModelPair, jax_bf16_extraction,
+from torch_port_harness import (FlagshipPair, ModelPair, jax_bf16_extraction, jax_train_steps,
                                 open_score_gate_flax, randomize_variables, to_numpy)
 
 REPO = Path(__file__).resolve().parents[1]
@@ -105,7 +105,11 @@ def match_detections(got: dict, want: dict, atol: float = BOX_ATOL) -> int:
 
 @pytest.fixture(scope='module')
 def grid():
-    return ModelPair(synthetic.tiny_grid_cfg(load_cfg('pdm_ssd')), B=2, N=512, seed=0)
+    """From the JAX package's init, on which its checks were measured (from
+    the port's seeded weights no box passes the score gate of its predict
+    and TTA checks)."""
+    return ModelPair(synthetic.tiny_grid_cfg(load_cfg('pdm_ssd')), B=2, N=512, seed=0,
+                     jax_init=True)
 
 
 @pytest.fixture(scope='module')
@@ -403,30 +407,24 @@ def test_three_train_steps_track_jax(grid, default_torch_threads):
     not."""
     from pdm_ssd_torch.runtime.trainer import create_train_state, make_train_step
     from pdm_ssd_tpu.runtime import optimization as j_opt
-    from pdm_ssd_tpu.runtime.trainer import TrainState, make_train_step as j_make_train_step
-    tx, sched = j_opt.build_optimizer_and_schedule(
+    _, sched = j_opt.build_optimizer_and_schedule(
         grid.variables['params'], JCfgNode(grid.cfg.OPTIMIZATION.to_dict()), 10, 2)
-    state = TrainState(step=jnp.zeros((), jnp.int32), params=grid.variables['params'],
-                       batch_stats=grid.variables['batch_stats'],
-                       opt_state=tx.init(grid.variables['params']))
-    j_step = j_make_train_step(grid.jax_model, tx)
+    j_losses, j_params, j_stats = jax_train_steps(grid, 3)
     net = grid.net
     net.load_state_dict(from_flax(grid.variables, net))
     optimizer, _ = create_train_state(net, grid.cfg.OPTIMIZATION, 10, 2)
     t_step = make_train_step(net, optimizer)
     try:
-        for _ in range(3):
-            state, j_metrics = j_step(state, {k: jnp.asarray(v) for k, v in grid.batch.items()})
+        for j_loss in j_losses:
             t_metrics = t_step(grid.torch_batch())
-            np.testing.assert_allclose(float(t_metrics['loss']), float(j_metrics['loss']),
-                                       rtol=1e-4)
+            np.testing.assert_allclose(float(t_metrics['loss']), j_loss, rtol=1e-4)
         got = to_flax(net)
     finally:
         net.load_state_dict(from_flax(grid.variables, net))
         net.eval()
     rates = sum(float(sched(s)) for s in range(3))
-    for kind, tree in (('params', state.params), ('batch_stats', state.batch_stats)):
-        want = dict(_leaves(jax.tree_util.tree_map(np.asarray, tree)))
+    for kind, tree in (('params', j_params), ('batch_stats', j_stats)):
+        want = dict(_leaves(tree))
         for k, g in _leaves(got[kind]):
             w = want[k].astype(np.float64)
             rel = np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-12)
@@ -449,7 +447,7 @@ def test_tta_flip_predict_matches_jax(model, flips, grid):
     emulates here (`jax_bf16_extraction`) so that both run the same
     arithmetic. Each case compiles its own JAX program, so the flagship
     takes only the case with both axes."""
-    pair = grid if model == 'grid' else FlagshipPair(B=2, N=512, seed=3)
+    pair = grid if model == 'grid' else FlagshipPair(B=2, N=512, seed=3, jax_init=False)
     cfg = TCfgNode(pair.cfg.to_dict())
     cfg.MODEL.POST_PROCESSING.TTA_FLIP = flips
     jcfg = JCfgNode(cfg.to_dict())
@@ -477,7 +475,10 @@ def _detector3d_tta(name):
     cfg = synthetic.TINY_CFGS[load_cfg(name).MODEL.NAME](load_cfg(name))
     if name == 'second_sparse':
         cfg.MODEL.BACKBONE_3D.pop('TABLE_DTYPE')      # the JAX ladder would run in bf16
-    pair = ModelPair(cfg, B=2, N=N, seed=3, voxels=voxels)
+    # the sparse SECOND from the JAX package's init, on which its detections
+    # were matched (from the port's seeded weights, boxes of the plain and the
+    # flipped pass tie exactly in score, and the two NMS keep different ones)
+    pair = ModelPair(cfg, B=2, N=N, seed=3, voxels=voxels, jax_init=name == 'second_sparse')
     tta = TCfgNode(cfg.to_dict())
     tta.MODEL.POST_PROCESSING.TTA_FLIP = flips
     jcfg = JCfgNode(tta.to_dict())

@@ -72,6 +72,8 @@ SLICE_MODULES = [
     'pdm_ssd_torch.models.dense_heads.point_intra_part_head', 'pdm_ssd_torch.ops.roiaware',
     'pdm_ssd_torch.models.roi_heads.parta2_head', 'pdm_ssd_torch.models.detectors.parta2',
     'pdm_ssd_torch.models.detectors.pv_rcnn_plusplus',
+    'pdm_ssd_torch.models.backbones_2d.dsvt_backbone',
+    'pdm_ssd_torch.models.dense_heads.transfusion_head', 'pdm_ssd_torch.ops.lap',
     'bench_torch',
 ]
 
@@ -512,18 +514,21 @@ def test_fps_kernel_matches_plain_on_the_card():
 
 KITTI_PORTED = ['second_iou', 'parta2', 'parta2_sparse', 'pv_rcnn_plusplus',
                 'pv_rcnn_plusplus_sparse']
-STILL_RAISING = ['kitti_models/dsvt', 'kitti_models/transfusion', 'nuscenes_models/bevfusion',
-                 'nuscenes_models/bevfusion_mini', 'waymo_models/mppnet_16frame',
-                 'waymo_models/mppnet_mini']
+# the files `Detector3D` assembles, by their parameter count (the JAX
+# package's `jax.eval_shape` of its init counts the same)
+DETECTOR3D_PORTED = {'dsvt': 605899, 'transfusion': 1583694}
+STILL_RAISING = ['nuscenes_models/bevfusion', 'nuscenes_models/bevfusion_mini',
+                 'waymo_models/mppnet_16frame', 'waymo_models/mppnet_mini']
 
 
-@pytest.mark.parametrize('name', KITTI_PORTED + STILL_RAISING)
+@pytest.mark.parametrize('name', KITTI_PORTED + list(DETECTOR3D_PORTED) + STILL_RAISING)
 def test_configs_build_or_name_their_roadmap_item(name, monkeypatch):
-    """The five KITTI files of the two-stage family's rest build through
+    """The five KITTI files of the two-stage family's rest, and DSVT and
+    TransFusion (`Detector3D` with its window-attention backbone or its
+    query head, each at its parameter count), build through
     `build_detector` as shipped (on the meta device: the modules, no
-    storage); DSVT, TransFusion, BEVFusion and MPPNet still raise
-    `NotImplementedError` naming their ROADMAP item (12a for DSVT and
-    TransFusion, 12 for the camera and temporal models)."""
+    storage); BEVFusion and MPPNet still raise `NotImplementedError` naming
+    their ROADMAP item (12, the camera and temporal models)."""
     from pdm_ssd_torch.models.detectors import build_detector
     from pdm_ssd_torch.utils import config as t_config
     monkeypatch.chdir(REPO)
@@ -533,28 +538,32 @@ def test_configs_build_or_name_their_roadmap_item(name, monkeypatch):
         net = build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG, device='meta')
         assert type(net).__name__ == cfg.MODEL.NAME
         assert sum(p.numel() for p in net.parameters()) > 1e6
+    elif name in DETECTOR3D_PORTED:
+        net = build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG,
+                             class_names=cfg.CLASS_NAMES, device='meta')
+        assert type(net).__name__ == 'Detector3D'
+        assert sum(p.numel() for p in net.parameters()) == DETECTOR3D_PORTED[name]
     else:
         with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 item 12'):
             build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG, device='meta')
 
 
-def test_detector3d_names_item_12a_for_an_unported_dense_head(monkeypatch):
-    """A `Detector3D` whose dense head the port lacks (`TransFusionHead` on
-    SECOND's ladder) raises naming ROADMAP Queue 1 item 12a, and the DSVT and
-    TransFusion detectors name it too."""
+def test_detector3d_names_roadmap_queue_1_for_an_unported_slot(monkeypatch):
+    """A `Detector3D` whose dense head or BEV backbone the port does not have
+    (an unknown name on SECOND's ladder) raises `NotImplementedError`
+    naming the slot, the name and ROADMAP Queue 1."""
     from pdm_ssd_torch.models.detectors import build_detector
     from pdm_ssd_torch.utils import config as t_config
     monkeypatch.chdir(REPO)
     cfg = t_config.cfg_from_yaml_file('configs/kitti_models/second_sparse.yaml',
                                       t_config.CfgNode())
-    cfg.MODEL.DENSE_HEAD.NAME = 'TransFusionHead'
-    with pytest.raises(NotImplementedError, match=r'TransFusionHead .*ROADMAP Queue 1 item 12a: '
-                                                  'DSVT and TransFusion'):
+    cfg.MODEL.DENSE_HEAD.NAME = 'NoSuchHead'
+    with pytest.raises(NotImplementedError, match='DENSE_HEAD NoSuchHead .*ROADMAP Queue 1'):
         build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG, device='meta')
-    for name in ('dsvt', 'transfusion'):
-        cfg = t_config.cfg_from_yaml_file(f'configs/kitti_models/{name}.yaml', t_config.CfgNode())
-        with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 item 12a'):
-            build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG, device='meta')
+    cfg = t_config.cfg_from_yaml_file('configs/kitti_models/dsvt.yaml', t_config.CfgNode())
+    cfg.MODEL.BACKBONE_2D.NAME = 'NoSuchBackbone'
+    with pytest.raises(NotImplementedError, match='BACKBONE_2D NoSuchBackbone .*ROADMAP Queue 1'):
+        build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG, device='meta')
 
 
 def test_pdm_ssd_nuscenes_builds_and_its_dataset_reads_generated_infos(tmp_path, monkeypatch):

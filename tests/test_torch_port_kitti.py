@@ -372,7 +372,8 @@ def test_train_and_test_clis_on_the_cpu(mini, tmp_path):
     out = tmp_path / 'out'
     common = ['--cfg_file', str(cfg_file), '--batch_size', '2', '--workers', '0',
               '--device', 'cpu', '--output_dir', str(out)]
-    env = {**os.environ, 'PYTHONPATH': str(REPO)}
+    # one intra-op thread, as the in-process tests run (`torch_port_threads`)
+    env = {**os.environ, 'PYTHONPATH': str(REPO), 'OMP_NUM_THREADS': '1'}
     res = subprocess.run([sys.executable, '-m', 'pdm_ssd_torch.tools.train', *common,
                           '--epochs', '1'], cwd=REPO, env=env, capture_output=True, text=True,
                          timeout=300)

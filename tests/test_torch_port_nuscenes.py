@@ -428,7 +428,7 @@ def variant():
     pass it."""
     cfg = synthetic.multihead_variant(synthetic.tiny_nuscenes_cfg(load_nuscenes_cfg()))
     batch = synthetic.nuscenes_batch(2, 1024, 12, seed=0, velocity=True)
-    return ModelPair(cfg, B=2, N=1024, seed=0, batch=batch)
+    return ModelPair(cfg, B=2, N=1024, seed=0, batch=batch, jax_init=True)
 
 
 def test_variant_weights_round_trip_and_head_names(variant):

@@ -36,7 +36,7 @@ from pdm_ssd_tpu.models.dense_heads import anchor_head as j_ah
 from pdm_ssd_tpu.ops import sparse_maps as j_maps
 from pdm_ssd_tpu.utils.config import CfgNode as JCfgNode
 from torch_port_harness import one_torch_thread  # noqa: F401 (an autouse fixture)
-from torch_port_harness import REPO, ModelPair, to_numpy
+from torch_port_harness import REPO, ModelPair, jax_train_steps, to_numpy
 
 SECOND = 'configs/kitti_models/second_sparse.yaml'
 CLASS_NAMES = ['Car', 'Pedestrian', 'Cyclist']
@@ -517,31 +517,21 @@ def test_three_train_steps_track_jax(pair):
     batch: the loss of each step within LOSS_RTOL and every leaf of
     parameters and BatchNorm statistics within STEP_PARAM_REL_L2."""
     from pdm_ssd_torch.runtime.trainer import create_train_state, make_train_step
-    from pdm_ssd_tpu.runtime import optimization as j_opt
-    from pdm_ssd_tpu.runtime.trainer import TrainState, make_train_step as j_make_train_step
-    tx, _ = j_opt.build_optimizer_and_schedule(
-        pair.variables['params'], JCfgNode(pair.cfg.OPTIMIZATION.to_dict()), 10, 2)
-    state = TrainState(step=jnp.zeros((), jnp.int32), params=pair.variables['params'],
-                       batch_stats=pair.variables['batch_stats'],
-                       opt_state=tx.init(pair.variables['params']))
-    j_step = j_make_train_step(pair.jax_model, tx)
+    j_losses, j_params, j_stats = jax_train_steps(pair, 3)
     net = pair.net
     net.load_state_dict(from_flax(pair.variables, net))
     optimizer, _ = create_train_state(net, pair.cfg.OPTIMIZATION, 10, 2)
     t_step = make_train_step(net, optimizer)
-    j_batch = {k: jnp.asarray(v) for k, v in pair.batch.items()}
     try:
-        for _ in range(3):
-            state, j_metrics = j_step(state, j_batch)
+        for j_loss in j_losses:
             t_metrics = t_step(pair.torch_inputs())
-            np.testing.assert_allclose(float(t_metrics['loss']), float(j_metrics['loss']),
-                                       rtol=LOSS_RTOL)
+            np.testing.assert_allclose(float(t_metrics['loss']), j_loss, rtol=LOSS_RTOL)
         got = to_flax(net)
     finally:
         net.load_state_dict(from_flax(pair.variables, net))
         net.eval()
-    for kind, tree in (('params', state.params), ('batch_stats', state.batch_stats)):
-        want = dict(_leaves(jax.tree_util.tree_map(np.asarray, tree)))
+    for kind, tree in (('params', j_params), ('batch_stats', j_stats)):
+        want = dict(_leaves(tree))
         for k, g in _leaves(got[kind]):
             rel = rel_l2(g, want[k])
             assert rel <= STEP_PARAM_REL_L2, f'{kind}/{k}: relative L2 {rel:.3e}'

@@ -34,8 +34,8 @@ from pdm_ssd_torch.utils import synthetic
 from pdm_ssd_torch.utils.config import CfgNode as TCfgNode
 from pdm_ssd_torch.utils.weights import from_flax, to_flax
 from torch_port_harness import one_torch_thread  # noqa: F401 (an autouse fixture)
-from torch_port_harness import (FlagshipPair, jax_bf16_extraction, randomize_variables, rel_l2,
-                                to_torch)
+from torch_port_harness import (FlagshipPair, jax_bf16_extraction, jax_train_steps,
+                                randomize_variables, rel_l2, to_torch)
 
 # the same float32 arithmetic on the same inputs; sums and transcendentals
 # may round differently in the two libraries
@@ -242,7 +242,7 @@ def test_assign_center_targets_matches_jax():
     valid[:, 5] = False
     kw = dict(num_classes=3, feature_map_size=size, feature_map_stride=stride,
               voxel_size=voxel, point_cloud_range=pcr, gaussian_overlap=0.1, min_radius=2)
-    want = jax.vmap(lambda g, m: j_cn.assign_center_targets(g, m, num_max_objs=M, **kw))(
+    want = jax.jit(jax.vmap(lambda g, m: j_cn.assign_center_targets(g, m, num_max_objs=M, **kw)))(
         jnp.asarray(gt), jnp.asarray(valid))
     got = t_cn.assign_center_targets(torch.from_numpy(gt), torch.from_numpy(valid), **kw)
     names = ('heatmap', 'target_boxes', 'inds', 'mask', 'target_boxes_src')
@@ -354,8 +354,13 @@ def test_point_head_targets_and_loss_match_jax(pair, jax_train_out):
     keys = ('point_coords', 'gt_boxes', 'gt_mask', 'point_cls_preds', 'point_box_preds')
     j_batch = {k: jnp.asarray(out[k]) for k in keys}
     j_head = JPointHeadBox(model_cfg=pair.cfg.MODEL.POINT_HEAD, input_channels=1, num_class=3)
-    j_targets = j_head.assign_targets(j_batch)
-    j_loss, j_tb = j_head.get_loss(j_batch, j_targets)
+
+    @jax.jit
+    def j_targets_and_loss(b):
+        targets = j_head.assign_targets(b)
+        return targets, j_head.get_loss(b, targets)
+
+    j_targets, (j_loss, j_tb) = j_targets_and_loss(j_batch)
     t_batch = {k: torch.from_numpy(out[k]) for k in keys}
     head = pair.net.point_head
     targets = head.assign_targets(t_batch)
@@ -409,10 +414,12 @@ def test_center_head_targets_and_loss_match_jax(pair, jax_train_out):
                          point_cloud_range=tuple(pair.cfg.DATA_CONFIG.POINT_CLOUD_RANGE),
                          voxel_size=tuple(neck.VOXEL_SIZE[:2]),
                          class_names=tuple(pair.cfg.CLASS_NAMES))
-    j_targets = j_head.assign_targets(jnp.asarray(out['gt_boxes']), jnp.asarray(out['gt_mask']),
-                                      (H, W))
-    j_loss, j_tb = j_head.get_loss(
-        {'center_head_preds': [{k: jnp.asarray(v) for k, v in preds.items()}]}, j_targets)
+    @jax.jit
+    def j_targets_and_loss(gt_boxes, gt_mask, maps):
+        targets = j_head.assign_targets(gt_boxes, gt_mask, (H, W))
+        return targets, j_head.get_loss({'center_head_preds': [maps]}, targets)
+
+    j_targets, (j_loss, j_tb) = j_targets_and_loss(out['gt_boxes'], out['gt_mask'], preds)
     head = pair.net.dense_head
     targets = head.assign_targets(torch.from_numpy(out['gt_boxes']),
                                   torch.from_numpy(out['gt_mask']), (H, W))
@@ -694,25 +701,16 @@ def test_three_train_steps_track_jax(pair):
     rounding of the JAX grouping gradient moves some weights apart by a
     fraction of the rate per step. Measured: the losses agree to 4e-6, 4e-5
     and 6.3e-3 relative at steps 1, 2 and 3; the bound is 3e-2."""
-    from pdm_ssd_tpu.runtime.trainer import TrainState, make_train_step as j_make_train_step
-    opt_cfg = JCfgNode(pair.cfg.OPTIMIZATION)
-    tx, _ = j_opt.build_optimizer_and_schedule(pair.variables['params'], opt_cfg, 10, 2)
-    state = TrainState(step=jnp.zeros((), jnp.int32), params=pair.variables['params'],
-                       batch_stats=pair.variables['batch_stats'],
-                       opt_state=tx.init(pair.variables['params']))
-    j_step = j_make_train_step(pair.jax_model, tx)
-    j_batch = {k: jnp.asarray(v) for k, v in pair.batch.items()}
+    j_losses_, _, _ = jax_train_steps(pair, 3)
     net = pair.net
     net.load_state_dict(from_flax(pair.variables, net))
     optimizer, _ = create_train_state(net, TCfgNode(pair.cfg.OPTIMIZATION.to_dict()), 10, 2)
     t_step = make_train_step(net, optimizer)
-    j_losses_, t_losses_ = [], []
+    t_losses_ = []
     for _ in range(3):
-        state, j_metrics = j_step(state, j_batch)
         with jax_bf16_extraction():
             t_metrics = t_step(pair.torch_batch())
-        assert set(t_metrics) == set(j_metrics)
-        j_losses_.append(float(j_metrics['loss']))
+        assert set(t_metrics) == set(pair.jax_loss_and_grads()[1])
         t_losses_.append(float(t_metrics['loss']))
     net.load_state_dict(from_flax(pair.variables, net))
     net.eval()
@@ -720,7 +718,7 @@ def test_three_train_steps_track_jax(pair):
     np.testing.assert_allclose(t_losses_, j_losses_, rtol=3e-2)
     np.testing.assert_allclose(t_losses_[0], j_losses_[0], rtol=EMULATED_RTOL)
     assert t_losses_[-1] < t_losses_[0] and j_losses_[-1] < j_losses_[0]
-    assert optimizer.count == 3 and int(state.step) == 3
+    assert optimizer.count == 3
 
 
 # ---- synthetic batch, dry run, device rule -------------------------------------
