@@ -276,14 +276,38 @@ non-zero exit):
    and TransFusion's host LAP a step;
 58. phases 16 and 17 with both files at B=8: the eval loop over the val
    split and the 2-epoch train loop over the first 16 train frames, with
-   resume and bit-equal reload, no launch.
+   resume and bit-equal reload, no launch;
+59. the tiny `mppnet_mini.yaml` (`synthetic.tiny_mppnet_cfg`) on CUDA
+   against the CPU on two clouds of a generated mini-Waymo set: the
+   forward on the offline proposals and, the proposals matched by box and
+   then replayed, on the first stage's NMS proposals; three streamed steps
+   of `predict_with_state`, the memory bank equal after each; the losses
+   and gradients; the crops' row gathers counted;
+60. `mppnet_16frame.yaml` at full width (B=2, 16 frames of 16384 points,
+   96 proposals, 64 proxies, 128 points a crop, d=256, the voxel step its
+   data path lacks: `synthetic.waymo_voxel_step`), its batches from a
+   generated 20-frame Waymo set through `WaymoDataset` and `collate_batch`,
+   the anchor bias at 0: `predict` as shipped (NMS proposals) with its
+   stages synchronized one by one (`StageTimer`), `predict` on the offline
+   proposals, and `predict_with_state` streamed over 17 frames of each
+   cloud: frames/s, device time, busy share, GFLOP, peak memory, one
+   `gather_rows` launch a frame and a step;
+61. five training steps of it, with a profiled sixth and seventh: ms a step,
+   GFLOP, device time, busy share, peak memory, `gather_rows` twice a frame
+   (the crops and their recomputation in the backward) and no
+   `scatter_add_rows` (the crops read the input frames, which take no
+   gradient);
+62. `mppnet_mini.yaml` on a fresh set from `tools.make_mini_waymo`: two
+   epochs of `train_model`, then `eval_one_epoch` of the trained checkpoint
+   with Waymo AP and APH at both levels.
 
-The elapsed time is printed after phases 18, 40, 50, 54 and 58. The line
-before the last is the card's name and power limit; before it, one JSON line
-describing each kernel, with the launches of each path of phases 20 to 58
-(`launches_<path>`, `launches_nuscenes_{predict,train,eval_loop,train_loop}`
-and `launches_{dsvt,transfusion}_{predict,train,eval_loop,train_loop}` among
-them) and the sums of phase 42 (`two_stage_*`). The last line is
+The elapsed time is printed after phases 18, 40, 50, 54, 58 and 62. The
+line before the last is the card's name and power limit; before it, one JSON
+line describing each kernel, with the launches of each path of phases 20 to
+62 (`launches_<path>`, `launches_nuscenes_{predict,train,eval_loop,train_loop}`,
+`launches_{dsvt,transfusion}_{predict,train,eval_loop,train_loop}` and
+`launches_mppnet_{predict,predbox_predict,stream,train,eval_loop,train_loop}`
+among them) and the sums of phase 42 (`two_stage_*`). The last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -2491,7 +2515,12 @@ def family_batch(name: str, cfg, synthetic, B: int, N: int, seed: int, device,
 # softmax cancels: its gradient is 0 in exact arithmetic, rounding alone on
 # either device (2e-9 against 660 for the largest on the tiny DSVT, the CPU)
 NULL_GRAD_RTOL = 1e-6
-NULL_GRADS = ('attn.key.bias',)
+# the same holds for a bias that reaches a BatchNorm in training through
+# linear maps only, which the batch mean cancels: MPPNet's `up_geometry.out`
+# (into `sa_mlp`) and `cross_group`'s value and output biases (into
+# `cls_trunk`), and for `cross_group`'s key bias
+NULL_GRADS = ('attn.key.bias', 'cross_group.key.bias', 'cross_group.value.bias',
+              'cross_group.out.bias', 'up_geometry.out.bias')
 
 
 def training_cuda_vs_cpu(phase: str, name: str, nets: dict, batches: dict, grad_rtol: float,
@@ -2593,13 +2622,15 @@ def family_predict_phase(name: str, cfg, wrappers, synthetic, card: str) -> dict
 
 
 def measured_predict(phase: str, name: str, cfg, net, inputs: dict, B: int, what: str, wrappers,
-                     card: str, P: int | None = None, flops: str = 'convolutions') -> dict:
+                     card: str, P: int | None = None, flops: str = 'convolutions',
+                     expected: dict | None = None) -> dict:
     """One model's `predict` on `inputs` (a batch of B described by `what`):
-    shapes (P boxes a cloud, default NMS_POST_MAXSIZE), finite values, no
-    launch of a kernel of the port, frames/s (median of 5 after warm-up),
-    peak memory, the GFLOP of the forward's `flops` and their rate over the
-    device time, then `torch.profiler`'s device time, busy share, cuDNN's
-    FFT-route kernels and top kernels. Returns the launches."""
+    shapes (P boxes a cloud, default NMS_POST_MAXSIZE), finite values, the
+    kernels' launches `expected` (default: none of the port's), frames/s
+    (median of 5 after warm-up), peak memory, the GFLOP of the forward's
+    `flops` and their rate over the device time, then `torch.profiler`'s
+    device time, busy share, cuDNN's FFT-route kernels and top kernels.
+    Returns the launches."""
     from torch.utils.flop_counter import FlopCounterMode
     from pdm_ssd_torch.tools.profile_predict import trace
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2612,8 +2643,9 @@ def measured_predict(phase: str, name: str, cfg, net, inputs: dict, B: int, what
     launches = read_launches(wrappers)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     check_detections(phase, det, B, P or cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
-    if launches != NO_LAUNCHES:
-        raise SystemExit(f'[{phase}] FAILED {name}: kernel launches {launches}, expected none')
+    if launches != (expected or NO_LAUNCHES):
+        raise SystemExit(f'[{phase}] FAILED {name}: kernel launches {launches}, expected '
+                         f'{expected or "none"}')
     with torch.inference_mode(), FlopCounterMode(display=False) as counter:
         net(dict(inputs))
     gflop = counter.get_total_flops() / 1e9
@@ -2631,8 +2663,10 @@ def measured_predict(phase: str, name: str, cfg, net, inputs: dict, B: int, what
         prof = trace(net, inputs)
     fft = prof['fft_kernels']
     device_ms = prof['device_ms_per_predict']
+    launched = ('no kernel of the port launched' if not expected else
+                'launches ' + ', '.join(f'{k} {v}' for k, v in launches.items() if v))
     log(phase, f'{name} B={B} ({what}): shapes ok, finite, '
-        f'{int(det["pred_mask"].sum())} kept boxes, no kernel of the port launched; median '
+        f'{int(det["pred_mask"].sum())} kept boxes, {launched}; median '
         f'{med * 1e3:.3f} ms/batch = {B / med:.2f} frames/s (5 runs); device '
         f'{device_ms:.3f} ms per predict, busy {device_ms / (med * 1e3):.3f}; {flops} '
         f'{gflop:.1f} GFLOP a batch, {gflop / device_ms:.2f} TFLOP/s over the device time; '
@@ -2655,11 +2689,12 @@ def family_train_phase(name: str, cfg, wrappers, synthetic, card: str) -> dict:
 
 
 def measured_train(phase: str, name: str, cfg, net, batch: dict, what: str, wrappers,
-                   card: str) -> dict:
+                   card: str, expected: dict | None = None) -> dict:
     """Five `make_train_step` steps of a model on one batch (described by
-    `what`, 8 boxes a cloud): a finite and falling loss, parameters changed,
-    no launch of a kernel of the port, ms per step and peak memory. Returns
-    the launches."""
+    `what` and its boxes a cloud): a finite and falling loss, parameters
+    changed, the kernels' launches `expected` a step (default: none of the
+    port's), ms per step and peak memory. Returns the launches of the five
+    steps."""
     from pdm_ssd_torch.runtime.trainer import create_train_state, make_train_step
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2681,18 +2716,60 @@ def measured_train(phase: str, name: str, cfg, net, batch: dict, what: str, wrap
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
         raise SystemExit(f'[{phase}] FAILED {name}: losses {losses}')
-    if launches != NO_LAUNCHES:
-        raise SystemExit(f'[{phase}] FAILED {name}: kernel launches {launches}, expected none')
+    want = {k: v * steps for k, v in (expected or NO_LAUNCHES).items()}
+    if launches != want:
+        raise SystemExit(f'[{phase}] FAILED {name}: kernel launches {launches}, expected {want}')
     changed = sum(not torch.equal(p.detach(), before[k]) for k, p in net.named_parameters())
     if changed < 0.9 * len(before):
         raise SystemExit(f'[{phase}] FAILED {name}: {changed} of {len(before)} parameter '
                          'tensors changed')
-    log(phase, f'{name} {what}, 8 boxes per cloud, {steps} steps: losses '
+    launched = ('no kernel of the port launched' if not expected else
+                'launches ' + ', '.join(f'{k} {v}' for k, v in launches.items() if v))
+    boxes = batch['gt_mask'].sum(1).tolist()
+    boxes = f'{boxes[0]} boxes' if len(set(boxes)) == 1 else f'{boxes} boxes'
+    med = statistics.median(times)
+    log(phase, f'{name} {what}, {boxes} per cloud, {steps} steps: losses '
         + ' '.join(f'{x:.4f}' for x in losses) + f'; {changed} of {len(before)} parameter '
-        f'tensors changed; no kernel of the port launched; median '
-        f'{statistics.median(times) * 1e3:.3f} ms/step (first {times[0] * 1e3:.1f} ms); peak '
+        f'tensors changed; {launched}; median '
+        f'{med * 1e3:.3f} ms/step (first {times[0] * 1e3:.1f} ms); peak '
         f'allocated {peak:.3f} GiB on {card}')
     return launches
+
+
+def device_profile(fn) -> tuple:
+    """One call of `fn` under `FlopCounterMode`, then the wall time of a
+    second and `torch.profiler`'s device time of a third: (GFLOP, wall ms,
+    device ms)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as torch_profile
+    from torch.utils.flop_counter import FlopCounterMode
+    with FlopCounterMode(display=False) as counter:
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    device_ms = sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    return counter.get_total_flops() / 1e9, wall_ms, device_ms
+
+
+def profiled_train_step(phase: str, name: str, cfg, net, batch: dict, card: str) -> None:
+    """`device_profile` of a `make_train_step` step (forward, backward, any
+    recomputation and the update): GFLOP, device ms and busy share."""
+    from pdm_ssd_torch.runtime.trainer import create_train_state, make_train_step
+    optimizer, _ = create_train_state(net, cfg.OPTIMIZATION, total_iters_each_epoch=100,
+                                      total_epochs=1)
+    train_step = make_train_step(net, optimizer)
+    gflop, wall_ms, device_ms = device_profile(lambda: train_step(batch))
+    log(phase, f'{name}: a step {gflop:.1f} GFLOP, {wall_ms:.3f} ms, device {device_ms:.3f} ms, '
+        f'busy {device_ms / wall_ms:.3f}, {gflop / device_ms:.2f} TFLOP/s over the device '
+        f'time on {card}')
 
 
 def family_phases(wrappers, synthetic, smi: str, cfg_from_yaml_file) -> dict:
@@ -4436,6 +4513,406 @@ def query_phases(wrappers, synthetic, smi: str, cfg_from_yaml_file) -> dict:
     return paths
 
 
+# ---- MPPNet on the Waymo sequence path: phases 59 to 62 ----------------------------
+
+MPPNET_CFG = 'configs/waymo_models/mppnet_16frame.yaml'
+MPPNET_MINI_CFG = 'configs/waymo_models/mppnet_mini.yaml'
+WAYMO_DIR = REPO / 'build' / 'chip_smoke_waymo'
+# the full-width set: one sequence of 20 frames (a whole 16-frame history
+# from frame 15 on), 12000 background points and 480 object points a frame,
+# so that 16 frames hold more than the file's 163840 points a sample
+WAYMO_FRAMES = 20
+WAYMO_BG = 12000
+# the full-width batches' two clouds, the sequence's last two frames
+WAYMO_CLOUDS = (18, 19)
+# phase 61's streams: cloud b walks frames b * 3 .. b * 3 + 16, one a step
+MPPNET_STREAM_STEPS = 17
+MPPNET_PATHS = ('predict', 'predbox_predict', 'stream', 'train', 'eval_loop', 'train_loop')
+
+
+def mppnet_launches(frames: int) -> dict:
+    """The launches of one MPPNet forward over `frames` frames: one row
+    gather a frame, the crop of its points (`gather_rows`). The points take
+    no gradient, so a training step runs no scatter-add; its backward
+    recomputes each frame's crops (`layers.checkpoint_call`), twice the
+    forward's gathers."""
+    return {**NO_LAUNCHES, 'gather_rows': frames}
+
+
+def waymo_cfg(cfg_from_yaml_file, cfg_file: str = MPPNET_CFG, predbox: bool | None = None):
+    """A Waymo config; `mppnet_16frame.yaml` with `synthetic.waymo_voxel_step`
+    (its data path has no voxel step, ROADMAP Queue 3); with `predbox`,
+    USE_PREDBOX set so."""
+    from pdm_ssd_torch.utils import synthetic
+    cfg = cfg_from_yaml_file(str(REPO / cfg_file))
+    synthetic.waymo_voxel_step(cfg)
+    if predbox is not None:
+        cfg.DATA_CONFIG.USE_PREDBOX = predbox
+    return cfg
+
+
+class StageTimer:
+    """While active, times MPPNet's stages in each `predict` of `net`, the
+    device synchronized around each: the first stage, the proposals (the
+    NMS, or the offline proposals), each frame's crops (`pool_roi_points`
+    and the point gather), its point features and its aggregation onto the
+    proxies (`aggregate`), and the final NMS (`post_process`); the rest
+    (the motion features, the trajectory branch, the transformer) is the
+    whole predict less these. `report(total_ms, n)` sums them a predict."""
+
+    def __init__(self, net):
+        from pdm_ssd_torch.models.roi_heads import mppnet_head
+        from pdm_ssd_torch.ops import dispatch
+        self.net, self.module, self.dispatch = net, mppnet_head, dispatch
+        self.ms = {k: 0.0 for k in ('stage 1', 'proposals', 'crops', 'frame features',
+                                    'aggregation', 'final NMS')}
+
+    def timed(self, fn, key):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.ms[key] += (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    def __enter__(self):
+        head = self.net.roi_head
+        self.saved = (self.module.pool_roi_points, self.dispatch.grouping_operation)
+        self.module.pool_roi_points = self.timed(self.saved[0], 'crops')
+        self.dispatch.grouping_operation = self.timed(self.saved[1], 'crops')
+        self.net.first_stage = self.timed(self.net.first_stage, 'stage 1')
+        self.net.post_process = self.timed(self.net.post_process, 'final NMS')
+        head.proposal_layer = self.timed(head.proposal_layer, 'proposals')
+        head.aggregate = self.timed(head.aggregate, 'aggregation')
+        head.frame_geometry = self.timed(head.frame_geometry, 'frame features')
+        return self
+
+    def __exit__(self, *exc):
+        self.module.pool_roi_points, self.dispatch.grouping_operation = self.saved
+        for obj, name in ((self.net, 'first_stage'), (self.net, 'post_process'),
+                          (self.net.roi_head, 'proposal_layer'), (self.net.roi_head, 'aggregate'),
+                          (self.net.roi_head, 'frame_geometry')):
+            delattr(obj, name)
+
+    def report(self, total_ms: float, n: int) -> str:
+        ms = {k: v / n for k, v in self.ms.items()}
+        ms['frame features'] -= ms['crops'] + ms['aggregation']     # frame_geometry holds both
+        ms['motion, trajectory branch, transformer'] = total_ms - sum(ms.values())
+        return ', '.join(f'{k} {v:.3f}' for k, v in ms.items()) + f' ms of {total_ms:.3f} ms'
+
+
+def mppnet_cuda_vs_cpu_phase(synthetic, cfg_from_yaml_file) -> None:
+    """Phase 59: the tiny `mppnet_mini.yaml` (`synthetic.tiny_mppnet_cfg`)
+    on CUDA (the row gather's kernel) against the CPU (its plain version) on
+    two clouds of a generated mini-Waymo set, one set of seeded weights:
+    the forward on the offline proposals within FWD_RTOL of scale, the
+    trajectories' validity equal; on the first stage's NMS proposals, the
+    proposals matched by box (`match_rois`), then the CUDA run given the
+    CPU's (`ProposalReplay`) within FWD_RTOL; three streamed steps of
+    `predict_with_state` with the proposals' slots permuted a step, the bank
+    after each (boxes and validity equal, features within FWD_RTOL) and the
+    detections matched by box and label; the training loss within LOSS_RTOL
+    and every gradient within GRAD_RTOL relative L2 (cosine GRAD_COSINE)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from pdm_ssd_torch.ops import group
+    phase = '59 mppnet cuda-vs-cpu'
+    tiny = synthetic.tiny_mppnet_cfg(cfg_from_yaml_file(str(REPO / MPPNET_MINI_CFG)))
+    ds = synthetic.waymo_set(tiny, WAYMO_DIR / 'tiny', 8, n_bg=1200)
+    np.random.seed(0)
+    ins = {'cpu': synthetic.waymo_batch(ds, (5, 7), 'cpu')}
+    ins['cuda'] = {k: v.cuda() for k, v in ins['cpu'].items()}
+    nets = {dev: synthetic.random_model(tiny, dev) for dev in ('cpu', 'cuda')}
+    worst = [0.0]
+
+    def close(want: dict, got: dict, what: str) -> None:
+        for k, w in want.items():
+            g = got[k].cpu()
+            if not w.dtype.is_floating_point:
+                if not torch.equal(g, w):
+                    raise SystemExit(f'[{phase}] FAILED {what} {k}: differs on CUDA')
+                continue
+            rel = float((g - w).abs().max()) / max(float(w.abs().max()), 1e-6)
+            worst[0] = max(worst[0], rel)
+            if not rel <= FWD_RTOL:
+                raise SystemExit(f'[{phase}] FAILED {what} {k}: max |diff| / max |cpu| = '
+                                 f'{rel:.3e}')
+
+    launches = group.gather_rows_cuda.launches
+    with torch.inference_mode():
+        want, got = (flatten(nets[dev](dict(ins[dev]))) for dev in ('cpu', 'cuda'))
+    if group.gather_rows_cuda.launches - launches != 4:
+        raise SystemExit(f'[{phase}] FAILED: {group.gather_rows_cuda.launches - launches} '
+                         'row-gather launches for 4 frames')
+    close(want, got, 'offline proposals')
+    n_match = int(want['trajectory_valid'][:, 1:].sum())
+
+    nms_in = {dev: {k: v for k, v in b.items() if not k.startswith('roi_')}
+              for dev, b in ins.items()}
+    with torch.inference_mode():
+        first = {dev: nets[dev](dict(nms_in[dev])) for dev in ('cpu', 'cuda')}
+    _, _, roi_note = match_rois({k: first['cuda'][k].cpu() for k in ROI_KEYS[:4]},
+                                {k: first['cpu'][k] for k in ROI_KEYS[:4]}, phase)
+    with ProposalReplay(nets['cpu'], nets['cuda']), torch.inference_mode():
+        want, got = (flatten(nets[dev](dict(nms_in[dev]))) for dev in ('cpu', 'cuda'))
+    close(want, got, 'NMS proposals')
+
+    R = tiny.DATA_CONFIG.SEQUENCE_CONFIG.MAX_PRED_BOXES
+    mems = {dev: nets[dev].init_memory(2, R) for dev in ('cpu', 'cuda')}
+    rng = np.random.RandomState(3)
+    notes = []
+    for s in range(3):
+        np.random.seed(10 + s)
+        step = synthetic.waymo_batch(ds, (5, 7), 'cpu')
+        step.pop('points_multi_frame')
+        perm = torch.from_numpy(rng.permutation(R))
+        for k in ('roi_boxes', 'roi_scores', 'roi_labels'):
+            step[k] = step[k][:, :, perm]
+        dets = {}
+        for dev in ('cpu', 'cuda'):
+            dets[dev], mems[dev] = nets[dev].predict_with_state(
+                {**{k: v.to(dev) for k, v in step.items()}, 'mppnet_memory': mems[dev]})
+        close({k: mems['cpu'][k] for k in ('rois', 'valid')},
+              {k: mems['cuda'][k] for k in ('rois', 'valid')}, f'bank step {s}')
+        if not torch.equal(mems['cuda']['rois'].cpu(), mems['cpu']['rois']):
+            raise SystemExit(f'[{phase}] FAILED: the bank\'s boxes after step {s} differ')
+        close({'feat': mems['cpu']['feat']}, {'feat': mems['cuda']['feat']}, f'bank step {s}')
+        notes.append(match_detections({k: v.cpu() for k, v in dets['cuda'].items()},
+                                      dets['cpu'], phase))
+
+    R_train = tiny.MODEL.ROI_HEAD.NMS_CONFIG.TRAIN.NMS_POST_MAXSIZE
+    draw = roi_draw(2, R_train, 9)
+    batches = {dev: {**ins[dev], 'roi_target_rand': draw.to(dev)} for dev in ('cpu', 'cuda')}
+    c_tb, g_tb, worst_g, worst_k, n = training_cuda_vs_cpu(phase, 'mppnet', nets, batches,
+                                                           GRAD_RTOL, GRAD_COSINE)
+    log(phase, f'tiny mppnet_mini B=2 T=4: forward on offline proposals ({n_match} of '
+        f'{int(want["roi_mask"].sum()) * 3} past frames matched) and on NMS proposals'
+        f'{roi_note}, then replayed: worst max|diff|/max|cpu| = {worst[0]:.3e} (bound '
+        f'{FWD_RTOL:g}), 4 row-gather launches a forward; 3 streamed steps, the bank equal '
+        f'after each, detections: {"; ".join(notes)}; loss {g_tb["loss"]:.6f} on CUDA vs '
+        f'{c_tb["loss"]:.6f} on the CPU, {len(c_tb)} terms; {n} gradients agree, worst '
+        f'relative L2 {worst_g:.3e} at {worst_k} (bound {GRAD_RTOL:g})')
+
+
+def mppnet_full_phases(wrappers, synthetic, card: str, cfg_from_yaml_file) -> dict:
+    """Phases 60 and 61: `mppnet_16frame.yaml` at full width, B=2 (its
+    BATCH_SIZE_PER_GPU): T=16 frames of 16384 points, 96 proposals, 64
+    proxies, 128 points a crop, d=256, 3 encoder layers of 4 heads, batches
+    from the generated set through `WaymoDataset.__getitem__` and
+    `collate_batch`, the anchor bias at 0. 60: `predict` as shipped (the
+    first stage's NMS proposals, PRE 512 POST 96; static trajectories), its
+    stages (`StageTimer`), then on the offline proposals (USE_PREDBOX), then
+    `predict_with_state` streamed over MPPNET_STREAM_STEPS frames of each
+    cloud, its last step profiled (`device_profile`); the row gather at the
+    crops' shape against its plain version (`mppnet_crop_check`). 61: five
+    training steps (as shipped), then a profiled one
+    (`profiled_train_step`). Returns the launches of each path
+    and the crop gather's times."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = WAYMO_DIR / 'full'
+    cfg = waymo_cfg(cfg_from_yaml_file)
+    T = cfg.MODEL.ROI_HEAD.NUM_FRAMES
+    B = cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
+    t0 = time.perf_counter()
+    ds = synthetic.waymo_set(cfg, root, WAYMO_FRAMES, n_bg=WAYMO_BG)
+    np.random.seed(0)
+    inputs = synthetic.waymo_batch(ds, WAYMO_CLOUDS, 'cuda')
+    host_s = time.perf_counter() - t0
+    filled = inputs['voxel_mask'].sum(1).tolist()
+    what = (f'T={T}, {tuple(inputs["points_multi_frame"].shape)} frame stack, '
+            f'{tuple(inputs["points"].shape)} points, {filled} of {inputs["voxel_mask"].shape[1]} '
+            f'voxel slots; the set made and the batch loaded in {host_s:.1f} s')
+    net = synthetic.open_score_gate(synthetic.random_model(cfg, 'cuda', seed=7))
+    paths = {'mppnet_predict': measured_predict(
+        '60 mppnet predict', 'mppnet_16frame.yaml as shipped', cfg, net, inputs, B, what,
+        wrappers, card, flops='convolutions and matrix products', expected=mppnet_launches(T))}
+    with StageTimer(net) as st:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(3):
+            net.predict(inputs)
+        torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3 / 3
+    log('60 mppnet predict', f'stages of a predict, each synchronized: {st.report(total, 3)}')
+    crop = mppnet_crop_check(net, inputs, T)
+
+    pcfg = waymo_cfg(cfg_from_yaml_file, predbox=True)
+    pds = synthetic.waymo_set(pcfg, root, WAYMO_FRAMES)
+    np.random.seed(0)
+    pin = synthetic.waymo_batch(pds, WAYMO_CLOUDS, 'cuda')
+    paths['mppnet_predbox_predict'] = measured_predict(
+        '60 mppnet predict', 'mppnet_16frame.yaml on offline proposals (USE_PREDBOX)', pcfg, net,
+        pin, B, f'{int(pin["roi_boxes"][:, 0, :, 3].gt(0).sum())} offline proposals', wrappers,
+        card, flops='convolutions and matrix products', expected=mppnet_launches(T))
+    del pin
+
+    R = cfg.MODEL.ROI_HEAD.NMS_CONFIG.TEST.NMS_POST_MAXSIZE
+    mem = net.init_memory(B, R)
+    times, kept, valid = [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(wrappers)
+    for s in range(MPPNET_STREAM_STEPS):
+        np.random.seed(s)
+        step = synthetic.waymo_batch(ds, [b * 3 + s for b in range(B)], 'cuda')
+        step.pop('points_multi_frame')
+        t0 = time.perf_counter()
+        det, mem = net.predict_with_state({**step, 'mppnet_memory': mem})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        check_detections('60 mppnet predict', det, B,
+                         cfg.MODEL.POST_PROCESSING.NMS_CONFIG.NMS_POST_MAXSIZE)
+        kept.append(int(det['pred_mask'].sum()))
+        valid.append(int(mem['valid'].sum()))
+    launches = read_launches(wrappers)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if launches != {k: v * MPPNET_STREAM_STEPS for k, v in mppnet_launches(1).items()}:
+        raise SystemExit(f'[60 mppnet predict] FAILED stream: launches {launches}')
+    if not bool(torch.isfinite(mem['feat']).all()) or mem['feat'].shape != (B, T - 1, R, 64, 256):
+        raise SystemExit('[60 mppnet predict] FAILED stream: the bank\'s features '
+                         f'{tuple(mem["feat"].shape)}, finite {bool(torch.isfinite(mem["feat"]).all())}')
+    med = statistics.median(times[1:])
+    paths['mppnet_stream'] = launches
+    gflop, wall_ms, device_ms = device_profile(
+        lambda: net.predict_with_state({**step, 'mppnet_memory': mem}))
+    log('60 mppnet predict', f'predict_with_state streamed over {MPPNET_STREAM_STEPS} frames of '
+        f'{B} clouds (NMS proposals, the bank of {T - 1} past frames): median {med * 1e3:.3f} '
+        f'ms/step = {B / med:.2f} frames/s (first {times[0] * 1e3:.1f} ms); kept boxes a step '
+        f'{kept}; valid bank slots a step {valid}; peak allocated {peak:.3f} GiB; launches '
+        f'{launches["gather_rows"]} row gathers, 1 a step; the last step again: '
+        f'{gflop:.1f} GFLOP, {wall_ms:.3f} ms, device {device_ms:.3f} ms, busy '
+        f'{device_ms / wall_ms:.3f} on {card}')
+    del net, inputs, mem
+    torch.cuda.empty_cache()
+
+    # the training split keeps every fifth frame (SAMPLED_INTERVAL): its last two
+    tds = synthetic.waymo_set(cfg, root, WAYMO_FRAMES, training=True)
+    np.random.seed(1)
+    batch = synthetic.waymo_batch(tds, (len(tds) - 2, len(tds) - 1), 'cuda')
+    net = synthetic.random_model(cfg, seed=7)           # no device named: the card
+    train_launches = {**mppnet_launches(2 * T)}
+    paths['mppnet_train'] = measured_train(
+        '61 mppnet train', 'mppnet_16frame.yaml as shipped', cfg, net, batch,
+        f'B={B} T={T}', wrappers, card, expected=train_launches)
+    profiled_train_step('61 mppnet train', 'mppnet_16frame.yaml as shipped', cfg, net, batch,
+                        card)
+    del net, batch
+    torch.cuda.empty_cache()
+    return paths, crop
+
+
+def mppnet_crop_check(net, inputs: dict, T: int) -> dict:
+    """The crops of one full-width predict recorded (each frame's table and
+    indices): every frame's row gather equal to its plain version, and
+    frame 0's timed against it, torch.gather and the bound (`gather_check`).
+    Returns frame 0's times."""
+    from pdm_ssd_torch.ops import group, sa_fused
+    phase = '60 mppnet predict'
+    rec = _GatherRecorder(sa_fused.GatherRows)
+    sa_fused.GatherRows = rec
+    try:
+        with torch.inference_mode():
+            net.predict(inputs)
+    finally:
+        sa_fused.GatherRows = rec.original
+    if len(rec.calls) != T:
+        raise SystemExit(f'[{phase}] FAILED: {len(rec.calls)} crops recorded for {T} frames')
+    crop = gather_check(phase, 'mppnet crop, frame 0', group, *rec.calls[0])
+    for t, (table, idx) in enumerate(rec.calls[1:], 1):
+        idx = idx.to(torch.int32).contiguous()
+        if not torch.equal(group.gather_rows_cuda(table, idx), group.gather_rows_plain(table, idx)):
+            raise SystemExit(f'[{phase}] FAILED mppnet crop, frame {t}: gather_rows differs '
+                             'from its plain version')
+    log(phase, f'mppnet crops of frames 1 to {T - 1}: gather_rows == plain (exact)')
+    return crop
+
+
+def waymo_loop_phases(wrappers, synthetic, card: str, cfg_from_yaml_file) -> dict:
+    """Phase 62: `mppnet_mini.yaml` on a fresh mini-Waymo set generated by
+    `python -m pdm_ssd_torch.tools.make_mini_waymo` (8 frames): two epochs of
+    `train_model` at its BATCH_SIZE_PER_GPU with a checkpoint each epoch,
+    then `eval_one_epoch` of the trained checkpoint with Waymo AP and APH at
+    both levels. Returns the launches of each loop."""
+    from pdm_ssd_torch.datasets import build_dataloader
+    from pdm_ssd_torch.runtime import trainer
+    from pdm_ssd_torch.runtime.eval_utils import eval_one_epoch
+    from pdm_ssd_torch.tools import make_mini_waymo
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    root = WAYMO_DIR / 'mini'
+    make_mini_waymo.main(['--root', str(root)])
+    cfg = cfg_from_yaml_file(str(REPO / MPPNET_MINI_CFG))
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    cfg.DATA_CONFIG.ROI_BOXES_PATH = {'train': str(root / 'pred_boxes.pkl'),
+                                      'test': str(root / 'pred_boxes.pkl')}
+    T = cfg.MODEL.ROI_HEAD.NUM_FRAMES
+    B, epochs = cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU, 2
+    ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, B, workers=0,
+                                     training=True, seed=0)
+    net = synthetic.random_model(cfg, 'cuda', seed=7)
+    optimizer, sched = trainer.create_train_state(net, cfg.OPTIMIZATION, len(loader), epochs)
+    np.random.seed(0)
+    torch.manual_seed(0)
+    torch.cuda.synchronize()
+    reset_launches(wrappers)
+    t0 = time.perf_counter()
+    steps = StepLog()
+    losses = trainer.train_model(net, optimizer, sched, loader, epochs, ckpt_dir=root / 'ckpt',
+                                 max_ckpt_save_num=1, logger=steps, log_interval=1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches(wrappers)
+    want = {k: v * epochs * len(loader) for k, v in mppnet_launches(2 * T).items()}
+    names = [c.name for c in trainer.list_checkpoints(root / 'ckpt')]
+    if not all(np.isfinite(losses)) or names != [f'checkpoint_epoch_{epochs}.pth'] \
+            or launches != want:
+        raise SystemExit(f'[62 mppnet loops] FAILED train loop: losses {losses}, checkpoints '
+                         f'{names}, launches {launches} (want {want})')
+    paths = {'mppnet_train_loop': launches}
+    log('62 mppnet loops', f'mppnet_mini.yaml train loop, B={B} over {len(ds)} frames, {epochs} '
+        f'epochs of {len(loader)} steps: mean losses {" ".join(f"{x:.4f}" for x in losses)}; '
+        f'{seconds:.1f} s with loading; checkpoints left {names}; launches '
+        f'{launches["gather_rows"]} row gathers ({2 * T} a step) on {card}')
+    log('62 mppnet loops', steps.summary(len(loader)))
+
+    trained = synthetic.random_model(cfg, 'cuda', seed=13)
+    trainer.load_checkpoint(root / 'ckpt' / names[-1], trained)
+    vds, vloader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, B, workers=0,
+                                       training=False)
+    np.random.seed(0)
+    reset_launches(wrappers)
+    ret = eval_one_epoch(trained, vloader, vds, cfg.CLASS_NAMES, device='cuda',
+                         result_dir=root / 'eval')
+    launches = read_launches(wrappers)
+    want = {k: v * len(vloader) for k, v in mppnet_launches(T).items()}
+    keys = [f'{c}_L{lv}_{m}' for c in cfg.CLASS_NAMES for lv in (1, 2) for m in ('AP', 'APH')]
+    if launches != want or not all(np.isfinite(ret[k]) and 0 <= ret[k] <= 1 + 1e-9
+                                   for k in keys):
+        raise SystemExit(f'[62 mppnet loops] FAILED eval loop: launches {launches} (want {want}), '
+                         f'metrics {ret}')
+    paths['mppnet_eval_loop'] = launches
+    annos = pickle.loads((root / 'eval' / 'result.pkl').read_bytes())
+    log('62 mppnet loops', f'mppnet_mini.yaml eval loop of the trained checkpoint, B={B} over '
+        f'{len(vds)} frames: {sum(len(a["name"]) for a in annos)} detections; '
+        + ', '.join(f'{k} {ret[k]:.4f}' for k in keys) + f'; recall@0.7 '
+        f'{ret["recall/rcnn_0.7"]:.4f}; predict alone {ret["infer_fps"]:.2f} frames/s, the loop '
+        f'{ret["loop_fps"]:.2f} frames/s; launches {launches["gather_rows"]} row gathers ({T} a '
+        f'batch) on {card}')
+    return paths
+
+
+def waymo_phases(wrappers, synthetic, smi: str, cfg_from_yaml_file) -> dict:
+    """Phases 59 to 62. Returns the kernel launches of each path, by name,
+    and the times of the row gather at MPPNet's crops."""
+    mppnet_cuda_vs_cpu_phase(synthetic, cfg_from_yaml_file)
+    paths, crop = mppnet_full_phases(wrappers, synthetic, smi, cfg_from_yaml_file)
+    paths.update(waymo_loop_phases(wrappers, synthetic, smi, cfg_from_yaml_file))
+    return paths, crop
+
+
 KERNEL_TABLE = (
     ('farthest_point_sample', 'pdm_ssd_torch/csrc/fps.cu', 'pdm_ssd_tpu/ops/pallas/fps.py:60'),
     ('window_select', 'pdm_ssd_torch/csrc/group.cu',
@@ -4617,6 +5094,18 @@ def main() -> None:
         raise SystemExit(f'[kernels] FAILED: no count for {missing}')
     log('time', f'{time.perf_counter() - T0:.1f} s since the start, after phase 58')
 
+    # MPPNet on the Waymo sequence path: the trajectory-transformer head, its
+    # memory bank and the Waymo loops
+    more, crop = waymo_phases(wrappers, synthetic, smi, cfg_from_yaml_file)
+    if set(more) & set(new_paths):
+        raise SystemExit(f'[kernels] FAILED: path names used twice: {set(more) & set(new_paths)}')
+    new_paths.update(more)
+    stats['gather_rows'].update({f'mppnet_crop_{k}': v for k, v in crop.items()})
+    missing = [f'launches_mppnet_{p}' for p in MPPNET_PATHS if f'mppnet_{p}' not in new_paths]
+    if missing:
+        raise SystemExit(f'[kernels] FAILED: no count for {missing}')
+    log('time', f'{time.perf_counter() - T0:.1f} s since the start, after phase 62')
+
     # `launches` is the count from the run of a main path: the flagship's five
     # training steps of phase 8 for its four kernels, PointRCNN's predict of
     # phase 11 for the ball query, SECOND's predict of phase 15 for the sparse
@@ -4651,7 +5140,11 @@ def main() -> None:
     # `max_abs_err` is kernel against plain version; the
     # `launches_nuscenes*` counts of phases 52 to 54 and the
     # `launches_{dsvt,transfusion}_*` counts of phases 56 to 58 are 0 for
-    # every kernel
+    # every kernel; the `launches_mppnet_*` counts of phases 60 to 62 are
+    # MPPNet's crops, `gather_rows` alone: one a frame of a forward, twice
+    # that a training step; the row gather's `mppnet_crop_*` keys are its
+    # times and bound at one frame's crops of phase 60 (B=2, N=16384, C=6,
+    # R=96 * 128)
     main_path = {kern: train_launches for kern, _, _ in KERNEL_TABLE}
     main_path.update(ball_query=rcnn_launches, sparse_conv=second_launches,
                      gather_rows_bf16=second_launches,

@@ -1,5 +1,5 @@
 """Dataset registry and `build_dataloader` (counterpart of
-`pdm_ssd_tpu/datasets/__init__.py`, KITTI and nuScenes).
+`pdm_ssd_tpu/datasets/__init__.py`, KITTI, nuScenes and Waymo).
 
 The host-side loader is torch's CPU DataLoader, for worker-process
 prefetching; batches are plain numpy dicts that the loops move to the device.
@@ -16,15 +16,16 @@ import torch.utils.data as torch_data
 from .dataset import DatasetTemplate
 from .kitti.kitti_dataset import KittiDataset
 from .nuscenes.nuscenes_dataset import NuScenesDataset
+from .waymo.waymo_dataset import WaymoDataset
 
 __all__ = {
     'DatasetTemplate': DatasetTemplate,
     'KittiDataset': KittiDataset,
     'NuScenesDataset': NuScenesDataset,
+    'WaymoDataset': WaymoDataset,
 }
 
-_UNPORTED = ('CustomDataset', 'WaymoDataset', 'ONCEDataset', 'LyftDataset', 'PandasetDataset',
-             'Argo2Dataset')
+_UNPORTED = ('CustomDataset', 'ONCEDataset', 'LyftDataset', 'PandasetDataset', 'Argo2Dataset')
 
 
 def _worker_init_fn(worker_id, seed=None):

@@ -3,7 +3,10 @@ part of `pdm_ssd_tpu/datasets/augmentor/data_augmentor.py`.
 
 gt_sampling and the world flip / rotation / scaling / translation, with
 DISABLE_AUG_LIST, the `disable_augmentation` hook and the heading normalized
-to [-pi, pi) at the end (reference `data_augmentor.py:290-317`). The other
+to [-pi, pi) at the end (reference `data_augmentor.py:290-317`). The world
+flip, rotation and scaling also move a sample's offline proposals
+('roi_boxes', (T, R, 9), Waymo's USE_PREDBOX path) with the ground truth,
+as the JAX package's do (its `data_augmentor.py:53-115`). The other
 augmentations of the JAX package raise `NotImplementedError`, naming the
 ROADMAP item of those a config of the repo uses.
 """
@@ -58,6 +61,23 @@ class DataAugmentor(object):
         return DataBaseSampler(root_path=self.root_path, sampler_cfg=config,
                                class_names=self.class_names, logger=self.logger)
 
+    @staticmethod
+    def _roi_boxes_flip(roi_boxes, axis):
+        """An enabled world flip of the per-frame offline proposals (T, R, 9),
+        in place; zero-padded slots stay zero except the y flip's heading,
+        -pi there, as in the JAX package."""
+        if axis == 'x':
+            roi_boxes[..., 1] = -roi_boxes[..., 1]
+            roi_boxes[..., 6] = -roi_boxes[..., 6]
+            if roi_boxes.shape[-1] > 8:
+                roi_boxes[..., 8] = -roi_boxes[..., 8]
+        else:
+            roi_boxes[..., 0] = -roi_boxes[..., 0]
+            roi_boxes[..., 6] = -(roi_boxes[..., 6] + np.pi)
+            if roi_boxes.shape[-1] > 7:
+                roi_boxes[..., 7] = -roi_boxes[..., 7]
+        return roi_boxes
+
     def random_world_flip(self, data_dict=None, config=None):
         if data_dict is None:
             return partial(self.random_world_flip, config=config)
@@ -67,6 +87,8 @@ class DataAugmentor(object):
             gt_boxes, points, enable = getattr(
                 augmentor_utils, f'random_flip_along_{cur_axis}')(gt_boxes, points)
             data_dict[f'flip_{cur_axis}'] = enable
+            if enable and 'roi_boxes' in data_dict:
+                data_dict['roi_boxes'] = self._roi_boxes_flip(data_dict['roi_boxes'], cur_axis)
         data_dict['gt_boxes'], data_dict['points'] = gt_boxes, points
         return data_dict
 
@@ -78,6 +100,16 @@ class DataAugmentor(object):
             rot_range = [-rot_range, rot_range]
         gt_boxes, points, noise_rot = augmentor_utils.global_rotation(
             data_dict['gt_boxes'], data_dict['points'], rot_range=rot_range)
+        if 'roi_boxes' in data_dict:
+            # centers, headings and velocities by the same angle
+            rb = data_dict['roi_boxes']
+            flat = rb.reshape(-1, rb.shape[-1]).copy()
+            flat[:, 0:3] = augmentor_utils.rotate_points_along_z_np(flat[:, 0:3], noise_rot)
+            flat[:, 6] += noise_rot
+            if flat.shape[-1] > 7:
+                vel = np.concatenate([flat[:, 7:9], np.zeros((len(flat), 1))], axis=1)
+                flat[:, 7:9] = augmentor_utils.rotate_points_along_z_np(vel, noise_rot)[:, 0:2]
+            data_dict['roi_boxes'] = flat.reshape(rb.shape)
         data_dict['gt_boxes'], data_dict['points'] = gt_boxes, points
         data_dict['noise_rot'] = noise_rot
         return data_dict
@@ -87,6 +119,9 @@ class DataAugmentor(object):
             return partial(self.random_world_scaling, config=config)
         gt_boxes, points, noise_scale = augmentor_utils.global_scaling(
             data_dict['gt_boxes'], data_dict['points'], config.WORLD_SCALE_RANGE)
+        if 'roi_boxes' in data_dict:
+            # the geometry and velocity columns scale; the heading does not
+            data_dict['roi_boxes'][..., [0, 1, 2, 3, 4, 5, 7, 8]] *= noise_scale
         data_dict['gt_boxes'], data_dict['points'] = gt_boxes, points
         data_dict['noise_scale'] = noise_scale
         return data_dict

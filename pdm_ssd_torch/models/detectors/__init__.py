@@ -1,5 +1,6 @@
 """Detector registry (counterpart of `pdm_ssd_tpu/models/detectors/__init__.py`)."""
 from .detector3d import Detector3D
+from .mppnet import MPPNet
 from .parta2 import PartA2Net
 from .pdm_ssd import PDMSSD
 from .point_rcnn import PointRCNN
@@ -12,10 +13,10 @@ _DETECTORS = {'PDMSSD': PDMSSD, 'PointRCNN': PointRCNN, 'SECONDNet': Detector3D,
               'PointPillar': Detector3D, 'CenterPoint': Detector3D, 'PillarNet': Detector3D,
               'VoxelNeXt': Detector3D, 'PVRCNN': PVRCNN, 'VoxelRCNN': VoxelRCNN,
               'SECONDNetIoU': SECONDNetIoU, 'PartA2Net': PartA2Net,
-              'PVRCNNPlusPlus': PVRCNNPlusPlus, 'DSVT': Detector3D, 'TransFusion': Detector3D}
+              'PVRCNNPlusPlus': PVRCNNPlusPlus, 'DSVT': Detector3D, 'TransFusion': Detector3D,
+              'MPPNet': MPPNet}
 # the detectors the port does not have yet, by the ROADMAP item that ports them
-_LATER = {'BevFusion': 'ROADMAP Queue 1 item 12, the camera and temporal models',
-          'MPPNet': 'ROADMAP Queue 1 item 12, the camera and temporal models'}
+_LATER = {'BevFusion': 'ROADMAP Queue 1 item 12, the camera and temporal models'}
 
 
 def build_detector(model_cfg, num_class, dataset_cfg, class_names=None, device=None):

@@ -30,9 +30,13 @@ class _FlaxBatchStatistics:
 
     While `stats_frozen` is set (the recomputation of a checkpointed block,
     `checkpoint_block`) it normalises the same way and updates nothing, so a
-    step updates the running statistics once, as flax's `nn.remat` does."""
+    step updates the running statistics once, as flax's `nn.remat` does.
+    `stat_updates` is how many times one training call moves them: a layer
+    that stands for k calls of flax's on one input moves them k times with
+    the one batch's statistics, as those k calls would."""
 
     stats_frozen = False
+    stat_updates = 1
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
@@ -45,9 +49,10 @@ class _FlaxBatchStatistics:
         y = (x - mean.view(shape)) * scale.view(shape) + self.bias.view(shape)
         if not self.stats_frozen:
             with torch.no_grad():
-                self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
-                self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)
-                self.num_batches_tracked.add_(1)
+                for _ in range(self.stat_updates):
+                    self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
+                    self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)
+                    self.num_batches_tracked.add_(1)
         return y
 
 
@@ -154,9 +159,16 @@ def checkpoint_block(block: nn.Module, x: torch.Tensor) -> torch.Tensor:
     (`torch.utils.checkpoint`), the analog of flax's `nn.remat`. The
     recomputation runs the block's BatchNorm layers with their statistics
     frozen, so one step updates them once."""
+    return checkpoint_call(block, block, x)
+
+
+def checkpoint_call(module: nn.Module, fn, *args):
+    """`fn(*args)` with its activations recomputed in the backward pass, the
+    BatchNorm layers of `module` (those `fn` runs) frozen in the
+    recomputation, as `checkpoint_block` freezes a block's."""
     from torch.utils.checkpoint import checkpoint
-    return checkpoint(block, x, use_reentrant=False,
-                      context_fn=lambda: (contextlib.nullcontext(), _FrozenStats(block)))
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(), _FrozenStats(module)))
 
 
 class ConvBNReLU(nn.Module):
@@ -261,9 +273,14 @@ def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     weights uniform in +-1/sqrt(fan_in), or from the module's own
     `weight_init` (a function of the weight's shape, which draws nothing),
     biases at the module's `bias_init` (0 by default), BatchNorm and
-    LayerNorm at identity, an embedding's rows uniform in +-1/sqrt(width).
+    LayerNorm at identity, an embedding's rows uniform in +-1/sqrt(width),
+    a parameter a module holds itself (named in its `flax_params`, with its
+    deviation) normal.
     The values do not depend on the model's device."""
     for mod in model.modules():
+        for name, std in getattr(mod, 'flax_params', {}).items():
+            p = getattr(mod, name)
+            p.copy_(torch.randn(p.shape, generator=generator) * std)
         if getattr(mod, 'weight_init', None) is not None:
             mod.weight.copy_(torch.as_tensor(mod.weight_init(tuple(mod.weight.shape))))
             if mod.bias is not None:

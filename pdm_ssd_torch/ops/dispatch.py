@@ -59,9 +59,8 @@ def grouping_operation(features: torch.Tensor, idx: torch.Tensor) -> torch.Tenso
     if kind == 'cuda':
         from .sa_fused import GatherRows      # sa_fused imports this module
         B, M, K = idx.shape
-        N, ld = features.shape[1], features.stride(1)
-        if features.stride(2) != 1 or features.stride(0) != N * ld:
-            features = features.contiguous()  # the kernel reads dense rows at one stride
+        if not group.gather_rows_reads_in_place(features):
+            features = features.contiguous()
         return GatherRows.apply(features, idx.reshape(B, M * K)).reshape(B, M, K, -1)
     raise NotImplementedError(f'no grouping for device {features.device}')
 

@@ -312,6 +312,15 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def gather_rows_reads_in_place(features: torch.Tensor) -> bool:
+    """Whether `gather_rows_cuda` can read features (B, N, C) as they lie:
+    dense rows at one row stride. One cloud's batch stride is never read (a
+    slice of a frame stack has another, and torch calls it contiguous)."""
+    ld = features.stride(1)
+    return (features.stride(2) == 1 and ld >= features.shape[2]
+            and (features.shape[0] == 1 or features.stride(0) == features.shape[1] * ld))
+
+
 def gather_rows_cuda(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """One launch of `gather_rows_kernel` or `gather_narrow_kernel`, as
     `gather_plan` says. features (B, N, C) float32 or bfloat16 on CUDA:
@@ -331,7 +340,7 @@ def gather_rows_cuda(features: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     B, N, C = features.shape
     R = idx.shape[1]
     ld = features.stride(1)
-    if features.stride(2) != 1 or features.stride(0) != N * ld or ld < C:
+    if not gather_rows_reads_in_place(features):
         raise ValueError('features: the kernel needs dense rows at one row stride, got '
                          f'strides {features.stride()} for shape {tuple(features.shape)}')
     dev = features.device

@@ -24,7 +24,9 @@ from .optimization import build_optimizer_and_schedule
 # those its training adds (the role of `_filter_device_batch` in the JAX
 # package)
 VOXEL_KEYS = ('voxels', 'voxel_coords', 'voxel_num_points', 'voxel_mask')
-INPUT_KEYS = ('points', 'points_mask') + VOXEL_KEYS
+# a Waymo sequence batch's frame stack, poses and offline proposals (MPPNet)
+SEQUENCE_KEYS = ('points_multi_frame', 'poses', 'roi_boxes', 'roi_scores', 'roi_labels')
+INPUT_KEYS = ('points', 'points_mask') + VOXEL_KEYS + SEQUENCE_KEYS
 DEVICE_KEYS = INPUT_KEYS + ('gt_boxes', 'gt_mask')
 
 

@@ -21,8 +21,11 @@ with `pointpillar.yaml`, `centerpoint_pillar.yaml` or `pillarnet.yaml` the
 tiny shrink of that file, with `pv_rcnn.yaml`, `pv_rcnn_sparse.yaml`,
 `voxel_rcnn.yaml` or `voxel_rcnn_sparse.yaml` the tiny two-stage model on
 the dense or sparse ladder, with `dsvt.yaml` or `transfusion.yaml` the
-tiny window-attention or query-head model (`utils/synthetic.TINY_CFGS`; a
-config that voxelizes its points gets voxel batches, made on the device).
+tiny window-attention or query-head model, with
+`configs/waymo_models/mppnet_mini.yaml` or `mppnet_16frame.yaml` the tiny
+MPPNet on the batches of a mini-Waymo set it generates in a temporary
+directory (`utils/synthetic.TINY_CFGS`; a config that voxelizes its points
+gets voxel batches, made on the device).
 Runs on the card unless `--device cpu` is given. The counterpart of
 `__graft_entry__.dryrun_multichip` on one device.
 """
@@ -31,6 +34,7 @@ from __future__ import annotations
 import argparse
 import math
 import os
+import tempfile
 from pathlib import Path
 
 import torch
@@ -61,7 +65,14 @@ def dryrun(device: str | None = None, B: int = 2, N: int = 512, seed: int = 0,
                           seed=seed, class_names=cfg.CLASS_NAMES)
     dev = next(model.parameters()).device
     prepare = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG)
-    if cfg.DATA_CONFIG.get('DATASET') == 'NuScenesDataset':
+    if cfg.DATA_CONFIG.get('DATASET') == 'WaymoDataset':
+        # a sequence model: batches of a mini-Waymo set generated for the run
+        with tempfile.TemporaryDirectory() as root:
+            train_set = synthetic.waymo_set(cfg, root, frames=B + 3, training=True, seed=seed)
+            batch = synthetic.waymo_batch(train_set, range(3, 3 + B), dev)
+            test_set = synthetic.waymo_set(cfg, root, frames=B + 3, seed=seed)
+            inputs = synthetic.waymo_batch(test_set, range(3, 3 + B), dev)
+    elif cfg.DATA_CONFIG.get('DATASET') == 'NuScenesDataset':
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in synthetic.nuscenes_batch(B, N, seed=seed).items()}
         inputs = {'points': batch['points']}
@@ -98,7 +109,8 @@ def main() -> None:
                     'pointrcnn.yaml, second_sparse.yaml, second_focal.yaml, voxelnext.yaml, '
                     'second.yaml, pointpillar.yaml, centerpoint_pillar.yaml, pillarnet.yaml, '
                     'pv_rcnn.yaml, pv_rcnn_sparse.yaml, voxel_rcnn.yaml, '
-                    'voxel_rcnn_sparse.yaml or configs/nuscenes_models/pdm_ssd_nuscenes.yaml')
+                    'voxel_rcnn_sparse.yaml, configs/nuscenes_models/pdm_ssd_nuscenes.yaml or '
+                    'configs/waymo_models/mppnet_mini.yaml')
     args = ap.parse_args()
     dryrun(args.device, args.batch, args.points, cfg_file=args.cfg_file)
 

@@ -669,6 +669,109 @@ def tiny_transfusion_cfg(cfg):
     return cfg
 
 
+# the voxel step that `mppnet_16frame.yaml`'s data path lacks (its processor,
+# from `waymo_dataset.yaml`, ends with `calculate_grid_size`, so MeanVFE finds
+# no 'voxels'; ROADMAP Queue 3). The file's grid, 0.4 m over 150.4 m, gives
+# a 47 x 47 BEV map, whose stride-2 level comes back from the 2x upsampling
+# at 48 x 48 (the second fault there): 0.2 m in x and y is the nearest grid
+# at which the shipped BEV backbone's levels line up (752 cells, a 94 x 94
+# map), the file's 6 m in z; 5 points a voxel and 150000 voxel slots
+WAYMO_VOXEL_STEP = {'NAME': 'transform_points_to_voxels', 'VOXEL_SIZE': [0.2, 0.2, 6.0],
+                    'MAX_POINTS_PER_VOXEL': 5,
+                    'MAX_NUMBER_OF_VOXELS': {'train': 150000, 'test': 150000}}
+
+
+def waymo_voxel_step(cfg):
+    """Replace a Waymo config's `calculate_grid_size` by WAYMO_VOXEL_STEP, in
+    place, unless it voxelizes already; the model's widths stay the file's."""
+    from .config import CfgNode
+    ds = cfg.DATA_CONFIG
+    if not voxelizes(cfg):
+        ds.DATA_PROCESSOR = [p for p in ds.DATA_PROCESSOR if p.NAME != 'calculate_grid_size']
+        ds.DATA_PROCESSOR.append(CfgNode(WAYMO_VOXEL_STEP))
+    return cfg
+
+
+def tiny_mppnet_cfg(cfg):
+    """Shrink `configs/waymo_models/mppnet_16frame.yaml` or `mppnet_mini.yaml`
+    in place: the same path (MeanVFE, the dense ladder, the anchor
+    proposals, trajectories over 4 frames, the crops, the geometry and
+    motion features, the trajectory branch, two groups of one encoder layer,
+    the memory bank) on `mppnet_mini.yaml`'s 32 x 32 x 4 m range at its
+    0.5 x 0.5 x 4 m voxels, 1024 voxel slots, 2048 points a cloud and 512 a
+    frame, 16 proposals, 16 points a crop, a 2 x 2 x 2 proxy grid, narrow."""
+    from .config import CfgNode
+    ds = cfg.DATA_CONFIG
+    ds.POINT_CLOUD_RANGE = [0, -16, -3, 32, 16, 1]
+    ds.MAX_GT_BOXES = 16
+    ds.SAMPLED_INTERVAL = CfgNode({'train': 1, 'test': 1})
+    seq = ds.SEQUENCE_CONFIG
+    seq.SAMPLE_OFFSET = [-3, 0]
+    seq.NUM_POINTS_PER_FRAME = 512
+    seq.MAX_PRED_BOXES = 16
+    for proc in ds.DATA_PROCESSOR:
+        if proc.NAME == 'sample_points':
+            proc.NUM_POINTS = CfgNode({'train': 2048, 'test': 2048})
+    waymo_voxel_step(cfg)
+    proc = voxel_processor(cfg)
+    proc.VOXEL_SIZE = [0.5, 0.5, 4.0]
+    proc.MAX_NUMBER_OF_VOXELS = CfgNode({'train': 1024, 'test': 1024})
+    cfg.MODEL.BACKBONE_3D.NUM_FILTERS = [4, 8, 8, 8]
+    b2 = cfg.MODEL.BACKBONE_2D
+    b2.LAYER_NUMS = [1, 1]
+    b2.NUM_FILTERS = [16, 32]
+    b2.NUM_UPSAMPLE_FILTERS = [16, 16]
+    roi = cfg.MODEL.ROI_HEAD
+    roi.NUM_FRAMES = 4
+    roi.TRANS_INPUT = 32
+    tr = roi.Transformer
+    tr.num_lidar_points = 8
+    tr.num_groups = 2
+    tr.enc_layers = 1
+    tr.nheads = 2
+    roi.ROI_GRID_POOL.GRID_SIZE = 2
+    roi.ROI_GRID_POOL.MLPS = [[16, 16]]
+    for mode in ('TRAIN', 'TEST'):
+        roi.NMS_CONFIG[mode].NMS_PRE_MAXSIZE = 64
+        roi.NMS_CONFIG[mode].NMS_POST_MAXSIZE = 16
+    roi.TARGET_CONFIG.ROI_PER_IMAGE = 16
+    nms = cfg.MODEL.POST_PROCESSING.NMS_CONFIG
+    nms.NMS_PRE_MAXSIZE = 64
+    nms.NMS_POST_MAXSIZE = 16
+    return cfg
+
+
+def waymo_set(cfg, root, frames: int, training: bool = False, n_bg: int = 2000,
+              seed: int = 0):
+    """A `WaymoDataset` of `cfg` over a mini-Waymo set generated at `root`
+    (one sequence of `frames` frames, `n_bg` background points a frame, the
+    first of CLASS_NAMES for every object; made when `root` holds no set).
+    Points the config's DATA_PATH at `root` and its ROI_BOXES_PATH at the
+    set's `pred_boxes.pkl`, the offline proposals of USE_PREDBOX."""
+    from pathlib import Path
+
+    from ..datasets.waymo.synthetic import make_mini_waymo
+    from ..datasets.waymo.waymo_dataset import WaymoDataset
+    root = Path(root)
+    if not (root / 'ImageSets' / 'val.txt').exists():
+        make_mini_waymo(root, n_seq=1, n_frames=frames, n_bg=n_bg, seed=seed,
+                        class_name=cfg.CLASS_NAMES[0])
+    ds = cfg.DATA_CONFIG
+    ds.DATA_PATH = str(root)
+    ds.ROI_BOXES_PATH = {'train': str(root / 'pred_boxes.pkl'),
+                         'test': str(root / 'pred_boxes.pkl')}
+    return WaymoDataset(ds, list(cfg.CLASS_NAMES), training=training, root_path=root)
+
+
+def waymo_batch(dataset, indices, device='cpu') -> dict:
+    """The samples `indices` of a `WaymoDataset`, collated, as tensors on
+    `device`: the model's inputs (the sequence keys among them) and the
+    ground truth."""
+    from ..runtime.trainer import DEVICE_KEYS, to_device_batch
+    return to_device_batch(dataset.collate_batch([dataset[i] for i in indices]), device,
+                           DEVICE_KEYS)
+
+
 # the dry run's shrink of each model that has one, by `MODEL.NAME` (a
 # SECONDNet's by its backbone too)
 TINY_CFGS = {'PDMSSD': tiny_pdmssd_cfg, 'PointRCNN': tiny_pointrcnn_cfg,
@@ -677,7 +780,8 @@ TINY_CFGS = {'PDMSSD': tiny_pdmssd_cfg, 'PointRCNN': tiny_pointrcnn_cfg,
              'VoxelNeXt': tiny_voxelnext_cfg, 'PVRCNN': tiny_pv_rcnn_cfg,
              'VoxelRCNN': tiny_voxel_rcnn_cfg, 'SECONDNetIoU': tiny_second_iou_cfg,
              'PartA2Net': tiny_parta2_cfg, 'PVRCNNPlusPlus': tiny_pv_rcnn_plusplus_cfg,
-             'DSVT': tiny_dsvt_cfg, 'TransFusion': tiny_transfusion_cfg}
+             'DSVT': tiny_dsvt_cfg, 'TransFusion': tiny_transfusion_cfg,
+             'MPPNet': tiny_mppnet_cfg}
 
 
 def voxelizes(cfg) -> bool:

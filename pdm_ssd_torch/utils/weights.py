@@ -17,6 +17,9 @@ generic rule set maps every leaf. The layout rules are those of
   running_var
 - LayerNorm scale / bias             -> weight / bias
 - Embed embedding (num, d)           -> Embedding weight (num, d)
+- a parameter a module creates itself (`self.param`, MPPNet's
+  `traj_query`)                      -> the module's parameter of that name
+  (listed in its `flax_params`), the same array
 - DenseGeneral kernel of several axes (an attention's `query`, `key`,
   `value`: (in, heads, head_dim); its `out`: (heads, head_dim, out)) and
   its bias ((heads, head_dim) or (out,)) -> a `HeadsLinear`'s weight
@@ -49,6 +52,8 @@ def _flatten(tree, prefix=()):
 
 
 def _convert_param(mod: nn.Module, leaf: str, arr: np.ndarray):
+    if leaf in getattr(mod, 'flax_params', ()):
+        return leaf, arr                    # a parameter the module holds itself
     if isinstance(mod, (nn.modules.batchnorm._BatchNorm, nn.LayerNorm)) and leaf in _BN_PARAM:
         return _BN_PARAM[leaf], arr
     if isinstance(mod, nn.Embedding) and leaf == 'embedding':
@@ -111,6 +116,8 @@ def from_flax(variables: Mapping, model: nn.Module) -> dict:
 
 
 def _to_flax_leaf(mod: nn.Module, name: str, arr: np.ndarray):
+    if name in getattr(mod, 'flax_params', ()):
+        return name, arr
     if isinstance(mod, (nn.modules.batchnorm._BatchNorm, nn.LayerNorm)):
         inv = {v: k for k, v in {**_BN_PARAM, **_BN_STAT}.items()}
         if name in inv:

@@ -74,6 +74,10 @@ SLICE_MODULES = [
     'pdm_ssd_torch.models.detectors.pv_rcnn_plusplus',
     'pdm_ssd_torch.models.backbones_2d.dsvt_backbone',
     'pdm_ssd_torch.models.dense_heads.transfusion_head', 'pdm_ssd_torch.ops.lap',
+    'pdm_ssd_torch.datasets.waymo.synthetic', 'pdm_ssd_torch.datasets.waymo.waymo_dataset',
+    'pdm_ssd_torch.datasets.waymo.waymo_utils', 'pdm_ssd_torch.datasets.waymo.waymo_eval',
+    'pdm_ssd_torch.tools.make_mini_waymo', 'pdm_ssd_torch.models.roi_heads.mppnet_head',
+    'pdm_ssd_torch.models.detectors.mppnet',
     'bench_torch',
 ]
 
@@ -477,6 +481,43 @@ def test_gather_rows_bf16_kernel_matches_plain_on_the_card(C, s0, s1):
 
 
 @pytest.mark.gpu
+def test_grouping_gathers_one_cloud_of_a_frame_stack_on_the_card():
+    """`dispatch.grouping_operation` on one cloud's frame of a (1, T, N, C)
+    stack, MPPNet's crop at B=1: torch calls that slice contiguous, but its
+    batch stride is T * N * C; the row gather reads it in place, as the
+    plain version does, and gathers the same rows. (It raised at B=1 before
+    the gather's batch stride was left unchecked for one cloud.)"""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device (the kernel has no CPU mode)')
+    rng = np.random.RandomState(6)
+    frames = torch.from_numpy(rng.randn(1, 4, 512, 6).astype(np.float32))
+    idx = torch.from_numpy(rng.randint(0, 512, (1, 16, 8)).astype(np.int32))
+    for t in range(4):
+        got = dispatch.grouping_operation(frames.cuda()[:, t], idx.cuda())
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), dispatch.grouping_operation(frames[:, t], idx))
+
+
+_STACK = torch.zeros((2, 4, 32, 6))
+_SLICE = torch.zeros((2, 32, 10))[..., 2:8]
+
+
+@pytest.mark.parametrize('features, in_place', [
+    (torch.zeros((2, 32, 6)), True),
+    (_SLICE, True),                    # a channel slice: rows at the payload's stride
+    (_STACK[:1, 1], True),             # one cloud of a frame stack
+    (_STACK[:, 1], False),             # two clouds of it: the batch stride is T * N * C
+    (torch.zeros((2, 6, 32)).transpose(1, 2), False),
+    (torch.zeros((2, 32, 3, 2))[..., 0], False),
+])
+def test_gather_rows_reads_in_place_only_dense_rows_at_one_stride(features, in_place):
+    """The one rule of what the row gather reads as it lies, which
+    `dispatch.grouping_operation` copies otherwise and `gather_rows_cuda`
+    refuses."""
+    assert group.gather_rows_reads_in_place(features) is in_place
+
+
+@pytest.mark.gpu
 def test_fps_kernel_matches_plain_on_the_card():
     """Both paths (a cluster of blocks per cloud and one block per cloud),
     and the plan's own choice, equal the plain version index for index: odd
@@ -517,18 +558,22 @@ KITTI_PORTED = ['second_iou', 'parta2', 'parta2_sparse', 'pv_rcnn_plusplus',
 # the files `Detector3D` assembles, by their parameter count (the JAX
 # package's `jax.eval_shape` of its init counts the same)
 DETECTOR3D_PORTED = {'dsvt': 605899, 'transfusion': 1583694}
-STILL_RAISING = ['nuscenes_models/bevfusion', 'nuscenes_models/bevfusion_mini',
-                 'waymo_models/mppnet_16frame', 'waymo_models/mppnet_mini']
+# the MPPNet files, by their parameter count (the JAX package's
+# `jax.eval_shape` of its init counts the same)
+MPPNET_PORTED = {'waymo_models/mppnet_16frame': 7389143, 'waymo_models/mppnet_mini': 4936515}
+STILL_RAISING = ['nuscenes_models/bevfusion', 'nuscenes_models/bevfusion_mini']
 
 
-@pytest.mark.parametrize('name', KITTI_PORTED + list(DETECTOR3D_PORTED) + STILL_RAISING)
+@pytest.mark.parametrize('name', KITTI_PORTED + list(DETECTOR3D_PORTED) + list(MPPNET_PORTED)
+                         + STILL_RAISING)
 def test_configs_build_or_name_their_roadmap_item(name, monkeypatch):
-    """The five KITTI files of the two-stage family's rest, and DSVT and
+    """The five KITTI files of the two-stage family's rest, DSVT and
     TransFusion (`Detector3D` with its window-attention backbone or its
-    query head, each at its parameter count), build through
-    `build_detector` as shipped (on the meta device: the modules, no
-    storage); BEVFusion and MPPNet still raise `NotImplementedError` naming
-    their ROADMAP item (12, the camera and temporal models)."""
+    query head) and the two MPPNet files, each of the last four at its
+    parameter count, build through `build_detector` as shipped (on the meta
+    device: the modules, no storage); BEVFusion still raises
+    `NotImplementedError` naming its ROADMAP item (12, the camera and
+    temporal models)."""
     from pdm_ssd_torch.models.detectors import build_detector
     from pdm_ssd_torch.utils import config as t_config
     monkeypatch.chdir(REPO)
@@ -538,11 +583,12 @@ def test_configs_build_or_name_their_roadmap_item(name, monkeypatch):
         net = build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG, device='meta')
         assert type(net).__name__ == cfg.MODEL.NAME
         assert sum(p.numel() for p in net.parameters()) > 1e6
-    elif name in DETECTOR3D_PORTED:
+    elif name in DETECTOR3D_PORTED or name in MPPNET_PORTED:
         net = build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG,
                              class_names=cfg.CLASS_NAMES, device='meta')
-        assert type(net).__name__ == 'Detector3D'
-        assert sum(p.numel() for p in net.parameters()) == DETECTOR3D_PORTED[name]
+        want = DETECTOR3D_PORTED.get(name) or MPPNET_PORTED[name]
+        assert type(net).__name__ == ('MPPNet' if name in MPPNET_PORTED else 'Detector3D')
+        assert sum(p.numel() for p in net.parameters()) == want
     else:
         with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 item 12'):
             build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG, device='meta')
@@ -597,14 +643,42 @@ def test_pdm_ssd_nuscenes_builds_and_its_dataset_reads_generated_infos(tmp_path,
     assert [m['token'] for m in batch['metadata']] == ['s0', 's1']
 
 
-UNPORTED_DATASETS = ['CustomDataset', 'WaymoDataset', 'ONCEDataset', 'LyftDataset',
-                     'PandasetDataset', 'Argo2Dataset']
+@pytest.mark.parametrize('name', ['mppnet_mini', 'mppnet_16frame'])
+def test_waymo_configs_build_their_loader_on_a_generated_set(name, tmp_path, monkeypatch):
+    """`build_dataloader` builds `WaymoDataset` for both MPPNet files, pointed
+    at a mini-Waymo set generated by the port's tool (8 frames), and gives a
+    batch of the files' frame stacks: 4 frames of 512 points and the offline
+    proposals of `mppnet_mini.yaml`; 16 frames of 16384 points of
+    `mppnet_16frame.yaml` (USE_PREDBOX off, as shipped), and no voxels
+    (ROADMAP Queue 3)."""
+    from pdm_ssd_torch.datasets import build_dataloader
+    from pdm_ssd_torch.tools import make_mini_waymo
+    from pdm_ssd_torch.utils import config as t_config
+    monkeypatch.chdir(REPO)
+    cfg = t_config.cfg_from_yaml_file(f'configs/waymo_models/{name}.yaml', t_config.CfgNode())
+    make_mini_waymo.main(['--root', str(tmp_path), '--frames', '8', '--n_bg', '500'])
+    t_config.cfg_from_list(['DATA_CONFIG.DATA_PATH', str(tmp_path)], cfg)
+    if cfg.DATA_CONFIG.USE_PREDBOX:
+        cfg.DATA_CONFIG.ROI_BOXES_PATH.test = str(tmp_path / 'pred_boxes.pkl')
+    ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 2, workers=0,
+                                     training=False)
+    batch = next(iter(loader))
+    T, n = (4, 512) if name == 'mppnet_mini' else (16, 16384)
+    assert len(ds) == 8 and batch['points_multi_frame'].shape == (2, T, n, 6)
+    assert batch['poses'].shape == (2, T, 4, 4)
+    assert ('roi_boxes' in batch) == (name == 'mppnet_mini')
+    assert ('voxels' in batch) == (name == 'mppnet_mini')
+    assert list(batch['frame_id']) == ['segment_000_000', 'segment_000_001']
+
+
+UNPORTED_DATASETS = ['CustomDataset', 'ONCEDataset', 'LyftDataset', 'PandasetDataset',
+                     'Argo2Dataset']
 
 
 @pytest.mark.parametrize('what', UNPORTED_DATASETS + ['CAMERA_CONFIG', 'with_cams'])
 def test_unported_datasets_and_the_nuscenes_camera_half_name_their_roadmap_item(what, tmp_path,
                                                                                  monkeypatch):
-    """The other six datasets raise `NotImplementedError` naming ROADMAP
+    """The other five datasets raise `NotImplementedError` naming ROADMAP
     Queue 1 item 13; nuScenes' camera half (a dataset with CAMERA_CONFIG,
     the generator's CAM_FRONT stream) names item 12."""
     from pdm_ssd_torch.datasets import build_dataloader

@@ -441,7 +441,7 @@ def test_calculate_grid_size_matches_jax(mini):
 
 
 @pytest.mark.parametrize('what', ['depth map', 'imgaug', 'local rotation',
-                                  'image copy-paste', 'WaymoDataset'])
+                                  'image copy-paste', 'ONCEDataset'])
 def test_unported_parts_of_the_data_path_raise(what, mini):
     """Each step, augmentation and dataset of the JAX package's data path
     that the port does not have raises `NotImplementedError` when the config
@@ -456,7 +456,7 @@ def test_unported_parts_of_the_data_path_raise(what, mini):
     elif what == 'image copy-paste':
         cfg.DATA_AUGMENTOR.AUG_CONFIG_LIST[0]['IMG_AUG_TYPE'] = 'kitti'
     else:
-        cfg.DATASET = 'WaymoDataset'
+        cfg.DATASET = 'ONCEDataset'
     match = 'no config of the repo' if what == 'local rotation' else 'ROADMAP Queue 1 item'
     with pytest.raises(NotImplementedError, match=match):
         t_build_dataloader(cfg, CLASS_NAMES, batch_size=2, root_path=mini[0], workers=0,

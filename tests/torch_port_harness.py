@@ -276,7 +276,9 @@ class ModelPair:
     voxel cap and as many boxes a cloud), prepared for training by both
     packages (the transposed maps of the sparse conv's backward included).
     `batch` (numpy 'points', 'gt_boxes', 'gt_mask') replaces the KITTI-range
-    batch of points. Both packages build the model with the config's
+    batch of points; `input_keys` are its entries that the forwards take
+    (a Waymo sequence batch's voxels, frame stack and offline proposals,
+    say). Both packages build the model with the config's
     CLASS_NAMES, as the CLIs build it (a CenterHead has one head per
     CLASS_NAMES_EACH_HEAD group). The weights start from the port model's
     seeded ones (`build_network(..., seed=seed)`, in the flax layout by
@@ -291,7 +293,8 @@ class ModelPair:
     def __init__(self, cfg, B: int = 2, N: int = 512, seed: int = 0, jax_model=None,
                  points: np.ndarray | None = None, bias_scale: float = 0.0,
                  voxels: bool = False, train_boxes: int = 0, batch: dict | None = None,
-                 variables: dict | None = None, jax_init: bool = False):
+                 variables: dict | None = None, jax_init: bool = False,
+                 input_keys: tuple = ('points',)):
         from pdm_ssd_tpu.models import build_network as j_build_network
         from pdm_ssd_tpu.models import get_host_prepare as j_get_host_prepare
         from pdm_ssd_tpu.utils.config import CfgNode as JCfgNode
@@ -318,7 +321,7 @@ class ModelPair:
             self.batch = dict(batch) if batch is not None else graft._make_batch(B, N, seed=seed)
             if points is not None:
                 self.batch['points'] = points
-            self.inputs = {'points': self.batch['points']}
+            self.inputs = {k: self.batch[k] for k in input_keys}
             self._torch_inputs = to_torch(self.inputs)
         self.points = self.batch['points']
         self.net = build_network(self.cfg.MODEL, len(self.cfg.CLASS_NAMES),
@@ -751,7 +754,7 @@ def jax_train_steps(pair, n: int, iters_per_epoch: int = 10, epochs: int = 2) ->
         updates, opt_state = tx.update(grads, opt_state, params)
         return jax.tree_util.tree_map(lambda p, u: p + u, params, updates), opt_state
 
-    opt_state = tx.init(params)
+    opt_state = jax.jit(tx.init)(params)          # one program, not one a leaf
     losses = []
     for _ in range(n):
         (loss, (_, stats, _)), grads = pair._jax_value_and_grad()(params, stats, pair.batch)
@@ -790,7 +793,7 @@ def twin_steps(jax_model, variables: dict, net, opt_cfg, batches, iters_per_epoc
         return jax.tree_util.tree_map(lambda p, u: p + u, params, updates), opt_state
 
     params, stats = variables['params'], variables['batch_stats']
-    opt_state = tx.init(params)
+    opt_state = jax.jit(tx.init)(params)          # one program, not one a leaf
     net.load_state_dict(from_flax(variables, net))
     optimizer, _ = create_train_state(net, TCfgNode(opt_cfg.to_dict()), iters_per_epoch, epochs)
     t_step = make_train_step(net, optimizer)
