@@ -299,15 +299,34 @@ non-zero exit):
    gradient);
 62. `mppnet_mini.yaml` on a fresh set from `tools.make_mini_waymo`: two
    epochs of `train_model`, then `eval_one_epoch` of the trained checkpoint
-   with Waymo AP and APH at both levels.
+   with Waymo AP and APH at both levels;
+63. the tiny BEVFusion (`synthetic.tiny_bevfusion_cfg`) on CUDA against the
+   CPU at B=2 with two cameras, the CPU's frustum cells replayed on CUDA
+   (`GeometryReplay`, which counts the points that floor apart): forward,
+   detections, losses, gradients; `bev_pool` on CUDA against float64 sums;
+64. `predict` of `bevfusion.yaml` (`synthetic.bevfusion_grid`: its three
+   grids made to agree, every width as shipped) at B=3 on
+   `synthetic.camera_batch`es (120000 points, six cameras of 256 x 704):
+   frames/s, device time, busy share, GFLOP, peak, no launch, and its
+   stages synchronized one by one (`BevStageTimer`: Swin, the neck, the
+   lift, the geometry, `bev_pool`, the LiDAR branch, the fuser, the BEV
+   backbone, the head, post-processing);
+65. five training steps of it with 8 boxes a cloud, a profiled sixth (GFLOP,
+   device time, busy share) and a training forward's stages;
+66. `bevfusion_mini.yaml` on a fresh mini nuScenes set with its front
+   camera (`make_mini_nuscenes --cams`): `eval_one_epoch` of seeded weights
+   (NDS, mAP), two epochs of `train_model`, the trained checkpoint's eval.
 
-The elapsed time is printed after phases 18, 40, 50, 54, 58 and 62. The
-line before the last is the card's name and power limit; before it, one JSON
-line describing each kernel, with the launches of each path of phases 20 to
-62 (`launches_<path>`, `launches_nuscenes_{predict,train,eval_loop,train_loop}`,
-`launches_{dsvt,transfusion}_{predict,train,eval_loop,train_loop}` and
+Every phase's line ends with the seconds since the start, and the elapsed
+time is printed after phases 18, 40, 50, 54, 58, 62 and 66.
+The line before the last is the card's name and power limit; before it, one
+JSON line describing each kernel, with the launches of each path of phases
+20 to 66 (`launches_<path>`,
+`launches_nuscenes_{predict,train,eval_loop,train_loop}`,
+`launches_{dsvt,transfusion}_{predict,train,eval_loop,train_loop}`,
 `launches_mppnet_{predict,predbox_predict,stream,train,eval_loop,train_loop}`
-among them) and the sums of phase 42 (`two_stage_*`). The last line is
+and `launches_bevfusion_{predict,train,eval_loop,train_loop}` among them)
+and the sums of phase 42 (`two_stage_*`). The last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -347,6 +366,10 @@ GRAD_COSINE = 0.999
 # tensor cores
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOP_PER_S = 67e12
+# predicts a phase's `torch.profiler` trace covers (after one untraced): one,
+# since the profiler takes seconds to process the events of each predict on
+# cuDNN's FFT route (tens of thousands of kernels a predict)
+TRACE_PREDICTS = 1
 # launches of one full-width training step and of one predict; FPS's are
 # also counted by path (the flagship's 8 clouds of 16384 points take a
 # cluster per cloud)
@@ -405,7 +428,8 @@ SECOND_MIN_VOXELS = 30000
 
 
 def log(phase: str, msg: str) -> None:
-    print(f'[{phase}] {msg}', flush=True)
+    """A phase's line, ending with the seconds since the script started."""
+    print(f'[{phase}] {msg} [{time.perf_counter() - T0:.1f} s]', flush=True)
 
 
 def device_check() -> tuple[str, str]:
@@ -846,7 +870,7 @@ def profile_note(phase: str, net, pts: torch.Tensor, wall_s: float) -> None:
     from pdm_ssd_torch.models.backbones_3d.grid_point_backbone import GridPointBackbone
     from pdm_ssd_torch.tools.profile_predict import grid_conv_stages, peak_extra_gib, trace
     with torch.inference_mode():
-        prof = trace(net, {'points': pts})
+        prof = trace(net, {'points': pts}, TRACE_PREDICTS)
         fft = prof['fft_kernels']
         fft_note = ('no FFT-route kernel' if not fft else 'FFT route: ' + '; '.join(
             f'{r["name"]} x{r["calls_per_predict"]:g} {r["ms_per_predict"]:.3f} ms'
@@ -2524,13 +2548,13 @@ NULL_GRADS = ('attn.key.bias', 'cross_group.key.bias', 'cross_group.value.bias',
 
 
 def training_cuda_vs_cpu(phase: str, name: str, nets: dict, batches: dict, grad_rtol: float,
-                         cosine: float = -1.0) -> tuple:
+                         cosine: float = -1.0, null_grads: tuple = NULL_GRADS) -> tuple:
     """One training forward and backward of one model on the CPU and on CUDA
     (`nets` and `batches` keyed 'cpu' and 'cuda'): every loss term within
     LOSS_RTOL of the CPU's, every gradient finite, within `grad_rtol`
     relative L2 of the CPU's and at a cosine of at least `cosine`; a
     gradient that is 0 in exact arithmetic (a name ending in one of
-    NULL_GRADS) no larger on either device than NULL_GRAD_RTOL times the
+    `null_grads`) no larger on either device than NULL_GRAD_RTOL times the
     largest gradient's norm. Returns (the CPU's loss terms, CUDA's, the
     worst relative L2, its parameter, the number of gradients)."""
     out = {}
@@ -2550,7 +2574,7 @@ def training_cuda_vs_cpu(phase: str, name: str, nets: dict, batches: dict, grad_
     largest = max(float(c.norm()) for c in c_grads.values())
     for k, c in c_grads.items():
         g = g_grads[k]
-        if k.endswith(NULL_GRADS):
+        if k.endswith(null_grads):
             if not max(float(c.norm()), float(g.norm())) <= NULL_GRAD_RTOL * largest:
                 raise SystemExit(f'[{phase}] FAILED {name} {k}: a null gradient of norm '
                                  f'{float(g.norm()):.3e} on CUDA, {float(c.norm()):.3e} on the '
@@ -2660,7 +2684,7 @@ def measured_predict(phase: str, name: str, cfg, net, inputs: dict, B: int, what
         times.append(time.perf_counter() - t0)
     med = statistics.median(times)
     with torch.inference_mode():
-        prof = trace(net, inputs)
+        prof = trace(net, inputs, TRACE_PREDICTS)
     fft = prof['fft_kernels']
     device_ms = prof['device_ms_per_predict']
     launched = ('no kernel of the port launched' if not expected else
@@ -3064,7 +3088,7 @@ def ladder_predict_phase(name: str, cfg, wrappers, synthetic, card: str) -> dict
     build = statistics.median(r[0] for r in reps)
     pred = statistics.median(r[1] for r in reps)
     with torch.inference_mode():
-        prof = trace(net, inputs)
+        prof = trace(net, inputs, TRACE_PREDICTS)
     device_ms = prof['device_ms_per_predict']
     log(phase, f'{name} as shipped B={B} ({inputs["voxel_mask"].sum(1).tolist()} of '
         f'{inputs["voxel_mask"].shape[1]} voxel slots filled; {fill}): shapes ok, finite, '
@@ -3665,7 +3689,7 @@ def two_stage_predict_phase(name: str, cfg, wrappers, synthetic, card: str,
     build = statistics.median(r[0] for r in reps)
     pred = statistics.median(r[1] for r in reps)
     with torch.inference_mode():
-        prof = trace(net, inputs)
+        prof = trace(net, inputs, TRACE_PREDICTS)
     device_ms = prof['device_ms_per_predict']
     log(phase, f'{name} as shipped B={B} N={TWO_STAGE_POINTS} '
         f'({inputs["voxel_mask"].sum(1).tolist()} of {inputs["voxel_mask"].shape[1]} voxel '
@@ -4913,6 +4937,313 @@ def waymo_phases(wrappers, synthetic, smi: str, cfg_from_yaml_file) -> dict:
     return paths, crop
 
 
+# ---- BEVFusion, camera and LiDAR: phases 63 to 66 ----------------------------------
+
+BEVFUSION_CFG = 'configs/nuscenes_models/bevfusion.yaml'
+BEVFUSION_MINI_CFG = 'configs/nuscenes_models/bevfusion_mini.yaml'
+# the full-width batches: the file's `sample_points` a cloud, a nuScenes rig's
+# six cameras (`synthetic.camera_rig`) at the file's 256 x 704 images
+BEVFUSION_POINTS = 120000
+BEVFUSION_CAMERAS = 6
+BEVFUSION_DIR = REPO / 'build' / 'chip_smoke_bevfusion'
+# frames of the loops' mini set (one camera, one sweep)
+BEVFUSION_SAMPLES = 16
+BEVFUSION_PATHS = ('predict', 'train', 'eval_loop', 'train_loop')
+# the last Swin stage's MLP bias of the tiny shrink: a constant a channel into
+# the neck's training-mode BatchNorm, which takes it away (0 in exact
+# arithmetic, as in `tests/test_torch_port_bevfusion.py`)
+BEVFUSION_NULL_GRADS = ('image_backbone.s3_b0.mlp2.bias',)
+
+
+class GeometryReplay:
+    """While active, the CUDA model's view transform takes the frustum's BEV
+    cells the CPU model computed (`geometry`), moved to the card: the two
+    devices' float32 inverses and products may floor a point on a cell's
+    edge into different cells, which would move its features and hide the
+    rest of the comparison. Counts the points whose cell differed."""
+
+    def __init__(self, cpu_net, gpu_net, cpu_batch: dict):
+        self.cpu_net, self.gpu_net, self.cpu_batch = cpu_net, gpu_net, cpu_batch
+
+    def __enter__(self):
+        vt = self.gpu_net.view_transform
+        feats = self.cpu_batch['camera_imgs']
+        B, N = feats.shape[:2]
+        with torch.no_grad():
+            want = self.cpu_net.view_transform.geometry(self.cpu_batch, B, N)
+            got = vt.geometry({k: v.cuda() for k, v in self.cpu_batch.items()}, B, N).cpu()
+        self.flipped = int((got != want).any(-1).sum())
+        self.points = int(want[..., 0].numel())
+        vt.geometry = lambda batch, B, N: want.to(batch['camera2lidar'].device)
+        return self
+
+    def __exit__(self, *exc):
+        del self.gpu_net.view_transform.geometry
+
+
+def bevfusion_cfg(cfg_from_yaml_file, synthetic, cfg_file: str = BEVFUSION_CFG):
+    """A BEVFusion config; `bevfusion.yaml` with `synthetic.bevfusion_grid`
+    (as shipped its three grids do not line up, ROADMAP Queue 3)."""
+    cfg = cfg_from_yaml_file(str(REPO / cfg_file))
+    return synthetic.bevfusion_grid(cfg) if cfg_file == BEVFUSION_CFG else cfg
+
+
+def bevfusion_cuda_vs_cpu_phase(synthetic, cfg_from_yaml_file) -> None:
+    """Phase 63: the tiny shrink (`synthetic.tiny_bevfusion_cfg`) on CUDA
+    against the CPU at B=2, two cameras, the score gate open, the CPU's
+    frustum cells replayed on CUDA (`GeometryReplay`, which counts the
+    points that floored apart): every forward output within FWD_RTOL of its
+    scale, detections matched by box and label, every loss term within
+    LOSS_RTOL, every gradient within GRAD_RTOL relative L2 (cosine
+    GRAD_COSINE); then `ops.bev_pool` on CUDA against float64 sums at the
+    tiny model's lifted points."""
+    from pdm_ssd_torch.ops.bev_pool import bev_pool
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase = '63 bevfusion cuda-vs-cpu'
+    tiny = synthetic.tiny_bevfusion_cfg(
+        bevfusion_cfg(cfg_from_yaml_file, synthetic, BEVFUSION_MINI_CFG))
+    cpu_in = synthetic.camera_batch(2, 4096, tiny, seed=3, n_cam=2, M=4, mode='train',
+                                    image_wh=(192, 128))
+    gt = synthetic.gt_boxes(2, 4, tiny.DATA_CONFIG.POINT_CLOUD_RANGE, seed=4)
+    gt[..., 7] = 1
+    cpu_in['gt_boxes'] = torch.from_numpy(gt)
+    gpu_in = {k: v.cuda() for k, v in cpu_in.items()}
+    cpu_net = synthetic.open_score_gate(synthetic.random_model(tiny, 'cpu'))
+    gpu_net = synthetic.random_model(tiny, 'cuda')
+    gpu_net.load_state_dict(cpu_net.state_dict())
+    with GeometryReplay(cpu_net, gpu_net, cpu_in) as replay:
+        with torch.inference_mode():
+            want, got = flatten(cpu_net(dict(cpu_in))), flatten(gpu_net(dict(gpu_in)))
+        worst = 0.0
+        for k, w in want.items():
+            if not w.dtype.is_floating_point:
+                continue
+            rel = float((got[k].cpu() - w).abs().max()) / max(float(w.abs().max()), 1e-6)
+            worst = max(worst, rel)
+            if not rel <= FWD_RTOL:
+                raise SystemExit(f'[{phase}] FAILED {k}: max |diff| / max |cpu| = {rel:.3e}')
+        note = match_detections({k: v.cpu() for k, v in gpu_net.predict(dict(gpu_in)).items()},
+                                cpu_net.predict(dict(cpu_in)), phase)
+        c_tb, g_tb, worst_g, worst_k, n = training_cuda_vs_cpu(
+            phase, 'bevfusion', {'cpu': cpu_net, 'cuda': gpu_net}, {'cpu': cpu_in, 'cuda': gpu_in},
+            GRAD_RTOL, GRAD_COSINE, BEVFUSION_NULL_GRADS)
+    log(phase, f'tiny bevfusion B=2, 2 cameras of 64 x 96, N=4096: {replay.flipped} of '
+        f'{replay.points} frustum points floor into another cell on CUDA (the CPU\'s cells '
+        f'replayed); {len(want)} outputs agree, worst max|diff|/max|cpu| = {worst:.3e} (bound '
+        f'{FWD_RTOL:g}); predict: {note}; loss {g_tb["loss"]:.6f} on CUDA vs {c_tb["loss"]:.6f} '
+        f'on the CPU; {n} gradients agree, worst relative L2 {worst_g:.3e} at {worst_k} (bound '
+        f'{GRAD_RTOL:g})')
+    vt = cpu_net.view_transform
+    with torch.inference_mode():
+        feats = cpu_net.image_features(cpu_in['camera_imgs'])
+        lifted = vt.lift(feats, cpu_in['camera_depth'])
+        coords = vt.geometry(cpu_in, 2, 2)
+    B, C = 2, vt.context
+    flat, cells = lifted.reshape(B, -1, C), coords.reshape(B, -1, 3)
+    nx = tuple(int(v) for v in vt.nx)
+    exact = bev_pool(flat.double(), cells, None, nx)
+    got = bev_pool(flat.cuda(), cells.cuda(), None, nx).cpu().double()
+    rel = float((got - exact).abs().max()) / float(exact.abs().max())
+    if not rel <= 1e-5:
+        raise SystemExit(f'[{phase}] FAILED bev_pool on CUDA: max |diff| / max = {rel:.3e}')
+    log(phase, f'bev_pool on CUDA (index_add_) at the tiny model\'s {flat.shape[1]} points a '
+        f'cloud onto {nx}: within {rel:.3e} of float64 sums of the same points (bound 1e-5)')
+
+
+class BevStageTimer(StageTimer):
+    """While active, times BEVFusion's stages in each forward of `net`, the
+    device synchronized around each (`StageTimer.timed`): the image backbone
+    (Swin), the neck, the lift (dtransform, depthnet, the depth-weighted
+    context), the geometry (the frustum into BEV cells), `bev_pool`, the
+    view transform's rest (its downsample convs), the LiDAR branch
+    (PillarVFE and the scatter), the fuser, the BEV backbone, the dense head
+    and post-processing. `report(total_ms, n)` gives them a call."""
+
+    def __init__(self, net):
+        from pdm_ssd_torch.models.view_transforms import depth_lss
+        self.net, self.module = net, depth_lss
+        self.ms = {k: 0.0 for k in ('swin', 'neck', 'lift', 'geometry', 'bev_pool',
+                                    'view transform', 'lidar', 'fuser', 'bev backbone', 'head',
+                                    'post-process')}
+
+    def __enter__(self):
+        net, vt = self.net, self.net.view_transform
+        self.saved = self.module.bev_pool
+        self.module.bev_pool = self.timed(self.saved, 'bev_pool')
+        self.patched = [(net.image_backbone, 'forward', 'swin'), (net.neck, 'forward', 'neck'),
+                        (vt, 'lift', 'lift'), (vt, 'geometry', 'geometry'),
+                        (vt, 'forward', 'view transform'), (net.vfe, 'forward', 'lidar'),
+                        (net.map_to_bev, 'forward', 'lidar'), (net.fuser, 'forward', 'fuser'),
+                        (net.backbone_2d, 'forward', 'bev backbone'),
+                        (net.dense_head, 'forward', 'head'), (net, 'post_process', 'post-process')]
+        for obj, name, key in self.patched:
+            setattr(obj, name, self.timed(getattr(obj, name), key))
+        return self
+
+    def __exit__(self, *exc):
+        self.module.bev_pool = self.saved
+        for obj, name, _ in self.patched:
+            delattr(obj, name)
+
+    def report(self, total_ms: float, n: int) -> str:
+        ms = {k: v / n for k, v in self.ms.items()}
+        ms['view transform'] -= ms['lift'] + ms['geometry'] + ms['bev_pool']
+        ms['rest'] = total_ms - sum(ms.values())
+        return ', '.join(f'{k} {v:.3f}' for k, v in ms.items()) + f' ms of {total_ms:.3f} ms'
+
+
+def bevfusion_stages(net, fn, n: int = 3) -> str:
+    """`BevStageTimer`'s report over `n` calls of `fn` (each synchronized)."""
+    torch.cuda.synchronize()
+    with BevStageTimer(net) as timer:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+            torch.cuda.synchronize()
+        total = (time.perf_counter() - t0) * 1e3 / n
+    return timer.report(total, n)
+
+
+def bevfusion_full_phases(wrappers, synthetic, card: str, cfg_from_yaml_file) -> dict:
+    """Phases 64 and 65: `bevfusion.yaml` (`synthetic.bevfusion_grid`) at its
+    BATCH_SIZE_PER_GPU on `synthetic.camera_batch`es (BEVFUSION_POINTS points
+    a cloud, six cameras of 256 x 704): `predict` with the score gate open
+    (`measured_predict`) and its stages; five train steps with 8 boxes a
+    cloud (`measured_train`), one step profiled (GFLOP, device ms, busy) and
+    its forward's stages. Returns the launches of both paths."""
+    cfg = bevfusion_cfg(cfg_from_yaml_file, synthetic)
+    B = cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
+    what = (f'N={BEVFUSION_POINTS}, {BEVFUSION_CAMERAS} cameras of '
+            f'{" x ".join(str(v) for v in cfg.MODEL.VTRANSFORM.IMAGE_SIZE)}, '
+            f'{cfg.DATA_CONFIG.POINT_CLOUD_RANGE[3]:g} m and 0.6 m pillars')
+    net = synthetic.open_score_gate(synthetic.random_model(cfg, 'cuda', seed=7))
+    inputs = synthetic.camera_batch(B, BEVFUSION_POINTS, cfg, seed=5, n_cam=BEVFUSION_CAMERAS,
+                                    device='cuda')
+    phase = '64 bevfusion predict'
+    paths = {'bevfusion_predict': measured_predict(
+        phase, 'bevfusion.yaml (bevfusion_grid)', cfg, net, inputs, B, what, wrappers, card,
+        flops='convolutions and matrix products')}
+    log(phase, 'stages of a predict, synchronized: '
+        + bevfusion_stages(net, lambda: net.predict(inputs)))
+    del net, inputs
+    torch.cuda.empty_cache()
+    phase = '65 bevfusion train'
+    net = synthetic.random_model(cfg, seed=7)           # no device named: the card
+    batch = synthetic.camera_batch(B, BEVFUSION_POINTS, cfg, seed=5, n_cam=BEVFUSION_CAMERAS,
+                                   M=8, device='cuda', mode='train')
+    paths['bevfusion_train'] = measured_train(phase, 'bevfusion.yaml (bevfusion_grid)', cfg, net,
+                                              batch, what, wrappers, card)
+    profiled_train_step(phase, 'bevfusion.yaml', cfg, net, batch, card)
+    net.train()
+    log(phase, 'stages of a training forward and its loss, synchronized: '
+        + bevfusion_stages(net, lambda: net.forward_with_loss(dict(batch))))
+    net.eval()
+    del net, batch
+    torch.cuda.empty_cache()
+    return paths
+
+
+def bevfusion_loop_phases(wrappers, synthetic, card: str, cfg_from_yaml_file) -> dict:
+    """Phase 66: the port's mini nuScenes set with its front camera
+    (BEVFUSION_SAMPLES frames at one sweep, `make_mini_nuscenes --cams`,
+    under `build/chip_smoke_bevfusion/`), `bevfusion_mini.yaml` as shipped:
+    `eval_one_epoch` of seeded weights with the score gate open (NDS, mAP,
+    `infer_fps`, `loop_fps`), `train_model` for 2 epochs (a checkpoint an
+    epoch), the trained checkpoint through the eval loop; no kernel of the
+    port launched. Returns the launches of the two loops."""
+    from pdm_ssd_torch.datasets import build_dataloader
+    from pdm_ssd_torch.runtime import trainer
+    from pdm_ssd_torch.runtime.eval_utils import eval_one_epoch
+    from pdm_ssd_torch.tools.make_mini_nuscenes import make
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase = '66 bevfusion eval loop'
+    t0 = time.perf_counter()
+    root = make(BEVFUSION_DIR, samples=BEVFUSION_SAMPLES, max_sweeps=1, cams=True)
+    cfg = bevfusion_cfg(cfg_from_yaml_file, synthetic, BEVFUSION_MINI_CFG)
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    B = cfg.OPTIMIZATION.BATCH_SIZE_PER_GPU
+    log(phase, f'mini-nuScenes with CAM_FRONT: {BEVFUSION_SAMPLES} frames generated in '
+        f'{time.perf_counter() - t0:.1f} s')
+
+    def check(ret):
+        keys = ('NDS', 'mAP', 'car_AP', 'mTRANSE', 'mSCALEE', 'mORIENTE')
+        if not all(np.isfinite(float(ret[k])) for k in keys):
+            raise SystemExit(f'[{phase}] FAILED: nuScenes metrics not finite: '
+                             f'{ {k: ret.get(k) for k in keys} }')
+
+    ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, B, root_path=root,
+                                     workers=4, training=False)
+    net = synthetic.open_score_gate(synthetic.random_model(cfg, 'cuda', seed=7))
+    np.random.seed(0)
+    reset_launches(wrappers)
+    ret = eval_one_epoch(net, loader, ds, cfg.CLASS_NAMES, device='cuda',
+                         result_dir=root / 'eval_seeded')
+    paths = {'bevfusion_eval_loop': read_launches(wrappers)}
+    if paths['bevfusion_eval_loop'] != NO_LAUNCHES:
+        raise SystemExit(f'[{phase}] FAILED: kernel launches {paths["bevfusion_eval_loop"]}')
+    check(ret)
+    annos = pickle.loads((root / 'eval_seeded' / 'result.pkl').read_bytes())
+    log(phase, f'bevfusion_mini.yaml as shipped, seeded weights (score gate open), B={B} over '
+        f'{len(ds)} frames: {sum(len(a["name"]) for a in annos)} detections; {nds_note(ret)}; '
+        f'predict alone {ret["infer_fps"]:.2f} frames/s, the loop with loading '
+        f'{ret["loop_fps"]:.2f} frames/s; no kernel of the port launched, on {card}')
+
+    phase = '66 bevfusion train loop'
+    epochs = 2
+    tds, tloader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, B, root_path=root,
+                                       workers=4, training=True, seed=0)
+    ckpt_dir = root / 'ckpt'
+    net = synthetic.random_model(cfg, 'cuda', seed=7)
+    optimizer, sched = trainer.create_train_state(net, cfg.OPTIMIZATION, len(tloader), epochs)
+    np.random.seed(0)
+    torch.manual_seed(0)
+    steps = StepLog()
+    torch.cuda.synchronize()
+    reset_launches(wrappers)
+    t0 = time.perf_counter()
+    losses = trainer.train_model(net, optimizer, sched, tloader, epochs, ckpt_dir=ckpt_dir,
+                                 max_ckpt_save_num=1, logger=steps, log_interval=1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    paths['bevfusion_train_loop'] = read_launches(wrappers)
+    names = [c.name for c in trainer.list_checkpoints(ckpt_dir)]
+    if not all(np.isfinite(losses)) or names != [f'checkpoint_epoch_{epochs}.pth']:
+        raise SystemExit(f'[{phase}] FAILED: losses {losses}, checkpoints {names}')
+    if paths['bevfusion_train_loop'] != NO_LAUNCHES:
+        raise SystemExit(f'[{phase}] FAILED: kernel launches {paths["bevfusion_train_loop"]}')
+    log(phase, f'bevfusion_mini.yaml B={B}, {len(tds)} frames (imgaug and the world '
+        f'augmentations on), {epochs} epochs of {len(tloader)} steps: mean losses '
+        f'{" ".join(f"{x:.4f}" for x in losses)}; {seconds:.1f} s with loading; checkpoints '
+        f'left {names}; no kernel of the port launched, on {card}')
+    log(phase, steps.summary(len(tloader)))
+    trained = synthetic.random_model(cfg, 'cuda', seed=13)
+    trainer.load_checkpoint(ckpt_dir / names[-1], trained)
+    np.random.seed(0)
+    ret = eval_one_epoch(trained, loader, ds, cfg.CLASS_NAMES, device='cuda',
+                         result_dir=root / 'eval_trained')
+    check(ret)
+    log(phase, f'the checkpoint of epoch {epochs} over the {len(ds)} frames: {nds_note(ret)}; '
+        f'predict alone {ret["infer_fps"]:.2f} frames/s, with loading {ret["loop_fps"]:.2f} '
+        'frames/s')
+    return paths
+
+
+def bevfusion_phases(wrappers, synthetic, smi: str, cfg_from_yaml_file) -> dict:
+    """Phases 63 to 66, each group's seconds logged. Returns the kernel
+    launches of each path, by name."""
+    t0 = time.perf_counter()
+    bevfusion_cuda_vs_cpu_phase(synthetic, cfg_from_yaml_file)
+    t1 = time.perf_counter()
+    paths = bevfusion_full_phases(wrappers, synthetic, smi, cfg_from_yaml_file)
+    t2 = time.perf_counter()
+    paths.update(bevfusion_loop_phases(wrappers, synthetic, smi, cfg_from_yaml_file))
+    log('time', f'phase 63 {t1 - t0:.1f} s, phases 64 and 65 {t2 - t1:.1f} s, phase 66 '
+        f'{time.perf_counter() - t2:.1f} s')
+    return paths
+
+
 KERNEL_TABLE = (
     ('farthest_point_sample', 'pdm_ssd_torch/csrc/fps.cu', 'pdm_ssd_tpu/ops/pallas/fps.py:60'),
     ('window_select', 'pdm_ssd_torch/csrc/group.cu',
@@ -5106,6 +5437,18 @@ def main() -> None:
         raise SystemExit(f'[kernels] FAILED: no count for {missing}')
     log('time', f'{time.perf_counter() - T0:.1f} s since the start, after phase 62')
 
+    # BEVFusion: the camera branch (Swin, the neck, the depth-aware Lift-Splat)
+    # fused with the pillar branch, and the camera half of the nuScenes loops
+    more = bevfusion_phases(wrappers, synthetic, smi, cfg_from_yaml_file)
+    if set(more) & set(new_paths):
+        raise SystemExit(f'[kernels] FAILED: path names used twice: {set(more) & set(new_paths)}')
+    new_paths.update(more)
+    missing = [f'launches_bevfusion_{p}' for p in BEVFUSION_PATHS
+               if f'bevfusion_{p}' not in new_paths]
+    if missing:
+        raise SystemExit(f'[kernels] FAILED: no count for {missing}')
+    log('time', f'{time.perf_counter() - T0:.1f} s since the start, after phase 66')
+
     # `launches` is the count from the run of a main path: the flagship's five
     # training steps of phase 8 for its four kernels, PointRCNN's predict of
     # phase 11 for the ball query, SECOND's predict of phase 15 for the sparse
@@ -5144,7 +5487,8 @@ def main() -> None:
     # MPPNet's crops, `gather_rows` alone: one a frame of a forward, twice
     # that a training step; the row gather's `mppnet_crop_*` keys are its
     # times and bound at one frame's crops of phase 60 (B=2, N=16384, C=6,
-    # R=96 * 128)
+    # R=96 * 128); the `launches_bevfusion_*` counts of phases 64 to 66 are 0
+    # for every kernel
     main_path = {kern: train_launches for kern, _, _ in KERNEL_TABLE}
     main_path.update(ball_query=rcnn_launches, sparse_conv=second_launches,
                      gather_rows_bf16=second_launches,

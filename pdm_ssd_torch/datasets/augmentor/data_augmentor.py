@@ -6,7 +6,9 @@ DISABLE_AUG_LIST, the `disable_augmentation` hook and the heading normalized
 to [-pi, pi) at the end (reference `data_augmentor.py:290-317`). The world
 flip, rotation and scaling also move a sample's offline proposals
 ('roi_boxes', (T, R, 9), Waymo's USE_PREDBOX path) with the ground truth,
-as the JAX package's do (its `data_augmentor.py:53-115`). The other
+as the JAX package's do (its `data_augmentor.py:53-115`). `imgaug` flips and
+rotates BEVFusion's camera images (`image_ops`, PIL's operations without
+PIL) and records both in each image's `img_process_infos`. The other
 augmentations of the JAX package raise `NotImplementedError`, naming the
 ROADMAP item of those a config of the repo uses.
 """
@@ -16,17 +18,15 @@ from functools import partial
 
 import numpy as np
 
+from .. import image_ops
 from . import augmentor_utils
 from .database_sampler import DataBaseSampler
 
 # augmentations of the JAX package's queue that a config of the repo uses and
 # the port does not have yet, with the ROADMAP item that brings each
-_UNPORTED = {
-    'random_image_flip': 'ROADMAP Queue 1 item 12, camera and temporal models',
-    'imgaug': 'ROADMAP Queue 1 item 12, camera and temporal models',
-}
+_UNPORTED = {'random_image_flip': 'ROADMAP Queue 1 item 12, CaDDN'}
 _PORTED = ('gt_sampling', 'random_world_flip', 'random_world_rotation',
-           'random_world_scaling', 'random_world_translation')
+           'random_world_scaling', 'random_world_translation', 'imgaug')
 
 
 class DataAugmentor(object):
@@ -133,6 +133,27 @@ class DataAugmentor(object):
             data_dict['gt_boxes'], data_dict['points'], config.NOISE_TRANSLATE_STD)
         data_dict['gt_boxes'], data_dict['points'] = gt_boxes, points
         data_dict['noise_translate'] = noise
+        return data_dict
+
+    def imgaug(self, data_dict=None, config=None):
+        """Each camera image flipped left-right (a `np.random.choice([0, 1])`
+        draw, with RAND_FLIP) and then rotated by a `np.random.uniform(*ROT_LIM)`
+        draw of degrees, those draws in that order an image, as the JAX
+        package's; both recorded in the image's `img_process_infos` entry
+        ([resize, crop, flip, rotate]) for `image_calibrate`."""
+        if data_dict is None:
+            return partial(self.imgaug, config=config)
+        new_imgs = []
+        for img, info in zip(data_dict['camera_imgs'], data_dict['img_process_infos']):
+            flip = bool(config.RAND_FLIP and np.random.choice([0, 1]))
+            rotate = float(np.random.uniform(*config.ROT_LIM))
+            if flip:
+                img = image_ops.flip_left_right(img)
+            img = image_ops.rotate(img, rotate)
+            info[2] = flip
+            info[3] = rotate
+            new_imgs.append(img)
+        data_dict['camera_imgs'] = new_imgs
         return data_dict
 
     def forward(self, data_dict):

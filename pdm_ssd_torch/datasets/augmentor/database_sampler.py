@@ -61,7 +61,7 @@ class DataBaseSampler:
         for key in ('IMG_AUG_TYPE', 'USE_SHARED_MEMORY'):
             if sampler_cfg.get(key):
                 raise NotImplementedError(f'gt_sampling {key} is not ported yet (ROADMAP Queue 1 '
-                                          'item 12, camera and temporal models)')
+                                          'item 12, CaDDN and the image copy-paste)')
 
         by_class = {name: [] for name in class_names}
         for rel in sampler_cfg.DB_INFO_PATH:

@@ -1,14 +1,16 @@
-"""nuScenes dataset, LiDAR half (copy of
-`pdm_ssd_tpu/datasets/nuscenes/nuscenes_dataset.py`).
+"""nuScenes dataset (copy of `pdm_ssd_tpu/datasets/nuscenes/nuscenes_dataset.py`).
 
 Info-pkl driven; key frame plus past sweeps moved into the key frame's
 LiDAR frame with a time-lag column; velocity-extended (9-dof) boxes whose
 velocity columns are dropped unless PRED_VELOCITY; class-balanced resampling
 (CBGS) in training; predictions turned into annos carrying each sample's
-`metadata`; the devkit-free nuScenes metrics (`nuscenes_eval.py`). The draws
-(CBGS, the sweeps taken) use the global `np.random`, as the JAX package
-does, so one seed gives both packages the same samples. `CAMERA_CONFIG`
-(the camera images and transforms) raises: ROADMAP Queue 1 item 12.
+`metadata`; the devkit-free nuScenes metrics (`nuscenes_eval.py`). With
+CAMERA_CONFIG (BEVFusion) each sample also holds its cameras' transforms
+and images, read by `image_ops` (PNG only: the port carries no JPEG
+decoder), resized and cropped to FINAL_DIM, each image's [resize, crop,
+flip, rotate] recorded for `image_calibrate`. The draws (CBGS, the sweeps
+taken, each image's resize and crop) use the global `np.random`, as the JAX
+package does, so one seed gives both packages the same samples.
 """
 from __future__ import annotations
 
@@ -18,21 +20,25 @@ from pathlib import Path
 
 import numpy as np
 
+from .. import image_ops
 from ..dataset import DatasetTemplate
-from .synthetic import CAMERA_ITEM
 
 
 class NuScenesDataset(DatasetTemplate):
     def __init__(self, dataset_cfg, class_names, training=True, root_path=None,
                  logger=None):
-        if dataset_cfg.get('CAMERA_CONFIG', None) is not None:
-            raise NotImplementedError(CAMERA_ITEM)
         root_path = (root_path if root_path is not None
                      else Path(dataset_cfg.DATA_PATH)) / dataset_cfg.VERSION \
             if dataset_cfg.get('VERSION') else root_path
         super().__init__(dataset_cfg=dataset_cfg, class_names=class_names,
                          training=training, root_path=root_path, logger=logger)
         self.infos = []
+        self.camera_config = self.dataset_cfg.get('CAMERA_CONFIG', None)
+        if self.camera_config is not None:
+            self.use_camera = self.camera_config.get('USE_CAMERA', True)
+            self.camera_image_config = self.camera_config.IMAGE
+        else:
+            self.use_camera = False
         self.include_nuscenes_data(self.mode)
         if self.training and self.dataset_cfg.get('BALANCED_RESAMPLING', False):
             self.infos = self.balanced_infos_resampling(self.infos)
@@ -94,6 +100,80 @@ class NuScenesDataset(DatasetTemplate):
                              [len(c) for c in chunks])[:, None]
         return np.concatenate([xyzi, time_col], axis=1)
 
+    def crop_image(self, input_dict):
+        """Each image resized by a factor (training: `np.random.uniform(
+        *RESIZE_LIM_TRAIN)`; test: the mean of RESIZE_LIM_TEST) and cropped to
+        FINAL_DIM at the bottom (training: at a `np.random.uniform` column;
+        test: centred); the draws an image in that order. Records
+        `img_process_infos` [resize, crop, False, 0] an image."""
+        W, H = input_dict['ori_shape']
+        img_process_infos, crop_images = [], []
+        fH, fW = self.camera_image_config.FINAL_DIM
+        for img in input_dict['camera_imgs']:
+            if self.training:
+                resize = float(np.random.uniform(*self.camera_image_config.RESIZE_LIM_TRAIN))
+                newW, newH = int(W * resize), int(H * resize)
+                crop_h = newH - fH
+                crop_w = int(np.random.uniform(0, max(0, newW - fW)))
+            else:
+                resize = float(np.mean(self.camera_image_config.RESIZE_LIM_TEST))
+                newW, newH = int(W * resize), int(H * resize)
+                crop_h = newH - fH
+                crop_w = int(max(0, newW - fW) / 2)
+            crop = (crop_w, crop_h, crop_w + fW, crop_h + fH)
+            crop_images.append(image_ops.crop(image_ops.resize(img, (newW, newH)), crop))
+            img_process_infos.append([resize, crop, False, 0])
+        input_dict['img_process_infos'] = img_process_infos
+        input_dict['camera_imgs'] = crop_images
+        return input_dict
+
+    @staticmethod
+    def _quat_to_rotmat(q):
+        """(w, x, y, z) quaternion -> (3, 3) rotation matrix."""
+        w, x, y, z = np.asarray(q, np.float64) / np.linalg.norm(q)
+        return np.array([
+            [1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)],
+            [2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)],
+            [2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)],
+        ])
+
+    def load_camera_info(self, input_dict, info):
+        """Each camera's transforms as (N_cam, 4, 4) float32 ('lidar2camera',
+        'lidar2image', 'camera2ego', 'camera_intrinsics', 'camera2lidar'), its
+        'image_paths', and its image (`image_ops.read_image`, uint8 RGB)
+        resized and cropped by `crop_image`."""
+        keys = ['image_paths', 'lidar2camera', 'lidar2image', 'camera2ego',
+                'camera_intrinsics', 'camera2lidar']
+        for k in keys:
+            input_dict[k] = []
+        for _, camera_info in info['cams'].items():
+            input_dict['image_paths'].append(camera_info['data_path'])
+            l2c_r = np.linalg.inv(camera_info['sensor2lidar_rotation'])
+            l2c_t = camera_info['sensor2lidar_translation'] @ l2c_r.T
+            l2c = np.eye(4, dtype=np.float32)
+            l2c[:3, :3] = l2c_r.T
+            l2c[3, :3] = -l2c_t
+            input_dict['lidar2camera'].append(l2c.T)
+            intr = np.eye(4, dtype=np.float32)
+            intr[:3, :3] = camera_info['camera_intrinsics']
+            input_dict['camera_intrinsics'].append(intr)
+            input_dict['lidar2image'].append(intr @ l2c.T)
+            c2e = np.eye(4, dtype=np.float32)
+            c2e[:3, :3] = self._quat_to_rotmat(camera_info['sensor2ego_rotation'])
+            c2e[:3, 3] = camera_info['sensor2ego_translation']
+            input_dict['camera2ego'].append(c2e)
+            c2l = np.eye(4, dtype=np.float32)
+            c2l[:3, :3] = camera_info['sensor2lidar_rotation']
+            c2l[:3, 3] = camera_info['sensor2lidar_translation']
+            input_dict['camera2lidar'].append(c2l)
+        for k in keys[1:]:
+            input_dict[k] = np.stack(input_dict[k]).astype(np.float32)
+        images = [image_ops.read_image(self.root_path / name)
+                  for name in input_dict['image_paths']]
+        input_dict['camera_imgs'] = images
+        input_dict['ori_shape'] = (images[0].shape[1], images[0].shape[0])
+        return self.crop_image(input_dict)
+
     def __len__(self):
         return len(self.infos)
 
@@ -107,6 +187,8 @@ class NuScenesDataset(DatasetTemplate):
         if 'gt_boxes' in info:
             input_dict.update({'gt_names': info['gt_names'],
                                'gt_boxes': info['gt_boxes']})
+        if self.use_camera:
+            input_dict = self.load_camera_info(input_dict, info)
         data_dict = self.prepare_data(data_dict=input_dict)
         if data_dict is None:
             return self.__getitem__(np.random.randint(len(self)))

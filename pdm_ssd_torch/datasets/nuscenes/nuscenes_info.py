@@ -11,8 +11,8 @@ instance / category / scene) and produces the info schema the loader reads:
      gt_boxes (N, 9 with global-frame velocity rotated into lidar),
      gt_names, num_lidar_pts}
 
-plus the per-camera transforms under 'cams', which the camera models read
-(ROADMAP Queue 1 item 12).
+plus the per-camera transforms under 'cams', which BEVFusion's camera
+path reads (`nuscenes_dataset.load_camera_info`).
 
 Usage:
     python -m pdm_ssd_torch.datasets.nuscenes.nuscenes_info \

@@ -7,8 +7,11 @@ shuffling, the near/far-aware fixed-N point sampler, which gives point
 models their static shapes, the grid of the point models that pillarize on
 the device, and the voxelizer of the voxel models
 (`ops/voxelize.voxelize` on a CPU tensor: the contract of the JAX package's
-`_numpy_voxelize`, without its Python loop over cells). Every other step
-raises `NotImplementedError` naming its ROADMAP item.
+`_numpy_voxelize`, without its Python loop over cells); and BEVFusion's
+camera steps (`data_processor.py:175-256` there): the images normalized,
+each image's recorded resize, crop, flip and rotation folded into its
+'img_aug_matrix', and the sparse LiDAR depth map of each camera. CaDDN's
+depth-map steps raise `NotImplementedError` naming their ROADMAP item.
 """
 from __future__ import annotations
 
@@ -21,11 +24,8 @@ from ...utils import box_utils_np
 # steps of the JAX package's queue that the port does not have, with the
 # ROADMAP item that brings each
 _UNPORTED = {
-    'generate_depth_map': 'Queue 1 item 12, camera and temporal models',
-    'downsample_depth_map': 'Queue 1 item 12, camera and temporal models',
-    'image_normalize': 'Queue 1 item 12, camera and temporal models',
-    'image_calibrate': 'Queue 1 item 12, camera and temporal models',
-    'generate_camera_depth': 'Queue 1 item 12, camera and temporal models',
+    'generate_depth_map': 'Queue 1 item 12, CaDDN',
+    'downsample_depth_map': 'Queue 1 item 12, CaDDN',
 }
 
 
@@ -153,3 +153,91 @@ class DataProcessor:
             dd['voxel_num_points'] = num[:n].numpy()
             return dd
         return step
+
+    def _build_image_normalize(self, cfg):
+        """Camera images (uint8 (H, W, 3) each) -> (N_cam, H, W, 3) float32,
+        (x / 255 - mean) / std."""
+        mean = np.asarray(cfg.mean, np.float32)
+        std = np.asarray(cfg.std, np.float32)
+
+        def step(dd):
+            imgs = dd.get('camera_imgs')
+            if imgs is None:
+                return dd
+            arrs = [(np.asarray(im, np.float32) / 255.0 - mean) / std for im in imgs]
+            dd['camera_imgs'] = np.stack(arrs).astype(np.float32)
+            return dd
+        return step
+
+    def _build_image_calibrate(self, cfg):
+        """Each image's [resize, crop, flip, rotate] (`img_process_infos`) as a
+        4x4 'img_aug_matrix' mapping original pixels to augmented ones."""
+        def step(dd):
+            infos = dd.get('img_process_infos')
+            if infos is None:
+                return dd
+            transforms = []
+            for resize, crop, flip, rotate in infos:
+                rot = np.eye(2) * resize
+                tra = -np.asarray(crop[:2], np.float64)
+                if flip:
+                    A = np.array([[-1.0, 0.0], [0.0, 1.0]])
+                    b = np.array([crop[2] - crop[0], 0.0])
+                    rot = A @ rot
+                    tra = A @ tra + b
+                theta = rotate / 180.0 * np.pi
+                A = np.array([[np.cos(theta), np.sin(theta)],
+                              [-np.sin(theta), np.cos(theta)]])
+                b = np.array([crop[2] - crop[0], crop[3] - crop[1]]) / 2.0
+                b = A @ (-b) + b
+                rot = A @ rot
+                tra = A @ tra + b
+                tf = np.eye(4, dtype=np.float32)
+                tf[:2, :2] = rot
+                tf[:2, 3] = tra
+                transforms.append(tf)
+            dd['img_aug_matrix'] = np.stack(transforms)
+            return dd
+        return step
+
+    def _build_generate_camera_depth(self, cfg):
+        """'camera_depth' (N_cam, iH, iW, 1): the points moved back through
+        the inverse of the world augmentation ('lidar_aug_matrix'), projected
+        by each camera's 'lidar2image' and its 'img_aug_matrix'; each pixel
+        hit keeps the depth of the last point written there."""
+        iH, iW = (int(v) for v in cfg.IMAGE_DIM)
+
+        def step(dd):
+            if 'lidar2image' not in dd:
+                return dd
+            dd['camera_depth'] = camera_depth_map(
+                dd['points'], dd['lidar2image'], dd.get('img_aug_matrix'),
+                dd.get('lidar_aug_matrix'), iH, iW)
+            return dd
+        return step
+
+
+def camera_depth_map(points: np.ndarray, lidar2image: np.ndarray, img_aug=None, lidar_aug=None,
+                     iH: int = 256, iW: int = 704) -> np.ndarray:
+    """(N_cam, iH, iW, 1) float32 sparse depth maps of one cloud (N, >= 3):
+    the points moved back through the inverse of `lidar_aug` (4x4, or none),
+    projected by each camera's `lidar2image` (N_cam, 4, 4) and `img_aug`
+    (N_cam, 4, 4, or none); each pixel hit keeps the depth of the last point
+    written there (numpy's fancy assignment)."""
+    pts = points[:, :3].astype(np.float64)
+    la = np.eye(4) if lidar_aug is None else lidar_aug
+    pts = (pts - la[:3, 3]) @ np.linalg.inv(la[:3, :3]).T
+    aug = np.broadcast_to(np.eye(4), lidar2image.shape) if img_aug is None else img_aug
+    n_cam = lidar2image.shape[0]
+    depth = np.zeros((n_cam, iH, iW, 1), np.float32)
+    hom = np.concatenate([pts, np.ones((len(pts), 1))], -1)
+    for c in range(n_cam):
+        uvw = hom @ lidar2image[c].T                      # (N, 4)
+        dist = uvw[:, 2]
+        w = np.clip(uvw[:, 2], 1e-5, 1e5)
+        coords = np.stack([uvw[:, 0] / w, uvw[:, 1] / w, np.ones_like(w)], -1)
+        coords = coords @ aug[c][:3, :3].T + aug[c][:3, 3]
+        u, v = coords[:, 0], coords[:, 1]
+        on = (u >= 0) & (u < iW) & (v >= 0) & (v < iH) & (dist > 0)
+        depth[c, v[on].astype(int), u[on].astype(int), 0] = dist[on]
+    return depth

@@ -1,4 +1,5 @@
 """Detector registry (counterpart of `pdm_ssd_tpu/models/detectors/__init__.py`)."""
+from .bev_fusion import BevFusion
 from .detector3d import Detector3D
 from .mppnet import MPPNet
 from .parta2 import PartA2Net
@@ -14,9 +15,9 @@ _DETECTORS = {'PDMSSD': PDMSSD, 'PointRCNN': PointRCNN, 'SECONDNet': Detector3D,
               'VoxelNeXt': Detector3D, 'PVRCNN': PVRCNN, 'VoxelRCNN': VoxelRCNN,
               'SECONDNetIoU': SECONDNetIoU, 'PartA2Net': PartA2Net,
               'PVRCNNPlusPlus': PVRCNNPlusPlus, 'DSVT': Detector3D, 'TransFusion': Detector3D,
-              'MPPNet': MPPNet}
+              'MPPNet': MPPNet, 'BevFusion': BevFusion}
 # the detectors the port does not have yet, by the ROADMAP item that ports them
-_LATER = {'BevFusion': 'ROADMAP Queue 1 item 12, the camera and temporal models'}
+_LATER = {'CaDDN': 'ROADMAP Queue 1 item 12, CaDDN'}
 
 
 def build_detector(model_cfg, num_class, dataset_cfg, class_names=None, device=None):

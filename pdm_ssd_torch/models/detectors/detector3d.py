@@ -162,7 +162,7 @@ class Detector3D(nn.Module):
                                       'yet (ROADMAP Queue 1)')
 
     def _slot(self, slot: str):
-        return getattr(self, self.slots[slot]) if slot in self.slots else None
+        return self._modules[self.slots[slot]] if slot in self.slots else None
 
     vfe = property(lambda self: self._slot('vfe'))
     backbone_3d = property(lambda self: self._slot('backbone_3d'))

@@ -139,6 +139,22 @@ def conv_same(conv: nn.Conv2d | nn.Conv3d, x: torch.Tensor) -> torch.Tensor:
     return fn(F.pad(x, flat), conv.weight, conv.bias, conv.stride)
 
 
+class DeviceCache:
+    """Constant tensors made from numpy once per device (not module state:
+    `to_empty` would clear a buffer), outside inference mode, so that a
+    tensor first made under `predict` may take part in a training step."""
+
+    def __init__(self):
+        self._made = {}
+
+    def get(self, key, device, make):
+        key = (key, str(device))
+        if key not in self._made:
+            with torch.inference_mode(False):
+                self._made[key] = torch.as_tensor(make(), device=device)
+        return self._made[key]
+
+
 class _FrozenStats:
     """Context in which the BatchNorm layers of a module update nothing."""
 

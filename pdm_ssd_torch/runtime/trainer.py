@@ -26,7 +26,10 @@ from .optimization import build_optimizer_and_schedule
 VOXEL_KEYS = ('voxels', 'voxel_coords', 'voxel_num_points', 'voxel_mask')
 # a Waymo sequence batch's frame stack, poses and offline proposals (MPPNet)
 SEQUENCE_KEYS = ('points_multi_frame', 'poses', 'roi_boxes', 'roi_scores', 'roi_labels')
-INPUT_KEYS = ('points', 'points_mask') + VOXEL_KEYS + SEQUENCE_KEYS
+# a camera batch's images, depth maps and transforms (BEVFusion)
+CAMERA_KEYS = ('camera_imgs', 'camera_depth', 'camera2lidar', 'camera_intrinsics',
+               'img_aug_matrix', 'lidar_aug_matrix')
+INPUT_KEYS = ('points', 'points_mask') + VOXEL_KEYS + SEQUENCE_KEYS + CAMERA_KEYS
 DEVICE_KEYS = INPUT_KEYS + ('gt_boxes', 'gt_mask')
 
 
@@ -43,9 +46,13 @@ def resolve_device(device=None) -> torch.device:
 def to_device_batch(batch: dict, device, keys=DEVICE_KEYS) -> dict:
     """The arrays `keys` of a collated numpy batch, as tensors on `device`.
     A voxel model's ragged raw points (padded to the batch's longest cloud,
-    with a 'points_mask') stay on the host: it reads the voxels."""
+    with a 'points_mask') stay on the host: it reads the voxels. So do the
+    camera keys of a batch without images ('lidar_aug_matrix', which every
+    sample carries)."""
     if 'voxels' in batch and 'points_mask' in batch:
         keys = [k for k in keys if k not in ('points', 'points_mask')]
+    if 'camera_imgs' not in batch:
+        keys = [k for k in keys if k not in CAMERA_KEYS]
     return {k: torch.from_numpy(np.ascontiguousarray(batch[k])).to(device)
             for k in keys if k in batch}
 

@@ -24,8 +24,10 @@ the dense or sparse ladder, with `dsvt.yaml` or `transfusion.yaml` the
 tiny window-attention or query-head model, with
 `configs/waymo_models/mppnet_mini.yaml` or `mppnet_16frame.yaml` the tiny
 MPPNet on the batches of a mini-Waymo set it generates in a temporary
-directory (`utils/synthetic.TINY_CFGS`; a config that voxelizes its points
-gets voxel batches, made on the device).
+directory, with `configs/nuscenes_models/bevfusion.yaml` or
+`bevfusion_mini.yaml` the tiny BEVFusion on camera batches of two cameras
+(`utils/synthetic.camera_batch`) (`utils/synthetic.TINY_CFGS`; a config
+that voxelizes its points gets voxel batches, made on the device).
 Runs on the card unless `--device cpu` is given. The counterpart of
 `__graft_entry__.dryrun_multichip` on one device.
 """
@@ -72,6 +74,12 @@ def dryrun(device: str | None = None, B: int = 2, N: int = 512, seed: int = 0,
             batch = synthetic.waymo_batch(train_set, range(3, 3 + B), dev)
             test_set = synthetic.waymo_set(cfg, root, frames=B + 3, seed=seed)
             inputs = synthetic.waymo_batch(test_set, range(3, 3 + B), dev)
+    elif cfg.DATA_CONFIG.get('CAMERA_CONFIG') is not None:
+        # a camera model: voxels and two cameras' images, depth maps and transforms
+        batch = synthetic.camera_batch(B, N, cfg, seed=seed, n_cam=2, M=8, device=dev,
+                                       mode='train', image_wh=(192, 128))
+        inputs = synthetic.camera_batch(B, N, cfg, seed=seed, n_cam=2, device=dev,
+                                        image_wh=(192, 128))
     elif cfg.DATA_CONFIG.get('DATASET') == 'NuScenesDataset':
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in synthetic.nuscenes_batch(B, N, seed=seed).items()}
@@ -109,7 +117,8 @@ def main() -> None:
                     'pointrcnn.yaml, second_sparse.yaml, second_focal.yaml, voxelnext.yaml, '
                     'second.yaml, pointpillar.yaml, centerpoint_pillar.yaml, pillarnet.yaml, '
                     'pv_rcnn.yaml, pv_rcnn_sparse.yaml, voxel_rcnn.yaml, '
-                    'voxel_rcnn_sparse.yaml, configs/nuscenes_models/pdm_ssd_nuscenes.yaml or '
+                    'voxel_rcnn_sparse.yaml, configs/nuscenes_models/pdm_ssd_nuscenes.yaml, '
+                    'configs/nuscenes_models/bevfusion.yaml or '
                     'configs/waymo_models/mppnet_mini.yaml')
     args = ap.parse_args()
     dryrun(args.device, args.batch, args.points, cfg_file=args.cfg_file)

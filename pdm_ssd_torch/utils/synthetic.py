@@ -772,6 +772,139 @@ def waymo_batch(dataset, indices, device='cpu') -> dict:
                            DEVICE_KEYS)
 
 
+def bevfusion_grid(cfg):
+    """Make `configs/nuscenes_models/bevfusion.yaml`'s three grids agree, in
+    place (ROADMAP Queue 3: as shipped its 0.3 m pillars over +-51.2 m give
+    341 cells a side, whose stride-2 BEV level comes back at 342, its
+    +-54 m camera map of 180 cells lands in the LiDAR map's corner, and
+    FEATURE_MAP_STRIDE 2 asks for a 170-cell target on a full-resolution
+    map): the LiDAR range in x and y the camera map's XBOUND and YBOUND,
+    pillars of 0.6 x 0.6 x 8 m (180 x 180, the camera map's size after its
+    DOWNSAMPLE 2) and FEATURE_MAP_STRIDE 1. Every width stays the file's."""
+    vt = cfg.MODEL.VTRANSFORM
+    pc = list(cfg.DATA_CONFIG.POINT_CLOUD_RANGE)
+    cfg.DATA_CONFIG.POINT_CLOUD_RANGE = [float(vt.XBOUND[0]), float(vt.YBOUND[0]), pc[2],
+                                         float(vt.XBOUND[1]), float(vt.YBOUND[1]), pc[5]]
+    voxel_processor(cfg).VOXEL_SIZE = [0.6, 0.6, 8.0]
+    cfg.MODEL.DENSE_HEAD.TARGET_ASSIGNER_CONFIG.FEATURE_MAP_STRIDE = 1
+    return cfg
+
+
+def tiny_bevfusion_cfg(cfg):
+    """Shrink `configs/nuscenes_models/bevfusion.yaml` or `bevfusion_mini.yaml`
+    in place to `bevfusion_mini.yaml`'s path at narrower widths: the 4-stage
+    Swin (EMBED_DIM 8, one block in stages 1, 2 and 4, two in stage 3,
+    windows of 4, drop path 0.1), the neck at 16, the Lift-Splat at 8
+    channels over 64 x 96 images (8 x 12 feature cells, 8 depth bins) onto a
+    32 x 32 grid of 1 m cells, 1 m pillars of 16 channels, the fuser at 24,
+    one BEV level, one head group of all classes, circle NMS."""
+    from .config import CfgNode
+    ds = cfg.DATA_CONFIG
+    ds.POINT_CLOUD_RANGE = [0, -16, -3, 32, 16, 1]
+    ds.CAMERA_CONFIG.IMAGE.FINAL_DIM = [64, 96]
+    proc = voxel_processor(cfg)
+    proc.VOXEL_SIZE = [1.0, 1.0, 4.0]
+    proc.MAX_POINTS_PER_VOXEL = 8
+    proc.MAX_NUMBER_OF_VOXELS = CfgNode({'train': 256, 'test': 256})
+    m = cfg.MODEL
+    m.IMAGE_BACKBONE.update({'EMBED_DIM': 8, 'DEPTHS': [1, 1, 2, 1], 'NUM_HEADS': [1, 2, 4, 8],
+                             'WINDOW_SIZE': 4, 'DROP_PATH_RATE': 0.1})
+    m.NECK.update({'IN_CHANNELS': [16, 32, 64], 'OUT_CHANNELS': 16})
+    m.VTRANSFORM.update({'IN_CHANNEL': 16, 'OUT_CHANNEL': 8, 'IMAGE_SIZE': [64, 96],
+                         'FEATURE_SIZE': [8, 12], 'XBOUND': [0.0, 32.0, 1.0],
+                         'YBOUND': [-16.0, 16.0, 1.0], 'ZBOUND': [-4.0, 4.0, 8.0],
+                         'DBOUND': [1.0, 17.0, 2.0], 'DOWNSAMPLE': 1})
+    m.VFE.NUM_FILTERS = [16]
+    m.MAP_TO_BEV.NUM_BEV_FEATURES = 16
+    m.FUSER.OUT_CHANNEL = 24
+    m.BACKBONE_2D.update({'LAYER_NUMS': [1], 'LAYER_STRIDES': [1], 'NUM_FILTERS': [16],
+                          'UPSAMPLE_STRIDES': [1], 'NUM_UPSAMPLE_FILTERS': [16]})
+    head = m.DENSE_HEAD
+    head.CLASS_NAMES_EACH_HEAD = [list(cfg.CLASS_NAMES)]
+    head.SHARED_CONV_CHANNEL = 16
+    head.TARGET_ASSIGNER_CONFIG.FEATURE_MAP_STRIDE = 1
+    head.TARGET_ASSIGNER_CONFIG.NUM_MAX_OBJS = 50
+    head.POST_PROCESSING.POST_CENTER_LIMIT_RANGE = [-4.0, -20.0, -6.0, 36.0, 20.0, 4.0]
+    head.POST_PROCESSING.MAX_OBJ_PER_SAMPLE = 50
+    m.POST_PROCESSING.NMS_CONFIG = CfgNode({'NMS_TYPE': 'circle_nms', 'NMS_RADIUS': 0.8,
+                                            'NMS_PRE_MAXSIZE': 32, 'NMS_POST_MAXSIZE': 16})
+    return cfg
+
+
+# a nuScenes rig's six cameras, by the yaw (degrees, counter-clockwise from
+# the LiDAR's x axis) of each optical axis: front, front right, front left,
+# back, back left, back right; their 1600 x 900 images and focal length
+CAMERA_YAWS = (0.0, -55.0, 55.0, 180.0, 110.0, -110.0)
+CAMERA_WH = (1600, 900)
+CAMERA_FOCAL = 1266.0
+
+
+def camera_rig(n_cam: int = 6, image_wh: tuple = CAMERA_WH) -> tuple:
+    """(camera2lidar, camera_intrinsics, lidar2image), each (n_cam, 4, 4)
+    float32, of the first `n_cam` cameras of CAMERA_YAWS: camera x right, y
+    down, z along the optical axis, level, 0.3 m below the LiDAR; the
+    intrinsics of an image of `image_wh` (the focal length CAMERA_FOCAL at
+    1600 pixels wide, in proportion otherwise)."""
+    W, H = image_wh
+    f = CAMERA_FOCAL * W / CAMERA_WH[0]
+    intr = np.eye(4, dtype=np.float32)
+    intr[:3, :3] = [[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]]
+    c2l = np.zeros((n_cam, 4, 4), np.float32)
+    for c, yaw in enumerate(CAMERA_YAWS[:n_cam]):
+        a = np.radians(yaw)
+        fwd, right = np.array([np.cos(a), np.sin(a), 0.0]), np.array([np.sin(a), -np.cos(a), 0.0])
+        c2l[c, :3, :3] = np.stack([right, [0.0, 0.0, -1.0], fwd], axis=1)
+        c2l[c, :3, 3] = [0.0, 0.0, -0.3]
+        c2l[c, 3, 3] = 1.0
+    intrinsics = np.repeat(intr[None], n_cam, axis=0)
+    return c2l, intrinsics, (intrinsics @ np.linalg.inv(c2l)).astype(np.float32)
+
+
+def camera_batch(B: int, N: int, cfg, seed: int = 0, n_cam: int = 6, M: int = 0,
+                 device='cpu', mode: str = 'test', image_wh: tuple = CAMERA_WH) -> dict:
+    """A BEVFusion batch of `cfg`: `nuscenes_points` over its range, voxelized
+    as its processor says (the voxel cap of `mode`); `n_cam` cameras of
+    `camera_rig` whose `image_wh` images were resized by the mean of
+    RESIZE_LIM_TEST and cropped to FINAL_DIM as the test-time data path does
+    ('img_aug_matrix'), seeded normal pixels ('camera_imgs', normalized
+    images) and each camera's sparse depth map of the cloud
+    (`camera_depth_map`); with M > 0 also M boxes a cloud of
+    `nuscenes_batch`'s, the classes taken modulo the config's ('gt_boxes',
+    'gt_mask'). Tensors on `device`."""
+    from ..datasets.processor.data_processor import camera_depth_map
+    from ..ops.voxelize import voxelize_batch
+    iH, iW = (int(v) for v in cfg.DATA_CONFIG.CAMERA_CONFIG.IMAGE.FINAL_DIM)
+    resize = float(np.mean(cfg.DATA_CONFIG.CAMERA_CONFIG.IMAGE.RESIZE_LIM_TEST))
+    W0, H0 = image_wh
+    newW, newH = int(W0 * resize), int(H0 * resize)
+    aug = np.eye(4, dtype=np.float32)
+    aug[:2, :2] *= resize
+    aug[:2, 3] = [-int(max(0, newW - iW) / 2), -(newH - iH)]
+    c2l, intr, l2i = camera_rig(n_cam, image_wh)
+    raw = nuscenes_batch(B, N, max(M, 1), seed)
+    pts = raw['points'][..., :int(cfg.DATA_CONFIG.get('NUM_POINT_FEATURES', 5))]
+    depth = np.stack([camera_depth_map(p, l2i, np.repeat(aug[None], n_cam, 0), None, iH, iW)
+                      for p in pts])
+    rng = np.random.RandomState(seed + 2)
+    batch = {'camera_imgs': rng.randn(B, n_cam, iH, iW, 3).astype(np.float32),
+             'camera_depth': depth,
+             'camera2lidar': np.repeat(c2l[None], B, 0),
+             'camera_intrinsics': np.repeat(intr[None], B, 0),
+             'img_aug_matrix': np.repeat(np.repeat(aug[None], n_cam, 0)[None], B, 0)}
+    if M:
+        gt = raw['gt_boxes'].copy()
+        gt[..., -1] = (gt[..., -1] - 1) % len(cfg.CLASS_NAMES) + 1
+        batch.update(gt_boxes=gt, gt_mask=raw['gt_mask'])
+    out = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
+    proc = voxel_processor(cfg)
+    p = torch.from_numpy(pts).to(device)
+    out.update(voxelize_batch(p, cfg.DATA_CONFIG.POINT_CLOUD_RANGE, list(proc.VOXEL_SIZE),
+                              int(proc.MAX_POINTS_PER_VOXEL),
+                              int(proc.MAX_NUMBER_OF_VOXELS[mode])))
+    out['points'] = p
+    return out
+
+
 # the dry run's shrink of each model that has one, by `MODEL.NAME` (a
 # SECONDNet's by its backbone too)
 TINY_CFGS = {'PDMSSD': tiny_pdmssd_cfg, 'PointRCNN': tiny_pointrcnn_cfg,
@@ -781,7 +914,7 @@ TINY_CFGS = {'PDMSSD': tiny_pdmssd_cfg, 'PointRCNN': tiny_pointrcnn_cfg,
              'VoxelRCNN': tiny_voxel_rcnn_cfg, 'SECONDNetIoU': tiny_second_iou_cfg,
              'PartA2Net': tiny_parta2_cfg, 'PVRCNNPlusPlus': tiny_pv_rcnn_plusplus_cfg,
              'DSVT': tiny_dsvt_cfg, 'TransFusion': tiny_transfusion_cfg,
-             'MPPNet': tiny_mppnet_cfg}
+             'MPPNet': tiny_mppnet_cfg, 'BevFusion': tiny_bevfusion_cfg}
 
 
 def voxelizes(cfg) -> bool:

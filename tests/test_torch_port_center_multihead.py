@@ -324,8 +324,8 @@ def test_multi_classes_nms_matches_jax(lists, ties):
     B, n = 3, 96
     boxes, probs = _nms_inputs(B, n, 5, tie_levels=4 if ties else None)
     d = {'NMS_TYPE': 'multi_classes_nms', **NMS_CFGS[lists]}
-    want = to_numpy(jax.vmap(lambda p, b: j_nms.multi_classes_nms(
-        p, b, JCfgNode(d), score_thresh=0.3))(jnp.asarray(probs), jnp.asarray(boxes)))
+    want = to_numpy(jax.jit(jax.vmap(lambda p, b: j_nms.multi_classes_nms(   # one program
+        p, b, JCfgNode(d), score_thresh=0.3)))(probs, boxes))
     got = to_numpy(t_nms.multi_classes_nms(torch.from_numpy(probs), torch.from_numpy(boxes),
                                            TCfgNode(d), score_thresh=0.3))
     assert got[0].shape == want[0].shape
@@ -352,9 +352,8 @@ def test_class_specific_nms_matches_jax(lists, ties):
     valid = np.random.RandomState(7).rand(B, n) > 0.1
     d = {'NMS_TYPE': 'class_specific_nms', **NMS_CFGS[lists]}
     sth = [0.05, 0.1, 0.2]
-    want = to_numpy(jax.vmap(lambda b, s, l, v: j_nms.class_specific_nms(
-        b, s, l, v, JCfgNode(d), 3, score_thresh=sth))(*map(jnp.asarray,
-                                                            (boxes, scores, labels, valid))))
+    want = to_numpy(jax.jit(jax.vmap(lambda b, s, l, v: j_nms.class_specific_nms(  # one program
+        b, s, l, v, JCfgNode(d), 3, score_thresh=sth)))(boxes, scores, labels, valid))
     got = to_numpy(t_nms.class_specific_nms(*map(torch.from_numpy, (boxes, scores, labels,
                                                                     valid)),
                                             TCfgNode(d), 3, score_thresh=sth))

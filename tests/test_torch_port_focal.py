@@ -11,6 +11,7 @@ versions here (the kernel is held on the card at these shapes by
 """
 import os
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -204,8 +205,8 @@ def test_focal_split_matches_jax(topk, mask_multi, skip):
     imps[0, 3, 26] = imps[0, 4, 26]           # an exact tie of two voxels' own masks
     args = [np.stack(a) for a in (act, eorig, espawn, emask)]
     kw = dict(topk=topk, threshold=0.5, mask_multi=mask_multi, skip_mask_kernel=skip)
-    jf, jb = j_focal.focal_split(jnp.asarray(x), jnp.asarray(args[0]), jnp.asarray(imps),
-                                 *(jnp.asarray(a) for a in args[1:]), **kw)
+    jf, jb = jax.jit(lambda *a: j_focal.focal_split(*a, **kw))(   # one program, not one an op
+        x, args[0], imps, *args[1:])
     tf, tb = t_focal.focal_split(torch.from_numpy(x), torch.from_numpy(args[0]),
                                  torch.from_numpy(imps), *(torch.from_numpy(a) for a in args[1:]),
                                  **kw)

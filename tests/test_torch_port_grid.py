@@ -486,15 +486,28 @@ def _detector3d_tta(name):
     return tta, j_model, pair, open_score_gate_flax(pair.variables)
 
 
+@pytest.fixture(scope='module')
+def detector3d_tta():
+    """`_detector3d_tta` by name, made once a name for the module's tests
+    (the sparse SECOND's pair compiles the JAX package's init)."""
+    made = {}
+
+    def get(name):
+        if name not in made:
+            made[name] = _detector3d_tta(name)
+        return made[name]
+    return get
+
+
 @pytest.mark.parametrize('name', sorted(TTA_DETECTOR3D))
-def test_detector3d_tta_flip_predict_matches_jax(name):
+def test_detector3d_tta_flip_predict_matches_jax(name, detector3d_tta):
     """`Detector3D.predict` with TTA_FLIP (a forward per entry on the mirrored
     scene, boxes and heading mirrored back, one joint NMS of the config's
     type): on the tiny `centerpoint_pillar.yaml` (points, circle NMS) and the
     tiny sparse SECOND (a batch prepared once, rotated NMS), the
     classification bias at 0: detections matched by box and label, and the
     flips change them."""
-    tta, j_model, pair, variables = _detector3d_tta(name)
+    tta, j_model, pair, variables = detector3d_tta(name)
     want = to_numpy(jax.jit(lambda v, b: j_model.apply(v, b, method=j_model.predict))(
         variables, pair.inputs))
     net = build_network(tta.MODEL, 3, tta.DATA_CONFIG, device='cpu')
@@ -506,7 +519,7 @@ def test_detector3d_tta_flip_predict_matches_jax(name):
     assert match_detections(got, want) >= 16
 
 
-def test_tta_flip_runs_the_flipped_pass_on_the_unflipped_maps():
+def test_tta_flip_runs_the_flipped_pass_on_the_unflipped_maps(detector3d_tta):
     """A fault of the reference, copied: the JAX package's `predict` takes a
     batch whose kernel maps were built before the flip and does not rebuild
     them, so the sparse SECOND's flipped pass runs the unflipped maps and
@@ -516,7 +529,7 @@ def test_tta_flip_runs_the_flipped_pass_on_the_unflipped_maps():
     rebuilt for the flipped scene gives other detections."""
     import math
     from pdm_ssd_torch.models import model_nms
-    tta, _, pair, variables = _detector3d_tta('second_sparse')
+    tta, _, pair, variables = detector3d_tta('second_sparse')
     net = build_network(tta.MODEL, 3, tta.DATA_CONFIG, device='cpu')
     net.load_state_dict(from_flax(variables, net))
     batch = pair.torch_inputs()
@@ -583,8 +596,10 @@ def test_point_head_simple_matches_jax():
     head_cfg = load_cfg('pdm_ssd_aux').MODEL.POINT_HEAD
     batch = _aux_head_inputs(seed=2)
     j_head = JHead(model_cfg=JCfgNode(head_cfg.to_dict()), input_channels=24, num_class=1)
-    variables = randomize_variables(j_head.init(jax.random.PRNGKey(0), dict(batch)), 3, 0.1)
-    J = to_numpy(j_head.apply(variables, dict(batch)))
+    # the JAX side jitted: one program a call instead of one an op
+    variables = randomize_variables(
+        jax.jit(lambda b: j_head.init(jax.random.PRNGKey(0), b))(dict(batch)), 3, 0.1)
+    J = to_numpy(jax.jit(j_head.apply)(variables, dict(batch)))
     head = PointHeadSimple(head_cfg, 24, 1).eval()
     head.load_state_dict(from_flax(variables, head))
     t_batch = {k: torch.from_numpy(v) for k, v in batch.items()}
@@ -593,12 +608,14 @@ def test_point_head_simple_matches_jax():
     for k in ('aux_point_cls_preds', 'aux_point_cls_scores'):
         assert_close_to_scale(out[k].numpy(), J[k], MODULE_RTOL, k)
     J_in = {k: jnp.asarray(v) for k, v in J.items()}
-    want_t = to_numpy(j_head.apply(variables, J_in, method=JHead.assign_targets))
+    want_t = to_numpy(jax.jit(lambda v, b: j_head.apply(v, b, method=JHead.assign_targets))(
+        variables, J_in))
     got_t = head.assign_targets(out)
     labels = want_t['aux_point_cls_labels']
     np.testing.assert_array_equal(got_t['aux_point_cls_labels'].numpy(), labels)
     assert (labels == 1).sum() > 20 and (labels == -1).sum() > 5 and (labels == 0).sum() > 20
-    j_loss, j_tb = j_head.apply(variables, J_in, want_t, method=JHead.get_loss)
+    j_loss, j_tb = jax.jit(lambda v, b, t: j_head.apply(v, b, t, method=JHead.get_loss))(
+        variables, J_in, want_t)
     loss, tb = head.get_loss(out, got_t)
     np.testing.assert_allclose(float(loss), float(j_loss), rtol=LOSS_RTOL)
     assert set(tb) == set(j_tb) == {'aux_point_loss_cls'}

@@ -78,6 +78,13 @@ SLICE_MODULES = [
     'pdm_ssd_torch.datasets.waymo.waymo_utils', 'pdm_ssd_torch.datasets.waymo.waymo_eval',
     'pdm_ssd_torch.tools.make_mini_waymo', 'pdm_ssd_torch.models.roi_heads.mppnet_head',
     'pdm_ssd_torch.models.detectors.mppnet',
+    'pdm_ssd_torch.ops.bev_pool', 'pdm_ssd_torch.datasets.image_ops',
+    'pdm_ssd_torch.models.backbones_image.swin',
+    'pdm_ssd_torch.models.backbones_image.generalized_lss',
+    'pdm_ssd_torch.models.backbones_image.fuser',
+    'pdm_ssd_torch.models.backbones_image.image_backbone',
+    'pdm_ssd_torch.models.view_transforms.depth_lss',
+    'pdm_ssd_torch.models.detectors.bev_fusion',
     'bench_torch',
 ]
 
@@ -113,7 +120,7 @@ def test_port_and_chip_smoke_import_no_jax():
             '    except ModuleNotFoundError:\n'
             "        importlib.import_module(m.rpartition('.')[0])\n"
             "bad = [m for m in sys.modules\n"
-            "       if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pdm_ssd_tpu')]\n"
+            "       if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pdm_ssd_tpu', 'PIL')]\n"
             "assert not bad, bad\n"
             "print('clean')\n")
     res = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True,
@@ -561,19 +568,23 @@ DETECTOR3D_PORTED = {'dsvt': 605899, 'transfusion': 1583694}
 # the MPPNet files, by their parameter count (the JAX package's
 # `jax.eval_shape` of its init counts the same)
 MPPNET_PORTED = {'waymo_models/mppnet_16frame': 7389143, 'waymo_models/mppnet_mini': 4936515}
-STILL_RAISING = ['nuscenes_models/bevfusion', 'nuscenes_models/bevfusion_mini']
+# the BEVFusion files, by their parameter count (the JAX package's
+# `jax.eval_shape` of its init: `bevfusion_mini.yaml` as shipped,
+# `bevfusion.yaml` with `synthetic.bevfusion_grid`, which changes no width)
+BEVFUSION_PORTED = {'nuscenes_models/bevfusion': 36755122,
+                    'nuscenes_models/bevfusion_mini': 1440207}
+# every config of the repo builds in the port
+STILL_RAISING = []
 
 
 @pytest.mark.parametrize('name', KITTI_PORTED + list(DETECTOR3D_PORTED) + list(MPPNET_PORTED)
-                         + STILL_RAISING)
+                         + list(BEVFUSION_PORTED) + STILL_RAISING)
 def test_configs_build_or_name_their_roadmap_item(name, monkeypatch):
     """The five KITTI files of the two-stage family's rest, DSVT and
     TransFusion (`Detector3D` with its window-attention backbone or its
-    query head) and the two MPPNet files, each of the last four at its
-    parameter count, build through `build_detector` as shipped (on the meta
-    device: the modules, no storage); BEVFusion still raises
-    `NotImplementedError` naming its ROADMAP item (12, the camera and
-    temporal models)."""
+    query head), the two MPPNet files and the two BEVFusion files, each of
+    the last six at its parameter count, build through `build_detector` as
+    shipped (on the meta device: the modules, no storage)."""
     from pdm_ssd_torch.models.detectors import build_detector
     from pdm_ssd_torch.utils import config as t_config
     monkeypatch.chdir(REPO)
@@ -583,11 +594,12 @@ def test_configs_build_or_name_their_roadmap_item(name, monkeypatch):
         net = build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG, device='meta')
         assert type(net).__name__ == cfg.MODEL.NAME
         assert sum(p.numel() for p in net.parameters()) > 1e6
-    elif name in DETECTOR3D_PORTED or name in MPPNET_PORTED:
+    elif name in DETECTOR3D_PORTED or name in MPPNET_PORTED or name in BEVFUSION_PORTED:
         net = build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG,
                              class_names=cfg.CLASS_NAMES, device='meta')
-        want = DETECTOR3D_PORTED.get(name) or MPPNET_PORTED[name]
-        assert type(net).__name__ == ('MPPNet' if name in MPPNET_PORTED else 'Detector3D')
+        want = {**DETECTOR3D_PORTED, **MPPNET_PORTED, **BEVFUSION_PORTED}[name]
+        assert type(net).__name__ == ('MPPNet' if name in MPPNET_PORTED else 'BevFusion'
+                                      if name in BEVFUSION_PORTED else 'Detector3D')
         assert sum(p.numel() for p in net.parameters()) == want
     else:
         with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 item 12'):
@@ -679,26 +691,34 @@ UNPORTED_DATASETS = ['CustomDataset', 'ONCEDataset', 'LyftDataset', 'PandasetDat
 def test_unported_datasets_and_the_nuscenes_camera_half_name_their_roadmap_item(what, tmp_path,
                                                                                  monkeypatch):
     """The other five datasets raise `NotImplementedError` naming ROADMAP
-    Queue 1 item 13; nuScenes' camera half (a dataset with CAMERA_CONFIG,
-    the generator's CAM_FRONT stream) names item 12."""
+    Queue 1 item 13. nuScenes' camera half is ported: the generator writes
+    the CAM_FRONT stream's PNGs, and `bevfusion_mini.yaml`'s dataset (with
+    CAMERA_CONFIG) reads them into a batch of camera tensors."""
     from pdm_ssd_torch.datasets import build_dataloader
     from pdm_ssd_torch.datasets.nuscenes import synthetic as nus_synthetic
     from pdm_ssd_torch.utils import config as t_config
     monkeypatch.chdir(REPO)
     if what == 'with_cams':
-        with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 item 12'):
-            nus_synthetic.write_tables(tmp_path, with_cams=True)
+        nus_synthetic.write_tables(tmp_path, with_cams=True)
+        assert len(list((tmp_path / 'samples').glob('cam_front_*.png'))) == 3
+        return
+    if what == 'CAMERA_CONFIG':
+        cfg = t_config.cfg_from_yaml_file('configs/nuscenes_models/bevfusion_mini.yaml',
+                                          t_config.CfgNode())
+        nus_synthetic.make_mini_nuscenes(tmp_path, with_cams=True)
+        t_config.cfg_from_list(['DATA_CONFIG.DATA_PATH', str(tmp_path)], cfg)
+        _, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 2, workers=0,
+                                        training=False)
+        batch = next(iter(loader))
+        assert batch['camera_imgs'].shape == (2, 1, 64, 96, 3)
+        assert batch['camera_depth'].shape == (2, 1, 64, 96, 1)
+        assert batch['img_aug_matrix'].shape == (2, 1, 4, 4)
         return
     cfg = t_config.cfg_from_yaml_file('configs/nuscenes_models/pdm_ssd_nuscenes.yaml',
                                       t_config.CfgNode())
     ds_cfg = cfg.DATA_CONFIG
-    if what == 'CAMERA_CONFIG':
-        ds_cfg.CAMERA_CONFIG = t_config.CfgNode({'USE_CAMERA': True, 'IMAGE': {}})
-        item = 'ROADMAP Queue 1 item 12'
-    else:
-        ds_cfg.DATASET = what
-        item = 'ROADMAP Queue 1 item 13'
-    with pytest.raises(NotImplementedError, match=item):
+    ds_cfg.DATASET = what
+    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 item 13'):
         build_dataloader(ds_cfg, cfg.CLASS_NAMES, 1, root_path=tmp_path, workers=0)
 
 

@@ -445,12 +445,19 @@ def test_calculate_grid_size_matches_jax(mini):
 def test_unported_parts_of_the_data_path_raise(what, mini):
     """Each step, augmentation and dataset of the JAX package's data path
     that the port does not have raises `NotImplementedError` when the config
-    names it, with its ROADMAP item where a config of the repo uses it."""
+    names it, with its ROADMAP item where a config of the repo uses it.
+    `imgaug` is ported (BEVFusion's camera augmentation: the queue takes it),
+    `random_image_flip` beside it is not (CaDDN's)."""
     cfg = dataset_cfg(mini[0])
     if what == 'depth map':
         cfg.DATA_PROCESSOR.append(CfgNode({'NAME': 'generate_depth_map'}))
     elif what == 'imgaug':
-        cfg.DATA_AUGMENTOR.AUG_CONFIG_LIST.append(CfgNode({'NAME': 'imgaug'}))
+        cfg.DATA_AUGMENTOR.AUG_CONFIG_LIST.append(
+            CfgNode({'NAME': 'imgaug', 'ROT_LIM': [-5.4, 5.4], 'RAND_FLIP': True}))
+        ds, _, _ = t_build_dataloader(cfg, CLASS_NAMES, batch_size=2, root_path=mini[0],
+                                      workers=0, training=True)
+        assert ds.data_augmentor.data_augmentor_queue[-1].func.__name__ == 'imgaug'
+        cfg.DATA_AUGMENTOR.AUG_CONFIG_LIST.append(CfgNode({'NAME': 'random_image_flip'}))
     elif what == 'local rotation':
         cfg.DATA_AUGMENTOR.AUG_CONFIG_LIST.append(CfgNode({'NAME': 'random_local_rotation'}))
     elif what == 'image copy-paste':

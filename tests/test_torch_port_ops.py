@@ -54,14 +54,19 @@ def test_fps_matches_jax_exactly(kind):
 
 
 def _jax_window_group(xyz, feats, new_xyz, radii, nsamples, pc_range, cap):
+    """The JAX package's payload table and window grouping, jitted: one
+    program instead of one an op."""
     cs = float(max(radii))
     gw = j_sa.grid_dims(pc_range, cs)
     pc_min = (float(pc_range[0]) - cs, float(pc_range[1]) - cs)
-    table = j_sa.build_payload_table(jnp.asarray(xyz), None if feats is None
-                                     else jnp.asarray(feats), cs, gw, cap, pc_min)
-    return [tuple(None if a is None else np.asarray(a) for a in o) for o in
-            j_sa.window_group(table, jnp.asarray(new_xyz), radii, nsamples, cs, gw,
-                              cap, pc_min)]
+
+    @jax.jit
+    def group(xyz, feats, new_xyz):
+        table = j_sa.build_payload_table(xyz, feats, cs, gw, cap, pc_min)
+        return j_sa.window_group(table, new_xyz, radii, nsamples, cs, gw, cap, pc_min)
+
+    return [tuple(None if a is None else np.asarray(a) for a in o)
+            for o in group(xyz, feats, new_xyz)]
 
 
 @pytest.mark.parametrize('cap', [32, 4])
@@ -98,8 +103,8 @@ def test_fused_query_group_wide_payload_matches_jax():
     feats = rng.randn(2, 800, 24).astype(np.float32)
     new_xyz = xyz[:, :100].copy()
     radii, nsamples, slices = [0.8, 1.6], [16, 32], [(0, 10), (10, 24)]
-    want = j_sa.fused_query_group(radii, nsamples, jnp.asarray(xyz), jnp.asarray(feats),
-                                  jnp.asarray(new_xyz), pc_range, feat_slices=slices)
+    want = jax.jit(lambda x, f, n: j_sa.fused_query_group(   # one program, not one an op
+        radii, nsamples, x, f, n, pc_range, feat_slices=slices))(xyz, feats, new_xyz)
     got = t_sa.fused_query_group(radii, nsamples, torch.from_numpy(xyz),
                                  torch.from_numpy(feats), torch.from_numpy(new_xyz),
                                  pc_range, feat_slices=slices)

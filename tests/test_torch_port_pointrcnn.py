@@ -489,10 +489,13 @@ def test_random_level_with_a_generator_keeps_the_fps_order_as_the_jax_package(mo
     monkeypatch.setattr(jax.random, 'permutation', lambda key, n: jnp.asarray(perm.numpy()))
     j_net = j_bb.PointNet2MSG(model_cfg=cfg, input_channels=4)
     j_batch = {'points': jnp.asarray(pts)}
-    variables = randomize_variables(
-        j_net.init({'params': jax.random.PRNGKey(0), 'sampling': jax.random.PRNGKey(1)}, j_batch),
+    # the JAX side jitted (the patched permutation a constant of the program):
+    # one program a call instead of one an op
+    variables = randomize_variables(jax.jit(lambda b: j_net.init(
+        {'params': jax.random.PRNGKey(0), 'sampling': jax.random.PRNGKey(1)}, b))(j_batch),
         1, bias_scale=0.1)
-    j_out = j_net.apply(variables, j_batch, rngs={'sampling': jax.random.PRNGKey(2)})
+    j_out = jax.jit(lambda v, b: j_net.apply(v, b, rngs={'sampling': jax.random.PRNGKey(2)}))(
+        variables, j_batch)
     t_net = t_bb.PointNet2MSG(cfg, 4, pc_range=None).eval()
     t_net.load_state_dict(from_flax(variables, t_net))
     calls = []

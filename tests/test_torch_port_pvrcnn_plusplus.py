@@ -107,7 +107,8 @@ def test_vector_pool_matches_jax():
                         1).astype(np.float32)                     # the last 8 balls are empty
     args = dict(radius=0.8, nsample=32, local_grid=3, mlp=[16, 8], pc_range=(0.0, -8.0, 16.0, 8.0))
     jmod = JVectorPoolAgg(**args)
-    variables = randomize_variables(jmod.init(jax.random.PRNGKey(0), xyz, feats, kp), 5, 0.1)
+    variables = randomize_variables(  # the init jitted: one program instead of one an op
+        jax.jit(lambda *a: jmod.init(jax.random.PRNGKey(0), *a))(xyz, feats, kp), 5, 0.1)
     want = np.asarray(jax.jit(lambda v: jmod.apply(v, xyz, feats, kp))(variables))
     holder = torch.nn.Module()
     holder.vp = VectorPoolAgg(1, 0.8, 32, 3, [16, 8], args['pc_range'])

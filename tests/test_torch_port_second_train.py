@@ -375,6 +375,13 @@ def _heads(cfg, grid=(8, 8)):
     return jm, tm
 
 
+def _jax_targets(jm, gt, mask) -> dict:
+    """The JAX head's `assign_targets`, jitted: one program instead of one an
+    op."""
+    return jax.jit(lambda b: jm.apply({}, b, method=jm.assign_targets))(
+        {'gt_boxes': gt, 'gt_mask': mask})
+
+
 def _gt_case(case, seed=6):
     """(gt_boxes (2, 6, 8), gt_mask): random boxes of the three classes, or
     ('ties') one large box over a block of small anchors, which tie its
@@ -400,8 +407,7 @@ def test_assign_targets_match_jax(case):
     cfg = tiny_cfg()
     jm, tm = _heads(cfg)
     gt, mask = _gt_case(case)
-    want = to_numpy(jm.apply({}, {'gt_boxes': jnp.asarray(gt), 'gt_mask': jnp.asarray(mask)},
-                             method=jm.assign_targets))
+    want = to_numpy(_jax_targets(jm, gt, mask))
     got = to_numpy(tm.assign_targets({'gt_boxes': torch.from_numpy(gt),
                                       'gt_mask': torch.from_numpy(mask)}))
     np.testing.assert_array_equal(got['anchor_cls_labels'], want['anchor_cls_labels'])
@@ -431,10 +437,8 @@ def test_get_loss_matches_jax():
     preds = {'anchor_cls_preds': rng.randn(2, A, 3), 'anchor_box_preds': rng.randn(2, A, 7) * 0.5,
              'anchor_dir_preds': rng.randn(2, A, 2)}
     preds = {k: v.astype(np.float32) for k, v in preds.items()}
-    targets = jm.apply({}, {'gt_boxes': jnp.asarray(gt), 'gt_mask': jnp.asarray(mask)},
-                       method=jm.assign_targets)
-    w_loss, w_tb = jm.apply({}, {k: jnp.asarray(v) for k, v in preds.items()}, targets,
-                            method=jm.get_loss)
+    targets = _jax_targets(jm, gt, mask)
+    w_loss, w_tb = jax.jit(lambda p, t: jm.apply({}, p, t, method=jm.get_loss))(preds, targets)
     t_targets = tm.assign_targets({'gt_boxes': torch.from_numpy(gt),
                                    'gt_mask': torch.from_numpy(mask)})
     g_loss, g_tb = tm.get_loss({k: torch.from_numpy(v) for k, v in preds.items()}, t_targets)
@@ -454,8 +458,7 @@ def test_atss_assign_targets_match_jax(case):
     cfg.MODEL.DENSE_HEAD.TARGET_ASSIGNER_CONFIG.NAME = 'ATSSTargetAssigner'
     jm, tm = _heads(cfg)
     gt, mask = _gt_case(case)
-    want = to_numpy(jm.apply({}, {'gt_boxes': jnp.asarray(gt), 'gt_mask': jnp.asarray(mask)},
-                             method=jm.assign_targets))
+    want = to_numpy(_jax_targets(jm, gt, mask))
     got = to_numpy(tm.assign_targets({'gt_boxes': torch.from_numpy(gt),
                                       'gt_mask': torch.from_numpy(mask)}))
     np.testing.assert_array_equal(got['anchor_cls_labels'], want['anchor_cls_labels'])

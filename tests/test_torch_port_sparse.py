@@ -383,11 +383,13 @@ def test_anchor_head_single_outputs_and_decoded_boxes():
     jm = j_ah.AnchorHeadSingle(model_cfg=JCfgNode(head_cfg.to_dict()), input_channels=12,
                                num_class=3, class_names=cfg.CLASS_NAMES, grid_size=(4, 5),
                                point_cloud_range=pc_range)
-    variables = jm.init(jax.random.PRNGKey(0), {'spatial_features_2d': jnp.asarray(x)})
+    # the JAX side jitted: one program a call instead of one an op
+    variables = jax.jit(lambda b: jm.init(jax.random.PRNGKey(0), b))(
+        {'spatial_features_2d': jnp.asarray(x)})
     variables = randomize_variables({**variables, 'batch_stats': {}}, 9, bias_scale=0.3)
-    want = to_numpy(jm.apply(variables, {'spatial_features_2d': jnp.asarray(x)}))
-    w_cls, w_boxes = to_numpy(jm.apply(variables, {k: jnp.asarray(v) for k, v in want.items()},
-                                       method=jm.generate_predicted_boxes))
+    want = to_numpy(jax.jit(jm.apply)(variables, {'spatial_features_2d': jnp.asarray(x)}))
+    w_cls, w_boxes = to_numpy(jax.jit(lambda v, b: jm.apply(
+        v, b, method=jm.generate_predicted_boxes))(variables, want))
     tm = t_ah.AnchorHeadSingle(head_cfg, 12, 3, cfg.CLASS_NAMES, (4, 5), pc_range).eval()
     tm.load_state_dict(from_flax(variables, tm))
     with torch.no_grad():
@@ -409,8 +411,8 @@ def test_anchor_head_single_outputs_and_decoded_boxes():
                                point_cloud_range=pc_range)
     gt = synthetic.gt_boxes(2, 3, pc_range, seed=3)
     mask = np.ones((2, 3), bool)
-    w_labels = to_numpy(ja.apply({}, {'gt_boxes': jnp.asarray(gt), 'gt_mask': jnp.asarray(mask)},
-                                 method=ja.assign_targets))['anchor_cls_labels']
+    w_labels = to_numpy(jax.jit(lambda b: ja.apply({}, b, method=ja.assign_targets))(
+        {'gt_boxes': gt, 'gt_mask': mask}))['anchor_cls_labels']
     g_labels = tm.assign_targets({'gt_boxes': torch.from_numpy(gt),
                                   'gt_mask': torch.from_numpy(mask)})['anchor_cls_labels']
     np.testing.assert_array_equal(g_labels.numpy(), w_labels)

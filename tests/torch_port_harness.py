@@ -263,6 +263,22 @@ def jax_value_and_grad(model):
     return jax.jit(jax.value_and_grad(loss_fn, has_aux=True))
 
 
+# XLA's CPU backend at optimization level 1 compiles the JAX package's init
+# (a threefry draw per parameter) in 40 % of the time of its default level
+# 2, to the same bits: every leaf equal on each pair built from the JAX init
+# (the tiny flagship and grid model, PV-RCNN, Voxel R-CNN, Part-A2,
+# SECOND-IoU, the dense and the sparse SECOND, the nuScenes six-group
+# variant); level 0 changes some leaves' bits
+INIT_COMPILER_OPTIONS = {'xla_backend_optimization_level': 1}
+
+
+def jax_init_variables(model, inputs, seed: int) -> dict:
+    """The JAX package's `model.init` on `inputs` with `PRNGKey(seed)`, eval
+    mode, compiled at INIT_COMPILER_OPTIONS."""
+    init = jax.jit(lambda b: model.init({'params': jax.random.PRNGKey(seed)}, b, training=False))
+    return init.lower(inputs).compile(INIT_COMPILER_OPTIONS)(inputs)
+
+
 class ModelPair:
     """One config built in both packages with the same weights, plus the JAX
     forward of one batch (all intermediates) as numpy. `cfg` is a whole
@@ -327,31 +343,43 @@ class ModelPair:
         self.net = build_network(self.cfg.MODEL, len(self.cfg.CLASS_NAMES),
                                  self.cfg.DATA_CONFIG, device='cpu', class_names=names, seed=seed)
         if jax_init:
-            init = jax.jit(lambda b: self.jax_model.init(
-                {'params': jax.random.PRNGKey(seed)}, b, training=False))
-            variables = init(self.inputs)
+            variables = jax_init_variables(self.jax_model, self.inputs, seed)
         elif variables is None:
             variables = to_flax(self.net)
         self.variables = randomize_variables(variables, seed + 1, bias_scale)
         self.net.load_state_dict(from_flax(self.variables, self.net))
-        self._jax_out = self._jax_train = self._jax_f64 = self._jax_vg = None
+        self._jax_out = self._jax_train = self._jax_f64 = self._jax_vg = self._jax_fwd = None
+        self._jax_methods = {}
 
     @property
     def jax_out(self) -> dict:
         """The JAX forward of the batch in eval mode (all intermediates), as
         numpy; compiled and run on first use."""
         if self._jax_out is None:
-            fwd = jax.jit(lambda v, b: arrays_only(self.jax_model.apply(v, b, training=False)))
-            self._jax_out = to_numpy(fwd(self.variables, self.inputs))
+            self._jax_out = self.jax_eval_forward(self.variables)
         return self._jax_out
+
+    def jax_eval_forward(self, variables: dict) -> dict:
+        """The JAX forward of the batch in eval mode from `variables` (the
+        pair's, or others of the same layout), as numpy: one compiled
+        program a pair."""
+        if self._jax_fwd is None:
+            self._jax_fwd = jax.jit(
+                lambda v, b: arrays_only(self.jax_model.apply(v, b, training=False)))
+        return to_numpy(self._jax_fwd(variables, self.inputs))
 
     def torch_inputs(self) -> dict:
         """The port's forward input of the same batch (a fresh dict)."""
         return dict(self._torch_inputs)
 
     def jax_method(self, method, *args):
-        fn = jax.jit(lambda v, *a: self.jax_model.apply(v, *a, method=method))
-        return to_numpy(fn(self.variables, *args))
+        """`method` of the JAX model on the pair's variables, jitted once a
+        method for the pair (a second call with inputs of the same shapes
+        runs the compiled program)."""
+        if method not in self._jax_methods:
+            self._jax_methods[method] = jax.jit(
+                lambda v, *a: self.jax_model.apply(v, *a, method=method))
+        return to_numpy(self._jax_methods[method](self.variables, *args))
 
     def _jax_value_and_grad(self):
         """`jax_value_and_grad` of the pair's model, made once a pair, so each
@@ -870,8 +898,7 @@ def mini_kitti_twin(name: str, root, steps: int) -> tuple:
         batches.append((_filter_device_batch(b if j_prepare is None else j_prepare(b)), t_b))
     model = j_build_network(jcfg.MODEL, num_class=len(cfg.CLASS_NAMES),
                             dataset_cfg=jcfg.DATA_CONFIG)
-    variables = jax.jit(lambda b: model.init({'params': jax.random.PRNGKey(0)}, b,
-                                             training=False))(batches[0][0])
+    variables = jax_init_variables(model, batches[0][0], 0)
     net = build_network(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG, device='cpu')
     R = cfg.MODEL.ROI_HEAD.NMS_CONFIG.TRAIN.NMS_POST_MAXSIZE
     rand = torch.from_numpy(np.array(jax.random.uniform(jax.random.PRNGKey(0), (2, R))))
