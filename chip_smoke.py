@@ -2713,16 +2713,15 @@ def family_train_phase(name: str, cfg, wrappers, synthetic, card: str) -> dict:
 
 
 def measured_train(phase: str, name: str, cfg, net, batch: dict, what: str, wrappers,
-                   card: str, expected: dict | None = None) -> dict:
-    """Five `make_train_step` steps of a model on one batch (described by
-    `what` and its boxes a cloud): a finite and falling loss, parameters
-    changed, the kernels' launches `expected` a step (default: none of the
-    port's), ms per step and peak memory. Returns the launches of the five
-    steps."""
+                   card: str, expected: dict | None = None, steps: int = 5) -> dict:
+    """`steps` (five) `make_train_step` steps of a model on one batch
+    (described by `what` and its boxes a cloud): a finite and falling loss,
+    parameters changed, the kernels' launches `expected` a step (default:
+    none of the port's), ms per step and peak memory. Returns the launches
+    of the steps."""
     from pdm_ssd_torch.runtime.trainer import create_train_state, make_train_step
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    steps = 5
     optimizer, _ = create_train_state(net, cfg.OPTIMIZATION, total_iters_each_epoch=100,
                                       total_epochs=1)
     train_step = make_train_step(net, optimizer)
@@ -5244,6 +5243,405 @@ def bevfusion_phases(wrappers, synthetic, smi: str, cfg_from_yaml_file) -> dict:
     return paths
 
 
+# ---- CaDDN, monocular camera-only: phases 67 to 70 -------------------------------
+
+# the full-width batches (`synthetic.caddn_kitti()`, no file holds it): two
+# 375 x 1242 images of the mini KITTI camera, each with the depth map of
+# 16384 LiDAR-like points in its view
+CADDN_B = 2
+CADDN_POINTS = 16384
+# the trilinear sample gathers each voxel's 8 corners from the frustum, one
+# launch a corner, and its gradient scatters them back, one launch a corner
+CADDN_PREDICT_LAUNCHES = {**NO_LAUNCHES, 'gather_rows': 8}
+CADDN_TRAIN_LAUNCHES = {**NO_LAUNCHES, 'gather_rows': 8, 'scatter_add_rows': 8}
+# frames of the mini set's loops (B=2): the eval loop's (each batch's
+# predict about 0.6 s, most of it the NMS over 4096 candidates) and the
+# train loop's, which keep the four phases inside about 100 s
+CADDN_EVAL_FRAMES = 8
+CADDN_TRAIN_FRAMES = 16
+CADDN_PATHS = ('predict', 'train', 'eval_loop', 'train_loop')
+# train steps of phase 69 on its one batch: from the seeded weights the loss
+# rises for a few steps before it falls, in the anchor head's box loss alone,
+# for a cause not known (the first step moves the first BEV conv's output by
+# under half its norm, the other BEV convs' by a few hundredths); the steps
+# after the first follow the JAX package's at the tests' widths
+# (`tests/test_torch_port_caddn.py::test_train_steps_track_jax`).
+# `first_steps_probe` logs the first CADDN_PROBE_STEPS steps' loss terms and
+# how far each step moved each BEV conv's output
+CADDN_TRAIN_STEPS = 16
+CADDN_PROBE_STEPS = 4
+
+
+# the CUDA projection of the voxel centres against the CPU's: float32 sums in
+# another order move a frustum coordinate by a few ulps of the projection's
+# largest term (|x| <= 46.8 m, 2^-18 m an ulp), which the LID bin's slope, at
+# most 145 bins a metre at DEPTH_MIN (80 bins over 2 to 46.8 m), turns into
+# 2.2e-3 of a bin for 4 ulps: a corner weight moves by at most the sum of its
+# three coordinates' moves, and a voxel takes other corners (or validity)
+# only where a coordinate lies that close to a cell's (or the image's) edge
+CORNER_WEIGHT_ATOL = 2.2e-3
+CORNER_MOVED_SHARE = 1e-3
+
+
+def corner_agreement(phase: str, got: tuple, want: tuple) -> tuple:
+    """`frustum_corners` of one device (`got`) against the CPU's (`want`):
+    the voxels whose validity differs or, valid on both, whose corner rows
+    differ, at most CORNER_MOVED_SHARE of them; and the largest corner
+    weight difference over the other voxels valid on both, at most
+    CORNER_WEIGHT_ATOL (an invalid voxel's corners are masked out, and its
+    projection, behind the camera or far off the image, may be any
+    number). Returns (moved, voxels, weight error)."""
+    got = [t.cpu() for t in got]
+    both = got[2] & want[2]
+    moved = (got[2] != want[2]) | (both & (got[0] != want[0]).any(0))
+    err = float(((got[1] - want[1]).abs() * (both & ~moved)).max())
+    n, voxels = int(moved.sum()), int(moved.numel())
+    if not (n <= CORNER_MOVED_SHARE * voxels and err <= CORNER_WEIGHT_ATOL):
+        raise SystemExit(f'[{phase}] FAILED frustum_corners: {n} of {voxels} voxels take other '
+                         f'corners or validity than on the CPU (at most '
+                         f'{CORNER_MOVED_SHARE * voxels:.0f}), weights within {err:.2e} '
+                         f'(at most {CORNER_WEIGHT_ATOL:g})')
+    return n, voxels, err
+
+
+class CornerReplay:
+    """While active, the frustum sample of both models takes the corners,
+    weights and valid mask the CPU model computes (`frustum_corners`), moved
+    to the model's device: the two devices' float32 projections may floor a voxel centre on a
+    cell's edge into different corners, or put it on either side of the
+    image's edge, which would move its features and hide the rest of the
+    comparison. The CUDA corners are held to the CPU's first
+    (`corner_agreement`)."""
+
+    def __init__(self, phase: str, cpu_batch: dict, frustum_hwd: tuple, net):
+        self.phase, self.cpu_batch, self.hwd, self.net = phase, cpu_batch, frustum_hwd, net
+
+    def __enter__(self):
+        from pdm_ssd_torch.models.detectors import caddn
+        self.module, self.saved = caddn, caddn.frustum_corners
+        net, b = self.net, self.cpu_batch
+        centers = caddn.voxel_centers(net.grid_size, net.voxel_size, net.pc_range)
+        args = (tuple(b['camera_imgs'].shape[2:4]), self.hwd, net.depth_range)
+        want = caddn.frustum_corners(centers, b['trans_lidar_to_cam'], b['trans_cam_to_img'],
+                                     *args)
+        got = caddn.frustum_corners(centers.cuda(), b['trans_lidar_to_cam'].cuda(),
+                                    b['trans_cam_to_img'].cuda(), *args)
+        self.moved, self.voxels, self.weight_err = corner_agreement(self.phase, got, want)
+        caddn.frustum_corners = lambda c, *a, **k: tuple(t.to(c.device) for t in want)
+        return self
+
+    def __exit__(self, *exc):
+        self.module.frustum_corners = self.saved
+
+
+def caddn_full_corners(phase: str, synthetic, cfg) -> tuple:
+    """The full-width model's frustum shape and the corners of its voxels in
+    `synthetic.caddn_batch`'s camera, computed on CUDA and held to the CPU's
+    (`corner_agreement`): ((fH, fW, D, C), rows (8, B, V), weights, valid,
+    (moved, voxels, weight error))."""
+    from pdm_ssd_torch.models.detectors.caddn import frustum_corners, voxel_centers
+    from pdm_ssd_torch.models.detectors.detector3d import _grid_info
+    grid, voxel = _grid_info(cfg.DATA_CONFIG)
+    batch = synthetic.caddn_batch(CADDN_B, CADDN_POINTS, cfg, seed=5, device='cuda')
+    fr = cfg.MODEL.FRUSTUM
+    iH, iW = batch['camera_imgs'].shape[2:4]
+    hwd = ((iH + 7) // 8, (iW + 7) // 8, int(fr.NUM_DEPTH_BINS))
+    args = ((iH, iW), hwd, (float(fr.DEPTH_MIN), float(fr.DEPTH_MAX)))
+    centers = voxel_centers(grid, voxel, cfg.DATA_CONFIG.POINT_CLOUD_RANGE, 'cuda')
+    got = frustum_corners(centers, batch['trans_lidar_to_cam'], batch['trans_cam_to_img'], *args)
+    want = frustum_corners(centers.cpu(), batch['trans_lidar_to_cam'].cpu(),
+                           batch['trans_cam_to_img'].cpu(), *args)
+    return (hwd + (int(fr.OUT_CHANNEL),),) + tuple(got) + (corner_agreement(phase, got, want),)
+
+
+def caddn_cuda_vs_cpu_phase(synthetic, group) -> dict:
+    """Phase 67: the tiny CaDDN (`synthetic.tiny_caddn_cfg`) on CUDA against
+    the CPU at B=2, two 64 x 96 images, 4 boxes with their 2D boxes and the
+    DDN loss active, the score gate open, the CPU's frustum corners replayed
+    on CUDA (`CornerReplay`, after holding the CUDA corners to them): every
+    forward output within FWD_RTOL of its scale, detections matched by box
+    and label, every loss term within LOSS_RTOL, every gradient within
+    GRAD_RTOL relative L2 (cosine GRAD_COSINE). Then the full-width corners
+    (`caddn_kitti()`'s 280 x 376 x 25 voxels in a 47 x 156 x 80 x 64
+    frustum, B=2) on CUDA held to the CPU's (`corner_agreement`); their
+    gather on `gather_rows` equal to its plain version bit for bit, timed
+    beside `torch.gather`, the 8 launches of a forward timed together beside
+    one launch of all 8 corners; and the gradient of corner 0 on
+    `scatter_add_rows` (`scatter_check`), with how its indices repeat.
+    Returns the two kernels' numbers at the new shapes."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase = '67 caddn cuda-vs-cpu'
+    tiny = synthetic.tiny_caddn_cfg(synthetic.caddn_kitti())
+    cpu_in = synthetic.caddn_batch(2, 2048, tiny, seed=3, M=4)
+    gpu_in = {k: v.cuda() for k, v in cpu_in.items()}
+    cpu_net = synthetic.open_score_gate(synthetic.random_model(tiny, 'cpu'))
+    gpu_net = synthetic.random_model(tiny, 'cuda')
+    gpu_net.load_state_dict(cpu_net.state_dict())
+    fr = tiny.MODEL.FRUSTUM
+    with CornerReplay(phase, cpu_in, (8, 12, int(fr.NUM_DEPTH_BINS)), cpu_net) as replay:
+        with torch.inference_mode():
+            want, got = flatten(cpu_net(dict(cpu_in))), flatten(gpu_net(dict(gpu_in)))
+        worst = 0.0
+        for k, w in want.items():
+            if not w.dtype.is_floating_point:
+                continue
+            rel = float((got[k].cpu() - w).abs().max()) / max(float(w.abs().max()), 1e-6)
+            worst = max(worst, rel)
+            if not rel <= FWD_RTOL:
+                raise SystemExit(f'[{phase}] FAILED {k}: max |diff| / max |cpu| = {rel:.3e}')
+        note = match_detections({k: v.cpu() for k, v in gpu_net.predict(dict(gpu_in)).items()},
+                                cpu_net.predict(dict(cpu_in)), phase)
+        c_tb, g_tb, worst_g, worst_k, n = training_cuda_vs_cpu(
+            phase, 'caddn', {'cpu': cpu_net, 'cuda': gpu_net}, {'cpu': cpu_in, 'cuda': gpu_in},
+            GRAD_RTOL, GRAD_COSINE)
+    if not c_tb.get('ddn_loss', 0) > 0:
+        raise SystemExit(f'[{phase}] FAILED: no DDN loss in {c_tb}')
+    log(phase, f'tiny caddn B=2, 64 x 96 images, 32 x 32 x 4 voxels: {replay.moved} of '
+        f'{replay.voxels} voxels take other corners or validity on CUDA, the others\' weights '
+        f'within {replay.weight_err:.2e} (bounds {CORNER_MOVED_SHARE:g} of the voxels, '
+        f'{CORNER_WEIGHT_ATOL:g}; the CPU\'s replayed); {len(want)} outputs agree, worst '
+        f'max|diff|/max|cpu| = {worst:.3e} (bound {FWD_RTOL:g}); predict: {note}; loss '
+        f'{g_tb["loss"]:.6f} (ddn {g_tb["ddn_loss"]:.6f}) on CUDA vs {c_tb["loss"]:.6f} '
+        f'(ddn {c_tb["ddn_loss"]:.6f}) on the CPU; {n} gradients agree, worst relative L2 '
+        f'{worst_g:.3e} at {worst_k} (bound {GRAD_RTOL:g})')
+    del cpu_net, gpu_net
+
+    cfg = synthetic.caddn_kitti()
+    (fH, fW, D, C), rows, weights, valid, (moved, voxels, werr) = caddn_full_corners(
+        phase, synthetic, cfg)
+    B, V = rows.shape[1:]
+    N = fH * fW * D
+    table = torch.randn((B, N, C), generator=torch.Generator('cuda').manual_seed(6),
+                        device='cuda')
+    gather = gather_check(phase, 'caddn corner 0', group, table, rows[0])
+    for k in range(1, 8):
+        if not torch.equal(group.gather_rows_cuda(table, rows[k]),
+                           group.gather_rows_plain(table, rows[k])):
+            raise SystemExit(f'[{phase}] FAILED gather_rows at corner {k}: differs from plain')
+    eight = device_time(lambda: [group.gather_rows_cuda(table, r) for r in rows], runs=3)
+    all8 = rows.permute(1, 0, 2).reshape(B, 8 * V).contiguous()
+    one = device_time(lambda: group.gather_rows_cuda(table, all8), runs=3)
+    gather.update(eight_launches_ms=eight['ms'], one_launch_ms=one['ms'])
+    log(phase, f'the 8 corners (B={B}, V={V} voxels, {int(valid.sum())} valid, from {N} rows of '
+        f'{C}): on CUDA {moved} of {voxels} voxels take other corners or validity than on the '
+        f'CPU, the others\' weights within {werr:.2e} (bounds {CORNER_MOVED_SHARE:g} of the '
+        f'voxels, {CORNER_WEIGHT_ATOL:g}); each gather == plain (exact); the 8 launches of '
+        f'(B, V) {timing_note(eight)}; one launch of (B, 8V) {timing_note(one)} '
+        f'({8 * B * V * C * 4 / 2 ** 30:.2f} GiB out)')
+    scatter = scatter_check(phase, 'caddn corner 0', group, rows[0], C, N, seed=7)
+    runs = sum(int(torch.unique_consecutive(r).numel()) for r in rows[0])
+    distinct = sum(int(torch.unique(r).numel()) for r in rows[0])
+    scatter.update(runs=runs, distinct_rows=distinct, rows=B * V)
+    log(phase, f'corner 0\'s {B * V} rows: {runs} runs of equal neighbours, {distinct} distinct')
+    del table, rows, weights, valid, all8
+    torch.cuda.empty_cache()
+    return {'gather_rows': gather, 'scatter_add_rows': scatter}
+
+
+def first_steps_probe(cfg, net, batch: dict, steps: int) -> list:
+    """The first `steps` train steps of `net` on `batch` with a fresh
+    optimizer of `cfg`, and after each, how far it moved every BEV conv's
+    output on that step's input: ||conv(x; W') - conv(x; W)|| /
+    ||conv(x; W)||, with W' the weights after the step. The weights, the
+    statistics and the optimizer are put back after. Returns, a step, (the
+    loss terms, {conv name: the output's relative move})."""
+    from pdm_ssd_torch.runtime.trainer import create_train_state, make_train_step
+    saved = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    optimizer, _ = create_train_state(net, cfg.OPTIMIZATION, total_iters_each_epoch=100,
+                                      total_epochs=1)
+    train_step = make_train_step(net, optimizer)
+    convs = {n: m for n, m in net.backbone_2d.named_modules() if isinstance(m, torch.nn.Conv2d)}
+    seen = {}
+    hooks = [m.register_forward_hook(
+        lambda m, i, o, n=n: seen.__setitem__(n, (i[0].detach(), o.detach())))
+        for n, m in convs.items()]
+    out = []
+    try:
+        for _ in range(steps):
+            terms = {k: float(v) for k, v in train_step(batch).items()}
+            moved = {}
+            with torch.no_grad():
+                for n, m in convs.items():
+                    x, before = seen[n]
+                    moved[n] = float((m(x) - before).norm() / before.norm())
+            out.append((terms, moved))
+    finally:
+        for h in hooks:
+            h.remove()
+        net.load_state_dict(saved)
+    return out
+
+
+def caddn_full_phases(wrappers, synthetic, card: str) -> dict:
+    """Phases 68 and 69: `synthetic.caddn_kitti()` at B=2 on
+    `synthetic.caddn_batch`es (375 x 1242 images, the depth maps of 16384
+    points in view): `predict` with the score gate open (`measured_predict`,
+    8 row gathers a predict) and its stages (`profile_predict.caddn_stage_
+    times`, the NMS's share among them); CADDN_TRAIN_STEPS train steps with
+    8 boxes a frame and the DDN loss (`measured_train`, 8 gathers and 8
+    scatter-adds a step), one step profiled. Returns the launches of both paths."""
+    from pdm_ssd_torch.tools.profile_predict import caddn_stage_times
+    cfg = synthetic.caddn_kitti()
+    what = (f'375 x 1242 images, {CADDN_POINTS} points in view for the depth maps, '
+            '280 x 376 x 25 voxels, 80 depth bins')
+    phase = '68 caddn predict'
+    net = synthetic.open_score_gate(synthetic.random_model(cfg, 'cuda', seed=7))
+    inputs = synthetic.caddn_batch(CADDN_B, CADDN_POINTS, cfg, seed=5, device='cuda')
+    paths = {'caddn_predict': measured_predict(
+        phase, 'caddn_kitti()', cfg, net, inputs, CADDN_B, what, wrappers, card,
+        expected=CADDN_PREDICT_LAUNCHES)}
+    with torch.inference_mode():
+        t = caddn_stage_times(net, cfg, inputs, 3)
+    log(phase, 'stages, each on its own input (median of 3): ' + ', '.join(
+        f'{k} {v:.3f} {"GFLOP" if k.endswith("_gflop") else "ms"}' for k, v in t.items())
+        + f'; the NMS {t["nms"] / t["predict"]:.3f} of the predict, on {card}')
+    del net, inputs
+    torch.cuda.empty_cache()
+    phase = '69 caddn train'
+    net = synthetic.random_model(cfg, seed=7)           # no device named: the card
+    batch = synthetic.caddn_batch(CADDN_B, CADDN_POINTS, cfg, seed=5, M=8, device='cuda')
+    notes = []
+    for i, (t, m) in enumerate(first_steps_probe(cfg, net, batch, CADDN_PROBE_STEPS)):
+        rest = [v for k, v in m.items() if k != 'down0_conv0']
+        notes.append(f'step {i + 1}: loss {t["loss"]:.4f}, anchor_loc_loss '
+                     f'{t["anchor_loc_loss"]:.4f}, anchor_cls_loss {t["anchor_cls_loss"]:.4f}, '
+                     f'ddn_loss {t["ddn_loss"]:.4f}; it moved the output of the first BEV conv '
+                     f'(1600 x 9 inputs a filter) by {m["down0_conv0"]:.3f} of its norm, of '
+                     f'the other {len(rest)} by {statistics.median(rest):.3f} (median), '
+                     f'{max(rest):.3f} (largest)')
+    log(phase, f'the first {CADDN_PROBE_STEPS} steps, the model put back after: '
+        + '; '.join(notes))
+    paths['caddn_train'] = measured_train(phase, 'caddn_kitti()', cfg, net, batch,
+                                          what + ', the DDN loss on', wrappers, card,
+                                          expected=CADDN_TRAIN_LAUNCHES,
+                                          steps=CADDN_TRAIN_STEPS)
+    profiled_train_step(phase, 'caddn_kitti()', cfg, net, batch, card)
+    del net, batch
+    torch.cuda.empty_cache()
+    return paths
+
+
+def caddn_loop_cfg(synthetic, root: Path):
+    """`caddn_kitti()` reading the mini set at `root`, the GT sampler's image
+    copy-paste (the dataset config's `gt_sampling` with IMG_AUG_TYPE 'kitti',
+    Car only) before the image flip."""
+    from pdm_ssd_torch.utils.config import CfgNode
+    cfg = synthetic.caddn_kitti()
+    cfg.DATA_CONFIG.DATA_PATH = str(root)
+    gt = CfgNode({'NAME': 'gt_sampling', 'USE_ROAD_PLANE': False,
+                  'DB_INFO_PATH': ['kitti_dbinfos_train.pkl'],
+                  'PREPARE': {'filter_by_min_points': ['Car:5'], 'filter_by_difficulty': [-1]},
+                  'SAMPLE_GROUPS': ['Car:6'], 'NUM_POINT_FEATURES': 4,
+                  'LIMIT_WHOLE_SCENE': True, 'IMG_AUG_TYPE': 'kitti'})
+    cfg.DATA_CONFIG.DATA_AUGMENTOR.AUG_CONFIG_LIST.insert(0, gt)
+    return cfg
+
+
+def caddn_loop_phases(wrappers, synthetic, card: str) -> dict:
+    """Phase 70: the mini KITTI set with its decodable images, `caddn_kitti()`
+    with the image copy-paste and the image flip (`caddn_loop_cfg`), each
+    batch given CaDDN's inputs by `synthetic.caddn_camera_inputs`
+    (`caddn_loader`): `eval_one_epoch` of seeded weights, the score gate
+    open, over CADDN_EVAL_FRAMES val frames (recall, AP R40, `infer_fps`,
+    `loop_fps`); `train_model` for 2 epochs over CADDN_TRAIN_FRAMES train
+    frames (a checkpoint an epoch), the DDN loss on; the trained checkpoint
+    through the eval loop. Returns the launches of the two loops."""
+    from pdm_ssd_torch.datasets import build_dataloader
+    from pdm_ssd_torch.runtime import trainer
+    from pdm_ssd_torch.runtime.eval_utils import eval_one_epoch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase = '70 caddn eval loop'
+    root = mini_kitti()
+    cfg = caddn_loop_cfg(synthetic, root)
+    B = CADDN_B
+    ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, B, root_path=root,
+                                     workers=4, training=False)
+    ds.kitti_infos = ds.kitti_infos[:CADDN_EVAL_FRAMES]
+    loader = synthetic.caddn_loader(loader)
+    net = synthetic.open_score_gate(synthetic.random_model(cfg, 'cuda', seed=7))
+    np.random.seed(0)
+    reset_launches(wrappers)
+    ret = eval_one_epoch(net, loader, ds, cfg.CLASS_NAMES, device='cuda',
+                         result_dir=KITTI_DIR / 'eval_caddn_seeded')
+    paths = {'caddn_eval_loop': read_launches(wrappers)}
+    want = {k: v * len(loader) for k, v in CADDN_PREDICT_LAUNCHES.items()}
+    if paths['caddn_eval_loop'] != want:
+        raise SystemExit(f'[{phase}] FAILED: kernel launches {paths["caddn_eval_loop"]}, '
+                         f'expected {want}')
+    check_eval(phase, ret)
+    annos = pickle.loads((KITTI_DIR / 'eval_caddn_seeded' / 'result.pkl').read_bytes())
+    log(phase, f'caddn_kitti() on the mini set, seeded weights (score gate open), B={B} over '
+        f'{len(ds)} val frames: {sum(len(a["name"]) for a in annos)} detections; recall@0.3/0.5/0.7 '
+        f'{ret["recall/rcnn_0.3"]:.4f}/{ret["recall/rcnn_0.5"]:.4f}/{ret["recall/rcnn_0.7"]:.4f}; '
+        f'{r40_note(ret)}; predict alone {ret["infer_fps"]:.2f} frames/s, the loop with loading '
+        f'{ret["loop_fps"]:.2f} frames/s; launches {paths["caddn_eval_loop"]["gather_rows"]} row '
+        f'gathers on {card}')
+
+    phase = '70 caddn train loop'
+    epochs = 2
+    tds, tloader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, B, root_path=root,
+                                       workers=4, training=True, seed=0)
+    tds.kitti_infos = tds.kitti_infos[:CADDN_TRAIN_FRAMES]
+    tloader = synthetic.caddn_loader(tloader)
+    ckpt_dir = KITTI_DIR / 'ckpt_caddn'
+    net = synthetic.random_model(cfg, 'cuda', seed=7)
+    optimizer, sched = trainer.create_train_state(net, cfg.OPTIMIZATION, len(tloader), epochs)
+    np.random.seed(0)
+    torch.manual_seed(0)
+    steps = StepLog()
+    torch.cuda.synchronize()
+    reset_launches(wrappers)
+    t0 = time.perf_counter()
+    losses = trainer.train_model(net, optimizer, sched, tloader, epochs, ckpt_dir=ckpt_dir,
+                                 max_ckpt_save_num=1, logger=steps, log_interval=1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    paths['caddn_train_loop'] = read_launches(wrappers)
+    names = [c.name for c in trainer.list_checkpoints(ckpt_dir)]
+    if not all(np.isfinite(losses)) or names != [f'checkpoint_epoch_{epochs}.pth']:
+        raise SystemExit(f'[{phase}] FAILED: losses {losses}, checkpoints {names}')
+    want = {k: v * epochs * len(tloader) for k, v in CADDN_TRAIN_LAUNCHES.items()}
+    if paths['caddn_train_loop'] != want:
+        raise SystemExit(f'[{phase}] FAILED: kernel launches {paths["caddn_train_loop"]}, '
+                         f'expected {want}')
+    if not all(s.get('ddn_loss', 0) > 0 for s in steps.steps):
+        raise SystemExit(f'[{phase}] FAILED: a step without the DDN loss')
+    log(phase, f'caddn_kitti() B={B}, {len(tds)} train frames (the image copy-paste and the '
+        f'image flip on), {epochs} epochs of {len(tloader)} steps: mean losses '
+        f'{" ".join(f"{x:.4f}" for x in losses)}; {seconds:.1f} s with loading; checkpoints '
+        f'left {names}; launches {paths["caddn_train_loop"]["gather_rows"]} row gathers and '
+        f'{paths["caddn_train_loop"]["scatter_add_rows"]} scatter-adds on {card}')
+    log(phase, steps.summary(len(tloader)))
+    trained = synthetic.random_model(cfg, 'cuda', seed=13)
+    trainer.load_checkpoint(ckpt_dir / names[-1], trained)
+    np.random.seed(0)
+    ret = eval_one_epoch(trained, loader, ds, cfg.CLASS_NAMES, device='cuda',
+                         result_dir=KITTI_DIR / 'eval_caddn_trained')
+    check_eval(phase, ret)
+    log(phase, f'the checkpoint of epoch {epochs} over the {len(ds)} val frames: recall@0.3/0.5/'
+        f'0.7 {ret["recall/rcnn_0.3"]:.4f}/{ret["recall/rcnn_0.5"]:.4f}/'
+        f'{ret["recall/rcnn_0.7"]:.4f}; {r40_note(ret)}; predict alone {ret["infer_fps"]:.2f} '
+        f'frames/s, with loading {ret["loop_fps"]:.2f} frames/s')
+    return paths
+
+
+def caddn_phases(wrappers, synthetic, group, smi: str) -> tuple:
+    """Phases 67 to 70, each group's seconds logged. Returns the kernel
+    launches of each path, by name, and the row gather's and scatter-add's
+    numbers at CaDDN's shapes."""
+    t0 = time.perf_counter()
+    shapes = caddn_cuda_vs_cpu_phase(synthetic, group)
+    t1 = time.perf_counter()
+    paths = caddn_full_phases(wrappers, synthetic, smi)
+    t2 = time.perf_counter()
+    paths.update(caddn_loop_phases(wrappers, synthetic, smi))
+    log('time', f'phase 67 {t1 - t0:.1f} s, phases 68 and 69 {t2 - t1:.1f} s, phase 70 '
+        f'{time.perf_counter() - t2:.1f} s')
+    return paths, shapes
+
+
 KERNEL_TABLE = (
     ('farthest_point_sample', 'pdm_ssd_torch/csrc/fps.cu', 'pdm_ssd_tpu/ops/pallas/fps.py:60'),
     ('window_select', 'pdm_ssd_torch/csrc/group.cu',
@@ -5449,6 +5847,19 @@ def main() -> None:
         raise SystemExit(f'[kernels] FAILED: no count for {missing}')
     log('time', f'{time.perf_counter() - T0:.1f} s since the start, after phase 66')
 
+    # CaDDN: the monocular depth head, the frustum sampled into voxels on the
+    # row gather, and the KITTI camera data path's loops
+    more, shapes = caddn_phases(wrappers, synthetic, group, smi)
+    if set(more) & set(new_paths):
+        raise SystemExit(f'[kernels] FAILED: path names used twice: {set(more) & set(new_paths)}')
+    new_paths.update(more)
+    for kern, r in shapes.items():
+        stats[kern].update({f'caddn_{k}': v for k, v in r.items()})
+    missing = [f'launches_caddn_{p}' for p in CADDN_PATHS if f'caddn_{p}' not in new_paths]
+    if missing:
+        raise SystemExit(f'[kernels] FAILED: no count for {missing}')
+    log('time', f'{time.perf_counter() - T0:.1f} s since the start, after phase 70')
+
     # `launches` is the count from the run of a main path: the flagship's five
     # training steps of phase 8 for its four kernels, PointRCNN's predict of
     # phase 11 for the ball query, SECOND's predict of phase 15 for the sparse
@@ -5488,7 +5899,12 @@ def main() -> None:
     # that a training step; the row gather's `mppnet_crop_*` keys are its
     # times and bound at one frame's crops of phase 60 (B=2, N=16384, C=6,
     # R=96 * 128); the `launches_bevfusion_*` counts of phases 64 to 66 are 0
-    # for every kernel
+    # for every kernel; the `launches_caddn_*` counts of phases 68 to 70 are
+    # CaDDN's frustum sample, 8 row gathers a forward and 8 scatter-adds a
+    # backward; the `caddn_*` keys of the row gather and the scatter-add are
+    # their numbers at one corner of phase 67 (B=2, 2632000 voxels, 586560
+    # frustum rows of 64), the gather's beside the 8 launches' and the one
+    # launch's ms
     main_path = {kern: train_launches for kern, _, _ in KERNEL_TABLE}
     main_path.update(ball_query=rcnn_launches, sparse_conv=second_launches,
                      gather_rows_bf16=second_launches,

@@ -1,11 +1,12 @@
 """Global geometry augmentations (host-side numpy): copy of the world
 flip / rotation / scaling / translation of
-`pdm_ssd_tpu/datasets/augmentor/augmentor_utils.py`. Each returns the applied
-noise parameters (used for the accumulated lidar aug matrix).
+`pdm_ssd_tpu/datasets/augmentor/augmentor_utils.py`, and CaDDN's image flip.
+Each returns the applied noise parameters (used for the accumulated lidar
+aug matrix).
 
 The draws use the global `np.random`, as there, so one seed gives both
 packages the same sample. The per-object, frustum and pyramid augmentations
-and the image flip are not copied: no KITTI config of the repo uses them.
+are not copied: no KITTI config of the repo uses them.
 """
 from __future__ import annotations
 
@@ -77,3 +78,25 @@ def global_translation(gt_boxes, points, noise_translate_std):
     points[:, :3] += noise
     gt_boxes[:, :3] += noise
     return gt_boxes, points, noise
+
+
+def random_image_flip_horizontal(image, depth_map, gt_boxes, calib):
+    """With probability 0.5 (one `np.random.choice([False, True])` draw),
+    the image (H, W, 3) and the depth map, where there is one, flipped left
+    to right, and each 3D box's centre mirrored through the image: projected
+    by `calib`, u -> W - u, back-projected at the same depth; its heading
+    negated. The points are not moved. Returns (image, depth map, boxes,
+    enabled)."""
+    enable = np.random.choice([False, True], p=[0.5, 0.5])
+    if not enable:
+        return image, depth_map, gt_boxes, enable
+    aug_image = np.fliplr(image)
+    aug_depth_map = np.fliplr(depth_map) if depth_map is not None else None
+    aug_gt_boxes = gt_boxes.copy()
+    if len(aug_gt_boxes):
+        img_pts, img_depth = calib.lidar_to_img(aug_gt_boxes[:, :3])
+        img_pts[:, 0] = image.shape[1] - img_pts[:, 0]
+        pts_rect = calib.img_to_rect(u=img_pts[:, 0], v=img_pts[:, 1], depth_rect=img_depth)
+        aug_gt_boxes[:, :3] = calib.rect_to_lidar(pts_rect)
+        aug_gt_boxes[:, 6] = -1 * aug_gt_boxes[:, 6]
+    return aug_image, aug_depth_map, aug_gt_boxes, enable

@@ -8,9 +8,10 @@ flip, rotation and scaling also move a sample's offline proposals
 ('roi_boxes', (T, R, 9), Waymo's USE_PREDBOX path) with the ground truth,
 as the JAX package's do (its `data_augmentor.py:53-115`). `imgaug` flips and
 rotates BEVFusion's camera images (`image_ops`, PIL's operations without
-PIL) and records both in each image's `img_process_infos`. The other
-augmentations of the JAX package raise `NotImplementedError`, naming the
-ROADMAP item of those a config of the repo uses.
+PIL) and records both in each image's `img_process_infos`;
+`random_image_flip` flips a KITTI sample's image (and depth map) and
+mirrors its boxes through the calibration (CaDDN's). The other
+augmentations of the JAX package raise `NotImplementedError`.
 """
 from __future__ import annotations
 
@@ -22,11 +23,8 @@ from .. import image_ops
 from . import augmentor_utils
 from .database_sampler import DataBaseSampler
 
-# augmentations of the JAX package's queue that a config of the repo uses and
-# the port does not have yet, with the ROADMAP item that brings each
-_UNPORTED = {'random_image_flip': 'ROADMAP Queue 1 item 12, CaDDN'}
 _PORTED = ('gt_sampling', 'random_world_flip', 'random_world_rotation',
-           'random_world_scaling', 'random_world_translation', 'imgaug')
+           'random_world_scaling', 'random_world_translation', 'imgaug', 'random_image_flip')
 
 
 class DataAugmentor(object):
@@ -48,8 +46,8 @@ class DataAugmentor(object):
                 if cur_cfg.NAME in augmentor_configs.DISABLE_AUG_LIST:
                     continue
             if cur_cfg.NAME not in _PORTED:
-                why = _UNPORTED.get(cur_cfg.NAME, 'no config of the repo uses it')
-                raise NotImplementedError(f'the augmentation {cur_cfg.NAME} is not ported ({why})')
+                raise NotImplementedError(f'the augmentation {cur_cfg.NAME} is not ported (no '
+                                          'config of the repo uses it)')
             queue.append(getattr(self, cur_cfg.NAME)(config=cur_cfg))
         return queue
 
@@ -133,6 +131,26 @@ class DataAugmentor(object):
             data_dict['gt_boxes'], data_dict['points'], config.NOISE_TRANSLATE_STD)
         data_dict['gt_boxes'], data_dict['points'] = gt_boxes, points
         data_dict['noise_translate'] = noise
+        return data_dict
+
+    def random_image_flip(self, data_dict=None, config=None):
+        """For each of ALONG_AXIS_LIST (only 'horizontal'):
+        `augmentor_utils.random_image_flip_horizontal` of 'images', the
+        'depth_maps' already there (none on KITTI: `generate_depth_map` runs
+        later, on the unflipped points, ROADMAP Queue 3), 'gt_boxes' and
+        'calib'; 'image_flip' records the draw."""
+        if data_dict is None:
+            return partial(self.random_image_flip, config=config)
+        for cur_axis in config.ALONG_AXIS_LIST:
+            assert cur_axis == 'horizontal'
+            image, depth, gt_boxes, enable = augmentor_utils.random_image_flip_horizontal(
+                data_dict['images'], data_dict.get('depth_maps'), data_dict['gt_boxes'],
+                data_dict['calib'])
+            data_dict['images'] = image
+            if depth is not None:
+                data_dict['depth_maps'] = depth
+            data_dict['gt_boxes'] = gt_boxes
+            data_dict['image_flip'] = enable
         return data_dict
 
     def imgaug(self, data_dict=None, config=None):

@@ -9,9 +9,9 @@ batch (copy of `pdm_ssd_tpu/datasets/dataset.py` for LiDAR points).
   with a boolean `gt_mask` instead of ragged zero-padding with a batch-idx
   column (`dataset.py:220-325`); the voxel keys are padded to the
   voxelizer's cap with a `voxel_mask`, as the JAX package pads them; a
-  nuScenes sample's `metadata` dicts become an object array of B. The
-  image keys of the JAX package's collate have no producer in the port's
-  processor yet.
+  nuScenes sample's `metadata` dicts become an object array of B; a KITTI
+  camera sample's 'images' and 'depth_maps' stack, and its 'gt_boxes2d' are
+  padded to MAX_GT_BOXES with a `gt_boxes2d_mask`.
 """
 from __future__ import annotations
 
@@ -163,6 +163,17 @@ class DatasetTemplate(object):
             elif key in ['frame_id', 'calib', 'image_shape', 'use_lead_xyz',
                          'flip_x', 'flip_y', 'noise_rot', 'noise_scale']:
                 ret[key] = np.array(val) if key in ['frame_id', 'image_shape'] else val
+            elif key == 'gt_boxes2d':
+                M = self.max_gt_boxes
+                b2 = np.zeros((batch_size, M, 4), np.float32)
+                m2 = np.zeros((batch_size, M), bool)
+                for i, v in enumerate(val):
+                    n = min(len(v), M)
+                    if n > 0:
+                        b2[i, :n] = v[:n]
+                        m2[i, :n] = True
+                ret['gt_boxes2d'] = b2
+                ret['gt_boxes2d_mask'] = m2
             elif key == 'metadata':
                 ret[key] = np.empty(batch_size, object)
                 ret[key][:] = val

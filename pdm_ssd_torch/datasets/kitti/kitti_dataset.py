@@ -13,8 +13,8 @@ converter are vectorized over objects. Frame info layout:
                location, rotation_y, score, difficulty, index,
                gt_boxes_lidar, num_points_in_gt}}
 
-Image shapes come from the PNG header alone; `get_image` needs PIL and is on
-no path of the port.
+Image shapes come from the PNG header alone; `get_image` decodes the PNG
+with `datasets/image_ops.read_png` (no PIL), to the JAX package's PIL read.
 """
 from __future__ import annotations
 
@@ -25,6 +25,7 @@ from pathlib import Path
 
 import numpy as np
 
+from .. import image_ops
 from ..dataset import DatasetTemplate
 from . import kitti_utils
 from .calibration import Calibration, _homogenize
@@ -106,10 +107,9 @@ class KittiDataset(DatasetTemplate):
         return np.fromfile(str(path), dtype=np.float32).reshape(-1, 4)
 
     def get_image(self, idx):
-        """(H, W, 3) f32 in [0, 1] (reference `get_image:54-66`)."""
-        from PIL import Image
-        with Image.open(self.root_split_path / 'image_2' / f'{idx}.png') as im:
-            return np.asarray(im.convert('RGB'), np.float32) / 255.0
+        """(H, W, 3) float32 in [0, 1]: the frame's PNG as RGB, over 255."""
+        return image_ops.read_png(self.root_split_path / 'image_2' / f'{idx}.png') \
+            .astype(np.float32) / 255.0
 
     def get_image_shape(self, idx):
         """(H, W) from the PNG IHDR header — no image library needed."""

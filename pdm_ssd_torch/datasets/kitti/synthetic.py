@@ -2,7 +2,7 @@
 `pdm_ssd_tpu/datasets/kitti/synthetic.py` that imports no JAX).
 
 Builds a tiny, fully self-consistent KITTI-format dataset (velodyne bins,
-label_2 txt in camera frame, calib, png headers) for end-to-end pipeline
+label_2 txt in camera frame, calib, png images) for end-to-end pipeline
 tests and CLI runs without the real KITTI download. Planted boxes are exactly
 recoverable, so a short training run must reach recall ~1.0.
 
@@ -15,16 +15,15 @@ Two regimes:
     populated, making AP R11/R40 a meaningful regression metric.
 
 The same seed gives the same velodyne, label, calib and split files as the
-JAX package's generator. The images differ: this one always writes a bare
-PNG signature and IHDR chunk (the data path reads only the image's shape),
-so the set is the same on a machine with PIL and on one without.
+JAX package's generator, and images of the same pixels (a row gradient plus
+a texture seeded by the frame's number), written by `image_ops.write_png`
+without PIL: their bytes differ from PIL's, their decoded pixels do not.
 """
 from __future__ import annotations
 
-import struct
-
 import numpy as np
 
+from .. import image_ops
 from . import kitti_utils
 from .calibration import Calibration
 
@@ -59,12 +58,18 @@ def write_calib(path):
     path.write_text('\n'.join(lines) + '\n')
 
 
-def write_png_header(path, w=IMG_W, h=IMG_H):
-    """A PNG signature and IHDR chunk of a w x h RGB image, nothing more."""
-    sig = b'\x89PNG\r\n\x1a\n'
-    ihdr_data = struct.pack('>IIBBBBB', w, h, 8, 2, 0, 0, 0)
-    ihdr = struct.pack('>I', 13) + b'IHDR' + ihdr_data + b'\x00' * 4
-    path.write_bytes(sig + ihdr)
+def image_pixels(seed: int, w: int = IMG_W, h: int = IMG_H) -> np.ndarray:
+    """(h, w, 3) uint8: a grey row gradient from 60 to 140 plus a texture of
+    integers in [0, 40) drawn from `np.random.RandomState(seed)`."""
+    rng = np.random.RandomState(seed)
+    rows = np.linspace(60, 140, h, dtype=np.float32)[:, None, None]
+    img = rows + rng.randint(0, 40, (h, w, 3)).astype(np.float32)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def write_image(path, seed: int, w: int = IMG_W, h: int = IMG_H):
+    """A decodable 8-bit RGB PNG of `image_pixels(seed)`."""
+    image_ops.write_png(path, image_pixels(seed, w, h))
 
 
 def _camera_box(box):
@@ -187,4 +192,4 @@ def make_mini_kitti(root, n_frames=3, seed=0, n_bg=2000, classes=('Car',)):
         (root / 'training/label_2' / f'{fid}.txt').write_text(
             '\n'.join(labels) + '\n')
         write_calib(root / 'training/calib' / f'{fid}.txt')
-        write_png_header(root / 'training/image_2' / f'{fid}.png')
+        write_image(root / 'training/image_2' / f'{fid}.png', seed=int(fid))

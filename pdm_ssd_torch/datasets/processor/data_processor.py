@@ -10,8 +10,10 @@ the device, and the voxelizer of the voxel models
 `_numpy_voxelize`, without its Python loop over cells); and BEVFusion's
 camera steps (`data_processor.py:175-256` there): the images normalized,
 each image's recorded resize, crop, flip and rotation folded into its
-'img_aug_matrix', and the sparse LiDAR depth map of each camera. CaDDN's
-depth-map steps raise `NotImplementedError` naming their ROADMAP item.
+'img_aug_matrix', and the sparse LiDAR depth map of each camera; and
+CaDDN's depth maps (`data_processor.py:131-173` there): the points projected
+through the KITTI calibration, the nearest depth kept at each pixel, then
+the block mean over a zero-padded map down to the image features' size.
 """
 from __future__ import annotations
 
@@ -20,14 +22,6 @@ import torch
 
 from ...ops.voxelize import voxelize
 from ...utils import box_utils_np
-
-# steps of the JAX package's queue that the port does not have, with the
-# ROADMAP item that brings each
-_UNPORTED = {
-    'generate_depth_map': 'Queue 1 item 12, CaDDN',
-    'downsample_depth_map': 'Queue 1 item 12, CaDDN',
-}
-
 
 class DataProcessor:
     def __init__(self, processor_configs, point_cloud_range, training,
@@ -41,9 +35,6 @@ class DataProcessor:
         self.steps = [self._build(cfg) for cfg in processor_configs]
 
     def _build(self, cfg):
-        if cfg.NAME in _UNPORTED:
-            raise NotImplementedError(f'the data processor step {cfg.NAME} is not ported yet '
-                                      f'(ROADMAP {_UNPORTED[cfg.NAME]})')
         return getattr(self, f'_build_{cfg.NAME}')(cfg)
 
     def _set_grid(self, voxel_size):
@@ -154,6 +145,34 @@ class DataProcessor:
             return dd
         return step
 
+    def _build_generate_depth_map(self, cfg):
+        """'depth_maps' (H, W) float32 of a KITTI sample's points
+        (`lidar_depth_map`), at MAP_SHAPE (H, W), or without it at the
+        sample's 'image_shape'. KITTI sets 'image_shape' only after the data
+        path has run, so a config without MAP_SHAPE raises `KeyError` there,
+        as in the JAX package (ROADMAP Queue 3)."""
+        shape = cfg.get('MAP_SHAPE', None)
+
+        def step(dd):
+            calib, pts = dd.get('calib'), dd.get('points')
+            if calib is None or pts is None:
+                return dd
+            H, W = shape if shape is not None else dd['image_shape']
+            dd['depth_maps'] = lidar_depth_map(pts, calib, int(H), int(W))
+            return dd
+        return step
+
+    def _build_downsample_depth_map(self, cfg):
+        """'depth_maps' down by DOWNSAMPLE_FACTOR (`block_mean`)."""
+        f = int(cfg.DOWNSAMPLE_FACTOR)
+        self.depth_downsample_factor = f
+
+        def step(dd):
+            if dd.get('depth_maps') is not None:
+                dd['depth_maps'] = block_mean(dd['depth_maps'], f)
+            return dd
+        return step
+
     def _build_image_normalize(self, cfg):
         """Camera images (uint8 (H, W, 3) each) -> (N_cam, H, W, 3) float32,
         (x / 255 - mean) / std."""
@@ -215,6 +234,32 @@ class DataProcessor:
                 dd.get('lidar_aug_matrix'), iH, iW)
             return dd
         return step
+
+
+def lidar_depth_map(points: np.ndarray, calib, H: int, W: int) -> np.ndarray:
+    """(H, W) float32 depth map of a cloud (N, >= 3) seen through a KITTI
+    `Calibration`: each point in front of the camera projects to the pixel
+    it floors into, and the nearest depth wins (the points sorted by
+    descending depth, stable, the last write kept); 0 where no point falls."""
+    uv, depth = calib.rect_to_img(calib.lidar_to_rect(points[:, :3]))
+    u = np.floor(uv[:, 0]).astype(np.int64)
+    v = np.floor(uv[:, 1]).astype(np.int64)
+    ok = (depth > 0) & (u >= 0) & (u < W) & (v >= 0) & (v < H)
+    dm = np.full((H * W,), 0.0, np.float32)
+    flat = v[ok] * W + u[ok]
+    order = np.argsort(-depth[ok], kind='stable')
+    dm[flat[order]] = depth[ok][order]
+    return dm.reshape(H, W)
+
+
+def block_mean(dm: np.ndarray, f: int) -> np.ndarray:
+    """The mean of each f x f block of a (H, W) map zero-padded at its far
+    edges to multiples of f: (ceil(H / f), ceil(W / f))."""
+    H, W = dm.shape
+    Hp, Wp = (H + f - 1) // f * f, (W + f - 1) // f * f
+    pad = np.zeros((Hp, Wp), dm.dtype)
+    pad[:H, :W] = dm
+    return pad.reshape(Hp // f, f, Wp // f, f).mean((1, 3))
 
 
 def camera_depth_map(points: np.ndarray, lidar2image: np.ndarray, img_aug=None, lidar_aug=None,

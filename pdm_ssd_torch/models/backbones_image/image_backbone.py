@@ -39,7 +39,9 @@ class ConvImageBackbone(nn.Module):
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         B, N, H, W, _ = images.shape
-        x = images.reshape(B * N, H, W, 3).permute(0, 3, 1, 2)
+        # contiguous NCHW: on the CPU, the conv's backward over the channels-last
+        # view corrupted memory when torch ran on several threads
+        x = images.reshape(B * N, H, W, 3).permute(0, 3, 1, 2).contiguous()
         x = torch.relu(self.stem_bn(self.stem(x)))
         feats = []
         for i in range(self.n_stages):

@@ -29,8 +29,12 @@ SEQUENCE_KEYS = ('points_multi_frame', 'poses', 'roi_boxes', 'roi_scores', 'roi_
 # a camera batch's images, depth maps and transforms (BEVFusion)
 CAMERA_KEYS = ('camera_imgs', 'camera_depth', 'camera2lidar', 'camera_intrinsics',
                'img_aug_matrix', 'lidar_aug_matrix')
-INPUT_KEYS = ('points', 'points_mask') + VOXEL_KEYS + SEQUENCE_KEYS + CAMERA_KEYS
-DEVICE_KEYS = INPUT_KEYS + ('gt_boxes', 'gt_mask')
+# a KITTI camera batch's image transforms (CaDDN; `camera_imgs` is the
+# images above) and its depth targets and 2D boxes, which its training adds
+MONO_KEYS = ('trans_lidar_to_cam', 'trans_cam_to_img')
+MONO_TARGET_KEYS = ('depth_maps', 'gt_boxes2d', 'gt_boxes2d_mask')
+INPUT_KEYS = ('points', 'points_mask') + VOXEL_KEYS + SEQUENCE_KEYS + CAMERA_KEYS + MONO_KEYS
+DEVICE_KEYS = INPUT_KEYS + ('gt_boxes', 'gt_mask') + MONO_TARGET_KEYS
 
 
 def resolve_device(device=None) -> torch.device:

@@ -26,7 +26,10 @@ tiny window-attention or query-head model, with
 MPPNet on the batches of a mini-Waymo set it generates in a temporary
 directory, with `configs/nuscenes_models/bevfusion.yaml` or
 `bevfusion_mini.yaml` the tiny BEVFusion on camera batches of two cameras
-(`utils/synthetic.camera_batch`) (`utils/synthetic.TINY_CFGS`; a config
+(`utils/synthetic.camera_batch`), with `--cfg_file caddn` the tiny CaDDN
+(`utils/synthetic.caddn_kitti`, which no file holds, shrunk by
+`tiny_caddn_cfg`) on batches of two 64 x 96 images with their depth maps
+(`utils/synthetic.caddn_batch`) (`utils/synthetic.TINY_CFGS`; a config
 that voxelizes its points gets voxel batches, made on the device).
 Runs on the card unless `--device cpu` is given. The counterpart of
 `__graft_entry__.dryrun_multichip` on one device.
@@ -44,7 +47,6 @@ import torch
 from ..models import build_network, get_host_prepare
 from ..runtime.trainer import create_train_state, make_predict_step, make_train_step
 from ..utils import synthetic
-from ..utils.config import CfgNode, cfg_from_yaml_file
 
 REPO = Path(__file__).resolve().parents[2]
 CFG = 'configs/kitti_models/pdm_ssd_point.yaml'
@@ -56,7 +58,7 @@ def dryrun(device: str | None = None, B: int = 2, N: int = 512, seed: int = 0,
     cwd = os.getcwd()
     os.chdir(REPO)   # the config names its base config relative to the repo
     try:
-        cfg = cfg_from_yaml_file(str(REPO / cfg_file), CfgNode())
+        cfg = synthetic.load_cfg(cfg_file)
     finally:
         os.chdir(cwd)
     name = cfg.MODEL.NAME
@@ -80,6 +82,10 @@ def dryrun(device: str | None = None, B: int = 2, N: int = 512, seed: int = 0,
                                        mode='train', image_wh=(192, 128))
         inputs = synthetic.camera_batch(B, N, cfg, seed=seed, n_cam=2, device=dev,
                                         image_wh=(192, 128))
+    elif name == 'CaDDN':
+        # a monocular camera model: images, their transforms and depth maps
+        batch = synthetic.caddn_batch(B, N, cfg, seed=seed, M=8, device=dev)
+        inputs = synthetic.caddn_batch(B, N, cfg, seed=seed, device=dev)
     elif cfg.DATA_CONFIG.get('DATASET') == 'NuScenesDataset':
         batch = {k: torch.from_numpy(v).to(dev)
                  for k, v in synthetic.nuscenes_batch(B, N, seed=seed).items()}
@@ -118,8 +124,8 @@ def main() -> None:
                     'second.yaml, pointpillar.yaml, centerpoint_pillar.yaml, pillarnet.yaml, '
                     'pv_rcnn.yaml, pv_rcnn_sparse.yaml, voxel_rcnn.yaml, '
                     'voxel_rcnn_sparse.yaml, configs/nuscenes_models/pdm_ssd_nuscenes.yaml, '
-                    'configs/nuscenes_models/bevfusion.yaml or '
-                    'configs/waymo_models/mppnet_mini.yaml')
+                    'configs/nuscenes_models/bevfusion.yaml, '
+                    'configs/waymo_models/mppnet_mini.yaml or caddn (a config no file holds)')
     args = ap.parse_args()
     dryrun(args.device, args.batch, args.points, cfg_file=args.cfg_file)
 

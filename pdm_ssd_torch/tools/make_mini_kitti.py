@@ -1,5 +1,5 @@
-"""Generate the synthetic mini-KITTI set: frames, labels, calib and image
-headers, then the info pickles and the GT database (`create_kitti_infos`).
+"""Generate the synthetic mini-KITTI set: frames, labels, calib and
+decodable PNG images (the JAX package's generator's pixels), then the info pickles and the GT database (`create_kitti_infos`).
 Seeded, so the set is reproducible instead of checked in; the same defaults
 as `tools/make_mini_kitti.py` (64 frames, 3 classes, seed 0), with no JAX.
 

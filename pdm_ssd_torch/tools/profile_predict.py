@@ -46,7 +46,13 @@ card into their 16000 slots) the stages are those of
 `configs/kitti_models/dsvt.yaml` or `transfusion.yaml` (B=8, N=16384) the
 stages are the slots of `Detector3D` and the parts of the window-attention
 backbone or of the query head (`query_stage_times`), DSVT's heatmap bias
-at 0 (TransFusion's scores pass its threshold as seeded). Then
+at 0 (TransFusion's scores pass its threshold as seeded). With `--cfg_file
+caddn` (`utils/synthetic.caddn_kitti`, CaDDN at its published widths, which
+no file holds; B=2, 375 x 1242 images of the mini KITTI camera) the stages
+are the image backbone, the depth head with the frustum's outer product,
+the frustum-to-voxel sample (the voxel centres' projection and corners
+apart), the BEV backbone, the anchor head, top-K + decode and the NMS
+(`caddn_stage_times`), the classification bias at 0. Then
 `torch.profiler` traces three `predict` calls: device time per predict,
 device activities per predict, the busy share (device time over the
 unprofiled wall time of one predict), the ten kernels with the most device
@@ -73,7 +79,6 @@ from ..ops.pointnet2 import gather_operation
 from ..ops.sparse_conv import sparse_conv_plan
 from ..ops.voxelize import voxelize_batch
 from ..utils import synthetic
-from ..utils.config import cfg_from_yaml_file
 
 CFG = 'configs/kitti_models/pdm_ssd_point.yaml'
 
@@ -454,6 +459,53 @@ def two_stage_stage_times(net, cfg, predict_inputs: dict, reps: int) -> dict:
     return t
 
 
+def caddn_stage_times(net, cfg, predict_inputs: dict, reps: int) -> dict:
+    """Median ms of CaDDN's stages, each on its own input made in advance:
+    the image backbone; the depth head with the softmax and the frustum's
+    outer product, on the backbone's features; the frustum-to-voxel sample
+    whole, and its two parts apart: the projection of the voxel centres into
+    corner rows and weights (`frustum_corners`) and the sample on those
+    corners (`sample_frustum`: the 8 corner gathers, weighted and summed);
+    the BEV backbone, the anchor head, top-K + decode and the NMS; with the
+    GFLOP of the convolutions of the image backbone and of the BEV
+    backbone."""
+    from ..models.detectors.caddn import frustum_corners, sample_frustum, voxel_centers
+    t = {}
+    imgs = predict_inputs['camera_imgs']
+    t['image_backbone'] = median_ms(lambda: net.image_backbone(imgs), reps)
+    t['image_backbone_gflop'] = conv_gflop(lambda: net.image_backbone(imgs))
+    feats = net.image_backbone(imgs)[:, 0]
+    t['depth_head_frustum'] = median_ms(lambda: net.depth_frustum(feats), reps)
+    logits, frustum = net.depth_frustum(feats)
+    B, fH, fW, D, C = frustum.shape
+    centers = voxel_centers(net.grid_size, net.voxel_size, net.pc_range, frustum.device)
+    corner_args = (centers, predict_inputs['trans_lidar_to_cam'],
+                   predict_inputs['trans_cam_to_img'], tuple(imgs.shape[2:4]), (fH, fW, D),
+                   net.depth_range)
+    t['frustum_corners'] = median_ms(lambda: frustum_corners(*corner_args), reps)
+    rows, weights, valid = frustum_corners(*corner_args)
+    flat = frustum.reshape(B, fH * fW * D, C)
+    t['frustum_sample'] = median_ms(lambda: sample_frustum(flat, rows, weights, valid), reps)
+    t['frustum_to_voxel'] = median_ms(lambda: net.frustum_to_bev(frustum, predict_inputs), reps)
+    batch = dict(predict_inputs, depth_logits=logits,
+                 spatial_features=net.frustum_to_bev(frustum, predict_inputs))
+    t['bev_backbone'] = median_ms(lambda: net.backbone_2d(dict(batch)), reps)
+    t['bev_backbone_gflop'] = conv_gflop(lambda: net.backbone_2d(dict(batch)))
+    batch = net.backbone_2d(batch)
+    t['dense_head'] = median_ms(lambda: net.dense_head(dict(batch)), reps)
+    batch = net.dense_head(batch)
+    t['topk_decode'] = median_ms(lambda: net.select_candidates(batch), reps)
+    t['post_process'] = median_ms(lambda: net.post_process(batch), reps)
+    t['nms'] = t['post_process'] - t['topk_decode']
+    t['predict'] = median_ms(lambda: net.predict(predict_inputs), reps)
+    return t
+
+
+def caddn_inputs(cfg, B: int, N: int) -> dict:
+    """`synthetic.caddn_batch`'s serving batch on the card."""
+    return synthetic.caddn_batch(B, N, cfg, seed=5, device='cuda')
+
+
 def point_inputs(cfg, B: int, N: int) -> dict:
     return {'points': torch.from_numpy(synthetic.kitti_points(B, N, 5)).cuda()}
 
@@ -501,7 +553,9 @@ PROFILES = {'PDMSSD': (lambda cfg: cfg, 8, 16384, point_inputs, stage_times, Non
                           synthetic.open_score_gate),
             'DSVT': (lambda cfg: cfg, 8, 16384, point_inputs, query_stage_times,
                      synthetic.open_score_gate),
-            'TransFusion': (lambda cfg: cfg, 8, 16384, point_inputs, query_stage_times, None)}
+            'TransFusion': (lambda cfg: cfg, 8, 16384, point_inputs, query_stage_times, None),
+            'CaDDN': (lambda cfg: cfg, 2, 16384, caddn_inputs, caddn_stage_times,
+                      synthetic.open_score_gate)}
 
 
 def profile_key(cfg) -> str:
@@ -553,10 +607,10 @@ def trace(net, predict_inputs: dict, n: int = 3) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
-    ap.add_argument('--cfg_file', default=CFG)
+    ap.add_argument('--cfg_file', default=CFG, help='a config file, or caddn')
     ap.add_argument('--batch', type=int, default=None,
                     help='default: 8 for the PDM configs, 4 for PointRCNN, SECOND, the '
-                    'two-stage voxel models and pdm_ssd_large.yaml')
+                    'two-stage voxel models and pdm_ssd_large.yaml, 2 for CaDDN')
     ap.add_argument('--points', type=int, default=None,
                     help='points per cloud (default: 16384; 50000 for SECOND, 163840 for '
                     'pdm_ssd_large.yaml)')
@@ -570,7 +624,7 @@ def main() -> None:
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = cfg_from_yaml_file(args.cfg_file)
+    cfg = synthetic.load_cfg(args.cfg_file)
     if profile_key(cfg) not in PROFILES:
         raise SystemExit(f'no stage timing for {cfg.MODEL.NAME}')
     full_width, batch, points, make_inputs, time_stages, adjust = PROFILES[profile_key(cfg)]

@@ -11,13 +11,19 @@ is seeded LiDAR-like clouds of 50000 points unless `--points` says
 otherwise, voxelized on the card; the two-stage `pointrcnn.yaml`,
 `pv_rcnn.yaml`, `pv_rcnn_sparse.yaml`, `voxel_rcnn.yaml` and
 `voxel_rcnn_sparse.yaml`, the last four at `--points 16384` as their data
-processor samples), unmodified, with seeded random weights,
+processor samples; `caddn`, CaDDN at its published widths
+(`utils/synthetic.caddn_kitti`, which no file holds) on
+`utils/synthetic.caddn_batch`'s 375 x 1242 images with their depth maps
+from `--points` points a cloud and 2D boxes, `--batch 2`), unmodified,
+with seeded random weights,
 float32 with TF32 off, and trains on one seeded synthetic batch. After warm-up steps it
 times whole steps of `make_train_step` on the host clock (median of
 `--reps`), then repeats the step's parts by hand with a CUDA event between
 them: a voxel model's map build (`get_host_prepare(..., training=True)`),
 each forward stage (for `GridPointBackbone` its pillarize and each level
-apart, for a voxel model each slot of `Detector3D`, for a two-stage model
+apart, for a voxel model each slot of `Detector3D`, for CaDDN its image
+backbone with the depth head and frustum, the frustum-to-voxel sample, the
+BEV backbone and the head, for a two-stage model
 its first stage's slots, the decode of its boxes, the keypoints and point
 head where it has them, and the ROI head with its proposals and targets),
 TransFusion's assignment (the matching cost and the host LAP) apart, targets
@@ -43,6 +49,7 @@ import torch
 
 from ..models import get_host_prepare
 from ..models.backbones_3d.grid_point_backbone import GridPointBackbone
+from ..models.detectors.caddn import CaDDN
 from ..models.detectors.detector3d import Detector3D
 from ..models.detectors.point_rcnn import PointRCNN
 from ..models.detectors.pv_rcnn import PVRCNN
@@ -51,7 +58,6 @@ from ..ops import ball_query, fps, group, sparse_conv
 from ..runtime.trainer import create_train_state, make_train_step
 from .profile_predict import is_fft_route
 from ..utils import synthetic
-from ..utils.config import cfg_from_yaml_file
 
 CFG = 'configs/kitti_models/pdm_ssd_point.yaml'
 KERNELS = {'farthest_point_sample': fps.farthest_point_sample_cuda,
@@ -78,6 +84,16 @@ def _decode(head, points: bool):
 
 def forward_parts(net) -> list:
     """(name, batch -> batch) of each stage of the forward, in order."""
+    if isinstance(net, CaDDN):
+        def image(b):
+            logits, frustum = net.image_features(b['camera_imgs'])
+            return {**b, 'depth_logits': logits, 'frustum': frustum}
+
+        def sample(b):
+            return {**b, 'spatial_features': net.frustum_to_bev(b['frustum'], b),
+                    'spatial_features_stride': 1}
+        return [('image_backbone_depth_head', image), ('frustum_to_voxel', sample),
+                ('backbone_2d', net.backbone_2d), ('dense_head', net.dense_head)]
     if isinstance(net, Detector3D):
         return [(slot, getattr(net, name)) for slot, name in net.slots.items()] + [
             ('dense_head', net.dense_head)]
@@ -170,7 +186,7 @@ def trace(train_step, batch: dict, n: int = 2) -> dict:
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
-    ap.add_argument('--cfg_file', default=CFG)
+    ap.add_argument('--cfg_file', default=CFG, help='a config file, or caddn')
     ap.add_argument('--batch', type=int, default=8)
     ap.add_argument('--points', type=int, default=None,
                     help='points per cloud (16384; a voxel model 50000)')
@@ -185,10 +201,14 @@ def main() -> None:
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = cfg_from_yaml_file(args.cfg_file)
+    cfg = synthetic.load_cfg(args.cfg_file)
     net = synthetic.random_model(cfg, 'cuda', seed=7)
     prepare = get_host_prepare(cfg.MODEL, cfg.DATA_CONFIG, training=True)
-    if not synthetic.voxelizes(cfg):
+    if cfg.MODEL.NAME == 'CaDDN':
+        args.points = args.points or 16384
+        batch = synthetic.caddn_batch(args.batch, args.points, cfg, seed=5, M=args.boxes,
+                                      device='cuda')
+    elif not synthetic.voxelizes(cfg):
         args.points = args.points or 16384
         batch = {k: torch.from_numpy(v).cuda() for k, v in
                  synthetic.kitti_batch(args.batch, args.points, args.boxes, seed=5).items()}

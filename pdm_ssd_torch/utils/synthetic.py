@@ -905,6 +905,206 @@ def camera_batch(B: int, N: int, cfg, seed: int = 0, n_cam: int = 6, M: int = 0,
     return out
 
 
+# CaDDN's KITTI grid and frustum, from OpenPCDet's
+# `tools/cfgs/kitti_models/CaDDN.yaml`: 0.16 m voxels over 2..46.8 m ahead,
+# +-30.08 m across and -3..1 m up (280 x 376 x 25), 80 LID depth bins over the
+# same depths
+CADDN_RANGE = [2.0, -30.08, -3.0, 46.8, 30.08, 1.0]
+CADDN_ANCHORS = [
+    {'class_name': name, 'anchor_sizes': [list(size)], 'anchor_rotations': [0, 1.57],
+     'anchor_bottom_heights': [bottom], 'align_center': False, 'feature_map_stride': 2,
+     'matched_threshold': hi, 'unmatched_threshold': lo}
+    for name, size, bottom, hi, lo in (('Car', (3.9, 1.6, 1.56), -1.78, 0.6, 0.45),
+                                       ('Pedestrian', (0.8, 0.6, 1.73), -0.6, 0.5, 0.35),
+                                       ('Cyclist', (1.76, 0.6, 1.73), -0.6, 0.5, 0.35))]
+
+
+def caddn_kitti():
+    """CaDDN on KITTI at its published widths, a whole config (`MODEL`,
+    `CLASS_NAMES`, `DATA_CONFIG`, `OPTIMIZATION`), written from OpenPCDet's
+    `tools/cfgs/kitti_models/CaDDN.yaml` on `configs/dataset_configs/
+    kitti_dataset.yaml` in the JAX package's CaDDN keys (no file of the repo
+    builds CaDDN). The file's range, 0.16 m voxels (280 x 376 x 25), FOV
+    points and images, the image flip as its only augmentation, 80 LID
+    bins over 2..46.8 m and 64 frustum channels, the DDN loss (weight 3,
+    alpha 0.25, gamma 2, fg 13, bg 1), the BEV backbone (10 layers at each
+    of 64, 128, 256 filters, strides 2, upsampled 1, 2, 4 to 128 each), the
+    KITTI anchors at stride 2, NMS 0.01 over 4096 candidates to 500, and
+    adam_onecycle at 1e-3. Deviations, each the JAX class's:
+
+    - the image backbone is `ConvImageBackbone` (filters 64, 128, 256, out
+      256) where the file has DeepLabV3 on ResNet-101;
+    - its features are at 1/8 of the image, 47 x 156 cells for 375 x 1242,
+      so `downsample_depth_map` takes DOWNSAMPLE_FACTOR 8, not the file's 4;
+    - the height compression concatenates the 25 z cells' 64 channels (1600
+      channels into the BEV backbone) where the file has `Conv2DCollapse`
+      to 64;
+    - the depth maps are made from the points (`generate_depth_map`, at
+      MAP_SHAPE 375 x 1242: without it the step reads an 'image_shape' that
+      KITTI sets after the data path, ROADMAP Queue 3), where the file
+      loads KITTI's."""
+    from pathlib import Path
+
+    from .config import CfgNode, cfg_from_yaml_file
+    repo = Path(__file__).resolve().parents[2]
+    ds = cfg_from_yaml_file(str(repo / 'configs/dataset_configs/kitti_dataset.yaml'))
+    ds.POINT_CLOUD_RANGE = list(CADDN_RANGE)
+    ds.GET_ITEM_LIST = ['points', 'images']
+    ds.FOV_POINTS_ONLY = True
+    ds.DATA_AUGMENTOR = CfgNode({'DISABLE_AUG_LIST': ['placeholder'], 'AUG_CONFIG_LIST': [
+        {'NAME': 'random_image_flip', 'ALONG_AXIS_LIST': ['horizontal']}]})
+    ds.DATA_PROCESSOR = [
+        {'NAME': 'generate_depth_map', 'MAP_SHAPE': [375, 1242]},
+        {'NAME': 'mask_points_and_boxes_outside_range', 'REMOVE_OUTSIDE_BOXES': True},
+        {'NAME': 'calculate_grid_size', 'VOXEL_SIZE': [0.16, 0.16, 0.16]},
+        {'NAME': 'downsample_depth_map', 'DOWNSAMPLE_FACTOR': 8}]
+    model = {
+        'NAME': 'CaDDN',
+        'IMAGE_BACKBONE': {'NUM_FILTERS': [64, 128, 256], 'OUT_CHANNEL': 256},
+        'FRUSTUM': {'NUM_DEPTH_BINS': 80, 'DEPTH_MIN': 2.0, 'DEPTH_MAX': 46.8,
+                    'OUT_CHANNEL': 64},
+        'DDN_LOSS': {'WEIGHT': 3.0, 'ALPHA': 0.25, 'GAMMA': 2.0, 'FG_WEIGHT': 13.0,
+                     'BG_WEIGHT': 1.0, 'MODE': 'LID'},
+        'BACKBONE_2D': {'NAME': 'BaseBEVBackbone', 'LAYER_NUMS': [10, 10, 10],
+                        'LAYER_STRIDES': [2, 2, 2], 'NUM_FILTERS': [64, 128, 256],
+                        'UPSAMPLE_STRIDES': [1, 2, 4], 'NUM_UPSAMPLE_FILTERS': [128, 128, 128]},
+        'DENSE_HEAD': {
+            'NAME': 'AnchorHeadSingle', 'CLASS_AGNOSTIC': False,
+            'USE_DIRECTION_CLASSIFIER': True, 'DIR_OFFSET': 0.78539, 'DIR_LIMIT_OFFSET': 0.0,
+            'NUM_DIR_BINS': 2, 'ANCHOR_GENERATOR_CONFIG': CADDN_ANCHORS,
+            'TARGET_ASSIGNER_CONFIG': {'NAME': 'AxisAlignedTargetAssigner', 'POS_FRACTION': -1.0,
+                                       'SAMPLE_SIZE': 512, 'NORM_BY_NUM_EXAMPLES': False,
+                                       'MATCH_HEIGHT': False, 'BOX_CODER': 'ResidualCoder',
+                                       'FEATURE_MAP_STRIDE': 2},
+            'LOSS_CONFIG': {'LOSS_WEIGHTS': {'cls_weight': 1.0, 'loc_weight': 2.0,
+                                             'dir_weight': 0.2, 'code_weights': [1.0] * 7}}},
+        'POST_PROCESSING': {
+            'RECALL_THRESH_LIST': [0.3, 0.5, 0.7], 'SCORE_THRESH': 0.1,
+            'OUTPUT_RAW_SCORE': False, 'EVAL_METRIC': 'kitti',
+            'NMS_CONFIG': {'NMS_TYPE': 'nms_bev', 'NMS_THRESH': 0.01, 'NMS_PRE_MAXSIZE': 4096,
+                           'NMS_POST_MAXSIZE': 500}}}
+    optimization = {
+        'BATCH_SIZE_PER_GPU': 4, 'NUM_EPOCHS': 80, 'OPTIMIZER': 'adam_onecycle', 'LR': 0.001,
+        'WEIGHT_DECAY': 0.01, 'MOMENTUM': 0.9, 'MOMS': [0.95, 0.85], 'PCT_START': 0.4,
+        'DIV_FACTOR': 10, 'DECAY_STEP_LIST': [35, 45], 'LR_DECAY': 0.1, 'LR_CLIP': 1e-07,
+        'LR_WARMUP': False, 'WARMUP_EPOCH': 1, 'GRAD_NORM_CLIP': 10}
+    return CfgNode({'CLASS_NAMES': ['Car', 'Pedestrian', 'Cyclist'], 'DATA_CONFIG': ds,
+                    'MODEL': model, 'OPTIMIZATION': optimization})
+
+
+def tiny_caddn_cfg(cfg):
+    """Shrink `caddn_kitti()` in place to the JAX package's tests' widths
+    (`tests/test_depth_supervision.py`): the image backbone at 8, 16, 32 to
+    16, 8 LID bins over 2..40 m into 8 channels, one BEV level of 16, NMS
+    over 32 candidates to 16; a 32 x 32 x 4 grid of 1 m voxels over 2..34 m
+    ahead and +-16 m across; depth maps of 64 x 96 images."""
+    ds = cfg.DATA_CONFIG
+    ds.POINT_CLOUD_RANGE = [2.0, -16.0, -3.0, 34.0, 16.0, 1.0]
+    for proc in ds.DATA_PROCESSOR:
+        if proc['NAME'] == 'calculate_grid_size':
+            proc['VOXEL_SIZE'] = [1.0, 1.0, 1.0]
+        elif proc['NAME'] == 'generate_depth_map':
+            proc['MAP_SHAPE'] = [64, 96]
+    m = cfg.MODEL
+    m.IMAGE_BACKBONE.update({'NUM_FILTERS': [8, 16, 32], 'OUT_CHANNEL': 16})
+    m.FRUSTUM.update({'NUM_DEPTH_BINS': 8, 'DEPTH_MAX': 40.0, 'OUT_CHANNEL': 8})
+    m.BACKBONE_2D.update({'LAYER_NUMS': [1], 'LAYER_STRIDES': [2], 'NUM_FILTERS': [16],
+                          'UPSAMPLE_STRIDES': [1], 'NUM_UPSAMPLE_FILTERS': [16]})
+    nms = m.POST_PROCESSING.NMS_CONFIG
+    nms.NMS_PRE_MAXSIZE = 32
+    nms.NMS_POST_MAXSIZE = 16
+    return cfg
+
+
+def caddn_camera_inputs(batch: dict) -> dict:
+    """Add CaDDN's inputs to a collated KITTI camera batch, in place (the
+    KITTI data path does not make them, ROADMAP Queue 3; OpenPCDet makes
+    them through GET_ITEM_LIST 'calib_matricies'): 'camera_imgs' (B, 1, H,
+    W, 3), the 'images' with an axis of one camera; 'trans_lidar_to_cam'
+    (B, 4, 4), R0 V2C of each sample's calibration; 'trans_cam_to_img'
+    (B, 3, 4), its P2."""
+    from ..datasets.kitti.calibration import _homogenize
+    calibs = batch['calib']
+    batch['camera_imgs'] = np.ascontiguousarray(batch['images'][:, None], np.float32)
+    batch['trans_lidar_to_cam'] = np.stack(
+        [_homogenize(c.R0) @ _homogenize(c.V2C) for c in calibs]).astype(np.float32)
+    batch['trans_cam_to_img'] = np.stack([c.P2 for c in calibs]).astype(np.float32)
+    return batch
+
+
+def _camera_collate(collate, samples):
+    return caddn_camera_inputs(collate(samples))
+
+
+def caddn_loader(loader):
+    """`loader` (a `build_dataloader` loader of a KITTI camera set) with
+    `caddn_camera_inputs` applied to each collated batch, in its workers."""
+    from functools import partial
+    loader.collate_fn = partial(_camera_collate, loader.collate_fn)
+    return loader
+
+
+def caddn_batch(B: int, N: int, cfg, seed: int = 0, M: int = 0, device='cpu') -> dict:
+    """A CaDDN batch of `cfg` on the mini KITTI set's camera
+    (`datasets.kitti.synthetic`'s P2, R0 and V2C; P2's rows scaled to the
+    image where it is not 375 x 1242): images (B, 1, H, W, 3) of uniform
+    pixels in [0, 1], H x W the MAP_SHAPE of its `generate_depth_map` step;
+    the two transforms; and, with M > 0, M boxes a cloud of
+    `gt_boxes` over the range's ground ('gt_boxes', 'gt_mask'), their
+    projections clipped to the image ('gt_boxes2d', 'gt_boxes2d_mask': all
+    true, as the collate marks a sample's boxes), and the depth maps of N
+    `lidar_points` of each cloud inside the camera's view
+    (`generate_depth_map`, then `downsample_depth_map`), as the data path
+    makes them. Tensors on `device`."""
+    from ..datasets.kitti import kitti_utils
+    from ..datasets.kitti import synthetic as kitti_syn
+    from ..datasets.kitti.calibration import Calibration
+    from ..datasets.processor.data_processor import block_mean, lidar_depth_map
+    steps = {p['NAME']: p for p in cfg.DATA_CONFIG.DATA_PROCESSOR}
+    H, W = (int(v) for v in steps['generate_depth_map']['MAP_SHAPE'])
+    P2 = kitti_syn.P2.copy()
+    P2[0] *= W / kitti_syn.IMG_W
+    P2[1] *= H / kitti_syn.IMG_H
+    calib = Calibration({'P2': P2, 'P3': P2, 'R0': kitti_syn.R0, 'Tr_velo2cam': kitti_syn.V2C})
+    rng = np.random.RandomState(seed)
+    batch = {'images': rng.rand(B, H, W, 3).astype(np.float32), 'calib': [calib] * B}
+    caddn_camera_inputs(batch)
+    del batch['images'], batch['calib']
+    if M:
+        pc_range = cfg.DATA_CONFIG.POINT_CLOUD_RANGE
+        gt = gt_boxes(B, M, pc_range, seed + 1)
+        boxes2d = np.zeros((B, M, 4), np.float32)
+        for b in range(B):
+            cam = kitti_utils.boxes3d_lidar_to_kitti_camera(gt[b, :, :7], calib)
+            boxes2d[b] = kitti_utils.boxes3d_kitti_camera_to_imageboxes(cam, calib,
+                                                                        image_shape=(H, W))
+        f = int(steps['downsample_depth_map']['DOWNSAMPLE_FACTOR'])
+        depth = []
+        for b in range(B):
+            pts = lidar_points(1, 4 * N, seed + 2 + b, pc_range)[0]
+            uv, d = calib.rect_to_img(calib.lidar_to_rect(pts[:, :3]))
+            seen = (d > 0) & (uv[:, 0] >= 0) & (uv[:, 0] < W) & (uv[:, 1] >= 0) \
+                & (uv[:, 1] < H)
+            depth.append(block_mean(lidar_depth_map(pts[seen][:N], calib, H, W), f))
+        batch.update(gt_boxes=gt, gt_mask=np.ones((B, M), bool), gt_boxes2d=boxes2d,
+                     gt_boxes2d_mask=np.ones((B, M), bool), depth_maps=np.stack(depth))
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device) for k, v in batch.items()}
+
+
+# the configurations no file of the repo holds, by the name the tools take
+# in place of a file (`--cfg_file caddn`)
+SYNTHETIC_CFGS = {'caddn': caddn_kitti}
+
+
+def load_cfg(cfg_file: str):
+    """A whole config: `SYNTHETIC_CFGS[cfg_file]()` for a name there, else the
+    YAML file (relative to the working directory)."""
+    from .config import cfg_from_yaml_file
+    if cfg_file in SYNTHETIC_CFGS:
+        return SYNTHETIC_CFGS[cfg_file]()
+    return cfg_from_yaml_file(cfg_file)
+
+
 # the dry run's shrink of each model that has one, by `MODEL.NAME` (a
 # SECONDNet's by its backbone too)
 TINY_CFGS = {'PDMSSD': tiny_pdmssd_cfg, 'PointRCNN': tiny_pointrcnn_cfg,
@@ -914,7 +1114,8 @@ TINY_CFGS = {'PDMSSD': tiny_pdmssd_cfg, 'PointRCNN': tiny_pointrcnn_cfg,
              'VoxelRCNN': tiny_voxel_rcnn_cfg, 'SECONDNetIoU': tiny_second_iou_cfg,
              'PartA2Net': tiny_parta2_cfg, 'PVRCNNPlusPlus': tiny_pv_rcnn_plusplus_cfg,
              'DSVT': tiny_dsvt_cfg, 'TransFusion': tiny_transfusion_cfg,
-             'MPPNet': tiny_mppnet_cfg, 'BevFusion': tiny_bevfusion_cfg}
+             'MPPNet': tiny_mppnet_cfg, 'BevFusion': tiny_bevfusion_cfg,
+             'CaDDN': tiny_caddn_cfg}
 
 
 def voxelizes(cfg) -> bool:

@@ -85,6 +85,7 @@ SLICE_MODULES = [
     'pdm_ssd_torch.models.backbones_image.image_backbone',
     'pdm_ssd_torch.models.view_transforms.depth_lss',
     'pdm_ssd_torch.models.detectors.bev_fusion',
+    'pdm_ssd_torch.ops.depth', 'pdm_ssd_torch.models.detectors.caddn',
     'bench_torch',
 ]
 
@@ -604,6 +605,28 @@ def test_configs_build_or_name_their_roadmap_item(name, monkeypatch):
     else:
         with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 item 12'):
             build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG, device='meta')
+
+
+# `synthetic.caddn_kitti()`, CaDDN at its published widths, by its parameter
+# count (the JAX package's `jax.eval_shape` of its init counts the same)
+CADDN_PARAMETERS = 13181209
+
+
+def test_caddn_builds_at_its_published_widths():
+    """`synthetic.caddn_kitti()` builds through `build_detector` (on the meta
+    device) at its parameter count: a 1 x 1 depth head from the image
+    backbone's 256 channels to 80 + 1 depth logits and 64 frustum channels,
+    and a first BEV conv over the 25 z cells' 64 channels (1600); its grid
+    is 280 x 376 x 25."""
+    from pdm_ssd_torch.models.detectors import build_detector
+    from pdm_ssd_torch.utils import synthetic
+    cfg = synthetic.caddn_kitti()
+    net = build_detector(cfg.MODEL, len(cfg.CLASS_NAMES), cfg.DATA_CONFIG,
+                         class_names=cfg.CLASS_NAMES, device='meta')
+    assert type(net).__name__ == 'CaDDN' and net.grid_size == (280, 376, 25)
+    assert sum(p.numel() for p in net.parameters()) == CADDN_PARAMETERS
+    assert tuple(net.depth_head.weight.shape) == (81 + 64, 256, 1, 1)
+    assert net.backbone_2d.down0_conv0.in_channels == 25 * 64
 
 
 def test_detector3d_names_roadmap_queue_1_for_an_unported_slot(monkeypatch):

@@ -102,8 +102,9 @@ def assert_deep_equal(got, want, path=''):
 
 def test_generator_and_infos_match_jax(mini):
     """Identical frame, label, calib and split files, the same image shapes
-    (the JAX generator writes a real PNG where PIL is installed, the port a
-    header alone), deep-equal info and dbinfo pickles and GT database."""
+    (both generators write decodable PNGs of the same pixels, PIL's bytes
+    and the port's differ: `tests/test_torch_port_kitti_camera.py`),
+    deep-equal info and dbinfo pickles and GT database."""
     t_root, j_root = mini
     for sub in ('training/velodyne', 'training/label_2', 'training/calib', 'ImageSets',
                 'gt_database'):
@@ -445,26 +446,41 @@ def test_calculate_grid_size_matches_jax(mini):
 def test_unported_parts_of_the_data_path_raise(what, mini):
     """Each step, augmentation and dataset of the JAX package's data path
     that the port does not have raises `NotImplementedError` when the config
-    names it, with its ROADMAP item where a config of the repo uses it.
-    `imgaug` is ported (BEVFusion's camera augmentation: the queue takes it),
-    `random_image_flip` beside it is not (CaDDN's)."""
+    names it (`random_local_rotation`, with no config of the repo using it;
+    ONCE, with its ROADMAP item). CaDDN's steps, which the port has since
+    it ported CaDDN, build into the loader's queues instead: the depth maps
+    (`generate_depth_map`, `downsample_depth_map`), the camera
+    augmentations (`imgaug`, `random_image_flip`) and the GT sampler's
+    image copy-paste (IMG_AUG_TYPE 'kitti')."""
     cfg = dataset_cfg(mini[0])
+    if what in ('local rotation', 'ONCEDataset'):
+        if what == 'local rotation':
+            cfg.DATA_AUGMENTOR.AUG_CONFIG_LIST.append(CfgNode({'NAME': 'random_local_rotation'}))
+        else:
+            cfg.DATASET = 'ONCEDataset'
+        match = 'no config of the repo' if what == 'local rotation' else 'ROADMAP Queue 1 item'
+        with pytest.raises(NotImplementedError, match=match):
+            t_build_dataloader(cfg, CLASS_NAMES, batch_size=2, root_path=mini[0], workers=0,
+                               training=True)
+        return
     if what == 'depth map':
-        cfg.DATA_PROCESSOR.append(CfgNode({'NAME': 'generate_depth_map'}))
+        cfg.DATA_PROCESSOR.append(CfgNode({'NAME': 'generate_depth_map', 'MAP_SHAPE': [375, 1242]}))
+        cfg.DATA_PROCESSOR.append(CfgNode({'NAME': 'downsample_depth_map',
+                                           'DOWNSAMPLE_FACTOR': 8}))
     elif what == 'imgaug':
         cfg.DATA_AUGMENTOR.AUG_CONFIG_LIST.append(
             CfgNode({'NAME': 'imgaug', 'ROT_LIM': [-5.4, 5.4], 'RAND_FLIP': True}))
-        ds, _, _ = t_build_dataloader(cfg, CLASS_NAMES, batch_size=2, root_path=mini[0],
-                                      workers=0, training=True)
-        assert ds.data_augmentor.data_augmentor_queue[-1].func.__name__ == 'imgaug'
-        cfg.DATA_AUGMENTOR.AUG_CONFIG_LIST.append(CfgNode({'NAME': 'random_image_flip'}))
-    elif what == 'local rotation':
-        cfg.DATA_AUGMENTOR.AUG_CONFIG_LIST.append(CfgNode({'NAME': 'random_local_rotation'}))
-    elif what == 'image copy-paste':
-        cfg.DATA_AUGMENTOR.AUG_CONFIG_LIST[0]['IMG_AUG_TYPE'] = 'kitti'
+        cfg.DATA_AUGMENTOR.AUG_CONFIG_LIST.append(
+            CfgNode({'NAME': 'random_image_flip', 'ALONG_AXIS_LIST': ['horizontal']}))
     else:
-        cfg.DATASET = 'ONCEDataset'
-    match = 'no config of the repo' if what == 'local rotation' else 'ROADMAP Queue 1 item'
-    with pytest.raises(NotImplementedError, match=match):
-        t_build_dataloader(cfg, CLASS_NAMES, batch_size=2, root_path=mini[0], workers=0,
-                           training=True)
+        cfg.DATA_AUGMENTOR.AUG_CONFIG_LIST[0]['IMG_AUG_TYPE'] = 'kitti'
+    ds, _, _ = t_build_dataloader(cfg, CLASS_NAMES, batch_size=2, root_path=mini[0], workers=0,
+                                  training=True)
+    if what == 'depth map':
+        assert ds.data_processor.depth_downsample_factor == 8
+        assert len(ds.data_processor.steps) == len(cfg.DATA_PROCESSOR)
+    elif what == 'imgaug':
+        names = [f.func.__name__ for f in ds.data_augmentor.data_augmentor_queue[-2:]]
+        assert names == ['imgaug', 'random_image_flip']
+    else:
+        assert ds.data_augmentor.data_augmentor_queue[0].img_aug_type == 'kitti'
