@@ -315,18 +315,40 @@ non-zero exit):
    device time, busy share) and a training forward's stages;
 66. `bevfusion_mini.yaml` on a fresh mini nuScenes set with its front
    camera (`make_mini_nuscenes --cams`): `eval_one_epoch` of seeded weights
-   (NDS, mAP), two epochs of `train_model`, the trained checkpoint's eval.
+   (NDS, mAP), two epochs of `train_model`, the trained checkpoint's eval;
+67-70. CaDDN (`synthetic.caddn_kitti()`): its frustum corners and the
+   row gather and scatter-add at its shapes on CUDA against the CPU, its
+   predict and training at full width, and its KITTI camera loops
+   (`caddn_phases`);
+71. the five generated mini sets of ONCE, Argoverse 2, Lyft, Pandaset and
+   the custom layout (`tools.make_mini_sets`, 8 frames a split, under
+   `build/chip_smoke_sets/`), and the flagship at full width (seeded
+   weights, its score gate open) on each set's first val batch at B=2,
+   N=4096, on CUDA against the CPU: the forward within FWD_RTOL of scale,
+   the kept boxes above the tie level matched both ways;
+72. for each set, the flagship as shipped on it (`synthetic.flagship_on`,
+   N=16384) through `eval_one_epoch` at B=4 over its 8 val frames: the
+   set's own metric (ONCE AP, Argoverse 2's CDS and mAP, the Lyft mAP of
+   Lyft and Pandaset, the custom set's recall), no non-finite box,
+   frames/s, and one predict's launches a batch;
+73. `train_model` on the custom set at B=2, GT sampling from its own
+   database and the six local augmentations in the queue, 2 epochs of 4
+   steps: the last epoch's mean loss below the first's, a training step's
+   launches a step, then the checkpoint through the eval loop.
 
 Every phase's line ends with the seconds since the start, and the elapsed
-time is printed after phases 18, 40, 50, 54, 58, 62 and 66.
+time is printed after phases 18, 40, 50, 54, 58, 62, 66, 70 and 73.
 The line before the last is the card's name and power limit; before it, one
 JSON line describing each kernel, with the launches of each path of phases
-20 to 66 (`launches_<path>`,
+20 to 73 (`launches_<path>`,
 `launches_nuscenes_{predict,train,eval_loop,train_loop}`,
 `launches_{dsvt,transfusion}_{predict,train,eval_loop,train_loop}`,
-`launches_mppnet_{predict,predbox_predict,stream,train,eval_loop,train_loop}`
-and `launches_bevfusion_{predict,train,eval_loop,train_loop}` among them)
-and the sums of phase 42 (`two_stage_*`). The last line is
+`launches_mppnet_{predict,predbox_predict,stream,train,eval_loop,train_loop}`,
+`launches_bevfusion_{predict,train,eval_loop,train_loop}`,
+`launches_caddn_{predict,train,eval_loop,train_loop}`,
+`launches_{once,argo2,lyft,pandaset,custom}_eval_loop` and
+`launches_custom_train_loop` among them) and the sums of phase 42
+(`two_stage_*`). The last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -4099,6 +4121,18 @@ def check_nds(phase: str, ret: dict) -> None:
                          f'{ {k: ret.get(k) for k in keys} }')
 
 
+def to_cuda_tree(x):
+    """`x` with every tensor in it, through dicts and lists, on the card (a
+    CPU forward's maps, for the card's post-processing)."""
+    if isinstance(x, torch.Tensor):
+        return x.cuda()
+    if isinstance(x, dict):
+        return {k: to_cuda_tree(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return type(x)(to_cuda_tree(v) for v in x)
+    return x
+
+
 def above(det: dict, cut: torch.Tensor) -> dict:
     """`det` with the kept boxes scoring at most `cut` (B,) masked out."""
     return {**det, 'pred_mask': det['pred_mask'] & (det['pred_scores'] > cut[:, None])}
@@ -4181,8 +4215,7 @@ def nuscenes_cuda_vs_cpu(phase: str, net, cfg, synthetic, sources: dict,
                 if not detections:
                     continue
                 want = cpu_net.post_process(out)
-                moved = {k: [{n: t.cuda() for n, t in p.items()} for p in v]
-                         if k == 'center_head_preds' else v for k, v in out.items()}
+                moved = to_cuda_tree(out)
                 shared = {k: v.cpu() for k, v in net.post_process(moved).items()}
                 own = {k: v.cpu() for k, v in net.post_process(gout).items()}
                 cut = tie_level(cpu_net.dense_head.generate_predicted_boxes(dict(out)))
@@ -5642,6 +5675,178 @@ def caddn_phases(wrappers, synthetic, group, smi: str) -> tuple:
     return paths, shapes
 
 
+MINI_SETS = ('once', 'argo2', 'lyft', 'pandaset', 'custom')
+SETS_DIR = REPO / 'build' / 'chip_smoke_sets'
+# frames a split of each generated set; the eval loops' and the custom
+# train loop's batch sizes (8 frames at B=2: 4 steps an epoch)
+SET_FRAMES = 8
+SET_EVAL_B = 4
+SET_TRAIN_B = 2
+SET_TRAIN_EPOCHS = 2
+SET_PATHS = tuple(f'{s}_eval_loop' for s in MINI_SETS) + ('custom_train_loop',)
+# the entries of each set's evaluation that phase 72 prints, and that must
+# be finite (a class may have no GT in 8 frames, so no per-class entry is
+# among them)
+SET_METRICS = {'once': ('AP_mean/overall', 'AP_mean/0-30m', 'AP_Vehicle/overall'),
+               'argo2': ('mAP', 'mCDS'), 'lyft': ('mAP', 'car_AP'),
+               'pandaset': ('mAP', 'Car_AP'),
+               'custom': ('recall_0.3', 'recall_0.5', 'recall_0.7')}
+
+
+def mini_sets() -> dict:
+    """The five generated mini sets (`tools.make_mini_sets`, SET_FRAMES
+    frames a split) under SETS_DIR, made anew; returns set -> root."""
+    from pdm_ssd_torch.tools.make_mini_sets import make
+    t0 = time.perf_counter()
+    roots = {name: make(name, SETS_DIR / name, frames=SET_FRAMES) for name in MINI_SETS}
+    log('71 sets cuda-vs-cpu', f'{", ".join(MINI_SETS)}: {SET_FRAMES} frames a split generated '
+        f'in {time.perf_counter() - t0:.1f} s')
+    return roots
+
+
+def set_cfg(synthetic, name: str, root: Path, num_points: int = 16384, local: bool = False):
+    """`synthetic.flagship_on(name, root)` with `num_points` a cloud."""
+    cfg = synthetic.flagship_on(name, root, local_augmentations=local)
+    for proc in cfg.DATA_CONFIG.DATA_PROCESSOR:
+        if proc.NAME == 'sample_points':
+            proc.NUM_POINTS = {'train': num_points, 'test': num_points}
+    return cfg
+
+
+def sets_cuda_vs_cpu_phase(synthetic, roots: dict) -> None:
+    """Phase 71: the flagship at full width, seeded weights and its score gate
+    open, on the first val batch of each set at B=2, N=4096, on CUDA against
+    the same weights on the CPU (`nuscenes_cuda_vs_cpu`): the forward within
+    FWD_RTOL of scale, the kept boxes above the tie level matched by box and
+    label both ways."""
+    from pdm_ssd_torch.datasets import build_dataloader
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase = '71 sets cuda-vs-cpu'
+    sources = {}
+    for name, root in roots.items():
+        cfg = set_cfg(synthetic, name, root, 4096)
+        _, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 2, workers=0,
+                                        training=False)
+        np.random.seed(1)
+        sources[name] = [torch.from_numpy(next(iter(loader))['points'])]
+    cfg = set_cfg(synthetic, 'once', roots['once'], 4096)
+    net = synthetic.open_score_gate(synthetic.random_model(cfg, 'cuda', seed=7))
+    note = nuscenes_cuda_vs_cpu(phase, net, cfg, synthetic, sources, detections=True)
+    log(phase, f'pdm_ssd_point.yaml on the first val batch of each set, B=2 N=4096: {note}')
+
+
+def sets_loop_phases(wrappers, synthetic, card: str, roots: dict) -> dict:
+    """Phase 72: for each set, `eval_one_epoch` of the flagship as shipped
+    (`synthetic.flagship_on`: N=16384, seeded weights, the score gate open)
+    at B=SET_EVAL_B over its SET_FRAMES val frames: the set's own metric,
+    the boxes that are not finite (none allowed), `infer_fps` and
+    `loop_fps`, and the launches, one predict's a batch. Phase 73: the
+    custom set's `train_model` at B=SET_TRAIN_B, GT sampling from its own
+    database and the six local augmentations in its queue, SET_TRAIN_EPOCHS
+    epochs: finite losses, the last epoch's mean below the first's, one
+    training step's launches a step, then the trained checkpoint through
+    the eval loop. Returns the launches of each loop, by path name."""
+    from pdm_ssd_torch.datasets import build_dataloader
+    from pdm_ssd_torch.runtime import trainer
+    from pdm_ssd_torch.runtime.eval_utils import eval_one_epoch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    paths = {}
+    for name, root in roots.items():
+        phase = f'72 {name} eval loop'
+        cfg = set_cfg(synthetic, name, root)
+        ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, SET_EVAL_B,
+                                         workers=4, training=False)
+        net = synthetic.open_score_gate(synthetic.random_model(cfg, 'cuda', seed=7))
+        np.random.seed(0)
+        reset_launches(wrappers)
+        ret = eval_one_epoch(net, loader, ds, cfg.CLASS_NAMES, device='cuda',
+                             result_dir=SETS_DIR / f'eval_{name}')
+        paths[f'{name}_eval_loop'] = launches = read_launches(wrappers)
+        want = {k: v * len(loader) for k, v in PREDICT_LAUNCHES.items()}
+        if launches != want:
+            raise SystemExit(f'[{phase}] FAILED: kernel launches {launches} over {len(loader)} '
+                             f'batches, expected {want}')
+        annos = pickle.loads((SETS_DIR / f'eval_{name}' / 'result.pkl').read_bytes())
+        key = 'boxes_lidar' if name == 'custom' else 'boxes_3d'
+        n_inf = sum(int((~np.isfinite(np.asarray(a[key], np.float64).reshape(-1, 7))).any(-1)
+                        .sum()) for a in annos)
+        metrics = {k: ret.get(k, float('nan')) for k in SET_METRICS[name]}
+        if n_inf or not all(np.isfinite(v) for v in metrics.values()):
+            raise SystemExit(f'[{phase}] FAILED: {n_inf} boxes not finite, metrics {metrics}')
+        log(phase, f'{ds.__class__.__name__} ({", ".join(cfg.CLASS_NAMES)}), B={SET_EVAL_B} over '
+            f'{len(ds)} val frames: {sum(len(a["name"]) for a in annos)} detections ({n_inf} not '
+            f'finite); {", ".join(f"{k} {v:.4f}" for k, v in metrics.items())}; recall@0.3/0.5/0.7 '
+            f'{ret["recall/rcnn_0.3"]:.4f}/{ret["recall/rcnn_0.5"]:.4f}/'
+            f'{ret["recall/rcnn_0.7"]:.4f}; predict alone {ret["infer_fps"]:.2f} frames/s, the '
+            f'loop with loading and evaluation {ret["loop_fps"]:.2f} frames/s; launches FPS '
+            f'{launches["farthest_point_sample"]}, window_select {launches["window_select"]}, '
+            f'gather_rows {launches["gather_rows"]} over {len(loader)} predicts on {card}')
+
+    phase = '73 custom train loop'
+    cfg = set_cfg(synthetic, 'custom', roots['custom'], local=True)
+    ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, SET_TRAIN_B, workers=4,
+                                     training=True, seed=0)
+    queue = [f.func.__name__ if hasattr(f, 'func') else type(f).__name__
+             for f in ds.data_augmentor.data_augmentor_queue]
+    ckpt_dir = SETS_DIR / 'ckpt_custom'
+    net = synthetic.random_model(cfg, 'cuda', seed=7)
+    epochs = SET_TRAIN_EPOCHS
+    optimizer, sched = trainer.create_train_state(net, cfg.OPTIMIZATION, len(loader), epochs)
+    np.random.seed(0)
+    torch.manual_seed(0)
+    steps = StepLog()
+    torch.cuda.synchronize()
+    reset_launches(wrappers)
+    t0 = time.perf_counter()
+    losses = trainer.train_model(net, optimizer, sched, loader, epochs, ckpt_dir=ckpt_dir,
+                                 max_ckpt_save_num=1, logger=steps, log_interval=1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    paths['custom_train_loop'] = launches = read_launches(wrappers)
+    names = [c.name for c in trainer.list_checkpoints(ckpt_dir)]
+    want = {k: v * epochs * len(loader) for k, v in TRAIN_LAUNCHES.items()}
+    if (not all(np.isfinite(losses)) or not losses[-1] < losses[0]
+            or names != [f'checkpoint_epoch_{epochs}.pth']):
+        raise SystemExit(f'[{phase}] FAILED: mean losses {losses} (the last must be below the '
+                         f'first), checkpoints {names}')
+    if launches != want:
+        raise SystemExit(f'[{phase}] FAILED: kernel launches {launches} over '
+                         f'{epochs * len(loader)} steps, expected {want}')
+    log(phase, f'CustomDataset B={SET_TRAIN_B} over {len(ds)} train frames, the queue {queue}, '
+        f'{epochs} epochs of {len(loader)} steps: mean losses '
+        f'{" ".join(f"{x:.4f}" for x in losses)}; {seconds:.1f} s with loading; checkpoints '
+        f'left {names}; launches FPS {launches["farthest_point_sample"]}, window_select '
+        f'{launches["window_select"]}, gather_rows {launches["gather_rows"]}, scatter_add_rows '
+        f'{launches["scatter_add_rows"]} on {card}')
+    log(phase, steps.summary(len(loader)))
+    trained = synthetic.open_score_gate(synthetic.random_model(cfg, 'cuda', seed=13))
+    trainer.load_checkpoint(ckpt_dir / names[-1], trained)
+    vds, vloader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, SET_EVAL_B, workers=4,
+                                       training=False)
+    np.random.seed(0)
+    ret = eval_one_epoch(trained, vloader, vds, cfg.CLASS_NAMES, device='cuda',
+                         result_dir=SETS_DIR / 'eval_custom_trained')
+    log(phase, f'the checkpoint of epoch {epochs} over the {len(vds)} val frames (its score '
+        f'gate open): recall@0.3/0.5/0.7 {ret["recall_0.3"]:.4f}/{ret["recall_0.5"]:.4f}/'
+        f'{ret["recall_0.7"]:.4f}; predict alone {ret["infer_fps"]:.2f} frames/s, with loading '
+        f'{ret["loop_fps"]:.2f} frames/s')
+    return paths
+
+
+def sets_phases(wrappers, synthetic, smi: str) -> dict:
+    """Phases 71 to 73, each group's seconds logged. Returns the kernel
+    launches of each path, by name."""
+    t0 = time.perf_counter()
+    roots = mini_sets()
+    sets_cuda_vs_cpu_phase(synthetic, roots)
+    t1 = time.perf_counter()
+    paths = sets_loop_phases(wrappers, synthetic, smi, roots)
+    log('time', f'phase 71 {t1 - t0:.1f} s, phases 72 and 73 {time.perf_counter() - t1:.1f} s')
+    return paths
+
+
 KERNEL_TABLE = (
     ('farthest_point_sample', 'pdm_ssd_torch/csrc/fps.cu', 'pdm_ssd_tpu/ops/pallas/fps.py:60'),
     ('window_select', 'pdm_ssd_torch/csrc/group.cu',
@@ -5860,6 +6065,18 @@ def main() -> None:
         raise SystemExit(f'[kernels] FAILED: no count for {missing}')
     log('time', f'{time.perf_counter() - T0:.1f} s since the start, after phase 70')
 
+    # the rest of the host data path: the flagship served on the ONCE,
+    # Argoverse 2, Lyft, Pandaset and custom mini sets, and trained on the
+    # custom one with GT sampling and the six local augmentations
+    more = sets_phases(wrappers, synthetic, smi)
+    if set(more) & set(new_paths):
+        raise SystemExit(f'[kernels] FAILED: path names used twice: {set(more) & set(new_paths)}')
+    new_paths.update(more)
+    missing = [f'launches_{p}' for p in SET_PATHS if p not in new_paths]
+    if missing:
+        raise SystemExit(f'[kernels] FAILED: no count for {missing}')
+    log('time', f'{time.perf_counter() - T0:.1f} s since the start, after phase 73')
+
     # `launches` is the count from the run of a main path: the flagship's five
     # training steps of phase 8 for its four kernels, PointRCNN's predict of
     # phase 11 for the ball query, SECOND's predict of phase 15 for the sparse
@@ -5904,7 +6121,9 @@ def main() -> None:
     # backward; the `caddn_*` keys of the row gather and the scatter-add are
     # their numbers at one corner of phase 67 (B=2, 2632000 voxels, 586560
     # frustum rows of 64), the gather's beside the 8 launches' and the one
-    # launch's ms
+    # launch's ms; the `launches_{once,argo2,lyft,pandaset,custom}_eval_loop`
+    # counts of phase 72 are the flagship's predict launches a batch, and
+    # `launches_custom_train_loop` of phase 73 its training step's a step
     main_path = {kern: train_launches for kern, _, _ in KERNEL_TABLE}
     main_path.update(ball_query=rcnn_launches, sparse_conv=second_launches,
                      gather_rows_bf16=second_launches,

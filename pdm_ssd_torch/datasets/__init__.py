@@ -1,10 +1,8 @@
 """Dataset registry and `build_dataloader` (counterpart of
-`pdm_ssd_tpu/datasets/__init__.py`, KITTI, nuScenes and Waymo).
+`pdm_ssd_tpu/datasets/__init__.py`, every dataset of its registry).
 
 The host-side loader is torch's CPU DataLoader, for worker-process
 prefetching; batches are plain numpy dicts that the loops move to the device.
-The JAX package's other datasets raise `NotImplementedError` naming their
-ROADMAP item.
 """
 from __future__ import annotations
 
@@ -13,19 +11,27 @@ from functools import partial
 import numpy as np
 import torch.utils.data as torch_data
 
+from .argo2.argo2_dataset import Argo2Dataset
+from .custom.custom_dataset import CustomDataset
 from .dataset import DatasetTemplate
 from .kitti.kitti_dataset import KittiDataset
+from .lyft.lyft_dataset import LyftDataset
 from .nuscenes.nuscenes_dataset import NuScenesDataset
+from .once.once_dataset import ONCEDataset
+from .pandaset.pandaset_dataset import PandasetDataset
 from .waymo.waymo_dataset import WaymoDataset
 
 __all__ = {
     'DatasetTemplate': DatasetTemplate,
     'KittiDataset': KittiDataset,
+    'CustomDataset': CustomDataset,
     'NuScenesDataset': NuScenesDataset,
     'WaymoDataset': WaymoDataset,
+    'ONCEDataset': ONCEDataset,
+    'LyftDataset': LyftDataset,
+    'PandasetDataset': PandasetDataset,
+    'Argo2Dataset': Argo2Dataset,
 }
-
-_UNPORTED = ('CustomDataset', 'ONCEDataset', 'LyftDataset', 'PandasetDataset', 'Argo2Dataset')
 
 
 def _worker_init_fn(worker_id, seed=None):
@@ -38,11 +44,7 @@ def build_dataloader(dataset_cfg, class_names, batch_size, root_path=None, worke
     """Returns (dataset, loader, None): a shuffled loader that drops the last
     partial batch when training, else one in order that keeps it. With
     `seed`, worker i seeds `np.random` with seed + i."""
-    name = dataset_cfg.DATASET
-    if name in _UNPORTED:
-        raise NotImplementedError(f'{name} is not ported yet (ROADMAP Queue 1 item 13, '
-                                  'the other datasets)')
-    dataset = __all__[name](
+    dataset = __all__[dataset_cfg.DATASET](
         dataset_cfg=dataset_cfg, class_names=class_names,
         root_path=root_path, training=training, logger=logger)
 

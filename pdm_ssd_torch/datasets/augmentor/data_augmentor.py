@@ -10,8 +10,10 @@ as the JAX package's do (its `data_augmentor.py:53-115`). `imgaug` flips and
 rotates BEVFusion's camera images (`image_ops`, PIL's operations without
 PIL) and records both in each image's `img_process_infos`;
 `random_image_flip` flips a KITTI sample's image (and depth map) and
-mirrors its boxes through the calibration (CaDDN's). The other
-augmentations of the JAX package raise `NotImplementedError`.
+mirrors its boxes through the calibration (CaDDN's). The per-object
+translation, rotation and scaling, the world and per-object frustum
+dropouts and SE-SSD's pyramid augmentation (`augmentor_utils`) complete the
+JAX package's queue: every augmentation it has, the port has.
 """
 from __future__ import annotations
 
@@ -24,7 +26,10 @@ from . import augmentor_utils
 from .database_sampler import DataBaseSampler
 
 _PORTED = ('gt_sampling', 'random_world_flip', 'random_world_rotation',
-           'random_world_scaling', 'random_world_translation', 'imgaug', 'random_image_flip')
+           'random_world_scaling', 'random_world_translation', 'imgaug', 'random_image_flip',
+           'random_local_translation', 'random_local_rotation', 'random_local_scaling',
+           'random_world_frustum_dropout', 'random_local_frustum_dropout',
+           'random_local_pyramid_aug')
 
 
 class DataAugmentor(object):
@@ -46,8 +51,8 @@ class DataAugmentor(object):
                 if cur_cfg.NAME in augmentor_configs.DISABLE_AUG_LIST:
                     continue
             if cur_cfg.NAME not in _PORTED:
-                raise NotImplementedError(f'the augmentation {cur_cfg.NAME} is not ported (no '
-                                          'config of the repo uses it)')
+                raise ValueError(f'no augmentation {cur_cfg.NAME} in either package: the '
+                                 f'queue takes {", ".join(_PORTED)}')
             queue.append(getattr(self, cur_cfg.NAME)(config=cur_cfg))
         return queue
 
@@ -172,6 +177,77 @@ class DataAugmentor(object):
             info[3] = rotate
             new_imgs.append(img)
         data_dict['camera_imgs'] = new_imgs
+        return data_dict
+
+    def random_local_translation(self, data_dict=None, config=None):
+        """Per-object translation (`data_augmentor.py:158-175`)."""
+        if data_dict is None:
+            return partial(self.random_local_translation, config=config)
+        axes = [{'x': 0, 'y': 1, 'z': 2}[a] for a in config.ALONG_AXIS_LIST]
+        gt_boxes, points = augmentor_utils.local_translation(
+            data_dict['gt_boxes'], data_dict['points'],
+            config.LOCAL_TRANSLATION_RANGE, axes=tuple(axes))
+        data_dict['gt_boxes'], data_dict['points'] = gt_boxes, points
+        return data_dict
+
+    def random_local_rotation(self, data_dict=None, config=None):
+        """Per-object rotation (`data_augmentor.py:176-192`)."""
+        if data_dict is None:
+            return partial(self.random_local_rotation, config=config)
+        rot_range = config.LOCAL_ROT_ANGLE
+        if not isinstance(rot_range, (list, tuple)):
+            rot_range = [-rot_range, rot_range]
+        gt_boxes, points = augmentor_utils.local_rotation(
+            data_dict['gt_boxes'], data_dict['points'], rot_range)
+        data_dict['gt_boxes'], data_dict['points'] = gt_boxes, points
+        return data_dict
+
+    def random_local_scaling(self, data_dict=None, config=None):
+        """Per-object scaling (`data_augmentor.py:193-206`)."""
+        if data_dict is None:
+            return partial(self.random_local_scaling, config=config)
+        gt_boxes, points = augmentor_utils.local_scaling(
+            data_dict['gt_boxes'], data_dict['points'], config.LOCAL_SCALE_RANGE)
+        data_dict['gt_boxes'], data_dict['points'] = gt_boxes, points
+        return data_dict
+
+    def random_world_frustum_dropout(self, data_dict=None, config=None):
+        """Scene-level frustum dropout (`data_augmentor.py:207-225`)."""
+        if data_dict is None:
+            return partial(self.random_world_frustum_dropout, config=config)
+        gt_boxes, points = data_dict['gt_boxes'], data_dict['points']
+        for direction in config.DIRECTION:
+            assert direction in ('top', 'bottom', 'left', 'right')
+            gt_boxes, points = augmentor_utils.global_frustum_dropout(
+                gt_boxes, points, config.INTENSITY_RANGE, direction)
+        data_dict['gt_boxes'], data_dict['points'] = gt_boxes, points
+        return data_dict
+
+    def random_local_frustum_dropout(self, data_dict=None, config=None):
+        """Per-object frustum dropout (`data_augmentor.py:226-244`)."""
+        if data_dict is None:
+            return partial(self.random_local_frustum_dropout, config=config)
+        gt_boxes, points = data_dict['gt_boxes'], data_dict['points']
+        for direction in config.DIRECTION:
+            assert direction in ('top', 'bottom', 'left', 'right')
+            gt_boxes, points = augmentor_utils.local_frustum_dropout(
+                gt_boxes, points, config.INTENSITY_RANGE, direction)
+        data_dict['gt_boxes'], data_dict['points'] = gt_boxes, points
+        return data_dict
+
+    def random_local_pyramid_aug(self, data_dict=None, config=None):
+        """SE-SSD pyramid dropout/sparsify/swap (`data_augmentor.py:245-266`)."""
+        if data_dict is None:
+            return partial(self.random_local_pyramid_aug, config=config)
+        gt_boxes, points = data_dict['gt_boxes'], data_dict['points']
+        gt_boxes, points, pyramids = augmentor_utils.local_pyramid_dropout(
+            gt_boxes, points, config.DROP_PROB)
+        gt_boxes, points, pyramids = augmentor_utils.local_pyramid_sparsify(
+            gt_boxes, points, config.SPARSIFY_PROB, config.SPARSIFY_MAX_NUM,
+            pyramids)
+        gt_boxes, points = augmentor_utils.local_pyramid_swap(
+            gt_boxes, points, config.SWAP_PROB, config.SWAP_MAX_NUM, pyramids)
+        data_dict['gt_boxes'], data_dict['points'] = gt_boxes, points
         return data_dict
 
     def forward(self, data_dict):

@@ -6,7 +6,7 @@ infos as `tools/make_mini_nuscenes.py` (`--no_cams` without `--cams`), and
 images of the same pixels, with no JAX and no PIL.
 
     python -m pdm_ssd_torch.tools.make_mini_nuscenes [--root data/nuscenes]
-        [--samples 3] [--max_sweeps 1] [--cams]
+        [--samples 3] [--max_sweeps 1] [--cams] [--force]
 
 The scene is one of the official mini split's train scenes, so every
 sample lands in `nuscenes_infos_<max_sweeps>sweeps_train.pkl` and the val
@@ -26,19 +26,19 @@ splits), with `--set DATA_CONFIG.DATA_PATH <root>`.
 from __future__ import annotations
 
 import argparse
-import shutil
 from pathlib import Path
 
 from ..datasets.nuscenes.synthetic import make_mini_nuscenes
+from .mini_root import fresh_root
 
 REPO = Path(__file__).resolve().parents[2]
 
 
-def make(root, samples: int = 3, max_sweeps: int = 1, cams: bool = False) -> Path:
-    """Write the set under `root` (replacing what is there) and return it."""
-    root = Path(root)
-    if root.exists():
-        shutil.rmtree(root)
+def make(root, samples: int = 3, max_sweeps: int = 1, cams: bool = False,
+         force: bool = False) -> Path:
+    """Write the set under `root` (replacing a set generated there before;
+    another non-empty `root` raises unless `force`) and return it."""
+    root = fresh_root(root, force)
     return make_mini_nuscenes(root, with_cams=cams, n_samples=samples, max_sweeps=max_sweeps)
 
 
@@ -48,8 +48,10 @@ def main(argv=None):
     ap.add_argument('--samples', type=int, default=3)
     ap.add_argument('--max_sweeps', type=int, default=1)
     ap.add_argument('--cams', action='store_true', help='add the CAM_FRONT stream')
+    ap.add_argument('--force', action='store_true',
+                    help='replace --root even if no mini-set generator wrote it')
     args = ap.parse_args(argv)
-    root = make(args.root, args.samples, args.max_sweeps, args.cams)
+    root = make(args.root, args.samples, args.max_sweeps, args.cams, args.force)
     print(f'mini-nuScenes with {args.samples} samples at {root} '
           f'({"LiDAR and CAM_FRONT" if args.cams else "LiDAR only"})')
 

@@ -43,3 +43,18 @@ def set_random_seed(seed):
     random.seed(seed)
     np.random.seed(seed)
 
+
+
+def import_pandas(fmt: str):
+    """`pandas`, imported for a raw reader of `fmt`; without it an ImportError
+    that names the format and what to read instead. pandas is imported only
+    here, inside the readers that need it: a machine without it (the card's
+    has none) reads the `.npy` / `.bin` sweeps that info pickles name."""
+    try:
+        import pandas
+    except ImportError as err:
+        raise ImportError(f'reading {fmt} needs pandas, which is not installed here; write the '
+                          'sweeps as .npy or .bin files and name those (with gt_boxes and '
+                          'gt_names) in the info pickles, which the dataset reads without '
+                          'pandas') from err
+    return pandas

@@ -1093,6 +1093,60 @@ def caddn_batch(B: int, N: int, cfg, seed: int = 0, M: int = 0, device='cpu') ->
 
 # the configurations no file of the repo holds, by the name the tools take
 # in place of a file (`--cfg_file caddn`)
+# the six per-object, frustum and pyramid augmentations, at the settings of
+# the JAX package's queue test (`tests/test_augmentor.py`)
+LOCAL_AUGMENTATIONS = (
+    {'NAME': 'random_local_translation', 'ALONG_AXIS_LIST': ['x', 'y'],
+     'LOCAL_TRANSLATION_RANGE': [-0.2, 0.2]},
+    {'NAME': 'random_local_rotation', 'LOCAL_ROT_ANGLE': [-0.15, 0.15]},
+    {'NAME': 'random_local_scaling', 'LOCAL_SCALE_RANGE': [0.95, 1.05]},
+    {'NAME': 'random_world_frustum_dropout', 'DIRECTION': ['top'], 'INTENSITY_RANGE': [0.05, 0.1]},
+    {'NAME': 'random_local_frustum_dropout', 'DIRECTION': ['top'], 'INTENSITY_RANGE': [0.05, 0.1]},
+    {'NAME': 'random_local_pyramid_aug', 'DROP_PROB': 0.2, 'SPARSIFY_PROB': 0.2,
+     'SPARSIFY_MAX_NUM': 50, 'SWAP_PROB': 0.2, 'SWAP_MAX_NUM': 50})
+
+
+def flagship_on(set_name: str, root, local_augmentations: bool = False):
+    """`configs/kitti_models/pdm_ssd_point.yaml` as shipped (the model, its
+    range, point encoding, processors and 16384 points) on the generated
+    mini set `set_name` ('once', 'argo2', 'lyft', 'pandaset' or 'custom') at
+    `root`: DATASET, DATA_PATH, INFO_PATH and the split keys are the set's;
+    the world flip, rotation and scaling stay; KITTI's GT sampling goes,
+    except on the custom set, which samples from its own
+    `custom_dbinfos_train.pkl`. The set's three names of the model's classes
+    replace CLASS_NAMES and CLASS_NAMES_EACH_HEAD, in their order (Lyft's
+    'car', 'pedestrian', 'bicycle'); the widths stay. With
+    `local_augmentations`, LOCAL_AUGMENTATIONS follow in the queue."""
+    import contextlib
+    import importlib
+    from pathlib import Path
+
+    from .config import CfgNode, cfg_from_yaml_file
+    repo = Path(__file__).resolve().parents[2]
+    with contextlib.chdir(repo):    # the config names its base config relative to the repo
+        cfg = cfg_from_yaml_file(str(repo / 'configs/kitti_models/pdm_ssd_point.yaml'))
+    # the set's generator module holds its CLASS_NAMES and DATASET_CFG
+    mod = importlib.import_module(f'..datasets.{set_name}.synthetic', __package__)
+    names = list(mod.CLASS_NAMES)
+    cfg.CLASS_NAMES = names
+    cfg.MODEL.DENSE_HEAD.CLASS_NAMES_EACH_HEAD = [names]
+    ds = cfg.DATA_CONFIG
+    ds.pop('DATA_SPLIT')
+    ds.update(CfgNode(mod.DATASET_CFG))
+    ds.DATA_PATH = str(root)
+    augs = [a for a in ds.DATA_AUGMENTOR.AUG_CONFIG_LIST if a.NAME != 'gt_sampling']
+    if set_name == 'custom':
+        sampler = next(a for a in ds.DATA_AUGMENTOR.AUG_CONFIG_LIST if a.NAME == 'gt_sampling')
+        sampler.DB_INFO_PATH = ['custom_dbinfos_train.pkl']
+        sampler.PREPARE.filter_by_min_points = [f'{n}:5' for n in names]
+        sampler.SAMPLE_GROUPS = [f'{n}:{k}' for n, k in zip(names, (20, 15, 15))]
+        augs.insert(0, sampler)
+    if local_augmentations:
+        augs += [CfgNode(a) for a in LOCAL_AUGMENTATIONS]
+    ds.DATA_AUGMENTOR.AUG_CONFIG_LIST = augs
+    return cfg
+
+
 SYNTHETIC_CFGS = {'caddn': caddn_kitti}
 
 

@@ -86,6 +86,17 @@ SLICE_MODULES = [
     'pdm_ssd_torch.models.view_transforms.depth_lss',
     'pdm_ssd_torch.models.detectors.bev_fusion',
     'pdm_ssd_torch.ops.depth', 'pdm_ssd_torch.models.detectors.caddn',
+    'pdm_ssd_torch.datasets.synthetic_scene', 'pdm_ssd_torch.tools.mini_root',
+    'pdm_ssd_torch.tools.make_mini_sets',
+    'pdm_ssd_torch.datasets.once.once_dataset', 'pdm_ssd_torch.datasets.once.once_eval',
+    'pdm_ssd_torch.datasets.once.synthetic',
+    'pdm_ssd_torch.datasets.argo2.argo2_dataset', 'pdm_ssd_torch.datasets.argo2.argo2_eval',
+    'pdm_ssd_torch.datasets.argo2.argo2_utils', 'pdm_ssd_torch.datasets.argo2.synthetic',
+    'pdm_ssd_torch.datasets.lyft.lyft_dataset', 'pdm_ssd_torch.datasets.lyft.lyft_utils',
+    'pdm_ssd_torch.datasets.lyft.synthetic',
+    'pdm_ssd_torch.datasets.pandaset.pandaset_dataset',
+    'pdm_ssd_torch.datasets.pandaset.pandaset_utils', 'pdm_ssd_torch.datasets.pandaset.synthetic',
+    'pdm_ssd_torch.datasets.custom.custom_dataset', 'pdm_ssd_torch.datasets.custom.synthetic',
     'bench_torch',
 ]
 
@@ -121,7 +132,7 @@ def test_port_and_chip_smoke_import_no_jax():
             '    except ModuleNotFoundError:\n'
             "        importlib.import_module(m.rpartition('.')[0])\n"
             "bad = [m for m in sys.modules\n"
-            "       if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pdm_ssd_tpu', 'PIL')]\n"
+            "       if m.split('.')[0] in ('jax', 'jaxlib', 'flax', 'pdm_ssd_tpu', 'PIL', 'pandas')]\n"
             "assert not bad, bad\n"
             "print('clean')\n")
     res = subprocess.run([sys.executable, '-c', code], cwd=REPO, capture_output=True,
@@ -708,18 +719,26 @@ def test_waymo_configs_build_their_loader_on_a_generated_set(name, tmp_path, mon
 
 UNPORTED_DATASETS = ['CustomDataset', 'ONCEDataset', 'LyftDataset', 'PandasetDataset',
                      'Argo2Dataset']
+MINI_SET_OF = {'CustomDataset': 'custom', 'ONCEDataset': 'once', 'LyftDataset': 'lyft',
+               'PandasetDataset': 'pandaset', 'Argo2Dataset': 'argo2'}
 
 
 @pytest.mark.parametrize('what', UNPORTED_DATASETS + ['CAMERA_CONFIG', 'with_cams'])
 def test_unported_datasets_and_the_nuscenes_camera_half_name_their_roadmap_item(what, tmp_path,
                                                                                  monkeypatch):
-    """The other five datasets raise `NotImplementedError` naming ROADMAP
-    Queue 1 item 13. nuScenes' camera half is ported: the generator writes
-    the CAM_FRONT stream's PNGs, and `bevfusion_mini.yaml`'s dataset (with
-    CAMERA_CONFIG) reads them into a batch of camera tensors."""
+    """The five datasets that ROADMAP Queue 1 item 13 listed as unported are
+    ported: `build_dataloader` builds each from the flagship's config on
+    the set (`synthetic.flagship_on`), pointed at a mini set generated by
+    `tools.make_mini_sets` (2 frames a split), and yields a batch of the
+    flagship's shape, 16384 points of 4 features and its boxes.
+    nuScenes' camera half is ported: the generator writes the CAM_FRONT
+    stream's PNGs, and `bevfusion_mini.yaml`'s dataset (with CAMERA_CONFIG)
+    reads them into a batch of camera tensors."""
     from pdm_ssd_torch.datasets import build_dataloader
     from pdm_ssd_torch.datasets.nuscenes import synthetic as nus_synthetic
+    from pdm_ssd_torch.tools import make_mini_sets
     from pdm_ssd_torch.utils import config as t_config
+    from pdm_ssd_torch.utils import synthetic
     monkeypatch.chdir(REPO)
     if what == 'with_cams':
         nus_synthetic.write_tables(tmp_path, with_cams=True)
@@ -737,12 +756,52 @@ def test_unported_datasets_and_the_nuscenes_camera_half_name_their_roadmap_item(
         assert batch['camera_depth'].shape == (2, 1, 64, 96, 1)
         assert batch['img_aug_matrix'].shape == (2, 1, 4, 4)
         return
-    cfg = t_config.cfg_from_yaml_file('configs/nuscenes_models/pdm_ssd_nuscenes.yaml',
-                                      t_config.CfgNode())
-    ds_cfg = cfg.DATA_CONFIG
-    ds_cfg.DATASET = what
-    with pytest.raises(NotImplementedError, match='ROADMAP Queue 1 item 13'):
-        build_dataloader(ds_cfg, cfg.CLASS_NAMES, 1, root_path=tmp_path, workers=0)
+    set_name = MINI_SET_OF[what]
+    make_mini_sets.main(['--set', set_name, '--root', str(tmp_path / 'set'), '--frames', '2',
+                         '--n_bg', '1000'])
+    cfg = synthetic.flagship_on(set_name, tmp_path / 'set')
+    for training in (True, False):
+        ds, loader, _ = build_dataloader(cfg.DATA_CONFIG, cfg.CLASS_NAMES, 2, workers=0,
+                                         training=training, seed=0)
+        batch = next(iter(loader))
+        assert type(ds).__name__ == what and len(ds) == 2
+        assert batch['points'].shape == (2, 16384, 4) and batch['gt_boxes'].shape == (2, 64, 8)
+        assert batch['gt_mask'].sum(1).min() >= 1
+        assert set(np.unique(batch['gt_boxes'][batch['gt_mask']][:, 7])) <= {1.0, 2.0, 3.0}
+
+
+MAKERS = ['make_mini_kitti', 'make_mini_nuscenes', 'make_mini_waymo', 'make_mini_sets']
+
+
+@pytest.mark.parametrize('tool', MAKERS)
+def test_generators_delete_only_a_root_they_wrote(tool, tmp_path):
+    """Each mini-set tool leaves a directory it did not write (no marker)
+    as it is and raises an error that names --force; a root it wrote (the
+    marker) it replaces; --force replaces any root. A fresh or empty root
+    is generated."""
+    import importlib
+    from pdm_ssd_torch.tools.mini_root import MARKER
+    mod = importlib.import_module(f'pdm_ssd_torch.tools.{tool}')
+    args = {'make_mini_kitti': ['--frames', '1', '--n_bg', '100'],
+            'make_mini_nuscenes': ['--samples', '1'],
+            'make_mini_waymo': ['--frames', '1', '--n_bg', '100'],
+            'make_mini_sets': ['--set', 'once', '--frames', '1', '--n_bg', '100']}[tool]
+    real = tmp_path / 'real'
+    real.mkdir()
+    (real / 'frame_000.bin').write_bytes(b'a real frame')
+    with pytest.raises(FileExistsError, match='--force'):
+        mod.main(['--root', str(real), *args])
+    assert sorted(p.name for p in real.iterdir()) == ['frame_000.bin']
+    assert (real / 'frame_000.bin').read_bytes() == b'a real frame'
+    (tmp_path / 'empty').mkdir()
+    for root in (tmp_path / 'fresh', tmp_path / 'empty'):
+        mod.main(['--root', str(root), *args])
+        assert (root / MARKER).exists() and len(list(root.iterdir())) > 1
+    (tmp_path / 'fresh' / 'stale.txt').write_text('left by an earlier run')
+    mod.main(['--root', str(tmp_path / 'fresh'), *args])
+    assert not (tmp_path / 'fresh' / 'stale.txt').exists()
+    mod.main(['--root', str(real), *args, '--force'])
+    assert (real / MARKER).exists() and not (real / 'frame_000.bin').exists()
 
 
 def _masked_fps_cases(rng):

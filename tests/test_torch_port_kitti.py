@@ -443,25 +443,42 @@ def test_calculate_grid_size_matches_jax(mini):
 
 @pytest.mark.parametrize('what', ['depth map', 'imgaug', 'local rotation',
                                   'image copy-paste', 'ONCEDataset'])
-def test_unported_parts_of_the_data_path_raise(what, mini):
-    """Each step, augmentation and dataset of the JAX package's data path
-    that the port does not have raises `NotImplementedError` when the config
-    names it (`random_local_rotation`, with no config of the repo using it;
-    ONCE, with its ROADMAP item). CaDDN's steps, which the port has since
-    it ported CaDDN, build into the loader's queues instead: the depth maps
-    (`generate_depth_map`, `downsample_depth_map`), the camera
-    augmentations (`imgaug`, `random_image_flip`) and the GT sampler's
-    image copy-paste (IMG_AUG_TYPE 'kitti')."""
+def test_unported_parts_of_the_data_path_raise(what, mini, tmp_path):
+    """Every step, augmentation and dataset of the JAX package's data path
+    is in the port and builds into the loader's queues when the config names
+    it: the per-object rotation (`random_local_rotation`, ported with the
+    other five local augmentations) joins the KITTI set's augmentation
+    queue; ONCE (ROADMAP Queue 1 item 13, ported) builds from the KITTI data
+    config with ONCE's infos and splits over a generated mini ONCE set, its
+    queue the config's world flip, rotation and scaling (KITTI's GT
+    database is not in that set). CaDDN's steps build too: the depth maps (`generate_depth_map`,
+    `downsample_depth_map`), the camera augmentations (`imgaug`,
+    `random_image_flip`) and the GT sampler's image copy-paste (IMG_AUG_TYPE
+    'kitti')."""
     cfg = dataset_cfg(mini[0])
     if what in ('local rotation', 'ONCEDataset'):
+        root = mini[0]
         if what == 'local rotation':
-            cfg.DATA_AUGMENTOR.AUG_CONFIG_LIST.append(CfgNode({'NAME': 'random_local_rotation'}))
+            cfg.DATA_AUGMENTOR.AUG_CONFIG_LIST.append(
+                CfgNode({'NAME': 'random_local_rotation', 'LOCAL_ROT_ANGLE': [-0.15, 0.15]}))
         else:
+            from pdm_ssd_torch.tools.make_mini_sets import make
+            root = make('once', tmp_path / 'once', frames=2, n_bg=500)
             cfg.DATASET = 'ONCEDataset'
-        match = 'no config of the repo' if what == 'local rotation' else 'ROADMAP Queue 1 item'
-        with pytest.raises(NotImplementedError, match=match):
-            t_build_dataloader(cfg, CLASS_NAMES, batch_size=2, root_path=mini[0], workers=0,
-                               training=True)
+            cfg.DATA_SPLIT = {'train': 'train', 'test': 'val'}
+            cfg.INFO_PATH = {'train': ['once_infos_train.pkl'], 'test': ['once_infos_val.pkl']}
+            cfg.DATA_AUGMENTOR.AUG_CONFIG_LIST = cfg.DATA_AUGMENTOR.AUG_CONFIG_LIST[1:]
+        ds, _, _ = t_build_dataloader(cfg, CLASS_NAMES, batch_size=2, root_path=root,
+                                      workers=0, training=True)
+        names = [f.func.__name__ if hasattr(f, 'func') else type(f).__name__
+                 for f in ds.data_augmentor.data_augmentor_queue]
+        if what == 'local rotation':
+            assert type(ds).__name__ == 'KittiDataset' and names[-1] == 'random_local_rotation'
+        else:
+            assert type(ds).__name__ == 'ONCEDataset' and len(ds) == 2
+            assert names == ['random_world_flip', 'random_world_rotation', 'random_world_scaling']
+        np.random.seed(3)
+        assert ds[0]['points'].shape == (N_POINTS, 4)
         return
     if what == 'depth map':
         cfg.DATA_PROCESSOR.append(CfgNode({'NAME': 'generate_depth_map', 'MAP_SHAPE': [375, 1242]}))

@@ -21,6 +21,7 @@ from pdm_ssd_torch.datasets import image_ops
 from pdm_ssd_torch.datasets.nuscenes import nuscenes_info as t_info
 from pdm_ssd_torch.datasets.nuscenes.nuscenes_dataset import NuScenesDataset as TDataset
 from pdm_ssd_torch.runtime.trainer import CAMERA_KEYS, INPUT_KEYS, to_device_batch
+from pdm_ssd_torch.tools.mini_root import MARKER
 from pdm_ssd_torch.utils.config import CfgNode, cfg_from_yaml_file
 from pdm_ssd_tpu.datasets.nuscenes import nuscenes_info as j_info
 from pdm_ssd_tpu.datasets.nuscenes import synthetic as j_syn
@@ -109,7 +110,10 @@ def test_crop_flip_and_rotate_match_pil():
 # ---- the generator and the infos ----------------------------------------------------
 
 def _files(root: Path) -> list:
-    return sorted(p.relative_to(root) for p in root.rglob('*') if p.is_file())
+    """The files under `root` but the port's tools' marker (`tools/mini_root.MARKER`),
+    which the JAX package's generator does not write."""
+    return sorted(p.relative_to(root) for p in root.rglob('*')
+                  if p.is_file() and p.name != MARKER)
 
 
 @pytest.fixture(scope='module')
@@ -128,6 +132,7 @@ def test_generator_writes_the_jax_generators_tables_and_pixels(mini):
     image the same pixels (the JAX package's is written by PIL, the port's
     by `image_ops.write_png`, so their bytes differ), with the car's dot."""
     t_root, j_root = mini
+    assert (t_root / MARKER).exists()
     assert _files(t_root) == _files(j_root)
     pngs = [rel for rel in _files(j_root) if rel.suffix == '.png']
     assert len(pngs) == SAMPLES

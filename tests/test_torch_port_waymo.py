@@ -21,6 +21,7 @@ import yaml
 from pdm_ssd_torch.datasets.waymo import waymo_eval as t_eval
 from pdm_ssd_torch.datasets.waymo import waymo_utils as t_utils
 from pdm_ssd_torch.datasets.waymo.waymo_dataset import WaymoDataset as TDataset
+from pdm_ssd_torch.tools.mini_root import MARKER
 from pdm_ssd_torch.utils import synthetic
 from pdm_ssd_torch.utils.config import CfgNode, cfg_from_yaml_file
 from pdm_ssd_tpu.datasets.processor.data_processor import DataProcessor as JProcessor
@@ -69,7 +70,10 @@ def mini(tmp_path_factory):
 
 
 def _files(root):
-    return sorted(p.relative_to(root) for p in root.rglob('*') if p.is_file())
+    """The files under `root` but the port's tools' marker (`tools/mini_root.MARKER`),
+    which the JAX package's generator does not write."""
+    return sorted(p.relative_to(root) for p in root.rglob('*')
+                  if p.is_file() and p.name != MARKER)
 
 
 def test_tool_writes_the_jax_generators_files_byte_for_byte(mini):
@@ -77,6 +81,7 @@ def test_tool_writes_the_jax_generators_files_byte_for_byte(mini):
     `make_mini_waymo` with one seed: the same frames, sequence infos,
     ImageSets and `pred_boxes.pkl`, byte for byte."""
     t_root, j_root = mini
+    assert (t_root / MARKER).exists()
     files = _files(j_root)
     assert files == _files(t_root)
     assert len(files) == FRAMES + 4       # the frames, the infos, two splits, the proposals
