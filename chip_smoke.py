@@ -334,10 +334,24 @@ non-zero exit):
 73. `train_model` on the custom set at B=2, GT sampling from its own
    database and the six local augmentations in the queue, 2 epochs of 4
    steps: the last epoch's mean loss below the first's, a training step's
-   launches a step, then the checkpoint through the eval loop.
+   launches a step, then the checkpoint through the eval loop;
+74. data parallelism (`pdm_ssd_torch/parallel`): the flagship at full width
+   (seeded weights, TF32 off) takes one training step on 8 clouds of 16384
+   points with 8 boxes a cloud in one process, then on two gloo ranks on
+   the one card (`parallel.spawn`, 4 clouds a rank, DistributedDataParallel
+   with global BatchNorm statistics and loss normalisers): the ranks' loss
+   within DDP_LOSS_RTOL of the one process's, their gradients within
+   DDP_GRAD_REL_L2 relative L2 of it in each leaf group and their BatchNorm
+   buffers likewise, both ranks' gradients equal, each rank's launches equal
+   the one process's step's; each rank's ms per step and the gradient
+   all-reduce's bytes and ms; the one process's step run twice, read
+   against itself (the card's own spread); each of DDP_FAULTS planted in
+   the ranks' BatchNorm statistics, which the gradient bound must catch;
+   then one DistributedDataParallel step on a world of one under NCCL,
+   with an NCCL all-reduce checked.
 
 Every phase's line ends with the seconds since the start, and the elapsed
-time is printed after phases 18, 40, 50, 54, 58, 62, 66, 70 and 73.
+time is printed after phases 18, 40, 50, 54, 58, 62, 66, 70, 73 and 74.
 The line before the last is the card's name and power limit; before it, one
 JSON line describing each kernel, with the launches of each path of phases
 20 to 73 (`launches_<path>`,
@@ -346,8 +360,9 @@ JSON line describing each kernel, with the launches of each path of phases
 `launches_mppnet_{predict,predbox_predict,stream,train,eval_loop,train_loop}`,
 `launches_bevfusion_{predict,train,eval_loop,train_loop}`,
 `launches_caddn_{predict,train,eval_loop,train_loop}`,
-`launches_{once,argo2,lyft,pandaset,custom}_eval_loop` and
-`launches_custom_train_loop` among them) and the sums of phase 42
+`launches_{once,argo2,lyft,pandaset,custom}_eval_loop`,
+`launches_custom_train_loop` and
+`launches_ddp_{one_process,rank0,rank1,nccl}` among them) and the sums of phase 42
 (`two_stage_*`). The last line is
 {"ok": true, "device": {...}}. Imports nothing of JAX.
 """
@@ -5847,6 +5862,277 @@ def sets_phases(wrappers, synthetic, smi: str) -> dict:
     return paths
 
 
+DDP_B, DDP_N, DDP_M = 8, 16384, 8
+DDP_RANKS = 2
+DDP_DIR = REPO / 'build' / 'chip_smoke_ddp'
+DDP_TIMEOUT_S = 300
+# the two ranks' step against one process's on the same 8 clouds: float32
+# sums in another order (the BatchNorm statistics' sums over the ranks, the
+# gradients' all-reduce), and the scatter-add's atomics in the backward (the
+# card does not order them). A rehearsal of this phase on the CPU (the tiny
+# flagship, 512 points a cloud) read the loss equal and the leaf groups'
+# gradients 2.0e-6 to 7.1e-4 apart, the PDM neck's and the BEV backbone's
+# the furthest (their BatchNorm gradients are small sums of large terms),
+# where one process read its own step twice bit-equal; in float64 the CPU
+# tests hold the same step within 1e-9. The bound must also catch each of
+# DDP_FAULTS in some leaf group: in that rehearsal the mildest, one
+# layer's statistics with a rank-local backward, read 1.2e-1 to 2.1e-1 in
+# its worst group. On an H100 at 700 W the two ranks read up to 1.87e-3,
+# one process's step run twice 1.8e-6 (so the atomics do not account for
+# the ranks' 1e-3: the sums' other order does), and the mildest fault
+# 9.7e-2 in its worst group
+DDP_LOSS_RTOL = 1e-4
+DDP_GRAD_REL_L2 = 1e-2
+DDP_PATHS = ('ddp_one_process', 'ddp_rank0', 'ddp_rank1', 'ddp_nccl')
+# faults planted in the ranks' BatchNorm statistics, each of which the
+# gradient bound must catch: (name, kind, layers). `kind` 'detached' takes
+# the global sums with no gradient through them; 'rank_local' takes them
+# forward and sends each rank's gradient back to its own sums alone, as if
+# the all-reduce's backward were missing. `layers` indexes the model's
+# BatchNorm layers in module order (None: every one)
+DDP_FAULTS = (('detached, every layer', 'detached', None),
+              ('rank-local backward, every layer', 'rank_local', None),
+              ('rank-local backward, the first layer', 'rank_local', 0),
+              ('rank-local backward, the middle layer', 'rank_local', 0.5),
+              ('rank-local backward, the last layer', 'rank_local', 1))
+
+
+def plant_fault(net, kind: str, layers) -> list:
+    """Plant DDP_FAULTS' fault `kind` in the BatchNorm layers of `net` that
+    `layers` picks (None: all; a fraction: that share of the way through
+    them in module order): each picked layer's forward runs with
+    `parallel.ddp.sync_sum` replaced. Returns the picked layers' names."""
+    from pdm_ssd_torch.models.layers import _FlaxBatchStatistics
+    from pdm_ssd_torch.parallel import ddp
+
+    def faulty(t):
+        if kind == 'detached':
+            return ddp.global_sum(t)
+        return t + (ddp.global_sum(t) - t).detach()
+
+    bns = [(k, m) for k, m in net.named_modules() if isinstance(m, _FlaxBatchStatistics)]
+    if layers is not None:
+        bns = [bns[round(layers * (len(bns) - 1))]]
+    for _, m in bns:
+        def forward(*args, _forward=m.forward):
+            real = ddp.sync_sum
+            ddp.sync_sum = faulty
+            try:
+                return _forward(*args)
+            finally:
+                ddp.sync_sum = real
+        m.forward = forward
+    return [k for k, _ in bns]
+
+
+def ddp_flagship_steps(device, steps: int, fault=None) -> dict:
+    """`steps` training steps of the flagship at full width (seeded weights,
+    TF32 off) on this rank's share of DDP_B seeded clouds (all of them
+    without a process group), under `parallel.wrap_model`, with `fault` (a
+    `plant_fault` kind and layers) planted. Returns the first step's loss,
+    gradients and BatchNorm buffers (on the host), its kernel launches,
+    every step's ms, the gradients' bytes and the faulted layers."""
+    from pdm_ssd_torch.parallel import ddp
+    from pdm_ssd_torch.runtime.trainer import create_train_state, make_train_step
+    from pdm_ssd_torch.utils import synthetic
+    from pdm_ssd_torch.utils.config import CfgNode, cfg_from_yaml_file
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cfg_from_yaml_file(str(REPO / CFG), CfgNode())
+    net = synthetic.random_model(cfg, device, seed=7)
+    planted = plant_fault(net, *fault) if fault is not None else []
+    b, r = DDP_B // ddp.world_size(), ddp.rank()
+    full = synthetic.kitti_batch(DDP_B, DDP_N, DDP_M, seed=5)
+    batch = to_device({k: v[r * b:(r + 1) * b] for k, v in full.items()}, device)
+    optimizer, _ = create_train_state(net, cfg.OPTIMIZATION, total_iters_each_epoch=100,
+                                      total_epochs=1)
+    train_step = make_train_step(ddp.wrap_model(net), optimizer)
+    wrappers = launch_counters()
+    torch.cuda.synchronize(device)
+    reset_launches(wrappers)
+    out = {'ms': [], 'grad_bytes': sum(p.numel() * p.element_size() for p in net.parameters()),
+           'planted': planted}
+    for i in range(steps):
+        t0 = time.perf_counter()
+        metrics = train_step(batch)
+        torch.cuda.synchronize(device)
+        out['ms'].append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            out.update(loss=float(metrics['loss']), launches=read_launches(wrappers),
+                       grads={k: p.grad.detach().to('cpu', copy=True)
+                              for k, p in net.named_parameters()},
+                       buffers={k: v.detach().to('cpu', copy=True)
+                                for k, v in net.named_buffers() if 'running' in k})
+    return out
+
+
+def ddp_allreduce_ms(device, nbytes: int, reps: int = 3) -> float:
+    """Median ms of an all-reduce of `nbytes` of float32 on the card over
+    the default process group."""
+    import torch.distributed as dist
+    flat = torch.ones(nbytes // 4, device=device)
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize(device)
+        t0 = time.perf_counter()
+        dist.all_reduce(flat)
+        torch.cuda.synchronize(device)
+        times.append((time.perf_counter() - t0) * 1e3)
+    if not bool((flat == dist.get_world_size() ** reps).all()):
+        raise RuntimeError(f'the all-reduce summed wrongly: {flat[:4].tolist()}')
+    return statistics.median(times)
+
+
+def ddp_rank(device, out_dir: str, faults) -> None:
+    """One rank of phase 74 (spawned): three steps, then the all-reduce of
+    the gradients' bytes timed, then one step from the same weights with
+    each of `faults` planted; its results to `<out_dir>/rank<r>.pt`."""
+    from pdm_ssd_torch.ops import kernels
+    from pdm_ssd_torch.parallel import ddp
+    os.chdir(REPO)
+    kernels.load()
+    out = ddp_flagship_steps(device, steps=3)
+    out['allreduce_ms'] = ddp_allreduce_ms(device, out['grad_bytes'])
+    out['faults'] = {name: ddp_flagship_steps(device, steps=1, fault=(kind, layers))
+                     for name, kind, layers in faults}
+    torch.save(out, Path(out_dir) / f'rank{ddp.rank()}.pt')
+
+
+def leaf_groups(tensors: dict) -> dict:
+    """The tensors by the model's top-level module, each group flat in
+    float64."""
+    groups = {}
+    for k, t in tensors.items():
+        groups.setdefault(k.split('.')[0], []).append(t.reshape(-1).double())
+    return {k: torch.cat(v) for k, v in groups.items()}
+
+
+def ddp_errors(got: dict, want: dict) -> dict:
+    """A step's relative L2 from another's, each leaf group's gradients and
+    all BatchNorm buffers; and the worst single leaf's gradient, by name."""
+    got_g, want_g = leaf_groups(got['grads']), leaf_groups(want['grads'])
+    pairs = {f'grad {k}': (got_g[k], want_g[k]) for k in want_g}
+    pairs['buffers'] = tuple(torch.cat(list(leaf_groups(x['buffers']).values()))
+                             for x in (got, want))
+    errs = {name: float((g - w).norm() / w.norm().clamp(min=1e-30))
+            for name, (g, w) in pairs.items()}
+    leaf = {k: float((got['grads'][k] - w).double().norm() / w.double().norm().clamp(min=1e-30))
+            for k, w in want['grads'].items()}
+    worst = max(leaf, key=leaf.get)
+    return {'groups': errs, 'worst_leaf': (worst, leaf[worst])}
+
+
+def ddp_errors_note(e: dict) -> str:
+    return ('relative L2 ' + ', '.join(f'{k} {v:.2e}' for k, v in e['groups'].items())
+            + f'; worst leaf {e["worst_leaf"][0]} {e["worst_leaf"][1]:.2e}')
+
+
+def ddp_agreement(phase: str, got: dict, want: dict) -> str:
+    """A rank's first step against one process's: the loss, the kernel
+    launches, each leaf group's gradients and all BatchNorm buffers. Returns
+    the numbers."""
+    rel = abs(got['loss'] - want['loss']) / abs(want['loss'])
+    if not (np.isfinite(got['loss']) and rel <= DDP_LOSS_RTOL):
+        raise SystemExit(f'[{phase}] FAILED: loss {got["loss"]} against {want["loss"]} in one '
+                         f'process (relative {rel:.3e}, bound {DDP_LOSS_RTOL:g})')
+    if got['launches'] != want['launches']:
+        raise SystemExit(f'[{phase}] FAILED: launches {got["launches"]}, one process '
+                         f'{want["launches"]}')
+    e = ddp_errors(got, want)
+    for name, err in e['groups'].items():
+        if not err <= DDP_GRAD_REL_L2:
+            raise SystemExit(f'[{phase}] FAILED: {name} relative L2 {err:.3e} (bound '
+                             f'{DDP_GRAD_REL_L2:g})')
+    return f'loss relative {rel:.2e}; ' + ddp_errors_note(e)
+
+
+def ddp_phase(smi: str) -> dict:
+    """Phase 74. Returns the kernel launches of each path, by name."""
+    import torch.distributed as dist
+    from pdm_ssd_torch.parallel import ddp
+    phase = '74 ddp'
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()        # the ranks share the card with this process
+    one = ddp_flagship_steps('cuda:0', steps=1)
+    again = ddp_flagship_steps('cuda:0', steps=1)
+    torch.cuda.empty_cache()
+    log(phase, f'one process: {CFG} B={DDP_B} N={DDP_N}, {DDP_M} boxes a cloud, one step: loss '
+        f'{one["loss"]:.6f}, {one["ms"][0]:.1f} ms (the first), launches {one["launches"]}')
+    log(phase, f'the same step again in one process, against the first: loss '
+        f'{again["loss"]:.6f}; {ddp_errors_note(ddp_errors(again, one))} (the card\'s own '
+        f'spread)')
+    DDP_DIR.mkdir(parents=True, exist_ok=True)
+    for old in DDP_DIR.glob('rank*.pt'):
+        old.unlink()
+    # NCCL refuses two ranks on one card: gloo carries their collectives
+    ctx = ddp.spawn(ddp_rank, DDP_RANKS, device='cuda:0', backend='gloo',
+                    args=(str(DDP_DIR), DDP_FAULTS), join=False)
+    deadline = time.monotonic() + DDP_TIMEOUT_S
+    while not ctx.join(timeout=2):
+        if time.monotonic() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise SystemExit(f'[{phase}] FAILED: the ranks did not end within {DDP_TIMEOUT_S} s')
+    ranks = [torch.load(DDP_DIR / f'rank{r}.pt', weights_only=False) for r in range(DDP_RANKS)]
+    paths = {'ddp_one_process': one['launches']}
+    for r, got in enumerate(ranks):
+        note = ddp_agreement(phase, got, one)
+        paths[f'ddp_rank{r}'] = got['launches']
+        log(phase, f'rank {r} of {DDP_RANKS} (gloo, one card), {DDP_B // DDP_RANKS} clouds: loss '
+            f'{got["loss"]:.6f}; {note} (bounds {DDP_LOSS_RTOL:g}, {DDP_GRAD_REL_L2:g}); '
+            f'launches {got["launches"]} as one process\'s; ms per step '
+            + ' '.join(f'{t:.1f}' for t in got['ms'])
+            + f'; all-reduce of the gradients ({got["grad_bytes"]} bytes) '
+            f'{got["allreduce_ms"]:.2f} ms on {smi}')
+    apart = max(float((ranks[0]['grads'][k] - ranks[1]['grads'][k]).abs().max())
+                for k in ranks[0]['grads'])
+    if apart != 0.0:
+        raise SystemExit(f'[{phase}] FAILED: the ranks\' gradients differ by {apart:.3e}')
+    log(phase, 'both ranks hold the same all-reduced gradients, bit for bit')
+    missed = []
+    for name, _, _ in DDP_FAULTS:
+        got = ranks[0]['faults'][name]
+        e = ddp_errors(got, one)
+        caught = max(e['groups'].values()) > DDP_GRAD_REL_L2
+        if not caught:
+            missed.append(name)
+        log(phase, f'planted fault, {name} ({", ".join(got["planted"][:2])}'
+            f'{", ..." if len(got["planted"]) > 2 else ""}; {len(got["planted"])} layers): loss '
+            f'{got["loss"]:.6f}; {ddp_errors_note(e)}: '
+            + ('caught' if caught else 'NOT caught') + f' by the bound {DDP_GRAD_REL_L2:g}')
+    if missed:
+        raise SystemExit(f'[{phase}] FAILED: the gradient bound misses the planted faults '
+                         f'{missed}')
+
+    # a world of one under NCCL, in this process
+    env = {k: os.environ.get(k) for k in ('RANK', 'WORLD_SIZE', 'LOCAL_RANK', 'MASTER_ADDR',
+                                          'MASTER_PORT')}
+    os.environ.update(RANK='0', WORLD_SIZE='1', LOCAL_RANK='0', MASTER_ADDR='localhost',
+                      MASTER_PORT=str(ddp.free_port()))
+    try:
+        ddp.init_distributed('cuda', backend='nccl')
+        backend = dist.get_backend()
+        nccl = ddp_flagship_steps('cuda:0', steps=2)
+        ar_ms = ddp_allreduce_ms('cuda:0', nccl['grad_bytes'])
+    finally:
+        ddp.shutdown()
+        for k, v in env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if backend != 'nccl' or not np.isfinite(nccl['loss']) or nccl['launches'] != one['launches']:
+        raise SystemExit(f'[{phase}] FAILED: NCCL ({backend}) step loss {nccl["loss"]}, launches '
+                         f'{nccl["launches"]}')
+    paths['ddp_nccl'] = nccl['launches']
+    log(phase, f'NCCL, a world of one, DistributedDataParallel over all {DDP_B} clouds: loss '
+        f'{nccl["loss"]:.6f} (one process {one["loss"]:.6f}), ms per step '
+        + ' '.join(f'{t:.1f}' for t in nccl['ms'])
+        + f'; NCCL all-reduce of {nccl["grad_bytes"]} bytes {ar_ms:.3f} ms on {smi}')
+    log('time', f'phase 74 {time.perf_counter() - t0:.1f} s')
+    return paths
+
+
 KERNEL_TABLE = (
     ('farthest_point_sample', 'pdm_ssd_torch/csrc/fps.cu', 'pdm_ssd_tpu/ops/pallas/fps.py:60'),
     ('window_select', 'pdm_ssd_torch/csrc/group.cu',
@@ -6077,6 +6363,17 @@ def main() -> None:
         raise SystemExit(f'[kernels] FAILED: no count for {missing}')
     log('time', f'{time.perf_counter() - T0:.1f} s since the start, after phase 73')
 
+    # data parallelism: the flagship's step on two ranks against one process,
+    # and a step under NCCL
+    more = ddp_phase(smi)
+    if set(more) & set(new_paths):
+        raise SystemExit(f'[kernels] FAILED: path names used twice: {set(more) & set(new_paths)}')
+    new_paths.update(more)
+    missing = [f'launches_{p}' for p in DDP_PATHS if p not in new_paths]
+    if missing:
+        raise SystemExit(f'[kernels] FAILED: no count for {missing}')
+    log('time', f'{time.perf_counter() - T0:.1f} s since the start, after phase 74')
+
     # `launches` is the count from the run of a main path: the flagship's five
     # training steps of phase 8 for its four kernels, PointRCNN's predict of
     # phase 11 for the ball query, SECOND's predict of phase 15 for the sparse
@@ -6123,7 +6420,9 @@ def main() -> None:
     # frustum rows of 64), the gather's beside the 8 launches' and the one
     # launch's ms; the `launches_{once,argo2,lyft,pandaset,custom}_eval_loop`
     # counts of phase 72 are the flagship's predict launches a batch, and
-    # `launches_custom_train_loop` of phase 73 its training step's a step
+    # `launches_custom_train_loop` of phase 73 its training step's a step;
+    # the `launches_ddp_*` counts of phase 74 are one training step's, in one
+    # process, in each of the two ranks and under NCCL
     main_path = {kern: train_launches for kern, _, _ in KERNEL_TABLE}
     main_path.update(ball_query=rcnn_launches, sparse_conv=second_launches,
                      gather_rows_bf16=second_launches,

@@ -35,6 +35,7 @@ from torch import nn
 from ...ops import dispatch
 from ...ops.sparse_conv import sparse_conv_plan
 from ...ops.sparse_maps import ladder_shapes
+from ...parallel import ddp
 from ...utils.config import as_cfg
 
 
@@ -42,7 +43,10 @@ class MaskedBatchNorm(nn.BatchNorm1d):
     """BatchNorm over the active rows of a padded slot table (B, V, C) with
     mask (B, V): eps 1e-3, flax momentum 0.99 (torch 0.01). In training mode
     the statistics are the masked mean and the biased variance of the active
-    rows, and the running values move towards them. Masked rows come out zero."""
+    rows, and the running values move towards them. Masked rows come out zero.
+    Under data parallelism the rows are the global batch's: the masked sums
+    and the count, then the squared deviations from the global mean, are
+    summed over the ranks through autograd (`parallel.sync_sum`)."""
 
     def __init__(self, num_features: int, device=None):
         super().__init__(num_features, eps=1e-3, momentum=0.01, device=device)
@@ -50,9 +54,10 @@ class MaskedBatchNorm(nn.BatchNorm1d):
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         if self.training:
             m = mask[..., None].to(x.dtype)
-            cnt = m.sum().clamp(min=1.0)
-            mean = (x * m).sum(dim=(0, 1)) / cnt
-            var = ((x - mean) ** 2 * m).sum(dim=(0, 1)) / cnt
+            sums = ddp.sync_sum(torch.cat([(x * m).sum(dim=(0, 1)), m.sum().view(1)]))
+            cnt = sums[-1].clamp(min=1.0)
+            mean = sums[:-1] / cnt
+            var = ddp.sync_sum(((x - mean) ** 2 * m).sum(dim=(0, 1))) / cnt
             with torch.no_grad():
                 self.running_mean.lerp_(mean, self.momentum)
                 self.running_var.lerp_(var, self.momentum)

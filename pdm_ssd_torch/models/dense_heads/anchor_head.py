@@ -15,6 +15,7 @@ from torch import nn
 from ...ops import losses
 from ...ops.box_ops import limit_period
 from ...ops.coders import ResidualCoder
+from ...parallel import ddp
 from ...utils.config import as_cfg
 from ..layers import BatchNorm2d
 
@@ -202,11 +203,12 @@ class AnchorHeadSingle(nn.Module):
     def get_loss(self, batch: dict, targets: dict) -> tuple:
         """Focal classification loss normalised by positives per cloud, the
         sin-difference smooth L1 box loss and the direction cross-entropy,
-        each summed over the batch and divided by B. Returns (total, tb) with
-        'anchor_cls_loss', 'anchor_loc_loss' and 'anchor_dir_loss'."""
+        each summed over the batch and divided by B, the global batch's
+        clouds. Returns (total, tb) with 'anchor_cls_loss', 'anchor_loc_loss'
+        and 'anchor_dir_loss'."""
         lw = self.model_cfg.LOSS_CONFIG.LOSS_WEIGHTS
         labels = targets['anchor_cls_labels']
-        B = labels.shape[0]
+        B = ddp.global_count(labels.shape[0], labels.device)
         pos, neg = labels > 0, labels == 0
         pos_norm = pos.sum(dim=1, keepdim=True).to(torch.float32).clamp(min=1.0)
         cls_w = (pos | neg).to(torch.float32) / pos_norm

@@ -8,6 +8,7 @@ from torch import nn
 
 from ...ops import box_ops, losses
 from ...ops.coders import build_box_coder
+from ...parallel import ddp
 from ...utils.config import as_cfg
 from ..layers import FCStack
 
@@ -57,11 +58,13 @@ class PointHeadBox(nn.Module):
 
     def get_loss(self, batch: dict, targets: dict) -> tuple:
         """Focal class loss and weighted smooth-L1 box loss, both normalised
-        by max(number of foreground points, 1)."""
+        by max(number of foreground points, 1) of the global batch
+        (`parallel.global_sum`); 'point_pos_num' is this rank's count."""
         labels = targets['point_cls_labels'].reshape(-1)
         cls_preds = batch['point_cls_preds'].reshape(-1, self.num_class)
         positives = labels > 0
-        pos_norm = positives.float().sum()
+        pos_num = positives.float().sum()
+        pos_norm = ddp.global_sum(pos_num)
         cls_weights = (positives | (labels == 0)).float() / pos_norm.clamp(min=1.0)
         one_hot = torch.nn.functional.one_hot(labels.clamp(min=0).long(),
                                               self.num_class + 1)[..., 1:].float()
@@ -74,7 +77,7 @@ class PointHeadBox(nn.Module):
                                              code_weights=lw.get('code_weights')).sum()
         total = cls_loss * lw['point_cls_weight'] + box_loss * lw['point_box_weight']
         return total, {'point_loss_cls': cls_loss, 'point_loss_box': box_loss,
-                       'point_pos_num': pos_norm}
+                       'point_pos_num': pos_num}
 
     def generate_predicted_boxes(self, points, cls_preds, box_preds):
         """Decode per-point boxes with the argmax class's mean size."""

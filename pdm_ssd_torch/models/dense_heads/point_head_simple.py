@@ -8,6 +8,7 @@ import torch
 from torch import nn
 
 from ...ops import box_ops, losses
+from ...parallel import ddp
 from ...utils.config import as_cfg
 from ..layers import FCStack
 
@@ -45,11 +46,13 @@ class PointHeadSimple(nn.Module):
 
     def get_loss(self, batch: dict, targets: dict) -> tuple:
         """Focal loss of every class column against the foreground label,
-        normalised by max(number of foreground points, 1)."""
+        normalised by max(number of foreground points, 1) of the global
+        batch."""
         labels = targets['aux_point_cls_labels'].reshape(-1)
         cls_preds = batch['aux_point_cls_preds'].reshape(-1, self.num_class)
         positives = labels > 0
-        cls_weights = (labels >= 0).float() / positives.float().sum().clamp(min=1.0)
+        cls_weights = (labels >= 0).float() / ddp.global_sum(positives.float().sum()).clamp(
+            min=1.0)
         one_hot = positives[:, None].float().expand_as(cls_preds)
         loss = losses.sigmoid_focal_loss(cls_preds, one_hot, cls_weights).sum()
         loss = loss * self.cfg.LOSS_CONFIG.LOSS_WEIGHTS['point_cls_weight']

@@ -9,6 +9,7 @@ import torch
 from torch import nn
 
 from ...ops import box_ops, losses
+from ...parallel import ddp
 from ...utils.config import as_cfg
 from ..layers import FCStack
 
@@ -74,11 +75,13 @@ class PointIntraPartOffsetHead(nn.Module):
     def get_loss(self, batch: dict, targets: dict) -> tuple:
         """The focal segmentation loss over the points not ignored, over the
         number of foreground points, and the binary cross entropy of the part
-        sigmoid (clipped to [1e-6, 1 - 1e-6]) over the foreground points."""
+        sigmoid (clipped to [1e-6, 1 - 1e-6]) over the foreground points, both
+        counts of the global batch."""
         labels = targets['point_cls_labels'].reshape(-1)
         cls_preds = batch['point_cls_preds'].reshape(-1, self.num_class)
         positives = labels > 0
-        cls_weights = (labels >= 0).float() / positives.float().sum().clamp(min=1.0)
+        cls_weights = (labels >= 0).float() / ddp.global_sum(positives.float().sum()).clamp(
+            min=1.0)
         one_hot = positives[:, None].float().expand_as(cls_preds)
         seg_loss = losses.sigmoid_focal_loss(cls_preds, one_hot, cls_weights).sum()
         part_preds = batch['point_part_preds'].reshape(-1, 3)
@@ -86,5 +89,5 @@ class PointIntraPartOffsetHead(nn.Module):
         p = torch.sigmoid(part_preds).clamp(1e-6, 1 - 1e-6)
         bce = -(part_tgt * torch.log(p) + (1 - part_tgt) * torch.log(1 - p))
         w = positives.float()
-        part_loss = (bce.sum(-1) * w).sum() / w.sum().clamp(min=1.0)
+        part_loss = (bce.sum(-1) * w).sum() / ddp.global_sum(w.sum()).clamp(min=1.0)
         return seg_loss + part_loss, {'part_seg_loss': seg_loss, 'part_reg_loss': part_loss}

@@ -1,7 +1,7 @@
 """Detector registry (counterpart of `pdm_ssd_tpu/models/detectors/__init__.py`)."""
 from .bev_fusion import BevFusion
 from .caddn import CaDDN
-from .detector3d import Detector3D
+from .detector3d import Detector3D, SECONDNet
 from .mppnet import MPPNet
 from .parta2 import PartA2Net
 from .pdm_ssd import PDMSSD
@@ -11,7 +11,7 @@ from .pv_rcnn_plusplus import PVRCNNPlusPlus
 from .second_iou import SECONDNetIoU
 from .voxel_rcnn import VoxelRCNN
 
-_DETECTORS = {'PDMSSD': PDMSSD, 'PointRCNN': PointRCNN, 'SECONDNet': Detector3D,
+_DETECTORS = {'PDMSSD': PDMSSD, 'PointRCNN': PointRCNN, 'SECONDNet': SECONDNet,
               'PointPillar': Detector3D, 'CenterPoint': Detector3D, 'PillarNet': Detector3D,
               'VoxelNeXt': Detector3D, 'PVRCNN': PVRCNN, 'VoxelRCNN': VoxelRCNN,
               'SECONDNetIoU': SECONDNetIoU, 'PartA2Net': PartA2Net,

@@ -310,3 +310,10 @@ class Detector3D(nn.Module):
             boxes, scores, labels, valid, pp.NMS_CONFIG, self.num_class, cls_probs=cls_probs,
             score_thresh=pp.get('SCORE_THRESH', 0.1) if per_class else None)
         return {'pred_boxes': fb, 'pred_scores': fs, 'pred_labels': fl, 'pred_mask': fm}
+
+
+class SECONDNet(Detector3D):
+    """SECOND: `Detector3D` with the anchor head, which holds its statistics
+    and normalisers global over the ranks on the sparse ladder."""
+
+    DATA_PARALLEL_HELD = ('SparseVoxelBackBone8x', 'SparseVoxelResBackBone8x')

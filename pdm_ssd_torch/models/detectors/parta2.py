@@ -18,6 +18,8 @@ from .pv_rcnn import PVRCNN
 
 
 class PartA2Net(PVRCNN):
+    DATA_PARALLEL_HELD = ('SparseUNetV2',)
+
     def _build_second_stage(self, cfg, ds, device) -> None:
         """No keypoints; the point head reads the UNet's point features."""
         self.pfe = None

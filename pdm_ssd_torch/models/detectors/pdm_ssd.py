@@ -27,6 +27,8 @@ from ..model_nms import take_rows
 
 
 class PDMSSD(nn.Module):
+    DATA_PARALLEL_HELD = True      # on every backbone (`parallel.ddp.check_held`)
+
     def __init__(self, model_cfg, num_class: int, dataset_cfg, class_names=None, device=None):
         super().__init__()
         cfg = as_cfg(copy.deepcopy(model_cfg))

@@ -13,6 +13,8 @@ from .pv_rcnn import PVRCNN
 
 
 class VoxelRCNN(PVRCNN):
+    DATA_PARALLEL_HELD = ('SparseVoxelBackBone8x', 'SparseVoxelResBackBone8x')
+
     def _build_second_stage(self, cfg, ds, device) -> None:
         """No keypoints and no point head; `roi_head` pools the ladder's
         stages."""

@@ -18,6 +18,8 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from ..parallel import ddp
+
 
 class _FlaxBatchStatistics:
     """Mixin for torch BatchNorm classes: in training mode, flax's BatchNorm
@@ -33,7 +35,12 @@ class _FlaxBatchStatistics:
     step updates the running statistics once, as flax's `nn.remat` does.
     `stat_updates` is how many times one training call moves them: a layer
     that stands for k calls of flax's on one input moves them k times with
-    the one batch's statistics, as those k calls would."""
+    the one batch's statistics, as those k calls would.
+
+    Under data parallelism the statistics are the global batch's, as on the
+    JAX package's mesh: Σx, Σx² and the count are summed over the ranks
+    through autograd (`parallel.sync_sum`). Every rank recomputes a
+    checkpointed block the same way, so the collectives stay matched."""
 
     stats_frozen = False
     stat_updates = 1
@@ -42,9 +49,12 @@ class _FlaxBatchStatistics:
         if not (self.training and self.track_running_stats):
             return super().forward(x)
         dims = [d for d in range(x.dim()) if d != 1]
-        shape = [1, x.shape[1]] + [1] * (x.dim() - 2)
-        mean = x.mean(dims)
-        var = torch.clamp((x * x).mean(dims) - mean * mean, min=0.0)
+        C = x.shape[1]
+        shape = [1, C] + [1] * (x.dim() - 2)
+        sums = ddp.sync_sum(torch.cat([x.sum(dims), (x * x).sum(dims),
+                                       x.new_full((1,), x.numel() // C)]))
+        mean, msq = sums[:C] / sums[-1], sums[C:2 * C] / sums[-1]
+        var = torch.clamp(msq - mean * mean, min=0.0)
         scale = torch.rsqrt(var + self.eps) * self.weight
         y = (x - mean.view(shape)) * scale.view(shape) + self.bias.view(shape)
         if not self.stats_frozen:

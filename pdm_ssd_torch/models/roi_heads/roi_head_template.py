@@ -26,6 +26,7 @@ from torch import nn
 
 from ...ops import box_ops, iou3d, losses
 from ...ops.coders import ResidualCoder
+from ...parallel import ddp
 from ...utils.config import as_cfg
 from ..model_nms import take_rows
 
@@ -77,7 +78,8 @@ class RoIHeadTemplate(nn.Module):
         if rand is None:
             if generator is None:
                 generator = torch.Generator(device=dev).manual_seed(0)
-            rand = torch.rand((B, R), generator=generator, device=dev)
+            # under data parallelism the global batch's draw, this rank's rows
+            rand = ddp.rank_rows(torch.rand, B, R, generator=generator, device=dev)
         rand = rand.to(device=dev, dtype=torch.float32)
 
         roi_per_image = int(cfg.get('ROI_PER_IMAGE', R))
@@ -160,21 +162,22 @@ class RoIHeadTemplate(nn.Module):
         against `assign_targets`' targets: BCE over the labels that are not
         ignored, smooth L1 over the foreground residuals, and with
         CORNER_LOSS_REGULARIZATION the corner loss of the decoded foreground
-        boxes. Returns (loss, tb)."""
+        boxes, each over its count in the global batch. Returns (loss, tb)."""
         cfg = self.model_cfg.LOSS_CONFIG
         lw = cfg.LOSS_WEIGHTS
         cls_preds = batch['rcnn_cls_preds'][..., 0]               # (B, R)
         cls_labels = targets['rcnn_cls_labels']
         care = (cls_labels >= 0).to(cls_preds.dtype)
         bce = losses.sigmoid_bce_with_logits(cls_preds, cls_labels.clamp(0, 1))
-        cls_loss = (bce * care).sum() / care.sum().clamp(min=1.0) * lw['rcnn_cls_weight']
+        cls_loss = (bce * care).sum() / ddp.global_sum(care.sum()).clamp(min=1.0) \
+            * lw['rcnn_cls_weight']
 
         reg_preds = batch['rcnn_reg_preds']                       # (B, R, 7)
         reg_mask = targets['reg_valid_mask']
         reg = losses.weighted_smooth_l1(reg_preds, targets['rcnn_reg_targets'],
                                         reg_mask.to(reg_preds.dtype),
                                         code_weights=lw.get('code_weights'))
-        n_reg = reg_mask.sum().to(reg_preds.dtype).clamp(min=1.0)
+        n_reg = ddp.global_sum(reg_mask.sum().to(reg_preds.dtype)).clamp(min=1.0)
         reg_loss = reg.sum() / n_reg * lw['rcnn_reg_weight']
         total = cls_loss + reg_loss
         tb = {'rcnn_cls_loss': cls_loss, 'rcnn_reg_loss': reg_loss}

@@ -10,6 +10,7 @@ import math
 import torch
 
 from . import box_ops
+from ..parallel import ddp
 
 
 def sigmoid_bce_with_logits(logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -60,13 +61,14 @@ def weighted_cross_entropy(logits: torch.Tensor, one_hot: torch.Tensor,
 
 def centernet_focal_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     """Penalty-reduced focal loss on sigmoided heatmaps of matching shape.
-    Returns a scalar normalised by the number of positives."""
+    Returns a scalar normalised by the number of positives of the global
+    batch (`parallel.global_sum`), as every normaliser here."""
     pos_inds = (gt == 1.0).to(pred.dtype)
     neg_inds = (gt < 1.0).to(pred.dtype)
     neg_weights = torch.pow(1 - gt, 4)
     pos_sum = (torch.log(pred) * torch.pow(1 - pred, 2) * pos_inds).sum()
     neg_sum = (torch.log(1 - pred) * torch.pow(pred, 2) * neg_weights * neg_inds).sum()
-    num_pos = pos_inds.sum()
+    num_pos = ddp.global_sum(pos_inds.sum())
     return torch.where(num_pos == 0, -neg_sum, -(pos_sum + neg_sum) / num_pos.clamp(min=1.0))
 
 
@@ -79,7 +81,7 @@ def centernet_reg_loss(pred: torch.Tensor, mask: torch.Tensor,
                        target: torch.Tensor) -> torch.Tensor:
     """Masked L1 over gathered object slots. pred and target (B, K, D), mask
     (B, K) -> (D,): summed over batch and objects, divided by max(sum(mask), 1)."""
-    num = mask.to(pred.dtype).sum()
+    num = ddp.global_sum(mask.to(pred.dtype).sum())
     m = mask[..., None].to(pred.dtype) * (~torch.isnan(target)).to(pred.dtype)
     target = torch.nan_to_num(target)
     loss = (pred * m - target * m).abs().sum(dim=(0, 1))
@@ -121,7 +123,7 @@ def centerhead_iou_loss(iou_preds: torch.Tensor, decoded_boxes: torch.Tensor,
     iou_target = iou3d.boxes_aligned_iou3d(flat_p, flat_g).reshape(B, K) * 2.0 - 1.0
     m = mask.to(torch.float32)
     err = (iou_preds - iou_target.detach()).abs() * m
-    return err.sum() / m.sum().clamp(min=1e-4)
+    return err.sum() / ddp.global_sum(m.sum()).clamp(min=1e-4)
 
 
 def centerhead_iou_reg_loss(decoded_boxes: torch.Tensor, mask: torch.Tensor,
@@ -134,4 +136,4 @@ def centerhead_iou_reg_loss(decoded_boxes: torch.Tensor, mask: torch.Tensor,
     diou = iou3d.bbox3d_overlaps_diou(decoded_boxes[..., :7].reshape(B * K, 7),
                                       gt_boxes_src[..., :7].reshape(B * K, 7))
     m = mask.to(torch.float32).reshape(B * K)
-    return ((1.0 - diou) * m).sum() / m.sum().clamp(min=1e-4)
+    return ((1.0 - diou) * m).sum() / ddp.global_sum(m.sum()).clamp(min=1e-4)

@@ -5,8 +5,14 @@ For each collated numpy batch: the model's inputs go to the device, `predict`
 runs, the detections come back to the host, recall is counted against the
 ground truth and `generate_prediction_dicts` turns them into KITTI annos.
 After the last batch: `result.pkl`, `dataset.evaluation` and the rates.
-There is no mesh and no padding: the last, partial batch runs at its own
-size.
+The last, partial batch runs at its own size.
+
+Under data parallelism each rank predicts its shard of the set (the loader
+of `datasets.build_dataloader(..., dist=True)`, whose `ShardSampler` pads
+the set by wrap-around to a multiple of the world size), rank 0 gathers
+every frame's detections and recall counts (`parallel.gather_to_rank0`),
+puts them back in the set's order, drops the padding and runs the evaluator
+once; every rank returns its result.
 """
 from __future__ import annotations
 
@@ -18,6 +24,8 @@ import numpy as np
 import torch
 
 from ..ops import iou3d
+from ..parallel import ddp
+from .prefetch import prefetch_batches
 from .trainer import INPUT_KEYS, make_predict_step, resolve_device, to_device_batch
 
 PRED_KEYS = ('pred_boxes', 'pred_scores', 'pred_labels', 'pred_mask')
@@ -52,23 +60,29 @@ def eval_one_epoch(model, loader, dataset, class_names, device=None, result_dir=
     """Predict over `loader` with `model` (already on `device`; None means the
     card, and raises where CUDA is unavailable) and score the detections.
     `host_prepare` (`models.get_host_prepare(model_cfg, dataset_cfg)`, for a
-    voxel model) runs on each batch on the device before its predict.
+    voxel model) runs on each batch on the device before its predict; the
+    batches move to the device on a worker thread, one ahead
+    (`prefetch.prefetch_batches`).
     Returns 'recall/rcnn_<t>', the evaluator's entries, 'infer_fps' (frames
     over the time of `predict` alone, synchronized) and 'loop_fps' (frames
-    over the whole loop, loading, map build and host work included)."""
+    over the whole loop, loading, map build and host work included); under
+    data parallelism the set's frames over the slowest rank's times."""
     device = resolve_device(device)
     result_dir = Path(result_dir) if result_dir is not None else None
-    predict = make_predict_step(model)
-    det_annos = []
-    recall_totals = {f'recall_{t}': 0 for t in thresh_list}
-    total_gt, infer_time, n_frames = 0, 0.0, 0
+    predict = make_predict_step(ddp.unwrap(model))
+    sampler = getattr(loader, 'sampler', None)
+    sharded = getattr(sampler, 'indices', None) is not None and ddp.is_distributed()
+    world, rank = ddp.world_size(), ddp.rank()
+    n_set = sampler.n if sharded else float('inf')
+    frames = []          # (position in the set, anno, recall counts, gt count)
+    infer_time, n_frames = 0.0, 0
     out_dir = result_dir / 'final_result/data' if result_dir is not None else None
     if out_dir is not None:
         out_dir.mkdir(parents=True, exist_ok=True)
 
     t_loop = time.perf_counter()
-    for i, batch in enumerate(loader):
-        inputs = to_device_batch(batch, device, INPUT_KEYS)
+    batches = prefetch_batches(loader, lambda b: (b, to_device_batch(b, device, INPUT_KEYS)))
+    for i, (batch, inputs) in enumerate(batches):
         if host_prepare is not None:
             inputs = host_prepare(inputs)
         _sync(device)
@@ -77,27 +91,47 @@ def eval_one_epoch(model, loader, dataset, class_names, device=None, result_dir=
         _sync(device)
         infer_time += time.perf_counter() - t0
         dets = {k: dets[k].cpu().numpy() for k in PRED_KEYS}
-        n_frames += batch['batch_size']
-
-        if 'gt_boxes' in batch:
-            counts, gt_num = _recall_counts(dets['pred_boxes'], dets['pred_mask'],
-                                            batch['gt_boxes'], batch['gt_mask'], thresh_list)
-            for k, v in counts.items():
-                recall_totals[k] += v
-            total_gt += gt_num
-
-        pred_dicts = [{k: dets[k][b] for k in PRED_KEYS} for b in range(batch['batch_size'])]
-        det_annos += dataset.generate_prediction_dicts(batch, pred_dicts, class_names,
-                                                       output_path=out_dir)
-        if logger and i % 50 == 0:
+        B = batch['batch_size']
+        # each sample's position in the set's order; the wrap-around padding
+        # of `ShardSampler` comes last in a rank's share and is dropped here
+        pos = [rank + (n_frames + b) * world if sharded else n_frames + b for b in range(B)]
+        keep = sum(p < n_set for p in pos)
+        pred_dicts = [{k: dets[k][b] for k in PRED_KEYS} for b in range(keep)]
+        annos = dataset.generate_prediction_dicts(batch, pred_dicts, class_names,
+                                                  output_path=out_dir)
+        for b in range(keep):
+            counts, gt_num = ({}, 0) if 'gt_boxes' not in batch else _recall_counts(
+                dets['pred_boxes'][b:b + 1], dets['pred_mask'][b:b + 1],
+                batch['gt_boxes'][b:b + 1], batch['gt_mask'][b:b + 1], thresh_list)
+            frames.append((pos[b], annos[b], counts, gt_num))
+        n_frames += B
+        if logger and rank == 0 and i % 50 == 0:
             logger.info(f'eval batch {i}/{len(loader)}')
     loop_time = time.perf_counter() - t_loop
 
-    ret_dict = {f'recall/rcnn_{t}': recall_totals[f'recall_{t}'] / max(total_gt, 1)
-                for t in thresh_list}
+    gathered = ddp.gather_to_rank0((frames, infer_time, loop_time)) if sharded else \
+        [(frames, infer_time, loop_time)]
+    ret_dict = None
+    if rank == 0 or not sharded:
+        frames = sorted((f for g in gathered for f in g[0]), key=lambda f: f[0])
+        n = len(frames)
+        ret_dict = _score(frames, dataset, class_names, result_dir, logger, thresh_list,
+                          infer_time / max(n_frames, 1))
+        ret_dict['infer_fps'] = n / max(max(g[1] for g in gathered), 1e-9)
+        ret_dict['loop_fps'] = n / max(max(g[2] for g in gathered), 1e-9)
+    return ddp.broadcast_from_rank0(ret_dict) if sharded else ret_dict
+
+
+def _score(frames, dataset, class_names, result_dir, logger, thresh_list,
+           sec_per_frame: float) -> dict:
+    """Recall, `result.pkl` and the evaluator over the frames' annos, in the
+    set's order."""
+    det_annos = [f[1] for f in frames]
+    total_gt = sum(f[3] for f in frames)
+    ret_dict = {f'recall/rcnn_{t}': sum(f[2].get(f'recall_{t}', 0) for f in frames)
+                / max(total_gt, 1) for t in thresh_list}
     if logger:
-        logger.info(f'Generate label finished (predict {infer_time / max(n_frames, 1):.4f} s '
-                    'a frame)')
+        logger.info(f'Generate label finished (predict {sec_per_frame:.4f} s a frame)')
         for t in thresh_list:
             logger.info(f"recall_rcnn_{t}: {ret_dict[f'recall/rcnn_{t}']:.4f}")
 
@@ -109,6 +143,4 @@ def eval_one_epoch(model, loader, dataset, class_names, device=None, result_dir=
     if logger and result_str:
         logger.info(result_str)
     ret_dict.update(result_dict)
-    ret_dict['infer_fps'] = n_frames / max(infer_time, 1e-9)
-    ret_dict['loop_fps'] = n_frames / max(loop_time, 1e-9)
     return ret_dict

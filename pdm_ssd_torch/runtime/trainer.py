@@ -7,7 +7,13 @@ BatchNorm statistics' update. A checkpoint is one `torch.save` file,
 `checkpoint_epoch_<n>.pth`, holding the model's state, the optimizer's state,
 the schedule's iteration and the epoch; the newest `max_ckpt_save_num` are
 kept and training resumes from the newest (the JAX package's orbax manager).
-No data parallelism yet (ROADMAP Queue 1 item 7).
+
+Data parallelism: the loops take the detector under `parallel.wrap_model`
+(DistributedDataParallel, one process a card). Each rank takes its share of
+the global batch; BatchNorm statistics and loss normalisers are the global
+batch's (`parallel.ddp`), so W ranks take the step one process takes over
+the whole batch. Rank 0 logs and writes the checkpoints; every rank loads
+them.
 """
 from __future__ import annotations
 
@@ -18,7 +24,10 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..parallel import ddp
+from .hooks import apply_epoch_hooks
 from .optimization import build_optimizer_and_schedule
+from .prefetch import prefetch_batches
 
 # the array entries of a collated batch that a model's predict reads, and
 # those its training adds (the role of `_filter_device_batch` in the JAX
@@ -83,9 +92,17 @@ def make_train_step(model: torch.nn.Module, optimizer, host_prepare=None):
     the model's device, seeded before each step from the optimizer's
     update count (the JAX package's `fold_in(base_key, step)`
     'targets' stream): every step draws anew, and a resumed run draws what
-    an unbroken one would. The single-stage models draw nothing from it."""
-    device = next(model.parameters()).device
+    an unbroken one would. The single-stage models draw nothing from it.
+
+    `model` may be the detector under `parallel.wrap_model`: then `batch` is
+    this rank's share of the global batch, the rank's loss (its share of the
+    global loss) is scaled by the world size for the backward, so that
+    DDP's mean of the gradients is the global loss's gradient, and the
+    metrics are the global batch's, summed over the ranks."""
+    net = ddp.unwrap(model)
+    device = next(net.parameters()).device
     generator = torch.Generator(device=device)
+    world = ddp.world_size()
 
     def train_step(batch: dict) -> dict:
         model.train()
@@ -94,10 +111,17 @@ def make_train_step(model: torch.nn.Module, optimizer, host_prepare=None):
                 batch = host_prepare(batch)
         optimizer.zero_grad()
         generator.manual_seed(optimizer.count)
-        loss, tb = model.forward_with_loss(batch, target_generator=generator)
-        loss.backward()
+        if net is model:
+            loss, tb = net.forward_with_loss(batch, target_generator=generator)
+        else:
+            loss, tb = model(batch, target_generator=generator)
+        (loss * world if world > 1 else loss).backward()
         optimizer.step()
-        return {k: v.detach() for k, v in {'loss': loss, **tb}.items()}
+        metrics = {k: v.detach() for k, v in {'loss': loss, **tb}.items()}
+        if world > 1:
+            summed = ddp.global_sum(torch.stack([v.to(loss.dtype) for v in metrics.values()]))
+            metrics = dict(zip(metrics, summed.unbind()))
+        return metrics
 
     return train_step
 
@@ -112,37 +136,84 @@ def make_predict_step(model: torch.nn.Module):
     return predict_step
 
 
+# the steps `train_model` traces with `profile_dir` (`--profile`)
+PROFILE_STEPS = 5
+
+
 def train_model(model, optimizer, schedule, loader, epochs: int, ckpt_dir=None,
                 max_ckpt_save_num: int = 5, start_epoch: int = 0, logger=None,
-                log_interval: int = 50, host_prepare=None) -> list:
+                log_interval: int = 50, host_prepare=None, hook_cfg=None, dataset=None,
+                profile_dir=None) -> list:
     """Epochs `start_epoch` .. `epochs - 1` over `loader` (collated numpy
     batches) on the model's device, a checkpoint after each into `ckpt_dir`
     when given. `schedule` maps the optimizer's update count to the learning
-    rate, for the log; `host_prepare` is `make_train_step`'s. Returns the
-    mean loss of each epoch run."""
-    device = next(model.parameters()).device
+    rate, for the log; `host_prepare` is `make_train_step`'s. `model` may be
+    the detector under `parallel.wrap_model`; the loader's sampler then
+    gets `set_epoch` before each epoch, and rank 0 alone logs and writes
+    checkpoints. `hook_cfg` (a config's HOOK) runs `hooks.apply_epoch_hooks`
+    on `dataset` before each epoch. The batches move to the device on a
+    worker thread (`prefetch.prefetch_batches`), one ahead of the step.
+    With `profile_dir`, a `torch.profiler` trace of the first PROFILE_STEPS
+    steps goes there as `trace_rank<r>.json`. Returns the
+    mean loss of each epoch run (of the global batch)."""
+    net = ddp.unwrap(model)
+    device = next(net.parameters()).device
+    lead = ddp.rank() == 0
+    log = logger if lead else None
     train_step = make_train_step(model, optimizer, host_prepare)
+    profiler = start_profiler(device) if profile_dir is not None else None
     history = []
     for epoch in range(start_epoch, epochs):
+        if hasattr(loader, 'sampler') and hasattr(loader.sampler, 'set_epoch'):
+            loader.sampler.set_epoch(epoch)
+        if dataset is not None:
+            apply_epoch_hooks(hook_cfg, dataset, epoch, epochs, logger=log)
         t0 = time.time()
         total, n = torch.zeros((), device=device), 0
-        for it, batch in enumerate(loader):
-            metrics = train_step(to_device_batch(batch, device))
+        batches = prefetch_batches(loader, lambda b: to_device_batch(b, device))
+        for it, batch in enumerate(batches):
+            metrics = train_step(batch)
             total += metrics['loss']
             n += 1
-            if logger is not None and it % log_interval == 0:
-                logger.info('epoch %d iter %d/%d loss %.4f lr %.3e ' % (
+            if profiler is not None and n == PROFILE_STEPS:
+                stop_profiler(profiler, profile_dir, log)
+                profiler = None
+            if log is not None and it % log_interval == 0:
+                log.info('epoch %d iter %d/%d loss %.4f lr %.3e ' % (
                     epoch, it, len(loader), float(metrics['loss']), schedule(optimizer.count))
                     + ' '.join(f'{k}={float(v):.4f}' for k, v in metrics.items()
                                if k != 'loss'))
         mean_loss = float(total) / max(n, 1)
         history.append(mean_loss)
-        if logger is not None:
-            logger.info('epoch %d done in %.1fs, mean loss %.4f' % (
+        if log is not None:
+            log.info('epoch %d done in %.1fs, mean loss %.4f' % (
                 epoch, time.time() - t0, mean_loss))
-        if ckpt_dir is not None:
-            save_checkpoint(ckpt_dir, model, optimizer, epoch + 1, max_ckpt_save_num)
+        if ckpt_dir is not None and lead:
+            save_checkpoint(ckpt_dir, net, optimizer, epoch + 1, max_ckpt_save_num)
+    if profiler is not None:
+        stop_profiler(profiler, profile_dir, log)
     return history
+
+
+def start_profiler(device: torch.device):
+    """A running `torch.profiler` trace of the host, and of the card when
+    `device` is one."""
+    from torch.profiler import ProfilerActivity, profile
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if device.type == 'cuda' else [])
+    prof = profile(activities=acts)
+    prof.__enter__()
+    return prof
+
+
+def stop_profiler(prof, out_dir, logger=None) -> None:
+    """End the trace and write it to `out_dir/trace_rank<r>.json`."""
+    prof.__exit__(None, None, None)
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / f'trace_rank{ddp.rank()}.json'
+    prof.export_chrome_trace(str(path))
+    if logger is not None:
+        logger.info(f'profiler trace written to {path}')
 
 
 _CKPT = re.compile(r'checkpoint_epoch_(\d+)\.pth$')
@@ -187,3 +258,27 @@ def resume(ckpt_dir, model, optimizer) -> int:
     epoch to start from (0 when there is none)."""
     ckpts = list_checkpoints(ckpt_dir)
     return load_checkpoint(ckpts[-1], model, optimizer) if ckpts else 0
+
+
+def load_pretrained(path, model, logger=None) -> tuple:
+    """Partial, shape-tolerant overlay of a checkpoint's weights on `model`
+    (`--pretrained_model`; the JAX package's `trainer.load_pretrained`):
+    every entry of the checkpoint's model state whose name `model` has, with
+    the same shape, is copied; the rest keep their values. Neither the
+    optimizer's state nor the update count is read. `path` is a checkpoint
+    file, or a directory whose newest checkpoint is taken. Returns (entries
+    loaded, entries kept)."""
+    path = Path(path)
+    if path.is_dir():
+        ckpts = list_checkpoints(path)
+        if not ckpts:
+            raise FileNotFoundError(f'no checkpoint under {path}')
+        path = ckpts[-1]
+    device = next(model.parameters()).device
+    src = torch.load(path, map_location=device, weights_only=True)['model_state']
+    state = model.state_dict()
+    take = {k: v for k, v in src.items() if k in state and v.shape == state[k].shape}
+    model.load_state_dict(take, strict=False)
+    if logger is not None:
+        logger.info(f'pretrained {path}: loaded {len(take)} entries, kept {len(state) - len(take)}')
+    return len(take), len(state) - len(take)

@@ -97,6 +97,9 @@ SLICE_MODULES = [
     'pdm_ssd_torch.datasets.pandaset.pandaset_dataset',
     'pdm_ssd_torch.datasets.pandaset.pandaset_utils', 'pdm_ssd_torch.datasets.pandaset.synthetic',
     'pdm_ssd_torch.datasets.custom.custom_dataset', 'pdm_ssd_torch.datasets.custom.synthetic',
+    'pdm_ssd_torch.parallel', 'pdm_ssd_torch.parallel.ddp', 'pdm_ssd_torch.runtime.hooks',
+    'pdm_ssd_torch.runtime.prefetch', 'pdm_ssd_torch.tools.demo',
+    'pdm_ssd_torch.tools.visual_utils',
     'bench_torch',
 ]
 
@@ -238,13 +241,16 @@ def test_ball_query_dispatch_runs_plain_on_cpu_and_kernel_wrapper_refuses_cpu():
 
 
 def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
-    """`build_network`, the dry run, the eval loop, the train and test CLIs
-    and `bench_torch.py` with no device named need CUDA: where it is absent
-    they raise instead of running on the CPU, before they load anything."""
+    """`build_network`, the dry run (on one process and on several), the eval
+    loop, the train and test CLIs (alone and under torchrun), the demo and
+    `bench_torch.py` with no device named need CUDA: where it is absent they
+    raise instead of running on the CPU, before they load anything or start
+    a process."""
     import bench_torch
     from pdm_ssd_torch.models import build_network
+    from pdm_ssd_torch.parallel import ddp
     from pdm_ssd_torch.runtime import eval_utils
-    from pdm_ssd_torch.tools import dryrun
+    from pdm_ssd_torch.tools import demo, dryrun
     from pdm_ssd_torch.tools import test as test_cli
     from pdm_ssd_torch.tools import train as train_cli
     from pdm_ssd_torch.utils import config as t_config
@@ -261,7 +267,13 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
             cli.main(cli_args)
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cli.main(cli_args + ['--device', 'cuda'])
-    assert not any(tmp_path.iterdir())
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            cli.main(cli_args + ['--launcher', 'pytorch'])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        demo.main(['--data_path', str(tmp_path), '--vis', 'none'])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        dryrun.main(['--nprocs', '2'])
+    assert not any(tmp_path.iterdir()) and not ddp.is_initialized()
     for cfg_file in ('configs/kitti_models/pdm_ssd_point.yaml',
                      'configs/kitti_models/pointrcnn.yaml',
                      'configs/kitti_models/second_sparse.yaml',

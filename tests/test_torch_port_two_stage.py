@@ -108,10 +108,20 @@ def _roi_cfg(score_type: str):
     return cfg
 
 
+@functools.lru_cache
+def _jax_template(score_type: str):
+    """The JAX package's ROI template of `_roi_cfg(score_type)` and its
+    jitted `assign_targets` and `get_loss`, the key and the scene passed in:
+    one program each a score type, shared by every scene, key and test."""
+    module = JTemplate(model_cfg=JCfgNode(_roi_cfg(score_type).to_dict()), num_class=3)
+    assign = jax.jit(lambda b, k: module.apply({}, b, k, method=JTemplate.assign_targets))
+    loss = jax.jit(lambda p, t: module.apply({}, p, t, method=JTemplate.get_loss))
+    return module, assign, loss
+
+
 def _jax_targets(cfg, scene, key):
-    module = JTemplate(model_cfg=JCfgNode(cfg.to_dict()), num_class=3)
-    fn = jax.jit(lambda b: module.apply({}, b, key, method=JTemplate.assign_targets))
-    return module, to_numpy(fn({k: jnp.asarray(v) for k, v in scene.items()}))
+    module, assign, _ = _jax_template(cfg.TARGET_CONFIG.CLS_SCORE_TYPE)
+    return module, to_numpy(assign({k: jnp.asarray(v) for k, v in scene.items()}, key))
 
 
 def _port_targets(cfg, scene, rand):
@@ -195,8 +205,7 @@ def test_roi_losses_match_jax(score_type):
     R = cfg.TARGET_CONFIG.ROI_PER_IMAGE
     preds = {'rcnn_cls_preds': rng.randn(2, R, 1).astype(np.float32),
              'rcnn_reg_preds': (rng.randn(2, R, 7) * 0.3).astype(np.float32)}
-    loss, tb = jax.jit(lambda p, t: module.apply({}, p, t, method=JTemplate.get_loss))(
-        preds, want_t)
+    loss, tb = _jax_template(score_type)[2](preds, want_t)
     got, got_tb = head.get_loss({k: torch.from_numpy(v) for k, v in preds.items()}, got_t)
     assert set(got_tb) == set(tb) == {'rcnn_cls_loss', 'rcnn_reg_loss', 'rcnn_corner_loss'}
     for k in tb:

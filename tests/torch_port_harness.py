@@ -342,8 +342,11 @@ class ModelPair:
         self.points = self.batch['points']
         self.net = build_network(self.cfg.MODEL, len(self.cfg.CLASS_NAMES),
                                  self.cfg.DATA_CONFIG, device='cpu', class_names=names, seed=seed)
+        # the layout of the JAX package's init, where it ran (`jax_init_layout`)
+        self.init_layout = None
         if jax_init:
             variables = jax_init_variables(self.jax_model, self.inputs, seed)
+            self.init_layout = layout_of(variables)
         elif variables is None:
             variables = to_flax(self.net)
         self.variables = randomize_variables(variables, seed + 1, bias_scale)
@@ -673,15 +676,22 @@ def two_stage_pair(name: str, shift: float = 0.0, occupied: bool = False):
     return pair
 
 
-def jax_init_layout(pair) -> dict:
-    """{'params': {path: (shape, dtype)}, 'batch_stats': ...} of the JAX
-    package's init of the pair's model on its inputs, traced by
-    `jax.eval_shape` (not compiled)."""
-    init = jax.eval_shape(lambda b: pair.jax_model.init(
-        {'params': jax.random.PRNGKey(0)}, b, training=False), pair.inputs)
+def layout_of(variables) -> dict:
+    """{'params': {path: (shape, dtype)}, 'batch_stats': ...} of a flax tree
+    of arrays or of `jax.ShapeDtypeStruct`s."""
     return {kind: {'/'.join(str(getattr(p, 'key', p)) for p in path): (a.shape, a.dtype)
-                   for path, a in jax.tree_util.tree_leaves_with_path(init.get(kind, {}))}
+                   for path, a in jax.tree_util.tree_leaves_with_path(variables.get(kind, {}))}
             for kind in ('params', 'batch_stats')}
+
+
+def jax_init_layout(pair) -> dict:
+    """`layout_of` the JAX package's init of the pair's model on its inputs:
+    the init's own output where the pair was built from it (`jax_init`),
+    else traced by `jax.eval_shape` (not compiled)."""
+    if pair.init_layout is not None:
+        return pair.init_layout
+    return layout_of(jax.eval_shape(lambda b: pair.jax_model.init(
+        {'params': jax.random.PRNGKey(0)}, b, training=False), pair.inputs))
 
 
 def check_weights_round_trip(pair, names) -> None:
